@@ -1,0 +1,152 @@
+"""Core type definitions for the MXInt (Microscaling Integer) format.
+
+A block of values shares one 8-bit exponent while each value keeps a small
+signed-integer mantissa; a value is reconstructed as ``x = 2**e_block * m``
+(paper Eq. 2).  Counterpart of ``repro.core.mx_types`` without the
+per-layer overrides, which come with the design-space exploration port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Optional
+
+import torch
+
+# The five execution-mode names of the reference.  Only "kernel" has a
+# backend in this port so far (see ``repro_torch.datapath``).
+MODES = ("off", "fake", "sim", "packed", "kernel")
+
+
+@dataclasses.dataclass(frozen=True)
+class MXFormat:
+    """An MXInt element format.
+
+    mant_bits: signed mantissa width in bits, sign included (MXInt8 = 8).
+    block_size: number of elements sharing one exponent (paper: 16 for
+      activations, 256 for weights).
+    exp_bits: stored width of the shared exponent; always 8.
+    """
+
+    mant_bits: int = 8
+    block_size: int = 32
+    exp_bits: int = 8
+
+    def __post_init__(self):
+        if isinstance(self.mant_bits, bool) or \
+                not isinstance(self.mant_bits, int):
+            raise TypeError(f"mant_bits must be an int, "
+                            f"got {type(self.mant_bits).__name__}")
+        if not (2 <= self.mant_bits <= 24):
+            raise ValueError(f"mant_bits must be in [2, 24], got {self.mant_bits}")
+        if isinstance(self.block_size, bool) or \
+                not isinstance(self.block_size, int):
+            raise TypeError(f"block_size must be an int, "
+                            f"got {type(self.block_size).__name__}")
+        if self.block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        if self.exp_bits != 8:
+            raise ValueError("MXInt exponent is always 8 bits in this work")
+
+    @property
+    def bits_per_element(self) -> float:
+        """Amortized bits per element (the paper's W6.03 / A8.5 notation)."""
+        return self.mant_bits + self.exp_bits / self.block_size
+
+    @property
+    def mant_dtype(self) -> torch.dtype:
+        if self.mant_bits <= 8:
+            return torch.int8
+        if self.mant_bits <= 16:
+            return torch.int16
+        return torch.int32
+
+    @property
+    def mant_max(self) -> int:
+        return 2 ** (self.mant_bits - 1) - 1
+
+    @property
+    def mant_min(self) -> int:
+        # symmetric clip keeps quantization idempotent and sign-symmetric
+        return -(2 ** (self.mant_bits - 1) - 1)
+
+
+MXINT8_ACT = MXFormat(mant_bits=8, block_size=16)      # A8.5
+MXINT8_WEIGHT = MXFormat(mant_bits=8, block_size=256)
+MXINT6_WEIGHT = MXFormat(mant_bits=6, block_size=256)  # W6.03
+MXINT6_ACT = MXFormat(mant_bits=6, block_size=16)
+MXINT4_WEIGHT = MXFormat(mant_bits=4, block_size=256)
+
+
+@dataclasses.dataclass(frozen=True)
+class NonlinearConfig:
+    """Datapath knobs of the three non-linear operators (paper §III-B).
+
+    Defaults are the paper's final design points: rsqrt LUT index bits 5,
+    GELU domain a = 3 with 5 LUT bits, softmax r bits 2.
+    """
+
+    ln_lut_bits: int = 5
+    gelu_domain: float = 3.0
+    gelu_lut_bits: int = 5
+    softmax_r_bits: int = 2
+    softmax_out_bits: int = 8
+    acc_frac_bits: int = 12
+
+    @property
+    def ln_lut_entries(self) -> int:
+        return 2 ** self.ln_lut_bits
+
+    @property
+    def gelu_index_bits(self) -> int:
+        """Fig. 6: LUT bitwidth + log2(LUT domain) - 1 (ceil)."""
+        return self.gelu_lut_bits + max(math.ceil(math.log2(self.gelu_domain)), 0) - 1
+
+    @property
+    def gelu_lut_entries(self) -> int:
+        return 2 ** self.gelu_index_bits
+
+    @property
+    def softmax_lut_entries(self) -> int:
+        return 2 ** self.softmax_r_bits
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantConfig:
+    """Quantization policy for a model.
+
+    ``mode`` names the execution backend (one of ``MODES``).  This port
+    implements "kernel": packed int8 weight planes fed straight into the
+    hand-written Hopper kernels, with LayerNorm, GELU and softmax on the
+    in-kernel MXInt datapaths when ``quantize_nonlinear`` is set.
+    """
+
+    mode: str = "off"
+    weight_fmt: MXFormat = MXINT6_WEIGHT
+    act_fmt: MXFormat = MXINT8_ACT
+    nonlinear: Optional[NonlinearConfig] = None
+    quantize_nonlinear: bool = False
+    nl_ops: tuple = ("layernorm", "gelu", "softmax")
+
+    def __post_init__(self):
+        if getattr(self, "mode") not in MODES:
+            raise ValueError(f"unknown quant mode {getattr(self, 'mode')!r}")
+        if self.quantize_nonlinear and self.nonlinear is None:
+            object.__setattr__(self, "nonlinear", NonlinearConfig())
+
+    @property
+    def enabled(self) -> bool:
+        return getattr(self, "mode") != "off"
+
+    def scoped(self, scope: Optional[str]) -> "QuantConfig":
+        """The effective config for layer group ``scope``: this config,
+        since the port carries no per-layer patches yet."""
+        return self
+
+    @functools.cached_property
+    def datapath(self):
+        """The execution backend this config resolves to, cached on the
+        instance."""
+        from repro_torch.datapath import resolve
+        return resolve(self)

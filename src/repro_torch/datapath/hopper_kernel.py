@@ -1,0 +1,123 @@
+"""``hopper_kernel`` backend: the "kernel" execution mode on Hopper.
+
+Counterpart of ``repro.datapath.pallas_kernel``.  Linears feed packed int8
+mantissa/exponent planes straight into ``mxint_linear`` (no dequantize:
+device-memory traffic is the quantized bytes); with ``quantize_nonlinear``
+the non-linear ops run the in-kernel MXInt datapaths, and LayerNorm fuses
+into the consuming linear through ``layernorm_linear``.  Serving only:
+nothing here carries a gradient.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantize import MXTensor, pack_weight
+from repro_torch.datapath.base import Datapath
+from repro_torch.kernels import ops
+
+
+class HopperKernelDatapath(Datapath):
+    name = "hopper_kernel"
+    quantized_nonlinear = True
+
+    # -- linears -------------------------------------------------------------
+    @staticmethod
+    def _packed(wv, q) -> MXTensor:
+        if isinstance(wv, MXTensor):
+            return wv
+        return pack_weight(wv.to(torch.float32), q.weight_fmt, axis=0)
+
+    @staticmethod
+    def _bias(b):
+        return None if b is None else b.value.to(torch.float32)
+
+    def linear(self, x, w, b=None, *, q):
+        wv = self._packed(w.value, q)
+        return ops.mxint_linear(x, wv.mantissa, wv.exponent, self._bias(b),
+                                w_block=wv.block_size,
+                                act_block=q.act_fmt.block_size,
+                                act_mant_bits=q.act_fmt.mant_bits)
+
+    # -- norms ---------------------------------------------------------------
+    def rmsnorm(self, x, gamma, *, q, eps: float = 1e-6):
+        if not self.nl_on(q, "layernorm"):
+            return self._float_rmsnorm(x, gamma, eps)
+        y = ops.mxint_layernorm_op(
+            x, gamma.value, None, act_block=q.act_fmt.block_size,
+            mant_bits=q.act_fmt.mant_bits, lut_bits=q.nonlinear.ln_lut_bits,
+            rms_only=True, quantize_out=True)
+        return y.to(x.dtype)
+
+    def layernorm(self, x, gamma, beta, *, q, eps: float = 1e-6):
+        if not self.nl_on(q, "layernorm"):
+            return self._float_layernorm(x, gamma, beta, eps)
+        y = ops.mxint_layernorm_op(
+            x, gamma.value, beta.value, act_block=q.act_fmt.block_size,
+            mant_bits=q.act_fmt.mant_bits, lut_bits=q.nonlinear.ln_lut_bits,
+            quantize_out=True)
+        return y.to(x.dtype)
+
+    # -- fused LN -> linear composite ----------------------------------------
+    def fuses_norm_linear(self, q, x=None, w=None) -> bool:
+        """The fused kernel needs the MXInt LN datapath; it takes any
+        shape, so the config alone decides."""
+        return self.nl_on(q, "layernorm")
+
+    def layernorm_linear(self, x, gamma, beta, w, b=None, *, q,
+                         eps: float = 1e-6, rms_only: bool = False):
+        """Fused norm + quantized matmul; bit-identical to the norm
+        followed by ``linear``."""
+        wv = self._packed(w.value, q)
+        if not self.nl_on(q, "layernorm"):
+            h = (self.rmsnorm(x, gamma, q=q, eps=eps) if rms_only
+                 else self.layernorm(x, gamma, beta, q=q, eps=eps))
+            return self.linear(h, w, b, q=q)
+        return ops.mxint_ln_linear_op(
+            x, gamma.value, None if beta is None else beta.value,
+            wv.mantissa, wv.exponent, self._bias(b), w_block=wv.block_size,
+            act_block=q.act_fmt.block_size, mant_bits=q.act_fmt.mant_bits,
+            lut_bits=q.nonlinear.ln_lut_bits, rms_only=rms_only)
+
+    # -- activations / softmax -----------------------------------------------
+    def act(self, x, kind: str, *, q):
+        if not self.nl_on(q, "gelu"):
+            return super().act(x, kind, q=q)
+        cfg = q.nonlinear
+        y = ops.mxint_gelu_op(x, fn=kind, act_block=q.act_fmt.block_size,
+                              mant_bits=q.act_fmt.mant_bits,
+                              lut_bits=cfg.gelu_lut_bits,
+                              domain=cfg.gelu_domain)
+        return y.to(x.dtype)
+
+    def softmax(self, x, *, q, axis: int = -1):
+        if not self.nl_on(q, "softmax"):
+            return super().softmax(x, q=q, axis=axis)
+        if axis not in (-1, x.ndim - 1):
+            raise NotImplementedError(
+                "the MXInt softmax kernel reduces the last axis; other axes "
+                "need the sim datapath (nonlinear.py), not yet ported")
+        y = ops.mxint_softmax_op(x, act_block=q.act_fmt.block_size,
+                                 mant_bits=q.act_fmt.mant_bits,
+                                 r_bits=q.nonlinear.softmax_r_bits,
+                                 quantize_out=True)
+        return y.to(x.dtype)
+
+    # -- attention -----------------------------------------------------------
+    def attention(self, qv, k, v, *, q, scale: float):
+        """Whole-row 'paper' attention through the MXInt softmax kernel.
+
+        Float-softmax attention runs in the reference's flash kernel, and
+        score matrices beyond 512x512 in its blocked MXInt flash kernel;
+        both come with the LM slice of the port, so those cases raise."""
+        if not self.nl_on(q, "softmax"):
+            raise NotImplementedError(
+                "kernel-mode attention without the MXInt softmax runs the "
+                "flash attention kernel, which comes with the LM slice")
+        b, s, kvh, g, hd = qv.shape
+        qh = qv.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, hd)
+        kh = k.permute(0, 2, 1, 3)
+        vh = v.permute(0, 2, 1, 3)
+        o = ops.attention_op(qh, kh, vh, act_block=q.act_fmt.block_size,
+                             mant_bits=q.act_fmt.mant_bits,
+                             r_bits=q.nonlinear.softmax_r_bits)
+        return o.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4)

@@ -1,0 +1,96 @@
+"""MXInt GELU / SiLU datapath (paper §III-B-2, Eq. 12).
+
+Replaces ``repro/kernels/mxint_gelu.py:mxint_gelu`` (its ``pallas_call``
+at line 80) with ``csrc/mxint_gelu.cu``.  Per act block:
+
+    block-quantize x onto the MXInt grid, then
+    y = x                 for x >= a       (ReLU tail)
+    y = LUT[fix(x)]       for -a < x < a   (2^k-entry table, Fig. 6)
+    y = 0                 for x <= -a
+    and requantize y onto the block's own (forwarded) exponent.
+
+The requantized mantissas are clipped to +-(2^(m-1) - 1), as the Pallas
+kernel clips them (``mxint_gelu.py:43-45``); the reference's sim path
+clips negatives to -2^(m-1) instead, so this op follows the kernel.
+
+On the H100 the kernel is bound by memory: DeiT's (rows, 4d) FFN tile is
+read once and written once.  The design gives each thread one act block,
+so no reduction crosses threads; the 64-entry LUT sits in shared memory.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import luts
+from repro_torch.core.mx_types import NonlinearConfig
+from repro_torch.core.quantize import pow2i
+from repro_torch.kernels import _build
+from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
+                                                 block_quantize_rows, f32,
+                                                 lut_tensor, resolve_act_block)
+
+launches = 0
+
+
+def gelu_table(fn: str, lut_bits: int, domain: float):
+    """(table, effective domain) of ``fn``; 'silu' doubles the domain and
+    adds one index bit, as the reference kernel does."""
+    index_bits = NonlinearConfig(gelu_lut_bits=lut_bits,
+                                 gelu_domain=domain).gelu_index_bits
+    if fn == "gelu":
+        return luts.gelu_table(index_bits, float(domain)), float(domain)
+    if fn == "silu":
+        return luts.silu_table(index_bits + 1, 2.0 * domain), 2.0 * domain
+    raise ValueError(fn)
+
+
+def gelu_rows(x: torch.Tensor, table: torch.Tensor, *, act_block: int,
+              mant_bits: int, domain: float) -> torch.Tensor:
+    """Plain version of the Eq. 12 LUT datapath on (rows, d) f32."""
+    r, d = x.shape
+    m, e = block_quantize_rows(x, act_block, mant_bits)
+    scale = pow2i(e)[..., None]
+    xq = m * scale                                      # on-grid values
+    n = table.shape[0]
+    idx = torch.floor((xq + domain) * f32(n / (2.0 * domain)))
+    y_small = table[idx.clamp(0, n - 1).long()]
+    y = torch.where(xq >= domain, xq,
+                    torch.where(xq <= -domain, torch.zeros_like(xq), y_small))
+    lim = float(2 ** (mant_bits - 1) - 1)
+    ym = torch.round(y / scale).clamp(-lim, lim)
+    return (ym * scale).reshape(r, d)
+
+
+def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
+               lut_bits: int = 5, domain: float = 3.0,
+               fn: str = "gelu") -> torch.Tensor:
+    """Elementwise MXInt GELU (or SiLU) over a (rows, d) f32 tensor.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    """
+    rows, d = x.shape
+    act_block = resolve_act_block(d, act_block)
+    table, eff_domain = gelu_table(fn, lut_bits, domain)
+    lut = lut_tensor(table, x.device)
+    if x.device.type == "cpu":
+        return gelu_rows(x, lut, act_block=act_block, mant_bits=mant_bits,
+                         domain=eff_domain)
+    global launches
+    if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
+            len(table) > MAX_LUT:
+        raise ValueError("mxint_gelu kernel takes f32 rows, act_block "
+                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    _build.require_cuda("mxint_gelu", x, lut)
+    out = torch.empty_like(x)
+    n = len(table)
+    fn_ = _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
+        ctypes.c_void_p])
+    rc = fn_(x.data_ptr(), lut.data_ptr(), out.data_ptr(), x.numel(),
+             act_block, mant_bits, n, f32(eff_domain),
+             f32(n / (2.0 * eff_domain)), _build.stream_ptr(x.device))
+    _build.check(rc, "mxint_gelu")
+    launches += 1
+    return out

@@ -1,0 +1,97 @@
+"""MXInt softmax datapath (paper §III-B-3, Eq. 14-20).
+
+Replaces ``repro/kernels/mxint_softmax.py:mxint_softmax`` (its
+``pallas_call`` at line 80) with ``csrc/mxint_softmax.cu``.  Per row:
+
+  1. block-quantize, requantize to the row-max exponent lambda,
+  2. subtract the row max on the mantissas,
+  3. z = t * 2^lambda * log2(e), split z = n + r,
+  4. 2^z = 2^max(n, -126) * LUT_pow2[floor(r * 2^r_bits)],
+  5. sum the row, divide in (mantissa, exponent) form through frexp
+     (Eq. 20), then optionally requantize onto the act grid.
+
+On the H100 the kernel is bound by memory: DeiT's (B*H*197, 197) score
+rows are read once and the probabilities written once.  The design runs
+one warp per row over four passes that re-read the row from L1/L2 (no
+shared-memory row buffer, so any row length fits), with the 4-entry LUT
+in shared memory.  197 is prime, so the act block resolves to 1 and
+every element carries its own exponent.  The sum runs in the fixed
+lane-then-butterfly order of ``warp_row_sum``, so kernel and plain
+version agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from repro_torch.core import luts
+from repro_torch.core.quantize import pow2i
+from repro_torch.kernels import _build
+from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
+                                                 block_quantize_rows, f32,
+                                                 lut_tensor, requantize_rows,
+                                                 resolve_act_block,
+                                                 requantize_to_grid,
+                                                 warp_row_sum)
+
+LOG2E = f32(math.log2(math.e))
+
+launches = 0
+
+
+def exp2_datapath(z: torch.Tensor, table: torch.Tensor, r_bits: int):
+    """2^z for z <= 0 as 2^max(n, -126) * LUT_pow2(r)."""
+    n = torch.floor(z)
+    r = z - n
+    nmax = 2 ** r_bits
+    idx = torch.floor(r * nmax).clamp(0, nmax - 1).long()
+    return table[idx] * pow2i(n.clamp(min=-126.0).to(torch.int32))
+
+
+def softmax_rows(x: torch.Tensor, *, act_block: int, mant_bits: int,
+                 r_bits: int, quantize_out: bool) -> torch.Tensor:
+    """Plain version of the Eq. 14-20 row softmax on (rows, n) f32."""
+    r, n = x.shape
+    table = lut_tensor(luts.pow2_table(r_bits), x.device)
+    m, e = block_quantize_rows(x, act_block, mant_bits)
+    mf, lam = requantize_rows(m, e)
+    t = mf - mf.amax(dim=(1, 2), keepdim=True)          # <= 0, mantissa units
+    z = t * pow2i(lam)[:, :, None] * LOG2E
+    p = exp2_datapath(z, table, r_bits)
+    s_m, s_e = torch.frexp(warp_row_sum(p))             # LZC + shift in HW
+    y = (p / s_m[:, :, None]) * pow2i(-s_e)[:, :, None]
+    y = y.reshape(r, n)
+    if quantize_out:
+        y = requantize_to_grid(y, act_block, mant_bits)
+    return y
+
+
+def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
+                  r_bits: int = 2, quantize_out: bool = False) -> torch.Tensor:
+    """Row softmax over the last axis of a (rows, n) f32 tensor.
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    """
+    rows, n = x.shape
+    act_block = resolve_act_block(n, act_block)
+    if x.device.type == "cpu":
+        return softmax_rows(x, act_block=act_block, mant_bits=mant_bits,
+                            r_bits=r_bits, quantize_out=quantize_out)
+    global launches
+    if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
+            2 ** r_bits > MAX_LUT:
+        raise ValueError("mxint_softmax kernel takes f32 rows, act_block "
+                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    lut = lut_tensor(luts.pow2_table(r_bits), x.device)
+    _build.require_cuda("mxint_softmax", x, lut)
+    out = torch.empty_like(x)
+    fn = _build.entry("mxint_softmax", [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    rc = fn(x.data_ptr(), lut.data_ptr(), out.data_ptr(), rows, n, act_block,
+            mant_bits, 2 ** r_bits, LOG2E, int(quantize_out),
+            _build.stream_ptr(x.device))
+    _build.check(rc, "mxint_softmax")
+    launches += 1
+    return out

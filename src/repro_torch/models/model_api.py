@@ -1,0 +1,75 @@
+"""Model configs and parameter helpers.
+
+Parameters are ``Param(value, axes)``: a tensor (or packed ``MXTensor``)
+plus the tuple of logical axis names the reference gives it.  The axes
+decide which weights ``pack_params_mxint`` packs and along which axis,
+exactly as in the reference.  Parameter trees are nested dicts; blocks are
+stacked on a leading "layers" axis, and the model loops over the layers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core.mx_types import QuantConfig
+
+
+class Param(NamedTuple):
+    """A parameter leaf plus its logical axes."""
+    value: Any               # torch.Tensor | MXTensor
+    axes: Tuple[Optional[str], ...]
+
+
+def is_param(x) -> bool:
+    return isinstance(x, Param)
+
+
+def tree_map(fn: Callable, tree):
+    """Apply ``fn`` to every ``Param`` leaf of a nested-dict tree."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """The fields of the reference's ``ModelConfig`` that the ViT family
+    reads."""
+
+    name: str = "model"
+    n_layers: int = 4
+    d_model: int = 512
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    d_ff: int = 2048
+    head_dim: Optional[int] = None
+    image_size: int = 224
+    patch_size: int = 16
+    n_classes: int = 1000
+    pool: str = "cls"
+    dtype: Any = torch.float32
+    norm_eps: float = 1e-6
+    quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+
+def dense_init(gen: torch.Generator, shape, axes, scale=None,
+               dtype=torch.float32, device="cpu") -> Param:
+    """Normal(0, scale) init, scale = fan_in^-0.5 by default."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in ** -0.5
+    v = torch.randn(shape, generator=gen, dtype=torch.float32) * scale
+    return Param(v.to(dtype=dtype, device=device), axes)
+
+
+def zeros_init(shape, axes, dtype=torch.float32, device="cpu") -> Param:
+    return Param(torch.zeros(shape, dtype=dtype, device=device), axes)
+
+
+def ones_init(shape, axes, dtype=torch.float32, device="cpu") -> Param:
+    return Param(torch.ones(shape, dtype=dtype, device=device), axes)
