@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, then builds the five CUDA
-   kernels from ``src/repro_torch/kernels/csrc`` and prints the build time.
-2. Kernel phase: each kernel at DeiT-Base batch-16 shapes and at one ragged
-   shape, against its plain PyTorch version on the same card inputs
+1. Prints the card's name and power limit, then builds the six CUDA
+   sources from ``src/repro_torch/kernels/csrc`` (seven kernels) and prints
+   the build time.
+2. Kernel phase: each kernel at the shapes its path gives it (DeiT-Base
+   batch 16, Llama-3-8B decode and 1024-token scoring) and at ragged
+   shapes, against its plain PyTorch version on the same card inputs
    (tolerance: bit-identical, 0 mismatched elements), timed as a median of
-   CUDA events after warmup beside the plain version and, for the two
-   matmuls, one ``torch.matmul`` on the dequantized operands; one JSON
-   line per kernel.
-3. Slice phase: DeiT-Base at full width and depth (12 layers, d 768, 1000
+   CUDA events after warmup beside the plain version and, where one
+   PyTorch call computes the same function, that call; one JSON line per
+   kernel.
+3. DeiT phase: DeiT-Base at full width and depth (12 layers, d 768, 1000
    classes, random weights from a seed, packed MXInt6 planes) serves 5
    requests of 1-16 images through ``ViTServingEngine(batch=16)`` and
    ``ClassifyScheduler``; every kernel's launch count must equal
@@ -19,7 +21,19 @@
    batch is compared with the same model on the CPU through the plain
    versions: argmax equal and logits within 1e-3 of their scale.  One
    forward is also split by kernel with CUDA events around each call.
-4. Prints one JSON line of per-kernel results, then as the last line
+4. LM serve phase: Llama-3-8B at full width and depth (32 layers, random
+   weights from a seed, packed MXInt8 planes) serves 8 requests of 37-1000
+   prompt tokens and 24 new tokens each through ``ServingEngine`` and
+   ``BatchScheduler(batch_size=4)``, ``max_len`` 2048; every slot prefill
+   must launch 257 kernels and every decode step 289, kernel by kernel.
+5. LM score phase: one 1024-token ``DecoderLM.loss`` forward at full size;
+   32 ``flash_attention`` launches, no whole-row softmax.
+6. LM card against CPU: the same architecture at full width, 2 layers, in
+   float32, serves 2 requests (prompts 100 and 250, ``max_len`` 300, 4 new
+   tokens) and scores 640 tokens (the flash path) on the card and on the
+   CPU through the plain versions: identical tokens, argmax equal at every
+   position, logits within 1e-3 of their scale.
+7. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -43,17 +57,32 @@ DEVICE = "cuda"
 # published H100 SXM peaks (NVIDIA data sheet), dense
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 # f32 operations per element of the row datapaths, counted from their
-# stages (quantize, align, LUT, scale, requantize)
-ROW_OPS = {"mxint_layernorm": 30, "mxint_softmax": 30, "mxint_gelu": 16}
+# stages (quantize, align, LUT, scale, requantize); for the flash kernels
+# per score of a (query, key) pair that the masks keep.  The flash
+# kernels' q.k and P.V products (4 * head dim operations per kept pair)
+# have bf16 operands, so their least time is at the bf16 tensor-core rate.
+ROW_OPS = {"mxint_layernorm": 30, "mxint_softmax": 30, "mxint_gelu": 16,
+           "flash": 36}
 REPLACES = {
     "mxint_matmul": "src/repro/kernels/mxint_matmul.py:109",
     "mxint_ln_matmul": "src/repro/kernels/mxint_ln_matmul.py:89",
     "mxint_softmax": "src/repro/kernels/mxint_softmax.py:65",
     "mxint_gelu": "src/repro/kernels/mxint_gelu.py:52",
     "mxint_layernorm": "src/repro/kernels/mxint_layernorm.py:118",
+    "flash_attention": "src/repro/kernels/flash_attention.py:213",
+    "flash_attention_decode": "src/repro/kernels/flash_attention.py:322",
 }
+SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES}
+SOURCES["flash_attention_decode"] = \
+    "src/repro_torch/kernels/csrc/flash_attention.cu"
+LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
+LM_NEW_TOKENS = 24
+LM_BATCH = 4
+LM_MAX_LEN = 2048
+LM_SCORE_TOKENS = 1024
 
 
 def log(*a):
@@ -77,18 +106,57 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0):
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
+          bf16_ops: float = 0.0):
     """(least time in ms, what bounds it) on the published peaks."""
     t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = int8_ops / INT8_OPS_PER_S + f32_ops / F32_OPS_PER_S
+    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+             + f32_ops / F32_OPS_PER_S)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
 
+def counters():
+    """kernel name -> (module, name of its launch counter)."""
+    from repro_torch.kernels import (flash_attention, mxint_gelu,
+                                     mxint_layernorm, mxint_ln_matmul,
+                                     mxint_matmul, mxint_softmax)
+    out = {m.__name__.rsplit(".", 1)[-1]: (m, "launches") for m in (
+        mxint_matmul, mxint_ln_matmul, mxint_softmax, mxint_gelu,
+        mxint_layernorm, flash_attention)}
+    out["flash_attention_decode"] = (flash_attention, "decode_launches")
+    return out
+
+
+def reset_counts():
+    for m, attr in counters().values():
+        setattr(m, attr, 0)
+
+
+def read_counts():
+    return {n: getattr(m, attr) for n, (m, attr) in counters().items()}
+
+
+def count_diff(after, before):
+    return {n: after[n] - before[n] for n in after}
+
+
+def flash_pairs(sq, sk, causal, window):
+    """(query, key) pairs that the causal and window masks keep."""
+    total = 0
+    for i in range(sq):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = min(sk, i + 1) if causal else sk
+        total += max(0, hi - lo)
+    return total
+
+
 def kernel_cases(torch, np):
     """name -> list of (label, kernel call, plain call, bound args,
-    library call or None); the first case is the DeiT-Base one."""
-    from repro_torch.core.mx_types import MXINT6_WEIGHT
+    library call or None); the first case is the DeiT-Base one.  The
+    llama3_8b cases are the variants the LM path runs: bf16 activations
+    (read as f32), MXInt8 planes, RMSNorm, SiLU, K 14336 in one launch."""
+    from repro_torch.core.mx_types import MXINT6_WEIGHT, MXINT8_WEIGHT
     from repro_torch.core.quantize import dequantize, pack_weight
     from repro_torch.kernels import (mxint_gelu, mxint_layernorm,
                                      mxint_ln_matmul, mxint_matmul,
@@ -100,14 +168,24 @@ def kernel_cases(torch, np):
         a = rng.normal(size=shape).astype(np.float32) * np.float32(scale)
         return torch.from_numpy(a).to(dev)
 
-    def planes(K, N):
-        return pack_weight(x(K, N, scale=K ** -0.5), MXINT6_WEIGHT)
+    def planes(K, N, fmt=MXINT6_WEIGHT):
+        return pack_weight(x(K, N, scale=K ** -0.5), fmt)
+
+    def lm(label):
+        return label.startswith("llama3_8b")
 
     rows = BATCH * 197
+    S = LM_SCORE_TOKENS
     cases = {n: [] for n in REPLACES}
     for label, M, K, N in (("deit_base_b16_ffn_wo", rows, 3072, 768),
-                           ("ragged", 37, 192, 1000)):
-        a, w = x(M, K), planes(K, N)
+                           ("ragged", 37, 192, 1000),
+                           ("llama3_8b_decode_attn_wo", LM_BATCH, 4096, 4096),
+                           ("llama3_8b_decode_ffn_wo", LM_BATCH, 14336, 4096),
+                           ("llama3_8b_score_ffn_wo", S, 14336, 4096)):
+        a = x(M, K)
+        if lm(label):
+            a = a.to(torch.bfloat16).to(torch.float32)
+        w = planes(K, N, MXINT8_WEIGHT if lm(label) else MXINT6_WEIGHT)
         wd = dequantize(w)
         cases["mxint_matmul"].append((
             label,
@@ -119,28 +197,35 @@ def kernel_cases(torch, np):
             bound(M * K * 4 + w.mantissa.numel() + w.exponent.numel()
                   + M * N * 4, int8_ops=2.0 * M * N * K),
             lambda a=a, wd=wd: torch.matmul(a, wd)))
+    # the LM runs RMSNorm (no beta) on bf16 rows and bf16 scales
     for label, M, d, N in (("deit_base_b16_ln2_wi", rows, 768, 3072),
-                           ("ragged", 37, 192, 200)):
-        a, w = x(M, d, scale=2.0), planes(d, N)
-        g, b = 1.0 + 0.1 * x(d), 0.1 * x(d)
+                           ("ragged", 37, 192, 200),
+                           ("llama3_8b_decode_rms_wq", LM_BATCH, 4096, 4096),
+                           ("llama3_8b_decode_rms_wk", LM_BATCH, 4096, 1024),
+                           ("llama3_8b_decode_rms_wi", LM_BATCH, 4096, 14336),
+                           ("llama3_8b_score_rms_wq", S, 4096, 4096),
+                           ("llama3_8b_score_rms_wi", S, 4096, 14336)):
+        rms = lm(label)
+        a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
+        b = None if rms else 0.1 * x(d)
+        if rms:
+            a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
+        w = planes(d, N, MXINT8_WEIGHT if rms else MXINT6_WEIGHT)
         wd = dequantize(w)
-
-        def plain(a=a, g=g, b=b, w=w):
-            y = mxint_layernorm.layernorm_rows(
-                a, g, b, act_block=16, mant_bits=8, lut_bits=5,
-                rms_only=False, quantize_out=True)
-            return mxint_matmul.matmul_blocks(
-                y, w.mantissa, w.exponent, w_block=w.block_size,
-                act_block=16, act_mant_bits=8)
         cases["mxint_ln_matmul"].append((
             label,
             lambda a=a, g=g, b=b, w=w: mxint_ln_matmul.mxint_ln_matmul(
-                a, g, b, w.mantissa, w.exponent, w_block=w.block_size),
-            plain,
-            bound(M * d * 4 + 2 * d * 4 + w.mantissa.numel()
-                  + w.exponent.numel() + M * N * 4, int8_ops=2.0 * M * N * d,
+                a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                rms_only=b is None),
+            lambda a=a, g=g, b=b, w=w: mxint_ln_matmul.ln_matmul_rows(
+                a, g, torch.zeros_like(g) if b is None else b, w.mantissa,
+                w.exponent, w_block=w.block_size, act_block=16, mant_bits=8,
+                lut_bits=5, rms_only=b is None),
+            bound(a.numel() * a.element_size() + 2 * d * g.element_size()
+                  + w.mantissa.numel() + w.exponent.numel() + M * N * 4,
+                  int8_ops=2.0 * M * N * d,
                   f32_ops=ROW_OPS["mxint_layernorm"] * M * d),
-            lambda a=a, wd=wd: torch.matmul(a, wd)))
+            lambda a=a, wd=wd: torch.matmul(a.to(torch.float32), wd)))
     for label, R, n, blk in (("deit_base_b16_scores", BATCH * 12 * 197, 197,
                               1), ("ragged", 37, 64, 16)):
         a = x(R, n, scale=4.0)
@@ -152,46 +237,133 @@ def kernel_cases(torch, np):
                 a, act_block=blk, mant_bits=8, r_bits=2, quantize_out=True),
             bound(2 * R * n * 4, f32_ops=ROW_OPS["mxint_softmax"] * R * n),
             None))
-    for label, R, d in (("deit_base_b16_ffn", rows, 3072),
-                        ("ragged", 37, 768)):
+    # the LM's SwiGLU gate: SiLU of bf16 values
+    for label, R, d, fn in (("deit_base_b16_ffn", rows, 3072, "gelu"),
+                            ("ragged", 37, 768, "gelu"),
+                            ("llama3_8b_decode_silu", LM_BATCH, 14336,
+                             "silu"),
+                            ("llama3_8b_score_silu", S, 14336, "silu")):
         a = x(R, d, scale=2.0)
-        lut = mxint_layernorm.lut_tensor(mxint_gelu.gelu_table(
-            "gelu", 5, 3.0)[0], dev)
+        if lm(label):
+            a = a.to(torch.bfloat16).to(torch.float32)
+        table, domain = mxint_gelu.gelu_table(fn, 5, 3.0)
+        lut = mxint_layernorm.lut_tensor(table, dev)
         cases["mxint_gelu"].append((
             label,
-            lambda a=a: mxint_gelu.mxint_gelu(a),
-            lambda a=a, lut=lut: mxint_gelu.gelu_rows(
-                a, lut, act_block=16, mant_bits=8, domain=3.0),
+            lambda a=a, fn=fn: mxint_gelu.mxint_gelu(a, fn=fn),
+            lambda a=a, lut=lut, dom=domain: mxint_gelu.gelu_rows(
+                a, lut, act_block=16, mant_bits=8, domain=dom),
             bound(2 * R * d * 4, f32_ops=ROW_OPS["mxint_gelu"] * R * d),
             None))
+    # the LM's final RMSNorm: bf16 rows and scale, no beta
     for label, R, d, qout in (("deit_base_b16_final_ln", rows, 768, True),
-                              ("ragged", 37, 192, False)):
-        a, g, b = x(R, d, scale=2.0), 1.0 + 0.1 * x(d), 0.1 * x(d)
+                              ("ragged", 37, 192, False),
+                              ("llama3_8b_decode_final_rms", LM_BATCH, 4096,
+                               True)):
+        rms = lm(label)
+        a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
+        b = None if rms else 0.1 * x(d)
+        if rms:
+            a, g = a.to(torch.bfloat16).to(torch.float32), \
+                g.to(torch.bfloat16)
         cases["mxint_layernorm"].append((
             label,
             lambda a=a, g=g, b=b, q=qout: mxint_layernorm.mxint_layernorm(
-                a, g, b, quantize_out=q),
+                a, g, b, rms_only=b is None, quantize_out=q),
             lambda a=a, g=g, b=b, q=qout: mxint_layernorm.layernorm_rows(
-                a, g, b, act_block=16, mant_bits=8, lut_bits=5,
-                rms_only=False, quantize_out=q),
+                a, g, torch.zeros_like(g) if b is None else b, act_block=16,
+                mant_bits=8, lut_bits=5, rms_only=b is None, quantize_out=q),
             bound(2 * R * d * 4 + 2 * d * 4,
                   f32_ops=ROW_OPS["mxint_layernorm"] * R * d),
             None))
+    cases.update(flash_cases(torch, np, x))
+    return cases
+
+
+def flash_cases(torch, np, x):
+    """The two flash kernels at the Llama-3-8B shapes (bf16, mxint with
+    quantized scores, then float) and at ragged shapes."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    dev = DEVICE
+    mx = dict(exp_mode="mxint", quantize_scores=True)
+    fl = dict(exp_mode="float", quantize_scores=False)
+    cases = {"flash_attention_decode": [], "flash_attention": []}
+    for label, W, lens, kw in (
+            ("llama3_8b_decode_b4_W2048_mxint", 2048, (37, 700, 1500, 2048),
+             mx),
+            ("llama3_8b_decode_b4_W2048_float", 2048, (37, 700, 1500, 2048),
+             fl),
+            ("ragged_W300_mxint", 300, (37, 120, 299, 300), mx),
+            ("ragged_W300_float", 300, (37, 120, 299, 300), fl)):
+        q = x(4, 8, 4, 128, scale=1.5).to(torch.bfloat16)
+        k = x(4, W, 8, 128, scale=1.5).to(torch.bfloat16)
+        v = x(4, W, 8, 128).to(torch.bfloat16)
+        valid = torch.zeros(4, W, dtype=torch.int32, device=dev)
+        for i, n in enumerate(lens):
+            valid[i, :n] = 1
+        pairs = sum(lens) * 8 * 4
+        kv_bytes = sum(lens) * 8 * 128 * 2 * 2
+        lib = None
+        if kw is fl and W == LM_MAX_LEN:
+            mask = (valid != 0)[:, None, None, :]
+
+            def lib(q=q, k=k, v=v, mask=mask):
+                return F.scaled_dot_product_attention(
+                    q.reshape(4, 32, 1, 128), k.transpose(1, 2),
+                    v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
+        cases["flash_attention_decode"].append((
+            label,
+            lambda q=q, k=k, v=v, valid=valid, kw=kw:
+                fa.flash_attention_decode(q, k, v, valid, **kw),
+            lambda q=q, k=k, v=v, valid=valid, kw=kw: fa.decode_rows(
+                q, k, v, valid, r_bits=2, act_block=16, mant_bits=8,
+                scale=128 ** -0.5, **kw).to(q.dtype),
+            bound(kv_bytes + 2 * q.numel() * 2 + valid.numel() * 4,
+                  bf16_ops=4.0 * pairs * 128,
+                  f32_ops=ROW_OPS["flash"] * pairs),
+            lib))
+    for label, S, window, kw in (
+            ("llama3_8b_score_1024_causal_mxint", 1024, 0, mx),
+            ("llama3_8b_score_1024_causal_float", 1024, 0, fl),
+            ("ragged_650_window256_mxint", 650, 256, mx),
+            ("ragged_650_window256_float", 650, 256, fl)):
+        q = x(32, S, 128, scale=1.5).to(torch.bfloat16)
+        k = x(8, S, 128, scale=1.5).to(torch.bfloat16)
+        v = x(8, S, 128).to(torch.bfloat16)
+        pairs = 32 * flash_pairs(S, S, True, window)
+        lib = None
+        if kw is fl and window == 0:
+            def lib(q=q, k=k, v=v):
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True,
+                    enable_gqa=True)
+        cases["flash_attention"].append((
+            label,
+            lambda q=q, k=k, v=v, w=window, kw=kw: fa.flash_attention(
+                q, k, v, causal=True, window=w, kv_groups=4, **kw),
+            lambda q=q, k=k, v=v, w=window, kw=kw: fa.flash_rows(
+                q, k, v, causal=True, window=w, kv_groups=4, r_bits=2,
+                act_block=16, mant_bits=8, scale=128 ** -0.5,
+                **kw).to(q.dtype),
+            bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                  bf16_ops=4.0 * pairs * 128,
+                  f32_ops=ROW_OPS["flash"] * pairs),
+            lib))
     return cases
 
 
 def kernel_phase(torch, np):
     results = {}
     for name, cases in kernel_cases(torch, np).items():
-        res = {"name": name, "route": "cuda",
-               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        res = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "max_abs_err": 0.0, "cases": []}
         for i, (label, kern, plain, (b_ms, b_by), lib) in enumerate(cases):
             got = kern()
             torch.cuda.synchronize()
             want = plain()
             mism = int((got != want).sum())
-            err = float((got - want).abs().max())
+            err = float((got.float() - want.float()).abs().max())
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {label}: non-finite output")
             log(f"[kernel] {name} {label} shape={tuple(got.shape)} "
@@ -213,6 +385,13 @@ def kernel_phase(torch, np):
                 log(f"[kernel] {name} {label} ms={case['ms']!r} "
                     f"plain_ms={case['plain_ms']!r} bound_ms={b_ms!r} "
                     f"({b_by}) library_ms={case['library_ms']!r}")
+            elif lib is not None and res["library_ms"] is None:
+                # a float variant's library call, where case 0 has none
+                case["library_ms"] = time_ms(lib, iters=20)
+                res["library_ms"] = case["library_ms"]
+                res["library_case"] = label
+                log(f"[kernel] {name} {label} library_ms="
+                    f"{case['library_ms']!r}")
             res["cases"].append(case)
         results[name] = res
         log(json.dumps({"kernel": name, "max_abs_err": res["max_abs_err"],
@@ -223,9 +402,10 @@ def kernel_phase(torch, np):
     return results
 
 
-def kernel_breakdown(torch, engine, chunk, names):
-    """ms of one forward spent in each kernel op, from CUDA events recorded
-    around every call (the host work between the two events is inside)."""
+def kernel_breakdown(torch, run, names):
+    """ms of one ``run()`` spent in each kernel op, from CUDA events
+    recorded around every call (the host work between the two events is
+    inside)."""
     from repro_torch.kernels import ops
     saved = {n: getattr(ops, n) for n in names}
     events = {n: [] for n in names}
@@ -244,7 +424,7 @@ def kernel_breakdown(torch, engine, chunk, names):
     try:
         for n in names:
             setattr(ops, n, timed(n, saved[n]))
-        engine.logits_batch(chunk)
+        run()
         torch.cuda.synchronize()
     finally:
         for n in names:
@@ -256,20 +436,15 @@ def kernel_breakdown(torch, engine, chunk, names):
 def slice_phase(torch, np):
     from repro_torch.configs.deit import DEIT_BASE
     from repro_torch.core.mx_types import QuantConfig
-    from repro_torch.kernels import (mxint_gelu, mxint_layernorm,
-                                     mxint_ln_matmul, mxint_matmul,
-                                     mxint_softmax)
     from repro_torch.models.vit import ViT
     from repro_torch.serving.engine import (ServeConfig, ViTServingEngine,
                                             params_to)
     from repro_torch.serving.scheduler import ClassifyRequest, ClassifyScheduler
 
-    mods = {m.__name__.rsplit(".", 1)[-1]: m for m in (
-        mxint_matmul, mxint_ln_matmul, mxint_softmax, mxint_gelu,
-        mxint_layernorm)}
     L = DEIT_BASE.n_layers
     per_forward = {"mxint_matmul": 2 * L + 2, "mxint_ln_matmul": 4 * L,
-                   "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1}
+                   "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1,
+                   "flash_attention": 0, "flash_attention_decode": 0}
     assert sum(per_forward.values()) == 3 + 8 * L
 
     cfg = dataclasses.replace(
@@ -289,15 +464,14 @@ def slice_phase(torch, np):
     sched = ClassifyScheduler(engine)
     for uid, imgs in enumerate(images):
         sched.submit(ClassifyRequest(uid, imgs))
-    for m in mods.values():
-        m.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     n_batches = 0
     while sched.step():
         n_batches += 1
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
-    launches = {n: m.launches for n, m in mods.items()}
+    launches = read_counts()
     log(f"[slice] request sizes={sizes} batches={n_batches} "
         f"serve_s={serve_s!r} launches={launches}")
     done = sched.finished
@@ -325,7 +499,8 @@ def slice_phase(torch, np):
              "images_per_s": BATCH / (ms_batch / 1e3), "launches": launches}
     log(f"[slice] ms_per_batch={ms_batch!r} (batch {BATCH}) "
         f"images_per_s={stats['images_per_s']!r}")
-    per_kernel = kernel_breakdown(torch, engine, full, list(mods))
+    per_kernel = kernel_breakdown(torch, lambda: engine.logits_batch(full), [
+        n for n, c in per_forward.items() if c])
     stats["kernel_ms_per_batch"] = per_kernel
     stats["other_ms_per_batch"] = ms_batch - sum(per_kernel.values())
     log(f"[slice] device ms per batch by kernel {per_kernel}, other "
@@ -354,6 +529,219 @@ def slice_phase(torch, np):
     return stats, launches
 
 
+def lm_per_call(L: int, decode: bool, score: bool = False):
+    """Kernel launches of one slot prefill, decode step or cache-less
+    forward of an L-layer dense decoder in kernel mode."""
+    return {"mxint_ln_matmul": 5 * L, "mxint_matmul": 2 * L,
+            "mxint_gelu": L, "mxint_layernorm": 1, "mxint_softmax": 0,
+            "flash_attention": L if score else 0,
+            "flash_attention_decode": L if decode else 0}
+
+
+def lm_serve_phase(torch, np):
+    """Llama-3-8B at full size through ServingEngine and BatchScheduler;
+    every slot prefill and decode step timed and its launches checked."""
+    from repro_torch.configs.llama3_8b import FULL
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.scheduler import BatchScheduler, Request
+
+    cfg = dataclasses.replace(
+        FULL, quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
+    L = cfg.n_layers
+    model = DecoderLM(cfg)
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=DEVICE, pack_fmt=MXINT8_WEIGHT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=LM_MAX_LEN, batch=LM_BATCH, pack_weights=True,
+        weight_fmt=MXINT8_WEIGHT), device=DEVICE)
+    log(f"[lm] {cfg.name} {L} layers packed on the card in {init_s!r} s, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30!r} GiB allocated")
+    # warm up both steps on a scratch cache (cuBLAS handles, allocator)
+    scratch = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
+    tok, scratch = engine._prefill_slot(
+        engine.params, torch.zeros(1, 64, dtype=torch.int32, device=DEVICE),
+        37, 0, scratch)
+    engine._decode(engine.params, torch.zeros(LM_BATCH, 1, dtype=torch.int32,
+                                              device=DEVICE), scratch)
+    del scratch
+    torch.cuda.synchronize()
+
+    calls = []
+    prefill, decode = engine._prefill_slot, engine._decode
+
+    def timed(kind, fn):
+        def call(*a, **k):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            calls.append((kind, int(a[1].shape[1]) if kind == "prefill"
+                          else None, ms, count_diff(read_counts(), before)))
+            return out
+        return call
+
+    engine._prefill_slot = timed("prefill", prefill)
+    engine._decode = timed("decode", decode)
+    rng = np.random.default_rng(SEED + 2)
+    sched = BatchScheduler(engine, batch_size=LM_BATCH)
+    for uid, n in enumerate(LM_PROMPTS):
+        sched.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, size=n).astype(np.int32),
+            max_new_tokens=LM_NEW_TOKENS))
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    engine._prefill_slot, engine._decode = prefill, decode
+
+    if sorted(r.uid for r in done) != list(range(len(LM_PROMPTS))):
+        raise AssertionError("LM requests did not all finish")
+    for r in done:
+        if len(r.generated) != LM_NEW_TOKENS or \
+                not all(0 <= t < cfg.vocab for t in r.generated):
+            raise AssertionError(f"request {r.uid}: {r.generated}")
+    pre = [c for c in calls if c[0] == "prefill"]
+    dec = [c for c in calls if c[0] == "decode"]
+    for kind, _, _, got in calls:
+        want = lm_per_call(L, decode=kind == "decode")
+        if got != want:
+            raise AssertionError(f"{kind} launched {got}, expected {want}")
+    per_step = sum(lm_per_call(L, decode=True).values())
+    per_prefill = sum(lm_per_call(L, decode=False).values())
+    assert (per_step, per_prefill) == (289, 257), (per_step, per_prefill)
+    by_bucket = {}
+    for _, P, ms, _ in pre:
+        by_bucket.setdefault(P, []).append(ms)
+    dec_ms = [ms for *_, ms, _ in dec]
+    step_ms = statistics.median(dec_ms)
+    stats = {"model": cfg.name, "layers": L, "init_s": init_s,
+             "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
+             "batch": LM_BATCH, "max_len": LM_MAX_LEN, "serve_s": serve_s,
+             "prefill_ms_by_bucket": by_bucket, "decode_steps": len(dec),
+             "decode_ms": dec_ms, "decode_ms_median": step_ms,
+             "decode_tokens_per_s": LM_BATCH / (step_ms / 1e3),
+             "launches_per_decode_step": per_step,
+             "launches_per_slot_prefill": per_prefill,
+             "launches": launches,
+             "tokens": {r.uid: r.generated for r in done}}
+    # one decode step split by kernel (rows at four depths of the ring)
+    names = [n for n, c in lm_per_call(L, decode=True).items() if c]
+    cache = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
+    cache["index"] = torch.tensor([37, 700, 1500, 2000], dtype=torch.int32,
+                                  device=DEVICE)
+    step = lambda: engine._decode(engine.params, torch.zeros(  # noqa: E731
+        LM_BATCH, 1, dtype=torch.int32, device=DEVICE), cache)
+    step()
+    step_total = time_ms(step, iters=5)
+    by_kernel = kernel_breakdown(torch, step, names)
+    stats["decode_step_ms_by_kernel"] = by_kernel
+    stats["decode_step_ms_other"] = step_total - sum(by_kernel.values())
+    stats["decode_step_ms_events"] = step_total
+    del cache
+    log(f"[lm serve] one decode step {step_total!r} ms by kernel {by_kernel}"
+        f", other (unembedding, embedding, RoPE, glue, gaps) "
+        f"{stats['decode_step_ms_other']!r}")
+    log(f"[lm serve] {len(LM_PROMPTS)} requests x {LM_NEW_TOKENS} tokens "
+        f"in {serve_s!r} s; {len(pre)} slot prefills, {len(dec)} decode "
+        f"steps; launches {launches}")
+    log(f"[lm serve] prefill ms by bucket {by_bucket}")
+    log(f"[lm serve] decode ms per step median={step_ms!r} "
+        f"min={min(dec_ms)!r} max={max(dec_ms)!r}; decode tokens/s at batch "
+        f"{LM_BATCH}={stats['decode_tokens_per_s']!r}; launches per decode "
+        f"step {per_step}, per slot prefill {per_prefill}")
+    return model, engine, stats
+
+
+def lm_score_phase(torch, np, model, engine):
+    """One full-size 1024-token loss forward: the flash kernel in every
+    layer."""
+    L = model.cfg.n_layers
+    toks = np.random.default_rng(SEED + 3).integers(
+        0, model.cfg.vocab, size=(1, LM_SCORE_TOKENS)).astype(np.int32)
+    model.loss(engine.params, {"tokens": toks})           # warm
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = float(model.loss(engine.params, {"tokens": toks}))
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    launches = read_counts()
+    want = lm_per_call(L, decode=False, score=True)
+    if launches != want:
+        raise AssertionError(f"score launched {launches}, expected {want}")
+    if not (0.0 < loss < 2.0 * float(np.log(model.cfg.vocab))):
+        raise AssertionError(f"loss {loss} is not finite and plausible")
+    stats = {"tokens": LM_SCORE_TOKENS, "loss": loss, "ms": score_s * 1e3,
+             "tokens_per_s": LM_SCORE_TOKENS / score_s, "launches": launches}
+    run = lambda: model.loss(engine.params, {"tokens": toks})  # noqa: E731
+    stats["ms_by_kernel"] = kernel_breakdown(
+        torch, run, [n for n, c in want.items() if c])
+    log(f"[lm score] ms by kernel {stats['ms_by_kernel']}")
+    log(f"[lm score] {LM_SCORE_TOKENS} tokens loss={loss!r} "
+        f"ms={stats['ms']!r} tokens/s={stats['tokens_per_s']!r} "
+        f"launches {launches}")
+    return stats, launches
+
+
+def lm_cpu_phase(torch, np):
+    """The Llama-3-8B architecture at full width, 2 layers, float32: the
+    card against the CPU's plain versions, serving and scoring."""
+    from repro_torch.configs.llama3_8b import FULL
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.scheduler import BatchScheduler, Request
+
+    for fn in (torch.exp, torch.sin, torch.cos, torch.log):
+        fn(torch.ones(1))       # first multi-threaded CPU calls may differ
+    cfg = dataclasses.replace(
+        FULL, n_layers=2, dtype=torch.float32,
+        quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
+    model = DecoderLM(cfg)
+    params = model.init(SEED, device="cpu", pack_fmt=MXINT8_WEIGHT)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+               for n in (100, 250)]
+    toks = rng.integers(0, cfg.vocab, size=(1, 640)).astype(np.int32)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, params, ServeConfig(max_len=300, batch=2),
+                            device=dev)
+        sched = BatchScheduler(eng, batch_size=2)
+        for uid, pr in enumerate(prompts):
+            sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
+        tokens = {r.uid: r.generated for r in sched.run()}
+        logits = model.forward(eng.params, toks).float().cpu().numpy()
+        out[dev] = (tokens, logits, time.perf_counter() - t0)
+        del eng
+        log(f"[lm cpu] {dev}: served and scored in {out[dev][2]!r} s")
+    (tg, lg, gs), (tc, lc, cs) = out[DEVICE], out["cpu"]
+    gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
+    diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
+    stats = {"layers": 2, "tokens_card": tg, "tokens_cpu": tc, "card_s": gs,
+             "cpu_s": cs, "score_logits_max_abs_gap": gap,
+             "score_logits_scale": scale, "argmax_differ": diff,
+             "positions": int(lg.shape[1])}
+    log(f"[lm cpu] tokens card={tg} cpu={tc}; 640-token logits "
+        f"max_abs_gap={gap!r} scale={scale!r}, argmax differs at {diff} of "
+        f"{lg.shape[1]} positions")
+    if tg != tc:
+        raise AssertionError("card and CPU generated different tokens")
+    if diff or gap > 1e-3 * scale:
+        raise AssertionError("card and CPU logits disagree beyond 1e-3 of "
+                             "their scale or in argmax")
+    return stats
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -372,16 +760,43 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     _build.build_all()
-    log(f"[build] five kernels built in {time.perf_counter() - t0!r} s")
+    log(f"[build] {len(_build.KERNELS)} sources built in "
+        f"{time.perf_counter() - t0!r} s")
 
-    kernels = kernel_phase(torch, np)
-    stats, launches = slice_phase(torch, np)
+    t_start = time.perf_counter()
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        log(f"[time] {name} phase {time.perf_counter() - t!r} s, "
+            f"{time.perf_counter() - t_start!r} s since the build")
+        return out
+
+    kernels = phase("kernel", kernel_phase, torch, np)
+    stats, launches = phase("deit", slice_phase, torch, np)
+    model, engine, lm_stats = phase("lm serve", lm_serve_phase, torch, np)
+    score_stats, score_launches = phase("lm score", lm_score_phase, torch,
+                                        np, model, engine)
+    del model, engine
+    torch.cuda.empty_cache()
+    cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np)
+    common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
+              "mxint_layernorm")
+    paths = (("deit serve", launches, common + ("mxint_softmax",)),
+             ("lm serve", lm_stats["launches"],
+              common + ("flash_attention_decode",)),
+             ("lm score", score_launches, common + ("flash_attention",)))
+    for path, counts, names in paths:
+        idle = [n for n in names if not counts[n]]
+        if idle:
+            raise AssertionError(f"{path}: {idle} never launched")
     for name, res in kernels.items():
-        res["launches"] = launches[name]
+        res["launches"] = sum(counts[name] for _, counts, _ in paths)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"card": smi, "kernels": kernels, "slice": stats}, indent=1))
+        {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
+         "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

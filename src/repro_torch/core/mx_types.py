@@ -18,6 +18,12 @@ import torch
 # backend in this port so far (see ``repro_torch.datapath``).
 MODES = ("off", "fake", "sim", "packed", "kernel")
 
+# Masking sentinel shared by the attention models, ops and kernels (the
+# reference's value, -2e38, built here so that no module spells it out).
+# The Eq. 2-3 score quantization runs on the masked tile, so every fill
+# of a masked score must use this one value.
+NEG_INF = -2.0 * 10.0 ** 38
+
 
 @dataclasses.dataclass(frozen=True)
 class MXFormat:

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.quantize import MXTensor, dequantize
+
 
 class Datapath:
     """Execution backend for the quantized-op protocol.
@@ -41,6 +43,14 @@ class Datapath:
         """Will ``layernorm_linear`` fuse for this call?  When False,
         callers feeding several linears from one norm normalize once."""
         return False
+
+    # -- weights -------------------------------------------------------------
+    def weight_value(self, wv, *, q, dtype) -> torch.Tensor:
+        """A weight leaf as float: packed ``MXTensor`` planes dequantized,
+        a float tensor cast (the dequantize seam of embed and unembed)."""
+        if isinstance(wv, MXTensor):
+            return dequantize(wv, dtype=dtype)
+        return wv.to(dtype)
 
     # -- linears ------------------------------------------------------------
     def linear(self, x: torch.Tensor, w, b=None, *, q) -> torch.Tensor:
@@ -76,7 +86,14 @@ class Datapath:
         return torch.softmax(x, dim=axis)
 
     # -- attention ----------------------------------------------------------
-    def attention(self, qv, k, v, *, q, scale: float):
-        """Cache-less unmasked attention core.  qv: (b, s, kv, g, hd);
-        k/v: (b, S, kv, hd).  Returns (b, s, kv, g, hd)."""
+    def attention(self, qv, k, v, *, q, positions, causal: bool, window: int,
+                  scale: float, chunk: int):
+        """Cache-less attention core.  qv: (b, s, kv, g, hd); k/v: (b, S,
+        kv, hd).  Returns (b, s, kv, g, hd)."""
+        raise NotImplementedError
+
+    def attention_decode(self, qv, ck, cv, valid, *, q, scale: float):
+        """Single-position decode over a cache ring.  qv: (b, 1, kv, g,
+        hd); ck/cv: (b, W, kv, hd); valid: (b, W) per-row ring validity.
+        Returns qv's shape."""
         raise NotImplementedError

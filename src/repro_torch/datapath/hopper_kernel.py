@@ -103,21 +103,48 @@ class HopperKernelDatapath(Datapath):
         return y.to(x.dtype)
 
     # -- attention -----------------------------------------------------------
-    def attention(self, qv, k, v, *, q, scale: float):
-        """Whole-row 'paper' attention through the MXInt softmax kernel.
-
-        Float-softmax attention runs in the reference's flash kernel, and
-        score matrices beyond 512x512 in its blocked MXInt flash kernel;
-        both come with the LM slice of the port, so those cases raise."""
-        if not self.nl_on(q, "softmax"):
-            raise NotImplementedError(
-                "kernel-mode attention without the MXInt softmax runs the "
-                "flash attention kernel, which comes with the LM slice")
+    def attention(self, qv, k, v, *, q, positions, causal: bool, window: int,
+                  scale: float, chunk: int):
+        """Heads-major attention through the kernels: the whole-row MXInt
+        softmax ('paper') while a (batch, head) holds at most 512x512
+        scores, the online MXInt flash kernel beyond that, the float flash
+        kernel without the MXInt softmax.  Query positions are the row
+        indices, as in the reference's kernel path."""
         b, s, kvh, g, hd = qv.shape
+        S = k.shape[1]
         qh = qv.permute(0, 2, 3, 1, 4).reshape(b, kvh * g, s, hd)
         kh = k.permute(0, 2, 1, 3)
         vh = v.permute(0, 2, 1, 3)
-        o = ops.attention_op(qh, kh, vh, act_block=q.act_fmt.block_size,
-                             mant_bits=q.act_fmt.mant_bits,
-                             r_bits=q.nonlinear.softmax_r_bits)
+        if self.nl_on(q, "softmax"):
+            cfg = dict(causal=causal, window=window,
+                       act_block=q.act_fmt.block_size,
+                       mant_bits=q.act_fmt.mant_bits,
+                       r_bits=q.nonlinear.softmax_r_bits)
+            if s * S <= ops.PAPER_MAX_SCORES:
+                o = ops.attention_op(qh, kh, vh, softmax_variant="paper",
+                                     **cfg)
+            else:
+                o = ops.attention_op(qh, kh, vh, softmax_variant="online",
+                                     exp_mode="mxint", quantize_scores=True,
+                                     **cfg)
+        else:
+            o = ops.attention_op(qh, kh, vh, causal=causal, window=window,
+                                 exp_mode="float")
         return o.reshape(b, kvh, g, s, hd).permute(0, 3, 1, 2, 4)
+
+    def attention_decode(self, qv, ck, cv, valid, *, q, scale: float):
+        """One fused kernel over the ring: scores, the online (optionally
+        Eq. 14-20 quantized) softmax and P.V.  The G query heads of a KV
+        head are the kernel's rows; the cache goes in untransposed."""
+        qd = qv[:, 0]                                  # (b, kv, g, hd)
+        kd = ck.to(qv.dtype)
+        vd = cv.to(qv.dtype)
+        if self.nl_on(q, "softmax"):
+            od = ops.attention_decode_op(
+                qd, kd, vd, valid, exp_mode="mxint",
+                r_bits=q.nonlinear.softmax_r_bits, quantize_scores=True,
+                act_block=q.act_fmt.block_size,
+                mant_bits=q.act_fmt.mant_bits)
+        else:
+            od = ops.attention_decode_op(qd, kd, vd, valid)
+        return od[:, None]                             # (b, 1, kv, g, hd)

@@ -23,7 +23,7 @@ from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("mxint_matmul", "mxint_ln_matmul", "mxint_softmax", "mxint_gelu",
-           "mxint_layernorm")
+           "mxint_layernorm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -100,13 +100,14 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(name: str, argtypes: Sequence) -> Callable:
-    """The C entry point ``<name>_launch`` of kernel ``name``, with its
-    argument types declared (``c_void_p`` for pointers and the stream);
-    it returns ``cudaGetLastError()`` as an int."""
+def entry(name: str, argtypes: Sequence, lib: str = None) -> Callable:
+    """The C entry point ``<name>_launch`` of kernel ``name``, found in the
+    library of source ``lib`` (default: ``name``), with its argument types
+    declared (``c_void_p`` for pointers and the stream); it returns
+    ``cudaGetLastError()`` as an int."""
     fn = _ENTRIES.get(name)
     if fn is None:
-        fn = getattr(library(name), f"{name}_launch")
+        fn = getattr(library(lib or name), f"{name}_launch")
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _ENTRIES[name] = fn

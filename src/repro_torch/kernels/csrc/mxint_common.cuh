@@ -261,75 +261,98 @@ __device__ __forceinline__ int dot16(const int8_t* a, const int8_t* w) {
   return __dp4a(av.w, wv.w, s);
 }
 
-__device__ void gemm_tiles(const GemmSmem& s, const int8_t* __restrict__ wm,
-                           const int8_t* __restrict__ we,
-                           float* __restrict__ out, int m0, int M, int K,
-                           int N, int w_block, int tile0, int n_tiles) {
+// adds the block products of the K range [kbase, kbase + kc) of the kBN
+// columns at n0 into acc, in increasing K order; s.a / s.e hold the
+// range's quantized rows, with row strides a_ld and e_ld
+__device__ __forceinline__ void gemm_tile_range(
+    const GemmSmem& s, const int8_t* __restrict__ wm,
+    const int8_t* __restrict__ we, float (&acc)[2][4], int kbase, int kc,
+    int a_ld, int e_ld, int N, int w_block, int n0) {
   const int tid = threadIdx.x;
   const int tx = tid % 16, ty = tid / 16;
-  const int nkb = K / kAB;
-  const int sa = a_stride(K);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int n0 = (tile0 + t) * kBN;
-    if (n0 >= N) break;
-    float acc[2][4];
-#pragma unroll
-    for (int r = 0; r < 2; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-    for (int k0 = 0; k0 < K; k0 += kKC) {
-      __syncthreads();
-      // stage W[k0:k0+kKC, n0:n0+kBN] transposed: sW[n][k]
-      for (int i = tid; i < kKC * kBN; i += kThreads) {
-        int kk = i / kBN, nn = i % kBN;
-        int k = k0 + kk, n = n0 + nn;
-        s.w[nn * (kKC + 16) + kk] =
-            (k < K && n < N) ? wm[(size_t)k * N + n] : (int8_t)0;
-      }
-      __syncthreads();
-      for (int j = 0; j < kKC / kAB; ++j) {
-        const int kb = k0 / kAB + j;
-        if (kb >= nkb) break;
-        const int kbw = (kb * kAB) / w_block;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int n = n0 + tx * 4 + c;
-          const int ew = n < N ? (int)we[(size_t)kbw * N + n] : 0;
-          const int8_t* wcol = s.w + (tx * 4 + c) * (kKC + 16) + j * kAB;
-#pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const int row = ty * 2 + r;
-            const int dot = dot16(s.a + row * sa + kb * kAB, wcol);
-            const int ea = (int)s.e[row * nkb + kb];
-            acc[r][c] = __fadd_rn(acc[r][c],
-                                  __fmul_rn((float)dot, pow2i(ea + ew)));
-          }
-        }
-      }
+  const int nkb = kc / kAB;
+  for (int k0 = 0; k0 < kc; k0 += kKC) {
+    __syncthreads();
+    // stage W[kbase+k0 : +kKC, n0:n0+kBN] transposed: sW[n][k]
+    for (int i = tid; i < kKC * kBN; i += kThreads) {
+      int kk = i / kBN, nn = i % kBN;
+      int k = k0 + kk, n = n0 + nn;
+      s.w[nn * (kKC + 16) + kk] =
+          (k < kc && n < N) ? wm[(size_t)(kbase + k) * N + n] : (int8_t)0;
     }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = m0 + ty * 2 + r;
-      if (row >= M) continue;
+    __syncthreads();
+    for (int j = 0; j < kKC / kAB; ++j) {
+      const int kb = k0 / kAB + j;
+      if (kb >= nkb) break;
+      const int kbw = (kbase + kb * kAB) / w_block;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int n = n0 + tx * 4 + c;
-        if (n < N) out[(size_t)row * N + n] = acc[r][c];
+        const int ew = n < N ? (int)we[(size_t)kbw * N + n] : 0;
+        const int8_t* wcol = s.w + (tx * 4 + c) * (kKC + 16) + j * kAB;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = ty * 2 + r;
+          const int dot = dot16(s.a + row * a_ld + kb * kAB, wcol);
+          const int ea = (int)s.e[row * e_ld + kb];
+          acc[r][c] = __fadd_rn(acc[r][c],
+                                __fmul_rn((float)dot, pow2i(ea + ew)));
+        }
       }
     }
   }
 }
 
+__device__ __forceinline__ void zero_tile(float (&acc)[2][4]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+}
+
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4],
+                                           float* __restrict__ out, int m0,
+                                           int M, int N, int n0) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = m0 + ty * 2 + r;
+    if (row >= M) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = n0 + tx * 4 + c;
+      if (n < N) out[(size_t)row * N + n] = acc[r][c];
+    }
+  }
+}
+
+// the block's N tiles over the whole K, whose quantized rows s holds
+__device__ void gemm_tiles(const GemmSmem& s, const int8_t* __restrict__ wm,
+                           const int8_t* __restrict__ we,
+                           float* __restrict__ out, int m0, int M, int K,
+                           int N, int w_block, int tile0, int n_tiles) {
+  for (int t = 0; t < n_tiles; ++t) {
+    const int n0 = (tile0 + t) * kBN;
+    if (n0 >= N) break;
+    float acc[2][4];
+    zero_tile(acc);
+    gemm_tile_range(s, wm, we, acc, 0, K, a_stride(K), K / kAB, N, w_block,
+                    n0);
+    store_tile(acc, out, m0, M, N, n0);
+  }
+}
+
 // grid shape: enough blocks to cover the card twice; each block owns
-// n_per consecutive N tiles of its row tile
+// n_per consecutive N tiles of its row tile, at most max_per
 __host__ __forceinline__ void gemm_grid(int M, int N, dim3* grid,
-                                        int* n_per) {
+                                        int* n_per, int max_per = INT_MAX) {
   const int gx = (M + kBM - 1) / kBM;
   const int tiles = (N + kBN - 1) / kBN;
   int gy = (2 * 132 + gx - 1) / gx;
   gy = gy < tiles ? gy : tiles;
   gy = gy > 1 ? gy : 1;
   *n_per = (tiles + gy - 1) / gy;
+  *n_per = *n_per < max_per ? *n_per : max_per;
   gy = (tiles + *n_per - 1) / *n_per;
   *grid = dim3(gx, gy);
 }

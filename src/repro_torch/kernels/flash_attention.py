@@ -1,0 +1,338 @@
+"""Online-softmax (flash) attention with the MXInt softmax datapath.
+
+Replaces ``repro/kernels/flash_attention.py``: ``flash_attention`` (its
+``pallas_call`` at line 252) and ``flash_attention_decode`` (line 366), with
+``csrc/flash_attention.cu``.  Both walk the key axis in 128-key tiles, in
+order, and update a running (m, l, acc) per query row, as the reference's
+``_softmax_block_update`` does:
+
+  1. scores q.k * scale; model-masked lanes (causal, window, an invalid
+     ring slot) become NEG_INF;
+  2. with ``quantize_scores``: Eq. 2-3 quantization of the tile, act blocks
+     along the keys, requantized to the tile row's max exponent; wrapper
+     padding lanes (keys past the real count) take the fill 2^-100 for the
+     quantizer and NEG_INF after it;
+  3. p = exp datapath (Eq. 14-19 LUT for ``exp_mode='mxint'``, float exp
+     for 'float') of s - m_new; the rescale alpha = exp(m_prev - m_new) is
+     float exp, not the LUT, and 0 while the row has seen only masked keys;
+  4. the Eq. 19 sum takes model-masked lanes (their 2^-126 tail) but never
+     padding; interior tiles put unnormalized P on the act grid, the last
+     tile is normalized through frexp first (Eq. 20) and flushed as
+     (acc * alpha) / l_m * 2^-l_e + yq @ V.
+
+The tile is 128 keys wide and the k loop is sequential: tiles set the
+numerics (their shared exponents, which tile is the last), so the k axis
+is never split.  The plain versions below take the same tiles and sum in
+the kernel's order (q.k over d in order, P.V over a tile's keys in order,
+the row sum as ``warp_row_sum`` over lanes holding keys l, l+32, l+64,
+l+96), so the card holds the kernel to them bit for bit.
+
+A CPU tensor runs the plain version; a CUDA tensor launches the kernel, or
+the wrapper raises.  ``launches`` counts ``flash_attention`` launches and
+``decode_launches`` counts ``flash_attention_decode`` launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core import luts
+from repro_torch.core.mx_types import NEG_INF
+from repro_torch.core.quantize import pow2i
+from repro_torch.kernels import _build
+from repro_torch.kernels.mxint_layernorm import (WARP, block_quantize_rows,
+                                                 f32, lut_tensor,
+                                                 requantize_rows,
+                                                 requantize_to_grid,
+                                                 warp_row_sum)
+from repro_torch.kernels.mxint_softmax import LOG2E, exp2_datapath
+
+TILE_K = 128            # keys per tile, fixed by the numerics
+MAX_HEAD_DIM = 128      # head dims the kernels take
+MAX_ACT_BLOCK = 32      # a score act block is a group of lanes of one warp
+PAD_FILL = 2.0 ** -100  # quantizer fill of padding lanes (see the reference)
+_NEG_INF_HALF = NEG_INF / 2
+_MIN_L = f32(1e-30)
+
+launches = 0
+decode_launches = 0
+
+
+# Cephes ``expf``: exp(x) = 2^n * P(r), n = floor(x log2 e + 1/2), r = x -
+# n ln 2 in two parts; about 1 ulp.  The CUDA kernels run the same
+# sequence of IEEE operations, so the rescale alpha and the float-mode
+# probabilities agree bit for bit with the plain versions on every device.
+# ``torch.exp`` and CUDA's ``expf`` are separate implementations, and on
+# the CPU build this was developed with, ``torch.exp`` is not even
+# reproducible on its first multi-threaded call.
+_LN2_HI, _LN2_LO = f32(0.693359375), f32(-2.12194440e-4)
+_EXP_POLY = tuple(f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                   8.3334519073e-3, 4.1665795894e-2,
+                                   1.6666665459e-1, 5.0000001201e-1))
+
+
+def exp_nonpos(x: torch.Tensor) -> torch.Tensor:
+    """exp(x) for x <= 0 in float32 (0 below -104), from rounded
+    multiplies and adds only."""
+    x = x.clamp(-104.0, 0.0)
+    n = torch.floor(x * LOG2E + 0.5)
+    x = x - n * _LN2_HI
+    x = x - n * _LN2_LO
+    y = x * _EXP_POLY[0] + _EXP_POLY[1]
+    for c in _EXP_POLY[2:]:
+        y = y * x + c
+    y = y * (x * x) + x + 1.0
+    return y * pow2i(n.to(torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _dot_seq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(N, R, D) x (N, T, D) -> (N, R, T), each sum over d in order."""
+    out = torch.zeros(a.shape[0], a.shape[1], b.shape[1], dtype=a.dtype,
+                      device=a.device)
+    for c in range(a.shape[2]):
+        out = out + a[:, :, c:c + 1] * b[:, None, :, c]
+    return out
+
+
+def _pv_seq(p: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
+    """(N, R, T) x (N, T, D) -> (N, R, D), over the first ``n`` keys in
+    order (the rest are padding, whose p is 0)."""
+    out = torch.zeros(p.shape[0], p.shape[1], v.shape[2], dtype=p.dtype,
+                      device=p.device)
+    for j in range(n):
+        out = out + p[:, :, j:j + 1] * v[:, None, j, :]
+    return out
+
+
+def _tile_sum(p: torch.Tensor) -> torch.Tensor:
+    """Row sums of (N, R, 128) in the kernel's order: lane l adds keys l,
+    l+32, l+64, l+96 in turn, then the lanes meet in a butterfly."""
+    n, r, t = p.shape
+    lanes = p.reshape(n * r, t // WARP, WARP).transpose(1, 2)
+    return warp_row_sum(lanes).reshape(n, r, 1)
+
+
+def _grid(y: torch.Tensor, block: int, mant_bits: int) -> torch.Tensor:
+    n, r, t = y.shape
+    return requantize_to_grid(y.reshape(n * r, t), block,
+                              mant_bits).reshape(n, r, t)
+
+
+def attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask, *, exp_mode: str, r_bits: int, quantize_scores: bool,
+                act_block: int, mant_bits: int, scale: float) -> torch.Tensor:
+    """Plain version of the key loop both kernels run.
+
+    q: (N, R, D); k, v: (N, S, D); mask(k0, n) -> bool model mask of keys
+    [k0, k0 + n), broadcastable to (N, R, n).  Inputs of any float dtype are
+    read as f32; returns (N, R, D) f32.
+    """
+    q = q.to(torch.float32)
+    N, R, D = q.shape
+    S = k.shape[1]
+    dev = q.device
+    lut = lut_tensor(luts.pow2_table(r_bits), dev)
+    m = torch.full((N, R, 1), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((N, R, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((N, R, D), dtype=torch.float32, device=dev)
+    n_tiles = -(-S // TILE_K)
+    for t in range(n_tiles):
+        k0 = t * TILE_K
+        nk = min(TILE_K, S - k0)
+        last = t == n_tiles - 1
+        kt = torch.zeros((N, TILE_K, D), dtype=torch.float32, device=dev)
+        vt = torch.zeros_like(kt)
+        kt[:, :nk] = k[:, k0:k0 + nk].to(torch.float32)
+        vt[:, :nk] = v[:, k0:k0 + nk].to(torch.float32)
+        real = (torch.arange(TILE_K, device=dev) < nk)[None, None, :]
+        mk = mask(k0, nk)
+        keep = torch.ones(mk.shape[:-1] + (TILE_K,), dtype=torch.bool,
+                          device=dev)
+        keep[..., :nk] = mk
+        s = _dot_seq(q, kt) * scale
+        s = torch.where(keep, s, NEG_INF)
+        if quantize_scores:
+            s = torch.where(real, s, PAD_FILL)
+            mq, e = block_quantize_rows(s.reshape(N * R, TILE_K), act_block,
+                                        mant_bits)
+            mf, lam = requantize_rows(mq, e)
+            s = (mf.reshape(N * R, TILE_K) * pow2i(lam)).reshape(N, R, TILE_K)
+        s = torch.where(real, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        if exp_mode == "mxint":
+            p = exp2_datapath((s - m_new) * LOG2E, lut, r_bits)
+        else:
+            p = exp_nonpos(s - m_new)
+        alpha = exp_nonpos(m - m_new)
+        alpha = torch.where(m <= _NEG_INF_HALF, 0.0, alpha)
+        live = keep & real
+        if quantize_scores:
+            psum = _tile_sum(torch.where(real, p, 0.0))
+        else:
+            p = torch.where(live, p, 0.0)
+            psum = _tile_sum(p)
+        l = l * alpha + psum
+        if last:
+            l_m, l_e = torch.frexp(torch.clamp(l, min=_MIN_L))
+            inv = pow2i(-l_e)
+        if quantize_scores and last:
+            y = (p / l_m) * inv
+            yq = torch.where(live, _grid(y, act_block, mant_bits), 0.0)
+            return ((acc * alpha) / l_m) * inv + _pv_seq(yq, vt, nk)
+        if quantize_scores:
+            p = torch.where(live, _grid(p, act_block, mant_bits), 0.0)
+        acc = acc * alpha + _pv_seq(p, vt, nk)
+        m = m_new
+        if last:
+            return (acc / l_m) * inv
+    raise ValueError("attention over zero keys")
+
+
+def flash_rows(q, k, v, *, causal: bool, window: int, kv_groups: int,
+               **kw) -> torch.Tensor:
+    """Plain version of ``flash_attention``: q (BH, Sq, D), k/v (BH/g, Sk,
+    D) -> (BH, Sq, D) f32.  The g query heads of a KV head fold into its
+    rows, so K/V are not copied per query head."""
+    bh, sq, d = q.shape
+    qf = q.reshape(bh // kv_groups, kv_groups * sq, d)
+    pos = (torch.arange(kv_groups * sq, device=q.device) % sq)[None, :, None]
+
+    def mask(k0, n):
+        kp = torch.arange(k0, k0 + n, device=q.device)[None, None, :]
+        ok = torch.ones_like(pos - kp, dtype=torch.bool)
+        if causal:
+            ok = ok & (pos >= kp)
+        if window > 0:
+            ok = ok & ((pos - kp) < window)
+        return ok
+
+    return attend_rows(qf, k, v, mask, **kw).reshape(bh, sq, d)
+
+
+def decode_rows(q, k, v, valid, **kw) -> torch.Tensor:
+    """Plain version of ``flash_attention_decode``: q (B, Hkv, G, D), k/v
+    (B, W, Hkv, D), valid (B, W) -> (B, Hkv, G, D) f32."""
+    b, hkv, g, d = q.shape
+    W = k.shape[1]
+    kf = k.permute(0, 2, 1, 3).reshape(b * hkv, W, d)
+    vf = v.permute(0, 2, 1, 3).reshape(b * hkv, W, d)
+    ok = (valid != 0)[:, None, None, :].expand(b, hkv, 1, W).reshape(
+        b * hkv, 1, W)
+    o = attend_rows(q.reshape(b * hkv, g, d), kf, vf,
+                    lambda k0, n: ok[:, :, k0:k0 + n], **kw)
+    return o.reshape(b, hkv, g, d)
+
+
+# ---------------------------------------------------------------------------
+# the ops
+# ---------------------------------------------------------------------------
+def _check(name, exp_mode, quantize_scores, act_block, d):
+    if exp_mode not in ("float", "mxint"):
+        raise ValueError(f"{name}: exp_mode {exp_mode!r}")
+    if quantize_scores and exp_mode != "mxint":
+        raise ValueError(f"{name}: quantize_scores is the MXInt datapath "
+                         f"and needs exp_mode='mxint'")
+    if TILE_K % act_block:
+        raise ValueError(f"{name}: act block {act_block} does not divide "
+                         f"the {TILE_K}-key tile")
+    if d > MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"{name}: head dim {d} > {MAX_HEAD_DIM}, which the kernels do "
+            f"not take")
+
+
+def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
+                 r_bits, scale):
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the flash kernels take float32 or bfloat16")
+    if act_block > MAX_ACT_BLOCK or act_block & (act_block - 1):
+        raise ValueError(f"the flash kernels take act blocks that are powers "
+                         f"of two <= {MAX_ACT_BLOCK}")
+    lut = lut_tensor(luts.pow2_table(r_bits), x.device)
+    return lut, [int(exp_mode == "mxint"), int(quantize_scores), act_block,
+                 mant_bits, 2 ** r_bits, f32(scale), LOG2E,
+                 int(x.dtype == torch.bfloat16)]
+
+
+_TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    exp_mode: str = "float", r_bits: int = 2,
+                    quantize_scores: bool = False, act_block: int = 16,
+                    mant_bits: int = 8, scale: float = None,
+                    kv_groups: int = 1) -> torch.Tensor:
+    """q: (BH, Sq, D); k, v: (BH // kv_groups, Sk, D), query head b reads KV
+    head b // kv_groups.  Any Sq, Sk; D <= 128.  Returns (BH, Sq, D) in
+    q's dtype.  ``act_block`` must already be resolved against the tile."""
+    bh, sq, d = q.shape
+    bhkv, sk, _ = k.shape
+    if bh != bhkv * kv_groups:
+        raise ValueError(f"{bh} query heads, {bhkv} KV heads, "
+                         f"kv_groups {kv_groups}")
+    _check("flash_attention", exp_mode, quantize_scores, act_block, d)
+    scale = f32(d ** -0.5 if scale is None else scale)
+    kw = dict(exp_mode=exp_mode, r_bits=r_bits,
+              quantize_scores=quantize_scores, act_block=act_block,
+              mant_bits=mant_bits, scale=scale)
+    if q.device.type == "cpu":
+        return flash_rows(q, k, v, causal=causal, window=window,
+                          kv_groups=kv_groups, **kw).to(q.dtype)
+    global launches
+    lut, tail = _kernel_args(q, exp_mode, quantize_scores, act_block,
+                             mant_bits, r_bits, scale)
+    _build.require_cuda("flash_attention", q, k, v, lut)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: q, k and v must share a dtype")
+    out = torch.empty_like(q)
+    fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 +
+                      [ctypes.c_int] * 7 + _TAIL)
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
+            out.data_ptr(), bh, sq, sk, d, kv_groups, int(causal),
+            int(window), *tail, _build.stream_ptr(q.device))
+    _build.check(rc, "flash_attention")
+    launches += 1
+    return out
+
+
+def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           valid: torch.Tensor, *, exp_mode: str = "float",
+                           r_bits: int = 2, quantize_scores: bool = False,
+                           act_block: int = 16, mant_bits: int = 8,
+                           scale: float = None) -> torch.Tensor:
+    """Single-position decode over a KV cache ring.  q: (B, Hkv, G, D), the
+    G query heads of a KV head as rows; k, v: (B, W, Hkv, D), the cache's
+    native layout; valid: (B, W), nonzero where row b's slot holds a live
+    key.  Returns (B, Hkv, G, D) in q's dtype."""
+    b, hkv, g, d = q.shape
+    W = k.shape[1]
+    _check("flash_attention_decode", exp_mode, quantize_scores, act_block, d)
+    scale = f32(d ** -0.5 if scale is None else scale)
+    kw = dict(exp_mode=exp_mode, r_bits=r_bits,
+              quantize_scores=quantize_scores, act_block=act_block,
+              mant_bits=mant_bits, scale=scale)
+    if q.device.type == "cpu":
+        return decode_rows(q, k, v, valid, **kw).to(q.dtype)
+    global decode_launches
+    lut, tail = _kernel_args(q, exp_mode, quantize_scores, act_block,
+                             mant_bits, r_bits, scale)
+    valid = valid.to(torch.int32)
+    _build.require_cuda("flash_attention_decode", q, k, v, valid, lut)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention_decode: q, k and v must share a "
+                         "dtype")
+    out = torch.empty_like(q)
+    fn = _build.entry("flash_attention_decode", [ctypes.c_void_p] * 6 +
+                      [ctypes.c_int] * 5 + _TAIL, lib="flash_attention")
+    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            lut.data_ptr(), out.data_ptr(), b, hkv, g, W, d, *tail,
+            _build.stream_ptr(q.device))
+    _build.check(rc, "flash_attention_decode")
+    decode_launches += 1
+    return out

@@ -179,6 +179,7 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                               mant_bits=mant_bits, lut_bits=lut_bits,
                               rms_only=rms_only, quantize_out=quantize_out)
     global launches
+    gamma, beta = gamma.to(torch.float32), beta.to(torch.float32)
     if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
             2 ** lut_bits > MAX_LUT:
         raise ValueError("mxint_layernorm kernel takes f32 rows, act_block "

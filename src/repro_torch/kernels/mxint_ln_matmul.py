@@ -40,6 +40,20 @@ from repro_torch.kernels.mxint_matmul import (ACT_BLOCK, check_planes,
 launches = 0
 
 
+def ln_matmul_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                   w_mant: torch.Tensor, w_exp: torch.Tensor, *,
+                   w_block: int, act_block: int, mant_bits: int,
+                   lut_bits: int, rms_only: bool) -> torch.Tensor:
+    """Plain version: the LN rows, quantized onto the act grid, through
+    x.dtype and back, then the matmul's block products in K order."""
+    y = layernorm_rows(x.to(torch.float32), gamma, beta, act_block=act_block,
+                       mant_bits=mant_bits, lut_bits=lut_bits,
+                       rms_only=rms_only, quantize_out=True)
+    y = y.to(x.dtype).to(torch.float32)            # the x.dtype round trip
+    return matmul_blocks(y, w_mant, w_exp, w_block=w_block,
+                         act_block=act_block, act_mant_bits=mant_bits)
+
+
 def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     beta: Optional[torch.Tensor], w_mant: torch.Tensor,
                     w_exp: torch.Tensor, *, w_block: int, act_block: int = 16,
@@ -55,18 +69,18 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     if beta is None:
         beta = torch.zeros_like(gamma)
     if x.device.type == "cpu":
-        y = layernorm_rows(x.to(torch.float32), gamma, beta,
-                           act_block=act_block, mant_bits=mant_bits,
-                           lut_bits=lut_bits, rms_only=rms_only,
-                           quantize_out=True)
-        y = y.to(x.dtype).to(torch.float32)        # the x.dtype round trip
-        return matmul_blocks(y, w_mant, w_exp, w_block=w_block,
-                             act_block=act_block, act_mant_bits=mant_bits)
+        return ln_matmul_rows(x, gamma, beta, w_mant, w_exp, w_block=w_block,
+                              act_block=act_block, mant_bits=mant_bits,
+                              lut_bits=lut_bits, rms_only=rms_only)
     global launches
-    if x.dtype != torch.float32 or act_block != ACT_BLOCK or \
+    # the kernel reads float32; a bf16 model's rows and scales convert
+    # exactly (the reference's kernel reads them as f32 too)
+    x = x.to(torch.float32).contiguous()
+    gamma, beta = gamma.to(torch.float32), beta.to(torch.float32)
+    if act_block != ACT_BLOCK or \
             2 ** lut_bits > MAX_LUT or w_mant.dtype != torch.int8 or \
             w_exp.dtype != torch.int8:
-        raise ValueError("mxint_ln_matmul kernel takes f32 x, int8 planes, "
+        raise ValueError("mxint_ln_matmul kernel takes int8 planes, "
                          f"act_block == {ACT_BLOCK} and at most {MAX_LUT} "
                          "LUT entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)

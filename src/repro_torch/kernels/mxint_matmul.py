@@ -21,7 +21,12 @@ function is bound by memory.  This first kernel uses ``dp4a`` on CUDA
 cores, not ``wgmma``, so it runs far from either bound.  Each block of
 256 threads quantizes its 32 rows of x once into shared memory (int8
 mantissas plus one exponent per 16-block) and then walks its N tiles,
-staging 64x64 weight tiles through shared memory.
+staging 64x64 weight tiles through shared memory.  A K beyond 4096
+(Llama-3-8B's FFN ``wo``, K 14336) does not fit shared memory whole: the
+same launch then walks K in 4096-wide chunks, quantizes each in turn and
+adds its block products onto the partial sums of the block's (at most 8)
+N tiles, which stay in registers, in the same K order.  One call is one
+launch.
 
 The plain version accumulates the same block products in the same order,
 so kernel and plain version agree bit for bit; against the reference's
@@ -30,31 +35,43 @@ f32 dot they differ in the order of the f32 sums across blocks.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import block_quantize_rows
+from repro_torch.kernels.mxint_layernorm import (block_quantize_rows,
+                                                 lut_tensor)
 
 ACT_BLOCK = 16        # the CUDA kernel's activation block
 
 launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def _pow2_table() -> tuple:
+    """pow2i(n) for every block scale exponent n = e_x + e_w in [-254,
+    254] (both exponents are int8 in [-127, 127])."""
+    return tuple(pow2i(torch.arange(-254, 255)).tolist())
+
+
 def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                   *, w_block: int, act_block: int,
                   act_mant_bits: int) -> torch.Tensor:
-    """Plain version: block products summed in increasing K order."""
+    """Plain version: block products summed in increasing K order.  The
+    block scales come from a table of ``pow2i``, the same exact values."""
     M, K = x.shape
     N = w_mant.shape[1]
     nb = K // act_block
     xm, xe = block_quantize_rows(x, act_block, act_mant_bits)
     wm = w_mant.to(torch.float32).reshape(nb, act_block, N)
     we = w_exp.to(torch.int32).repeat_interleave(w_block // act_block, dim=0)
+    table = lut_tensor(_pow2_table(), x.device)
+    xe = xe + 254
     acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
     for k in range(nb):
-        acc = acc + (xm[:, k] @ wm[k]) * pow2i(xe[:, k, None] + we[None, k])
+        acc = acc + (xm[:, k] @ wm[k]) * table[xe[:, k, None] + we[None, k]]
     return acc
 
 

@@ -3,8 +3,9 @@
 Counterpart of ``repro.kernels.ops`` for the kernels this port has: the
 wrappers flatten leading dims into rows, resolve block sizes exactly as
 ``repro.core.quantize._resolve_block`` does, call the kernel op and add
-any bias after it.  The kernels take every DeiT shape as it is (ragged
-rows, N = 1000, K = 192, 197-length rows), so nothing is padded.
+any bias after it.  The kernels take every shape as it is (ragged rows,
+N = 1000, K = 192, 197-length rows, key counts that are not a multiple
+of the flash tile), so nothing is padded in memory.
 """
 from __future__ import annotations
 
@@ -12,7 +13,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.mx_types import NEG_INF
 from repro_torch.core.quantize import _resolve_block
+from repro_torch.kernels.flash_attention import (TILE_K, flash_attention,
+                                                 flash_attention_decode)
 from repro_torch.kernels.mxint_gelu import mxint_gelu
 from repro_torch.kernels.mxint_layernorm import f32, mxint_layernorm
 from repro_torch.kernels.mxint_ln_matmul import mxint_ln_matmul
@@ -20,8 +24,7 @@ from repro_torch.kernels.mxint_matmul import mxint_matmul
 from repro_torch.kernels.mxint_softmax import mxint_softmax
 
 # the whole-row 'paper' attention holds the full score matrix; beyond this
-# many scores per (batch, head) the reference switches to its blocked
-# flash kernel, which the LM slice of the port brings
+# many scores per (batch, head) the backend takes the blocked flash kernel
 PAPER_MAX_SCORES = 512 * 512
 
 
@@ -100,29 +103,100 @@ def mxint_gelu_op(x: torch.Tensor, *, fn: str = "gelu", act_block: int = 16,
     return y.reshape(x.shape)
 
 
-def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                 act_block: int = 16, mant_bits: int = 8,
-                 r_bits: int = 2) -> torch.Tensor:
-    """(B, H, S, D) unmasked attention, the whole-row 'paper' variant.
+def _paper_softmax_attention(qf, kf, vf, *, causal: bool, window: int,
+                             act_block: int, mant_bits: int, r_bits: int,
+                             groups: int) -> torch.Tensor:
+    """Whole-row attention: the score and P.V products stay
+    ``torch.matmul`` (the reference leaves them to XLA outside any Pallas
+    kernel) and the Eq. 14-20 softmax runs in the softmax kernel.  qf:
+    (b*kv, g*sq, d) with the g query heads of a KV head as group-major
+    rows, so the query position of row i is i % sq."""
+    gsq, d = qf.shape[1], qf.shape[2]
+    sq, sk = gsq // groups, kf.shape[1]
+    s = torch.matmul(qf, kf.transpose(1, 2)) * f32(d ** -0.5)
+    masked = bool(causal or window > 0)
+    if masked:
+        q_pos = (torch.arange(gsq, device=qf.device) % sq)[:, None]
+        k_pos = torch.arange(sk, device=qf.device)[None, :]
+        mask = torch.ones((gsq, sk), dtype=torch.bool, device=qf.device)
+        if causal:
+            mask &= q_pos >= k_pos
+        if window > 0:
+            mask &= (q_pos - k_pos) < window
+        s = torch.where(mask[None], s, NEG_INF)
+    p = mxint_softmax_op(s, act_block=act_block, mant_bits=mant_bits,
+                         r_bits=r_bits, quantize_out=True)
+    if masked:
+        p = torch.where(mask[None], p, 0.0)
+    return torch.matmul(p, vf)
 
-    The score and P.V products stay ``torch.matmul`` (the reference leaves
-    them to XLA outside any Pallas kernel); the Eq. 14-20 softmax runs in
-    the softmax kernel, probabilities quantized on the act grid.  K and V
-    may carry fewer heads than q (GQA, laid out KV-major); the group folds
-    into query rows, so K/V are never copied per query head.
+
+def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 causal: bool = True, window: int = 0,
+                 exp_mode: str = "float", r_bits: int = 2,
+                 quantize_scores: bool = False,
+                 softmax_variant: str = "online", act_block: int = 16,
+                 mant_bits: int = 8) -> torch.Tensor:
+    """(B, H, S, D) attention through the kernels.
+
+    softmax_variant:
+      'online' -- the flash kernel (online softmax over 128-key tiles);
+                  ``exp_mode='mxint'`` runs the Eq. 14-19 exp LUT in it and
+                  ``quantize_scores`` adds the Eq. 2-3 score and Eq. 20
+                  probability quantization.  Any Sq and Sk: the kernel
+                  treats keys past Sk as the reference's wrapper padding.
+      'paper'  -- whole-row MXInt softmax through the softmax kernel; it
+                  holds the whole score matrix.
+
+    K and V may carry fewer heads than q (GQA, laid out KV-major: q head i
+    reads KV head i // groups).  Neither path copies K/V per query head.
+    Head dims above 128 raise ``NotImplementedError``.
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     groups = h // hkv
-    if sq * sk > PAPER_MAX_SCORES:
-        raise NotImplementedError(
-            "score matrices beyond 512x512 need the blocked flash attention "
-            "kernel, which comes with the LM slice of the port")
-    qf = q.reshape(b * hkv, groups * sq, d).to(torch.float32)
-    kf = k.reshape(b * hkv, sk, d).to(torch.float32)
-    vf = v.reshape(b * hkv, sk, d).to(torch.float32)
-    s = torch.matmul(qf, kf.transpose(1, 2)) * f32(d ** -0.5)
-    p = mxint_softmax_op(s, act_block=act_block, mant_bits=mant_bits,
-                         r_bits=r_bits, quantize_out=True)
-    o = torch.matmul(p, vf)
-    return o.to(q.dtype).reshape(b, h, sq, d)
+    if softmax_variant == "paper":
+        o = _paper_softmax_attention(
+            q.reshape(b * hkv, groups * sq, d).to(torch.float32),
+            k.reshape(b * hkv, sk, d).to(torch.float32),
+            v.reshape(b * hkv, sk, d).to(torch.float32), causal=causal,
+            window=window, act_block=act_block, mant_bits=mant_bits,
+            r_bits=r_bits, groups=groups)
+        return o.to(q.dtype).reshape(b, h, sq, d)
+    if quantize_scores:
+        act_block = _resolve_block(TILE_K, act_block)
+    o = flash_attention(
+        q.reshape(b * h, sq, d).contiguous(),
+        k.reshape(b * hkv, sk, d).contiguous(),
+        v.reshape(b * hkv, sk, d).contiguous(), causal=causal,
+        window=window, exp_mode=exp_mode, r_bits=r_bits,
+        quantize_scores=quantize_scores, act_block=act_block,
+        mant_bits=mant_bits, scale=d ** -0.5, kv_groups=groups)
+    return o.reshape(b, h, sq, d)
+
+
+def attention_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid: torch.Tensor, *, exp_mode: str = "float",
+                        r_bits: int = 2, quantize_scores: bool = False,
+                        act_block: int = 16,
+                        mant_bits: int = 8) -> torch.Tensor:
+    """Single-position decode attention over a KV cache ring.
+
+    q: (B, Hkv, G, D), the G query heads of each KV head as rows; k, v:
+    (B, W, Hkv, D) in the cache's native layout (not transposed or copied
+    per step); valid: (B, W) nonzero where row b's slot holds a live key
+    (a (W,) vector is shared by the batch).  Returns (B, Hkv, G, D).
+    Invalid slots follow the model's NEG_INF masking through the
+    quantizer; the kernel treats slots past W as the reference's wrapper
+    padding.
+    """
+    b, W = q.shape[0], k.shape[1]
+    if valid.ndim == 1:
+        valid = valid[None, :].expand(b, W)
+    if quantize_scores:
+        act_block = _resolve_block(TILE_K, act_block)
+    return flash_attention_decode(
+        q.contiguous(), k.contiguous(), v.contiguous(),
+        valid.to(torch.int32).contiguous(), exp_mode=exp_mode,
+        r_bits=r_bits, quantize_scores=quantize_scores, act_block=act_block,
+        mant_bits=mant_bits, scale=q.shape[-1] ** -0.5)

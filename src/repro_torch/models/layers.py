@@ -11,7 +11,31 @@ from typing import Optional
 import torch
 
 from repro_torch.core.mx_types import QuantConfig
+from repro_torch.core.quantize import MXTensor
 from repro_torch.models.model_api import Param
+
+
+def embed_lookup(tokens: torch.Tensor, table: Param, q: QuantConfig,
+                 dtype) -> torch.Tensor:
+    """Rows of the embedding table for ``tokens``.  A packed table has its
+    mantissa and exponent rows gathered first and only those dequantized:
+    the same bits as dequantizing the whole (vocab, d) table, which never
+    happens per step."""
+    tv = table.value
+    if isinstance(tv, MXTensor):
+        tv = tv._replace(mantissa=tv.mantissa[tokens],
+                         exponent=tv.exponent[tokens])
+    else:
+        tv = tv[tokens]
+    return q.datapath.weight_value(tv, q=q, dtype=dtype)
+
+
+def unembed(x: torch.Tensor, table: Param, q: QuantConfig) -> torch.Tensor:
+    """x (..., d) against the (vocab, d) table: the dequantized table in a
+    plain ``torch.matmul``, a product the reference leaves outside any
+    kernel."""
+    tf = q.datapath.weight_value(table.value, q=q, dtype=x.dtype)
+    return torch.matmul(x, tf.t())
 
 
 def linear(x: torch.Tensor, w: Param, b: Optional[Param] = None, *,
@@ -68,22 +92,56 @@ def prenorm_linears(x, prenorm, weights, q: QuantConfig, eps: float):
     return x, None
 
 
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float) -> torch.Tensor:
+    """Rotary embedding.  x: (..., seq, heads, hd); positions: (..., seq).
+
+    The frequency ladder is float32, as the reference computes it, and is
+    built on the host, so every device gets the same bits.  cos and sin of
+    the float32 angles run in float64 and round once to float32: the
+    correctly rounded values, the same on every device (a CPU and a GPU
+    float32 ``cos`` differ in their last bit on about 5% of these angles).
+    """
+    half = x.shape[-1] // 2
+    log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32) *
+                      (log_theta / half)).to(x.device)
+    ang = (positions[..., None].to(torch.float32) * freqs).double()
+    cos = torch.cos(ang).float()[..., None, :]
+    sin = torch.sin(ang).float()[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def ffn(x: torch.Tensor, p, kind: str, q: QuantConfig, prenorm=None,
         eps: float = 1e-6, scope: Optional[str] = None) -> torch.Tensor:
-    """The plain GELU MLP: act(x @ wi + bi) @ wo + bo.
+    """p: wi/wg/wo for the gated kinds ('swiglu': act(x wg) is SiLU,
+    'geglu': GELU), wi/wo (+ bi/bo) for the plain GELU MLP:
+    gated:  (x wi * act(x wg)) wo;  plain:  act(x wi + bi) wo + bo.
 
-    ``prenorm``: optional ('ln'|'rms', gamma, beta), folded into ``wi``
-    through the ``layernorm_linear`` composite when the backend fuses it.
-    The gated kinds come with the LM slice.
+    ``prenorm``: optional ('ln'|'rms', gamma, beta), folded into the input
+    linears through the ``layernorm_linear`` composite when the backend
+    fuses it.
     """
-    if kind != "gelu":
-        raise NotImplementedError(f"ffn kind {kind!r} comes with the LM slice")
     q = q.scoped(scope)
-    x, prenorm = prenorm_linears(x, prenorm, [p["wi"]], q, eps)
-    if prenorm is None:
-        h = linear(x, p["wi"], p.get("bi"), q=q)
-    else:
+    gated = kind in ("swiglu", "geglu")
+    if not gated and kind != "gelu":
+        raise ValueError(f"ffn kind {kind!r}")
+    ins = [p["wi"], p["wg"]] if gated else [p["wi"]]
+    x, prenorm = prenorm_linears(x, prenorm, ins, q, eps)
+
+    def in_linear(w, b=None):
+        if prenorm is None:
+            return linear(x, w, b, q=q)
         nk, g, b_ = prenorm
-        h = layernorm_linear(x, g, b_, p["wi"], p.get("bi"), q=q, eps=eps,
-                             rms_only=(nk == "rms"))
-    return linear(act_fn(h, "gelu", q), p["wo"], p.get("bo"), q=q)
+        return layernorm_linear(x, g, b_, w, b, q=q, eps=eps,
+                                rms_only=(nk == "rms"))
+
+    if gated:
+        up = in_linear(p["wi"])
+        gate = act_fn(in_linear(p["wg"]),
+                      "silu" if kind == "swiglu" else "gelu", q)
+        return linear(up * gate, p["wo"], q=q)
+    h = act_fn(in_linear(p["wi"], p.get("bi")), "gelu", q)
+    return linear(h, p["wo"], p.get("bo"), q=q)

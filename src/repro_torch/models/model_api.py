@@ -3,8 +3,9 @@
 Parameters are ``Param(value, axes)``: a tensor (or packed ``MXTensor``)
 plus the tuple of logical axis names the reference gives it.  The axes
 decide which weights ``pack_params_mxint`` packs and along which axis,
-exactly as in the reference.  Parameter trees are nested dicts; blocks are
-stacked on a leading "layers" axis, and the model loops over the layers.
+exactly as in the reference.  Parameter trees are nested dicts; the ViT
+stacks its blocks on a leading "layers" axis, the decoder LM keeps one
+tree per layer, and both loop over the layers in Python.
 """
 from __future__ import annotations
 
@@ -27,16 +28,23 @@ def is_param(x) -> bool:
 
 
 def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every ``Param`` leaf of a nested-dict tree."""
+    """Apply ``fn`` to every ``Param`` leaf of a tree of dicts and lists."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map(fn, v) for v in tree]
     return fn(tree)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ViT family
-    reads."""
+    and the dense decoder LM read.
+
+    unit: the repeating pattern of block kinds; the port's decoder runs
+    ``("attn",)`` stacks.  window / local_attn_window: sliding-window size
+    of the attention blocks, 0 for full attention.
+    """
 
     name: str = "model"
     n_layers: int = 4
@@ -44,18 +52,34 @@ class ModelConfig:
     n_heads: int = 8
     n_kv_heads: int = 8
     d_ff: int = 2048
+    vocab: int = 32000
     head_dim: Optional[int] = None
+    unit: Tuple[str, ...] = ("attn",)
+    rope_theta: float = 10000.0
+    qk_norm: bool = False
+    window: int = 0
+    local_attn_window: int = 0
+    ffn_kind: str = "swiglu"
     image_size: int = 224
     patch_size: int = 16
     n_classes: int = 1000
     pool: str = "cls"
     dtype: Any = torch.float32
     norm_eps: float = 1e-6
+    tie_embeddings: bool = False
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
 
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def resolved_n_units(self) -> int:
+        """Repeats of ``unit`` that tile the stack."""
+        if self.n_layers % len(self.unit):
+            raise ValueError(f"unit {self.unit} does not tile "
+                             f"{self.n_layers} layers")
+        return self.n_layers // len(self.unit)
 
 
 def dense_init(gen: torch.Generator, shape, axes, scale=None,

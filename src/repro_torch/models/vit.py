@@ -118,9 +118,10 @@ class ViT:
         x = x + params["pos_embed"].value.to(x.dtype)[None]
         for i in range(cfg.n_layers):
             bp = layer_params(params["blocks"], i)
-            o = A.attention(bp["attn"], x, cfg, quant=quant,
-                            prenorm=("ln", bp["ln1_g"], bp["ln1_b"]),
-                            scope=f"block/{i}/attn")
+            o, _ = A.attention(bp["attn"], x, cfg, quant=quant,
+                               causal=False, use_rope=False,
+                               prenorm=("ln", bp["ln1_g"], bp["ln1_b"]),
+                               scope=f"block/{i}/attn")
             x = x + o
             x = x + L.ffn(x, bp["ffn"], "gelu", quant,
                           prenorm=("ln", bp["ln2_g"], bp["ln2_b"]),

@@ -1,20 +1,23 @@
-"""Serving: packed-MXInt weights and the ViT classification engine.
+"""Serving: packed-MXInt weights, the token engine and the ViT engine.
 
 ``pack_params_mxint`` turns large matmul weights into ``MXTensor`` planes
 (int8 mantissas plus int8 shared exponents), the paper's weight format,
-with the reference's packing rules.  ``ViTServingEngine`` serves a
-classifier on one device in fixed-size batches.  The port runs eagerly, so
-there is no compile cache to watch.
+with the reference's packing rules.  ``ServingEngine`` serves a decoder LM:
+prefill, slot prefill (one request into one row of a live cache, which
+the per-row ``cache['index']`` makes sound) and batched decode steps.
+``ViTServingEngine`` serves a classifier in fixed-size batches.  Both run
+on one device, eagerly, so there is no compile cache to watch.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.mx_types import MXINT6_WEIGHT, MXFormat
-from repro_torch.core.quantize import pack_weight
+from repro_torch.core.quantize import MXTensor, pack_weight
 from repro_torch.models.model_api import Param, tree_map
 
 
@@ -22,12 +25,19 @@ from repro_torch.models.model_api import Param, tree_map
 class ServeConfig:
     """Engine knobs.
 
+    max_len: KV-cache capacity (token engines only).
     batch: the fixed batch shape; requests are padded or packed to it.
     pack_weights / weight_fmt: pack large matmul weights to MXInt planes.
+    temperature: 0 is greedy decoding; above 0 each decode step samples
+      from softmax(logits / temperature) with the engine's seeded
+      generator (a prompt's first token stays greedy, as in the
+      reference).
     """
+    max_len: int = 4096
     batch: int = 8
     pack_weights: bool = False
     weight_fmt: MXFormat = None
+    temperature: float = 0.0
 
     def __post_init__(self):
         if self.pack_weights and self.weight_fmt is None:
@@ -37,10 +47,11 @@ class ServeConfig:
 _PACK_MIN_SIZE = 1 << 14       # don't pack tiny tensors (norm scales, biases)
 
 
-def _contraction_axis(p: Param) -> int:
+def contraction_axis(p: Param) -> int:
     """Blocks run along the reduction dim of the consuming matmul: axis 1
-    of expert stacks, the last axis of vocab/class tables, else the
-    second-to-last axis (axis 1 of a layer-stacked (L, d_in, d_out))."""
+    of expert stacks, the last axis of vocab/class tables (rows are looked
+    up whole; the unembedding contracts d), else the second-to-last axis
+    (axis 1 of a layer-stacked (L, d_in, d_out))."""
     axes = p.axes
     if axes and axes[0] == "expert":
         return 1
@@ -49,29 +60,40 @@ def _contraction_axis(p: Param) -> int:
     return max(len(axes) - 2, 0)
 
 
-def _should_pack(p: Param) -> bool:
+def should_pack(p: Param, stack: int = 1) -> bool:
+    """The reference's packing rule.  ``stack``: the number of layers the
+    leaf is one of when the tree keeps one leaf per layer; the size rule
+    counts the whole stack, as the reference's stacked leaves do."""
+    if isinstance(p.value, MXTensor):
+        return False            # packed already
     shape = tuple(p.value.shape)
     axes = p.axes
-    if axes and axes[_contraction_axis(p)] is None:
+    if axes and axes[contraction_axis(p)] is None:
         return False            # positional tables are added, not matmul'd
     eff = shape[1:] if axes and axes[0] == "layers" else shape
     if len(eff) < 2:
         return False            # norm scales / biases stay unpacked
-    if int(np.prod(shape)) < _PACK_MIN_SIZE:
+    if stack * int(np.prod(shape)) < _PACK_MIN_SIZE:
         return False
-    return shape[_contraction_axis(p)] >= 16
+    return shape[contraction_axis(p)] >= 16
 
 
 def pack_params_mxint(params, fmt: MXFormat):
     """Param tree -> Param tree with ``MXTensor`` values on large matmul
-    weights, blocks along the contraction axis; everything else as is."""
-    def pack(p: Param) -> Param:
-        if not _should_pack(p):
-            return p
-        return Param(pack_weight(p.value.to(torch.float32), fmt,
-                                 axis=_contraction_axis(p)), p.axes)
+    weights, blocks along the contraction axis; everything else as is.
+    The leaves of a list (the decoder's per-layer trees) are sized as one
+    stack."""
+    def walk(tree, stack):
+        if isinstance(tree, dict):
+            return {k: walk(v, stack) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [walk(v, len(tree)) for v in tree]
+        if not should_pack(tree, stack):
+            return tree
+        return Param(pack_weight(tree.value.to(torch.float32), fmt,
+                                 axis=contraction_axis(tree)), tree.axes)
 
-    return tree_map(pack, params)
+    return walk(params, 1)
 
 
 def params_to(params, device):
@@ -79,13 +101,120 @@ def params_to(params, device):
     return tree_map(lambda p: Param(p.value.to(device), p.axes), params)
 
 
-def _device(device) -> torch.device:
+def _device(device, engine: str) -> torch.device:
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("ViTServingEngine runs on cuda by default and no "
-                           "CUDA device is available; pass device='cpu' to "
-                           "run the plain versions of the kernels")
+        raise RuntimeError(f"{engine} runs on cuda by default and no CUDA "
+                           f"device is available; pass device='cpu' to run "
+                           f"the plain versions of the kernels")
     return device
+
+
+def make_prefill_step(model) -> Callable:
+    def prefill_step(params, batch, cache):
+        return model.prefill(params, batch["tokens"], cache)
+
+    return prefill_step
+
+
+def make_slot_prefill_step(model, max_len: int, device) -> Callable:
+    """Prefill ONE request into ONE row of a live batch cache.
+
+    Runs a batch-1 prefill of the right-padded prompt ``tokens`` (1, P)
+    with real length ``length`` into a fresh cache, then copies every leaf
+    into row ``slot`` of the live ``cache`` along its "batch" axis
+    (``model.cache_axes()``), leaving the other rows untouched.  Returns
+    (the greedy first token (1,), the cache, updated in place)."""
+    axes = model.cache_axes()
+
+    def scatter(dst, src, ax, slot):
+        if isinstance(dst, dict):
+            for k in dst:
+                scatter(dst[k], src[k], ax[k], slot)
+        elif isinstance(dst, list):
+            for d_, s_, a_ in zip(dst, src, ax):
+                scatter(d_, s_, a_, slot)
+        else:
+            bi = ax.index("batch")
+            dst.select(bi, slot).copy_(src.select(bi, 0))
+
+    @torch.no_grad()
+    def slot_prefill(params, tokens, length, slot, cache):
+        tmp = model.cache_init(1, max_len, device)
+        logits, tmp = model.prefill(params, tokens, tmp,
+                                    lengths=torch.as_tensor(
+                                        [length], device=tokens.device))
+        scatter(cache, tmp, axes, int(slot))
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        return tok, cache
+
+    return slot_prefill
+
+
+def make_decode_step(model, temperature: float = 0.0,
+                     gen: torch.Generator = None) -> Callable:
+    """One decode step: greedy, or with ``temperature > 0`` sampled with
+    ``gen``."""
+    if temperature > 0.0 and gen is None:
+        raise ValueError("sampling at temperature > 0 needs a generator")
+
+    @torch.no_grad()
+    def decode_step(params, tokens, cache):
+        logits, cache = model.decode_step(params, tokens, cache)
+        last = logits[:, -1].to(torch.float32)
+        if temperature > 0.0:
+            probs = torch.softmax(last / temperature, dim=-1)
+            nxt = torch.multinomial(probs, 1, generator=gen)[:, 0]
+        else:
+            nxt = torch.argmax(last, dim=-1)
+        return nxt.to(torch.int32)[:, None], cache
+
+    return decode_step
+
+
+class ServingEngine:
+    """Token generation for a decoder LM on one device.
+
+    With ``pack_weights=True`` and a model config in kernel mode, every
+    linear reads packed int8 planes and every decode step scores the KV
+    ring in the decode attention kernel.  ``BatchScheduler`` drives
+    ``_prefill_slot`` and ``_decode``; ``generate`` serves one batch.
+    ``seed`` seeds the generator that sampling (``temperature > 0``)
+    draws from.
+    """
+
+    def __init__(self, model, params, serve_cfg: ServeConfig,
+                 device="cuda", seed: int = 0):
+        self.model = model
+        self.cfg = serve_cfg
+        self.device = _device(device, "ServingEngine")
+        if serve_cfg.pack_weights:
+            params = pack_params_mxint(params, serve_cfg.weight_fmt)
+        self.params = params_to(params, self.device)
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(seed)
+        self._prefill = make_prefill_step(model)
+        self._decode = make_decode_step(model, serve_cfg.temperature,
+                                        self.gen)
+        self._prefill_slot = make_slot_prefill_step(model, serve_cfg.max_len,
+                                                    self.device)
+
+    @torch.no_grad()
+    def generate(self, batch, max_new_tokens: int = 16) -> torch.Tensor:
+        """batch['tokens']: (b, s) prompts of one length -> (b,
+        max_new_tokens) tokens: the first greedy, the rest greedy or, at
+        temperature > 0, sampled."""
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
+                                 device=self.device)
+        cache = self.model.cache_init(tokens.shape[0], self.cfg.max_len,
+                                      self.device)
+        logits, cache = self._prefill(self.params, {"tokens": tokens}, cache)
+        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        out = [tok]
+        for _ in range(max_new_tokens - 1):
+            tok, cache = self._decode(self.params, tok, cache)
+            out.append(tok)
+        return torch.cat(out, dim=1)
 
 
 class ViTServingEngine:
@@ -101,7 +230,7 @@ class ViTServingEngine:
                  device="cuda"):
         self.model = model
         self.cfg = serve_cfg
-        self.device = _device(device)
+        self.device = _device(device, "ViTServingEngine")
         if serve_cfg.pack_weights:
             params = pack_params_mxint(params, serve_cfg.weight_fmt)
         self.params = params_to(params, self.device)

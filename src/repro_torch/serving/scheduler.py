@@ -1,9 +1,18 @@
-"""Continuous batching for stateless classification.
+"""Continuous-batching request schedulers (host side).
 
-``ClassifyScheduler`` packs up to ``batch`` images per step from the
-front of the queue, across request boundaries, zero-padding only the
-final partial chunk; a request completes when its last image is
+``BatchScheduler`` (token engines) keeps a fixed-width decode batch with
+slot-level admission: the KV cache carries a per-row ``cache['index']``,
+so a finished row is evicted and the next queued request prefilled into
+that row (one batch-1 slot prefill) while the other rows keep decoding.
+``admission='wave'`` keeps the whole-batch-drain policy as a baseline.
+
+``ClassifyScheduler`` (ViT engines) packs up to ``batch`` images per step
+from the front of the queue, across request boundaries, zero-padding only
+the final partial chunk; a request completes when its last image is
 classified.  Every step runs the same (batch, H, W, 3) shape.
+
+The reference's schedulers also publish telemetry; that waits for the
+telemetry port (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -12,6 +21,141 @@ from collections import deque
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Request:
+    """One token-generation request.
+
+    prompt: (s,) int32 token ids; generated: filled by the scheduler;
+    done: set on EOS or when ``max_new_tokens`` is reached."""
+    uid: int
+    prompt: np.ndarray
+    max_new_tokens: int = 16
+    generated: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class BatchScheduler:
+    """Slot-level continuous batching around a ``ServingEngine``.
+
+    batch_size: the fixed decode width.  eos_id: optional stop token.
+    prefill_len: fixed (1, P) slot-prefill shape, prompts right-padded to
+    it (a longer prompt raises at ``submit``); ``None`` pads each prompt to
+    the next power of two, at least 8.  admission: 'slot' fills every
+    freed row at each step; 'wave' waits until the whole batch has
+    drained.
+
+    A request's first token comes from its prefill logits, the rest from
+    decode steps, the same tokens as serving that request alone.
+    """
+
+    def __init__(self, engine, batch_size: int, eos_id: Optional[int] = None,
+                 prefill_len: Optional[int] = None, admission: str = "slot"):
+        if admission not in ("slot", "wave"):
+            raise ValueError(admission)
+        self.engine = engine
+        self.batch = batch_size
+        self.eos = eos_id
+        self.prefill_len = prefill_len
+        self.admission = admission
+        self.queue: deque = deque()
+        self.active: List[Optional[Request]] = [None] * batch_size
+        self.finished: List[Request] = []
+        self._tok = None               # (batch, 1) int32 numpy
+        self._cache = None
+
+    def submit(self, req: Request):
+        """Enqueue; admitted into the next freed row (FIFO)."""
+        if self.prefill_len is not None and \
+                len(req.prompt) > self.prefill_len:
+            raise ValueError(
+                f"prompt length {len(req.prompt)} > prefill_len "
+                f"{self.prefill_len}")
+        self.queue.append(req)
+
+    def _bucket(self, n: int) -> int:
+        """Slot-prefill pad length of an ``n``-token prompt."""
+        if self.prefill_len is not None:
+            return self.prefill_len
+        p = 8
+        while p < n:
+            p *= 2
+        return p
+
+    def _record(self, req: Request, tok: int):
+        req.generated.append(tok)
+        if (self.eos is not None and tok == self.eos) or \
+                len(req.generated) >= req.max_new_tokens:
+            req.done = True
+
+    def _evict(self):
+        """Move done requests out of their rows; in wave mode only once
+        the whole batch is done."""
+        if self.admission == "wave" and \
+                any(r is not None and not r.done for r in self.active):
+            return
+        for i, r in enumerate(self.active):
+            if r is not None and r.done:
+                self.finished.append(r)
+                self.active[i] = None
+
+    def _admit(self):
+        """Fill free rows from the queue front, one slot prefill each."""
+        if not self.queue:
+            return
+        if self.admission == "wave" and \
+                any(r is not None for r in self.active):
+            return
+        eng = self.engine
+        for i in range(self.batch):
+            if not self.queue or self.active[i] is not None:
+                continue
+            req = self.queue.popleft()
+            if self._cache is None:
+                self._cache = eng.model.cache_init(self.batch,
+                                                   eng.cfg.max_len,
+                                                   eng.device)
+                self._tok = np.zeros((self.batch, 1), np.int32)
+            n = len(req.prompt)
+            tokens = np.zeros((1, self._bucket(n)), np.int32)
+            tokens[0, :n] = req.prompt
+            tok, self._cache = eng._prefill_slot(
+                eng.params, torch.as_tensor(tokens, device=eng.device), n, i,
+                self._cache)
+            t = int(tok[0])
+            self.active[i] = req
+            self._record(req, t)
+            self._tok[i, 0] = t
+
+    def step(self) -> int:
+        """Evict, admit, then one decode step across the batch; returns the
+        number of live requests.  Empty rows and done-but-not-evicted rows
+        decode as padding; their output is discarded."""
+        self._evict()
+        self._admit()
+        live = [r for r in self.active if r is not None and not r.done]
+        if not live:
+            return 0
+        eng = self.engine
+        tok, self._cache = eng._decode(
+            eng.params, torch.as_tensor(self._tok, device=eng.device),
+            self._cache)
+        self._tok = tok.cpu().numpy()
+        for i, r in enumerate(self.active):
+            if r is not None and not r.done:
+                self._record(r, int(self._tok[i, 0]))
+        return sum(1 for r in self.active if r is not None and not r.done)
+
+    def run(self, max_steps: int = 1024) -> List[Request]:
+        """Drain queue and batch; returns every request seen (finished
+        first, then any still in a row)."""
+        for _ in range(max_steps):
+            if self.step() == 0 and not self.queue:
+                break
+        self._evict()
+        return self.finished + [r for r in self.active if r is not None]
 
 
 @dataclasses.dataclass

@@ -1,0 +1,224 @@
+"""The plain versions of the two flash kernels against their Pallas
+functions (interpret mode), through ``ops.attention_op`` (the online path)
+and ``ops.attention_decode_op`` of both packages; and the masked
+whole-row ('paper') attention against the reference's.
+
+The plain version is what the op runs on the CPU and what the CUDA kernel
+is held to on the card.  Inputs come from numpy with a seed; the reference
+runs under two scoped fixes for the installed jax (the
+``TPUCompilerParams`` alias and an exact ``exp2`` on integer inputs).
+
+Tolerance: the q.k and P.V products and the row sum run in another order
+than the reference's (XLA's dot and reduce against the kernel's fixed
+order), and the float exp is the kernels' own (Cephes expf, about 1 ulp)
+rather than XLA's, so scores differ in their last bits.  In float mode
+that stays at the ulp level: 2e-6 of the output scale.  In mxint mode such
+a difference can move a value across a LUT-index or an Eq. 2-3 / Eq. 20
+rounding boundary, one LUT step (2^0.25) or one act-grid step of one
+probability, which moves that query row's output (32 elements at most at
+these seeds).  Each mxint case is held to 3-8 times the gap measured at
+its seed (as a fraction of the output scale, in the case's comment): a
+plain version without the interior P grid-requantize misses the reference
+by 6.7e-3 to 1.3e-2 in the quantized cases, far outside.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from repro.core.mx_types import NEG_INF as J_NEG_INF  # noqa: E402
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels.flash_attention import _PAD_FILL  # noqa: E402
+from repro_torch.core.mx_types import NEG_INF  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_reference():
+    """Run the reference on this jax: alias the renamed Pallas compiler
+    params and make ``jnp.exp2`` exact on integer-valued inputs."""
+    orig = jnp.exp2
+
+    def exact_exp2(x):
+        x = jnp.asarray(x)
+        if not jnp.issubdtype(x.dtype, jnp.floating):
+            return orig(x)
+        fl = jnp.floor(x)
+        exact = jnp.ldexp(jnp.ones_like(x),
+                          jnp.clip(fl, -300, 300).astype(jnp.int32))
+        return jnp.where(x == fl, exact, orig(x))
+
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+               raising=False)
+    mp.setattr(jnp, "exp2", exact_exp2)
+    jax.clear_caches()
+    yield
+    mp.undo()
+    jax.clear_caches()
+
+
+def _x(shape, seed, scale=1.0):
+    x = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return x * np.float32(scale)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _gap(got, want):
+    want = np.asarray(want)
+    return float(np.abs(got.numpy() - want).max()), \
+        float(np.abs(want).max())
+
+
+def test_sentinels_equal_reference():
+    assert NEG_INF == J_NEG_INF
+    assert fa.PAD_FILL == _PAD_FILL
+
+
+# (causal, window, kv_groups, exp_mode, quantize_scores, S, tolerance as a
+# fraction of the output scale); S = 300 leaves a 44-key padded last tile
+FLASH_CASES = [
+    (True, 0, 1, "float", False, 256, 2e-6),      # measured 2.7e-7
+    (True, 100, 2, "float", False, 300, 2e-6),    # measured 3.6e-7
+    (False, 0, 4, "float", False, 300, 2e-6),     # measured 5.0e-7
+    (True, 0, 2, "mxint", False, 256, 1e-3),      # measured 2.2e-4
+    (False, 0, 2, "mxint", True, 256, 2e-6),      # measured 3.6e-7
+    (True, 0, 1, "mxint", True, 300, 5e-7),       # measured 1.4e-7
+    (True, 64, 4, "mxint", True, 256, 2e-7),      # measured 3.6e-8
+    (True, 200, 4, "mxint", True, 300, 3e-3),     # measured 1.0e-3
+]
+
+
+@pytest.mark.parametrize(
+    "causal,window,groups,exp_mode,quantize,S,tol", FLASH_CASES,
+    ids=[f"{'causal' if c[0] else 'full'}-w{c[1]}-g{c[2]}-{c[3]}"
+         f"{'-q' if c[4] else ''}-S{c[5]}" for c in FLASH_CASES])
+def test_flash_plain_vs_pallas(causal, window, groups, exp_mode, quantize, S,
+                               tol):
+    b, hkv, d = 1, 2, 32
+    h = hkv * groups
+    q = _x((b, h, S, d), 1, 1.5)
+    k = _x((b, hkv, S, d), 2, 1.5)
+    v = _x((b, hkv, S, d), 3)
+    kw = dict(causal=causal, window=window, exp_mode=exp_mode,
+              quantize_scores=quantize, softmax_variant="online")
+    got = ops.attention_op(_t(q), _t(k), _t(v), **kw)
+    want = jops.attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **kw)
+    gap, scale = _gap(got, want)
+    assert got.shape == (b, h, S, d)
+    assert gap <= tol * scale, (gap, scale)
+
+
+# (kv_groups G, exp_mode, quantize_scores, W, tolerance); W = 300 pads
+DECODE_CASES = [
+    (2, "float", False, 300, 2e-6),               # measured 2.1e-7
+    (4, "float", False, 256, 2e-6),               # measured 3.9e-7
+    (2, "mxint", True, 300, 5e-7),                # measured 1.2e-7
+    (4, "mxint", True, 300, 3e-7),                # measured 6.7e-8
+    (4, "mxint", False, 300, 2e-6),               # measured 3.8e-7
+]
+
+
+@pytest.mark.parametrize(
+    "g,exp_mode,quantize,W,tol", DECODE_CASES,
+    ids=[f"g{c[0]}-{c[1]}{'-q' if c[2] else ''}-W{c[3]}"
+         for c in DECODE_CASES])
+def test_decode_plain_vs_pallas(g, exp_mode, quantize, W, tol):
+    b, hkv, d = 3, 2, 32
+    q = _x((b, hkv, g, d), 4, 1.5)
+    k = _x((b, W, hkv, d), 5, 1.5)
+    v = _x((b, W, hkv, d), 6)
+    # ragged per-row validity: a short row, a ring that wrapped (a hole in
+    # the middle), and a full row
+    valid = np.zeros((b, W), np.int32)
+    valid[0, :37] = 1
+    valid[1, :] = 1
+    valid[1, 150:170] = 0
+    valid[2, :] = 1
+    kw = dict(exp_mode=exp_mode, quantize_scores=quantize)
+    got = ops.attention_decode_op(_t(q), _t(k), _t(v), _t(valid), **kw)
+    want = jops.attention_decode_op(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(valid), **kw)
+    gap, scale = _gap(got, want)
+    assert got.shape == (b, hkv, g, d)
+    assert gap <= tol * scale, (gap, scale)
+
+
+# (causal, window, kv_groups, S): masked whole-row attention, S <= 512
+PAPER_CASES = [
+    (True, 0, 1, 197),                            # measured 7.7e-8
+    (True, 64, 2, 256),                           # measured 5.8e-8
+    (False, 100, 4, 300),                         # measured 6.6e-7
+    (True, 0, 4, 512),                            # measured 1.7e-7
+    (True, 200, 2, 512),                          # measured 5.8e-8
+]
+
+
+@pytest.mark.parametrize(
+    "causal,window,groups,S", PAPER_CASES,
+    ids=[f"{'causal' if c[0] else 'full'}-w{c[1]}-g{c[2]}-S{c[3]}"
+         for c in PAPER_CASES])
+def test_paper_attention_masked_vs_pallas(causal, window, groups, S):
+    """The 'paper' path with the causal/window masks (NEG_INF before the
+    softmax kernel, p zeroed after) and GQA folded KV-major.  The score
+    and P.V products are f32 matmuls in another order than XLA's, so a
+    score can sit one ulp off and move one probability by one act-grid
+    step: held to 3e-6 of the output scale (measured gaps in the cases'
+    comments)."""
+    b, hkv, d = 1, 2, 32
+    h = hkv * groups
+    q = _x((b, h, S, d), 11, 1.5)
+    k = _x((b, hkv, S, d), 12, 1.5)
+    v = _x((b, hkv, S, d), 13)
+    kw = dict(causal=causal, window=window, softmax_variant="paper")
+    got = ops.attention_op(_t(q), _t(k), _t(v), **kw)
+    want = jops.attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **kw)
+    gap, scale = _gap(got, want)
+    assert got.shape == (b, h, S, d)
+    assert gap <= 3e-6 * scale, (gap, scale)
+
+
+def test_decode_equals_flash_rows_of_one_query():
+    """The two plain versions share one key loop: a decode row equals the
+    non-causal flash row of the same query over the same keys."""
+    b, hkv, g, d, W = 1, 2, 2, 16, 200
+    q, k, v = _x((b, hkv, g, d), 7), _x((b, W, hkv, d), 8), \
+        _x((b, W, hkv, d), 9)
+    kw = dict(exp_mode="mxint", quantize_scores=True)
+    dec = ops.attention_decode_op(_t(q), _t(k), _t(v),
+                                  torch.ones(W, dtype=torch.int32), **kw)
+    fl = ops.attention_op(_t(q.reshape(b, hkv * g, 1, d)),
+                          _t(k.transpose(0, 2, 1, 3)),
+                          _t(v.transpose(0, 2, 1, 3)), causal=False, **kw)
+    assert torch.equal(dec.reshape(-1), fl.reshape(-1))
+
+
+def test_flash_ops_check_their_arguments():
+    q = torch.zeros(2, 8, 160)
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="mxint"):
+        fa.flash_attention(q[..., :16], q[..., :16], q[..., :16],
+                           quantize_scores=True)
+    with pytest.raises(ValueError, match="kv_groups"):
+        fa.flash_attention(q[..., :16], q[:1, :, :16], q[:1, :, :16])
+
+
+def test_cpu_calls_do_not_count_launches():
+    before = (fa.launches, fa.decode_launches)
+    q = torch.from_numpy(_x((2, 130, 16), 10))
+    fa.flash_attention(q, q, q)
+    fa.flash_attention_decode(q[None, :, :2], q[None].transpose(1, 2),
+                              q[None].transpose(1, 2),
+                              torch.ones(1, 130, dtype=torch.int32))
+    assert (fa.launches, fa.decode_launches) == before

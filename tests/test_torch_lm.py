@@ -1,0 +1,387 @@
+"""The port's decoder LM slice against the reference ``DecoderLM`` in
+kernel mode (``QuantConfig(mode='kernel', quantize_nonlinear=True)``).
+
+The reference's ``llama3_8b`` SMOKE parameters (f32) go through
+``convert.lm_params``; both packages pack them to MXInt8 planes and serve
+or score the same numpy tokens.  The reference runs under two scoped fixes
+for the installed jax (the ``TPUCompilerParams`` alias and an exact
+``exp2`` on integer inputs).
+
+The reference's steps are compiled with ``xla_backend_optimization_level``
+0.  At the default level XLA's CPU backend rounds some fused float
+expressions differently from the same operations run one by one (the
+reference's own ``jax.disable_jit()`` run differs from its jitted run),
+and with random SMOKE weights one MXInt rounding step that moves is
+enough to change a token: the top two logits lie 0.3% of their scale
+apart, one moved act-grid step moves the logits by 2.5%.  At level 0 the
+reference's jitted steps round as its op-by-op run does.
+
+Tolerance: the port's attention products and row sums run in another
+order than the reference's and its RoPE and prefill softmax call torch's
+transcendental functions rather than XLA's, so logits are held to 1e-5
+of their scale (measured gap: 0, bit-identical); generated tokens must be
+identical.
+"""
+import dataclasses
+import inspect
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from jax.experimental.pallas import tpu as pltpu  # noqa: E402
+
+from repro.configs import llama3_8b as jllama  # noqa: E402
+from repro.core.mx_types import MXINT8_WEIGHT as J_W8  # noqa: E402
+from repro.core.mx_types import NEG_INF as J_NEG_INF  # noqa: E402
+from repro.core.mx_types import QuantConfig as JQuantConfig  # noqa: E402
+from repro.models import build_model  # noqa: E402
+from repro.models.model_api import unwrap  # noqa: E402
+from repro.serving.engine import ServeConfig as JServeConfig  # noqa: E402
+from repro.serving.engine import ServingEngine as JServingEngine  # noqa: E402
+from repro.serving.engine import make_decode_step as j_decode_step  # noqa: E402
+from repro.serving.engine import make_prefill_step as j_prefill_step  # noqa: E402
+from repro.serving.engine import make_slot_prefill_step as j_slot_step  # noqa: E402
+from repro.serving.engine import pack_params_mxint as j_pack  # noqa: E402
+from repro.serving.scheduler import BatchScheduler as JBatchScheduler  # noqa: E402
+from repro.serving.scheduler import Request as JRequest  # noqa: E402
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import llama3_8b as llama  # noqa: E402
+from repro_torch.core.mx_types import (MXINT8_WEIGHT, NEG_INF,  # noqa: E402
+                                       QuantConfig)
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.models.transformer import DecoderLM  # noqa: E402
+from repro_torch.serving.engine import (ServeConfig,  # noqa: E402
+                                        ServingEngine, make_decode_step,
+                                        pack_params_mxint)
+from repro_torch.serving.scheduler import BatchScheduler, Request  # noqa: E402
+
+KERNEL = dict(mode="kernel", quantize_nonlinear=True)
+MAX_LEN = 300                # three 128-slot tiles, the last one padded
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_reference():
+    """Run the reference on this jax: alias the renamed Pallas compiler
+    params and make ``jnp.exp2`` exact on integer-valued inputs.  Each
+    torch transcendental the port calls runs once on one element first:
+    the CPU build may compute them inexactly on a first multi-threaded
+    call."""
+    orig = jnp.exp2
+
+    def exact_exp2(x):
+        x = jnp.asarray(x)
+        if not jnp.issubdtype(x.dtype, jnp.floating):
+            return orig(x)
+        fl = jnp.floor(x)
+        exact = jnp.ldexp(jnp.ones_like(x),
+                          jnp.clip(fl, -300, 300).astype(jnp.int32))
+        return jnp.where(x == fl, exact, orig(x))
+
+    for fn in (torch.exp, torch.sin, torch.cos, torch.log):
+        fn(torch.ones(1))
+    mp = pytest.MonkeyPatch()
+    mp.setattr(pltpu, "TPUCompilerParams", pltpu.CompilerParams,
+               raising=False)
+    mp.setattr(jnp, "exp2", exact_exp2)
+    jax.clear_caches()
+    yield
+    mp.undo()
+    jax.clear_caches()
+
+
+def _ref_jit(fn):
+    """The reference's jit at backend optimization level 0 (see above)."""
+    return jax.jit(fn, compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _ref_engine(jm, params, batch, pack=True):
+    eng = JServingEngine(jm, params, JServeConfig(
+        max_len=MAX_LEN, batch=batch, pack_weights=pack, weight_fmt=J_W8))
+    eng._prefill = _ref_jit(j_prefill_step(jm))
+    eng._decode = _ref_jit(j_decode_step(jm))
+    eng._prefill_slot = _ref_jit(j_slot_step(jm, MAX_LEN))
+    return eng
+
+
+def _models(window=0):
+    jm = build_model(dataclasses.replace(jllama.SMOKE, window=window,
+                                         quant=JQuantConfig(**KERNEL)))
+    pm = DecoderLM(dataclasses.replace(llama.SMOKE, window=window,
+                                       quant=QuantConfig(**KERNEL)))
+    return jm, pm
+
+
+@pytest.fixture(scope="module")
+def lm():
+    """(reference model, its engine, port model, its engine), both with
+    the SMOKE parameters packed to MXInt8 planes."""
+    jm, pm = _models()
+    jp = jax.jit(jm.init)(jax.random.key(0))
+    arrays = jax.tree_util.tree_map(np.asarray, unwrap(jp))
+    pp = convert.lm_params(pm, arrays, device="cpu")
+    jeng = _ref_engine(jm, jax.jit(lambda p: j_pack(p, J_W8))(jp), batch=2,
+                       pack=False)
+    peng = ServingEngine(pm, pp, ServeConfig(max_len=MAX_LEN, batch=2,
+                                             pack_weights=True,
+                                             weight_fmt=MXINT8_WEIGHT),
+                         device="cpu")
+    return jm, jeng, pm, peng
+
+
+def _tokens(shape, seed):
+    return np.random.default_rng(seed).integers(
+        0, llama.SMOKE.vocab, size=shape).astype(np.int32)
+
+
+def _close(got, want, tol=1e-5):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    gap, scale = float(np.abs(got - want).max()), float(np.abs(want).max())
+    assert gap <= tol * scale, (gap, scale)
+    return gap
+
+
+def test_neg_inf_equals_reference():
+    assert NEG_INF == J_NEG_INF
+
+
+def test_packed_planes_equal_reference(lm):
+    jm, jeng, pm, peng = lm
+    jl = unwrap(jeng.params)["units"]["u0_attn"]
+    for i, layer in enumerate(peng.params["layers"]):
+        for grp, name in (("mix", "wq"), ("mix", "wo"), ("ffn", "wi"),
+                          ("ffn", "wg"), ("ffn", "wo")):
+            p, ref = layer[grp][name].value, jl[grp][name]
+            if hasattr(ref, "mantissa"):
+                np.testing.assert_array_equal(p.mantissa.numpy(),
+                                              np.asarray(ref.mantissa)[i])
+                np.testing.assert_array_equal(p.exponent.numpy(),
+                                              np.asarray(ref.exponent)[i])
+            else:
+                assert not hasattr(p, "mantissa")
+    for name in ("embed", "unembed"):
+        np.testing.assert_array_equal(
+            peng.params[name].value.mantissa.numpy(),
+            np.asarray(unwrap(jeng.params)[name].mantissa))
+    arrays = {"embed": np.zeros((7, 64), np.float32),
+              "units": {"u0_attn": {}}, "tail": {}}
+    with pytest.raises(ValueError, match="keys"):
+        convert.lm_params(pm, arrays, device="cpu")
+
+
+def test_slot_prefill_logits_vs_reference(lm):
+    jm, jeng, pm, peng = lm
+    n, P = 37, 64
+    toks = np.zeros((1, P), np.int32)
+    toks[0, :n] = _tokens((n,), 1)
+    want, _ = _ref_jit(jm.prefill)(jeng.params, jnp.asarray(toks),
+                                  jm.cache_init(1, MAX_LEN),
+                                  lengths=jnp.asarray([n], jnp.int32))
+    got, cache = pm.prefill(peng.params, torch.from_numpy(toks),
+                            pm.cache_init(1, MAX_LEN, "cpu"),
+                            lengths=torch.tensor([n]))
+    assert int(cache["index"][0]) == n
+    # measured gap: 0 (bit-identical)
+    _close(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy().argmax(-1),
+                                  np.asarray(want).argmax(-1))
+
+
+def test_eight_decode_steps_identical_tokens(lm):
+    """A 37-token prompt and 8 decode steps over the 300-slot ring (three
+    128-slot tiles, a padded last one)."""
+    jm, jeng, pm, peng = lm
+    prompt = _tokens((2, 37), 2)
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)},
+                                    max_new_tokens=9))
+    got = peng.generate({"tokens": prompt}, max_new_tokens=9).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_loss_at_640_tokens_vs_reference(lm):
+    """640 tokens: 640^2 scores exceed 512^2, so every layer runs the
+    online MXInt flash path over five 128-key tiles."""
+    jm, jeng, pm, peng = lm
+    toks = _tokens((1, 640), 3)
+    want = float(_ref_jit(jm.loss)(jeng.params,
+                                   {"tokens": jnp.asarray(toks)}))
+    got = float(pm.loss(peng.params, {"tokens": torch.from_numpy(toks)}))
+    # measured gap: 0 (bit-identical)
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+
+
+def test_loss_at_512_tokens_vs_reference(lm):
+    """512 tokens: 512^2 scores fit the whole-row path, so every layer
+    runs the causal-masked 'paper' attention through the softmax kernel."""
+    jm, jeng, pm, peng = lm
+    toks = _tokens((1, 512), 7)
+    want = float(_ref_jit(jm.loss)(jeng.params,
+                                   {"tokens": jnp.asarray(toks)}))
+    got = float(pm.loss(peng.params, {"tokens": torch.from_numpy(toks)}))
+    # measured gap: 0 (bit-identical)
+    assert abs(got - want) <= 1e-6 * abs(want), (got, want)
+
+
+def _serve(sched_cls, req_cls, engine, prompts, new_tokens):
+    sched = sched_cls(engine, batch_size=2)
+    for uid, (pr, n) in enumerate(zip(prompts, new_tokens)):
+        sched.submit(req_cls(uid=uid, prompt=pr, max_new_tokens=n))
+    done = sched.run()
+    return {r.uid: list(r.generated) for r in done}
+
+
+def test_batch_scheduler_tokens_equal_reference(lm):
+    """5 requests through slot-level admission at batch 2: rows are
+    refilled while the other row decodes."""
+    jm, jeng, pm, peng = lm
+    lens, new = [37, 12, 60, 9, 16], [4, 6, 3, 5, 7]    # buckets 64, 16
+    prompts = [_tokens((n,), 10 + i) for i, n in enumerate(lens)]
+    want = _serve(JBatchScheduler, JRequest, jeng, prompts, new)
+    got = _serve(BatchScheduler, Request, peng, prompts, new)
+    assert got == want
+    assert [len(got[i]) for i in range(5)] == new
+
+
+def test_wave_admission_and_eos(lm):
+    """Wave admission (whole-batch drain) serves the same tokens as slot
+    admission; an eos token ends its request at that token."""
+    _, _, _, peng = lm
+    prompts = [_tokens((n,), 20 + i) for i, n in enumerate([9, 30, 14])]
+    got = {}
+    for admission in ("slot", "wave"):
+        sched = BatchScheduler(peng, batch_size=2, admission=admission)
+        for uid, pr in enumerate(prompts):
+            sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=5))
+        got[admission] = {r.uid: r.generated for r in sched.run()}
+    assert got["wave"] == got["slot"]
+    eos = got["slot"][1][2]
+    sched = BatchScheduler(peng, batch_size=2, eos_id=eos)
+    for uid, pr in enumerate(prompts):
+        sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=5))
+    done = {r.uid: r.generated for r in sched.run()}
+    assert done[1] == got["slot"][1][:got["slot"][1].index(eos) + 1]
+    with pytest.raises(ValueError, match="prefill_len"):
+        BatchScheduler(peng, batch_size=2, prefill_len=8).submit(
+            Request(uid=9, prompt=prompts[1]))
+
+
+def test_temperature_samples_with_the_engine_seed(lm):
+    """temperature > 0 samples each decode step from the engine's seeded
+    generator: one seed gives one sequence, another seed another, and
+    both leave greedy decoding; the first token stays greedy."""
+    _, _, pm, peng = lm
+    prompt = _tokens((2, 20), 8)
+    greedy = peng.generate({"tokens": prompt}, max_new_tokens=6)
+
+    def sample(seed):
+        eng = ServingEngine(pm, peng.params, ServeConfig(
+            max_len=MAX_LEN, batch=2, temperature=1.0), device="cpu",
+            seed=seed)
+        return eng.generate({"tokens": prompt}, max_new_tokens=6)
+
+    a, again, other = sample(0), sample(0), sample(1)
+    assert torch.equal(a, again)
+    assert not torch.equal(a, other)
+    assert not torch.equal(a, greedy)
+    assert torch.equal(a[:, 0], greedy[:, 0])
+    assert bool(((a >= 0) & (a < llama.SMOKE.vocab)).all())
+    with pytest.raises(ValueError, match="generator"):
+        make_decode_step(pm, temperature=0.5)
+
+
+def test_window_ring_decode_vs_reference(lm):
+    """window 64 < max_len: an 80-token prompt takes the SWA prefill
+    scatter, then 8 decode steps wrap the 64-slot ring."""
+    _, jeng0, _, peng0 = lm
+    jm, pm = _models(window=64)
+    jeng = _ref_engine(jm, jeng0.params, batch=1, pack=False)
+    peng = ServingEngine(pm, peng0.params, ServeConfig(max_len=MAX_LEN,
+                                                       batch=1),
+                         device="cpu")
+    prompt = _tokens((1, 80), 4)
+    assert pm.cache_init(1, MAX_LEN, "cpu")["layers"][0]["k"].shape == \
+        (1, 64, 2, 16)
+    want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)},
+                                    max_new_tokens=9))
+    got = peng.generate({"tokens": prompt}, max_new_tokens=9).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_launch_structure(monkeypatch):
+    """Per decode step: 5 fused norm->linears, 2 linears, 1 SiLU and 1
+    decode attention per layer, then the final RMSNorm; a slot prefill the
+    same without attention kernels; a 640-token loss 1 flash attention per
+    layer, a 512-token loss 1 whole-row softmax per layer instead."""
+    names = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
+             "mxint_layernorm", "mxint_softmax", "flash_attention",
+             "flash_attention_decode")
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(ops, name)
+
+        def counted(*a, _fn=fn, _name=name, **k):
+            calls[_name] += 1
+            return _fn(*a, **k)
+        monkeypatch.setattr(ops, name, counted)
+    L = 3
+    pm = DecoderLM(dataclasses.replace(llama.SMOKE, n_layers=L,
+                                       quant=QuantConfig(**KERNEL)))
+    pp = pm.init(1, device="cpu", pack_fmt=MXINT8_WEIGHT)
+    eng = ServingEngine(pm, pp, ServeConfig(max_len=64, batch=2),
+                        device="cpu")
+    per_layer = {"mxint_ln_matmul": 5 * L, "mxint_matmul": 2 * L,
+                 "mxint_gelu": L, "mxint_layernorm": 1, "mxint_softmax": 0}
+
+    def take():
+        out = dict(calls)
+        for k in calls:
+            calls[k] = 0
+        return out
+
+    cache = pm.cache_init(2, 64, "cpu")
+    eng._prefill_slot(eng.params, torch.from_numpy(_tokens((1, 16), 5)), 11,
+                      1, cache)
+    assert take() == {**per_layer, "flash_attention": 0,
+                      "flash_attention_decode": 0}
+    eng._decode(eng.params, torch.zeros(2, 1, dtype=torch.int32), cache)
+    step = take()
+    assert step == {**per_layer, "flash_attention": 0,
+                    "flash_attention_decode": L}
+    assert sum(step.values()) == 9 * L + 1
+    pm.loss(eng.params, {"tokens": _tokens((1, 640), 6)})
+    assert take() == {**per_layer, "flash_attention": L,
+                      "flash_attention_decode": 0}
+    pm.loss(eng.params, {"tokens": _tokens((1, 512), 6)})
+    assert take() == {**per_layer, "mxint_softmax": L, "flash_attention": 0,
+                      "flash_attention_decode": 0}
+
+
+def test_init_packs_each_tensor_as_it_goes():
+    pm = DecoderLM(dataclasses.replace(llama.SMOKE,
+                                       quant=QuantConfig(**KERNEL)))
+    packed = pm.init(3, device="cpu", pack_fmt=MXINT8_WEIGHT)
+    plain = pm.init(3, device="cpu")
+    again = pack_params_mxint(plain, MXINT8_WEIGHT)
+    for name in ("embed", "unembed"):
+        assert torch.equal(packed[name].value.mantissa,
+                           again[name].value.mantissa)
+    wi = packed["layers"][1]["ffn"]["wi"].value
+    assert torch.equal(wi.mantissa, again["layers"][1]["ffn"]["wi"].value
+                       .mantissa)
+    # the SMOKE q projection stays float, as the reference's size rule says
+    assert not hasattr(packed["layers"][0]["mix"]["wq"].value, "mantissa")
+
+
+def test_entry_points_default_to_cuda():
+    for fn in (ServingEngine.__init__, DecoderLM.init, DecoderLM.cache_init,
+               convert.lm_params):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the no-device error is moot")
+    pm = DecoderLM(dataclasses.replace(llama.SMOKE,
+                                       quant=QuantConfig(**KERNEL)))
+    with pytest.raises(RuntimeError, match="cuda"):
+        ServingEngine(pm, pm.init(0, device="cpu"), ServeConfig(batch=2))
