@@ -2,17 +2,23 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --kernels flash_attention   # build, one kernel
 
 1. Prints the card's name and power limit, then builds the six CUDA
    sources from ``src/repro_torch/kernels/csrc`` (seven kernels) and prints
    the build time.
 2. Kernel phase: each kernel at the shapes its path gives it (DeiT-Base
    batch 16, Llama-3-8B decode and 1024-token scoring) and at ragged
-   shapes, against its plain PyTorch version on the same card inputs
-   (tolerance: bit-identical, 0 mismatched elements), timed as a median of
-   CUDA events after warmup beside the plain version and, where one
-   PyTorch call computes the same function, that call; one JSON line per
-   kernel.
+   shapes, against its plain PyTorch version on the same card inputs,
+   timed as a median of CUDA events after warmup beside the plain version
+   and, where one PyTorch call computes the same function, that call; one
+   JSON line per kernel.  Tolerance: bit-identical (0 mismatched elements)
+   for every kernel and case except bf16 ``flash_attention``, whose q.k
+   and P.V sums run on the tensor cores in no fixed order (``FLASH_TOL``):
+   float mode every element within one bf16 ulp of the plain version's,
+   quantized scores at least 99% within one ulp and the largest gap at
+   most 5e-2 of the output scale.  Its float32 case takes the ordered
+   kernel and is held to 0 mismatches.
 3. DeiT phase: DeiT-Base at full width and depth (12 layers, d 768, 1000
    classes, random weights from a seed, packed MXInt6 planes) serves 5
    requests of 1-16 images through ``ViTServingEngine(batch=16)`` and
@@ -78,6 +84,23 @@ REPLACES = {
 SOURCES = {n: f"src/repro_torch/kernels/csrc/{n}.cu" for n in REPLACES}
 SOURCES["flash_attention_decode"] = \
     "src/repro_torch/kernels/csrc/flash_attention.cu"
+# The bf16 flash_attention runs q.k and P.V on the tensor cores, whose f32
+# sums have no fixed order, so the card holds it to its plain version
+# within a tolerance; every other kernel case, float32 flash_attention
+# included, is held to 0 mismatches.  Float mode: every element within one
+# bf16 ulp of the plain version's (only the summation order differs before
+# the final rounding to bf16).  Quantized scores: at least 99% of the
+# elements within one ulp and the largest gap at most 5e-2 of the output
+# scale (a score or p at an MXInt rounding tie may round the other way).
+# The ulp of an element is taken at no less than ULP_FLOOR of the output
+# scale, the ulp of an element at 2^-11 of it: below that the f32 sums'
+# own rounding (about 2^-24 of the terms' magnitude, in the plain version
+# as in the kernel) exceeds the element's bf16 ulp, whatever the order.
+# (bf16, mxint with quantized scores) -> (share within one ulp, max gap over
+# the output scale), or None for bit for bit
+ULP_FLOOR = 2.0 ** -19
+FLASH_TOL = {(False, False): None, (False, True): None,
+             (True, False): (1.0, None), (True, True): (0.99, 5e-2)}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
@@ -323,15 +346,30 @@ def flash_cases(torch, np, x):
                   bf16_ops=4.0 * pairs * 128,
                   f32_ops=ROW_OPS["flash"] * pairs),
             lib))
-    for label, S, window, kw in (
-            ("llama3_8b_score_1024_causal_mxint", 1024, 0, mx),
-            ("llama3_8b_score_1024_causal_float", 1024, 0, fl),
-            ("ragged_650_window256_mxint", 650, 256, mx),
-            ("ragged_650_window256_float", 650, 256, fl)):
-        q = x(32, S, 128, scale=1.5).to(torch.bfloat16)
-        k = x(8, S, 128, scale=1.5).to(torch.bfloat16)
-        v = x(8, S, 128).to(torch.bfloat16)
-        pairs = 32 * flash_pairs(S, S, True, window)
+    # (label, S, causal, window, kv_groups, head dim, act block, dtype, kw)
+    for label, S, causal, window, g, d, blk, dt, kw in (
+            ("llama3_8b_score_1024_causal_mxint", 1024, True, 0, 4, 128, 16,
+             torch.bfloat16, mx),
+            ("llama3_8b_score_1024_causal_float", 1024, True, 0, 4, 128, 16,
+             torch.bfloat16, fl),
+            ("ragged_650_window256_mxint", 650, True, 256, 4, 128, 16,
+             torch.bfloat16, mx),
+            ("ragged_650_window256_float", 650, True, 256, 4, 128, 16,
+             torch.bfloat16, fl),
+            ("ragged_300_full_d64_g2_b32_mxint", 300, False, 0, 2, 64, 32,
+             torch.bfloat16, mx),
+            ("ragged_200_window100_d32_g8_b4_mxint", 200, True, 100, 8, 32,
+             4, torch.bfloat16, mx),
+            # float32 operands take the ordered kernel: bit for bit
+            ("ragged_650_window256_mxint_f32", 650, True, 256, 4, 128, 16,
+             torch.float32, mx)):
+        hkv = 32 // g
+        q = x(32, S, d, scale=1.5).to(dt)
+        k = x(hkv, S, d, scale=1.5).to(dt)
+        v = x(hkv, S, d).to(dt)
+        pairs = 32 * flash_pairs(S, S, causal, window)
+        size = q.element_size()
+        ops = 4.0 * pairs * d
         lib = None
         if kw is fl and window == 0:
             def lib(q=q, k=k, v=v):
@@ -340,25 +378,51 @@ def flash_cases(torch, np, x):
                     enable_gqa=True)
         cases["flash_attention"].append((
             label,
-            lambda q=q, k=k, v=v, w=window, kw=kw: fa.flash_attention(
-                q, k, v, causal=True, window=w, kv_groups=4, **kw),
-            lambda q=q, k=k, v=v, w=window, kw=kw: fa.flash_rows(
-                q, k, v, causal=True, window=w, kv_groups=4, r_bits=2,
-                act_block=16, mant_bits=8, scale=128 ** -0.5,
-                **kw).to(q.dtype),
-            bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                  bf16_ops=4.0 * pairs * 128,
-                  f32_ops=ROW_OPS["flash"] * pairs),
-            lib))
+            lambda q=q, k=k, v=v, c=causal, w=window, g=g, b=blk, kw=kw:
+                fa.flash_attention(q, k, v, causal=c, window=w, kv_groups=g,
+                                   act_block=b, **kw),
+            lambda q=q, k=k, v=v, c=causal, w=window, g=g, b=blk, kw=kw:
+                fa.flash_rows(q, k, v, causal=c, window=w, kv_groups=g,
+                              r_bits=2, act_block=b, mant_bits=8,
+                              scale=fa.f32(q.shape[-1] ** -0.5),
+                              **kw).to(q.dtype),
+            bound(size * (2 * q.numel() + k.numel() + v.numel()),
+                  bf16_ops=ops if dt == torch.bfloat16 else 0.0,
+                  f32_ops=ROW_OPS["flash"] * pairs
+                  + (ops if dt == torch.float32 else 0.0)),
+            lib, FLASH_TOL[(dt == torch.bfloat16, kw is mx)]))
     return cases
 
 
-def kernel_phase(torch, np):
+def within_bf16_ulp(torch, got, want):
+    """(share of the elements of ``got`` within one bf16 ulp of ``want``'s,
+    the ulp no less than ``ULP_FLOOR`` of the output scale max |want|;
+    largest |got - want| over that scale)."""
+    g, w = got.float(), want.float()
+    scale = w.abs().max()
+    _, e = torch.frexp(w)
+    # |w| in [2^(e-1), 2^e): 8 significant bits, so the ulp is 2^(e-8)
+    ulp = torch.clamp(torch.pow(2.0, (e - 8).float()),
+                      min=float(scale) * ULP_FLOOR)
+    diff = (g - w).abs()
+    out = diff > ulp
+    log(f"[kernel]   beyond one ulp: {int(out.sum())} elements"
+        + (f", largest |want| among them {float(w.abs()[out].max() / scale)!r}"
+           f" of scale, largest gap {float(diff[out].max() / scale)!r}"
+           if bool(out.any()) else ""))
+    return (float((~out).float().mean()), float(diff.max() / scale))
+
+
+def kernel_phase(torch, np, only=None):
     results = {}
     for name, cases in kernel_cases(torch, np).items():
+        if only and name not in only:
+            continue
         res = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "max_abs_err": 0.0, "cases": []}
-        for i, (label, kern, plain, (b_ms, b_by), lib) in enumerate(cases):
+        for i, (label, kern, plain, (b_ms, b_by), lib, *tol) in \
+                enumerate(cases):
+            tol = tol[0] if tol else None
             got = kern()
             torch.cuda.synchronize()
             want = plain()
@@ -367,12 +431,25 @@ def kernel_phase(torch, np):
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {label}: non-finite output")
             log(f"[kernel] {name} {label} shape={tuple(got.shape)} "
-                f"mismatches={mism} max_abs_err={err!r}")
-            if mism:
-                raise AssertionError(f"{name} {label}: {mism} elements differ "
-                                     f"from the plain version (tolerance 0)")
+                f"dtype={got.dtype} mismatches={mism} max_abs_err={err!r}")
             res["max_abs_err"] = max(res["max_abs_err"], err)
             case = {"label": label, "mismatches": mism, "max_abs_err": err}
+            if tol is None:
+                if mism:
+                    raise AssertionError(
+                        f"{name} {label}: {mism} elements differ from the "
+                        f"plain version (tolerance 0)")
+            else:
+                share, gap = within_bf16_ulp(torch, got, want)
+                case.update(within_one_bf16_ulp=share, max_gap_over_scale=gap,
+                            tolerance={"within_one_bf16_ulp": tol[0],
+                                       "max_gap_over_scale": tol[1]})
+                log(f"[kernel] {name} {label} within one bf16 ulp: "
+                    f"{share!r} (limit {tol[0]}), max gap / scale {gap!r} "
+                    f"(limit {tol[1]})")
+                if share < tol[0] or (tol[1] is not None and gap > tol[1]):
+                    raise AssertionError(
+                        f"{name} {label}: outside its tolerance {tol}")
             if i == 0:                       # time the DeiT-Base shape
                 case["ms"] = time_ms(kern, iters=20)
                 case["plain_ms"] = time_ms(plain, iters=3, warmup=1)
@@ -742,7 +819,13 @@ def lm_cpu_phase(torch, np):
     return stats
 
 
-def main() -> int:
+def main(argv) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", nargs="+", metavar="NAME",
+                    help="build, then run only the kernel phase of these "
+                         "kernels (a quick check; prints no 'ok' line)")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -759,9 +842,13 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.build_all()
+    _build.build_all(verbose=bool(args.kernels))
     log(f"[build] {len(_build.KERNELS)} sources built in "
         f"{time.perf_counter() - t0!r} s")
+    if args.kernels:
+        kernels = kernel_phase(torch, np, only=set(args.kernels))
+        log(json.dumps({"partial": sorted(kernels)}))
+        return 0
 
     t_start = time.perf_counter()
 
@@ -808,4 +895,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

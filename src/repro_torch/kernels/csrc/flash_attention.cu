@@ -1,18 +1,21 @@
 // Online-softmax attention with the MXInt softmax datapath, sm_90a.
 //
 // Counterparts of repro/kernels/flash_attention.py: flash_attention (its
-// pallas_call at line 252) and flash_attention_decode (line 366).  Both
-// run one device loop, attend_rows below, which is the CUDA form of the
-// reference's _softmax_block_update (Eq. 2-3 score quantization per tile,
-// the Eq. 14-19 exp datapath, the rescale alpha in float exp, Eq. 20
-// through frexp at the flush).
+// pallas_call at line 252) and flash_attention_decode (line 366).  Every
+// kernel here is the CUDA form of the reference's _softmax_block_update
+// (Eq. 2-3 score quantization per tile, the Eq. 14-19 exp datapath, the
+// rescale alpha in float exp, Eq. 20 through frexp at the flush).
 //
-//   flash_attention:         one CTA per (batch*head, block of 32 query
-//                            rows); q (BH, Sq, D), k/v (BH/g, Sk, D), the
-//                            query head b reads KV head b / g (GQA, no copy).
-//   flash_attention_decode:  one CTA per (batch, KV head, up to 8 of its G
-//                            query rows); q (B, Hkv, G, D), k/v in the cache's
-//                            native (B, W, Hkv, D) layout, valid (B, W).
+//   flash_attention, bf16:   flash_mma_kernel, one CTA per (KV head, block
+//                            of 128 / G query positions) for all G query
+//                            heads of that KV head; q (BH, Sq, D), k/v
+//                            (BH/g, Sk, D), D a multiple of 16.
+//   flash_attention, f32:    flash_kernel over attend_rows, one CTA per
+//                            (batch*head, block of 32 query rows).
+//   flash_attention_decode:  decode_kernel over attend_rows, one CTA per
+//                            (batch, KV head, up to 8 of its G query rows);
+//                            q (B, Hkv, G, D), k/v in the cache's native
+//                            (B, W, Hkv, D) layout, valid (B, W).
 //
 // The key axis is walked in 128-key tiles from key 0, in order, inside the
 // CTA.  The result depends on where the tiles fall: each tile has its own
@@ -28,18 +31,36 @@
 // slot) take -2e38 before the quantizer and join the Eq. 19 sum as the
 // datapath's 2^-126 tail.  The two masks stay apart, as in the reference.
 //
-// What bounds it on the card: at the Llama-3-8B shapes the score and P.V
-// products are f32 on CUDA cores (no tensor cores: the products must sum
-// in the plain version's order), so operations bound it, not bytes.  This
-// first design stages each K and then V tile in shared memory as f32 (row
-// stride D + 1, no bank conflicts), keeps the scores, the row stages and
-// the running (m, l, acc) in shared memory, and runs the row stages one
-// warp per row with lane l holding keys l, l + 32, l + 64, l + 96.
+// Two routes for flash_attention, by the operands' dtype:
 //
-// Every sum runs in one fixed order that the plain versions in
-// kernels/flash_attention.py repeat: q.k over d in increasing order, P.V
-// over the keys of a tile in increasing order, the row sum lane by lane
-// then a butterfly.  Multiplies and adds are rounded one by one.
+// - bf16, the dtype the model serves and scores in: q.k and P.V run on the
+//   bf16 tensor cores (mma.sync m16n8k16; the bf16 products are exact in
+//   f32, the sums run in the tensor cores' order), K/V tiles come through
+//   cp.async double buffers and ldmatrix, and the row stages run in
+//   registers on the mma accumulator layout (flash_mma_kernel below).  P
+//   on the MXInt act grid (quantized scores) is exact in bf16, so one mma
+//   takes it; any other P is split into bf16 hi + mid + lo (f32's 24
+//   bits), three mmas.  A block visits only the tiles tile_span gives it
+//   (no trailing tile under causal, no leading tile a window hides); that
+//   is exact, see attend_rows in kernels/flash_attention.py.  What bounds
+//   it: the MXInt row stages, about 70-100 f32 and integer instructions
+//   per score of a visited tile on the CUDA cores, far above the
+//   products' tensor-core time and the bytes; the kernel is templated on
+//   the datapath mode and act block so that they are straight-line code,
+//   and at 255 registers a thread one 8-warp CTA fits an SM.  Its sums
+//   have no fixed order, so the card holds it to the plain version within
+//   a tolerance (chip_smoke.py).
+// - f32, and flash_attention_decode in both dtypes: the ordered kernel
+//   (attend_rows below).  Every sum runs in one fixed order that the plain
+//   versions repeat: q.k over d in increasing order, P.V over the keys of a
+//   tile in increasing order, the row sum lane by lane then a butterfly;
+//   multiplies and adds are rounded one by one, so the card holds it to
+//   the plain version bit for bit.  Its products are f32 on CUDA cores, so
+//   operations bound it.  It stages each K and then V tile in shared
+//   memory as f32 (row stride D + 1, no bank conflicts), keeps the scores,
+//   the row stages and the running (m, l, acc) in shared memory, and runs
+//   the row stages one warp per row with lane l holding keys l, l + 32,
+//   l + 64, l + 96; it walks every tile.
 #include <cuda_bf16.h>
 
 #include "mxint_common.cuh"
@@ -85,9 +106,26 @@ __device__ __forceinline__ float grid_requant_lane(float y, int group,
   return __fmul_rn(quant_mant(y, pow2i(-e), lim), pow2i(e));
 }
 
+// exactly pow2i(n), from selects instead of branches: in the unrolled row
+// stages of flash_mma_kernel pow2i's early returns became a branch per
+// value, which kept the compiler from interleaving the values' work
+__device__ __forceinline__ float pow2_sel(int n) {
+  const int c = min(max(n, -150), 128);
+  const int sub = c >= -149 ? 1 << max(c + 149, 0) : 0;
+  return __int_as_float(c >= -126 ? (c + 127) << 23 : sub);
+}
+
+struct Pow2Branch {
+  __device__ __forceinline__ static float of(int n) { return pow2i(n); }
+};
+struct Pow2Sel {
+  __device__ __forceinline__ static float of(int n) { return pow2_sel(n); }
+};
+
 // Cephes expf for x <= 0 (0 below -104): exp(x) = 2^n * P(r), about 1
 // ulp, from rounded multiplies and adds only; exp_nonpos in
 // kernels/flash_attention.py runs the same operations in the same order.
+template <class Pow2 = Pow2Branch>
 __device__ __forceinline__ float exp_nonpos(float x) {
   x = fminf(fmaxf(x, -104.0f), 0.0f);
   const float n = floorf(__fadd_rn(__fmul_rn(x, 0x1.715476p+0f), 0.5f));
@@ -99,7 +137,18 @@ __device__ __forceinline__ float exp_nonpos(float x) {
   y = __fadd_rn(__fmul_rn(y, x), 0x1.555554p-3f);
   y = __fadd_rn(__fmul_rn(y, x), 0.5f);
   y = __fadd_rn(__fadd_rn(__fmul_rn(y, __fmul_rn(x, x)), x), 1.0f);
-  return __fmul_rn(y, pow2i((int)n));
+  return __fmul_rn(y, Pow2::of((int)n));
+}
+
+// exp2_datapath of mxint_common.cuh with pow2_sel for pow2i: the same
+// stages and values
+__device__ __forceinline__ float exp2_datapath_sel(float z, const float* lut,
+                                                   int n_entries) {
+  float n = floorf(z);
+  float r = __fsub_rn(z, n);
+  int idx = lut_index(floorf(__fmul_rn(r, (float)n_entries)), n_entries);
+  int ni = (int)fmaxf(n, -126.0f);
+  return __fmul_rn(lut[idx], pow2_sel(ni));
 }
 
 struct Problem {
@@ -342,14 +391,14 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k,
 constexpr int kFlashRows = 32, kFlashThreads = 256;
 constexpr int kDecodeRows = 8, kDecodeThreads = 128;
 
-template <typename T>
+// the ordered route of flash_attention: float32 operands
 __global__ void __launch_bounds__(kFlashThreads)
-flash_kernel(const T* q, const T* k, const T* v, const float* lut, T* out,
-             int groups, Problem p) {
+flash_kernel(const float* q, const float* k, const float* v,
+             const float* lut, float* out, int groups, Problem p) {
   const int bh = blockIdx.y;
   const size_t qoff = (size_t)bh * p.n_rows * p.d;
   const size_t koff = (size_t)(bh / groups) * p.n_keys * p.d;
-  attend_rows<T, kFlashRows, kFlashThreads>(
+  attend_rows<float, kFlashRows, kFlashThreads>(
       q + qoff, k + koff, v + koff, nullptr, lut, out + qoff,
       blockIdx.x * kFlashRows, p);
 }
@@ -366,11 +415,526 @@ decode_kernel(const T* q, const T* k, const T* v, const int* valid,
       out + qoff, blockIdx.x * kDecodeRows, p);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 flash_attention on the tensor cores
+// ---------------------------------------------------------------------------
+// One CTA takes one KV head and a block of kMmaRows / G query positions for
+// all G query heads that read it (row i: head i / P, position p0 + i % P),
+// so each K/V tile is loaded once for G heads.  Eight warps own 16 rows
+// each.  K and V tiles sit in shared memory as bf16 (row stride D + 8, so
+// ldmatrix is free of bank conflicts), double-buffered with cp.async; the
+// CTA's Q rows stay in shared memory for the whole k loop (in registers
+// they pushed the kernel past 255 registers).  S = Q K^T and O +=
+// P V run on mma.sync m16n8k16 (bf16 x bf16 products, exact; f32 sums in
+// the tensor cores' order).  The row stages run on the accumulator
+// layout: lane (g, t) = (lane / 4, lane % 4) holds rows g and g + 8 of
+// the warp, keys 8j + 2t and 8j + 2t + 1 of every 8-key n-tile j, so a
+// row's 128 keys live in one quad and every row reduction (act-block
+// amax, exponent max, row max, row sum) is in-thread work plus
+// __shfl_xor_sync over offsets 1 and 2.
+constexpr int kMmaRows = 128;
+constexpr int kMmaWarps = kMmaRows / 16;
+constexpr int kMmaThreads = kMmaWarps * kWarp;
+constexpr int kNT = kTileK / 8;                    // 8-key n-tiles per tile
+constexpr int kMaxDT = kMaxD / 8;                  // 8-wide n-tiles of O
+
+__host__ __device__ constexpr int kv_stride(int d) { return d + 8; }
+
+// shared memory: K tiles (2) | V tiles (2) | the CTA's Q rows | LUT
+__host__ __device__ constexpr size_t mma_smem_bytes(int d) {
+  return (size_t)4 * kTileK * kv_stride(d) * 2 +
+         (size_t)kMmaRows * kv_stride(d) * 2 + kMaxLut * sizeof(float);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared; zero-filled when !ok (keys past the end)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two values as one bf16x2 register, the first in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ int quad_max_i(int v) {
+  v = max(v, __shfl_xor_sync(kFull, v, 1));
+  return max(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v = __fadd_rn(v, __shfl_xor_sync(kFull, v, 1));
+  return __fadd_rn(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+// One row's keys in this lane: x[j][e] is key 8j + 2t + e of the tile.
+// a[j] becomes the amax of the act block (B keys, a power of two from 2 to
+// 32) that holds keys 8j + 2t and 8j + 2t + 1: a block of B >= 8 keys is
+// B / 8 n-tiles across the quad, a block of 4 keys a pair of lanes, a
+// block of 2 keys the lane's own pair.
+template <int B>
+__device__ __forceinline__ void pair_block_amax(const float (&x)[kNT][2],
+                                                float (&a)[kNT]) {
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) a[j] = fmaxf(fabsf(x[j][0]), fabsf(x[j][1]));
+  if (B >= 16) {
+#pragma unroll
+    for (int j = 0; j < kNT; j += 2) a[j] = fmaxf(a[j], a[j + 1]);
+  }
+  if (B >= 32) {
+#pragma unroll
+    for (int j = 0; j < kNT; j += 4) a[j] = fmaxf(a[j], a[j + 2]);
+  }
+  constexpr int step = B >= 32 ? 4 : B >= 16 ? 2 : 1;
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    if (j % step) continue;
+    if (B >= 4) a[j] = fmaxf(a[j], __shfl_xor_sync(kFull, a[j], 1));
+    if (B >= 8) a[j] = fmaxf(a[j], __shfl_xor_sync(kFull, a[j], 2));
+  }
+  if (B >= 32) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) a[j] = a[j & ~3];
+  } else if (B >= 16) {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) a[j] = a[j & ~1];
+  }
+}
+
+// Eq. 2-3 on one row: quantize per act block, requantize to the row's max
+// exponent, dequantize (exact); x holds the masked, pad-filled scores
+template <int B>
+__device__ __forceinline__ void quantize_scores_row(float (&x)[kNT][2],
+                                                    int mant_bits, float lim) {
+  int eb[kNT];
+  int emax = -128;
+  if (B >= 2) {
+    float a[kNT];
+    pair_block_amax<B>(x, a);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      eb[j] = block_exp(a[j], mant_bits);
+      emax = max(emax, eb[j]);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        emax = max(emax, block_exp(fabsf(x[j][e]), mant_bits));
+  }
+  emax = quad_max_i(emax);
+  const float plam = pow2_sel(emax);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int ev = B >= 2 ? eb[j] : block_exp(fabsf(x[j][e]), mant_bits);
+      const int sh = min(emax - ev, 31);
+      const int mi = ((int)quant_mant(x[j][e], pow2_sel(-ev), lim)) >> sh;
+      x[j][e] = __fmul_rn((float)mi, plam);
+    }
+}
+
+// snap one row onto the MXInt act grid, block by block
+template <int B>
+__device__ __forceinline__ void grid_requant_row(float (&x)[kNT][2],
+                                                 int mant_bits, float lim) {
+  if (B >= 2) {
+    float a[kNT];
+    pair_block_amax<B>(x, a);
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const int e = block_exp(a[j], mant_bits);
+      const float inv = pow2_sel(-e), sc = pow2_sel(e);
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        x[j][h] = __fmul_rn(quant_mant(x[j][h], inv, lim), sc);
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int e = block_exp(fabsf(x[j][h]), mant_bits);
+        x[j][h] = __fmul_rn(quant_mant(x[j][h], pow2_sel(-e), lim), pow2_sel(e));
+      }
+  }
+}
+
+// first and last key tile that query positions [first, last] can see;
+// tile_span in kernels/flash_attention.py is the same function
+__device__ __forceinline__ void tile_span(int first, int last, int n_tiles,
+                                          const Problem& p, int* t0,
+                                          int* t1) {
+  *t1 = n_tiles - 1;
+  if (p.causal) *t1 = min(*t1, last / kTileK);
+  *t0 = 0;
+  if (p.window > 0) *t0 = min(max(0, first - p.window + 1) / kTileK, *t1);
+}
+
+// kQuant: quantized scores (Eq. 2-3, P on the act grid); kMxint: the
+// Eq. 14-19 exp datapath (else float exp); kB: the act block.  Compile-time,
+// so that the row stages are straight-line code
+template <bool kQuant, bool kMxint, int kB>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                 const __nv_bfloat16* __restrict__ k,
+                 const __nv_bfloat16* __restrict__ v,
+                 const float* __restrict__ lut_g,
+                 __nv_bfloat16* __restrict__ out, int groups, Problem p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = p.d, ks = kv_stride(d);
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + 2 * kTileK * ks;
+  __nv_bfloat16* sq = sv + 2 * kTileK * ks;
+  float* lut = reinterpret_cast<float*>(sq + kMmaRows * ks);
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int g = lane / 4, tq = lane % 4;
+  const int P = kMmaRows / groups;                  // positions per CTA
+  const int n_blocks = gridDim.y;
+  const int p0 = (n_blocks - 1 - (int)blockIdx.y) * P;  // longest first
+  const int kvh = blockIdx.x;
+  const int n_tiles = (p.n_keys + kTileK - 1) / kTileK;
+  int t0, t1;
+  tile_span(p0, min(p0 + P, p.n_rows) - 1, n_tiles, p, &t0, &t1);
+  const __nv_bfloat16* kb = k + (size_t)kvh * p.n_keys * d;
+  const __nv_bfloat16* vb = v + (size_t)kvh * p.n_keys * d;
+  const int chunks = d / 8;                          // 16-byte row chunks
+
+  auto load_tile = [&](int t, int buf) {
+    const int k0 = t * kTileK;
+    __nv_bfloat16* dk = sk + buf * kTileK * ks;
+    __nv_bfloat16* dv = sv + buf * kTileK * ks;
+    for (int i = tid; i < kTileK * chunks; i += kMmaThreads) {
+      const int j = i / chunks, c = (i % chunks) * 8;
+      const bool ok = k0 + j < p.n_keys;
+      const size_t off = ok ? (size_t)(k0 + j) * d + c : 0;
+      cp_async16(dk + j * ks + c, kb + off, ok);
+      cp_async16(dv + j * ks + c, vb + off, ok);
+    }
+  };
+  // row i of the CTA: query head i / P at position p0 + i % P (idle past
+  // the heads or the positions); its offset in q and out, in rows
+  auto row_at = [&](int i, bool* ok) {
+    const int head = i / P, pos = p0 + i % P;
+    *ok = head < groups && pos < p.n_rows;
+    return *ok ? ((size_t)kvh * groups + head) * p.n_rows + pos : 0;
+  };
+  for (int i = tid; i < kMmaRows * chunks; i += kMmaThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    bool ok;
+    const size_t row = row_at(r, &ok);
+    cp_async16(sq + r * ks + c, q + row * d + c, ok);
+  }
+  load_tile(t0, 0);
+  cp_async_commit();
+  load_lut(lut, lut_g, p.lut_n);
+
+  // this lane's two rows: h = 0 is row g of the warp, h = 1 row g + 8
+  int pos[2];
+  bool row_ok[2];
+  __nv_bfloat16* orow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = warp * 16 + g + 8 * h;
+    pos[h] = p0 + i % P;
+    orow[h] = out + row_at(i, &row_ok[h]) * d;
+  }
+  float o[kMaxDT][4];
+#pragma unroll
+  for (int n = 0; n < kMaxDT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+  const float lim = (float)((1 << (p.mant_bits - 1)) - 1);
+  // ldmatrix row addresses of this lane (matrix lane / 8, row lane % 8)
+  const int mi = lane / 8, mr = lane % 8;
+  const int k_key = (mi / 2) * 8 + mr, k_col = (mi % 2) * 8;
+  const int v_key = (mi % 2) * 8 + mr, v_col = (mi / 2) * 8;
+  const __nv_bfloat16* wq = sq + (warp * 16 + v_key) * ks + v_col;
+
+  for (int t = t0; t <= t1; ++t) {
+    const int buf = (t - t0) & 1;
+    if (t < t1) load_tile(t + 1, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait_prev();
+    __syncthreads();
+    const __nv_bfloat16* tk = sk + buf * kTileK * ks;
+    const __nv_bfloat16* tv = sv + buf * kTileK * ks;
+    const int k0 = t * kTileK;
+    const bool last = t == n_tiles - 1;
+
+    // S = Q K^T
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kMaxD / 16; ++kk) {
+      if (kk * 16 >= d) break;
+      uint32_t qa[4];                     // rows of the warp, d 16kk..+15
+      ldsm_x4(qa, wq + kk * 16);
+#pragma unroll
+      for (int jp = 0; jp < kNT / 2; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, tk + (jp * 16 + k_key) * ks + kk * 16 + k_col);
+        mma_bf16(s[2 * jp], qa, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+      }
+    }
+
+    // row stages, one row of the lane at a time
+    float alpha[2], lm[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // the masks as bounds on c = 8j + e (this lane's key k0 + 2t + c),
+      // tested where needed: registers are the scarce resource here
+      const int rel = k0 + 2 * tq;
+      const int khi = p.causal ? pos[h] - rel : INT_MAX;
+      const int klo = p.window > 0 ? pos[h] - p.window + 1 - rel : INT_MIN;
+      const int kreal = p.n_keys - rel;
+      auto keep = [&](int j, int e) {
+        return 8 * j + e >= klo && 8 * j + e <= khi;
+      };
+      auto real = [&](int j, int e) { return 8 * j + e < kreal; };
+      float x[kNT][2];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[j][e] = keep(j, e) ? __fmul_rn(s[j][2 * h + e], p.scale)
+                               : kNegInf;
+          if (kQuant && !real(j, e)) x[j][e] = pow2_sel(-100);  // pad fill
+        }
+      if constexpr (kQuant) quantize_scores_row<kB>(x, p.mant_bits, lim);
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!real(j, e)) x[j][e] = kNegInf;
+          tmax = fmaxf(tmax, x[j][e]);
+        }
+      const float m_prev = m_run[h];
+      const float m_new = fmaxf(m_prev, quad_max(tmax));
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dt = __fsub_rn(x[j][e], m_new);
+          float pr = kMxint ? exp2_datapath_sel(__fmul_rn(dt, p.log2e), lut,
+                                             p.lut_n)
+                             : exp_nonpos<Pow2Sel>(dt);
+          if constexpr (kQuant) {
+            acc = __fadd_rn(acc, real(j, e) ? pr : 0.0f);
+          } else {
+            pr = keep(j, e) && real(j, e) ? pr : 0.0f;
+            acc = __fadd_rn(acc, pr);
+          }
+          x[j][e] = pr;
+        }
+      const float psum = quad_sum(acc);
+      float al = exp_nonpos<Pow2Sel>(__fsub_rn(m_prev, m_new));
+      if (m_prev <= kNegInfHalf) al = 0.0f;
+      const float l_new = __fadd_rn(__fmul_rn(l_run[h], al), psum);
+      lm[h] = 1.0f;
+      inv[h] = 1.0f;
+      if (last) {
+        int le;
+        lm[h] = frexpf(fmaxf(l_new, kMinL), &le);            // Eq. 20
+        inv[h] = pow2_sel(-le);
+      }
+      if constexpr (kQuant) {
+        if (last) {
+#pragma unroll
+          for (int j = 0; j < kNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              x[j][e] = __fmul_rn(__fdiv_rn(x[j][e], lm[h]), inv[h]);
+        }
+        grid_requant_row<kB>(x, p.mant_bits, lim);
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!(keep(j, e) && real(j, e))) x[j][e] = 0.0f;
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) s[j][2 * h + e] = x[j][e];
+      alpha[h] = al;
+      m_run[h] = m_new;
+      l_run[h] = l_new;
+    }
+
+    // O = O * alpha (and, on the last tile of the quantized datapath, the
+    // flush's / l_m * 2^-l_e before the last P.V joins), then O += P V
+    const bool flush_first = last && kQuant;
+#pragma unroll
+    for (int n = 0; n < kMaxDT; ++n) {
+      if (n * 8 >= d) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        float a = __fmul_rn(o[n][c], alpha[h]);
+        if (flush_first) a = __fmul_rn(__fdiv_rn(a, lm[h]), inv[h]);
+        o[n][c] = a;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      // the P fragment of keys 16kk .. 16kk + 15 is S's n-tiles 2kk, 2kk+1
+      uint32_t pa[4], pm[4], pl[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        float v0 = s[2 * kk + (r >> 1)][2 * (r & 1)];
+        float v1 = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
+        pa[r] = pack_bf16(v0, v1);
+        if (!kQuant) {      // P to f32 precision as hi + mid + lo
+          v0 = __fsub_rn(v0, bf16_round(v0));
+          v1 = __fsub_rn(v1, bf16_round(v1));
+          pm[r] = pack_bf16(v0, v1);
+          pl[r] = pack_bf16(__fsub_rn(v0, bf16_round(v0)),
+                            __fsub_rn(v1, bf16_round(v1)));
+        }
+      }
+#pragma unroll
+      for (int dp = 0; dp < kMaxDT / 2; ++dp) {
+        if (dp * 16 >= d) break;
+        uint32_t b[4];
+        ldsm_x4_trans(b, tv + (kk * 16 + v_key) * ks + dp * 16 + v_col);
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+        if (!kQuant) {
+          mma_bf16(o[2 * dp], pm, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], pm, b[2], b[3]);
+          mma_bf16(o[2 * dp], pl, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], pl, b[2], b[3]);
+        }
+      }
+    }
+    if (last && !kQuant) {
+#pragma unroll
+      for (int n = 0; n < kMaxDT; ++n) {
+        if (n * 8 >= d) break;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          o[n][c] = __fmul_rn(__fdiv_rn(o[n][c], lm[c >> 1]), inv[c >> 1]);
+      }
+    }
+    __syncthreads();              // the buffer is refilled two tiles on
+  }
+  if (t1 < n_tiles - 1) {
+    // the tiles after t1 are fully masked for every row of the block: all
+    // they would do is the last tile's normalization
+    float lmv[2], invv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int le;
+      lmv[h] = frexpf(fmaxf(l_run[h], kMinL), &le);
+      invv[h] = pow2_sel(-le);
+    }
+#pragma unroll
+    for (int n = 0; n < kMaxDT; ++n) {
+      if (n * 8 >= d) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        o[n][c] = __fmul_rn(__fdiv_rn(o[n][c], lmv[c >> 1]), invv[c >> 1]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+#pragma unroll
+    for (int n = 0; n < kMaxDT; ++n) {
+      if (n * 8 >= d) break;
+      *reinterpret_cast<uint32_t*>(orow[h] + n * 8 + 2 * tq) =
+          pack_bf16(o[n][2 * h], o[n][2 * h + 1]);
+    }
+  }
+}
+
 // above 48 KB a kernel's dynamic shared memory needs an explicit opt-in
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+struct MmaLaunch {
+  const __nv_bfloat16 *q, *k, *v;
+  const float* lut;
+  __nv_bfloat16* out;
+  int groups, n_kv;
+  Problem p;
+  cudaStream_t st;
+};
+
+template <bool kQuant, bool kMxint, int kB>
+int launch_mma(const MmaLaunch& l) {
+  auto* kern = flash_mma_kernel<kQuant, kMxint, kB>;
+  const int per_block = kMmaRows / l.groups;
+  // x: KV heads, y: position blocks (the kernel walks them longest first)
+  const dim3 grid(l.n_kv, (l.p.n_rows + per_block - 1) / per_block);
+  const size_t smem = mma_smem_bytes(l.p.d);
+  int rc = allow_smem(kern, smem);
+  if (rc) return rc;
+  kern<<<grid, kMmaThreads, smem, l.st>>>(l.q, l.k, l.v, l.lut, l.out,
+                                          l.groups, l.p);
+  return (int)cudaGetLastError();
 }
 
 bool bad_problem(const Problem& p) {
@@ -390,24 +954,33 @@ extern "C" int flash_attention_launch(
             lut_n, scale, log2e};
   if (bad_problem(p) || groups < 1 || bh % groups != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((sq + kFlashRows - 1) / kFlashRows, bh);
-  const size_t smem = smem_floats(kFlashRows) * sizeof(float);
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
-    auto* kern = flash_kernel<__nv_bfloat16>;
-    int rc = allow_smem(kern, smem);
-    if (rc) return rc;
-    kern<<<grid, kFlashThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, lut, (__nv_bfloat16*)out, groups, p);
-  } else {
-    auto* kern = flash_kernel<float>;
-    int rc = allow_smem(kern, smem);
-    if (rc) return rc;
-    kern<<<grid, kFlashThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, lut, (float*)out,
-        groups, p);
+    // the tensor-core route (see the header)
+    if (d % 16 != 0 || groups > kMmaRows) return (int)cudaErrorInvalidValue;
+    if (quantize && !mxint) return (int)cudaErrorInvalidValue;
+    const MmaLaunch l{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+                      (const __nv_bfloat16*)v, lut, (__nv_bfloat16*)out,
+                      groups, bh / groups, p, st};
+    if (!mxint) return launch_mma<false, false, 1>(l);
+    if (!quantize) return launch_mma<false, true, 1>(l);
+    switch (block) {
+      case 1: return launch_mma<true, true, 1>(l);
+      case 2: return launch_mma<true, true, 2>(l);
+      case 4: return launch_mma<true, true, 4>(l);
+      case 8: return launch_mma<true, true, 8>(l);
+      case 16: return launch_mma<true, true, 16>(l);
+      default: return launch_mma<true, true, 32>(l);  // bad_problem: <= 32
+    }
   }
+  // the ordered route for float32 operands
+  const dim3 grid((sq + kFlashRows - 1) / kFlashRows, bh);
+  const size_t smem = smem_floats(kFlashRows) * sizeof(float);
+  int rc = allow_smem(flash_kernel, smem);
+  if (rc) return rc;
+  flash_kernel<<<grid, kFlashThreads, smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, lut, (float*)out,
+      groups, p);
   return (int)cudaGetLastError();
 }
 

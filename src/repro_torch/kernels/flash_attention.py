@@ -22,10 +22,16 @@ order, and update a running (m, l, acc) per query row, as the reference's
 
 The tile is 128 keys wide and the k loop is sequential: tiles set the
 numerics (their shared exponents, which tile is the last), so the k axis
-is never split.  The plain versions below take the same tiles and sum in
-the kernel's order (q.k over d in order, P.V over a tile's keys in order,
-the row sum as ``warp_row_sum`` over lanes holding keys l, l+32, l+64,
-l+96), so the card holds the kernel to them bit for bit.
+is never split.  Tiles that the causal or window mask hides from a whole
+block of query positions are left out (``tile_span``); that is exact, see
+``attend_rows``.  The plain versions below take the same tiles and sum in
+the ordered kernels' order (q.k over d in order, P.V over a tile's keys in
+order, the row sum as ``warp_row_sum`` over lanes holding keys l, l+32,
+l+64, l+96), so the card holds the float32 ``flash_attention`` and
+``flash_attention_decode`` to them bit for bit.  The bf16
+``flash_attention`` runs its products on the tensor cores, whose f32 sums
+have no fixed order: the card holds it within a tolerance
+(``kernel_route``).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel, or
 the wrapper raises.  ``launches`` counts ``flash_attention`` launches and
@@ -51,6 +57,8 @@ from repro_torch.kernels.mxint_softmax import LOG2E, exp2_datapath
 TILE_K = 128            # keys per tile, fixed by the numerics
 MAX_HEAD_DIM = 128      # head dims the kernels take
 MAX_ACT_BLOCK = 32      # a score act block is a group of lanes of one warp
+MMA_K = 16              # bf16 route: head dims are multiples of the mma depth
+MMA_ROWS = 128          # bf16 route: query rows (positions x heads) a block
 PAD_FILL = 2.0 ** -100  # quantizer fill of padding lanes (see the reference)
 _NEG_INF_HALF = NEG_INF / 2
 _MIN_L = f32(1e-30)
@@ -124,12 +132,20 @@ def _grid(y: torch.Tensor, block: int, mant_bits: int) -> torch.Tensor:
 
 def attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 mask, *, exp_mode: str, r_bits: int, quantize_scores: bool,
-                act_block: int, mant_bits: int, scale: float) -> torch.Tensor:
+                act_block: int, mant_bits: int, scale: float,
+                span=None) -> torch.Tensor:
     """Plain version of the key loop both kernels run.
 
-    q: (N, R, D); k, v: (N, S, D); mask(k0, n) -> bool model mask of keys
-    [k0, k0 + n), broadcastable to (N, R, n).  Inputs of any float dtype are
-    read as f32; returns (N, R, D) f32.
+    q: (N, R, D); k, v: (N, S, D); mask(k0, n, r0, r1) -> bool model mask
+    of keys [k0, k0 + n) for rows [r0, r1), broadcastable to (N, r1 - r0,
+    n).  Inputs of any float dtype are read as f32; returns (N, R, D) f32.
+
+    ``span(t) -> (r0, r1)``: the rows that visit tile t (None: every row
+    visits every tile).  The last tile is tile ``n_tiles - 1`` whoever
+    visits it.  A row that stops before it ran its last visited tile as an
+    interior one and is normalized after the loop, ``(acc / l_m) *
+    2^-l_e``: that is all the fully masked tiles it skipped would have done
+    (they leave m, l and acc as they are), so skipping them is exact.
     """
     q = q.to(torch.float32)
     N, R, D = q.shape
@@ -139,8 +155,16 @@ def attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.full((N, R, 1), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((N, R, 1), dtype=torch.float32, device=dev)
     acc = torch.zeros((N, R, D), dtype=torch.float32, device=dev)
+    out = torch.empty_like(acc)
     n_tiles = -(-S // TILE_K)
+    if n_tiles == 0:
+        raise ValueError("attention over zero keys")
+    if span is None:
+        span = lambda t: (0, R)  # noqa: E731
     for t in range(n_tiles):
+        r0, r1 = span(t)
+        if r0 >= r1:
+            continue
         k0 = t * TILE_K
         nk = min(TILE_K, S - k0)
         last = t == n_tiles - 1
@@ -149,73 +173,123 @@ def attend_rows(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kt[:, :nk] = k[:, k0:k0 + nk].to(torch.float32)
         vt[:, :nk] = v[:, k0:k0 + nk].to(torch.float32)
         real = (torch.arange(TILE_K, device=dev) < nk)[None, None, :]
-        mk = mask(k0, nk)
+        mk = mask(k0, nk, r0, r1)
         keep = torch.ones(mk.shape[:-1] + (TILE_K,), dtype=torch.bool,
                           device=dev)
         keep[..., :nk] = mk
-        s = _dot_seq(q, kt) * scale
+        n = r1 - r0
+        m_r, l_r, acc_r = m[:, r0:r1], l[:, r0:r1], acc[:, r0:r1]
+        s = _dot_seq(q[:, r0:r1], kt) * scale
         s = torch.where(keep, s, NEG_INF)
         if quantize_scores:
             s = torch.where(real, s, PAD_FILL)
-            mq, e = block_quantize_rows(s.reshape(N * R, TILE_K), act_block,
+            mq, e = block_quantize_rows(s.reshape(N * n, TILE_K), act_block,
                                         mant_bits)
             mf, lam = requantize_rows(mq, e)
-            s = (mf.reshape(N * R, TILE_K) * pow2i(lam)).reshape(N, R, TILE_K)
+            s = (mf.reshape(N * n, TILE_K) * pow2i(lam)).reshape(N, n, TILE_K)
         s = torch.where(real, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_new = torch.maximum(m_r, s.amax(dim=-1, keepdim=True))
         if exp_mode == "mxint":
             p = exp2_datapath((s - m_new) * LOG2E, lut, r_bits)
         else:
             p = exp_nonpos(s - m_new)
-        alpha = exp_nonpos(m - m_new)
-        alpha = torch.where(m <= _NEG_INF_HALF, 0.0, alpha)
+        alpha = exp_nonpos(m_r - m_new)
+        alpha = torch.where(m_r <= _NEG_INF_HALF, 0.0, alpha)
         live = keep & real
         if quantize_scores:
             psum = _tile_sum(torch.where(real, p, 0.0))
         else:
             p = torch.where(live, p, 0.0)
             psum = _tile_sum(p)
-        l = l * alpha + psum
+        l_new = l_r * alpha + psum
         if last:
-            l_m, l_e = torch.frexp(torch.clamp(l, min=_MIN_L))
+            l_m, l_e = torch.frexp(torch.clamp(l_new, min=_MIN_L))
             inv = pow2i(-l_e)
-        if quantize_scores and last:
-            y = (p / l_m) * inv
-            yq = torch.where(live, _grid(y, act_block, mant_bits), 0.0)
-            return ((acc * alpha) / l_m) * inv + _pv_seq(yq, vt, nk)
+            if quantize_scores:
+                y = (p / l_m) * inv
+                yq = torch.where(live, _grid(y, act_block, mant_bits), 0.0)
+                o = ((acc_r * alpha) / l_m) * inv + _pv_seq(yq, vt, nk)
+            else:
+                o = ((acc_r * alpha + _pv_seq(p, vt, nk)) / l_m) * inv
+            out[:, r0:r1] = o
+            continue
         if quantize_scores:
             p = torch.where(live, _grid(p, act_block, mant_bits), 0.0)
-        acc = acc * alpha + _pv_seq(p, vt, nk)
-        m = m_new
-        if last:
-            return (acc / l_m) * inv
-    raise ValueError("attention over zero keys")
+        acc[:, r0:r1] = acc_r * alpha + _pv_seq(p, vt, nk)
+        l[:, r0:r1] = l_new
+        m[:, r0:r1] = m_new
+    # the rows that stopped before the last tile: its normalization alone
+    a, b = span(n_tiles - 1)
+    for lo, hi in ((0, min(a, R)), (max(a, b), R)):
+        if lo < hi:
+            l_m, l_e = torch.frexp(torch.clamp(l[:, lo:hi], min=_MIN_L))
+            out[:, lo:hi] = (acc[:, lo:hi] / l_m) * pow2i(-l_e)
+    return out
+
+
+def tile_span(first: int, last: int, n_tiles: int, causal: bool,
+              window: int):
+    """(first, last) key tile that the query positions [first, last] visit:
+    with ``causal`` none after the tile of the last position, with a
+    ``window`` none before the tile of the first key the first position
+    sees.  The tiles left out are fully masked for every one of these
+    positions.  The CUDA kernels compute the same span per block."""
+    t1 = n_tiles - 1
+    if causal:
+        t1 = min(t1, last // TILE_K)
+    t0 = 0
+    if window > 0:
+        t0 = min(max(0, first - window + 1) // TILE_K, t1)
+    return t0, t1
 
 
 def flash_rows(q, k, v, *, causal: bool, window: int, kv_groups: int,
-               **kw) -> torch.Tensor:
+               skip_tiles: bool = True, **kw) -> torch.Tensor:
     """Plain version of ``flash_attention``: q (BH, Sq, D), k/v (BH/g, Sk,
     D) -> (BH, Sq, D) f32.  The g query heads of a KV head fold into its
-    rows, so K/V are not copied per query head."""
-    bh, sq, d = q.shape
-    qf = q.reshape(bh // kv_groups, kv_groups * sq, d)
-    pos = (torch.arange(kv_groups * sq, device=q.device) % sq)[None, :, None]
+    rows position-major (row = position * g + head), so K/V are not copied
+    per query head and a block of positions is a range of rows.
 
-    def mask(k0, n):
+    With ``skip_tiles`` each block of 128 positions visits only the tiles
+    of its ``tile_span``, as the kernels do; without it every row visits
+    every tile.  The two agree bit for bit."""
+    bh, sq, d = q.shape
+    g = kv_groups
+    qf = q.reshape(bh // g, g, sq, d).transpose(1, 2).reshape(
+        bh // g, sq * g, d)
+    pos = (torch.arange(sq * g, device=q.device) // g)[None, :, None]
+
+    def mask(k0, n, r0, r1):
+        p = pos[:, r0:r1]
         kp = torch.arange(k0, k0 + n, device=q.device)[None, None, :]
-        ok = torch.ones_like(pos - kp, dtype=torch.bool)
+        ok = torch.ones_like(p - kp, dtype=torch.bool)
         if causal:
-            ok = ok & (pos >= kp)
+            ok = ok & (p >= kp)
         if window > 0:
-            ok = ok & ((pos - kp) < window)
+            ok = ok & ((p - kp) < window)
         return ok
 
-    return attend_rows(qf, k, v, mask, **kw).reshape(bh, sq, d)
+    span = None
+    if skip_tiles:
+        n_tiles = -(-k.shape[1] // TILE_K)
+        spans = [tile_span(b0, min(b0 + TILE_K, sq) - 1, n_tiles, causal,
+                           window) for b0 in range(0, sq, TILE_K)]
+
+        def span(t):
+            # spans rise with the block, so the visitors are a block range
+            hit = [i for i, (t0, t1) in enumerate(spans) if t0 <= t <= t1]
+            if not hit:
+                return 0, 0
+            return hit[0] * TILE_K * g, min((hit[-1] + 1) * TILE_K, sq) * g
+
+    o = attend_rows(qf, k, v, mask, span=span, **kw)
+    return o.reshape(bh // g, sq, g, d).transpose(1, 2).reshape(bh, sq, d)
 
 
 def decode_rows(q, k, v, valid, **kw) -> torch.Tensor:
     """Plain version of ``flash_attention_decode``: q (B, Hkv, G, D), k/v
-    (B, W, Hkv, D), valid (B, W) -> (B, Hkv, G, D) f32."""
+    (B, W, Hkv, D), valid (B, W) -> (B, Hkv, G, D) f32.  Every row visits
+    every tile of the ring."""
     b, hkv, g, d = q.shape
     W = k.shape[1]
     kf = k.permute(0, 2, 1, 3).reshape(b * hkv, W, d)
@@ -223,7 +297,7 @@ def decode_rows(q, k, v, valid, **kw) -> torch.Tensor:
     ok = (valid != 0)[:, None, None, :].expand(b, hkv, 1, W).reshape(
         b * hkv, 1, W)
     o = attend_rows(q.reshape(b * hkv, g, d), kf, vf,
-                    lambda k0, n: ok[:, :, k0:k0 + n], **kw)
+                    lambda k0, n, r0, r1: ok[:, :, k0:k0 + n], **kw)
     return o.reshape(b, hkv, g, d)
 
 
@@ -243,6 +317,35 @@ def _check(name, exp_mode, quantize_scores, act_block, d):
         raise NotImplementedError(
             f"{name}: head dim {d} > {MAX_HEAD_DIM}, which the kernels do "
             f"not take")
+
+
+def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
+    """The CUDA kernel that ``flash_attention`` launches for these operands,
+    chosen by dtype:
+
+    - 'mma' for bfloat16, the dtype the model serves and scores in: q.k and
+      P.V on the bf16 tensor cores (``mma.sync``), the row stages in
+      registers.  Its f32 sums run in no fixed order, so the card holds it
+      to the plain version within a tolerance.  Head dims that are
+      multiples of 16 up to 128, at most 128 query heads per KV head.
+    - 'ordered' for float32: the CUDA-core kernel whose sums repeat the
+      plain version's order, so the card holds it bit for bit.
+
+    This is a route, not a fallback: anything neither kernel takes raises.
+    """
+    if dtype == torch.float32:
+        return "ordered"
+    if dtype != torch.bfloat16:
+        raise ValueError("the flash kernels take float32 or bfloat16")
+    if d % MMA_K:
+        raise NotImplementedError(
+            f"flash_attention: bf16 head dim {d} is not a multiple of "
+            f"{MMA_K}, which the tensor-core kernel needs")
+    if kv_groups > MMA_ROWS:
+        raise NotImplementedError(
+            f"flash_attention: kv_groups {kv_groups} > {MMA_ROWS}, the rows "
+            f"of one block of the tensor-core kernel")
+    return "mma"
 
 
 def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
@@ -270,7 +373,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kv_groups: int = 1) -> torch.Tensor:
     """q: (BH, Sq, D); k, v: (BH // kv_groups, Sk, D), query head b reads KV
     head b // kv_groups.  Any Sq, Sk; D <= 128.  Returns (BH, Sq, D) in
-    q's dtype.  ``act_block`` must already be resolved against the tile."""
+    q's dtype.  ``act_block`` must already be resolved against the tile.
+
+    A CPU tensor runs the plain version ``flash_rows``.  A CUDA tensor
+    launches the kernel that ``kernel_route`` picks by dtype: bfloat16 the
+    tensor-core kernel (D a multiple of 16, 16-byte aligned operands),
+    float32 the ordered CUDA-core kernel."""
     bh, sq, d = q.shape
     bhkv, sk, _ = k.shape
     if bh != bhkv * kv_groups:
@@ -291,6 +399,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v must share a dtype")
     out = torch.empty_like(q)
+    if kernel_route(q.dtype, d, kv_groups) == "mma" and any(
+            t.data_ptr() % 16 for t in (q, k, v, out)):
+        raise ValueError("flash_attention: the bf16 kernel reads 16-byte "
+                         "aligned rows")
     fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 +
                       [ctypes.c_int] * 7 + _TAIL)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),

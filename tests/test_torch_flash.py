@@ -203,6 +203,79 @@ def test_decode_equals_flash_rows_of_one_query():
     assert torch.equal(dec.reshape(-1), fl.reshape(-1))
 
 
+# (S, window, exp_mode, quantize_scores): causal, G = 4; S = 300 leaves a
+# padded last tile, window 256 at S = 650 skips leading tiles too
+SKIP_CASES = [(S, w, mode, qs) for S, w in ((1024, 0), (300, 0), (650, 256))
+              for mode, qs in (("mxint", True), ("float", False))]
+
+
+@pytest.mark.parametrize(
+    "S,window,exp_mode,quantize", SKIP_CASES,
+    ids=[f"S{c[0]}-w{c[1]}-{c[2]}{'-q' if c[3] else ''}" for c in SKIP_CASES])
+def test_flash_tile_skipping_is_exact(S, window, exp_mode, quantize):
+    """The plain version walking each 128-position block over its
+    ``tile_span`` only (trailing causal tiles and leading window tiles
+    left out, the last visited tile run as an interior one plus the
+    normalization-only epilogue) equals it walking every tile, bit for
+    bit."""
+    hkv, g, d = 1, 4, 32
+    q = _t(_x((hkv * g, S, d), 21, 1.5))
+    k = _t(_x((hkv, S, d), 22, 1.5))
+    v = _t(_x((hkv, S, d), 23))
+    kw = dict(causal=True, window=window, kv_groups=g, exp_mode=exp_mode,
+              r_bits=2, quantize_scores=quantize, act_block=16, mant_bits=8,
+              scale=fa.f32(d ** -0.5))
+    n_tiles = -(-S // fa.TILE_K)
+    spans = [fa.tile_span(b0, min(b0 + fa.TILE_K, S) - 1, n_tiles, True,
+                          window) for b0 in range(0, S, fa.TILE_K)]
+    assert spans[0] == (0, 0) and spans[-1][1] == n_tiles - 1
+    if window:
+        assert spans[-1][0] > 0
+    skip = fa.flash_rows(q, k, v, skip_tiles=True, **kw)
+    full = fa.flash_rows(q, k, v, skip_tiles=False, **kw)
+    assert torch.isfinite(skip).all()
+    assert torch.equal(skip, full)
+
+
+def test_tile_span_bounds():
+    assert fa.tile_span(0, 127, 8, True, 0) == (0, 0)
+    assert fa.tile_span(992, 1023, 8, True, 0) == (0, 7)
+    assert fa.tile_span(32, 63, 8, False, 0) == (0, 7)
+    assert fa.tile_span(512, 639, 6, True, 256) == (2, 4)
+    # a window past every key still visits the last tile
+    assert fa.tile_span(900, 960, 2, False, 10) == (1, 1)
+
+
+def test_bf16_cpu_tensor_runs_the_plain_version():
+    """On a CPU tensor the op runs the plain version whatever the dtype;
+    the dtype only picks the CUDA kernel."""
+    q = _t(_x((4, 200, 16), 24)).to(torch.bfloat16)
+    k = _t(_x((1, 200, 16), 25)).to(torch.bfloat16)
+    v = _t(_x((1, 200, 16), 26)).to(torch.bfloat16)
+    before = fa.launches
+    got = fa.flash_attention(q, k, v, causal=True, exp_mode="mxint",
+                             quantize_scores=True, kv_groups=4)
+    want = fa.flash_rows(q, k, v, causal=True, window=0, kv_groups=4,
+                         exp_mode="mxint", r_bits=2, quantize_scores=True,
+                         act_block=16, mant_bits=8, scale=fa.f32(0.25))
+    assert got.dtype == torch.bfloat16 and fa.launches == before
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+def test_kernel_route_by_dtype():
+    """bf16 takes the tensor-core kernel, float32 the ordered one; a bf16
+    head dim that is not a multiple of 16 raises."""
+    assert fa.kernel_route(torch.bfloat16, 128, 4) == "mma"
+    assert fa.kernel_route(torch.bfloat16, 16, 1) == "mma"
+    assert fa.kernel_route(torch.float32, 100, 4) == "ordered"
+    with pytest.raises(NotImplementedError, match="multiple of 16"):
+        fa.kernel_route(torch.bfloat16, 72, 4)
+    with pytest.raises(NotImplementedError, match="kv_groups"):
+        fa.kernel_route(torch.bfloat16, 64, 256)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fa.kernel_route(torch.float16, 64, 1)
+
+
 def test_flash_ops_check_their_arguments():
     q = torch.zeros(2, 8, 160)
     with pytest.raises(NotImplementedError, match="head dim"):
