@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch/H100 port on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --kernels flash_attention   # build, one kernel
+    python3 chip_smoke.py --kernels flash_attention_decode   # one kernel
 
 1. Prints the card's name and power limit, then builds the six CUDA
    sources from ``src/repro_torch/kernels/csrc`` (seven kernels) and prints
@@ -16,9 +16,13 @@
    for every kernel and case except bf16 ``flash_attention``, whose q.k
    and P.V sums run on the tensor cores in no fixed order (``FLASH_TOL``):
    float mode every element within one bf16 ulp of the plain version's,
-   quantized scores at least 99% within one ulp and the largest gap at
+   quantized scores at least 99.9% within one ulp and the largest gap at
    most 5e-2 of the output scale.  Its float32 case takes the ordered
-   kernel and is held to 0 mismatches.
+   kernel and is held to 0 mismatches.  ``flash_attention_decode`` is
+   held to 0 mismatches in every case, bf16 and float32: the Llama ring
+   at four depths and at the served depths, ragged rings, a wrapped window
+   ring with a hole, G 1, 3 and 8, head dims 64 and 100, act blocks 4 and
+   32.
 3. DeiT phase: DeiT-Base at full width and depth (12 layers, d 768, 1000
    classes, random weights from a seed, packed MXInt6 planes) serves 5
    requests of 1-16 images through ``ViTServingEngine(batch=16)`` and
@@ -89,9 +93,13 @@ SOURCES["flash_attention_decode"] = \
 # within a tolerance; every other kernel case, float32 flash_attention
 # included, is held to 0 mismatches.  Float mode: every element within one
 # bf16 ulp of the plain version's (only the summation order differs before
-# the final rounding to bf16).  Quantized scores: at least 99% of the
+# the final rounding to bf16).  Quantized scores: at least 99.9% of the
 # elements within one ulp and the largest gap at most 5e-2 of the output
-# scale (a score or p at an MXInt rounding tie may round the other way).
+# scale.  A score or p at an MXInt rounding tie may round the other way
+# and move its row: a few rows, by up to 1.3e-2 of the scale on the card.
+# A kernel without the P requantize is off in most rows, by no more than
+# that (6.7e-3 to 1.3e-2 at the CPU test shapes), so the share catches it
+# and the gap cannot (tests/test_torch_flash.py).
 # The ulp of an element is taken at no less than ULP_FLOOR of the output
 # scale, the ulp of an element at 2^-11 of it: below that the f32 sums'
 # own rounding (about 2^-24 of the terms' magnitude, in the plain version
@@ -100,7 +108,9 @@ SOURCES["flash_attention_decode"] = \
 # the output scale), or None for bit for bit
 ULP_FLOOR = 2.0 ** -19
 FLASH_TOL = {(False, False): None, (False, True): None,
-             (True, False): (1.0, None), (True, True): (0.99, 5e-2)}
+             (True, False): (1.0, None), (True, True): (0.999, 5e-2)}
+# decode cases timed beside the first one (the served ring's depths)
+TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint"}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
@@ -127,6 +137,21 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time per call of ``fn``: the summed time of the kernels it
+    launches, from a ``torch.profiler`` trace (the host work and gaps
+    between launches that ``time_ms`` sees are left out)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
@@ -305,73 +330,116 @@ def kernel_cases(torch, np):
 
 def flash_cases(torch, np, x):
     """The two flash kernels at the Llama-3-8B shapes (bf16, mxint with
-    quantized scores, then float) and at ragged shapes."""
+    quantized scores, then float), at the served ring depths, at
+    Phi-4-mini's and Qwen3-14B's group counts (G 3 and 5) and at ragged
+    shapes: rings that wrapped or have holes, G 1 and 8, head dims that are
+    not multiples of 16, act blocks 4 and 32, float32 operands."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     dev = DEVICE
+    bf16, f32 = torch.bfloat16, torch.float32
     mx = dict(exp_mode="mxint", quantize_scores=True)
     fl = dict(exp_mode="float", quantize_scores=False)
     cases = {"flash_attention_decode": [], "flash_attention": []}
-    for label, W, lens, kw in (
-            ("llama3_8b_decode_b4_W2048_mxint", 2048, (37, 700, 1500, 2048),
-             mx),
-            ("llama3_8b_decode_b4_W2048_float", 2048, (37, 700, 1500, 2048),
-             fl),
-            ("ragged_W300_mxint", 300, (37, 120, 299, 300), mx),
-            ("ragged_W300_float", 300, (37, 120, 299, 300), fl)):
-        q = x(4, 8, 4, 128, scale=1.5).to(torch.bfloat16)
-        k = x(4, W, 8, 128, scale=1.5).to(torch.bfloat16)
-        v = x(4, W, 8, 128).to(torch.bfloat16)
+    depths = ((0, 37), (0, 700), (0, 1500), (0, 2048))
+    ragged = ((0, 37), (0, 120), (0, 299), (0, 300))
+    # (label, W, KV heads, G, head dim, act block, dtype, kw, the valid
+    # slots of each of the 4 batch rows as (first, end[, hole first, hole
+    # end]))
+    for label, W, hkv, g, d, blk, dt, kw, rows in (
+            ("llama3_8b_decode_b4_W2048_mxint", 2048, 8, 4, 128, 16, bf16, mx,
+             depths),
+            ("llama3_8b_decode_b4_W2048_float", 2048, 8, 4, 128, 16, bf16, fl,
+             depths),
+            ("ragged_W300_mxint", 300, 8, 4, 128, 16, bf16, mx, ragged),
+            ("ragged_W300_float", 300, 8, 4, 128, 16, bf16, fl, ragged),
+            # a served batch: prompts of 37-1000 tokens plus 24 new ones
+            ("llama3_8b_decode_b4_W2048_served_mxint", 2048, 8, 4, 128, 16,
+             bf16, mx, ((0, 61), (0, 300), (0, 700), (0, 1024))),
+            # a wrapped window ring with a hole, a ring with a wide hole, a
+            # window in mid-ring, one valid slot past the first tile
+            ("ragged_W1024_wrapped_hole_mxint", 1024, 8, 4, 128, 16, bf16, mx,
+             ((300, 1024, 500, 520), (0, 1024, 100, 356), (700, 900),
+              (128, 129))),
+            ("ragged_W700_g1_d64_b32_mxint", 700, 8, 1, 64, 32, bf16, mx,
+             ((0, 37), (0, 400), (0, 513), (0, 700))),
+            ("ragged_W700_g8_d64_b4_mxint", 700, 4, 8, 64, 4, bf16, mx,
+             ((0, 37), (0, 400), (0, 513), (0, 700))),
+            # D 100 is not whole 16-byte chunks: element-wise tile loads
+            ("ragged_W333_g3_d100_mxint", 333, 8, 3, 100, 16, bf16, mx,
+             ((0, 37), (0, 200), (0, 256), (0, 333))),
+            ("ragged_W1024_mxint_f32", 1024, 8, 4, 128, 16, f32, mx,
+             ((0, 37), (0, 129), (0, 700), (0, 1024)))):
+        q = x(4, hkv, g, d, scale=1.5).to(dt)
+        k = x(4, W, hkv, d, scale=1.5).to(dt)
+        v = x(4, W, hkv, d).to(dt)
         valid = torch.zeros(4, W, dtype=torch.int32, device=dev)
-        for i, n in enumerate(lens):
-            valid[i, :n] = 1
-        pairs = sum(lens) * 8 * 4
-        kv_bytes = sum(lens) * 8 * 128 * 2 * 2
+        for i, (lo, hi, *hole) in enumerate(rows):
+            valid[i, lo:hi] = 1
+            if hole:
+                valid[i, hole[0]:hole[1]] = 0
+        n_valid = int(valid.sum())
+        pairs = n_valid * hkv * g
+        size = q.element_size()
         lib = None
-        if kw is fl and W == LM_MAX_LEN:
+        if W == LM_MAX_LEN and (kw is fl or label in TIMED_CASES):
             mask = (valid != 0)[:, None, None, :]
 
-            def lib(q=q, k=k, v=v, mask=mask):
+            def lib(q=q, k=k, v=v, mask=mask, hkv=hkv, g=g, d=d):
                 return F.scaled_dot_product_attention(
-                    q.reshape(4, 32, 1, 128), k.transpose(1, 2),
+                    q.reshape(4, hkv * g, 1, d), k.transpose(1, 2),
                     v.transpose(1, 2), attn_mask=mask, enable_gqa=True)
         cases["flash_attention_decode"].append((
             label,
-            lambda q=q, k=k, v=v, valid=valid, kw=kw:
-                fa.flash_attention_decode(q, k, v, valid, **kw),
-            lambda q=q, k=k, v=v, valid=valid, kw=kw: fa.decode_rows(
-                q, k, v, valid, r_bits=2, act_block=16, mant_bits=8,
-                scale=128 ** -0.5, **kw).to(q.dtype),
-            bound(kv_bytes + 2 * q.numel() * 2 + valid.numel() * 4,
-                  bf16_ops=4.0 * pairs * 128,
-                  f32_ops=ROW_OPS["flash"] * pairs),
+            lambda q=q, k=k, v=v, valid=valid, b=blk, kw=kw:
+                fa.flash_attention_decode(q, k, v, valid, act_block=b, **kw),
+            lambda q=q, k=k, v=v, valid=valid, b=blk, d=d, kw=kw:
+                fa.decode_rows(q, k, v, valid, r_bits=2, act_block=b,
+                               mant_bits=8, scale=fa.f32(d ** -0.5),
+                               **kw).to(q.dtype),
+            bound(n_valid * hkv * d * 2 * size + 2 * q.numel() * size
+                  + valid.numel() * 4,
+                  bf16_ops=4.0 * pairs * d if dt == bf16 else 0.0,
+                  f32_ops=ROW_OPS["flash"] * pairs
+                  + (4.0 * pairs * d if dt == f32 else 0.0)),
             lib))
-    # (label, S, causal, window, kv_groups, head dim, act block, dtype, kw)
-    for label, S, causal, window, g, d, blk, dt, kw in (
-            ("llama3_8b_score_1024_causal_mxint", 1024, True, 0, 4, 128, 16,
-             torch.bfloat16, mx),
-            ("llama3_8b_score_1024_causal_float", 1024, True, 0, 4, 128, 16,
-             torch.bfloat16, fl),
-            ("ragged_650_window256_mxint", 650, True, 256, 4, 128, 16,
-             torch.bfloat16, mx),
-            ("ragged_650_window256_float", 650, True, 256, 4, 128, 16,
-             torch.bfloat16, fl),
-            ("ragged_300_full_d64_g2_b32_mxint", 300, False, 0, 2, 64, 32,
-             torch.bfloat16, mx),
-            ("ragged_200_window100_d32_g8_b4_mxint", 200, True, 100, 8, 32,
-             4, torch.bfloat16, mx),
+    # (label, S, causal, window, query heads, kv_groups, head dim, act
+    # block, dtype, kw)
+    for label, S, causal, window, h, g, d, blk, dt, kw in (
+            ("llama3_8b_score_1024_causal_mxint", 1024, True, 0, 32, 4, 128,
+             16, bf16, mx),
+            ("llama3_8b_score_1024_causal_float", 1024, True, 0, 32, 4, 128,
+             16, bf16, fl),
+            ("ragged_650_window256_mxint", 650, True, 256, 32, 4, 128, 16,
+             bf16, mx),
+            ("ragged_650_window256_float", 650, True, 256, 32, 4, 128, 16,
+             bf16, fl),
+            ("ragged_300_full_d64_g2_b32_mxint", 300, False, 0, 32, 2, 64, 32,
+             bf16, mx),
+            ("ragged_200_window100_d32_g8_b4_mxint", 200, True, 100, 32, 8,
+             32, 4, bf16, mx),
+            # group counts that do not divide 128: blocks of 42 and 25
+            # positions (Phi-4-mini 24 / 8 heads, Qwen3-14B 40 / 8)
+            ("phi4_mini_g3_650_causal_mxint", 650, True, 0, 24, 3, 128, 16,
+             bf16, mx),
+            ("phi4_mini_g3_300_full_float", 300, False, 0, 24, 3, 128, 16,
+             bf16, fl),
+            ("qwen3_14b_g5_650_causal_mxint", 650, True, 0, 40, 5, 128, 16,
+             bf16, mx),
+            ("qwen3_14b_g5_300_full_float", 300, False, 0, 40, 5, 128, 16,
+             bf16, fl),
             # float32 operands take the ordered kernel: bit for bit
-            ("ragged_650_window256_mxint_f32", 650, True, 256, 4, 128, 16,
-             torch.float32, mx)):
-        hkv = 32 // g
-        q = x(32, S, d, scale=1.5).to(dt)
+            ("ragged_650_window256_mxint_f32", 650, True, 256, 32, 4, 128, 16,
+             f32, mx)):
+        hkv = h // g
+        q = x(h, S, d, scale=1.5).to(dt)
         k = x(hkv, S, d, scale=1.5).to(dt)
         v = x(hkv, S, d).to(dt)
-        pairs = 32 * flash_pairs(S, S, causal, window)
+        pairs = h * flash_pairs(S, S, causal, window)
         size = q.element_size()
         ops = 4.0 * pairs * d
         lib = None
-        if kw is fl and window == 0:
+        if kw is fl and window == 0 and causal:
             def lib(q=q, k=k, v=v):
                 return F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=True,
@@ -387,10 +455,10 @@ def flash_cases(torch, np, x):
                               scale=fa.f32(q.shape[-1] ** -0.5),
                               **kw).to(q.dtype),
             bound(size * (2 * q.numel() + k.numel() + v.numel()),
-                  bf16_ops=ops if dt == torch.bfloat16 else 0.0,
+                  bf16_ops=ops if dt == bf16 else 0.0,
                   f32_ops=ROW_OPS["flash"] * pairs
-                  + (ops if dt == torch.float32 else 0.0)),
-            lib, FLASH_TOL[(dt == torch.bfloat16, kw is mx)]))
+                  + (ops if dt == f32 else 0.0)),
+            lib, FLASH_TOL[(dt == bf16, kw is mx)]))
     return cases
 
 
@@ -406,7 +474,9 @@ def within_bf16_ulp(torch, got, want):
                       min=float(scale) * ULP_FLOOR)
     diff = (g - w).abs()
     out = diff > ulp
-    log(f"[kernel]   beyond one ulp: {int(out.sum())} elements"
+    rows = out.reshape(-1, out.shape[-1]).any(-1)
+    log(f"[kernel]   beyond one ulp: {int(out.sum())} elements in "
+        f"{int(rows.sum())} of {rows.numel()} rows"
         + (f", largest |want| among them {float(w.abs()[out].max() / scale)!r}"
            f" of scale, largest gap {float(diff[out].max() / scale)!r}"
            if bool(out.any()) else ""))
@@ -450,25 +520,33 @@ def kernel_phase(torch, np, only=None):
                 if share < tol[0] or (tol[1] is not None and gap > tol[1]):
                     raise AssertionError(
                         f"{name} {label}: outside its tolerance {tol}")
-            if i == 0:                       # time the DeiT-Base shape
+            if i == 0 or label in TIMED_CASES:   # the path's shapes
                 case["ms"] = time_ms(kern, iters=20)
                 case["plain_ms"] = time_ms(plain, iters=3, warmup=1)
                 case["library_ms"] = (time_ms(lib, iters=20)
                                       if lib is not None else None)
                 case["bound_ms"], case["bound_by"] = b_ms, b_by
+                case["device_ms"] = device_ms(kern)
+                case["library_device_ms"] = (device_ms(lib)
+                                             if lib is not None else None)
                 for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                          "library_ms"):
-                    res[k] = case[k]
+                          "library_ms", "device_ms"):
+                    if i == 0:
+                        res[k] = case[k]
                 log(f"[kernel] {name} {label} ms={case['ms']!r} "
                     f"plain_ms={case['plain_ms']!r} bound_ms={b_ms!r} "
-                    f"({b_by}) library_ms={case['library_ms']!r}")
+                    f"({b_by}) library_ms={case['library_ms']!r} "
+                    f"device_ms={case['device_ms']!r} library_device_ms="
+                    f"{case['library_device_ms']!r}")
             elif lib is not None and res["library_ms"] is None:
                 # a float variant's library call, where case 0 has none
                 case["library_ms"] = time_ms(lib, iters=20)
+                case["library_device_ms"] = device_ms(lib)
                 res["library_ms"] = case["library_ms"]
                 res["library_case"] = label
                 log(f"[kernel] {name} {label} library_ms="
-                    f"{case['library_ms']!r}")
+                    f"{case['library_ms']!r} library_device_ms="
+                    f"{case['library_device_ms']!r}")
             res["cases"].append(case)
         results[name] = res
         log(json.dumps({"kernel": name, "max_abs_err": res["max_abs_err"],

@@ -12,10 +12,11 @@
 //                            (BH/g, Sk, D), D a multiple of 16.
 //   flash_attention, f32:    flash_kernel over attend_rows, one CTA per
 //                            (batch*head, block of 32 query rows).
-//   flash_attention_decode:  decode_kernel over attend_rows, one CTA per
-//                            (batch, KV head, up to 8 of its G query rows);
-//                            q (B, Hkv, G, D), k/v in the cache's native
-//                            (B, W, Hkv, D) layout, valid (B, W).
+//   flash_attention_decode:  decode_kernel, one CTA per (batch, KV head,
+//                            up to 8 of its G query rows, slice of the D
+//                            output columns); q (B, Hkv, G, D), k/v in the
+//                            cache's native (B, W, Hkv, D) layout, valid
+//                            (B, W).
 //
 // The key axis is walked in 128-key tiles from key 0, in order, inside the
 // CTA.  The result depends on where the tiles fall: each tile has its own
@@ -50,17 +51,22 @@
 //   and at 255 registers a thread one 8-warp CTA fits an SM.  Its sums
 //   have no fixed order, so the card holds it to the plain version within
 //   a tolerance (chip_smoke.py).
-// - f32, and flash_attention_decode in both dtypes: the ordered kernel
-//   (attend_rows below).  Every sum runs in one fixed order that the plain
-//   versions repeat: q.k over d in increasing order, P.V over the keys of a
-//   tile in increasing order, the row sum lane by lane then a butterfly;
-//   multiplies and adds are rounded one by one, so the card holds it to
-//   the plain version bit for bit.  Its products are f32 on CUDA cores, so
-//   operations bound it.  It stages each K and then V tile in shared
-//   memory as f32 (row stride D + 1, no bank conflicts), keeps the scores,
-//   the row stages and the running (m, l, acc) in shared memory, and runs
-//   the row stages one warp per row with lane l holding keys l, l + 32,
-//   l + 64, l + 96; it walks every tile.
+// - f32: the ordered kernel (attend_rows below).  Every sum runs in one
+//   fixed order that the plain versions repeat: q.k over d in increasing
+//   order, P.V over the keys of a tile in increasing order, the row sum
+//   lane by lane then a butterfly; multiplies and adds are rounded one by
+//   one, so the card holds it to the plain version bit for bit.  Its
+//   products are f32 on CUDA cores, so operations bound it.  It stages each
+//   K and then V tile in shared memory as f32 (row stride D + 1, no bank
+//   conflicts), keeps the scores, the row stages and the running (m, l,
+//   acc) in shared memory, and runs the row stages one warp per row with
+//   lane l holding keys l, l + 32, l + 64, l + 96; it walks every tile.
+//
+// flash_attention_decode, both dtypes, runs decode_kernel: the same ordered
+// sums and the same row stages (row_stages), so it too is bit for bit with
+// its plain version, on its own geometry (see its note below): column
+// slices over more CTAs, cp.async tiles, and a stop at each batch row's
+// last valid tile.
 #include <cuda_bf16.h>
 
 #include "mxint_common.cuh"
@@ -91,19 +97,15 @@ __device__ __forceinline__ float warp_max_f(float v) {
   return v;
 }
 
-// max over an aligned group of `group` lanes (a power of two <= 32)
-__device__ __forceinline__ float group_max_f(float v, int group) {
-  for (int off = group >> 1; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// snap one value onto the MXInt grid of its act block; a block is `group`
-// consecutive lanes of one column, so the amax is a lane-group max
-__device__ __forceinline__ float grid_requant_lane(float y, int group,
-                                                   int mant_bits, float lim) {
-  const int e = block_exp(group_max_f(fabsf(y), group), mant_bits);
-  return __fmul_rn(quant_mant(y, pow2i(-e), lim), pow2i(e));
+// max over aligned groups of `group` lanes (a power of two <= 32), of a
+// lane's kPerLane values at once, so that their shuffles overlap
+__device__ __forceinline__ void group_max_lanes(float (&v)[kPerLane],
+                                                int group) {
+  for (int off = group >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c)
+      v[c] = fmaxf(v[c], __shfl_xor_sync(kFull, v[c], off));
+  }
 }
 
 // exactly pow2i(n), from selects instead of branches: in the unrolled row
@@ -115,17 +117,9 @@ __device__ __forceinline__ float pow2_sel(int n) {
   return __int_as_float(c >= -126 ? (c + 127) << 23 : sub);
 }
 
-struct Pow2Branch {
-  __device__ __forceinline__ static float of(int n) { return pow2i(n); }
-};
-struct Pow2Sel {
-  __device__ __forceinline__ static float of(int n) { return pow2_sel(n); }
-};
-
 // Cephes expf for x <= 0 (0 below -104): exp(x) = 2^n * P(r), about 1
 // ulp, from rounded multiplies and adds only; exp_nonpos in
 // kernels/flash_attention.py runs the same operations in the same order.
-template <class Pow2 = Pow2Branch>
 __device__ __forceinline__ float exp_nonpos(float x) {
   x = fminf(fmaxf(x, -104.0f), 0.0f);
   const float n = floorf(__fadd_rn(__fmul_rn(x, 0x1.715476p+0f), 0.5f));
@@ -137,7 +131,7 @@ __device__ __forceinline__ float exp_nonpos(float x) {
   y = __fadd_rn(__fmul_rn(y, x), 0x1.555554p-3f);
   y = __fadd_rn(__fmul_rn(y, x), 0.5f);
   y = __fadd_rn(__fadd_rn(__fmul_rn(y, __fmul_rn(x, x)), x), 1.0f);
-  return __fmul_rn(y, Pow2::of((int)n));
+  return __fmul_rn(y, pow2_sel((int)n));
 }
 
 // exp2_datapath of mxint_common.cuh with pow2_sel for pow2i: the same
@@ -170,44 +164,60 @@ __host__ __device__ constexpr size_t smem_floats(int rows) {
          kMaxLut;
 }
 
+// The causal and window mask of this lane's keys k0 + lane + 32c of a tile
+// for query position qpos
+__device__ __forceinline__ void lane_keep(int qpos, int k0, const Problem& p,
+                                          int lane, bool (&keep)[kPerLane]) {
+#pragma unroll
+  for (int c = 0; c < kPerLane; ++c) {
+    const int key = k0 + lane + kWarp * c;
+    bool ok = true;
+    if (p.causal) ok = ok && qpos >= key;
+    if (p.window > 0) ok = ok && (qpos - key) < p.window;
+    keep[c] = ok;
+  }
+}
+
 // One tile's row stages for row r (one warp): mask, Eq. 2-3 quantization,
 // exp datapath, rescale, row sum, and the P written back for the P.V
 // product.  Row state: m, l (running), alpha, and at the flush l_m, 2^-l_e.
-__device__ __forceinline__ void row_stages(float* srow, const int* valid,
-                                           int qpos, int k0, bool last,
+__device__ __forceinline__ void row_stages(float* srow,
+                                           const bool (&keep)[kPerLane],
+                                           int k0, bool last,
                                            const Problem& p, const float* lut,
                                            float* m_s, float* l_s,
                                            float* alpha_s, float* lm_s,
                                            float* inv_s, int lane) {
   const float lim = (float)((1 << (p.mant_bits - 1)) - 1);
   float s[kPerLane];
-  bool real[kPerLane], keep[kPerLane];
+  bool real[kPerLane];
 #pragma unroll
   for (int c = 0; c < kPerLane; ++c) {
-    const int j = lane + kWarp * c, key = k0 + j;
-    real[c] = key < p.n_keys;
-    bool ok = true;
-    if (real[c] && valid != nullptr) ok = valid[key] != 0;
-    if (p.causal) ok = ok && qpos >= key;
-    if (p.window > 0) ok = ok && (qpos - key) < p.window;
-    keep[c] = ok;
-    s[c] = ok ? srow[j] : kNegInf;
+    const int j = lane + kWarp * c;
+    real[c] = k0 + j < p.n_keys;
+    s[c] = keep[c] ? srow[j] : kNegInf;
   }
   if (p.quantize) {
+    float a[kPerLane];
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) {
+      if (!real[c]) s[c] = pow2_sel(-100);              // the pad fill
+      a[c] = fabsf(s[c]);
+    }
+    group_max_lanes(a, p.block);
     int e[kPerLane];
     int emax = -128;
 #pragma unroll
     for (int c = 0; c < kPerLane; ++c) {
-      if (!real[c]) s[c] = pow2i(-100);                 // the pad fill
-      e[c] = block_exp(group_max_f(fabsf(s[c]), p.block), p.mant_bits);
+      e[c] = block_exp(a[c], p.mant_bits);
       emax = max(emax, e[c]);
     }
     emax = warp_max_i(emax);
-    const float plam = pow2i(emax);
+    const float plam = pow2_sel(emax);
 #pragma unroll
     for (int c = 0; c < kPerLane; ++c) {
       const int sh = min(emax - e[c], 31);
-      const int mi = ((int)quant_mant(s[c], pow2i(-e[c]), lim)) >> sh;
+      const int mi = ((int)quant_mant(s[c], pow2_sel(-e[c]), lim)) >> sh;
       s[c] = __fmul_rn((float)mi, plam);
     }
   }
@@ -224,7 +234,7 @@ __device__ __forceinline__ void row_stages(float* srow, const int* valid,
 #pragma unroll
   for (int c = 0; c < kPerLane; ++c) {
     const float t = __fsub_rn(s[c], m_new);
-    pr[c] = p.mxint ? exp2_datapath(__fmul_rn(t, p.log2e), lut, p.lut_n)
+    pr[c] = p.mxint ? exp2_datapath_sel(__fmul_rn(t, p.log2e), lut, p.lut_n)
                     : exp_nonpos(t);
     const bool live = keep[c] && real[c];
     float pl;
@@ -244,19 +254,27 @@ __device__ __forceinline__ void row_stages(float* srow, const int* valid,
   if (last) {
     int le;
     lm = frexpf(fmaxf(l_new, kMinL), &le);              // Eq. 20
-    inv = pow2i(-le);
+    inv = pow2_sel(-le);
+  }
+  if (p.quantize) {
+    // P onto the act grid, block by block (normalized first on the last
+    // tile); masked and padding lanes then 0
+    float a[kPerLane];
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) {
+      if (last) pr[c] = __fmul_rn(__fdiv_rn(pr[c], lm), inv);
+      a[c] = fabsf(pr[c]);
+    }
+    group_max_lanes(a, p.block);
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) {
+      const int e = block_exp(a[c], p.mant_bits);
+      pr[c] = __fmul_rn(quant_mant(pr[c], pow2_sel(-e), lim), pow2_sel(e));
+      pr[c] = keep[c] && real[c] ? pr[c] : 0.0f;
+    }
   }
 #pragma unroll
-  for (int c = 0; c < kPerLane; ++c) {
-    float out = pr[c];
-    if (p.quantize) {
-      const bool live = keep[c] && real[c];
-      if (last) out = __fmul_rn(__fdiv_rn(pr[c], lm), inv);
-      out = grid_requant_lane(out, p.block, p.mant_bits, lim);
-      out = live ? out : 0.0f;
-    }
-    srow[lane + kWarp * c] = out;
-  }
+  for (int c = 0; c < kPerLane; ++c) srow[lane + kWarp * c] = pr[c];
   __syncwarp();
   if (lane == 0) {
     *m_s = m_new;
@@ -267,16 +285,17 @@ __device__ __forceinline__ void row_stages(float* srow, const int* valid,
   }
 }
 
-// The whole key loop for up to ROWS query rows of one (batch, head).
-// q/out point at row 0 of the problem (row stride d); rows [row0, row0 +
-// ROWS) are this CTA's.  k/v point at key 0 (key stride p.key_stride);
-// valid, when given, at the problem's (n_keys,) validity row.
-template <typename T, int ROWS, int THREADS>
-__device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
-                            const int* __restrict__ valid,
+// The whole key loop for up to ROWS query rows of one (batch, head), f32
+// operands.  q/out point at row 0 of the problem (row stride d); rows
+// [row0, row0 + ROWS) are this CTA's.  k/v point at key 0 (key stride
+// p.key_stride).
+template <int ROWS, int THREADS>
+__device__ void attend_rows(const float* __restrict__ q,
+                            const float* __restrict__ k,
+                            const float* __restrict__ v,
                             const float* __restrict__ lut_g,
-                            T* __restrict__ out, int row0, const Problem& p) {
+                            float* __restrict__ out, int row0,
+                            const Problem& p) {
   static_assert(THREADS % kTileK == 0 && (ROWS * kTileK) % THREADS == 0,
                 "thread mapping");
   constexpr int kRowStep = THREADS / kTileK;
@@ -340,9 +359,12 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
     // row stages, one warp per row
-    for (int r = warp; r < rows; r += kWarps)
-      row_stages(ss + r * kTileK, valid, row0 + r, k0, last, p, lut, sm + r,
-                 sl + r, salpha + r, slm + r, sinv + r, lane);
+    for (int r = warp; r < rows; r += kWarps) {
+      bool keep[kPerLane];
+      lane_keep(row0 + r, k0, p, lane, keep);
+      row_stages(ss + r * kTileK, keep, k0, last, p, lut, sm + r, sl + r,
+                 salpha + r, slm + r, sinv + r, lane);
+    }
     __syncthreads();
     // V tile -> shared memory, over the K tile
     for (int i = tid; i < kTileK * d; i += THREADS) {
@@ -389,7 +411,6 @@ __device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 constexpr int kFlashRows = 32, kFlashThreads = 256;
-constexpr int kDecodeRows = 8, kDecodeThreads = 128;
 
 // the ordered route of flash_attention: float32 operands
 __global__ void __launch_bounds__(kFlashThreads)
@@ -398,21 +419,9 @@ flash_kernel(const float* q, const float* k, const float* v,
   const int bh = blockIdx.y;
   const size_t qoff = (size_t)bh * p.n_rows * p.d;
   const size_t koff = (size_t)(bh / groups) * p.n_keys * p.d;
-  attend_rows<float, kFlashRows, kFlashThreads>(
-      q + qoff, k + koff, v + koff, nullptr, lut, out + qoff,
-      blockIdx.x * kFlashRows, p);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kDecodeThreads)
-decode_kernel(const T* q, const T* k, const T* v, const int* valid,
-              const float* lut, T* out, int hkv, Problem p) {
-  const int b = blockIdx.y / hkv, h = blockIdx.y % hkv;
-  const size_t qoff = (size_t)blockIdx.y * p.n_rows * p.d;
-  const size_t koff = ((size_t)b * p.n_keys * hkv + h) * p.d;
-  attend_rows<T, kDecodeRows, kDecodeThreads>(
-      q + qoff, k + koff, v + koff, valid + (size_t)b * p.n_keys, lut,
-      out + qoff, blockIdx.x * kDecodeRows, p);
+  attend_rows<kFlashRows, kFlashThreads>(q + qoff, k + koff, v + koff, lut,
+                                         out + qoff, blockIdx.x * kFlashRows,
+                                         p);
 }
 
 // ---------------------------------------------------------------------------
@@ -465,6 +474,11 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -776,7 +790,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           const float dt = __fsub_rn(x[j][e], m_new);
           float pr = kMxint ? exp2_datapath_sel(__fmul_rn(dt, p.log2e), lut,
                                              p.lut_n)
-                             : exp_nonpos<Pow2Sel>(dt);
+                             : exp_nonpos(dt);
           if constexpr (kQuant) {
             acc = __fadd_rn(acc, real(j, e) ? pr : 0.0f);
           } else {
@@ -786,7 +800,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
           x[j][e] = pr;
         }
       const float psum = quad_sum(acc);
-      float al = exp_nonpos<Pow2Sel>(__fsub_rn(m_prev, m_new));
+      float al = exp_nonpos(__fsub_rn(m_prev, m_new));
       if (m_prev <= kNegInfHalf) al = 0.0f;
       const float l_new = __fadd_rn(__fmul_rn(l_run[h], al), psum);
       lm[h] = 1.0f;
@@ -907,6 +921,390 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
+// ---------------------------------------------------------------------------
+// flash_attention_decode
+// ---------------------------------------------------------------------------
+// Replaces repro/kernels/flash_attention.py:322 (flash_attention_decode; its
+// pallas_call at :366 over _decode_kernel at :282).  One query position a
+// row: the G query heads of a (batch row, KV head) problem read one head of
+// the cache ring, in the cache's (B, W, Hkv, D) layout, with the batch
+// row's validity row.
+//
+// What bounds it: its bound is bytes, one pass over the valid slots of K
+// and V (Llama-3-8B at batch 4, rows 37/700/1500/2048: 17.6 MB, 0.0053 ms
+// at 3.35 TB/s) against 4 G D product operations a key.  But every sum is
+// an ordered chain (bit for bit with decode_rows), 128 keys or D long,
+// every multiply and add a separate instruction, and the MXInt row stages
+// run a warp a row: a CTA's phases are latency-bound chains, and the
+// scores and row stages are repeated in each of a problem's n_split CTAs,
+// so the SMs' instruction issue limits it long before the bytes do.  The
+// design puts a CTA on every SM, overlaps the phases, wastes no rows and
+// walks no tile after the last valid slot:
+//
+// - geometry (decode_geometry in kernels/flash_attention.py): a CTA takes
+//   ROWS <= 8 of the problem's G rows (templated: no idle rows at G <= 8)
+//   and one slice of `cols` of the D output columns, n_split = ceil(D /
+//   cols) slices a problem; Llama's batch 4 (32 problems, G 4, D 128) runs
+//   128 CTAs of 4 rows x 32 columns.  Each CTA of a problem computes all its
+//   scores and row stages (K is read by the siblings side by side, so L2
+//   serves the repeats) and the P.V of its own columns.  The k axis is never
+//   split.
+// - the tile stop: the rows of a problem share one validity row, so the CTA
+//   finds the last tile t_v that holds a valid slot and walks [0, t_v]; a
+//   t_v before the ring's last tile runs as an interior tile, then the
+//   normalization-only epilogue.  Exact: decode_rows(skip_tiles=True) is the
+//   same function and equals the walk over every tile bit for bit.  A
+//   served ring (rows <= 1024 of 2048 slots) walks at most half its tiles.
+// - a pipeline over warp roles: a tile's phases (scores, row stages, P.V,
+//   loads) are each latency-bound chains, too few to fill the SM's
+//   schedulers, so they run side by side on warps of their own, with one
+//   __syncthreads a step.  In step t, 4 score warps compute tile t + 1's
+//   scores (thread j: the ROWS scores of key j, each over d in order); a
+//   row warp per row runs tile t's row stages (row_stages: lanes l, l+32,
+//   l+64, l+96), its validity read a step early; 4 P.V warps issue the
+//   loads of K tile t + 2 and V tile t, then compute tile t - 1's P.V
+//   (thread i: the chains (row, column) i, i + 128, ..., each over the
+//   tile's real keys in order, the running output in a register).  Scores
+//   have three buffers, K, V and alpha two.
+// - loads: 16-byte cp.async of K tiles and this CTA's columns of V tiles,
+//   kept in their dtype and made f32 at use.  A K row is an odd number of
+//   16-byte chunks, so 8 threads reading 16 bytes of 8 consecutive keys
+//   hit all 32 banks.  Head dims that are not whole chunks, or unaligned
+//   operands, load element by element.
+constexpr int kDecMaxRows = 8;
+constexpr int kDecGroup = 128;                // score and P.V threads each
+constexpr int kScoreStride = kTileK + 4;      // floats between score rows
+
+// threads of a CTA: 4 score warps | 4 P.V warps | a row warp per row
+__host__ __device__ constexpr int dec_threads(int rows) {
+  return 2 * kDecGroup + rows * kWarp;
+}
+
+template <typename T>
+__host__ __device__ constexpr int vec_of() {
+  return 16 / (int)sizeof(T);                 // elements in 16 bytes
+}
+
+// K tile row stride, in elements: whole 16-byte chunks, an odd number
+template <typename T>
+__host__ __device__ constexpr int dec_k_stride(int d) {
+  return (((d + vec_of<T>() - 1) / vec_of<T>()) | 1) * vec_of<T>();
+}
+
+template <typename T>
+__host__ __device__ constexpr int dec_v_stride(int cols) {
+  return (cols + vec_of<T>() - 1) / vec_of<T>() * vec_of<T>();
+}
+
+// q rows as f32 in whole 8-value chunks (zero past d)
+__host__ __device__ constexpr int dec_q_stride(int d) {
+  return (d + 7) / 8 * 8;
+}
+
+// shared memory: K tiles (2) | V tiles (2) | q rows | scores (3) | row
+// state (m, l, alpha x 2, l_m, 2^-l_e) | LUT | the last valid slot
+template <typename T>
+__host__ __device__ constexpr size_t dec_smem_bytes(int rows, int d,
+                                                    int cols) {
+  return (size_t)2 * kTileK * (dec_k_stride<T>(d) + dec_v_stride<T>(cols)) *
+             sizeof(T) +
+         sizeof(float) * ((size_t)rows * (dec_q_stride(d) +
+                                          3 * kScoreStride + 6) +
+                          kMaxLut) +
+         sizeof(int);
+}
+
+// 16 bytes of shared memory as f32 values
+__device__ __forceinline__ void load_chunk(const float* p, float (&x)[4]) {
+  const float4 u = *reinterpret_cast<const float4*>(p);
+  x[0] = u.x;
+  x[1] = u.y;
+  x[2] = u.z;
+  x[3] = u.w;
+}
+
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p,
+                                           float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {             // bf16 is the top half of f32
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// N f32 values from 16-byte aligned shared memory
+template <int N>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p + i);
+    x[i] = u.x;
+    x[i + 1] = u.y;
+    x[i + 2] = u.z;
+    x[i + 3] = u.w;
+  }
+}
+
+// rows [0, min(rows, 128)) x chunks [0, n) of 16 bytes from src (row
+// stride ss) to dst (row stride ds), thread i0 of nt's share: chunk i = i0
+// + nt m is row i / n, column (i % n) * vec, walked without divides; rows
+// from `rows` on are zero-filled
+template <typename T>
+__device__ __forceinline__ void cp_tile(T* dst, int ds, const T* src,
+                                        size_t ss, int n, int rows, int i0,
+                                        int nt) {
+  constexpr int VEC = vec_of<T>();
+  const int dj = nt / n, dc = nt % n;
+  int j = i0 / n, c = i0 % n;
+  while (j < kTileK) {
+    const bool ok = j < rows;
+    cp_async16(dst + j * ds + c * VEC, src + (ok ? j * ss + c * VEC : 0), ok);
+    j += dj;
+    c += dc;
+    if (c >= n) {
+      c -= n;
+      ++j;
+    }
+  }
+}
+
+// the same, element by element, by `nt` threads (head dims that are not
+// whole chunks, or unaligned operands); rows past `rows` are zero
+template <typename T>
+__device__ __forceinline__ void copy_tile(T* dst, int ds, const T* src,
+                                          size_t ss, int n, int rows, int i0,
+                                          int nt) {
+  for (int i = i0; i < kTileK * n; i += nt) {
+    const int j = i / n, c = i % n;
+    if (j < rows)
+      dst[j * ds + c] = src[j * ss + c];
+    else
+      store(dst + j * ds + c, 0.0f);
+  }
+}
+
+struct DecodeGrid {
+  int hkv;          // KV heads
+  int row_blocks;   // CTAs along G
+  int n_split;      // CTAs along D: column slices
+  int cols;         // columns a slice
+  int vec;          // 16-byte cp.async loads (D whole chunks, aligned)
+};
+
+template <typename T, int ROWS>
+__global__ void __launch_bounds__(dec_threads(ROWS))
+decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const int* __restrict__ valid,
+              const float* __restrict__ lut_g, T* __restrict__ out,
+              DecodeGrid gr, Problem p) {
+  constexpr int VEC = vec_of<T>();
+  constexpr int THREADS = dec_threads(ROWS);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = p.d, W = p.n_keys;
+  const int ks = dec_k_stride<T>(d), vs = dec_v_stride<T>(gr.cols);
+  const int qs = dec_q_stride(d);
+  T* sk = reinterpret_cast<T*>(smem_raw);
+  T* sv = sk + 2 * kTileK * ks;
+  float* sq = reinterpret_cast<float*>(sv + 2 * kTileK * vs);
+  float* ss = sq + ROWS * qs;                         // 3 x ROWS x 132
+  float* sm = ss + 3 * ROWS * kScoreStride;
+  float* sl = sm + ROWS;
+  float* salpha = sl + ROWS;                          // 2 x ROWS
+  float* slm = salpha + 2 * ROWS;
+  float* sinv = slm + ROWS;
+  float* lut = sinv + ROWS;
+  int* s_last = reinterpret_cast<int*>(lut + kMaxLut);
+
+  // blockIdx.x = (problem * row_blocks + row block) * n_split + slice: the
+  // slices of a problem run side by side
+  int blk = blockIdx.x;
+  const int slice = blk % gr.n_split;
+  blk /= gr.n_split;
+  const int row0 = (blk % gr.row_blocks) * ROWS;
+  const int prob = blk / gr.row_blocks;                 // b * hkv + h
+  const int b = prob / gr.hkv, h = prob % gr.hkv;
+  const int rows = min(ROWS, p.n_rows - row0);
+  const int c0 = slice * gr.cols, ncol = min(gr.cols, d - c0);
+  const size_t head = ((size_t)b * W * gr.hkv + h) * d;  // key 0 of the head
+  const T* kb = k + head;
+  const T* vb = v + head + c0;
+  const int* vrow = valid + (size_t)b * W;
+  const size_t qoff = ((size_t)prob * p.n_rows + row0) * d;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int n_tiles = (W + kTileK - 1) / kTileK;
+  // roles: score warps 0-3 (thread tid: key tid), P.V warps 4-7 (thread
+  // lt), row warps 8.. (row rw)
+  const bool is_score = tid < kDecGroup;
+  const bool is_pv = !is_score && tid < 2 * kDecGroup;
+  const int lt = tid - kDecGroup, rw = warp - 2 * kDecGroup / kWarp;
+
+  // K tile t and V tile t (this CTA's columns) into buffer t & 1, by the
+  // P.V warps: 16-byte cp.async, or element by element
+  auto load_k = [&](int t) {
+    const int k0 = t * kTileK, n = W - k0;
+    T* dst = sk + (t & 1) * kTileK * ks;
+    const T* src = kb + (size_t)k0 * p.key_stride;
+    if (gr.vec)
+      cp_tile(dst, ks, src, p.key_stride, d / VEC, n, lt, kDecGroup);
+    else
+      copy_tile(dst, ks, src, p.key_stride, d, n, lt, kDecGroup);
+  };
+  auto load_v = [&](int t) {
+    const int k0 = t * kTileK, n = W - k0;
+    T* dst = sv + (t & 1) * kTileK * vs;
+    const T* src = vb + (size_t)k0 * p.key_stride;
+    if (gr.vec)
+      cp_tile(dst, vs, src, p.key_stride, ncol / VEC, n, lt, kDecGroup);
+    else
+      copy_tile(dst, vs, src, p.key_stride, ncol, n, lt, kDecGroup);
+  };
+
+  if (is_pv) load_k(0);
+  cp_async_commit();
+  load_lut(lut, lut_g, p.lut_n);
+  for (int i = tid; i < ROWS * qs; i += THREADS) {
+    const int r = i / qs, c = i % qs;
+    sq[i] = r < rows && c < d ? to_f32(q[qoff + (size_t)r * d + c]) : 0.0f;
+  }
+  if (!gr.vec) {
+    // the score loop reads K in whole chunks: zero both buffers past d
+    const int pad = ks - d;
+    for (int i = tid; i < 2 * kTileK * pad; i += THREADS)
+      store(sk + (i / pad) * ks + d + i % pad, 0.0f);
+  }
+  if (tid < ROWS) {
+    sm[tid] = kNegInf;
+    sl[tid] = 0.0f;
+  }
+  if (tid == 0) *s_last = -1;
+  __syncthreads();
+  // the last valid slot of the ring: the tiles after its tile hold none
+  int last_slot = -1;
+  for (int i = tid; i < W; i += THREADS)
+    if (vrow[i] != 0) last_slot = i;
+  last_slot = __reduce_max_sync(kFull, last_slot);
+  if (lane == 0) atomicMax(s_last, last_slot);
+  cp_async_wait_all();
+  __syncthreads();
+  const int t_stop = *s_last < 0 ? n_tiles - 1 : *s_last / kTileK;
+
+  // P.V warps: chain lt + 128 i is (row, column) (ch / ncol, ch % ncol)
+  const int n_chains = rows * ncol;
+  float acc[ROWS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) acc[i] = 0.0f;
+  // row warps: the validity of the next tile's keys, loaded a step early
+  int vnext[kPerLane];
+#pragma unroll
+  for (int c = 0; c < kPerLane; ++c) {
+    const int key = lane + kWarp * c;
+    vnext[c] = key < W ? vrow[key] : 1;
+  }
+
+  // step t: scores of tile t + 1, row stages of tile t, P.V of tile t - 1
+  for (int t = -1; t <= t_stop + 1; ++t) {
+    if (is_score) {
+      const int ts = t + 1;
+      if (ts <= t_stop) {
+        float s[ROWS];
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) s[r] = 0.0f;
+        const T* kr = sk + (ts & 1) * kTileK * ks + tid * ks;
+        for (int c = 0; c < d; c += VEC) {
+          float kf[VEC];
+          load_chunk(kr + c, kf);
+#pragma unroll
+          for (int r = 0; r < ROWS; ++r) {
+            float qf[VEC];
+            load_f32(sq + r * qs + c, qf);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e)
+              s[r] = __fadd_rn(s[r], __fmul_rn(qf[e], kf[e]));
+          }
+        }
+        float* so = ss + (ts % 3) * ROWS * kScoreStride + tid;
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r)
+          so[r * kScoreStride] = __fmul_rn(s[r], p.scale);
+      }
+    } else if (is_pv) {
+      if (t + 2 <= t_stop) load_k(t + 2);
+      if (t >= 0 && t <= t_stop) load_v(t);
+      cp_async_commit();
+      const int tp = t - 1;
+      if (tp >= 0) {
+        const int nk = min(kTileK, W - tp * kTileK);
+        const bool last = tp == n_tiles - 1;
+        const float* sp = ss + (tp % 3) * ROWS * kScoreStride;
+        const T* tv = sv + (tp & 1) * kTileK * vs;
+        const float* alpha = salpha + (tp & 1) * ROWS;
+#pragma unroll
+        for (int i = 0; i < ROWS; ++i) {
+          const int ch = lt + kDecGroup * i;
+          if (ch >= n_chains) continue;
+          const int r = ch / ncol, col = ch % ncol;
+          const float* pr = sp + r * kScoreStride;
+          const T* vc = tv + col;
+          float dot = 0.0f;
+          int j = 0;
+#pragma unroll 2
+          for (; j + 8 <= nk; j += 8) {   // loads of 8 keys, then their adds
+            float pj[8], vj[8];
+            load_f32(pr + j, pj);
+#pragma unroll
+            for (int e = 0; e < 8; ++e) vj[e] = to_f32(vc[(j + e) * vs]);
+#pragma unroll
+            for (int e = 0; e < 8; ++e)
+              dot = __fadd_rn(dot, __fmul_rn(pj[e], vj[e]));
+          }
+          for (; j < nk; ++j)
+            dot = __fadd_rn(dot, __fmul_rn(pr[j], to_f32(vc[j * vs])));
+          const float a = __fmul_rn(acc[i], alpha[r]);
+          T* o = out + qoff + (size_t)r * d + c0 + col;
+          if (last && p.quantize)
+            store(o,
+                  __fadd_rn(__fmul_rn(__fdiv_rn(a, slm[r]), sinv[r]), dot));
+          else if (last)
+            store(o,
+                  __fmul_rn(__fdiv_rn(__fadd_rn(a, dot), slm[r]), sinv[r]));
+          else
+            acc[i] = __fadd_rn(a, dot);
+        }
+      }
+    } else if (t >= 0 && t <= t_stop) {
+      const int k0 = t * kTileK;
+      bool keep[kPerLane];
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) {
+        keep[c] = vnext[c] != 0;
+        const int key = k0 + kTileK + lane + kWarp * c;
+        if (t < t_stop) vnext[c] = key < W ? vrow[key] : 1;
+      }
+      if (rw < rows)
+        row_stages(ss + (t % 3) * ROWS * kScoreStride + rw * kScoreStride,
+                   keep, k0, t == n_tiles - 1, p, lut, sm + rw, sl + rw,
+                   salpha + (t & 1) * ROWS + rw, slm + rw, sinv + rw, lane);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+  if (is_pv && t_stop < n_tiles - 1) {
+    // stopped before the ring's last tile: all it would do is normalize
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      const int ch = lt + kDecGroup * i;
+      if (ch >= n_chains) continue;
+      const int r = ch / ncol, col = ch % ncol;
+      int le;
+      const float lm = frexpf(fmaxf(sl[r], kMinL), &le);
+      store(out + qoff + (size_t)r * d + c0 + col,
+            __fmul_rn(__fdiv_rn(acc[i], lm), pow2i(-le)));
+    }
+  }
+}
+
 // above 48 KB a kernel's dynamic shared memory needs an explicit opt-in
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -935,6 +1333,45 @@ int launch_mma(const MmaLaunch& l) {
   kern<<<grid, kMmaThreads, smem, l.st>>>(l.q, l.k, l.v, l.lut, l.out,
                                           l.groups, l.p);
   return (int)cudaGetLastError();
+}
+
+struct DecodeLaunch {
+  const void *q, *k, *v;
+  const int* valid;
+  const float* lut;
+  void* out;
+  int n_problems;   // B * Hkv
+  DecodeGrid gr;
+  Problem p;
+  cudaStream_t st;
+};
+
+template <typename T, int ROWS>
+int launch_decode(const DecodeLaunch& l) {
+  auto* kern = decode_kernel<T, ROWS>;
+  const size_t smem = dec_smem_bytes<T>(ROWS, l.p.d, l.gr.cols);
+  int rc = allow_smem(kern, smem);
+  if (rc) return rc;
+  const unsigned grid =
+      (unsigned)l.n_problems * l.gr.row_blocks * l.gr.n_split;
+  kern<<<grid, dec_threads(ROWS), smem, l.st>>>(
+      (const T*)l.q, (const T*)l.k, (const T*)l.v, l.valid, l.lut, (T*)l.out,
+      l.gr, l.p);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_decode_rows(const DecodeLaunch& l, int rows) {
+  switch (rows) {
+    case 1: return launch_decode<T, 1>(l);
+    case 2: return launch_decode<T, 2>(l);
+    case 3: return launch_decode<T, 3>(l);
+    case 4: return launch_decode<T, 4>(l);
+    case 5: return launch_decode<T, 5>(l);
+    case 6: return launch_decode<T, 6>(l);
+    case 7: return launch_decode<T, 7>(l);
+    default: return launch_decode<T, 8>(l);  // checked: rows <= 8
+  }
 }
 
 bool bad_problem(const Problem& p) {
@@ -987,28 +1424,20 @@ extern "C" int flash_attention_launch(
 extern "C" int flash_attention_decode_launch(
     const void* q, const void* k, const void* v, const int* valid,
     const float* lut, void* out, int b, int hkv, int g, int w, int d,
-    int mxint, int quantize, int block, int mant_bits, int lut_n, float scale,
-    float log2e, int bf16, void* stream) {
+    int rows, int cols, int mxint, int quantize, int block, int mant_bits,
+    int lut_n, float scale, float log2e, int bf16, void* stream) {
   Problem p{g, w, d, hkv * d, 0, 0, mxint, quantize, block, mant_bits, lut_n,
             scale, log2e};
-  if (bad_problem(p)) return (int)cudaErrorInvalidValue;
-  const dim3 grid((g + kDecodeRows - 1) / kDecodeRows, b * hkv);
-  const size_t smem = smem_floats(kDecodeRows) * sizeof(float);
-  const cudaStream_t st = (cudaStream_t)stream;
-  if (bf16) {
-    auto* kern = decode_kernel<__nv_bfloat16>;
-    int rc = allow_smem(kern, smem);
-    if (rc) return rc;
-    kern<<<grid, kDecodeThreads, smem, st>>>(
-        (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-        (const __nv_bfloat16*)v, valid, lut, (__nv_bfloat16*)out, hkv, p);
-  } else {
-    auto* kern = decode_kernel<float>;
-    int rc = allow_smem(kern, smem);
-    if (rc) return rc;
-    kern<<<grid, kDecodeThreads, smem, st>>>(
-        (const float*)q, (const float*)k, (const float*)v, valid, lut,
-        (float*)out, hkv, p);
-  }
-  return (int)cudaGetLastError();
+  const int vec = bf16 ? vec_of<__nv_bfloat16>() : vec_of<float>();
+  if (bad_problem(p) || b < 1 || hkv < 1 || rows < 1 || rows > kDecMaxRows ||
+      cols < 1 || cols % vec != 0)
+    return (int)cudaErrorInvalidValue;
+  // the geometry of decode_geometry in kernels/flash_attention.py
+  const bool aligned = (((uintptr_t)k | (uintptr_t)v) & 15) == 0;
+  const DecodeGrid gr{hkv, (g + rows - 1) / rows, (d + cols - 1) / cols, cols,
+                      d % vec == 0 && aligned};
+  const DecodeLaunch l{q, k, v, valid, lut, out, b * hkv, gr, p,
+                       (cudaStream_t)stream};
+  return bf16 ? launch_decode_rows<__nv_bfloat16>(l, rows)
+              : launch_decode_rows<float>(l, rows);
 }

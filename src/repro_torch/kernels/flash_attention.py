@@ -23,15 +23,16 @@ order, and update a running (m, l, acc) per query row, as the reference's
 The tile is 128 keys wide and the k loop is sequential: tiles set the
 numerics (their shared exponents, which tile is the last), so the k axis
 is never split.  Tiles that the causal or window mask hides from a whole
-block of query positions are left out (``tile_span``); that is exact, see
-``attend_rows``.  The plain versions below take the same tiles and sum in
-the ordered kernels' order (q.k over d in order, P.V over a tile's keys in
-order, the row sum as ``warp_row_sum`` over lanes holding keys l, l+32,
-l+64, l+96), so the card holds the float32 ``flash_attention`` and
-``flash_attention_decode`` to them bit for bit.  The bf16
-``flash_attention`` runs its products on the tensor cores, whose f32 sums
-have no fixed order: the card holds it within a tolerance
-(``kernel_route``).
+block of query positions are left out (``tile_span``), and a decode row
+stops at the last tile that holds a valid slot (``stop_tiles``); both are
+exact, see ``attend_rows``.  The plain versions below take the same tiles
+and sum in the ordered kernels' order (q.k over d in order, P.V over a
+tile's keys in order, the row sum as ``warp_row_sum`` over lanes holding
+keys l, l+32, l+64, l+96), so the card holds the float32
+``flash_attention`` and ``flash_attention_decode`` (both dtypes) to them
+bit for bit.  The bf16 ``flash_attention`` runs its products on the tensor
+cores, whose f32 sums have no fixed order: the card holds it within a
+tolerance (``kernel_route``).
 
 A CPU tensor runs the plain version; a CUDA tensor launches the kernel, or
 the wrapper raises.  ``launches`` counts ``flash_attention`` launches and
@@ -59,6 +60,9 @@ MAX_HEAD_DIM = 128      # head dims the kernels take
 MAX_ACT_BLOCK = 32      # a score act block is a group of lanes of one warp
 MMA_K = 16              # bf16 route: head dims are multiples of the mma depth
 MMA_ROWS = 128          # bf16 route: query rows (positions x heads) a block
+DECODE_THREADS = 128    # decode kernel: threads a CTA (a key's scores each)
+DECODE_MAX_ROWS = 8     # decode kernel: query rows a CTA at most
+DECODE_SLICE_BYTES = 256  # decode kernel: widest P.V column slice, bytes
 PAD_FILL = 2.0 ** -100  # quantizer fill of padding lanes (see the reference)
 _NEG_INF_HALF = NEG_INF / 2
 _MIN_L = f32(1e-30)
@@ -286,19 +290,47 @@ def flash_rows(q, k, v, *, causal: bool, window: int, kv_groups: int,
     return o.reshape(bh // g, sq, g, d).transpose(1, 2).reshape(bh, sq, d)
 
 
-def decode_rows(q, k, v, valid, **kw) -> torch.Tensor:
+def stop_tiles(valid: torch.Tensor) -> list:
+    """Per batch row, the last tile of the ring that holds a valid slot
+    (the last tile of the ring when none does)."""
+    W = valid.shape[1]
+    slot = torch.arange(W, device=valid.device)
+    last = torch.where(valid != 0, slot, -1).amax(dim=1).tolist()
+    return [n // TILE_K if n >= 0 else (W - 1) // TILE_K for n in last]
+
+
+def decode_rows(q, k, v, valid, *, skip_tiles: bool = True,
+                **kw) -> torch.Tensor:
     """Plain version of ``flash_attention_decode``: q (B, Hkv, G, D), k/v
-    (B, W, Hkv, D), valid (B, W) -> (B, Hkv, G, D) f32.  Every row visits
-    every tile of the ring."""
+    (B, W, Hkv, D), valid (B, W) -> (B, Hkv, G, D) f32.
+
+    With ``skip_tiles`` the problems of batch row b stop at its
+    ``stop_tiles`` tile, as the kernel does: the tiles after it hold no
+    valid slot, so they would leave (m, l, acc) as they are (alpha is
+    exactly 1, P is 0 on every lane, and the at most 128 * 2^-126 that the
+    quantized path's masked lanes add to l >= 1 vanishes in f32), and the
+    skipped last tile reduces to the normalization-only epilogue of
+    ``attend_rows``.  Without it every row visits every tile.  The two
+    agree bit for bit."""
     b, hkv, g, d = q.shape
     W = k.shape[1]
-    kf = k.permute(0, 2, 1, 3).reshape(b * hkv, W, d)
-    vf = v.permute(0, 2, 1, 3).reshape(b * hkv, W, d)
-    ok = (valid != 0)[:, None, None, :].expand(b, hkv, 1, W).reshape(
-        b * hkv, 1, W)
-    o = attend_rows(q.reshape(b * hkv, g, d), kf, vf,
-                    lambda k0, n, r0, r1: ok[:, :, k0:k0 + n], **kw)
-    return o.reshape(b, hkv, g, d)
+    n_tiles = -(-W // TILE_K)
+    stops = stop_tiles(valid) if skip_tiles else [n_tiles - 1] * b
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    for stop in sorted(set(stops)):
+        idx = torch.tensor([i for i, s in enumerate(stops) if s == stop],
+                           device=q.device)
+        n = len(idx)
+        kf = k[idx].permute(0, 2, 1, 3).reshape(n * hkv, W, d)
+        vf = v[idx].permute(0, 2, 1, 3).reshape(n * hkv, W, d)
+        ok = (valid[idx] != 0)[:, None, None, :].expand(
+            n, hkv, 1, W).reshape(n * hkv, 1, W)
+        o = attend_rows(
+            q[idx].reshape(n * hkv, g, d), kf, vf,
+            lambda k0, nk, r0, r1, ok=ok: ok[:, :, k0:k0 + nk],
+            span=lambda t, stop=stop: (0, g) if t <= stop else (0, 0), **kw)
+        out[idx] = o.reshape(n, hkv, g, d)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +378,30 @@ def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
             f"flash_attention: kv_groups {kv_groups} > {MMA_ROWS}, the rows "
             f"of one block of the tensor-core kernel")
     return "mma"
+
+
+def decode_geometry(b: int, hkv: int, g: int, d: int, elem_bytes: int,
+                    n_sm: int):
+    """Launch geometry of the decode kernel on a card of ``n_sm`` SMs:
+    (rows, cols, n_split).
+
+    A CTA takes ``rows`` of the G query rows of one (batch row, KV head)
+    problem (G > 8 spread evenly over ceil(G / 8) CTAs) and the P.V
+    columns [i * cols, (i + 1) * cols) of column slice i of ``n_split``.
+    Each of a problem's CTAs computes all its scores and row stages (the
+    k axis is never split) and the P.V of its own columns.  A slice is
+    whole 16-byte chunks and at most ``DECODE_SLICE_BYTES`` wide; there
+    are no more slices than it takes to give each SM a CTA, nor than it
+    takes to give each thread one P.V chain (row, column)."""
+    row_blocks = -(-g // DECODE_MAX_ROWS)
+    rows = -(-g // row_blocks)
+    vec = 16 // elem_bytes
+    one_chain = max(vec, DECODE_THREADS // rows // vec * vec)
+    fill = -(-n_sm // (b * hkv * row_blocks))
+    n_split = max(1, min(fill, -(-d // one_chain)))
+    cols = min(-(-d // (n_split * vec)) * vec,
+               DECODE_SLICE_BYTES // elem_bytes)
+    return rows, cols, -(-d // cols)
 
 
 def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
@@ -421,7 +477,11 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-position decode over a KV cache ring.  q: (B, Hkv, G, D), the
     G query heads of a KV head as rows; k, v: (B, W, Hkv, D), the cache's
     native layout; valid: (B, W), nonzero where row b's slot holds a live
-    key.  Returns (B, Hkv, G, D) in q's dtype."""
+    key.  Any G and W, D <= 128.  Returns (B, Hkv, G, D) in q's dtype.
+
+    A CPU tensor runs the plain version ``decode_rows``; a CUDA tensor
+    launches the decode kernel with the ``decode_geometry`` grid, or
+    raises."""
     b, hkv, g, d = q.shape
     W = k.shape[1]
     _check("flash_attention_decode", exp_mode, quantize_scores, act_block, d)
@@ -440,11 +500,13 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_decode: q, k and v must share a "
                          "dtype")
     out = torch.empty_like(q)
+    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
+    rows, cols, _ = decode_geometry(b, hkv, g, d, q.element_size(), n_sm)
     fn = _build.entry("flash_attention_decode", [ctypes.c_void_p] * 6 +
-                      [ctypes.c_int] * 5 + _TAIL, lib="flash_attention")
+                      [ctypes.c_int] * 7 + _TAIL, lib="flash_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-            lut.data_ptr(), out.data_ptr(), b, hkv, g, W, d, *tail,
-            _build.stream_ptr(q.device))
+            lut.data_ptr(), out.data_ptr(), b, hkv, g, W, d, rows, cols,
+            *tail, _build.stream_ptr(q.device))
     _build.check(rc, "flash_attention_decode")
     decode_launches += 1
     return out

@@ -21,6 +21,9 @@ its seed (as a fraction of the output scale, in the case's comment): a
 plain version without the interior P grid-requantize misses the reference
 by 6.7e-3 to 1.3e-2 in the quantized cases, far outside.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -235,6 +238,99 @@ def test_flash_tile_skipping_is_exact(S, window, exp_mode, quantize):
     full = fa.flash_rows(q, k, v, skip_tiles=False, **kw)
     assert torch.isfinite(skip).all()
     assert torch.equal(skip, full)
+
+
+# (kv_groups G, head dim D, exp_mode, quantize_scores)
+TILE_STOP_CASES = [(g, d, mode, qs) for g in (1, 4, 8) for d in (32, 128)
+                   for mode, qs in (("mxint", True), ("float", False))]
+
+
+@pytest.mark.parametrize(
+    "g,d,exp_mode,quantize", TILE_STOP_CASES,
+    ids=[f"g{c[0]}-d{c[1]}-{c[2]}{'-q' if c[3] else ''}"
+         for c in TILE_STOP_CASES])
+def test_decode_tile_stop_is_exact(g, d, exp_mode, quantize):
+    """The plain decode stopping each batch row at its last tile that
+    holds a valid slot (that tile run as an interior one, then the
+    normalization-only epilogue) equals it walking every tile of the ring,
+    bit for bit: rows that end in the first tile, at and just past tile
+    edges, mid-ring, in the padded last tile, with a hole, in a wrapped
+    window ring (leading invalid slots), and with no valid slot at all."""
+    hkv, W = 2, 600                       # 5 tiles, the last 88 keys wide
+    ends = (37, 128, 129, 256, 300, W)
+    b = len(ends) + 3
+    valid = np.zeros((b, W), np.int32)
+    for i, n in enumerate(ends):
+        valid[i, :n] = 1
+    valid[len(ends), :400] = 1            # a hole
+    valid[len(ends), 150:170] = 0
+    valid[len(ends) + 1, 200:450] = 1     # a wrapped window ring
+    valid = _t(valid)                     # the last row has no valid slot
+    assert fa.stop_tiles(valid) == [0, 0, 1, 1, 2, 4, 3, 3, 4]
+    q = _t(_x((b, hkv, g, d), 31, 1.5))
+    k = _t(_x((b, W, hkv, d), 32, 1.5))
+    v = _t(_x((b, W, hkv, d), 33))
+    kw = dict(exp_mode=exp_mode, r_bits=2, quantize_scores=quantize,
+              act_block=16, mant_bits=8, scale=fa.f32(d ** -0.5))
+    stop = fa.decode_rows(q, k, v, valid, skip_tiles=True, **kw)
+    full = fa.decode_rows(q, k, v, valid, skip_tiles=False, **kw)
+    assert torch.isfinite(stop).all()
+    assert torch.equal(stop, full)
+
+
+H100_SMS = 132
+# (B, Hkv, G, D, bytes per element)
+GEOMETRY_CASES = [(4, 8, 4, 128, 2), (1, 8, 4, 128, 2), (4, 4, 8, 128, 2),
+                  (4, 8, 1, 64, 2), (4, 8, 1, 128, 4), (64, 8, 4, 128, 2),
+                  (4, 8, 3, 100, 2), (4, 8, 12, 128, 2), (4, 8, 5, 128, 4)]
+
+
+@pytest.mark.parametrize("b,hkv,g,d,size", GEOMETRY_CASES,
+                         ids=[f"b{c[0]}-h{c[1]}-g{c[2]}-d{c[3]}-e{c[4]}"
+                              for c in GEOMETRY_CASES])
+def test_decode_geometry(b, hkv, g, d, size):
+    """Every query row and column falls in exactly one CTA; slices are
+    whole 16-byte chunks that fit the shared-memory budget, split no
+    further than filling the SMs or one P.V chain per thread needs."""
+    rows, cols, n_split = fa.decode_geometry(b, hkv, g, d, size, H100_SMS)
+    row_blocks = -(-g // rows)
+    assert 1 <= rows <= fa.DECODE_MAX_ROWS and (row_blocks - 1) * rows < g
+    assert row_blocks == -(-g // fa.DECODE_MAX_ROWS)
+    assert cols * size % 16 == 0 and cols * size <= fa.DECODE_SLICE_BYTES
+    assert (n_split - 1) * cols < d <= n_split * cols
+    ctas = b * hkv * row_blocks * n_split
+    if n_split > 1:
+        # one slice fewer would leave SMs idle or threads with two chains
+        assert b * hkv * row_blocks * (n_split - 1) < H100_SMS \
+            or rows * -(-d // (n_split - 1)) > fa.DECODE_THREADS \
+            or -(-d // (n_split - 1)) * size > fa.DECODE_SLICE_BYTES
+    if (b, hkv, g, d, size) == (4, 8, 4, 128, 2):   # Llama-3-8B, batch 4
+        assert (rows, cols, n_split, ctas) == (4, 32, 4, 128)
+
+
+def test_flash_tol_share_catches_a_skipped_requantize(monkeypatch):
+    """The card holds bf16 ``flash_attention`` with quantized scores to
+    ``chip_smoke.FLASH_TOL``.  A plain version that leaves P off the act
+    grid moves most rows; a tensor-core sum that rounds a tie the other
+    way moves a few rows, by as much or more.  So the share of elements
+    within one bf16 ulp, not the largest gap, is what catches the fault:
+    here it falls far below the card's limit."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    share_limit = cs.FLASH_TOL[(True, True)][0]
+    q = _t(_x((4, 300, 64), 41, 1.5)).to(torch.bfloat16)
+    k = _t(_x((1, 300, 64), 42, 1.5)).to(torch.bfloat16)
+    v = _t(_x((1, 300, 64), 43)).to(torch.bfloat16)
+    kw = dict(causal=True, window=0, kv_groups=4, exp_mode="mxint", r_bits=2,
+              quantize_scores=True, act_block=16, mant_bits=8,
+              scale=fa.f32(0.125))
+    want = fa.flash_rows(q, k, v, **kw).to(torch.bfloat16)
+    monkeypatch.setattr(fa, "_grid", lambda y, block, mant_bits: y)
+    bad = fa.flash_rows(q, k, v, **kw).to(torch.bfloat16)
+    share, _ = cs.within_bf16_ulp(torch, bad, want)
+    assert share < 0.9 < share_limit, share
 
 
 def test_tile_span_bounds():
