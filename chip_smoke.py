@@ -11,11 +11,15 @@
    batch 16, Llama-3-8B decode and 1024-token scoring) and at ragged
    shapes, against its plain PyTorch version on the same card inputs,
    timed as a median of CUDA events after warmup beside the plain version
-   and, where one PyTorch call computes the same function, that call; one
-   JSON line per kernel.  Tolerance: bit-identical (0 mismatched elements)
-   for every kernel and case except bf16 ``flash_attention``, whose q.k
-   and P.V sums run on the tensor cores in no fixed order (``FLASH_TOL``):
-   float mode every element within one bf16 ulp of the plain version's,
+   and, where one PyTorch call computes the same function, that call, and
+   as device time from the kernel events of a ``torch.profiler`` trace;
+   one JSON line per kernel.  The matmul kernels are timed at every
+   Llama-3-8B decode and score shape (``TIMED_CASES``) and also held at
+   M 1, 16, 17 and 33, at subnormal block scales and at mantissas +-127.
+   Tolerance: bit-identical (0 mismatched elements) for every kernel and
+   case except bf16 ``flash_attention``, whose q.k and P.V sums run on
+   the tensor cores in no fixed order (``FLASH_TOL``): float mode every
+   element within one bf16 ulp of the plain version's,
    quantized scores at least 99.9% within one ulp and the largest gap at
    most 5e-2 of the output scale.  Its float32 case takes the ordered
    kernel and is held to 0 mismatches.  ``flash_attention_decode`` is
@@ -109,8 +113,14 @@ SOURCES["flash_attention_decode"] = \
 ULP_FLOOR = 2.0 ** -19
 FLASH_TOL = {(False, False): None, (False, True): None,
              (True, False): (1.0, None), (True, True): (0.999, 5e-2)}
-# decode cases timed beside the first one (the served ring's depths)
-TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint"}
+# cases timed beside each kernel's first one: the served ring's depths of
+# the decode kernel, and the shapes at which a Llama-3-8B decode step and
+# score forward spend the matmul kernels' time
+TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
+               "llama3_8b_decode_attn_wo", "llama3_8b_decode_ffn_wo",
+               "llama3_8b_score_ffn_wo", "llama3_8b_decode_rms_wq",
+               "llama3_8b_decode_rms_wk", "llama3_8b_decode_rms_wi",
+               "llama3_8b_score_rms_wq", "llama3_8b_score_rms_wi"}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
@@ -139,10 +149,11 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Device time per call of ``fn``: the summed time of the kernels it
-    launches, from a ``torch.profiler`` trace (the host work and gaps
-    between launches that ``time_ms`` sees are left out)."""
+def device_ms(fn, iters: int = 20):
+    """Device time per call of ``fn``: the summed durations of the kernels
+    it launches, read from the kernel events of a ``torch.profiler`` trace
+    (the host work and gaps between launches that ``time_ms`` sees are
+    left out); None where the trace holds no kernel event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -151,7 +162,13 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.key_averages()) / iters / 1e3
+    path = ROOT / "build" / "device_ms_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    return us / iters / 1e3 if us > 0 else None
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
@@ -199,6 +216,12 @@ def flash_pairs(sq, sk, causal, window):
     return total
 
 
+def gemm_f32_ops(M, N, K):
+    """The ordered f32 sum of the matmul kernels: a multiply and an add
+    per output element and 16-wide act block."""
+    return 2.0 * M * N * (K // 16)
+
+
 def kernel_cases(torch, np):
     """name -> list of (label, kernel call, plain call, bound args,
     library call or None); the first case is the DeiT-Base one.  The
@@ -219,21 +242,57 @@ def kernel_cases(torch, np):
     def planes(K, N, fmt=MXINT6_WEIGHT):
         return pack_weight(x(K, N, scale=K ** -0.5), fmt)
 
+    def extreme_planes(K, N):
+        """Mantissas at +-127 (all +127 in the first half of the columns)
+        and exponents in [-8, 8], MXInt8's block of 256."""
+        sign = np.where(rng.random((K, N)) < 0.5, -1, 1)
+        sign[:, :N // 2] = 1
+        return planes(K, N, MXINT8_WEIGHT)._replace(
+            mantissa=torch.from_numpy((127 * sign).astype(np.int8)).to(dev),
+            exponent=torch.from_numpy(rng.integers(
+                -8, 9, size=(K // 256, N)).astype(np.int8)).to(dev))
+
+    def extreme_rows(M, K):
+        """Rows whose act blocks all quantize to mantissas +-127 (the
+        first half of the rows all +127)."""
+        sign = np.where(rng.random((M, K)) < 0.5, -1.0, 1.0)
+        sign[:M // 2] = 1.0
+        e = rng.integers(-4, 5, size=(M, K // 16, 1))
+        a = (127.0 * sign.reshape(M, K // 16, 16) * 2.0 ** e).reshape(M, K)
+        return torch.from_numpy(a.astype(np.float32)).to(dev)
+
     def lm(label):
         return label.startswith("llama3_8b")
 
     rows = BATCH * 197
     S = LM_SCORE_TOKENS
     cases = {n: [] for n in REPLACES}
+    # M 1, 16, 17, 33 and 200 straddle the 16-, 24- and 32-row tiles; K
+    # 14336 at M 33 and 200 takes the K chunks; an odd N stages the
+    # planes byte by byte and stores element by element; "subnormal"
+    # scales the rows by 2^-120, so e_a + e_w < -126 (subnormal block
+    # scales); "extreme" has every act and weight mantissa at +-127
     for label, M, K, N in (("deit_base_b16_ffn_wo", rows, 3072, 768),
                            ("ragged", 37, 192, 1000),
                            ("llama3_8b_decode_attn_wo", LM_BATCH, 4096, 4096),
                            ("llama3_8b_decode_ffn_wo", LM_BATCH, 14336, 4096),
-                           ("llama3_8b_score_ffn_wo", S, 14336, 4096)):
+                           ("llama3_8b_score_ffn_wo", S, 14336, 4096),
+                           ("m1_k4096_n1024", 1, 4096, 1024),
+                           ("m16_k4096_n4096", 16, 4096, 4096),
+                           ("m17_k768_n1001", 17, 768, 1001),
+                           ("m33_k14336_n1024", 33, 14336, 1024),
+                           ("m200_k14336_n4096", 200, 14336, 4096),
+                           ("subnormal_m40_k768_n520", 40, 768, 520),
+                           ("extreme_m48_k1024_n512", 48, 1024, 512)):
         a = x(M, K)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
-        w = planes(K, N, MXINT8_WEIGHT if lm(label) else MXINT6_WEIGHT)
+        w = planes(K, N, MXINT6_WEIGHT if label.startswith("deit") or
+                   label == "ragged" else MXINT8_WEIGHT)
+        if label.startswith("subnormal"):
+            a = a * 2.0 ** -120
+        if label.startswith("extreme"):
+            a, w = extreme_rows(M, K), extreme_planes(K, N)
         wd = dequantize(w)
         cases["mxint_matmul"].append((
             label,
@@ -243,22 +302,38 @@ def kernel_cases(torch, np):
                 a, w.mantissa, w.exponent, w_block=w.block_size,
                 act_block=16, act_mant_bits=8),
             bound(M * K * 4 + w.mantissa.numel() + w.exponent.numel()
-                  + M * N * 4, int8_ops=2.0 * M * N * K),
+                  + M * N * 4, int8_ops=2.0 * M * N * K,
+                  f32_ops=gemm_f32_ops(M, N, K)),
             lambda a=a, wd=wd: torch.matmul(a, wd)))
-    # the LM runs RMSNorm (no beta) on bf16 rows and bf16 scales
+    # the LM runs RMSNorm (no beta) on bf16 rows and bf16 scales; M 1, 16,
+    # 17, 33 and 500 straddle the row tiles, N 1001 is odd; "subnormal"
+    # scales gamma and beta by 2^-120 (subnormal block scales); "extreme":
+    # weight mantissas +-127
     for label, M, d, N in (("deit_base_b16_ln2_wi", rows, 768, 3072),
                            ("ragged", 37, 192, 200),
                            ("llama3_8b_decode_rms_wq", LM_BATCH, 4096, 4096),
                            ("llama3_8b_decode_rms_wk", LM_BATCH, 4096, 1024),
                            ("llama3_8b_decode_rms_wi", LM_BATCH, 4096, 14336),
                            ("llama3_8b_score_rms_wq", S, 4096, 4096),
-                           ("llama3_8b_score_rms_wi", S, 4096, 14336)):
+                           ("llama3_8b_score_rms_wi", S, 4096, 14336),
+                           ("llama3_8b_m1_rms_wk", 1, 4096, 1024),
+                           ("m16_d4096_n4096", 16, 4096, 4096),
+                           ("m17_d768_n1001", 17, 768, 1001),
+                           ("m33_d4096_n1024", 33, 4096, 1024),
+                           ("m500_d4096_n4096", 500, 4096, 4096),
+                           ("subnormal_m40_d768_n520", 40, 768, 520),
+                           ("extreme_m48_d1024_n512", 48, 1024, 512)):
         rms = lm(label)
         a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms else 0.1 * x(d)
         if rms:
             a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
-        w = planes(d, N, MXINT8_WEIGHT if rms else MXINT6_WEIGHT)
+        if label.startswith("subnormal"):
+            g, b = g * 2.0 ** -120, b * 2.0 ** -120
+        w = planes(d, N, MXINT6_WEIGHT if label.startswith("deit") or
+                   label == "ragged" else MXINT8_WEIGHT)
+        if label.startswith("extreme"):
+            w = extreme_planes(d, N)
         wd = dequantize(w)
         cases["mxint_ln_matmul"].append((
             label,
@@ -272,7 +347,8 @@ def kernel_cases(torch, np):
             bound(a.numel() * a.element_size() + 2 * d * g.element_size()
                   + w.mantissa.numel() + w.exponent.numel() + M * N * 4,
                   int8_ops=2.0 * M * N * d,
-                  f32_ops=ROW_OPS["mxint_layernorm"] * M * d),
+                  f32_ops=ROW_OPS["mxint_layernorm"] * M * d
+                  + gemm_f32_ops(M, N, d)),
             lambda a=a, wd=wd: torch.matmul(a.to(torch.float32), wd)))
     for label, R, n, blk in (("deit_base_b16_scores", BATCH * 12 * 197, 197,
                               1), ("ragged", 37, 64, 16)):

@@ -194,30 +194,97 @@ __device__ __forceinline__ void ln_block(const float* x, int b,
 }
 
 // ---------------------------------------------------------------------------
-// int8 block-scaled GEMM tile shared by mxint_matmul and mxint_ln_matmul
+// int8 tensor-core GEMM core shared by mxint_matmul and mxint_ln_matmul
 // ---------------------------------------------------------------------------
-// A block of kThreads threads owns kBM rows.  Its prologue fills sA (int8
-// act mantissas, row stride K + 16) and sE (one int8 exponent per 16-block)
-// for those rows; gemm_tiles then computes its N tiles of kBN columns,
-// staging kKC x kBN weight tiles transposed into sW.  Each thread owns 2
-// rows x 4 columns and adds, in increasing K order,
-//   (float)dot16(a, w) * 2^(e_a + e_w)
-// into its f32 accumulators: the dot is exact in int32 and the scale is
-// exact, so only the sum across blocks rounds, in the plain version's order.
-constexpr int kThreads = 256;
-constexpr int kBM = 32;
-constexpr int kBN = 64;
-constexpr int kKC = 64;
-constexpr int kAB = 16;           // act block of the GEMM
+// A CTA of gemm_threads(bm) threads owns a row tile of bm (16, 24 or 32)
+// rows and n_per consecutive column tiles of bn columns; gemm_geometry
+// (kernels/mxint_matmul.py) picks them from the shape and the card's SM
+// count.  The CTA's prologue fills sA (int8 act mantissas, row stride
+// K + 16) and sE (one int8 exponent per 16-block) for its rows.  The core
+// streams the planes' bk x bn tiles, in their stored [K][N] layout, through
+// a ring of ns shared-memory stages by cp.async, each tile once per CTA,
+// with the exponent-plane row of each 16-row block beside it.  Each warp
+// owns 16 rows and 16 columns of a tile (8 warps side by side on the
+// columns for each 16 rows): per act block one mma.sync m16n8k16 s8 per 8
+// columns, whose int32 result is the block's exact dot
+// (|dot| <= 16 * 128 * 127 < 2^22), then
+//   acc = acc + (float)dot * 2^(e_a + e_w)
+// as two rounded steps, in increasing K order, as the plain version adds
+// them.  No two blocks share an mma and no K range is split, so each output
+// element's sum is one thread's, in the plain version's order.
+constexpr int kMaxThreads = 512;
+constexpr int kAB = 16;           // act block of the GEMM = the mma depth
+constexpr int kMaxStages = 4;     // depth of the weight ring, at most
+constexpr int kWarpCols = 16;     // a warp's columns: two n8 mma tiles
+constexpr int kMaxTileCols = 8 * kWarpCols;
+constexpr int kMaxAccTiles = 2;   // column tiles a chunked CTA holds
+// the C input of every mma: D = 0x4B400000 + dot is then, as float bits,
+// 1.5 * 2^23 + dot exactly, and subtracting 1.5 * 2^23 gives (float)dot
+// without an int-to-float conversion (a quarter-rate instruction)
+constexpr int kDotBias = 0x4B400000;
+constexpr float kDotBiasF = 12582912.0f;
+
+// launch geometry, from gemm_geometry on the host
+struct GemmGeom {
+  int bm;      // rows of the CTA's tile: 16, 24 or 32
+  int bn;      // columns of a tile: a power of two in [4, kMaxTileCols]
+  int n_per;   // column tiles per CTA
+  int bk;      // K rows of a ring stage: a multiple of 16
+  int ns;      // ring stages: 2 .. kMaxStages
+};
+
+// threads of a CTA: 8 warps side by side on the columns for each 16 rows
+// of the tile, begun or whole (two 256-thread CTAs of a decode batch share
+// an SM)
+__host__ __forceinline__ int gemm_threads(int bm) {
+  return (bm + 15) / 16 * 256;
+}
 
 __host__ __device__ __forceinline__ int a_stride(int K) { return K + 16; }
 
-__host__ __forceinline__ size_t gemm_smem_bytes(int K) {
-  return (size_t)kBM * a_stride(K) + (size_t)kBM * (K / kAB) +
-         (size_t)kBN * (kKC + 16) + kMaxLut * sizeof(float) + 64;
+// sA rows: whole 16-row groups, since a warp's A fragments read 16 rows
+// (the second group of a 24-row tile reads 8 rows it never fills and
+// discards their products)
+__host__ __device__ __forceinline__ int a_rows(int bm) {
+  return (bm + 15) / 16 * 16;
 }
 
-// shared-memory carve-up: sA | sE | sW | lut (16-byte aligned pieces)
+// sE row stride: K / 16 exponents, rounded up to whole words and padded to
+// an odd word count, so that the 8 rows a fragment reads at one act block
+// fall in 8 distinct banks
+__host__ __device__ __forceinline__ int e_stride(int K) {
+  const int w = (K / kAB + 3) / 4;
+  return 4 * (w | 1);
+}
+
+// shared row stride of a staged weight tile: bn bytes (at least 16), plus
+// 16 where bn / 16 is a multiple of 4, so that the four rows a lane group
+// reads for one B fragment fall in four distinct bank quads
+__host__ __device__ __forceinline__ int w_stride(int bn) {
+  const int l = bn < 16 ? 16 : bn;
+  return (l / 16) % 4 == 0 ? l + 16 : l;
+}
+
+// one ring stage: bk mantissa rows, then bk / 16 exponent rows
+__host__ __device__ __forceinline__ int stage_bytes(const GemmGeom& g) {
+  return (g.bk + g.bk / kAB) * w_stride(g.bn);
+}
+
+__host__ __forceinline__ bool geom_ok(const GemmGeom& g) {
+  return (g.bm == 16 || g.bm == 24 || g.bm == 32) && g.bn >= 4 &&
+         g.bn <= kMaxTileCols && (g.bn & (g.bn - 1)) == 0 &&
+         g.n_per >= 1 && g.bk >= kAB && g.bk % kAB == 0 && g.ns >= 2 &&
+         g.ns <= kMaxStages;
+}
+
+// kc: the K columns sA holds (K, or the chunk width)
+__host__ __forceinline__ size_t gemm_smem_bytes(const GemmGeom& g, int kc) {
+  return (size_t)a_rows(g.bm) * a_stride(kc) +
+         (((size_t)g.bm * e_stride(kc) + 15) & ~(size_t)15) +
+         (size_t)g.ns * stage_bytes(g) + kMaxLut * sizeof(float);
+}
+
+// shared-memory carve-up: sA | sE | weight ring | lut (16-byte aligned)
 struct GemmSmem {
   int8_t* a;
   int8_t* e;
@@ -225,16 +292,34 @@ struct GemmSmem {
   float* lut;
 };
 
-__device__ __forceinline__ GemmSmem carve(unsigned char* base, int K) {
+__device__ __forceinline__ GemmSmem carve(unsigned char* base,
+                                          const GemmGeom& g, int kc) {
   GemmSmem s;
   size_t off = 0;
   s.a = (int8_t*)(base + off);
-  off += (size_t)kBM * a_stride(K);
+  off += (size_t)a_rows(g.bm) * a_stride(kc);
   s.e = (int8_t*)(base + off);
-  off += ((size_t)kBM * (K / kAB) + 15) & ~(size_t)15;
+  off += ((size_t)g.bm * e_stride(kc) + 15) & ~(size_t)15;
   s.w = (int8_t*)(base + off);
-  off += (size_t)kBN * (kKC + 16);
+  off += (size_t)g.ns * stage_bytes(g);
   s.lut = (float*)(base + off);
+  return s;
+}
+
+// the widest copy (16, 8 or 4 bytes; 1: byte by byte) that every row
+// chunk of a tile allows
+__host__ __forceinline__ int copy_width(int N, int bn, const void* wm,
+                                        const void* we) {
+  for (int v = 16; v >= 4; v >>= 1)
+    if (N % v == 0 && bn % v == 0 && (uintptr_t)wm % v == 0 &&
+        (uintptr_t)we % v == 0)
+      return v;
+  return 1;
+}
+
+__host__ __forceinline__ int log2i(int v) {
+  int s = 0;
+  while ((1 << s) < v) ++s;
   return s;
 }
 
@@ -252,109 +337,327 @@ __device__ __forceinline__ void act_quant16(const float (&v)[kMaxBlock],
   *dst_e = (int8_t)e;
 }
 
-__device__ __forceinline__ int dot16(const int8_t* a, const int8_t* w) {
-  const int4 av = *reinterpret_cast<const int4*>(a);
-  const int4 wv = *reinterpret_cast<const int4*>(w);
-  int s = __dp4a(av.x, wv.x, 0);
-  s = __dp4a(av.y, wv.y, s);
-  s = __dp4a(av.z, wv.z, s);
-  return __dp4a(av.w, wv.w, s);
+// exactly pow2i(e) for an int8 exponent e in [-127, 127]: the exponent
+// field, or the subnormal bit pattern of 2^-127.  For two such exponents
+// __fmul_rn(pow2_e8(a), pow2_e8(b)) == pow2i(a + b): exact down to 2^-149,
+// 0 below, inf above 2^127 (tests/test_torch_kernels.py checks every pair)
+__device__ __forceinline__ float pow2_e8(int e) {
+  return __int_as_float(max((e + 127) << 23, 0x00400000));
 }
 
-// adds the block products of the K range [kbase, kbase + kc) of the kBN
-// columns at n0 into acc, in increasing K order; s.a / s.e hold the
-// range's quantized rows, with row strides a_ld and e_ld
-__device__ __forceinline__ void gemm_tile_range(
-    const GemmSmem& s, const int8_t* __restrict__ wm,
-    const int8_t* __restrict__ we, float (&acc)[2][4], int kbase, int kc,
-    int a_ld, int e_ld, int N, int w_block, int n0) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int nkb = kc / kAB;
-  for (int k0 = 0; k0 < kc; k0 += kKC) {
-    __syncthreads();
-    // stage W[kbase+k0 : +kKC, n0:n0+kBN] transposed: sW[n][k]
-    for (int i = tid; i < kKC * kBN; i += kThreads) {
-      int kk = i / kBN, nn = i % kBN;
-      int k = k0 + kk, n = n0 + nn;
-      s.w[nn * (kKC + 16) + kk] =
-          (k < kc && n < N) ? wm[(size_t)(kbase + k) * N + n] : (int8_t)0;
-    }
-    __syncthreads();
-    for (int j = 0; j < kKC / kAB; ++j) {
-      const int kb = k0 / kAB + j;
-      if (kb >= nkb) break;
-      const int kbw = (kbase + kb * kAB) / w_block;
+__device__ __forceinline__ uint32_t shared_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+template <int V>
+__device__ __forceinline__ void cp_async_bytes(void* dst, const void* src) {
+  if constexpr (V == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     shared_addr(dst)),
+                 "l"(src));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(
+                     shared_addr(dst)),
+                 "l"(src), "n"(V));
+}
+
+__device__ __forceinline__ void cp_async_group() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// wait until at most n - 2 of the committed groups are in flight
+__device__ __forceinline__ void wait_ring(int ns) {
+  switch (ns) {
+    case 2: cp_async_wait_groups<0>(); break;
+    case 3: cp_async_wait_groups<1>(); break;
+    default: cp_async_wait_groups<2>();
+  }
+}
+
+// d = a (16 x 16 s8, row) * b (16 x 8 s8, col) + kDotBias, exact in int32
+__device__ __forceinline__ void mma_s8(int (&d)[4], uint32_t a0, uint32_t a1,
+                                       uint32_t b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%7, %8, %9, %10};\n"
+      : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b), "r"(kDotBias), "r"(kDotBias),
+        "r"(kDotBias), "r"(kDotBias));
+}
+
+// staged position of K row r of a tile: each 16-row block keeps its rows in
+// the order 4 i + t for r = 4 t + i, so the rows 4t..4t+3 that lane group t
+// needs for a B fragment are 4 rows apart and lane groups sit on adjacent
+// rows (kernels/mxint_matmul.py:w_row mirrors it)
+__device__ __forceinline__ int w_row(int r) {
+  return (r & ~15) | ((r & 3) << 2) | ((r >> 2) & 3);
+}
+
+// the weight tiles a CTA streams over one K range [kbase, kbase + kc):
+// n_tiles column tiles from column n0, each in nst stages of bk rows
+struct WStream {
+  const int8_t* wm;
+  const int8_t* we;
+  int N, w_block, kbase, kc, n0, n_tiles, nst, vec, vec_shift;
+};
+
+template <int V>
+__device__ __forceinline__ void copy_chunk(int8_t* dst, const int8_t* src) {
+  if constexpr (V == 1)
+    *dst = *src;                        // N % 4 != 0: plain byte copies
+  else
+    cp_async_bytes<V>(dst, src);
+}
+
+// a stage's copies: each thread copies chunk c of every step-th row, the
+// mantissa rows to their staged rows, then the exponent-plane row of each
+// 16-row block
+template <int V>
+__device__ __forceinline__ void issue_rows(const WStream& ws,
+                                           const GemmGeom& g, int8_t* dst,
+                                           int r0, int col) {
+  const int ld = w_stride(g.bn);
+  const int step = blockDim.x >> ws.vec_shift;
+  const int rows = min(g.bk, ws.kc - r0);
+  const int r1 = threadIdx.x >> ws.vec_shift;
+  const int8_t* src = ws.wm + (size_t)(ws.kbase + r0 + r1) * ws.N + col;
+  for (int r = r1; r < rows; r += step, src += (size_t)step * ws.N)
+    copy_chunk<V>(dst + w_row(r) * ld, src);
+  dst += g.bk * ld;
+  for (int r = r1; r < rows / kAB; r += step)
+    copy_chunk<V>(dst + r * ld,
+                  ws.we + (size_t)((ws.kbase + r0 + r * kAB) / ws.w_block) *
+                              ws.N + col);
+}
+
+// issue the copies of stream stage j (tile j / nst) into its ring slot;
+// a stage past the end issues nothing
+__device__ __forceinline__ void issue_stage(const WStream& ws,
+                                            const GemmGeom& g, int8_t* ring,
+                                            int j) {
+  if (j >= ws.n_tiles * ws.nst) return;
+  const int t = j / ws.nst;
+  const int r0 = (j - t * ws.nst) * g.bk;        // first K row in the range
+  const int c = (threadIdx.x & ((1 << ws.vec_shift) - 1)) * ws.vec;
+  const int col = ws.n0 + t * g.bn + c;
+  if (col >= ws.N) return;              // N % vec == 0: whole chunks
+  int8_t* dst = ring + (j % g.ns) * stage_bytes(g) + c;
+  switch (ws.vec) {
+    case 16: issue_rows<16>(ws, g, dst, r0, col); break;
+    case 8: issue_rows<8>(ws, g, dst, r0, col); break;
+    case 4: issue_rows<4>(ws, g, dst, r0, col); break;
+    default: issue_rows<1>(ws, g, dst, r0, col);
+  }
+}
+
+__device__ __forceinline__ void stream_begin(const WStream& ws,
+                                             const GemmGeom& g, int8_t* ring) {
+  for (int j = 0; j < g.ns - 1; ++j) {
+    issue_stage(ws, g, ring, j);
+    cp_async_group();
+  }
+}
+
+__device__ __forceinline__ float dot_value(int d) {
+  return __fsub_rn(__int_as_float(d), kDotBiasF);
+}
+
+// acc += (float)dot * (pa * pw), the plain version's two rounded steps
+__device__ __forceinline__ void scaled_add(float& acc, int d, float pa,
+                                           float pw) {
+  acc = __fadd_rn(acc, __fmul_rn(dot_value(d), __fmul_rn(pa, pw)));
+}
+
+// the warp's place in a tile: rows [r0, r0 + 16) and columns
+// [wc, wc + 16); rows counts the rows of the 16 inside the tile and below
+// M (a 24-row tile's second warp row holds 8)
+struct WarpTile {
+  int r0, wc, rows;
+};
+
+__device__ __forceinline__ WarpTile warp_tile(const GemmGeom& g, int m0,
+                                              int M) {
+  const int warp = threadIdx.x / kWarp;
+  WarpTile w;
+  w.r0 = warp / 8 * 16;
+  w.wc = warp % 8 * kWarpCols;
+  w.rows = min(16, min(g.bm, M - m0) - w.r0);
+  return w;
+}
+
+// the shared-memory operands of one act block kb of a warp's tile: the raw
+// B bytes, the A fragments and the act exponents of rows g and g + 8
+struct BlockIn {
+  uint32_t x[4];
+  uint32_t a[2];
+  int ea[2];
+};
+
+template <int NH>
+__device__ __forceinline__ void load_block(BlockIn& in, const GemmSmem& s,
+                                           const int8_t* wr, int ld,
+                                           int r0, int kb, int a_ld,
+                                           int e_ld) {
+  const int lane = threadIdx.x % kWarp, gq = lane >> 2, tq = lane & 3;
+  // lane (g, t) reads columns 2g, 2g + 1 of K rows 4t..4t+3: staged row
+  // 4i + t holds K row 4t + i
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int n = n0 + tx * 4 + c;
-        const int ew = n < N ? (int)we[(size_t)kbw * N + n] : 0;
-        const int8_t* wcol = s.w + (tx * 4 + c) * (kKC + 16) + j * kAB;
+  for (int i = 0; i < 4; ++i)
+    in.x[i] = *reinterpret_cast<const uint16_t*>(wr + 4 * i * ld);
+  const int r = r0 + gq;
+  const int8_t* ar = s.a + r * a_ld + kb * kAB + 4 * tq;
+  in.a[0] = *reinterpret_cast<const uint32_t*>(ar);
+  in.a[1] = *reinterpret_cast<const uint32_t*>(ar + 8 * a_ld);
+  in.ea[0] = s.e[r * e_ld + kb];
+  in.ea[1] = NH == 2 ? s.e[(r + 8) * e_ld + kb] : 0;
+}
+
+// one block's products and scaled adds: acc[p][i] is the mma C layout of
+// n8 tile p (p 0: the even columns of the 16, p 1: the odd ones), rows g
+// (i < 2) and g + 8 (i >= 2); NH 1 skips rows g + 8 (all past the tile)
+template <int NH>
+__device__ __forceinline__ void mma_block(const BlockIn& in,
+                                          float (&acc)[2][4],
+                                          const float (&pw)[2][2]) {
+  // B fragments: lane (g, t) holds K rows 4t..4t+3 of columns 2g (p 0)
+  // and 2g + 1 (p 1)
+  const uint32_t x01 = __byte_perm(in.x[0], in.x[1], 0x5410);
+  const uint32_t x23 = __byte_perm(in.x[2], in.x[3], 0x5410);
+  const uint32_t b[2] = {__byte_perm(x01, x23, 0x6420),
+                         __byte_perm(x01, x23, 0x7531)};
+  const float pa0 = pow2_e8(in.ea[0]);
+  const float pa1 = pow2_e8(in.ea[1]);
 #pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const int row = ty * 2 + r;
-          const int dot = dot16(s.a + row * a_ld + kb * kAB, wcol);
-          const int ea = (int)s.e[row * e_ld + kb];
-          acc[r][c] = __fadd_rn(acc[r][c],
-                                __fmul_rn((float)dot, pow2i(ea + ew)));
-        }
-      }
+  for (int p = 0; p < 2; ++p) {
+    int d[4];
+    mma_s8(d, in.a[0], in.a[1], b[p]);
+    scaled_add(acc[p][0], d[0], pa0, pw[p][0]);
+    scaled_add(acc[p][1], d[1], pa0, pw[p][1]);
+    if (NH == 2) {
+      scaled_add(acc[p][2], d[2], pa1, pw[p][0]);
+      scaled_add(acc[p][3], d[3], pa1, pw[p][1]);
     }
   }
 }
 
-__device__ __forceinline__ void zero_tile(float (&acc)[2][4]) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+// a warp's tile over one ring stage: its act blocks kb0 .. in increasing
+// order, in runs that share a w_block (and so the column scales pw, read
+// from the stage's exponent rows at each run's start); each block's
+// operands are loaded while the one before it computes
+template <int NH>
+__device__ __forceinline__ void mma_stage(const GemmSmem& s,
+                                          const int8_t* stage,
+                                          const GemmGeom& g,
+                                          const WStream& ws, const WarpTile& w,
+                                          int kb0, int a_ld, int e_ld,
+                                          float (&acc)[2][4]) {
+  const int lane = threadIdx.x % kWarp, gq = lane >> 2, tq = lane & 3;
+  const int ld = w_stride(g.bn);
+  const int nkb = min(g.bk / kAB, ws.kc / kAB - kb0);
+  const int8_t* ex = stage + g.bk * ld + w.wc + 4 * tq;
+  const int8_t* wr = stage + tq * ld + w.wc + 2 * gq;
+  BlockIn cur;
+  load_block<NH>(cur, s, wr, ld, w.r0, kb0, a_ld, e_ld);
+  for (int k = 0; k < nkb;) {
+    const int k_lo = ws.kbase + (kb0 + k) * kAB;       // K index of block k
+    const int run = min(nkb, k + ((k_lo / ws.w_block + 1) * ws.w_block -
+                                  k_lo) / kAB);
+    float pw[2][2];
+    pw[0][0] = pow2_e8(ex[k * ld]);
+    pw[1][0] = pow2_e8(ex[k * ld + 1]);
+    pw[0][1] = pow2_e8(ex[k * ld + 2]);
+    pw[1][1] = pow2_e8(ex[k * ld + 3]);
+#pragma unroll 2
+    for (; k < run; ++k) {
+      BlockIn next;
+      const int kn = min(k + 1, nkb - 1);
+      load_block<NH>(next, s, wr + kn * kAB * ld, ld, w.r0, kb0 + kn, a_ld,
+                     e_ld);
+      mma_block<NH>(cur, acc, pw);
+      cur = next;
+    }
+  }
 }
 
+__device__ __forceinline__ void zero_acc(float (&acc)[2][4]) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[p][i] = 0.0f;
+}
+
+// store a warp's part of the column tile at col0: lane (g, t) holds
+// columns 4t..4t+3 of its 16 (even n8 tile: 4t, 4t+2; odd: 4t+1, 4t+3)
 __device__ __forceinline__ void store_tile(const float (&acc)[2][4],
+                                           const WarpTile& w,
                                            float* __restrict__ out, int m0,
-                                           int M, int N, int n0) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+                                           int N, int bn, int col0) {
+  const int lane = threadIdx.x % kWarp, gq = lane >> 2, tq = lane & 3;
+  const int col = col0 + w.wc + 4 * tq;
+  const int end = min(N, col0 + bn);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = m0 + ty * 2 + r;
-    if (row >= M) continue;
+  for (int h = 0; h < 2; ++h) {
+    if (gq + 8 * h >= w.rows) continue;
+    const float v[4] = {acc[0][2 * h], acc[1][2 * h], acc[0][2 * h + 1],
+                        acc[1][2 * h + 1]};
+    float* o = out + (size_t)(m0 + w.r0 + gq + 8 * h) * N + col;
+    if (col + 3 < end && N % 4 == 0) {
+      *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int n = n0 + tx * 4 + c;
-      if (n < N) out[(size_t)row * N + n] = acc[r][c];
+      for (int c = 0; c < 4; ++c)
+        if (col + c < end) o[c] = v[c];
     }
   }
 }
 
-// the block's N tiles over the whole K, whose quantized rows s holds
-__device__ void gemm_tiles(const GemmSmem& s, const int8_t* __restrict__ wm,
-                           const int8_t* __restrict__ we,
-                           float* __restrict__ out, int m0, int M, int K,
-                           int N, int w_block, int tile0, int n_tiles) {
-  for (int t = 0; t < n_tiles; ++t) {
-    const int n0 = (tile0 + t) * kBN;
-    if (n0 >= N) break;
-    float acc[2][4];
-    zero_tile(acc);
-    gemm_tile_range(s, wm, we, acc, 0, K, a_stride(K), K / kAB, N, w_block,
-                    n0);
-    store_tile(acc, out, m0, M, N, n0);
+// run the stream whose first stages stream_begin issued: every stage in
+// turn, one __syncthreads a stage, the next stages' copies in flight.
+// Tile t of the stream adds into acc[min(t, NACC - 1)]; with out given
+// (NACC 1) each tile is stored at its last stage and its sums restart.
+// A warp whose 16 rows lie past M computes nothing; one whose rows g + 8
+// do, or lie past the tile (a decode batch of at most 8 rows; the second
+// warp row of a 24-row tile), skips them.
+template <int NACC>
+__device__ __forceinline__ void stream_run(const GemmSmem& s,
+                                           const WStream& ws,
+                                           const GemmGeom& g, int a_ld,
+                                           int e_ld, int m0, int M,
+                                           float (&acc)[NACC][2][4],
+                                           float* __restrict__ out) {
+  const WarpTile w = warp_tile(g, m0, M);
+  const int total = ws.n_tiles * ws.nst;
+  for (int j = 0; j < total; ++j) {
+    wait_ring(g.ns);
+    __syncthreads();                    // stage j and the prologue are in
+    issue_stage(ws, g, s.w, j + g.ns - 1);      // into stage j - 1's slot
+    cp_async_group();
+    const int t = j / ws.nst, st = j - t * ws.nst;
+    const int col0 = ws.n0 + t * g.bn;
+    if (w.rows > 0 && w.wc < g.bn && col0 + w.wc < ws.N) {
+      const int8_t* stage = s.w + (j % g.ns) * stage_bytes(g);
+      const int kb0 = st * (g.bk / kAB);
+      auto run = [&](float (&a)[2][4]) {
+        if (w.rows > 8)
+          mma_stage<2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+        else
+          mma_stage<1>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+      };
+      if (NACC == 1 || t == 0)          // static indices: acc stays in
+        run(acc[0]);                    // registers
+      else
+        run(acc[NACC - 1]);
+    }
+    if (out != nullptr && st == ws.nst - 1) {
+      store_tile(acc[0], w, out, m0, ws.N, g.bn, col0);
+      zero_acc(acc[0]);
+    }
   }
-}
-
-// grid shape: enough blocks to cover the card twice; each block owns
-// n_per consecutive N tiles of its row tile, at most max_per
-__host__ __forceinline__ void gemm_grid(int M, int N, dim3* grid,
-                                        int* n_per, int max_per = INT_MAX) {
-  const int gx = (M + kBM - 1) / kBM;
-  const int tiles = (N + kBN - 1) / kBN;
-  int gy = (2 * 132 + gx - 1) / gx;
-  gy = gy < tiles ? gy : tiles;
-  gy = gy > 1 ? gy : 1;
-  *n_per = (tiles + gy - 1) / gy;
-  *n_per = *n_per < max_per ? *n_per : max_per;
-  gy = (tiles + *n_per - 1) / *n_per;
-  *grid = dim3(gx, gy);
+  cp_async_wait_groups<0>();
 }
 
 }  // namespace mx

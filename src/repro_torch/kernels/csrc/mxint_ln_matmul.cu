@@ -1,12 +1,13 @@
 // Fused MXInt LayerNorm -> matmul, sm_90a.
 // Counterpart of repro/kernels/mxint_ln_matmul.py:mxint_ln_matmul.
-// Each block normalizes its kBM rows (Fig. 3 LN, grid requantization, act
-// quantization) into shared memory, then runs its N tiles against them.
+// Each CTA normalizes its bm rows (Fig. 3 LN, grid requantization, act
+// quantization) into shared memory while the first weight stages load,
+// then streams its column tiles against them through the GEMM core.
 #include "mxint_common.cuh"
 
 using namespace mx;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 mxint_ln_matmul_kernel(const float* __restrict__ x,
                        const float* __restrict__ gamma,
                        const float* __restrict__ beta,
@@ -15,15 +16,21 @@ mxint_ln_matmul_kernel(const float* __restrict__ x,
                        const int8_t* __restrict__ we, float* __restrict__ out,
                        int M, int d, int N, int w_block, int mant_bits,
                        float inv_d, int lut_n, float lut_scale, int rms_only,
-                       int n_per) {
+                       GemmGeom g, int vec, int vec_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
-  GemmSmem s = carve(smem, d);
+  const GemmSmem s = carve(smem, g, d);
+  const int tiles = (N + g.bn - 1) / g.bn;
+  const int tile0 = blockIdx.y * g.n_per;
+  const WStream ws{wm, we, N, w_block, 0, d, tile0 * g.bn,
+                   min(g.n_per, tiles - tile0), (d + g.bk - 1) / g.bk, vec,
+                   vec_shift};
+  stream_begin(ws, g, s.w);
   load_lut(s.lut, lut_g, lut_n);
   __syncthreads();
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int m0 = blockIdx.x * kBM;
+  const int m0 = blockIdx.x * g.bm;
   const int nkb = d / kAB;
-  const int sa = a_stride(d);
+  const int sa = a_stride(d), se = e_stride(d);
   LnParams p;
   p.gamma = gamma;
   p.beta = beta;
@@ -36,7 +43,7 @@ mxint_ln_matmul_kernel(const float* __restrict__ x,
   p.inv_d = inv_d;
   p.lut_scale = lut_scale;
   p.lim = (float)((1 << (mant_bits - 1)) - 1);
-  for (int r = warp; r < kBM; r += kThreads / kWarp) {
+  for (int r = warp; r < g.bm; r += blockDim.x / kWarp) {
     const int row = m0 + r;
     if (row < M) {
       const float* xr = x + (size_t)row * d;
@@ -46,17 +53,19 @@ mxint_ln_matmul_kernel(const float* __restrict__ x,
         ln_block(xr, b, p, st, y);
         grid_requant(y, kAB, mant_bits, p.lim);   // LN output quantization
         act_quant16(y, mant_bits, p.lim, s.a + r * sa + b * kAB,
-                    s.e + r * nkb + b);
+                    s.e + r * se + b);
       }
     } else {
       for (int b = lane; b < nkb; b += kWarp) {
 #pragma unroll
         for (int i = 0; i < kAB; ++i) s.a[r * sa + b * kAB + i] = 0;
-        s.e[r * nkb + b] = 0;
+        s.e[r * se + b] = 0;
       }
     }
   }
-  gemm_tiles(s, wm, we, out, m0, M, d, N, w_block, blockIdx.y * n_per, n_per);
+  float acc[1][2][4];
+  zero_acc(acc[0]);
+  stream_run<1>(s, ws, g, sa, se, m0, M, acc, out);
 }
 
 extern "C" int mxint_ln_matmul_launch(const float* x, const float* gamma,
@@ -65,19 +74,28 @@ extern "C" int mxint_ln_matmul_launch(const float* x, const float* gamma,
                                       float* out, int M, int d, int N,
                                       int w_block, int mant_bits, float inv_d,
                                       int lut_n, float lut_scale, int rms_only,
-                                      void* stream) {
-  if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut)
+                                      int bm, int bn, int n_per, int bk,
+                                      int ns, void* stream) {
+  const GemmGeom g{bm, bn, n_per, bk, ns};
+  if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut || !geom_ok(g))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gemm_smem_bytes(d);
+  const size_t smem = gemm_smem_bytes(g, d);
+  const void* fn = (const void*)mxint_ln_matmul_kernel;
   cudaError_t err = cudaFuncSetAttribute(
-      mxint_ln_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid;
-  int n_per;
-  gemm_grid(M, N, &grid, &n_per);
-  mxint_ln_matmul_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, gamma, beta, lut, wm, we, out, M, d, N, w_block, mant_bits, inv_d,
-      lut_n, lut_scale, rms_only, n_per);
+  const int vec = copy_width(N, bn, wm, we);
+  const int vec_shift = log2i(bn / vec);
+  const int tiles = (N + bn - 1) / bn;
+  const dim3 grid((M + bm - 1) / bm, (tiles + n_per - 1) / n_per);
+  void* args[] = {(void*)&x, (void*)&gamma, (void*)&beta, (void*)&lut,
+                  (void*)&wm, (void*)&we, (void*)&out, (void*)&M,
+                  (void*)&d, (void*)&N, (void*)&w_block, (void*)&mant_bits,
+                  (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
+                  (void*)&rms_only, (void*)&g, (void*)&vec,
+                  (void*)&vec_shift};
+  err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -12,16 +12,20 @@ equal LN followed by ``mxint_linear`` bit for bit, and does so by
 construction, since both run the same stages in the same order.
 
 The Pallas grid carries the normalized tile across an ordered N axis;
-CUDA blocks run in no order, so each block normalizes its own 32 rows
-into shared memory (as int8 act mantissas and exponents) and then loops
-over its N tiles.  When there are few row tiles the N range is split over
-a few blocks, each repeating the cheap LN of its rows.
+CUDA blocks run in no order, so each CTA normalizes its own 16-32 rows
+into shared memory (as int8 act mantissas and exponents), while the first
+weight tiles load, and then streams its column tiles through the GEMM core
+of ``mxint_matmul`` (int8 tensor cores, ``csrc/mxint_common.cuh``).  The
+tiles come from ``gemm_geometry`` (without K chunks: the CTA holds its
+whole normalized rows); where the column range is split over several
+CTAs, each repeats the LN of its rows.
 
 On the H100, at DeiT-Base batch 16 the FFN ``wi`` reads x (3152, 768) f32
 (9.7 MB) and 2.4 MB of planes and writes (3152, 3072) f32 (38.7 MB):
-about 15 us at 3.35 TB/s against 7.5 us for its 14.9 G int8 operations,
-so it is bound by memory.  Like ``mxint_matmul`` this first kernel runs
-``dp4a`` on CUDA cores.
+about 15 us at 3.35 TB/s, against 7.5 us for its 14.9 G int8 operations
+on the tensor cores and 14 us for the ordered f32 sum's two operations per
+output element and act block at the published f32 rate: like
+``mxint_matmul`` it is bound by instruction issue in that epilogue.
 """
 from __future__ import annotations
 
@@ -35,7 +39,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mxint_layernorm import (MAX_LUT, f32, layernorm_rows,
                                                  lut_tensor)
 from repro_torch.kernels.mxint_matmul import (ACT_BLOCK, check_planes,
-                                              launch_args, matmul_blocks)
+                                              gemm_geometry, launch_args,
+                                              matmul_blocks, sm_count)
 
 launches = 0
 
@@ -87,13 +92,14 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     _build.require_cuda("mxint_ln_matmul", x, gamma, beta, lut, w_mant, w_exp)
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    geom = gemm_geometry(M, N, d, sm_count(x.device), fused_ln=True)
     fn = _build.entry("mxint_ln_matmul", [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                             ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
+        [ctypes.c_int] * 6 + [ctypes.c_void_p])
     xp, wmp, wep, outp = launch_args(x, w_mant, w_exp, out)
     rc = fn(xp, gamma.data_ptr(), beta.data_ptr(), lut.data_ptr(), wmp, wep,
             outp, M, d, N, w_block, mant_bits, f32(1.0 / d), 2 ** lut_bits,
-            f32(2 ** lut_bits / 1.5), int(rms_only),
+            f32(2 ** lut_bits / 1.5), int(rms_only), *geom.args(),
             _build.stream_ptr(x.device))
     _build.check(rc, "mxint_ln_matmul")
     launches += 1

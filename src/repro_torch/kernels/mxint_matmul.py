@@ -16,17 +16,25 @@ accumulator in increasing K order.
 
 On the H100, at DeiT-Base batch 16 the FFN ``wo`` reads x (3152, 3072) f32
 (38.7 MB), 2.4 MB of planes and writes (3152, 768) f32 (9.7 MB): about
-15 us of memory traffic against 7.5 us of int8 tensor-core work, so the
-function is bound by memory.  This first kernel uses ``dp4a`` on CUDA
-cores, not ``wgmma``, so it runs far from either bound.  Each block of
-256 threads quantizes its 32 rows of x once into shared memory (int8
-mantissas plus one exponent per 16-block) and then walks its N tiles,
-staging 64x64 weight tiles through shared memory.  A K beyond 4096
-(Llama-3-8B's FFN ``wo``, K 14336) does not fit shared memory whole: the
-same launch then walks K in 4096-wide chunks, quantizes each in turn and
-adds its block products onto the partial sums of the block's (at most 8)
-N tiles, which stay in registers, in the same K order.  One call is one
-launch.
+15 us of memory traffic.  Its int8 products take 7.5 us at the tensor-core
+rate, but the ordered f32 sum takes two rounded operations per output
+element and act block (M N K / 8 in all, 14 us at the published 67
+TFLOP/s), so its least time is set by operations, and the kernel is bound
+by instruction issue in that epilogue.  The GEMM core
+(``csrc/mxint_common.cuh``) runs the products on the int8 tensor cores:
+one ``mma.sync`` m16n8k16 per act block and 16 x 8 outputs, whose int32
+result is the block's exact dot, then the plain version's two rounded
+steps per element.  A CTA (8 warps per 16 rows) quantizes its 16, 24 or
+32 rows of x once into shared memory (int8 mantissas plus one exponent per
+16-block) while the first weight tiles load, then streams its column
+tiles: the planes' tiles go through a ring of stages by ``cp.async``, each
+once per CTA.  ``gemm_geometry`` sizes the tiles from the shape and the
+card's SM count: 16-row tiles and narrow column tiles at decode, so that
+every SM streams a share of the planes.  A K beyond 4096 (Llama-3-8B's FFN ``wo``,
+K 14336) does not fit shared memory whole: the same launch then walks K in
+4096-wide chunks, quantizes each in turn and adds its block products onto
+the partial sums of the CTA's (at most 2) column tiles, which stay in
+registers, in the same K order.  One call is one launch.
 
 The plain version accumulates the same block products in the same order,
 so kernel and plain version agree bit for bit; against the reference's
@@ -35,16 +43,34 @@ f32 dot they differ in the order of the f32 sums across blocks.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (block_quantize_rows,
+from repro_torch.kernels.mxint_layernorm import (MAX_LUT, block_quantize_rows,
                                                  lut_tensor)
 
 ACT_BLOCK = 16        # the CUDA kernel's activation block
+
+# the GEMM core's constants (csrc/mxint_common.cuh, csrc/mxint_matmul.cu)
+WARP_COLS = 16                      # a warp's columns: two n8 mma tiles
+MAX_TILE_COLS = 8 * WARP_COLS       # 8 warps side by side on the columns
+DECODE_STAGES = 4                   # weight ring depth at 16-row tiles
+MAX_CHUNK = 4096                    # K columns of x held in shared memory
+MAX_ACC_TILES = 2                   # column tiles a chunked CTA holds
+SMEM_LIMIT = 232448                 # the H100's 227 KB a CTA may use
+# weights of gemm_geometry's cost: a CTA's prologue (act quantization;
+# the fused LayerNorm) in units of one 128-column tile's products, as
+# timed on the H100 at DeiT-Base's shapes while the core was tuned
+QUANT_PROLOGUE_TILES = 1.0
+LN_PROLOGUE_TILES = 4.0
+# the share of a tile's work that scales with its rows (the ordered f32
+# epilogue: 4 of the core's 7 instructions per element and act block);
+# the mma, the B fragments and the weight stream scale with 16-row groups
+EPILOGUE_SHARE = 4 / 7
 
 launches = 0
 
@@ -73,6 +99,120 @@ def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
     for k in range(nb):
         acc = acc + (xm[:, k] @ wm[k]) * table[xe[:, k, None] + we[None, k]]
     return acc
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmGeometry:
+    """Launch geometry of the GEMM core: a CTA owns rows
+    [x * bm, (x + 1) * bm) and column tiles [y * n_per, (y + 1) * n_per)
+    of bn columns each, for grid (x, y); it streams the weight planes in
+    stages of bk rows.  ``chunked``: K is walked in MAX_CHUNK chunks."""
+    bm: int
+    bn: int
+    n_per: int
+    bk: int
+    ns: int
+    chunked: bool
+    grid: tuple
+
+    def args(self):
+        return (self.bm, self.bn, self.n_per, self.bk, self.ns)
+
+
+def w_stride(bn: int) -> int:
+    """Shared row stride of a staged weight tile (``w_stride`` in
+    ``csrc/mxint_common.cuh``)."""
+    width = max(bn, 16)
+    return width + 16 if (width // 16) % 4 == 0 else width
+
+
+def w_row(r: int) -> int:
+    """Staged row of K row r of a tile (``w_row`` in
+    ``csrc/mxint_common.cuh``): rows 4 t + i of a 16-row block are kept in
+    the order 4 i + t."""
+    return (r & ~15) | ((r & 3) << 2) | ((r >> 2) & 3)
+
+
+def gemm_smem_bytes(bm: int, bn: int, bk: int, ns: int, kc: int) -> int:
+    """Dynamic shared memory of a CTA that holds kc columns of its rows
+    (``gemm_smem_bytes`` in ``csrc/mxint_common.cuh``)."""
+    stage = (bk + bk // ACT_BLOCK) * w_stride(bn)
+    e_stride = 4 * ((kc // ACT_BLOCK + 3) // 4 | 1)
+    a_rows = -(-bm // 16) * 16          # whole 16-row groups
+    return (a_rows * (kc + 16) + (bm * e_stride + 15) // 16 * 16
+            + ns * stage + MAX_LUT * 4)
+
+
+@functools.lru_cache(maxsize=None)
+def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
+                  fused_ln: bool = False) -> GemmGeometry:
+    """Tiles of the GEMM core for y[M, N] = x[M, K] @ W[K, N] on a card of
+    ``n_sm`` SMs.
+
+    Rows: 16 a tile when M <= 16 (a decode batch), else 32 or 24, whichever
+    the cost estimate favours (24 fills the card where 32 leaves SMs idle:
+    3152 DeiT rows make 132 tiles of 24).  Columns: the widest power-of-two
+    tile, at most 128 (8 warps of 16 columns) and at least 4, that still
+    gives every SM a CTA; so at decode the planes are streamed by the whole
+    card.  With many rows, each CTA takes ``n_per``
+    consecutive column tiles, so that it quantizes (or normalizes) its rows
+    once for all of them; ``n_per`` minimizes the waves of CTAs over the
+    card times each CTA's tiles plus its prologue.  K is never split: one
+    thread owns every output element's whole ordered sum.  K beyond
+    MAX_CHUNK is walked in chunks, except with ``fused_ln``: the fused
+    LayerNorm kernel holds its whole rows (and its prologue costs more).
+    Cached: a decode step asks for the same few shapes every call."""
+    best = None
+    for bm in (16,) if M <= 16 else (32, 24):
+        geom, cost = _tile_geometry(M, N, K, n_sm, bm, fused_ln)
+        if best is None or cost < best[1]:
+            best = (geom, cost)
+    return best[0]
+
+
+def _tile_geometry(M, N, K, n_sm, bm, fused_ln):
+    """gemm_geometry at row tile bm: (geometry, estimated time in units of
+    one 32 x 128 tile's work)."""
+    rows = -(-M // bm)
+    bn = MAX_TILE_COLS
+    while bn > (4 if bm == 16 else WARP_COLS) and \
+            rows * -(-N // bn) < n_sm:
+        bn //= 2
+    chunked = not fused_ln and K > MAX_CHUNK
+    kc = K if fused_ln else min(K, MAX_CHUNK)
+    if bm == 16:
+        # a decode batch streams the planes: a deep ring of small stages,
+        # two 256-thread CTAs to an SM
+        ns, bk = DECODE_STAGES, min(512, max(128, 8192 // bn))
+    else:
+        # many rows: the products bound it; two large stages (one
+        # __syncthreads per 16 act blocks), one 512-thread CTA to an SM
+        ns = 2
+        bk = next((b for b in (256, 128) if gemm_smem_bytes(
+            bm, bn, b, ns, kc) <= SMEM_LIMIT), 64)
+    # CTAs an SM holds: two of 256 threads or one of 512, fewer if shared
+    # memory runs out
+    per_sm = max(1, min(2 if bm == 16 else 1,
+                        SMEM_LIMIT // gemm_smem_bytes(bm, bn, bk, ns, kc)))
+    tile = (EPILOGUE_SHARE * bm / 32 + (1 - EPILOGUE_SHARE) * -(-bm // 16)
+            / 2) * bn / MAX_TILE_COLS
+    prologue = (LN_PROLOGUE_TILES if fused_ln else QUANT_PROLOGUE_TILES) * \
+        bm / 32
+    tiles = -(-N // bn)
+
+    def cost(n_per):
+        waves = -(-rows * -(-tiles // n_per) // (n_sm * per_sm))
+        return waves * (n_per * tile + prologue)
+
+    n_per = min(range(1, (MAX_ACC_TILES if chunked else tiles) + 1),
+                key=cost)
+    return (GemmGeometry(bm, bn, n_per, bk, ns, chunked,
+                         (rows, -(-tiles // n_per))), cost(n_per))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
@@ -110,10 +250,11 @@ def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
     _build.require_cuda("mxint_matmul", x, w_mant, w_exp)
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
+    geom = gemm_geometry(M, N, K, sm_count(x.device))
     fn = _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 5 + [ctypes.c_void_p])
+        ctypes.c_int] * 10 + [ctypes.c_void_p])
     rc = fn(*launch_args(x, w_mant, w_exp, out), M, K, N, w_block,
-            act_mant_bits, _build.stream_ptr(x.device))
+            act_mant_bits, *geom.args(), _build.stream_ptr(x.device))
     _build.check(rc, "mxint_matmul")
     launches += 1
     return out

@@ -28,10 +28,12 @@ from repro.kernels.mxint_ln_matmul import mxint_ln_matmul as j_lnmm  # noqa: E40
 from repro.kernels.mxint_matmul import mxint_matmul as j_mm  # noqa: E402
 from repro.kernels.mxint_softmax import mxint_softmax as j_sm  # noqa: E402
 from repro_torch.core.mx_types import MXFormat  # noqa: E402
-from repro_torch.core.quantize import pack_weight  # noqa: E402
+from repro_torch.core.quantize import pack_weight, pow2i  # noqa: E402
 from repro_torch.kernels import (mxint_gelu, mxint_layernorm,  # noqa: E402
                                  mxint_ln_matmul, mxint_matmul,
                                  mxint_softmax, ops)
+from repro_torch.kernels.mxint_layernorm import (  # noqa: E402
+    block_quantize_rows)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -213,3 +215,218 @@ def test_cpu_calls_do_not_count_launches():
     mxint_gelu.mxint_gelu(_t(_x((2, 32))))
     mxint_softmax.mxint_softmax(_t(_x((2, 32))))
     assert [m.launches for m in mods] == before
+
+
+# ---------------------------------------------------------------------------
+# the int8 tensor-core GEMM core: geometry, fragment layout, epilogue
+# ---------------------------------------------------------------------------
+# (M, N, K, fused LN): DeiT-Base batch 16, Llama-3-8B decode at batch 4 and
+# 1024-token scoring, ragged shapes
+GEMM_SHAPES = [
+    (3152, 768, 3072, False), (3152, 3072, 768, True),
+    (3152, 2304, 768, True), (3152, 768, 768, False),
+    (4, 4096, 4096, True), (4, 1024, 4096, True), (4, 14336, 4096, True),
+    (4, 4096, 4096, False), (4, 4096, 14336, False),
+    (1024, 4096, 4096, True), (1024, 14336, 4096, True),
+    (1024, 1024, 4096, True), (1024, 4096, 14336, False),
+    (37, 1000, 192, False), (1, 1024, 4096, False), (16, 4096, 4096, True),
+    (17, 1000, 768, False), (33, 1024, 14336, False), (64, 4096, 4096, True),
+    (200, 4096, 14336, False), (500, 4096, 4096, True),
+]
+DECODE_N = (1024, 4096, 14336)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("M,N,K,fused_ln", GEMM_SHAPES)
+def test_gemm_geometry(M, N, K, fused_ln, n_sm):
+    """Every output element in exactly one CTA's tile, K never split across
+    CTAs, shared memory within the H100's 227 KB a CTA, and at least one
+    CTA per SM for a decode batch."""
+    g = mxint_matmul.gemm_geometry(M, N, K, n_sm, fused_ln=fused_ln)
+    assert g.bm in ((16,) if M <= 16 else (24, 32))
+    assert g.bn >= 4 and g.bn <= mxint_matmul.MAX_TILE_COLS
+    assert g.bn & (g.bn - 1) == 0 and g.bk % 16 == 0 and 2 <= g.ns <= 4
+    # the grid is rows x column groups: no axis splits K; a chunked CTA
+    # walks all of K itself and holds its tiles' sums in registers
+    assert len(g.grid) == 2
+    assert g.chunked == (not fused_ln and K > mxint_matmul.MAX_CHUNK)
+    if g.chunked:
+        assert g.n_per <= mxint_matmul.MAX_ACC_TILES
+    rows = np.zeros(M, np.int32)
+    for x in range(g.grid[0]):
+        rows[x * g.bm:(x + 1) * g.bm] += 1
+    cols = np.zeros(N, np.int32)
+    tiles = -(-N // g.bn)
+    for y in range(g.grid[1]):
+        n_tiles = min(g.n_per, tiles - y * g.n_per)   # the kernel's rule
+        assert n_tiles >= 1
+        for t in range(n_tiles):
+            c0 = (y * g.n_per + t) * g.bn
+            cols[c0:c0 + g.bn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    kc = K if fused_ln else min(K, mxint_matmul.MAX_CHUNK)
+    assert mxint_matmul.gemm_smem_bytes(g.bm, g.bn, g.bk, g.ns, kc) <= \
+        mxint_matmul.SMEM_LIMIT
+    if M <= 16 and N in DECODE_N:
+        assert g.grid[0] * g.grid[1] >= n_sm
+
+
+def _byte_perm(a, b, sel):
+    """CUDA __byte_perm: output byte i is byte (sel >> 4 i) & 7 of the
+    8-byte value b:a."""
+    src = (int(b) << 32) | int(a)
+    return sum(((src >> (8 * ((sel >> (4 * i)) & 7))) & 0xFF) << (8 * i)
+               for i in range(4))
+
+
+def _bytes(v):
+    return np.array([(v >> (8 * i)) & 0xFF for i in range(4)],
+                    np.uint8).view(np.int8)
+
+
+@pytest.mark.parametrize("bn", [4, 8, 16, 32, 64, 128])
+def test_mma_fragments_from_staged_tile(bn):
+    """A numpy model of the core's staging (``w_row``, ``w_stride``) and of
+    the B-fragment loads and ``__byte_perm`` selectors of ``mma_block``
+    (csrc/mxint_common.cuh): lane (g, t) must hold K rows 4t..4t+3 of one
+    column in each n8 tile's register, as PTX's m16n8k16 .s8 B layout
+    wants (rows 4t + i, column g, i-th byte); the 16-bit loads must be free
+    of bank conflicts; and the C layout, stored as ``store_tile`` does,
+    must give A @ W at the right columns."""
+    rng = np.random.default_rng(bn)
+    bk = 32
+    W = rng.integers(-127, 128, size=(bk, bn)).astype(np.int8)
+    ld = mxint_matmul.w_stride(bn)
+    stage = np.zeros(bk * ld + 16 * ld, np.int8)        # rows read past bn
+    for r in range(bk):
+        s0 = mxint_matmul.w_row(r) * ld
+        stage[s0:s0 + bn] = W[r]
+    raw = stage.view(np.uint8)
+    for wc in range(0, max(bn, 16), 16):
+        live = min(16, bn - wc)                        # columns of the tile
+        for kb in range(bk // 16):
+            frag = {}
+            for i in range(4):
+                banks = {}
+                for lane in range(32):
+                    g, t = lane >> 2, lane & 3
+                    off = (kb * 16 + t + 4 * i) * ld + wc + 2 * g
+                    banks.setdefault((off // 4) % 32, set()).add(off // 4)
+                    frag.setdefault(lane, []).append(
+                        int(raw[off]) | (int(raw[off + 1]) << 8))
+                assert all(len(w) == 1 for w in banks.values()), \
+                    "bank conflict"
+            A = rng.integers(-127, 128, size=(16, 16)).astype(np.int64)
+            out = np.zeros((16, 16), np.int64)
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                x = frag[lane]
+                x01 = _byte_perm(x[0], x[1], 0x5410)
+                x23 = _byte_perm(x[2], x[3], 0x5410)
+                b = [_bytes(_byte_perm(x01, x23, 0x6420)),
+                     _bytes(_byte_perm(x01, x23, 0x7531))]
+                for p in range(2):
+                    col = 2 * g + p
+                    if col < live:                     # PTX B layout
+                        np.testing.assert_array_equal(
+                            b[p], W[kb * 16 + 4 * t:kb * 16 + 4 * t + 4,
+                                    wc + col])
+            # D of n8 tile p per the PTX C layout, then store_tile's order
+            Wk = W[kb * 16:kb * 16 + 16].astype(np.int64)
+            cols = [wc + c for c in range(16)]
+            Bt = [np.stack([Wk[:, c] if c < bn else np.zeros(16, np.int64)
+                            for c in cols[p::2]], 1) for p in range(2)]
+            D = [A @ Bt[p] for p in range(2)]
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                acc = [[D[p][g, 2 * t], D[p][g, 2 * t + 1],
+                        D[p][g + 8, 2 * t], D[p][g + 8, 2 * t + 1]]
+                       for p in range(2)]
+                for h in range(2):
+                    v = [acc[0][2 * h], acc[1][2 * h], acc[0][2 * h + 1],
+                         acc[1][2 * h + 1]]
+                    out[g + 8 * h, 4 * t:4 * t + 4] = v
+            want = A @ np.stack([Wk[:, c] if c < bn else np.zeros(16, np.int64)
+                                 for c in cols], 1)
+            np.testing.assert_array_equal(out[:, :live], want[:, :live])
+
+
+def _pow2_e8(e):
+    """The core's pow2_e8: max((e + 127) << 23, 0x00400000) as f32 bits."""
+    e = np.asarray(e, np.int32)
+    return np.maximum((e + 127) << 23, 0x00400000).view(np.float32)
+
+
+def test_block_scale_product_is_exact():
+    """pow2_e8(e_a) * pow2_e8(e_w), rounded once, is pow2i(e_a + e_w) for
+    every pair of int8 exponents: exact to 2^-149, 0 below, inf above."""
+    e = np.arange(-127, 128, dtype=np.int32)
+    with np.errstate(over="ignore", under="ignore"):
+        got = _pow2_e8(e)[:, None] * _pow2_e8(e)[None, :]
+    want = pow2i(torch.from_numpy(e[:, None] + e[None, :])).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.isinf(got[-1, -1]) and got[0, 0] == 0.0
+
+
+def test_dot_bias_conversion_is_exact():
+    """The mma's C input 0x4B400000: its int32 D = bias + dot, read as f32
+    minus 1.5 * 2^23, is (float)dot for every |dot| <= 16 * 128 * 127."""
+    lim = 16 * 128 * 127
+    dot = np.concatenate([np.arange(-lim, -lim + 4097),
+                          np.arange(-4096, 4097),
+                          np.arange(lim - 4096, lim + 1)]).astype(np.int32)
+    got = (dot + np.int32(0x4B400000)).view(np.float32) - \
+        np.float32(12582912.0)
+    np.testing.assert_array_equal(got, dot.astype(np.float32))
+    assert not np.signbit(got[dot == 0]).any()
+
+
+def _core_model(x, w_mant, w_exp, w_block):
+    """The core's epilogue in numpy float32: per act block in K order,
+    acc = acc + ((bias + dot) as f32 - 1.5 * 2^23) * (pow2_e8(e_a) *
+    pow2_e8(e_w)), each operation rounded once."""
+    xm, xe = block_quantize_rows(x, 16, 8)
+    xm = xm.numpy().astype(np.int64)
+    xe = xe.numpy().astype(np.int32)
+    wm = w_mant.numpy().astype(np.int64)
+    we = w_exp.numpy().astype(np.int32)
+    M, nb = xe.shape
+    acc = np.zeros((M, wm.shape[1]), np.float32)
+    with np.errstate(over="ignore", under="ignore", invalid="ignore"):
+        for k in range(nb):
+            dot = (xm[:, k] @ wm[16 * k:16 * k + 16]).astype(np.int32)
+            v = (dot + np.int32(0x4B400000)).view(np.float32) - \
+                np.float32(12582912.0)
+            s = _pow2_e8(xe[:, k])[:, None] * \
+                _pow2_e8(we[16 * k // w_block])[None, :]
+            acc = acc + v * s
+    return acc
+
+
+@pytest.mark.parametrize("x_scale,w_scale,case", [
+    (1.0, 1.0, "normal"), (2.0 ** -120, 1.0, "subnormal"),
+    (2.0 ** -120, 2.0 ** -30, "flush"), (2.0 ** 110, 2.0 ** 30, "overflow")])
+def test_core_epilogue_matches_plain_version(x_scale, w_scale, case):
+    """The core's two rounded steps per block (no FMA) give the plain
+    version's bits, also where e_a + e_w is below -126 (subnormal scales)
+    or below -149, and where the products overflow."""
+    rng = np.random.default_rng(7)
+    M, K, N = 6, 512, 24
+    x = torch.from_numpy((rng.normal(size=(M, K)) * x_scale)
+                         .astype(np.float32))
+    p = pack_weight(torch.from_numpy(
+        (rng.normal(size=(K, N)) * K ** -0.5 * w_scale).astype(np.float32)),
+        MXFormat(8, 256))
+    got = _core_model(x, p.mantissa, p.exponent, p.block_size)
+    want = mxint_matmul.matmul_blocks(x, p.mantissa, p.exponent,
+                                      w_block=p.block_size, act_block=16,
+                                      act_mant_bits=8).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    xe = block_quantize_rows(x, 16, 8)[1]
+    s = xe.min() + int(p.exponent.min())
+    if case == "subnormal":
+        assert -149 <= s < -126
+    if case == "flush":
+        assert s < -149
+    if case == "overflow":                  # inf products, inf - inf
+        assert not np.isfinite(got).any()
