@@ -13,9 +13,14 @@
    timed as a median of CUDA events after warmup beside the plain version
    and, where one PyTorch call computes the same function, that call, and
    as device time from the kernel events of a ``torch.profiler`` trace;
-   one JSON line per kernel.  The matmul kernels are timed at every
-   Llama-3-8B decode and score shape (``TIMED_CASES``) and also held at
-   M 1, 16, 17 and 33, at subnormal block scales and at mantissas +-127.
+   one JSON line per kernel.  The matmul and GELU kernels are timed at
+   every Llama-3-8B decode and score shape (``TIMED_CASES``); the matmul
+   kernels are also held at M 1, 16, 17 and 33, at subnormal block scales
+   and at mantissas +-127; the row kernels on every route their geometry
+   functions pick (softmax: registers at 1-32 elements a lane, float4 or
+   scalar, masked causal rows, both sides of the register limit, rows of
+   262144 on the long route; GELU: float4 at act blocks 4, 8 and 16,
+   scalar at 1, 2, 12 and on unaligned rows).
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -35,6 +40,9 @@
    batch is compared with the same model on the CPU through the plain
    versions: argmax equal and logits within 1e-3 of their scale.  One
    forward is also split by kernel with CUDA events around each call.
+   One batch, one decode step (phase 4) and one score forward (phase 5)
+   are traced with ``torch.profiler``: the device's busy time (kernels,
+   copies, fills) and the idle share of the events' time.
 4. LM serve phase: Llama-3-8B at full width and depth (32 layers, random
    weights from a seed, packed MXInt8 planes) serves 8 requests of 37-1000
    prompt tokens and 24 new tokens each through ``ServingEngine`` and
@@ -115,12 +123,13 @@ FLASH_TOL = {(False, False): None, (False, True): None,
              (True, False): (1.0, None), (True, True): (0.999, 5e-2)}
 # cases timed beside each kernel's first one: the served ring's depths of
 # the decode kernel, and the shapes at which a Llama-3-8B decode step and
-# score forward spend the matmul kernels' time
+# score forward spend the matmul and GELU kernels' time
 TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "llama3_8b_decode_attn_wo", "llama3_8b_decode_ffn_wo",
                "llama3_8b_score_ffn_wo", "llama3_8b_decode_rms_wq",
                "llama3_8b_decode_rms_wk", "llama3_8b_decode_rms_wi",
-               "llama3_8b_score_rms_wq", "llama3_8b_score_rms_wi"}
+               "llama3_8b_score_rms_wq", "llama3_8b_score_rms_wi",
+               "llama3_8b_decode_silu", "llama3_8b_score_silu"}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
@@ -149,11 +158,18 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, iters: int = 20):
+# trace event categories of the device's own work: kernels, and for a
+# whole batch or step also its copies and fills (the image upload)
+KERNEL_CATS = ("kernel",)
+BUSY_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_ms(fn, iters: int = 20, cats=KERNEL_CATS):
     """Device time per call of ``fn``: the summed durations of the kernels
-    it launches, read from the kernel events of a ``torch.profiler`` trace
-    (the host work and gaps between launches that ``time_ms`` sees are
-    left out); None where the trace holds no kernel event."""
+    it launches (with ``BUSY_CATS`` also its copies and fills), read from
+    the events of a ``torch.profiler`` trace (the host work and gaps
+    between launches that ``time_ms`` sees are left out); None where the
+    trace holds no such event."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -167,8 +183,14 @@ def device_ms(fn, iters: int = 20):
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    us = sum(e.get("dur", 0) for e in events if e.get("cat") == "kernel")
+    us = sum(e.get("dur", 0) for e in events if e.get("cat") in cats)
     return us / iters / 1e3 if us > 0 else None
+
+
+def idle_share(busy_ms, wall_ms):
+    """The share of ``wall_ms`` in which the device ran none of the work
+    (None where the trace gave no device time)."""
+    return None if busy_ms is None else 1.0 - busy_ms / wall_ms
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
@@ -227,11 +249,13 @@ def kernel_cases(torch, np):
     library call or None); the first case is the DeiT-Base one.  The
     llama3_8b cases are the variants the LM path runs: bf16 activations
     (read as f32), MXInt8 planes, RMSNorm, SiLU, K 14336 in one launch."""
-    from repro_torch.core.mx_types import MXINT6_WEIGHT, MXINT8_WEIGHT
+    from repro_torch.core.mx_types import (MXINT6_WEIGHT, MXINT8_WEIGHT,
+                                           NEG_INF)
     from repro_torch.core.quantize import dequantize, pack_weight
     from repro_torch.kernels import (mxint_gelu, mxint_layernorm,
                                      mxint_ln_matmul, mxint_matmul,
                                      mxint_softmax)
+    from repro_torch.kernels.mxint_matmul import sm_count
     rng = np.random.default_rng(SEED)
     dev = DEVICE
 
@@ -350,33 +374,82 @@ def kernel_cases(torch, np):
                   f32_ops=ROW_OPS["mxint_layernorm"] * M * d
                   + gemm_f32_ops(M, N, d)),
             lambda a=a, wd=wd: torch.matmul(a.to(torch.float32), wd)))
-    for label, R, n, blk in (("deit_base_b16_scores", BATCH * 12 * 197, 197,
-                              1), ("ragged", 37, 64, 16)):
+    # softmax: the DeiT scores, then every route (softmax_geometry): the
+    # register route at act block 1 (per-lane counts 1-32), at blocks 12,
+    # 15 and 16 (float4 where aligned, scalar on a row offset by 4 bytes),
+    # its limit and one element past it; the long route up to the longest
+    # row the whole-row path sends (ops.PAPER_MAX_SCORES); causal score
+    # rows masked with NEG_INF as _paper_softmax_attention masks them
+    for label, R, n, blk, qout, how in (
+            ("deit_base_b16_scores", BATCH * 12 * 197, 197, 1, True, None),
+            ("ragged", 37, 64, 16, True, None),
+            ("deit_causal_masked_n197", 12 * 197, 197, 1, True, "causal"),
+            ("causal_masked_n512_b16", 4 * 512, 512, 16, True, "causal"),
+            ("n20_b1", 64, 20, 1, True, None),
+            ("n33_b1", 64, 33, 1, True, None),
+            ("n100_b1", 64, 100, 1, True, None),
+            ("reg_limit_n1024_b1", 300, 1024, 1, True, None),
+            ("long_n1025_b1", 300, 1025, 1, True, None),
+            ("reg_limit_n1024_b16", 300, 1024, 16, True, None),
+            ("long_n1040_b16", 300, 1040, 16, True, None),
+            ("long_rows_2x262144_b16", 2, 262144, 16, True, None),
+            ("b16_n256_raw", 256, 256, 16, False, None),
+            ("b16_n256_quantized", 256, 256, 16, True, None),
+            ("unaligned_b16_n256", 256, 256, 16, True, "offset"),
+            ("b12_n96_raw", 100, 96, 12, False, None),
+            ("b15_n300", 100, 300, 15, True, None)):
         a = x(R, n, scale=4.0)
+        if how == "causal":
+            keep = torch.arange(n, device=dev)[None, :] <= \
+                (torch.arange(R, device=dev) % n)[:, None]
+            a = torch.where(keep, a, NEG_INF)
+        if how == "offset":        # rows that start 4 bytes past 16
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].reshape(R, n)
+            assert a.data_ptr() % 16 == 4
+        geom = mxint_softmax.softmax_geometry(R, n, blk,
+                                              a.data_ptr() % 16 == 0)
+        log(f"[kernel] mxint_softmax {label} route {geom}")
         cases["mxint_softmax"].append((
             label,
-            lambda a=a, blk=blk: mxint_softmax.mxint_softmax(
-                a, act_block=blk, quantize_out=True),
-            lambda a=a, blk=blk: mxint_softmax.softmax_rows(
-                a, act_block=blk, mant_bits=8, r_bits=2, quantize_out=True),
+            lambda a=a, blk=blk, q=qout: mxint_softmax.mxint_softmax(
+                a, act_block=blk, quantize_out=q),
+            lambda a=a, blk=blk, q=qout: mxint_softmax.softmax_rows(
+                a, act_block=blk, mant_bits=8, r_bits=2, quantize_out=q),
             bound(2 * R * n * 4, f32_ops=ROW_OPS["mxint_softmax"] * R * n),
             None))
-    # the LM's SwiGLU gate: SiLU of bf16 values
-    for label, R, d, fn in (("deit_base_b16_ffn", rows, 3072, "gelu"),
-                            ("ragged", 37, 768, "gelu"),
-                            ("llama3_8b_decode_silu", LM_BATCH, 14336,
-                             "silu"),
-                            ("llama3_8b_score_silu", S, 14336, "silu")):
+    # GELU: act block 16 (the float4 route) at the DeiT and Llama shapes,
+    # blocks 8 and 4 (float4, 2 and 1 lanes a block), and the scalar route:
+    # blocks 1 (an odd width), 2 and 12, and block 16 on rows offset by 4
+    # bytes; the LM's SwiGLU gate is SiLU of bf16 values
+    for label, R, d, fn, blk, how in (
+            ("deit_base_b16_ffn", rows, 3072, "gelu", 16, None),
+            ("ragged", 37, 768, "gelu", 16, None),
+            ("llama3_8b_decode_silu", LM_BATCH, 14336, "silu", 16, None),
+            ("llama3_8b_score_silu", S, 14336, "silu", 16, None),
+            ("b8_37x768", 37, 768, "gelu", 8, None),
+            ("b4_37x768_silu", 37, 768, "silu", 4, None),
+            ("b1_37x197", 37, 197, "gelu", 1, None),
+            ("b2_37x194", 37, 194, "gelu", 2, None),
+            ("b12_37x96", 37, 96, "gelu", 12, None),
+            ("unaligned_b16_37x768", 37, 768, "gelu", 16, "offset")):
         a = x(R, d, scale=2.0)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
+        if how == "offset":
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].reshape(R, d)
+            assert a.data_ptr() % 16 == 4
         table, domain = mxint_gelu.gelu_table(fn, 5, 3.0)
         lut = mxint_layernorm.lut_tensor(table, dev)
+        if a.is_cuda:
+            geom = mxint_gelu.gelu_geometry(R * d, blk, sm_count(a.device),
+                                            a.data_ptr() % 16 == 0)
+            log(f"[kernel] mxint_gelu {label} route {geom}")
         cases["mxint_gelu"].append((
             label,
-            lambda a=a, fn=fn: mxint_gelu.mxint_gelu(a, fn=fn),
-            lambda a=a, lut=lut, dom=domain: mxint_gelu.gelu_rows(
-                a, lut, act_block=16, mant_bits=8, domain=dom),
+            lambda a=a, fn=fn, blk=blk: mxint_gelu.mxint_gelu(
+                a, fn=fn, act_block=blk),
+            lambda a=a, lut=lut, dom=domain, blk=blk: mxint_gelu.gelu_rows(
+                a, lut, act_block=blk, mant_bits=8, domain=dom),
             bound(2 * R * d * 4, f32_ops=ROW_OPS["mxint_gelu"] * R * d),
             None))
     # the LM's final RMSNorm: bf16 rows and scale, no beta
@@ -728,8 +801,13 @@ def slice_phase(torch, np):
              "serve_images_per_s": n_images / serve_s,
              "ms_per_batch": ms_batch,
              "images_per_s": BATCH / (ms_batch / 1e3), "launches": launches}
+    busy = device_ms(lambda: engine.logits_batch(full), iters=5,
+                     cats=BUSY_CATS)
+    stats.update(device_busy_ms_per_batch=busy,
+                 device_idle_share=idle_share(busy, ms_batch))
     log(f"[slice] ms_per_batch={ms_batch!r} (batch {BATCH}) "
-        f"images_per_s={stats['images_per_s']!r}")
+        f"images_per_s={stats['images_per_s']!r} device busy {busy!r} ms "
+        f"(kernels, copies), idle share {stats['device_idle_share']!r}")
     per_kernel = kernel_breakdown(torch, lambda: engine.logits_batch(full), [
         n for n, c in per_forward.items() if c])
     stats["kernel_ms_per_batch"] = per_kernel
@@ -876,10 +954,14 @@ def lm_serve_phase(torch, np):
     stats["decode_step_ms_by_kernel"] = by_kernel
     stats["decode_step_ms_other"] = step_total - sum(by_kernel.values())
     stats["decode_step_ms_events"] = step_total
+    busy = device_ms(step, iters=3, cats=BUSY_CATS)
+    stats.update(decode_step_device_busy_ms=busy,
+                 decode_step_device_idle_share=idle_share(busy, step_total))
     del cache
     log(f"[lm serve] one decode step {step_total!r} ms by kernel {by_kernel}"
         f", other (unembedding, embedding, RoPE, glue, gaps) "
-        f"{stats['decode_step_ms_other']!r}")
+        f"{stats['decode_step_ms_other']!r}; device busy {busy!r} ms, idle "
+        f"share {stats['decode_step_device_idle_share']!r}")
     log(f"[lm serve] {len(LM_PROMPTS)} requests x {LM_NEW_TOKENS} tokens "
         f"in {serve_s!r} s; {len(pre)} slot prefills, {len(dec)} decode "
         f"steps; launches {launches}")
@@ -915,7 +997,11 @@ def lm_score_phase(torch, np, model, engine):
     run = lambda: model.loss(engine.params, {"tokens": toks})  # noqa: E731
     stats["ms_by_kernel"] = kernel_breakdown(
         torch, run, [n for n, c in want.items() if c])
-    log(f"[lm score] ms by kernel {stats['ms_by_kernel']}")
+    busy = device_ms(run, iters=2, cats=BUSY_CATS)
+    stats.update(device_busy_ms=busy,
+                 device_idle_share=idle_share(busy, stats["ms"]))
+    log(f"[lm score] ms by kernel {stats['ms_by_kernel']}; device busy "
+        f"{busy!r} ms, idle share {stats['device_idle_share']!r}")
     log(f"[lm score] {LM_SCORE_TOKENS} tokens loss={loss!r} "
         f"ms={stats['ms']!r} tokens/s={stats['tokens_per_s']!r} "
         f"launches {launches}")

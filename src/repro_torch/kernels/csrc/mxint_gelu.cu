@@ -1,54 +1,121 @@
 // MXInt GELU / SiLU LUT datapath (paper Eq. 12), sm_90a.
 // Counterpart of repro/kernels/mxint_gelu.py:mxint_gelu.
-// One thread per act block: quantize the block, look up the LUT between
-// -a and a (identity above, 0 below), requantize onto the block's own
-// exponent with the +-(2^(m-1) - 1) clip of the Pallas kernel.
+// Per act block: quantize the block, look up the LUT between -a and a
+// (identity above, 0 below), requantize onto the block's own exponent with
+// the +-(2^(m-1) - 1) clip of the Pallas kernel.
+//
+// Bound by memory: every element is read once and written once.
+// gelu_geometry (kernels/mxint_gelu.py) picks the route from the shape and
+// alignment, and sizes the grid from the SM count; both routes walk the
+// tensor grid-stride:
+//  - gelu_vec4_kernel (act blocks 4, 8, 16, 16-byte aligned): each lane
+//    moves one float4, so a warp instruction covers 512 contiguous bytes;
+//    an act block is block / 4 adjacent lanes, which take its amax by
+//    __shfl_xor_sync (max is exact in any order).
+//  - gelu_scalar_kernel (any other block): one thread per act block.
 #include "mxint_common.cuh"
 
 using namespace mx;
 
-constexpr int kEltThreads = 256;
+constexpr int kMaxEltThreads = 256;
 
-__global__ void __launch_bounds__(kEltThreads)
-mxint_gelu_kernel(const float* __restrict__ x, const float* __restrict__ lut_g,
-                  float* __restrict__ y, long long n_blocks, int block,
-                  int mant_bits, int lut_n, float domain, float idx_scale) {
-  __shared__ float lut[kMaxLut];
-  load_lut(lut, lut_g, lut_n);
-  __syncthreads();
-  const long long b = (long long)blockIdx.x * kEltThreads + threadIdx.x;
-  if (b >= n_blocks) return;
-  const float* xb = x + b * block;
-  const float lim = (float)((1 << (mant_bits - 1)) - 1);
-  const int e = block_exp(block_amax(xb, block), mant_bits);
-  const float inv = pow2i(-e), scale = pow2i(e);
-  float v[kMaxBlock];
-#pragma unroll
-  for (int i = 0; i < kMaxBlock; ++i) {
-    if (i < block) {
-      const float xq = __fmul_rn(quant_mant(xb[i], inv, lim), scale);
-      const int idx = lut_index(
-          floorf(__fmul_rn(__fadd_rn(xq, domain), idx_scale)), lut_n);
-      const float g = xq >= domain ? xq : (xq <= -domain ? 0.0f : lut[idx]);
-      const float m = fminf(fmaxf(rintf(__fdiv_rn(g, scale)), -lim), lim);
-      v[i] = __fmul_rn(m, scale);
-    }
-  }
-  float* yb = y + b * block;
-#pragma unroll
-  for (int i = 0; i < kMaxBlock; ++i)
-    if (i < block) yb[i] = v[i];
+struct GeluArgs {
+  float lim, domain, idx_scale;
+  int lut_n;
+};
+
+// one element of a block with exponent e (inv = 2^-e, scale = 2^e)
+__device__ __forceinline__ float gelu_elem(float x, float inv, float scale,
+                                           const GeluArgs& a,
+                                           const float* lut) {
+  const float xq = __fmul_rn(quant_mant(x, inv, a.lim), scale);
+  const int idx = lut_index(
+      floorf(__fmul_rn(__fadd_rn(xq, a.domain), a.idx_scale)), a.lut_n);
+  const float g = xq >= a.domain ? xq : (xq <= -a.domain ? 0.0f : lut[idx]);
+  // g / 2^e: inv is exactly 2^-e for every e in [-127, 127], so the
+  // rounded product is the rounded quotient, bit for bit
+  const float m = fminf(fmaxf(rintf(__fmul_rn(g, inv)), -a.lim), a.lim);
+  return __fmul_rn(m, scale);
 }
 
+__global__ void __launch_bounds__(kMaxEltThreads)
+gelu_vec4_kernel(const float4* __restrict__ x, const float* __restrict__ lut_g,
+                 float4* __restrict__ y, long long n4, int group,
+                 int mant_bits, GeluArgs a) {
+  __shared__ float lut[kMaxLut];
+  load_lut(lut, lut_g, a.lut_n);
+  __syncthreads();
+  const int lane = threadIdx.x % kWarp;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // the loop runs warp-uniformly (the shuffles need every lane); n4 is a
+  // whole number of blocks, so a block's lanes are all live or all idle
+  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x -
+                        lane;
+       base < n4; base += stride) {
+    const long long q = base + lane;
+    const bool live = q < n4;
+    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (live) v = x[q];
+    float amax = fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                       fmaxf(fabsf(v.z), fabsf(v.w)));
+    for (int off = 1; off < group; off <<= 1)
+      amax = fmaxf(amax, __shfl_xor_sync(kFull, amax, off));
+    const int e = block_exp(amax, mant_bits);
+    const float inv = pow2i(-e), scale = pow2i(e);
+    if (live)
+      y[q] = make_float4(gelu_elem(v.x, inv, scale, a, lut),
+                         gelu_elem(v.y, inv, scale, a, lut),
+                         gelu_elem(v.z, inv, scale, a, lut),
+                         gelu_elem(v.w, inv, scale, a, lut));
+  }
+}
+
+__global__ void __launch_bounds__(kMaxEltThreads)
+gelu_scalar_kernel(const float* __restrict__ x,
+                   const float* __restrict__ lut_g, float* __restrict__ y,
+                   long long n_blocks, int block, int mant_bits, GeluArgs a) {
+  __shared__ float lut[kMaxLut];
+  load_lut(lut, lut_g, a.lut_n);
+  __syncthreads();
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       b < n_blocks; b += stride) {
+    const float* xb = x + b * block;
+    float* yb = y + b * block;
+    const int e = block_exp(block_amax(xb, block), mant_bits);
+    const float inv = pow2i(-e), scale = pow2i(e);
+#pragma unroll
+    for (int i = 0; i < kMaxBlock; ++i)
+      if (i < block) yb[i] = gelu_elem(xb[i], inv, scale, a, lut);
+  }
+}
+
+// vec 4: the float4 route (block 4, 8 or 16, 16-byte aligned), vec 1: the
+// scalar route; threads and grid from gelu_geometry
 extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
                                  long long numel, int block, int mant_bits,
                                  int lut_n, float domain, float idx_scale,
+                                 int vec, int threads, int grid,
                                  void* stream) {
-  if (block > kMaxBlock || numel % block != 0 || lut_n > kMaxLut)
+  if (block < 1 || block > kMaxBlock || numel % block != 0 ||
+      lut_n > kMaxLut || threads < kWarp || threads > kMaxEltThreads ||
+      threads % kWarp != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
-  const long long n_blocks = numel / block;
-  const long long grid = (n_blocks + kEltThreads - 1) / kEltThreads;
-  mxint_gelu_kernel<<<(unsigned)grid, kEltThreads, 0, (cudaStream_t)stream>>>(
-      x, lut, y, n_blocks, block, mant_bits, lut_n, domain, idx_scale);
+  const GeluArgs a{(float)((1 << (mant_bits - 1)) - 1), domain, idx_scale,
+                   lut_n};
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec == 4) {
+    if ((block != 4 && block != 8 && block != 16) || (uintptr_t)x % 16 ||
+        (uintptr_t)y % 16)
+      return (int)cudaErrorInvalidValue;
+    gelu_vec4_kernel<<<grid, threads, 0, s>>>(
+        reinterpret_cast<const float4*>(x), lut, reinterpret_cast<float4*>(y),
+        numel / 4, block / 4, mant_bits, a);
+  } else if (vec == 1) {
+    gelu_scalar_kernel<<<grid, threads, 0, s>>>(x, lut, y, numel / block,
+                                                block, mant_bits, a);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }

@@ -14,12 +14,18 @@ kernel clips them (``mxint_gelu.py:43-45``); the reference's sim path
 clips negatives to -2^(m-1) instead, so this op follows the kernel.
 
 On the H100 the kernel is bound by memory: DeiT's (rows, 4d) FFN tile is
-read once and written once.  The design gives each thread one act block,
-so no reduction crosses threads; the 64-entry LUT sits in shared memory.
+read once and written once.  ``gelu_geometry`` picks the route from the
+shape and the alignment alone and sizes a grid-stride grid from the SM
+count: act blocks of 4, 8 and 16 on 16-byte aligned data give each lane
+one float4 (block / 4 adjacent lanes a block, the block amax by warp
+shuffles), so a warp instruction moves 512 contiguous bytes; any other
+block runs one thread per act block.  The LUT sits in shared memory.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,11 +33,40 @@ from repro_torch.core import luts
 from repro_torch.core.mx_types import NonlinearConfig
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
+from repro_torch.kernels.mxint_matmul import sm_count
 from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
                                                  block_quantize_rows, f32,
                                                  lut_tensor, resolve_act_block)
 
+MAX_THREADS = 256          # a CTA at most; fewer where that fills more SMs
+MIN_THREADS = 64
+THREADS_PER_SM = 2048      # resident threads of an SM: the grid's cap
+VEC_BLOCKS = (4, 8, 16)    # act blocks of the float4 route
+SMEM_BYTES = 4 * MAX_LUT   # a CTA's shared memory: the LUT copy
+
 launches = 0
+
+
+class GeluGeometry(NamedTuple):
+    vec: int       # 4: a float4 a lane; 1: an act block a thread
+    threads: int   # a CTA
+    grid: int      # CTAs, walking the items grid-stride
+
+
+@functools.lru_cache(maxsize=None)
+def gelu_geometry(numel: int, block: int, n_sm: int,
+                  aligned: bool = True) -> GeluGeometry:
+    """The kernel's route and grid for ``numel`` f32 elements in act
+    blocks of ``block`` on a card of ``n_sm`` SMs; ``aligned``: input and
+    output start on 16 bytes.  CTAs shrink to MIN_THREADS until the items
+    fill every SM; the grid stops at the SMs' resident threads."""
+    vec = 4 if block in VEC_BLOCKS and aligned else 1
+    items = numel // (4 if vec == 4 else block)
+    threads = MAX_THREADS
+    while threads > MIN_THREADS and -(-items // threads) < n_sm:
+        threads //= 2
+    grid = min(-(-items // threads), n_sm * (THREADS_PER_SM // threads))
+    return GeluGeometry(vec, threads, max(grid, 1))
 
 
 def gelu_table(fn: str, lut_bits: int, domain: float):
@@ -85,12 +120,15 @@ def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
     _build.require_cuda("mxint_gelu", x, lut)
     out = torch.empty_like(x)
     n = len(table)
+    geom = gelu_geometry(x.numel(), act_block, sm_count(x.device), aligned=(
+        x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0))
     fn_ = _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
-        ctypes.c_void_p])
+        ctypes.c_int] * 3 + [ctypes.c_void_p])
     rc = fn_(x.data_ptr(), lut.data_ptr(), out.data_ptr(), x.numel(),
              act_block, mant_bits, n, f32(eff_domain),
-             f32(n / (2.0 * eff_domain)), _build.stream_ptr(x.device))
+             f32(n / (2.0 * eff_domain)), geom.vec, geom.threads, geom.grid,
+             _build.stream_ptr(x.device))
     _build.check(rc, "mxint_gelu")
     launches += 1
     return out

@@ -11,25 +11,36 @@ Replaces ``repro/kernels/mxint_softmax.py:mxint_softmax`` (its
      (Eq. 20), then optionally requantize onto the act grid.
 
 On the H100 the kernel is bound by memory: DeiT's (B*H*197, 197) score
-rows are read once and the probabilities written once.  The design runs
-one warp per row over four passes that re-read the row from L1/L2 (no
-shared-memory row buffer, so any row length fits), with the 4-entry LUT
-in shared memory.  197 is prime, so the act block resolves to 1 and
-every element carries its own exponent.  The sum runs in the fixed
-lane-then-butterfly order of ``warp_row_sum``, so kernel and plain
-version agree bit for bit.
+rows are read once and the probabilities written once.  One warp runs a
+row, and ``softmax_geometry`` picks its route from the shape and the
+alignment alone:
+
+- the register route (``per_lane`` > 0), for rows whose lane holds at
+  most ``REG_MAX_PER_LANE`` elements: the warp reads the row into
+  registers once and computes each element's block exponent, aligned
+  mantissa and 2^z once, then writes once; with an act block that is a
+  multiple of 4 and 16-byte aligned rows in float4;
+- the long route (``per_lane`` 0), for longer rows (up to
+  ``ops.PAPER_MAX_SCORES`` keys): four passes re-read the row from L1/L2.
+
+197 is prime, so DeiT's act block resolves to 1 and every element carries
+its own exponent.  The pow2 LUT sits in shared memory.  Both routes sum in
+the fixed lane-then-butterfly order of ``warp_row_sum``, so kernel and
+plain version agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import luts
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
+from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT, WARP,
                                                  block_quantize_rows, f32,
                                                  lut_tensor, requantize_rows,
                                                  resolve_act_block,
@@ -38,7 +49,41 @@ from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
 
 LOG2E = f32(math.log2(math.e))
 
+ROW_THREADS = 256          # a CTA: 8 warps, a row each
+# register-route instances: the most elements a lane holds (its blocks
+# lane, lane + 32, ... of the row); longer rows take the long route
+REG_PER_LANE = (1, 2, 4, 8, 16, 32)
+REG_MAX_PER_LANE = REG_PER_LANE[-1]
+SMEM_BYTES = 4 * MAX_LUT  # a CTA's shared memory: the LUT copy, either route
+
 launches = 0
+
+
+class SoftmaxGeometry(NamedTuple):
+    per_lane: int   # register route: elements a lane holds at most; 0: long
+    vec: int        # 4: float4 loads and stores; 1: scalar
+    grid: int       # CTAs of ROW_THREADS threads
+
+    @property
+    def route(self) -> str:
+        return "regs" if self.per_lane else "long"
+
+
+def lane_elements(n: int, block: int) -> int:
+    """The most elements one lane holds: ceil(blocks / 32) blocks."""
+    return -(-(n // block) // WARP) * block
+
+
+@functools.lru_cache(maxsize=None)
+def softmax_geometry(rows: int, n: int, block: int,
+                     aligned: bool = True) -> SoftmaxGeometry:
+    """The kernel's route and grid for (rows, n) f32 rows with act block
+    ``block``; ``aligned``: the input and output start on 16 bytes."""
+    need = lane_elements(n, block)
+    per_lane = next((e for e in REG_PER_LANE if e >= need), 0)
+    vec = 4 if per_lane and block % 4 == 0 and aligned else 1
+    return SoftmaxGeometry(per_lane, vec,
+                           -(-rows // (ROW_THREADS // WARP)))
 
 
 def exp2_datapath(z: torch.Tensor, table: torch.Tensor, r_bits: int):
@@ -87,11 +132,14 @@ def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
     lut = lut_tensor(luts.pow2_table(r_bits), x.device)
     _build.require_cuda("mxint_softmax", x, lut)
     out = torch.empty_like(x)
+    geom = softmax_geometry(rows, n, act_block, aligned=(
+        x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0))
     fn = _build.entry("mxint_softmax", [ctypes.c_void_p] * 3 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p])
     rc = fn(x.data_ptr(), lut.data_ptr(), out.data_ptr(), rows, n, act_block,
-            mant_bits, 2 ** r_bits, LOG2E, int(quantize_out),
-            _build.stream_ptr(x.device))
+            mant_bits, 2 ** r_bits, LOG2E, int(quantize_out), geom.per_lane,
+            geom.vec, geom.grid, _build.stream_ptr(x.device))
     _build.check(rc, "mxint_softmax")
     launches += 1
     return out

@@ -27,8 +27,9 @@ from repro.kernels.mxint_layernorm import mxint_layernorm as j_ln  # noqa: E402
 from repro.kernels.mxint_ln_matmul import mxint_ln_matmul as j_lnmm  # noqa: E402
 from repro.kernels.mxint_matmul import mxint_matmul as j_mm  # noqa: E402
 from repro.kernels.mxint_softmax import mxint_softmax as j_sm  # noqa: E402
-from repro_torch.core.mx_types import MXFormat  # noqa: E402
-from repro_torch.core.quantize import pack_weight, pow2i  # noqa: E402
+from repro_torch.core.mx_types import NEG_INF, MXFormat  # noqa: E402
+from repro_torch.core.quantize import (  # noqa: E402
+    _resolve_block, pack_weight, pow2i)
 from repro_torch.kernels import (mxint_gelu, mxint_layernorm,  # noqa: E402
                                  mxint_ln_matmul, mxint_matmul,
                                  mxint_softmax, ops)
@@ -102,30 +103,66 @@ def test_layernorm_plain_vs_pallas(rows, d, rms, qout):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("rows,n,block", [
-    (6, 197, 1),                      # DeiT score rows: block resolves to 1
-    (4, 64, 16),
+def _causal_masked(x):
+    """Score rows masked as ``_paper_softmax_attention`` masks a causal
+    (query, key) grid: row i holds query position i % n; keys after it get
+    NEG_INF."""
+    rows, n = x.shape
+    keep = np.arange(n)[None, :] <= (np.arange(rows) % n)[:, None]
+    return np.where(keep, x, np.float32(NEG_INF)).astype(np.float32)
+
+
+# n on both sides of the register route's limit (32 elements a lane: n 1024
+# at act blocks 1 and 16), masked causal score rows at DeiT's 197 and 512
+@pytest.mark.parametrize("rows,n,block,masked", [
+    pytest.param(6, 197, 1, False, id="6-197-1"),   # DeiT score rows
+    pytest.param(4, 64, 16, False, id="4-64-16"),
+    pytest.param(6, 197, 1, True, id="6-197-1-causal"),
+    pytest.param(4, 512, 16, True, id="4-512-16-causal"),
+    pytest.param(2, 1024, 1, False, id="2-1024-1-regs"),
+    pytest.param(2, 1025, 1, False, id="2-1025-1-long"),
+    pytest.param(2, 1024, 16, False, id="2-1024-16-regs"),
+    pytest.param(2, 1040, 16, False, id="2-1040-16-long"),
 ])
-def test_softmax_plain_vs_pallas(rows, n, block):
+def test_softmax_plain_vs_pallas(rows, n, block, masked):
     x = _x((rows, n), seed=n, scale=4.0)
+    if masked:
+        x = _causal_masked(x)
     got = mxint_softmax.mxint_softmax(_t(x), act_block=block,
                                       quantize_out=True)
     want = j_sm(jnp.asarray(x), act_block=block, quantize_out=True,
                 block_rows=rows, interpret=True)
+    got, want = got.numpy(), np.asarray(want)
+    if masked:
+        # a masked key's score (NEG_INF) sets the row's exponent lambda, so
+        # every other key's 2^z falls to 2^-126 and its probability to
+        # 2^-127..2^-126; XLA's CPU backend flushes subnormals to zero, so
+        # the reference gives 0 there.  Every larger element is bit for bit
+        small = np.abs(got) <= np.float32(2.0 ** -126)
+        np.testing.assert_array_equal(want[small], 0.0)
+        got, want = got[~small], want[~small]
     # the row sum of 2^z is an f32 sum in another order; measured: the
     # quantized probabilities agree bit for bit at these seeds
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    raw = mxint_softmax.mxint_softmax(_t(x), act_block=block)
-    np.testing.assert_allclose(raw.sum(-1).numpy(), 1.0, rtol=0.3)
+    np.testing.assert_array_equal(got, want)
+    if not masked:
+        raw = mxint_softmax.mxint_softmax(_t(x), act_block=block)
+        np.testing.assert_allclose(raw.sum(-1).numpy(), 1.0, rtol=0.3)
 
 
-@pytest.mark.parametrize("fn", ["gelu", "silu"])
-def test_gelu_plain_vs_pallas(fn):
+@pytest.mark.parametrize("fn,block", [
+    pytest.param("gelu", 16, id="gelu"),
+    pytest.param("silu", 16, id="silu"),
+    pytest.param("gelu", 8, id="gelu-b8"),
+    pytest.param("silu", 8, id="silu-b8"),
+    pytest.param("gelu", 4, id="gelu-b4"),
+    pytest.param("silu", 4, id="silu-b4"),
+])
+def test_gelu_plain_vs_pallas(fn, block):
     x = _x((6, 64), seed=11, scale=3.0)
-    x[1, :16] = np.float32(-0.001)    # the tiny-value block: -127 clip
+    x[1, :16] = np.float32(-0.001)    # the tiny-value blocks: -127 clip
     x[2, 16:32] = np.float32(5.0)     # the ReLU tail
-    got = mxint_gelu.mxint_gelu(_t(x), act_block=16, fn=fn)
-    want = j_gelu(jnp.asarray(x), act_block=16, fn=fn, block_rows=6,
+    got = mxint_gelu.mxint_gelu(_t(x), act_block=block, fn=fn)
+    want = j_gelu(jnp.asarray(x), act_block=block, fn=fn, block_rows=6,
                   interpret=True)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     # -0.001 quantizes on exponent -16; its LUT value, about -0.023, needs a
@@ -215,6 +252,162 @@ def test_cpu_calls_do_not_count_launches():
     mxint_gelu.mxint_gelu(_t(_x((2, 32))))
     mxint_softmax.mxint_softmax(_t(_x((2, 32))))
     assert [m.launches for m in mods] == before
+
+
+# ---------------------------------------------------------------------------
+# the row kernels' routes and geometry (csrc/mxint_softmax.cu, mxint_gelu.cu)
+# ---------------------------------------------------------------------------
+WARP = mxint_layernorm.WARP
+SMEM_LIMIT = 232448                    # the H100's shared memory a CTA
+
+
+def _softmax_lane_walk(n, block, per_lane, vec):
+    """A model of softmax_regs_kernel's walk (``lane_step``): for each
+    lane, the row offsets of its elements in the order it adds them, the
+    float4 starts, and the elements its ``last`` bits mark as block ends."""
+    nb = n // block
+    lanes = []
+    for lane in range(WARP):
+        cnt = (nb - lane + WARP - 1) // WARP * block
+        off, j = lane * block, 0
+        offs, starts, last = [], [], []
+        for e in range(0, per_lane, vec):
+            if e < cnt:
+                offs.extend(range(off, off + vec))
+                starts.append(off)
+            if j + vec == block and e + vec - 1 < cnt:
+                last.append(e + vec - 1)
+            j, off = j + vec, off + vec
+            if j == block:
+                j, off = 0, off + (WARP - 1) * block
+        lanes.append((cnt, offs, starts, last))
+    return lanes
+
+
+SOFTMAX_SHAPES = [(37824, 197, 1), (37, 64, 16), (2048, 512, 16),
+                  (64, 20, 1), (64, 33, 1), (64, 100, 1), (300, 1024, 1),
+                  (300, 1025, 1), (300, 1024, 16), (300, 1040, 16),
+                  (2, 262144, 16), (100, 96, 12), (100, 300, 15),
+                  (7, 960, 5), (3, 1, 1)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows,n,block", SOFTMAX_SHAPES)
+def test_softmax_geometry(rows, n, block, aligned):
+    """The route by shape and alignment; on the register route every
+    element of a row in exactly one lane, each lane's elements in
+    ``warp_row_sum``'s order (blocks lane, lane + 32, ..., element by
+    element), block ends where the requantize needs them, float4 accesses
+    on 16-byte boundaries; a warp for every row."""
+    g = mxint_softmax.softmax_geometry(rows, n, block, aligned)
+    need = mxint_softmax.lane_elements(n, block)
+    assert (g.route == "long") == (need > mxint_softmax.REG_MAX_PER_LANE)
+    per_cta = mxint_softmax.ROW_THREADS // WARP
+    assert g.grid * per_cta >= rows > (g.grid - 1) * per_cta
+    assert mxint_softmax.SMEM_BYTES <= SMEM_LIMIT
+    if g.route == "long":
+        assert g.per_lane == 0 and g.vec == 1
+        return
+    assert g.per_lane in mxint_softmax.REG_PER_LANE and g.per_lane >= need
+    assert g.vec == (4 if block % 4 == 0 and aligned else 1)
+    assert g.per_lane % g.vec == 0
+    seen = np.zeros(n, np.int32)
+    nb = n // block
+    for lane, (cnt, offs, starts, last) in enumerate(
+            _softmax_lane_walk(n, block, g.per_lane, g.vec)):
+        order = [b * block + i for b in range(lane, nb, WARP)
+                 for i in range(block)]
+        assert offs == order and cnt == len(order) <= g.per_lane
+        assert last == [e for e in range(cnt) if (e + 1) % block == 0]
+        if g.vec == 4:
+            assert all(o % 4 == 0 for o in starts)
+        seen[offs] += 1
+    assert (seen == 1).all()
+
+
+def test_every_softmax_shape_has_a_route():
+    """Every row length up to 2048 at every act block the ops resolve (and
+    the longest whole-row score row) maps to a route; the register route
+    takes every row whose lane holds at most 32 elements."""
+    for n in range(1, 2049):
+        for want in range(1, 17):
+            block = _resolve_block(n, want)
+            g = mxint_softmax.softmax_geometry(1, n, block)
+            if mxint_softmax.lane_elements(n, block) <= 32:
+                assert g.route == "regs" and g.per_lane >= \
+                    mxint_softmax.lane_elements(n, block)
+            else:
+                assert g.route == "long"
+    assert mxint_softmax.softmax_geometry(
+        2, ops.PAPER_MAX_SCORES, 16).route == "long"
+
+
+GELU_SHAPES = [(3152, 3072, 16), (4, 14336, 16), (1024, 14336, 16),
+               (37, 768, 16), (37, 768, 8), (37, 768, 4), (37, 197, 1),
+               (37, 194, 2), (37, 96, 12), (1, 16, 16), (3, 8, 4)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("rows,d,block", GELU_SHAPES)
+def test_gelu_geometry(rows, d, block, n_sm, aligned):
+    """A numpy model of both routes' grid-stride walk: every item (a
+    float4, or an act block on the scalar route) visited exactly once; on
+    the float4 route each act block in block / 4 adjacent lanes of one
+    warp, visited in one step (the shuffles run warp-uniformly), its xor
+    partners inside the group; CTAs spread over the SMs where the items
+    allow, and never more than the SMs hold."""
+    numel = rows * d
+    g = mxint_gelu.gelu_geometry(numel, block, n_sm, aligned)
+    assert g.vec == (4 if block in (4, 8, 16) and aligned else 1)
+    assert g.threads in (64, 128, 256) and g.threads % WARP == 0
+    assert 1 <= g.grid <= n_sm * mxint_gelu.THREADS_PER_SM // g.threads
+    assert mxint_gelu.SMEM_BYTES <= SMEM_LIMIT
+    items = numel // (4 if g.vec == 4 else block)
+    if g.threads < mxint_gelu.MAX_THREADS:    # larger CTAs: fewer than SMs
+        assert -(-items // (2 * g.threads)) < n_sm
+    assert g.grid >= min(n_sm, -(-items // g.threads))
+    stride = g.grid * g.threads
+    tid = np.arange(stride)
+    steps = -(-items // stride)
+    q = tid[None, :] + stride * np.arange(steps)[:, None]   # (step, thread)
+    live = q < items
+    assert (np.bincount(q[live], minlength=items) == 1).all()
+    if g.vec == 1:
+        return
+    G = block // 4
+    lane = tid % WARP
+    assert ((lane ^ np.arange(G)[:, None]) // G == lane // G).all()
+    # the block of each live float4, and the (step, warp) that loads it
+    blk = q[live] // G
+    warp = np.broadcast_to((tid // WARP)[None, :], q.shape)[live]
+    step = np.broadcast_to(np.arange(steps)[:, None], q.shape)[live]
+    key = step.astype(np.int64) * (stride // WARP) + warp
+    first = np.full(items // G, -1, np.int64)
+    first[blk] = key
+    assert (first[blk] == key).all()            # one warp step a block
+    assert (np.bincount(blk, minlength=items // G) == G).all()
+    # element i of the tensor lies in float4 i // 4, act block i // block
+    elems = np.arange(0, numel, 997)
+    assert ((elems // 4) // G == elems // block).all()
+
+
+def test_gelu_requantize_product_equals_quotient():
+    """The CUDA kernel requantizes g / 2^e as g * 2^-e: for every block
+    exponent e in [-127, 127] both are the correctly rounded value of the
+    same real number, subnormal and overflowing results included."""
+    rng = np.random.default_rng(0)
+    g = np.concatenate([
+        rng.normal(size=4000).astype(np.float32) * np.float32(3.0),
+        np.float32(2.0) ** rng.integers(-149, 128, size=2000).astype(
+            np.float32) * rng.uniform(1, 2, size=2000).astype(np.float32),
+        np.array([0.0, -0.0, 1.0, -1.0, 3.4e38, -3.4e38, 1e-45],
+                 np.float32)]).astype(np.float32)
+    with np.errstate(over="ignore", under="ignore"):
+        for e in range(-127, 128):
+            scale = np.ldexp(np.float32(1.0), e).astype(np.float32)
+            inv = np.ldexp(np.float32(1.0), -e).astype(np.float32)
+            np.testing.assert_array_equal(g * inv, g / scale)
 
 
 # ---------------------------------------------------------------------------
