@@ -20,7 +20,14 @@
    functions pick (softmax: registers at 1-32 elements a lane, float4 or
    scalar, masked causal rows, both sides of the register limit, rows of
    262144 on the long route; GELU: float4 at act blocks 4, 8 and 16,
-   scalar at 1, 2, 12 and on unaligned rows).
+   scalar at 1, 2, 12 and on unaligned rows; the LN stage of
+   ``mxint_layernorm`` and ``mxint_ln_matmul``: bf16 rows as the LM hands
+   them, four-element pieces at act blocks 4, 8 and 16, a block a thread
+   at 1 and 12 and on unaligned rows, the global stage of rows too long
+   for shared memory, subnormal scales, saturated shifts, 12-bit
+   mantissas, no beta).  The LN kernels' timed cases include the Llama
+   final RMSNorm and ``mxint_matmul`` at the fused kernel's shapes; one
+   bf16 ``mxint_ln_linear_op`` decode call must run 2 device ops.
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -122,11 +129,16 @@ ULP_FLOOR = 2.0 ** -19
 FLASH_TOL = {(False, False): None, (False, True): None,
              (True, False): (1.0, None), (True, True): (0.999, 5e-2)}
 # cases timed beside each kernel's first one: the served ring's depths of
-# the decode kernel, and the shapes at which a Llama-3-8B decode step and
-# score forward spend the matmul and GELU kernels' time
+# the decode kernel, the shapes at which a Llama-3-8B decode step and
+# score forward spend the matmul, LN and GELU kernels' time, and
+# mxint_matmul at the fused kernel's shapes
 TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "llama3_8b_decode_attn_wo", "llama3_8b_decode_ffn_wo",
-               "llama3_8b_score_ffn_wo", "llama3_8b_decode_rms_wq",
+               "llama3_8b_score_ffn_wo", "llama3_8b_decode_k4096_n1024",
+               "llama3_8b_decode_k4096_n14336", "llama3_8b_score_attn_wo",
+               "deit_base_b16_ffn_wi_core", "llama3_8b_decode_final_rms",
+               "llama3_8b_prefill_final_rms", "deit_base_b16_final_ln",
+               "llama3_8b_decode_rms_wq",
                "llama3_8b_decode_rms_wk", "llama3_8b_decode_rms_wi",
                "llama3_8b_score_rms_wq", "llama3_8b_score_rms_wi",
                "llama3_8b_decode_silu", "llama3_8b_score_silu"}
@@ -164,12 +176,10 @@ KERNEL_CATS = ("kernel",)
 BUSY_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
-def device_ms(fn, iters: int = 20, cats=KERNEL_CATS):
-    """Device time per call of ``fn``: the summed durations of the kernels
-    it launches (with ``BUSY_CATS`` also its copies and fills), read from
-    the events of a ``torch.profiler`` trace (the host work and gaps
-    between launches that ``time_ms`` sees are left out); None where the
-    trace holds no such event."""
+def trace_events(fn, iters: int):
+    """The device's events (kernels, copies, fills) of ``iters`` calls of
+    ``fn`` after one warm call, from an exported ``torch.profiler``
+    trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -183,8 +193,28 @@ def device_ms(fn, iters: int = 20, cats=KERNEL_CATS):
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
     path.unlink()
-    us = sum(e.get("dur", 0) for e in events if e.get("cat") in cats)
+    return [e for e in events if e.get("cat") in BUSY_CATS]
+
+
+def device_ms(fn, iters: int = 20, cats=KERNEL_CATS):
+    """Device time per call of ``fn``: the summed durations of the kernels
+    it launches (with ``BUSY_CATS`` also its copies and fills), read from
+    the events of a ``torch.profiler`` trace (the host work and gaps
+    between launches that ``time_ms`` sees are left out); None where the
+    trace holds no such event."""
+    us = sum(e.get("dur", 0) for e in trace_events(fn, iters)
+             if e.get("cat") in cats)
     return us / iters / 1e3 if us > 0 else None
+
+
+def device_ops(fn, iters: int = 5):
+    """Device operations (kernels, copies, fills) per call of ``fn``, with
+    their names, from a ``torch.profiler`` trace; None where the trace
+    holds no device event."""
+    events = trace_events(fn, iters)
+    if not events:
+        return None, []
+    return len(events) / iters, sorted({e.get("name", "") for e in events})
 
 
 def idle_share(busy_ms, wall_ms):
@@ -301,6 +331,15 @@ def kernel_cases(torch, np):
                            ("llama3_8b_decode_attn_wo", LM_BATCH, 4096, 4096),
                            ("llama3_8b_decode_ffn_wo", LM_BATCH, 14336, 4096),
                            ("llama3_8b_score_ffn_wo", S, 14336, 4096),
+                           # the shapes of mxint_ln_matmul's decode, score
+                           # and DeiT cases: its LN prologue's cost is the
+                           # difference of the two kernels' times
+                           ("llama3_8b_decode_k4096_n1024", LM_BATCH, 4096,
+                            1024),
+                           ("llama3_8b_decode_k4096_n14336", LM_BATCH, 4096,
+                            14336),
+                           ("llama3_8b_score_attn_wo", S, 4096, 4096),
+                           ("deit_base_b16_ffn_wi_core", rows, 768, 3072),
                            ("m1_k4096_n1024", 1, 4096, 1024),
                            ("m16_k4096_n4096", 16, 4096, 4096),
                            ("m17_k768_n1001", 17, 768, 1001),
@@ -346,14 +385,21 @@ def kernel_cases(torch, np):
                            ("m33_d4096_n1024", 33, 4096, 1024),
                            ("m500_d4096_n4096", 500, 4096, 4096),
                            ("subnormal_m40_d768_n520", 40, 768, 520),
-                           ("extreme_m48_d1024_n512", 48, 1024, 512)):
+                           ("extreme_m48_d1024_n512", 48, 1024, 512),
+                           # the LN stage's scalar route: rows offset by 4
+                           # bytes; a LayerNorm without beta (zero)
+                           ("unaligned_m37_d768_n1001", 37, 768, 1001),
+                           ("no_beta_ln_m24_d768_n256", 24, 768, 256)):
         rms = lm(label)
         a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
-        b = None if rms else 0.1 * x(d)
+        b = None if rms or label.startswith("no_beta") else 0.1 * x(d)
         if rms:
             a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
         if label.startswith("subnormal"):
             g, b = g * 2.0 ** -120, b * 2.0 ** -120
+        if label.startswith("unaligned"):
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].reshape(M, d)
+            assert a.data_ptr() % 16 == 4
         w = planes(d, N, MXINT6_WEIGHT if label.startswith("deit") or
                    label == "ragged" else MXINT8_WEIGHT)
         if label.startswith("extreme"):
@@ -361,14 +407,16 @@ def kernel_cases(torch, np):
         wd = dequantize(w)
         cases["mxint_ln_matmul"].append((
             label,
-            lambda a=a, g=g, b=b, w=w: mxint_ln_matmul.mxint_ln_matmul(
-                a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
-                rms_only=b is None),
-            lambda a=a, g=g, b=b, w=w: mxint_ln_matmul.ln_matmul_rows(
+            lambda a=a, g=g, b=b, w=w, rms=rms:
+                mxint_ln_matmul.mxint_ln_matmul(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    rms_only=rms),
+            lambda a=a, g=g, b=b, w=w, rms=rms: mxint_ln_matmul.ln_matmul_rows(
                 a, g, torch.zeros_like(g) if b is None else b, w.mantissa,
                 w.exponent, w_block=w.block_size, act_block=16, mant_bits=8,
-                lut_bits=5, rms_only=b is None),
-            bound(a.numel() * a.element_size() + 2 * d * g.element_size()
+                lut_bits=5, rms_only=rms),
+            bound(a.numel() * a.element_size()
+                  + (1 if b is None else 2) * d * g.element_size()
                   + w.mantissa.numel() + w.exponent.numel() + M * N * 4,
                   int8_ops=2.0 * M * N * d,
                   f32_ops=ROW_OPS["mxint_layernorm"] * M * d
@@ -452,25 +500,66 @@ def kernel_cases(torch, np):
                 a, lut, act_block=blk, mant_bits=8, domain=dom),
             bound(2 * R * d * 4, f32_ops=ROW_OPS["mxint_gelu"] * R * d),
             None))
-    # the LM's final RMSNorm: bf16 rows and scale, no beta
-    for label, R, d, qout in (("deit_base_b16_final_ln", rows, 768, True),
-                              ("ragged", 37, 192, False),
-                              ("llama3_8b_decode_final_rms", LM_BATCH, 4096,
-                               True)):
-        rms = lm(label)
+    # the LM's final RMSNorm: bf16 rows and scale as the model hands them,
+    # no beta (decode: 4 rows; a prefill's: 1024); LayerNorm at d 4096;
+    # every route of ln_geometry: float4 / bf16 quads at act blocks 16, 8
+    # and 4, a block a thread at blocks 12 and 1 and on rows offset by 4
+    # bytes, the global stage for a row too long for shared memory; raw
+    # output at DeiT width; gamma and beta at 2^-120 (subnormal block
+    # scales); the 40x outlier block that saturates the shifts; MXInt12
+    # mantissas; bf16 rows with f32 scales; a LayerNorm without beta
+    for label, R, d, blk, qout, how in (
+            ("deit_base_b16_final_ln", rows, 768, 16, True, None),
+            ("ragged", 37, 192, 16, False, None),
+            ("llama3_8b_decode_final_rms", LM_BATCH, 4096, 16, True, "rms"),
+            ("llama3_8b_prefill_final_rms", 1024, 4096, 16, True, "rms"),
+            ("ln_64x4096", 64, 4096, 16, True, None),
+            ("b8_37x768", 37, 768, 8, True, None),
+            ("b4_37x768_rms_bf16", 37, 768, 4, True, "rms"),
+            ("b12_37x768", 37, 768, 12, True, None),
+            ("b1_37x197", 37, 197, 1, True, None),
+            ("unaligned_b16_37x768", 37, 768, 16, True, "offset"),
+            ("global_stage_3x65536", 3, 65536, 16, True, None),
+            ("deit_width_raw_300x768", 300, 768, 16, False, None),
+            ("subnormal_scales_40x768", 40, 768, 16, True, "subnormal"),
+            ("outlier_block_37x768", 37, 768, 16, True, "outlier"),
+            ("mant12_37x768", 37, 768, 16, True, "mant12"),
+            ("bf16_rows_f32_scales_37x768", 37, 768, 16, True, "mixed"),
+            ("no_beta_ln_37x768", 37, 768, 16, True, "no_beta")):
+        rms = how == "rms"
         a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
-        b = None if rms else 0.1 * x(d)
+        b = None if rms or how == "no_beta" else 0.1 * x(d)
+        mb = 12 if how == "mant12" else 8
         if rms:
-            a, g = a.to(torch.bfloat16).to(torch.float32), \
-                g.to(torch.bfloat16)
+            a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
+        if how == "mixed":
+            a = a.to(torch.bfloat16)
+        if how == "subnormal":
+            g, b = g * 2.0 ** -120, b * 2.0 ** -120
+        if how == "outlier":
+            a[0, :16] *= 40.0
+        if how == "offset":        # rows that start 4 bytes past 16
+            a = torch.cat([a.new_zeros(1), a.reshape(-1)])[1:].reshape(R, d)
+            assert a.data_ptr() % 16 == 4
+        if a.is_cuda:
+            geom = mxint_layernorm.ln_geometry(
+                R, d, blk, sm_count(a.device),
+                mxint_layernorm.aligned4(a, g, b))
+            log(f"[kernel] mxint_layernorm {label} route {geom.route} "
+                f"{geom}")
         cases["mxint_layernorm"].append((
             label,
-            lambda a=a, g=g, b=b, q=qout: mxint_layernorm.mxint_layernorm(
-                a, g, b, rms_only=b is None, quantize_out=q),
-            lambda a=a, g=g, b=b, q=qout: mxint_layernorm.layernorm_rows(
-                a, g, torch.zeros_like(g) if b is None else b, act_block=16,
-                mant_bits=8, lut_bits=5, rms_only=b is None, quantize_out=q),
-            bound(2 * R * d * 4 + 2 * d * 4,
+            lambda a=a, g=g, b=b, q=qout, blk=blk, mb=mb, rms=rms:
+                mxint_layernorm.mxint_layernorm(
+                    a, g, b, act_block=blk, mant_bits=mb, rms_only=rms,
+                    quantize_out=q),
+            lambda a=a, g=g, b=b, q=qout, blk=blk, mb=mb, rms=rms:
+                mxint_layernorm.layernorm_rows(
+                    a.to(torch.float32), g,
+                    torch.zeros_like(g) if b is None else b, act_block=blk,
+                    mant_bits=mb, lut_bits=5, rms_only=rms, quantize_out=q),
+            bound(a.numel() * a.element_size() + R * d * 4
+                  + (1 if b is None else 2) * d * g.element_size(),
                   f32_ops=ROW_OPS["mxint_layernorm"] * R * d),
             None))
     cases.update(flash_cases(torch, np, x))
@@ -611,6 +700,33 @@ def flash_cases(torch, np, x):
     return cases
 
 
+def ln_linear_op_ops(torch, np):
+    """Device operations of one ``mxint_ln_linear_op`` call as a bf16
+    Llama-3-8B decode step makes it (RMSNorm -> ``wq``, 4 x 4096 -> 4096):
+    the kernel and the output's cast to bf16, no conversion or fill
+    before the kernel.  Raises if there are more."""
+    from repro_torch.core.mx_types import MXINT8_WEIGHT
+    from repro_torch.core.quantize import pack_weight
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(SEED + 5)
+    x = torch.from_numpy(rng.normal(size=(LM_BATCH, 1, 4096)).astype(
+        np.float32)).to(DEVICE, torch.bfloat16)
+    g = (1.0 + 0.1 * torch.from_numpy(rng.normal(size=4096).astype(
+        np.float32))).to(DEVICE, torch.bfloat16)
+    w = pack_weight(torch.from_numpy((rng.normal(size=(4096, 4096)) /
+                                      64.0).astype(np.float32)).to(DEVICE),
+                    MXINT8_WEIGHT)
+    n, names = device_ops(lambda: ops.mxint_ln_linear_op(
+        x, g, None, w.mantissa, w.exponent, w_block=w.block_size,
+        rms_only=True))
+    log(f"[kernel] mxint_ln_linear_op bf16 decode call: {n!r} device ops "
+        f"per call {names}")
+    if n is not None and n > 2:
+        raise AssertionError(f"mxint_ln_linear_op ran {n} device ops a call, "
+                             "more than the kernel and the output cast")
+    return n
+
+
 def within_bf16_ulp(torch, got, want):
     """(share of the elements of ``got`` within one bf16 ulp of ``want``'s,
     the ulp no less than ``ULP_FLOOR`` of the output scale max |want|;
@@ -697,6 +813,8 @@ def kernel_phase(torch, np, only=None):
                     f"{case['library_ms']!r} library_device_ms="
                     f"{case['library_device_ms']!r}")
             res["cases"].append(case)
+        if name == "mxint_ln_matmul":
+            res["ln_linear_op_device_ops"] = ln_linear_op_ops(torch, np)
         results[name] = res
         log(json.dumps({"kernel": name, "max_abs_err": res["max_abs_err"],
                         "mismatches": sum(c["mismatches"]

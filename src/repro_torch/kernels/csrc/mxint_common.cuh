@@ -8,6 +8,7 @@
 // each lane adds its blocks in turn, then a butterfly over the 32 lanes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -18,6 +19,17 @@ constexpr int kWarp = 32;
 constexpr int kMaxBlock = 16;     // act blocks held in registers
 constexpr int kMaxLut = 256;      // shared-memory LUT copy
 constexpr unsigned kFull = 0xffffffffu;
+// 1.5 * 2^23 as float bits and value: for an integer |v| < 2^22, the bits
+// kDotBias + v are the float 1.5 * 2^23 + v exactly, so int and float
+// convert by an add each, without the quarter-rate conversion unit (the
+// GEMM core's mma adds it as its C input; the LN stage's int8 mantissas)
+constexpr int kDotBias = 0x4B400000;
+constexpr float kDotBiasF = 12582912.0f;
+
+// (float)v for |v| < 2^22
+__device__ __forceinline__ float small_i2f(int v) {
+  return __fsub_rn(__int_as_float(kDotBias + v), kDotBiasF);
+}
 
 // exact 2^n as float32: normal from the exponent field, subnormal from the
 // mantissa bits, 0 below 2^-149, inf above 2^127
@@ -26,6 +38,14 @@ __device__ __forceinline__ float pow2i(int n) {
   if (n >= -126) return __int_as_float((n + 127) << 23);
   if (n >= -149) return __int_as_float(1 << (n + 149));
   return 0.0f;
+}
+
+// exactly pow2i(e) for an int8 exponent e in [-127, 127]: the exponent
+// field, or the subnormal bit pattern of 2^-127.  For two such exponents
+// __fmul_rn(pow2_e8(a), pow2_e8(b)) == pow2i(a + b): exact down to 2^-149,
+// 0 below, inf above 2^127 (tests/test_torch_kernels.py checks every pair)
+__device__ __forceinline__ float pow2_e8(int e) {
+  return __int_as_float(max((e + 127) << 23, 0x00400000));
 }
 
 // shared exponent of a block: floor(log2(amax)) - (mant_bits - 2), 0 for an
@@ -41,6 +61,16 @@ __device__ __forceinline__ int block_exp(float amax, int mant_bits) {
 __device__ __forceinline__ float quant_mant(float x, float inv_scale,
                                             float lim) {
   return fminf(fmaxf(rintf(__fmul_rn(x, inv_scale)), -lim), lim);
+}
+
+// (int)quant_mant(x, inv_scale, lim) where |x * inv_scale| < 2^22 (a value
+// of a block scaled by its own exponent at mant_bits <= 23): the add of
+// 1.5 * 2^23 rounds to the integer, half to even, as rintf does
+__device__ __forceinline__ int quant_mant_small(float x, float inv_scale,
+                                                int lim) {
+  const int q = __float_as_int(__fadd_rn(__fmul_rn(x, inv_scale),
+                                         kDotBiasF)) - kDotBias;
+  return min(max(q, -lim), lim);
 }
 
 __device__ __forceinline__ float block_amax(const float* p, int b) {
@@ -117,78 +147,439 @@ __device__ __forceinline__ void load_lut(float* dst, const float* src, int n) {
 }
 
 // ---------------------------------------------------------------------------
-// Fig. 3 LayerNorm of one row, one warp per row
+// Fig. 3 LayerNorm / RMSNorm of a CTA's rows, every thread at work
 // ---------------------------------------------------------------------------
-struct LnParams {
-  const float* gamma;
-  const float* beta;
-  const float* lut;        // shared-memory rsqrt LUT
-  int d, block, mant_bits, lut_n, rms_only;
-  float inv_d, lut_scale, lim;
-};
+// The rows are cut into pieces of consecutive elements of one act block:
+// P = 4 on the vector route (one 16-byte f32 or 8-byte bf16 access; an act
+// block of 4, 8 or 16 spans B / 4 adjacent lanes of a warp, its group), or
+// a whole block on the scalar route (P = 0: any block up to 16 at any
+// alignment; the group is one lane).  Piece p of the CTA's rows is piece
+// p % ppr of row p / ppr, and thread t takes pieces t, t + T, ..., so a
+// warp's accesses are contiguous.  Four phases, each closed by
+// __syncthreads:
+//  1. each row read once: the block amax (over the group by shuffles), its
+//     exponent e and mantissas q = quant(x * 2^-e), staged with e in
+//     shared memory; the row max emax by a warp reduction and an atomicMax
+//  2. align in place: m = q >> min(emax - e, 31); the integer row sum
+//     (LayerNorm) by a warp reduction and an atomicAdd
+//  3. the variance, the one step whose bits depend on its order: warp w
+//     takes rows w, w + W, ...; lane l adds c * c over the staged blocks
+//     l, l + 32, ... of the row, element by element, then the butterfly
+//     (warp_row_sum's order); then the rsqrt LUT
+//  4. per piece y = (c * inv) * gamma (+ beta), handed to the caller's
+//     epilogue, which may overwrite the piece's staged mantissas and its
+//     block's exponent (phase 3's reads are behind the barrier)
+// Every step but the variance is exact in any order and over any threads.
+constexpr int kLnBatch = 8;       // vector-route pieces a thread loads at once
 
-struct LnRow {
-  int emax;
+struct __align__(16) LnRowVars {  // a row's scalars in shared memory
+  int emax, isum;
   float mean, inv;
 };
 
-// row statistics: block-quantize, align to the row-max exponent, integer
-// mean, variance in the fixed lane order, rsqrt LUT
-__device__ __forceinline__ LnRow ln_row_stats(const float* x,
-                                              const LnParams& p, int lane) {
-  const int nb = p.d / p.block;
-  int emax = -128;
-  for (int b = lane; b < nb; b += kWarp)
-    emax = max(emax, block_exp(block_amax(x + b * p.block, p.block),
-                               p.mant_bits));
-  emax = warp_max_i(emax);
-  int isum = 0;
-  for (int b = lane; b < nb; b += kWarp) {
-    const float* xb = x + b * p.block;
-    int e = block_exp(block_amax(xb, p.block), p.mant_bits);
-    float inv = pow2i(-e);
-    int sh = min(emax - e, 31);
-    for (int i = 0; i < p.block; ++i)
-      isum += ((int)quant_mant(xb[i], inv, p.lim)) >> sh;
+struct LnArgs {
+  const void* x;                  // the CTA's first row (f32 or bf16: T)
+  const void* gamma;
+  const void* beta;               // null: no beta (zero)
+  const float* lut;               // shared-memory rsqrt LUT
+  int rows, d, block, mant_bits, lut_n, rms_only, params_bf16;
+  float inv_d, lut_scale, lim;
+};
+
+// where a CTA's rows are staged: mantissas (M: int8 or int32) and block
+// exponents, row strides in elements, and each row's LnRowVars
+template <typename M>
+struct LnStage {
+  M* m;
+  int m_ld;
+  int8_t* e;
+  int e_ld;
+  unsigned char* rv;
+  int rv_ld;                      // bytes between rows' LnRowVars
+
+  __device__ __forceinline__ LnRowVars& vars(int r) const {
+    return *reinterpret_cast<LnRowVars*>(rv + r * rv_ld);
   }
-  isum = warp_sum_i(isum);
-  LnRow st;
-  st.emax = emax;
-  st.mean = p.rms_only ? 0.0f : __fmul_rn((float)isum, p.inv_d);
-  float acc = 0.0f;
-  for (int b = lane; b < nb; b += kWarp) {
-    const float* xb = x + b * p.block;
-    int e = block_exp(block_amax(xb, p.block), p.mant_bits);
-    float inv = pow2i(-e);
-    int sh = min(emax - e, 31);
-    for (int i = 0; i < p.block; ++i) {
-      float mi = (float)(((int)quant_mant(xb[i], inv, p.lim)) >> sh);
-      float c = p.rms_only ? mi : __fsub_rn(mi, st.mean);
-      acc = __fadd_rn(acc, __fmul_rn(c, c));
-    }
-  }
-  acc = warp_sum_tree(acc);
-  st.inv = rsqrt_lut_stage(__fmul_rn(acc, p.inv_d), p.lut, p.lut_n,
-                           p.lut_scale);
-  return st;
+};
+
+// register slots of a piece: P, or the largest block
+template <int P>
+constexpr int kPieceSlots = P ? P : kMaxBlock;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);                 // exact
 }
 
-// the normalized values of block b of the row: (c * inv) * gamma + beta
-__device__ __forceinline__ void ln_block(const float* x, int b,
-                                         const LnParams& p, const LnRow& st,
-                                         float (&y)[kMaxBlock]) {
-  const float* xb = x + b * p.block;
-  int e = block_exp(block_amax(xb, p.block), p.mant_bits);
-  float inv = pow2i(-e);
-  int sh = min(st.emax - e, 31);
+// n elements from src as f32: one 16-byte (f32) or 8-byte (bf16) load on
+// the vector route
+template <int P, typename T>
+__device__ __forceinline__ void load_piece(const T* src, int n,
+                                           float (&v)[kPieceSlots<P>]) {
+  if constexpr (P == 4 && sizeof(T) == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src);
+    v[0] = q.x;
+    v[1] = q.y;
+    v[2] = q.z;
+    v[3] = q.w;
+  } else if constexpr (P == 4) {
+    const uint2 q = *reinterpret_cast<const uint2*>(src);
+    v[0] = __uint_as_float(q.x << 16);        // bf16 = the high half of f32
+    v[1] = __uint_as_float(q.x & 0xffff0000u);
+    v[2] = __uint_as_float(q.y << 16);
+    v[3] = __uint_as_float(q.y & 0xffff0000u);
+  } else {
 #pragma unroll
-  for (int i = 0; i < kMaxBlock; ++i) {
-    if (i < p.block) {
-      int j = b * p.block + i;
-      float mi = (float)(((int)quant_mant(xb[i], inv, p.lim)) >> sh);
-      float c = p.rms_only ? mi : __fsub_rn(mi, st.mean);
-      float v = __fmul_rn(__fmul_rn(c, st.inv), p.gamma[j]);
-      y[i] = p.rms_only ? v : __fadd_rn(v, p.beta[j]);
+    for (int i = 0; i < kMaxBlock; ++i) v[i] = i < n ? to_f32(src[i]) : 0.0f;
+  }
+}
+
+// gamma or beta at element j (bf16 or f32 by a flag; null: zeros)
+template <int P>
+__device__ __forceinline__ void load_param(const void* p, int bf16, int j,
+                                           int n,
+                                           float (&v)[kPieceSlots<P>]) {
+  if (p == nullptr) {
+#pragma unroll
+    for (int i = 0; i < kPieceSlots<P>; ++i) v[i] = 0.0f;
+  } else if (bf16) {
+    load_piece<P>(static_cast<const __nv_bfloat16*>(p) + j, n, v);
+  } else {
+    load_piece<P>(static_cast<const float*>(p) + j, n, v);
+  }
+}
+
+template <int P, typename M>
+__device__ __forceinline__ void load_staged(const M* src, int n,
+                                            int (&q)[kPieceSlots<P>]) {
+  if constexpr (P == 4 && sizeof(M) == 1) {
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = (int)(int8_t)(w >> (8 * i));
+  } else if constexpr (P == 4) {
+    const int4 w = *reinterpret_cast<const int4*>(src);
+    q[0] = w.x;
+    q[1] = w.y;
+    q[2] = w.z;
+    q[3] = w.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxBlock; ++i) q[i] = i < n ? (int)src[i] : 0;
+  }
+}
+
+template <int P, typename M>
+__device__ __forceinline__ void store_staged(M* dst, int n,
+                                             const int (&q)[kPieceSlots<P>]) {
+  if constexpr (P == 4 && sizeof(M) == 1) {
+    *reinterpret_cast<uint32_t*>(dst) =
+        (q[0] & 0xff) | ((q[1] & 0xff) << 8) | ((q[2] & 0xff) << 16) |
+        ((uint32_t)q[3] << 24);
+  } else if constexpr (P == 4) {
+    *reinterpret_cast<int4*>(dst) = make_int4(q[0], q[1], q[2], q[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxBlock; ++i)
+      if (i < n) dst[i] = (M)q[i];
+  }
+}
+
+// max |v| over the piece, then over its group's G lanes (xor partners in
+// an aligned group of 1, 2 or 4; every lane of the warp calls it)
+template <int P>
+__device__ __forceinline__ float group_amax(const float (&v)[kPieceSlots<P>],
+                                            int n, int G) {
+  float a = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kPieceSlots<P>; ++i)
+    if (i < n) a = fmaxf(a, fabsf(v[i]));
+  if constexpr (P == 4) {               // G = 1, 2 or 4: xor 0 is a no-op
+    a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 1));
+    a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 2));
+  }
+  return a;
+}
+
+// the piece's block quantized onto the MXInt grid in place (grid_requant
+// over a block spread over G lanes)
+template <int P>
+__device__ __forceinline__ void group_requant(float (&y)[kPieceSlots<P>],
+                                              int n, int G, int mant_bits,
+                                              float lim) {
+  const int e = block_exp(group_amax<P>(y, n, G), mant_bits);
+  const float inv = pow2_e8(-e), scale = pow2_e8(e);
+#pragma unroll
+  for (int i = 0; i < kPieceSlots<P>; ++i)
+    if (i < n) y[i] = __fmul_rn(quant_mant(y[i], inv, lim), scale);
+}
+
+// a thread's walk over its pieces: piece p = t + k T is piece c of row r,
+// at element p * n of the rows (row-major, d = ppr * n); each step adds T
+// pieces (dr rows and dc pieces), no division in the loop
+struct LnWalk {
+  int p, r, c, dr, dc, ppr;
+
+  __device__ __forceinline__ LnWalk(int ppr_) : ppr(ppr_) {
+    p = threadIdx.x;
+    r = threadIdx.x / ppr;
+    c = threadIdx.x - r * ppr;
+    dr = blockDim.x / ppr;
+    dc = blockDim.x - dr * ppr;
+  }
+  __device__ __forceinline__ void next() {
+    p += blockDim.x;
+    r += dr;
+    c += dc;
+    if (c >= ppr) {
+      c -= ppr;
+      ++r;
+    }
+  }
+};
+
+// a per-row integer fold (max or sum, exact in any order) of the values a
+// thread meets on its walk, flushed into the row's LnRowVars slot when the
+// row changes.  warp_rows: every warp step lies in one row (ppr a multiple
+// of 32), so the flush is warp-uniform: a warp reduction and one
+// atomic; else an atomic a lane.  Call add and flush with the whole warp.
+template <bool MAX>
+struct RowFold {
+  int r = -1, acc = MAX ? INT_MIN : 0;
+  bool warp_rows;
+
+  __device__ __forceinline__ explicit RowFold(bool wr) : warp_rows(wr) {}
+
+  template <typename M>
+  __device__ __forceinline__ void flush(const LnStage<M>& st) {
+    if (r < 0) return;
+    int v = acc;
+    if (warp_rows) {
+      v = MAX ? __reduce_max_sync(kFull, v) : __reduce_add_sync(kFull, v);
+      if (threadIdx.x % kWarp != 0) return;
+    }
+    if (MAX)
+      atomicMax(&st.vars(r).emax, v);
+    else
+      atomicAdd(&st.vars(r).isum, v);
+  }
+  // v of a valid piece of row r (valid is warp-uniform when warp_rows)
+  template <typename M>
+  __device__ __forceinline__ void add(const LnStage<M>& st, bool valid,
+                                      int row, int v) {
+    if (!valid) return;
+    if (row != r) {
+      flush(st);
+      r = row;
+      acc = MAX ? INT_MIN : 0;
+    }
+    acc = MAX ? max(acc, v) : acc + v;
+  }
+};
+
+// the staged mantissas of one block (B <= 16): one or four 16-byte loads
+// at B = 16, else element by element
+template <typename M>
+__device__ __forceinline__ void load_block(const M* src, int B,
+                                           int (&m)[kMaxBlock]) {
+  if (B == kMaxBlock) {
+    if constexpr (sizeof(M) == 1) {
+      const uint4 w = *reinterpret_cast<const uint4*>(src);
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < kMaxBlock; ++i)
+        m[i] = (int)(int8_t)(ws[i / 4] >> (8 * (i % 4)));
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int4 w = reinterpret_cast<const int4*>(src)[q];
+        m[4 * q] = w.x;
+        m[4 * q + 1] = w.y;
+        m[4 * q + 2] = w.z;
+        m[4 * q + 3] = w.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kMaxBlock; ++i) m[i] = i < B ? (int)src[i] : 0;
+  }
+}
+
+// a mantissa to and from its stage type M: an int8 stage (mant_bits <= 8)
+// converts by the bias adds, an int32 stage (any mant_bits) by the
+// conversion unit
+template <typename M>
+__device__ __forceinline__ int stage_quant(float x, float inv, float lim,
+                                           int ilim) {
+  if constexpr (sizeof(M) == 1)
+    return quant_mant_small(x, inv, ilim);
+  else
+    return (int)quant_mant(x, inv, lim);
+}
+
+template <typename M>
+__device__ __forceinline__ float stage_f32(int m) {
+  if constexpr (sizeof(M) == 1)
+    return small_i2f(m);
+  else
+    return (float)m;
+}
+
+// a piece handed to the epilogue: elements [j, j + n) of row r, in act
+// block b, whose G lanes it shares; leader: one lane of the block
+struct LnPiece {
+  bool valid, leader;
+  int r, j, b, n, G;
+};
+
+// Normalize the CTA's a.rows rows (the caller has set every row's
+// LnRowVars to {-128, 0, 0, 0} and synchronized).  epi(piece, y), y the
+// piece's normalized values, is called by every lane of the warp
+// (shuffles), valid or not.
+template <typename T, int P, typename M, typename Epi>
+__device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
+                                        Epi&& epi) {
+  constexpr int PN = kPieceSlots<P>;
+  const int T_ = blockDim.x, lane = threadIdx.x % kWarp;
+  const int n = P ? P : a.block;              // elements of a piece
+  const int G = P ? a.block / P : 1;          // lanes of a block
+  const int gshift = G == 4 ? 2 : G == 2 ? 1 : 0;
+  const int ppr = a.d / n;
+  const int steps = (a.rows * ppr + T_ - 1) / T_;
+  const bool warp_rows = ppr % kWarp == 0;
+  const int ilim = (int)a.lim;
+  const T* x = static_cast<const T*>(a.x);
+  constexpr int B1 = P ? kLnBatch : 2;
+
+  // 1. read, block exponents and mantissas, row max
+  {
+    LnWalk w(ppr);
+    RowFold<true> emax(warp_rows);
+    for (int k0 = 0; k0 < steps; k0 += B1) {
+      float v[B1][PN];
+      LnWalk wl = w;
+#pragma unroll
+      for (int u = 0; u < B1; ++u) {
+        if (k0 + u < steps && wl.r < a.rows) {
+          load_piece<P>(x + (size_t)wl.p * n, n, v[u]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < PN; ++i) v[u][i] = 0.0f;
+        }
+        wl.next();
+      }
+#pragma unroll
+      for (int u = 0; u < B1; ++u) {
+        if (k0 + u >= steps) break;                      // CTA-uniform
+        const bool valid = w.r < a.rows;
+        const int e = block_exp(group_amax<P>(v[u], n, G), a.mant_bits);
+        if (valid) {
+          const float inv = pow2_e8(-e);
+          int q[PN];
+#pragma unroll
+          for (int i = 0; i < PN; ++i)
+            q[i] = i < n ? stage_quant<M>(v[u][i], inv, a.lim, ilim) : 0;
+          store_staged<P>(st.m + w.r * st.m_ld + w.c * n, n, q);
+          if (lane % G == 0) st.e[w.r * st.e_ld + (w.c >> gshift)] = (int8_t)e;
+        }
+        emax.add(st, valid, w.r, e);
+        w.next();
+      }
+    }
+    emax.flush(st);
+  }
+  __syncthreads();
+
+  // 2. align to the row max in place; the integer row sum
+  {
+    LnWalk w(ppr);
+    RowFold<false> isum(warp_rows);
+#pragma unroll 4
+    for (int k = 0; k < steps; ++k, w.next()) {
+      const bool valid = w.r < a.rows;
+      int s = 0;
+      if (valid) {
+        M* mp = st.m + w.r * st.m_ld + w.c * n;
+        int q[PN];
+        load_staged<P>(mp, n, q);
+        const int sh = min(st.vars(w.r).emax -
+                               st.e[w.r * st.e_ld + (w.c >> gshift)], 31);
+#pragma unroll
+        for (int i = 0; i < PN; ++i) {
+          q[i] >>= sh;
+          s += q[i];
+        }
+        store_staged<P>(mp, n, q);
+      }
+      if (!a.rms_only) isum.add(st, valid, w.r, s);
+    }
+    if (!a.rms_only) isum.flush(st);
+  }
+  __syncthreads();
+
+  // 3. the variance of each row in the fixed lane order, the rsqrt LUT
+  const int nb = a.d / a.block;
+  for (int r = threadIdx.x / kWarp; r < a.rows; r += T_ / kWarp) {
+    const float mean =
+        a.rms_only ? 0.0f : __fmul_rn((float)st.vars(r).isum, a.inv_d);
+    const M* row = st.m + r * st.m_ld;
+    float acc = 0.0f;
+    for (int b = lane; b < nb; b += kWarp) {
+      int m[kMaxBlock];
+      load_block(row + b * a.block, a.block, m);
+#pragma unroll
+      for (int i = 0; i < kMaxBlock; ++i) {
+        if (i < a.block) {
+          const float mi = stage_f32<M>(m[i]);
+          const float c = a.rms_only ? mi : __fsub_rn(mi, mean);
+          acc = __fadd_rn(acc, __fmul_rn(c, c));
+        }
+      }
+    }
+    acc = warp_sum_tree(acc);
+    if (lane == 0) {
+      st.vars(r).mean = mean;
+      st.vars(r).inv = rsqrt_lut_stage(__fmul_rn(acc, a.inv_d), a.lut,
+                                       a.lut_n, a.lut_scale);
+    }
+  }
+  __syncthreads();
+
+  // 4. (c * inv) * gamma (+ beta), then the caller's epilogue
+  constexpr int B4 = P ? kLnBatch / 2 : 1;
+  const void* beta = a.rms_only ? nullptr : a.beta;
+  LnWalk w(ppr);
+  for (int k0 = 0; k0 < steps; k0 += B4) {
+    int q[B4][PN];
+    float g[B4][PN], bt[B4][PN];
+    LnWalk wl = w;
+#pragma unroll
+    for (int u = 0; u < B4; ++u) {
+      if (k0 + u < steps && wl.r < a.rows) {
+        const int j = wl.c * n;
+        load_staged<P>(st.m + wl.r * st.m_ld + j, n, q[u]);
+        load_param<P>(a.gamma, a.params_bf16, j, n, g[u]);
+        load_param<P>(beta, a.params_bf16, j, n, bt[u]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < PN; ++i) q[u][i] = 0, g[u][i] = bt[u][i] = 0.0f;
+      }
+      wl.next();
+    }
+#pragma unroll
+    for (int u = 0; u < B4; ++u, w.next()) {
+      if (k0 + u >= steps) break;                        // CTA-uniform
+      const bool valid = w.r < a.rows;
+      const LnRowVars rv = st.vars(valid ? w.r : 0);
+      float y[PN];
+#pragma unroll
+      for (int i = 0; i < PN; ++i) {
+        const float mi = stage_f32<M>(q[u][i]);
+        const float c = a.rms_only ? mi : __fsub_rn(mi, rv.mean);
+        const float t = __fmul_rn(__fmul_rn(c, rv.inv), g[u][i]);
+        y[i] = a.rms_only ? t : __fadd_rn(t, bt[u][i]);
+      }
+      epi(LnPiece{valid, lane % G == 0, w.r, w.c * n, w.c >> gshift, n, G},
+          y);
     }
   }
 }
@@ -218,11 +609,6 @@ constexpr int kMaxStages = 4;     // depth of the weight ring, at most
 constexpr int kWarpCols = 16;     // a warp's columns: two n8 mma tiles
 constexpr int kMaxTileCols = 8 * kWarpCols;
 constexpr int kMaxAccTiles = 2;   // column tiles a chunked CTA holds
-// the C input of every mma: D = 0x4B400000 + dot is then, as float bits,
-// 1.5 * 2^23 + dot exactly, and subtracting 1.5 * 2^23 gives (float)dot
-// without an int-to-float conversion (a quarter-rate instruction)
-constexpr int kDotBias = 0x4B400000;
-constexpr float kDotBiasF = 12582912.0f;
 
 // launch geometry, from gemm_geometry on the host
 struct GemmGeom {
@@ -335,14 +721,6 @@ __device__ __forceinline__ void act_quant16(const float (&v)[kMaxBlock],
 #pragma unroll
   for (int i = 0; i < kAB; ++i) dst_m[i] = (int8_t)quant_mant(v[i], inv, lim);
   *dst_e = (int8_t)e;
-}
-
-// exactly pow2i(e) for an int8 exponent e in [-127, 127]: the exponent
-// field, or the subnormal bit pattern of 2^-127.  For two such exponents
-// __fmul_rn(pow2_e8(a), pow2_e8(b)) == pow2i(a + b): exact down to 2^-149,
-// 0 below, inf above 2^127 (tests/test_torch_kernels.py checks every pair)
-__device__ __forceinline__ float pow2_e8(int e) {
-  return __int_as_float(max((e + 127) << 23, 0x00400000));
 }
 
 __device__ __forceinline__ uint32_t shared_addr(const void* p) {

@@ -7,16 +7,21 @@
 
 using namespace mx;
 
+// The prologue: the shared row stage ln_rows (mxint_common.cuh) on every
+// thread of the CTA, staged in place: each row's slot of sA (int8, stride
+// d + 16) holds its mantissas, sE its block exponents, and the row's 16
+// bytes of padding past d its LnRowVars; phase 4 overwrites each piece with
+// the LN output's act mantissas (the grid requantization's, which act
+// quantization keeps) and each block's exponent.  Rows past M are zero.
+template <typename T, int P>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-mxint_ln_matmul_kernel(const float* __restrict__ x,
-                       const float* __restrict__ gamma,
-                       const float* __restrict__ beta,
-                       const float* __restrict__ lut_g,
+mxint_ln_matmul_kernel(const T* __restrict__ x, const void* gamma,
+                       const void* beta, const float* __restrict__ lut_g,
                        const int8_t* __restrict__ wm,
                        const int8_t* __restrict__ we, float* __restrict__ out,
                        int M, int d, int N, int w_block, int mant_bits,
                        float inv_d, int lut_n, float lut_scale, int rms_only,
-                       GemmGeom g, int vec, int vec_shift) {
+                       int params_bf16, GemmGeom g, int vec, int vec_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
   const GemmSmem s = carve(smem, g, d);
   const int tiles = (N + g.bn - 1) / g.bn;
@@ -26,76 +31,107 @@ mxint_ln_matmul_kernel(const float* __restrict__ x,
                    vec_shift};
   stream_begin(ws, g, s.w);
   load_lut(s.lut, lut_g, lut_n);
-  __syncthreads();
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int m0 = blockIdx.x * g.bm;
+  const int rows = min(g.bm, M - m0);
   const int nkb = d / kAB;
   const int sa = a_stride(d), se = e_stride(d);
-  LnParams p;
-  p.gamma = gamma;
-  p.beta = beta;
-  p.lut = s.lut;
-  p.d = d;
-  p.block = kAB;
-  p.mant_bits = mant_bits;
-  p.lut_n = lut_n;
-  p.rms_only = rms_only;
-  p.inv_d = inv_d;
-  p.lut_scale = lut_scale;
-  p.lim = (float)((1 << (mant_bits - 1)) - 1);
-  for (int r = warp; r < g.bm; r += blockDim.x / kWarp) {
-    const int row = m0 + r;
-    if (row < M) {
-      const float* xr = x + (size_t)row * d;
-      const LnRow st = ln_row_stats(xr, p, lane);
-      for (int b = lane; b < nkb; b += kWarp) {
-        float y[kMaxBlock];
-        ln_block(xr, b, p, st, y);
-        grid_requant(y, kAB, mant_bits, p.lim);   // LN output quantization
-        act_quant16(y, mant_bits, p.lim, s.a + r * sa + b * kAB,
-                    s.e + r * se + b);
-      }
-    } else {
-      for (int b = lane; b < nkb; b += kWarp) {
-#pragma unroll
-        for (int i = 0; i < kAB; ++i) s.a[r * sa + b * kAB + i] = 0;
-        s.e[r * se + b] = 0;
-      }
+  const LnStage<int8_t> st{s.a, sa, s.e, se,
+                           reinterpret_cast<unsigned char*>(s.a) + d, sa};
+  if (threadIdx.x < g.bm) st.vars(threadIdx.x) = LnRowVars{-128, 0, 0.0f,
+                                                           0.0f};
+  for (int r = rows; r < g.bm; ++r) {
+    for (int c = threadIdx.x; c < nkb; c += blockDim.x) {
+      *reinterpret_cast<int4*>(s.a + r * sa + c * kAB) = make_int4(0, 0, 0, 0);
+      s.e[r * se + c] = 0;
     }
   }
+  __syncthreads();
+  const int ilim = (1 << (mant_bits - 1)) - 1;
+  const float lim = (float)ilim;
+  const LnArgs a{x + (size_t)m0 * d, gamma, beta, s.lut, rows, d, kAB,
+                 mant_bits, lut_n, rms_only, params_bf16, inv_d, lut_scale,
+                 lim};
+  // the LN output onto the act grid (grid_requant): its mantissas are also
+  // its act quantization's, and its exponent is, but for a block whose
+  // mantissas are all 0 (act exponent 0): quantizing grid values again is
+  // exact (tests/test_torch_kernels.py checks every mant_bits 2-8)
+  ln_rows<T, P>(a, st, [=](const LnPiece& pc,
+                           float (&y)[kPieceSlots<P>]) {
+    const float amax = group_amax<P>(y, pc.n, pc.G);
+    const int e = block_exp(amax, mant_bits);
+    const float inv = pow2_e8(-e);
+    int q[kPieceSlots<P>];
+#pragma unroll
+    for (int i = 0; i < kPieceSlots<P>; ++i)
+      q[i] = i < pc.n ? quant_mant_small(y[i], inv, ilim) : 0;
+    if (!pc.valid) return;
+    store_staged<P>(s.a + pc.r * sa + pc.j, pc.n, q);
+    if (pc.leader)
+      s.e[pc.r * se + pc.b] =
+          quant_mant_small(amax, inv, ilim) == 0 ? 0 : (int8_t)e;
+  });
   float acc[1][2][4];
   zero_acc(acc[0]);
   stream_run<1>(s, ws, g, sa, se, m0, M, acc, out);
 }
 
-extern "C" int mxint_ln_matmul_launch(const float* x, const float* gamma,
-                                      const float* beta, const float* lut,
+template <typename T, int P>
+static int launch(const void* x, const void* gamma, const void* beta,
+                  const float* lut, const int8_t* wm, const int8_t* we,
+                  float* out, int M, int d, int N, int w_block, int mant_bits,
+                  float inv_d, int lut_n, float lut_scale, int rms_only,
+                  int params_bf16, const GemmGeom& g, cudaStream_t stream) {
+  const size_t smem = gemm_smem_bytes(g, d);
+  const void* fn = (const void*)mxint_ln_matmul_kernel<T, P>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = copy_width(N, g.bn, wm, we);
+  const int vec_shift = log2i(g.bn / vec);
+  const int tiles = (N + g.bn - 1) / g.bn;
+  const dim3 grid((M + g.bm - 1) / g.bm, (tiles + g.n_per - 1) / g.n_per);
+  const T* xt = static_cast<const T*>(x);
+  void* args[] = {(void*)&xt, (void*)&gamma, (void*)&beta, (void*)&lut,
+                  (void*)&wm, (void*)&we, (void*)&out, (void*)&M,
+                  (void*)&d, (void*)&N, (void*)&w_block, (void*)&mant_bits,
+                  (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
+                  (void*)&rms_only, (void*)&params_bf16, (void*)&g,
+                  (void*)&vec, (void*)&vec_shift};
+  err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(g.bm)), args, smem,
+                         stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// x f32 or bf16 (x_bf16), gamma and beta f32 or bf16 (params_bf16), beta
+// may be null; ln_vec: the LN stage's P = 4 route (x, gamma and beta aligned
+// to four of their elements), else a block a thread
+extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
+                                      const void* beta, const float* lut,
                                       const int8_t* wm, const int8_t* we,
                                       float* out, int M, int d, int N,
                                       int w_block, int mant_bits, float inv_d,
                                       int lut_n, float lut_scale, int rms_only,
+                                      int x_bf16, int params_bf16, int ln_vec,
                                       int bm, int bn, int n_per, int bk,
                                       int ns, void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
-  if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut || !geom_ok(g))
+  const int xa = x_bf16 ? 8 : 16, pa = params_bf16 ? 8 : 16;
+  if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut || !geom_ok(g) ||
+      mant_bits > 8 ||
+      (ln_vec && ((uintptr_t)x % xa != 0 || (uintptr_t)gamma % pa != 0 ||
+                  (uintptr_t)beta % pa != 0)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gemm_smem_bytes(g, d);
-  const void* fn = (const void*)mxint_ln_matmul_kernel;
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int vec = copy_width(N, bn, wm, we);
-  const int vec_shift = log2i(bn / vec);
-  const int tiles = (N + bn - 1) / bn;
-  const dim3 grid((M + bm - 1) / bm, (tiles + n_per - 1) / n_per);
-  void* args[] = {(void*)&x, (void*)&gamma, (void*)&beta, (void*)&lut,
-                  (void*)&wm, (void*)&we, (void*)&out, (void*)&M,
-                  (void*)&d, (void*)&N, (void*)&w_block, (void*)&mant_bits,
-                  (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
-                  (void*)&rms_only, (void*)&g, (void*)&vec,
-                  (void*)&vec_shift};
-  err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
-                         (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  auto cs = (cudaStream_t)stream;
+#define LNMM_LAUNCH(T, P)                                                   \
+  return launch<T, P>(x, gamma, beta, lut, wm, we, out, M, d, N, w_block,   \
+                      mant_bits, inv_d, lut_n, lut_scale, rms_only,         \
+                      params_bf16, g, cs)
+  if (x_bf16) {
+    if (ln_vec) LNMM_LAUNCH(__nv_bfloat16, 4);
+    LNMM_LAUNCH(__nv_bfloat16, 0);
+  }
+  if (ln_vec) LNMM_LAUNCH(float, 4);
+  LNMM_LAUNCH(float, 0);
+#undef LNMM_LAUNCH
 }

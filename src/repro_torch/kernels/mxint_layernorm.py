@@ -12,19 +12,27 @@ Replaces ``repro/kernels/mxint_layernorm.py:mxint_layernorm`` (its
      cases and look up 1/sqrt(u), u in [0.5, 2), in the rsqrt LUT,
   5. scale, gamma and beta, then optionally requantize onto the act grid.
 
-On the H100 the kernel is bound by memory: it reads the (rows, d) f32 row
-and writes it back once, against a few dozen operations per element.  The
-design runs one warp per row and makes three passes over the row, which
-stays in L1/L2; the LUT sits in shared memory and is read by index (the
-one-hot matmul of the TPU kernel gives the same exact entry).  The
-variance sum runs in a fixed order, each lane over its blocks in turn
-then a butterfly over the 32 lanes, and ``warp_row_sum`` below repeats
-that order, so kernel and plain version agree bit for bit.
+On the H100 the kernel is bound by memory: it reads the (rows, d) row
+(f32, or bf16 as a bf16 model hands it) once and writes f32 once, against
+a few dozen operations per element.  A CTA of ``LN_THREADS`` threads
+normalizes up to ``LN_MAX_ROWS`` rows with the row stage it shares with
+``mxint_ln_matmul`` (``ln_rows`` in ``csrc/mxint_common.cuh``): every
+thread reads, quantizes and aligns its pieces of the rows (four elements
+in one 16-byte f32 or 8-byte bf16 access, or a whole act block), the
+aligned mantissas are staged in shared memory, one warp a row adds the
+variance, and every thread writes its pieces.  ``ln_geometry`` picks the
+route from the shape, dtype and alignment alone.  The LUT sits in shared
+memory and is read by index (the one-hot matmul of the TPU kernel gives
+the same exact entry).  Every step is exact in any order but the variance
+sum, which runs in a fixed order, each lane over its blocks in turn then a
+butterfly over the 32 lanes, and ``warp_row_sum`` below repeats that
+order, so kernel and plain version agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+import functools
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +44,14 @@ from repro_torch.kernels import _build
 WARP = 32
 MAX_BLOCK = 16       # largest act block the CUDA row stages hold in registers
 MAX_LUT = 256        # entries of the shared-memory LUT copy
+SMEM_LIMIT = 232448  # the H100's 227 KB a CTA may use
+
+# the LN stage (ln_rows in csrc/mxint_common.cuh) and the layernorm kernel
+LN_THREADS = 256     # a CTA of the layernorm kernel
+LN_MAX_ROWS = 8      # rows a CTA normalizes at most
+LN_PIECE = 4         # elements of a vector-route piece (one 16/8-byte access)
+LN_VEC_BLOCKS = (4, 8, 16)          # act blocks of 1, 2 or 4 pieces
+LN_STATIC_SMEM = 4 * MAX_LUT + 16 * LN_MAX_ROWS   # the LUT, the row scalars
 
 launches = 0
 
@@ -65,6 +81,59 @@ def lut_tensor(table: tuple, device) -> torch.Tensor:
         t = _LUTS[key] = torch.tensor(table, dtype=torch.float32,
                                       device=device)
     return t
+
+
+class LnGeometry(NamedTuple):
+    vec: int            # 4: pieces of four elements; 0: an act block a thread
+    rows_per_cta: int
+    grid: int           # CTAs of LN_THREADS threads
+    smem: int           # dynamic shared memory; 0 on the global-stage route
+    stage_words: int    # int32 words of a row's global stage; 0: shared
+
+    @property
+    def route(self) -> str:
+        return ("vec" if self.vec else "scalar") + \
+            ("-global" if self.stage_words else "")
+
+
+def ln_piece(block: int, aligned: bool) -> int:
+    """The LN stage's piece: 4 elements (one 16-byte f32 or 8-byte bf16
+    access; the act block spans 1, 2 or 4 lanes) where the block allows and
+    every row and scale starts on four elements, else 0 (a block a
+    thread, any block and alignment)."""
+    return LN_PIECE if block in LN_VEC_BLOCKS and aligned else 0
+
+
+def aligned4(*tensors) -> bool:
+    """Every tensor given (None passes) starts on four of its elements."""
+    return all(t is None or t.data_ptr() % (4 * t.element_size()) == 0
+               for t in tensors)
+
+
+def ln_stage_words(d: int, block: int) -> int:
+    """int32 words of one row's global stage: d mantissas, then d / block
+    exponent bytes, padded to 16 bytes (``gs_stride`` in
+    ``csrc/mxint_layernorm.cu``)."""
+    return (d + (d // block + 3) // 4 + 3) // 4 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def ln_geometry(rows: int, d: int, block: int, n_sm: int,
+                aligned: bool = True) -> LnGeometry:
+    """The layernorm kernel's route and grid for (rows, d) rows at act
+    block ``block``: the most rows a CTA (at most LN_MAX_ROWS) that still
+    give every SM two CTAs and whose stage (int32 mantissas and exponent
+    bytes) fits shared memory; a row whose stage does not fit at all is
+    staged in global scratch, one row a CTA."""
+    row_bytes = 4 * d + d // block
+    budget = SMEM_LIMIT - LN_STATIC_SMEM
+    R = LN_MAX_ROWS
+    while R > 1 and (-(-rows // R) < 2 * n_sm or R * row_bytes > budget):
+        R //= 2
+    vec = ln_piece(block, aligned)
+    if row_bytes > budget:
+        return LnGeometry(vec, 1, rows, 0, ln_stage_words(d, block))
+    return LnGeometry(vec, R, -(-rows // R), R * row_bytes, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -166,34 +235,71 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                     mant_bits: int = 8, lut_bits: int = 5,
                     rms_only: bool = False,
                     quantize_out: bool = False) -> torch.Tensor:
-    """(rows, d) f32 MXInt LayerNorm over the last axis.
+    """(rows, d) MXInt LayerNorm over the last axis; f32 out.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor runs the plain version (on x as f32); a CUDA tensor
+    launches the kernel, which reads f32 or bf16 rows and scales as they
+    come (bf16 to f32 is exact) and takes a missing beta as zero.
     """
     rows, d = x.shape
     act_block = resolve_act_block(d, act_block)
-    if beta is None:
-        beta = torch.zeros_like(gamma)
     if x.device.type == "cpu":
-        return layernorm_rows(x, gamma, beta, act_block=act_block,
-                              mant_bits=mant_bits, lut_bits=lut_bits,
-                              rms_only=rms_only, quantize_out=quantize_out)
+        if beta is None:
+            beta = torch.zeros_like(gamma)
+        return layernorm_rows(x.to(torch.float32), gamma, beta,
+                              act_block=act_block, mant_bits=mant_bits,
+                              lut_bits=lut_bits, rms_only=rms_only,
+                              quantize_out=quantize_out)
     global launches
-    gamma, beta = gamma.to(torch.float32), beta.to(torch.float32)
-    if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
-            2 ** lut_bits > MAX_LUT:
-        raise ValueError("mxint_layernorm kernel takes f32 rows, act_block "
-                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    x, gamma, beta = kernel_operands(x, gamma, beta)
+    if act_block > MAX_BLOCK or 2 ** lut_bits > MAX_LUT:
+        raise ValueError(f"mxint_layernorm kernel takes act_block <= "
+                         f"{MAX_BLOCK} and at most {MAX_LUT} LUT entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
-    _build.require_cuda("mxint_layernorm", x, gamma, beta, lut)
-    out = torch.empty_like(x)
-    fn = _build.entry("mxint_layernorm", [ctypes.c_void_p] * 5 + [
-        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
-                             ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    rc = fn(x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), lut.data_ptr(),
-            out.data_ptr(), rows, d, act_block, mant_bits, f32(1.0 / d),
-            2 ** lut_bits, f32(2 ** lut_bits / 1.5), int(rms_only),
-            int(quantize_out), _build.stream_ptr(x.device))
+    _build.require_cuda("mxint_layernorm", x, gamma, lut,
+                        *([] if beta is None else [beta]))
+    out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
+    geom = ln_geometry(rows, d, act_block, sm_count(x.device),
+                       aligned4(x, gamma, beta, out))
+    scratch = (torch.empty(rows * geom.stage_words, dtype=torch.int32,
+                           device=x.device) if geom.stage_words else None)
+    fn = _build.entry("mxint_layernorm", [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
+        [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    rc = fn(x.data_ptr(), gamma.data_ptr(),
+            None if beta is None else beta.data_ptr(), lut.data_ptr(),
+            out.data_ptr(), None if scratch is None else scratch.data_ptr(),
+            rows, d, act_block, mant_bits, f32(1.0 / d), 2 ** lut_bits,
+            f32(2 ** lut_bits / 1.5), int(rms_only), int(quantize_out),
+            int(x.dtype == torch.bfloat16), int(gamma.dtype == torch.bfloat16),
+            geom.vec, geom.rows_per_cta, _build.stream_ptr(x.device))
     _build.check(rc, "mxint_layernorm")
     launches += 1
     return out
+
+
+def kernel_operands(x: torch.Tensor, gamma: torch.Tensor,
+                    beta: Optional[torch.Tensor]):
+    """The LN kernels' operands: f32 and bf16 as they come (no device op);
+    any other float type, and scales of two different types, as f32 (an
+    exact conversion).  Raises unless the scales hold one value a column."""
+    def as_kernel(t):
+        ok = t.dtype in (torch.float32, torch.bfloat16)
+        return t if ok else t.to(torch.float32)
+
+    d = x.shape[-1]
+    if gamma.numel() != d or (beta is not None and beta.numel() != d):
+        raise ValueError(f"LN scales of {gamma.numel()} and "
+                         f"{None if beta is None else beta.numel()} values "
+                         f"for rows of {d}")
+    x, gamma = as_kernel(x), as_kernel(gamma)
+    if beta is not None:
+        beta = as_kernel(beta)
+        if beta.dtype != gamma.dtype:
+            gamma, beta = gamma.to(torch.float32), beta.to(torch.float32)
+    return x, gamma, beta
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count

@@ -16,6 +16,10 @@ CUDA blocks run in no order, so each CTA normalizes its own 16-32 rows
 into shared memory (as int8 act mantissas and exponents), while the first
 weight tiles load, and then streams its column tiles through the GEMM core
 of ``mxint_matmul`` (int8 tensor cores, ``csrc/mxint_common.cuh``).  The
+normalization is the row stage ``mxint_layernorm`` runs (``ln_rows``), on
+every thread of the CTA: x is read once, f32 or bf16 as it comes, and the
+aligned mantissas are staged in place in the rows' slots of the act tile,
+which the LN output's act mantissas then overwrite.  The
 tiles come from ``gemm_geometry`` (without K chunks: the CTA holds its
 whole normalized rows); where the column range is split over several
 CTAs, each repeats the LN of its rows.
@@ -36,8 +40,9 @@ import torch
 
 from repro_torch.core import luts
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_LUT, f32, layernorm_rows,
-                                                 lut_tensor)
+from repro_torch.kernels.mxint_layernorm import (MAX_LUT, aligned4, f32,
+                                                 kernel_operands, layernorm_rows,
+                                                 ln_piece, lut_tensor)
 from repro_torch.kernels.mxint_matmul import (ACT_BLOCK, check_planes,
                                               gemm_geometry, launch_args,
                                               matmul_blocks, sm_count)
@@ -71,35 +76,38 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     M, d = x.shape
     act_block = min(act_block, d)
     check_planes(d, w_mant, w_exp, w_block, act_block)
-    if beta is None:
-        beta = torch.zeros_like(gamma)
     if x.device.type == "cpu":
+        if beta is None:
+            beta = torch.zeros_like(gamma)
         return ln_matmul_rows(x, gamma, beta, w_mant, w_exp, w_block=w_block,
                               act_block=act_block, mant_bits=mant_bits,
                               lut_bits=lut_bits, rms_only=rms_only)
     global launches
-    # the kernel reads float32; a bf16 model's rows and scales convert
-    # exactly (the reference's kernel reads them as f32 too)
-    x = x.to(torch.float32).contiguous()
-    gamma, beta = gamma.to(torch.float32), beta.to(torch.float32)
-    if act_block != ACT_BLOCK or \
+    # the kernel reads f32 or bf16 rows and scales as they come (the
+    # reference's kernel reads them as f32; bf16 to f32 is exact)
+    x, gamma, beta = kernel_operands(x.contiguous(), gamma, beta)
+    if act_block != ACT_BLOCK or mant_bits > 8 or \
             2 ** lut_bits > MAX_LUT or w_mant.dtype != torch.int8 or \
             w_exp.dtype != torch.int8:
         raise ValueError("mxint_ln_matmul kernel takes int8 planes, "
-                         f"act_block == {ACT_BLOCK} and at most {MAX_LUT} "
-                         "LUT entries")
+                         f"act_block == {ACT_BLOCK}, mant_bits <= 8 (int8 "
+                         f"act mantissas) and at most {MAX_LUT} LUT entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
-    _build.require_cuda("mxint_ln_matmul", x, gamma, beta, lut, w_mant, w_exp)
+    _build.require_cuda("mxint_ln_matmul", x, gamma, lut, w_mant, w_exp,
+                        *([] if beta is None else [beta]))
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     geom = gemm_geometry(M, N, d, sm_count(x.device), fused_ln=True)
     fn = _build.entry("mxint_ln_matmul", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
-        [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        [ctypes.c_int] * 9 + [ctypes.c_void_p])
     xp, wmp, wep, outp = launch_args(x, w_mant, w_exp, out)
-    rc = fn(xp, gamma.data_ptr(), beta.data_ptr(), lut.data_ptr(), wmp, wep,
-            outp, M, d, N, w_block, mant_bits, f32(1.0 / d), 2 ** lut_bits,
-            f32(2 ** lut_bits / 1.5), int(rms_only), *geom.args(),
+    rc = fn(xp, gamma.data_ptr(), None if beta is None else beta.data_ptr(),
+            lut.data_ptr(), wmp, wep, outp, M, d, N, w_block, mant_bits,
+            f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
+            int(rms_only), int(x.dtype == torch.bfloat16),
+            int(gamma.dtype == torch.bfloat16),
+            ln_piece(act_block, aligned4(x, gamma, beta)), *geom.args(),
             _build.stream_ptr(x.device))
     _build.check(rc, "mxint_ln_matmul")
     launches += 1

@@ -50,8 +50,8 @@ import torch
 
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_LUT, block_quantize_rows,
-                                                 lut_tensor)
+from repro_torch.kernels.mxint_layernorm import (
+    MAX_LUT, SMEM_LIMIT, block_quantize_rows, lut_tensor, sm_count)
 
 ACT_BLOCK = 16        # the CUDA kernel's activation block
 
@@ -61,12 +61,12 @@ MAX_TILE_COLS = 8 * WARP_COLS       # 8 warps side by side on the columns
 DECODE_STAGES = 4                   # weight ring depth at 16-row tiles
 MAX_CHUNK = 4096                    # K columns of x held in shared memory
 MAX_ACC_TILES = 2                   # column tiles a chunked CTA holds
-SMEM_LIMIT = 232448                 # the H100's 227 KB a CTA may use
-# weights of gemm_geometry's cost: a CTA's prologue (act quantization;
-# the fused LayerNorm) in units of one 128-column tile's products, as
-# timed on the H100 at DeiT-Base's shapes while the core was tuned
-QUANT_PROLOGUE_TILES = 1.0
-LN_PROLOGUE_TILES = 4.0
+# weight of gemm_geometry's cost: a CTA's prologue (the act quantization,
+# or the fused LayerNorm) in units of one 128-column tile's products, as
+# timed on the H100 at DeiT-Base's shapes while the core was tuned; the
+# redesigned LN stage costs about the same (mxint_ln_matmul against
+# mxint_matmul at the same tiles, PERF.md)
+PROLOGUE_TILES = 1.0
 # the share of a tile's work that scales with its rows (the ordered f32
 # epilogue: 4 of the core's 7 instructions per element and act block);
 # the mma, the B fragments and the weight stream scale with 16-row groups
@@ -160,7 +160,7 @@ def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
     card times each CTA's tiles plus its prologue.  K is never split: one
     thread owns every output element's whole ordered sum.  K beyond
     MAX_CHUNK is walked in chunks, except with ``fused_ln``: the fused
-    LayerNorm kernel holds its whole rows (and its prologue costs more).
+    LayerNorm kernel holds its whole rows.
     Cached: a decode step asks for the same few shapes every call."""
     best = None
     for bm in (16,) if M <= 16 else (32, 24):
@@ -196,8 +196,7 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln):
                         SMEM_LIMIT // gemm_smem_bytes(bm, bn, bk, ns, kc)))
     tile = (EPILOGUE_SHARE * bm / 32 + (1 - EPILOGUE_SHARE) * -(-bm // 16)
             / 2) * bn / MAX_TILE_COLS
-    prologue = (LN_PROLOGUE_TILES if fused_ln else QUANT_PROLOGUE_TILES) * \
-        bm / 32
+    prologue = PROLOGUE_TILES * bm / 32
     tiles = -(-N // bn)
 
     def cost(n_per):
@@ -208,11 +207,6 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln):
                 key=cost)
     return (GemmGeometry(bm, bn, n_per, bk, ns, chunked,
                          (rows, -(-tiles // n_per))), cost(n_per))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):

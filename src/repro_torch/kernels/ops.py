@@ -51,8 +51,9 @@ def mxint_layernorm_op(x: torch.Tensor, gamma: torch.Tensor,
                        act_block: int = 16, mant_bits: int = 8,
                        lut_bits: int = 5, rms_only: bool = False,
                        quantize_out: bool = False) -> torch.Tensor:
-    """MXInt LayerNorm/RMSNorm over the last axis (paper Fig. 3)."""
-    x2, lead = _flatten_rows(x.to(torch.float32))
+    """MXInt LayerNorm/RMSNorm over the last axis (paper Fig. 3); f32 out.
+    The kernel takes f32 and bf16 rows as they come."""
+    x2, lead = _flatten_rows(x)
     y = mxint_layernorm(x2, gamma, beta,
                         act_block=_resolve_block(x.shape[-1], act_block),
                         mant_bits=mant_bits, lut_bits=lut_bits,

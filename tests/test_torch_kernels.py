@@ -83,24 +83,77 @@ def _planes(K, N, seed):
 # ---------------------------------------------------------------------------
 # row kernels
 # ---------------------------------------------------------------------------
-@pytest.mark.parametrize("rows,d,rms,qout", [
-    (8, 192, False, True),            # DeiT-Tiny width
-    (8, 64, True, False),             # RMSNorm, raw output
-    (5, 768, False, True),            # DeiT-Base width, ragged rows
+@pytest.mark.parametrize("rows,d,rms,qout,block", [
+    pytest.param(8, 192, False, True, 16, id="8-192-False-True"),  # DeiT-Tiny
+    pytest.param(8, 64, True, False, 16, id="8-64-True-False"),    # raw RMS
+    pytest.param(5, 768, False, True, 16, id="5-768-False-True"),  # DeiT-Base
+    pytest.param(2, 4096, True, True, 16, id="2-4096-rms"),   # Llama-3-8B
+    pytest.param(3, 768, False, True, 8, id="3-768-b8"),
+    pytest.param(4, 384, True, True, 8, id="4-384-b8-48-blocks"),
 ])
-def test_layernorm_plain_vs_pallas(rows, d, rms, qout):
+def test_layernorm_plain_vs_pallas(rows, d, rms, qout, block):
+    """48 blocks (d 768 at block 16, d 384 at block 8): lanes 0-15 of the
+    variance chains take two blocks, lanes 16-31 one."""
     x = _x((rows, d), seed=d, scale=2.0)
     x[0, :16] *= np.float32(40.0)      # one outlier block: shifts saturate
     g = 1.0 + 0.1 * _x((d,), seed=1)
     b = 0.1 * _x((d,), seed=2)
     got = mxint_layernorm.mxint_layernorm(
-        _t(x), _t(g), _t(b), act_block=16, rms_only=rms, quantize_out=qout)
+        _t(x), _t(g), _t(b), act_block=block, rms_only=rms,
+        quantize_out=qout)
     want = j_ln(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
-                act_block=16, rms_only=rms, quantize_out=qout,
+                act_block=block, rms_only=rms, quantize_out=qout,
                 block_rows=rows, interpret=True)
     # the variance is an f32 sum in another order: a flip of the rsqrt LUT
     # bucket would change a whole row; measured: none at these seeds
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_ln_kernel_operands():
+    """What the LN kernels receive: bf16 and f32 rows and scales as they
+    come (the same tensors: no conversion op), f16 and scales of two types
+    as f32, and scales that do not hold one value a column rejected."""
+    x = torch.zeros(2, 8, dtype=torch.bfloat16)
+    g = torch.ones(8, dtype=torch.bfloat16)
+    got = mxint_layernorm.kernel_operands(x, g, None)
+    assert got[0] is x and got[1] is g and got[2] is None
+    xh, gh, bh = mxint_layernorm.kernel_operands(x.half(), g, g.float())
+    assert (xh.dtype, gh.dtype, bh.dtype) == (torch.float32,) * 3
+    with pytest.raises(ValueError):
+        mxint_layernorm.kernel_operands(x, g[:4], None)
+    with pytest.raises(ValueError):
+        mxint_layernorm.kernel_operands(x, g, g[:7])
+
+
+def test_layernorm_ops_take_bf16_rows():
+    """bf16 rows and scales, as a bf16 model hands them to the ops: the
+    same bits as their exact f32 values, through the Pallas function and
+    through the fused LN -> linear op."""
+    x = torch.from_numpy(_x((2, 3, 256), seed=12, scale=2.0)).to(
+        torch.bfloat16)
+    g = (1.0 + 0.1 * torch.from_numpy(_x((256,), seed=13))).to(
+        torch.bfloat16)
+    got = ops.mxint_layernorm_op(x, g, None, rms_only=True,
+                                 quantize_out=True)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    want = j_ln(jnp.asarray(x.float().reshape(6, 256).numpy()),
+                jnp.asarray(g.float().numpy()), jnp.zeros(256, jnp.float32),
+                act_block=16, rms_only=True, quantize_out=True, block_rows=6,
+                interpret=True)
+    np.testing.assert_array_equal(got.reshape(6, 256).numpy(),
+                                  np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), ops.mxint_layernorm_op(x.float(), g.float(), None,
+                                            rms_only=True,
+                                            quantize_out=True).numpy())
+    p, _ = _planes(256, 24, seed=14)
+    fused = ops.mxint_ln_linear_op(x, g, None, p.mantissa, p.exponent,
+                                   w_block=p.block_size, rms_only=True)
+    assert fused.dtype == torch.bfloat16
+    unfused = ops.mxint_linear(got.to(torch.bfloat16), p.mantissa,
+                               p.exponent, w_block=p.block_size)
+    np.testing.assert_array_equal(fused.float().numpy(),
+                                  unfused.float().numpy())
 
 
 def _causal_masked(x):
@@ -411,6 +464,312 @@ def test_gelu_requantize_product_equals_quotient():
 
 
 # ---------------------------------------------------------------------------
+# the LN row stage (ln_rows in csrc/mxint_common.cuh) and its two kernels
+# ---------------------------------------------------------------------------
+LN_ROWVARS_BYTES = 16                  # struct LnRowVars
+
+
+def _ln_walk(rows, d, block, vec, threads):
+    """A model of ln_rows' piece walk: piece p = t + k T (step k, thread t)
+    is piece p % ppr of row p / ppr, of n = vec (4) or block elements.
+    Returns [(k, t, r, j)] for the valid pieces, n, ppr and the steps."""
+    n = vec or block
+    ppr = d // n
+    total = rows * ppr
+    steps = -(-total // threads)
+    walk = [(k, t, p // ppr, p % ppr * n) for k in range(steps)
+            for t in range(threads) for p in [t + k * threads] if p < total]
+    return walk, n, ppr, steps
+
+
+def _fold_model(rows, ppr, threads, steps, vals, op):
+    """fold_rows (csrc/mxint_common.cuh) over every step: a warp whose
+    valid pieces lie in one row (ln_step's uniform) reduces, then one
+    atomic; else one atomic a lane."""
+    total = rows * ppr
+    slot = [None] * rows
+    for k in range(steps):
+        for w in range(threads // WARP):
+            pw = k * threads + w * WARP
+            if pw >= total:
+                continue
+            ps = [p for p in range(pw, pw + WARP) if p < total]
+            uniform = pw // ppr == min(pw + WARP - 1, total - 1) // ppr
+            groups = [(pw // ppr, ps)] if uniform else \
+                [(p // ppr, [p]) for p in ps]
+            for r, members in groups:
+                v = op(vals[p] for p in members)
+                slot[r] = v if slot[r] is None else op([slot[r], v])
+    return slot
+
+
+LN_SHAPES = [(3152, 768, 16), (4, 4096, 16), (1024, 4096, 16),
+             (37, 192, 16), (37, 768, 8), (37, 768, 4), (37, 768, 12),
+             (37, 197, 1), (3, 96, 3), (24, 768, 16), (1, 16, 16)]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("rows,d,block", LN_SHAPES)
+def test_ln_stage_walk(rows, d, block, aligned):
+    """The stage's thread-to-element mapping, as mxint_layernorm (a CTA of
+    up to 8 rows) and mxint_ln_matmul (16-32 rows) run it: every element
+    of every row in exactly one piece; on the vector route each piece on
+    four-element boundaries, each act block in block / 4 adjacent lanes of
+    one warp step, aligned so that its xor partners stay in the group, its
+    leader the lane of its first piece; the row max and row sum folds give
+    every row's own max and sum."""
+    vec = mxint_layernorm.ln_piece(block, aligned)
+    assert vec == (4 if block in (4, 8, 16) and aligned else 0)
+    geom = mxint_layernorm.ln_geometry(rows, d, block, 132, aligned)
+    R = min(rows, geom.rows_per_cta)
+    for threads, cta_rows in ((mxint_layernorm.LN_THREADS, R),
+                              (512, min(rows, 24)), (256, min(rows, 16))):
+        walk, n, ppr, steps = _ln_walk(cta_rows, d, block, vec, threads)
+        seen = np.zeros((cta_rows, d), np.int32)
+        groups = {}
+        for k, t, r, j in walk:
+            seen[r, j:j + n] += 1
+            if vec:
+                assert j % 4 == 0
+            groups.setdefault((r, j // block), []).append((k, t, j))
+        assert (seen == 1).all()
+        G = block // n if vec else 1
+        for (r, b), members in groups.items():
+            assert len(members) == G and len({k for k, _, _ in members}) == 1
+            ts = sorted(t for _, t, _ in members)
+            assert ts == list(range(ts[0], ts[0] + G)) and ts[0] % G == 0
+            leader = [j for _, t, j in members if t % WARP % G == 0]
+            assert leader == [b * block]
+        rng = np.random.default_rng(rows + d)
+        vals = rng.integers(-1000, 1000, size=cta_rows * ppr)
+        want_max = vals.reshape(cta_rows, ppr).max(1)
+        want_sum = vals.reshape(cta_rows, ppr).sum(1)
+        assert _fold_model(cta_rows, ppr, threads, steps, vals,
+                           max) == want_max.tolist()
+        assert _fold_model(cta_rows, ppr, threads, steps, vals,
+                           sum) == want_sum.tolist()
+
+
+@pytest.mark.parametrize("d,block", [(768, 16), (4096, 16), (192, 16),
+                                     (768, 8), (384, 8), (197, 1), (96, 3)])
+def test_ln_variance_chains_in_warp_row_sum_order(d, block):
+    """Each of a row's 32 variance chains reads the staged row (int8 at
+    mxint_ln_matmul's stride d + 16, int32 at mxint_layernorm's d) at
+    blocks l, l + 32, ... element by element, as ``warp_row_sum`` adds
+    them: the float32 sums agree bit for bit (values over 2^40 of range,
+    so that another order would round otherwise)."""
+    rng = np.random.default_rng(d + block)
+    nb = d // block
+    c2 = (rng.normal(size=d) * 2.0 ** rng.integers(-20, 20, size=d)) ** 2
+    c2 = c2.astype(np.float32)
+    for ld in (d + 16, d):
+        staged = np.zeros(4 * ld, np.float32)           # the row in slot 2
+        staged[2 * ld:2 * ld + d] = c2
+        acc = np.zeros(WARP, np.float32)
+        for lane in range(WARP):
+            for b in range(lane, nb, WARP):
+                for i in range(block):
+                    acc[lane] = acc[lane] + staged[2 * ld + b * block + i]
+        s = WARP
+        while s > 1:
+            s //= 2
+            acc = acc[:s] + acc[s:2 * s]
+        want = mxint_layernorm.warp_row_sum(_t(c2.reshape(1, nb, block)))
+        np.testing.assert_array_equal(acc.view(np.int32),
+                                      want.numpy().reshape(1).view(np.int32))
+
+
+@pytest.mark.parametrize("rows,bm,d,aligned", [
+    (4, 16, 4096, True), (24, 24, 768, True), (10, 24, 768, False),
+    (32, 32, 4096, True), (17, 32, 192, True)])
+def test_ln_matmul_stage_in_place(rows, bm, d, aligned):
+    """mxint_ln_matmul's stage in its act tile sA (int8, row stride d + 16):
+    the phases touch only the valid rows' first d bytes, the zero fill
+    only the rows past M, the row scalars only each row's 16 padding
+    bytes (never read by the GEMM core, which reads K columns); the
+    variance chains (phase 3) read every staged mantissa, and in phase 4
+    each thread overwrites exactly the bytes of its own pieces, which it
+    read in that phase: no mantissa a chain or another thread has yet to
+    read is overwritten (the phases are apart by __syncthreads)."""
+    threads = (bm + 15) // 16 * 256         # gemm_threads(bm)
+    sa = d + 16
+    vec = mxint_layernorm.ln_piece(16, aligned)
+    walk, n, _, _ = _ln_walk(rows, d, 16, vec, threads)
+    reads4, writes4 = {}, {}
+    for k, t, r, j in walk:
+        for i in range(n):
+            addr = r * sa + j + i
+            assert j + i < d
+            reads4.setdefault(addr, set()).add(t)
+            writes4.setdefault(addr, set()).add(t)
+    assert reads4 == writes4 and all(len(v) == 1 for v in writes4.values())
+    chain = set()
+    nb = d // 16
+    for r in range(rows):
+        for lane in range(WARP):
+            for b in range(lane, nb, WARP):
+                chain.update(r * sa + b * 16 + i for i in range(16))
+    assert chain == set(writes4)
+    rowvars = {r * sa + d + i for r in range(bm)
+               for i in range(LN_ROWVARS_BYTES)}
+    assert sa - d == LN_ROWVARS_BYTES and not rowvars & chain
+    zero = {r * sa + i for r in range(rows, bm) for i in range(d)}
+    assert not zero & chain and not zero & rowvars
+    assert threads >= bm                    # a thread sets each row's vars
+
+
+@pytest.mark.parametrize("mant_bits", range(2, 9))
+def test_act_quant_of_grid_values_is_exact(mant_bits):
+    """mxint_ln_matmul stores the LN output's grid mantissas as its act
+    mantissas: act quantization of values on the MXInt grid gives the
+    grid's mantissas and exponents, but for a block whose mantissas are
+    all 0, whose act exponent is 0, at every scale from below the
+    subnormals to 2^120 (the plain version quantizes twice)."""
+    rng = np.random.default_rng(mant_bits)
+    scales = np.arange(-170, 121, 3)
+    y = rng.normal(size=(len(scales), 64, 16)) * \
+        2.0 ** (scales[:, None, None] + rng.integers(-4, 5, size=(1, 64, 1)))
+    y[:, ::9] = 0.0
+    y = torch.from_numpy(y.reshape(-1, 16).astype(np.float32))
+    m1, e1 = block_quantize_rows(y, 16, mant_bits)
+    grid = mxint_layernorm.requantize_to_grid(y, 16, mant_bits)
+    m2, e2 = block_quantize_rows(grid, 16, mant_bits)
+    np.testing.assert_array_equal(m2.numpy(), m1.numpy())
+    zero = m1.abs().amax(-1) == 0
+    np.testing.assert_array_equal(
+        e2.numpy(), torch.where(zero, torch.zeros_like(e1), e1).numpy())
+    assert bool(zero.any()) and bool((e1[zero] != 0).any())
+
+
+def _f32(v):
+    return np.float32(v)
+
+
+def _block_exp(amax, mant_bits):
+    _, k = np.frexp(np.maximum(amax, np.float32(np.finfo(np.float32).tiny)))
+    return np.where(amax > 0, np.clip(k - 1 - (mant_bits - 2), -127, 127), 0)
+
+
+def _pow2(n):
+    return np.ldexp(np.float32(1.0), np.asarray(n)).astype(np.float32)
+
+
+def _quant(v, e, lim):
+    return np.clip(np.rint((v * _pow2(-e)).astype(np.float32)), -lim, lim)
+
+
+def _ln_stage_model(x, gamma, beta, block, mant_bits, rms_only, vec,
+                    threads, rows_per_cta, quantize_out):
+    """ln_rows and the layernorm kernel's epilogue in numpy float32, phase
+    by phase, over the piece walk: stage q and e, fold the row max, shift
+    in place and fold the integer sum, the 32 chains and the butterfly,
+    then each piece's output and its block's requantization."""
+    rows, d = x.shape
+    lim = float(2 ** (mant_bits - 1) - 1)
+    inv_d = _f32(1.0 / d)
+    nb = d // block
+    table = mxint_layernorm.lut_tensor(
+        mxint_layernorm.luts.rsqrt_table(5), "cpu")
+    out = np.zeros_like(x)
+    for r0 in range(0, rows, rows_per_cta):
+        xr = x[r0:r0 + rows_per_cta]
+        R = xr.shape[0]
+        walk, n, ppr, steps = _ln_walk(R, d, block, vec, threads)
+        m = np.zeros((R, d), np.int64)
+        e = np.zeros((R, nb), np.int64)
+        for _, _, r, j in walk:                         # phase 1
+            b = j // block
+            amax = np.abs(xr[r, b * block:(b + 1) * block]).max()
+            e[r, b] = _block_exp(amax, mant_bits)
+            m[r, j:j + n] = _quant(xr[r, j:j + n], e[r, b], lim)
+        emax = _fold_model(R, ppr, threads, steps, np.repeat(
+            e, block // n, axis=1).reshape(-1), max)
+        isum = [0] * R
+        for _, _, r, j in walk:                         # phase 2
+            sh = min(emax[r] - e[r, j // block], 31)
+            m[r, j:j + n] >>= sh
+            isum[r] += int(m[r, j:j + n].sum())
+        for r in range(R):                              # phase 3
+            mean = _f32(0.0) if rms_only else _f32(_f32(isum[r]) * inv_d)
+            c = m[r].astype(np.float32) - (0 if rms_only else mean)
+            var = mxint_layernorm.warp_row_sum(
+                _t((c * c).astype(np.float32).reshape(1, nb, block)))
+            inv = mxint_layernorm.rsqrt_lut_stage(var * inv_d, table, 5)
+            inv = _f32(inv.item())
+            y = ((c * inv).astype(np.float32) * gamma).astype(np.float32)
+            if not rms_only:
+                y = (y + beta).astype(np.float32)
+            if quantize_out:                            # phase 4
+                yb = y.reshape(nb, block)
+                eo = _block_exp(np.abs(yb).max(1), mant_bits)
+                y = (_quant(yb, eo[:, None], lim) * _pow2(eo)[:, None]
+                     ).astype(np.float32).reshape(d)
+            out[r0 + r] = y
+    return out
+
+
+@pytest.mark.parametrize("rows,d,block,rms,mant_bits,qout", [
+    (10, 768, 16, False, 8, True), (3, 4096, 16, True, 8, True),
+    (9, 768, 8, False, 8, False), (5, 96, 4, True, 8, True),
+    (7, 192, 12, False, 8, True), (6, 197, 1, False, 8, True),
+    (4, 768, 16, False, 12, True)])
+def test_ln_stage_model_matches_plain_version(rows, d, block, rms,
+                                              mant_bits, qout):
+    """The stage's phases, on both routes and over several CTAs, give the
+    plain version's values: quantize and stage, then shift in place, is
+    ``requantize_rows``' floor; the integer row sum, one rounding to f32,
+    is its f32 sum; the chains are ``warp_row_sum``.  Equal as values, as
+    the card's check compares them: where the plain version's float floor
+    keeps a -0.0 mantissa the integer shift gives 0, and the output is
+    -0.0 against 0.0 (the kernels have done so since they were ported)."""
+    x = _x((rows, d), seed=d + block, scale=2.0)
+    x[0, :block] *= np.float32(40.0)   # shifts saturate at 31
+    g = (1.0 + 0.1 * _x((d,), seed=3)).astype(np.float32)
+    b = (0.1 * _x((d,), seed=4)).astype(np.float32)
+    want = mxint_layernorm.layernorm_rows(
+        _t(x), _t(g), _t(b), act_block=block, mant_bits=mant_bits,
+        lut_bits=5, rms_only=rms, quantize_out=qout).numpy()
+    for aligned in (True, False):
+        vec = mxint_layernorm.ln_piece(block, aligned)
+        got = _ln_stage_model(x, g, b, block, mant_bits, rms, vec,
+                              mxint_layernorm.LN_THREADS, 4, qout)
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_sm", [132, 114])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_every_ln_shape_has_a_route(n_sm, aligned):
+    """Every row length the ops accept at every act block they resolve
+    maps to a route of the layernorm kernel whose shared memory fits the
+    H100's 227 KB a CTA (the global-stage route where one row does not);
+    the grid covers every row; a CTA takes more than one row only while
+    the card still gets two CTAs an SM."""
+    limit = mxint_layernorm.SMEM_LIMIT
+    ds = list(range(1, 2049)) + [3072, 4096, 8192, 14336, 16384, 57216,
+                                 57344, 65536, 262144]
+    for d in ds:
+        for want in (1, 2, 4, 8, 12, 16):
+            block = _resolve_block(d, want)
+            for rows in (1, 4, 37, 1024, 3152):
+                g = mxint_layernorm.ln_geometry(rows, d, block, n_sm, aligned)
+                assert g.vec == mxint_layernorm.ln_piece(block, aligned)
+                R = g.rows_per_cta
+                assert R in (1, 2, 4, 8) and g.grid * R >= rows > \
+                    (g.grid - 1) * R
+                assert R == 1 or -(-rows // R) >= 2 * n_sm
+                if g.stage_words:
+                    assert R == 1 and g.smem == 0 and g.route.endswith(
+                        "global")
+                    assert 4 * d + d // block > \
+                        limit - mxint_layernorm.LN_STATIC_SMEM
+                    assert 4 * g.stage_words >= 4 * d + d // block
+                    assert g.stage_words % 4 == 0
+                else:
+                    assert g.smem == R * (4 * d + d // block)
+                    assert g.smem + mxint_layernorm.LN_STATIC_SMEM <= limit
+
+
+# ---------------------------------------------------------------------------
 # the int8 tensor-core GEMM core: geometry, fragment layout, epilogue
 # ---------------------------------------------------------------------------
 # (M, N, K, fused LN): DeiT-Base batch 16, Llama-3-8B decode at batch 4 and
@@ -572,6 +931,23 @@ def test_dot_bias_conversion_is_exact():
         np.float32(12582912.0)
     np.testing.assert_array_equal(got, dot.astype(np.float32))
     assert not np.signbit(got[dot == 0]).any()
+
+
+def test_bias_rounding_is_rint():
+    """``quant_mant_small``: x * inv plus 1.5 * 2^23, read as int32 bits
+    minus 0x4B400000, then clamped, is (int)quant_mant's rintf (half to
+    even) and clamp for every |x * inv| < 2^22: the int8 LN stage's
+    mantissas (|x * inv| < 2^(mant_bits - 1))."""
+    rng = np.random.default_rng(3)
+    v = np.concatenate([np.arange(-600, 601) / np.float32(4.0),
+                        rng.uniform(-2.0 ** 21, 2.0 ** 21, 20000),
+                        [2.0 ** 22 - 0.5, -2.0 ** 22 + 0.5, 0.0, -0.0,
+                         127.5, -127.5, 128.5]]).astype(np.float32)
+    for lim in (1, 7, 127, 2 ** 21):
+        got = (v + np.float32(12582912.0)).view(np.int32) - 0x4B400000
+        got = np.clip(got, -lim, lim)
+        want = np.clip(np.rint(v), -lim, lim).astype(np.int32)
+        np.testing.assert_array_equal(got, want)
 
 
 def _core_model(x, w_mant, w_exp, w_block):
