@@ -59,10 +59,25 @@
    32 ``flash_attention`` launches, no whole-row softmax.
 6. LM card against CPU: the same architecture at full width, 2 layers, in
    float32, serves 2 requests (prompts 100 and 250, ``max_len`` 300, 4 new
-   tokens) and scores 640 tokens (the flash path) on the card and on the
-   CPU through the plain versions: identical tokens, argmax equal at every
-   position, logits within 1e-3 of their scale.
-7. Prints one JSON line of per-kernel results, then as the last line
+   tokens) and scores 640 tokens (the flash path in kernel mode) on the
+   card and on the CPU (the kernels' plain versions in kernel mode): in
+   kernel mode and in "off" (float weights), "sim" and "packed" (MXInt8
+   planes; both with the MXInt non-linears), which run the float decode
+   over the ring, the direct attention and the query-blocked attention.
+   Identical tokens, argmax equal at every position, logits within 1e-3 of
+   their scale; the non-kernel modes launch no kernel.
+7. Backends phase: DeiT-Base at full width and depth (the DeiT phase's
+   weights) serves the same 5 requests in "off" and "fake" (float
+   weights), "sim" and "packed" (MXInt6 planes) with the MXInt
+   non-linears, and "mixed": kernel mode on packed planes with the FFNs
+   overridden to "sim" (``QuantOverride``).  No kernel launches in the four
+   non-kernel modes; the mixed one launches 3 + 5 * 12 kernels a forward,
+   kernel by kernel.  Each is timed (ms per batch by CUDA events, device
+   busy time and idle share from a trace), held card against CPU at 2
+   layers and 4 images (argmax equal, logits within 1e-3 of their scale,
+   the count of differing elements printed), and sim is held against the
+   all-kernel model at full depth within ``SIM_KERNEL_TOL``.
+8. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -147,6 +162,21 @@ LM_NEW_TOKENS = 24
 LM_BATCH = 4
 LM_MAX_LEN = 2048
 LM_SCORE_TOKENS = 1024
+# "sim" against the all-kernel model on the same weights and images: the
+# linears' f32 sums run in another order (float64 against the kernels'
+# ordered f32 steps) and the GELU clips at -128 against -127, so a later
+# MXInt rounding step moves now and then.  Measured on the CPU
+# (tests/test_torch_backends.py::test_sim_against_kernel_within_tolerance):
+# 4-layer DeiT-Tiny 3.7e-2 of the logit scale, 8-layer 3.6e-2 with 7 of 8
+# argmax equal; held to a largest gap of 0.1 of the scale and at least 3/4
+# of the rows' argmax equal.
+SIM_KERNEL_TOL = {"max_gap_over_scale": 0.1, "argmax_agreement": 0.75}
+# the backends phase: label -> (mode, config kwargs, packed planes)
+BACKENDS = {"off": ("off", {}, False), "fake": ("fake", {}, False),
+            "sim": ("sim", {"quantize_nonlinear": True}, False),
+            "packed": ("packed", {"quantize_nonlinear": True}, True),
+            "mixed": ("kernel", {"quantize_nonlinear": True,
+                                 "overrides": "block/*/ffn"}, True)}
 
 
 def log(*a):
@@ -855,13 +885,56 @@ def kernel_breakdown(torch, run, names):
             for n, ev in events.items()}
 
 
+def deit_requests(np):
+    """The 5 requests of 1-16 images of the DeiT phases, and one full
+    batch of their first images."""
+    rng = np.random.default_rng(SEED + 1)
+    sizes = [int(s) for s in rng.integers(1, BATCH + 1, size=5)]
+    images = [rng.normal(size=(n, 224, 224, 3)).astype(np.float32)
+              for n in sizes]
+    full = np.concatenate(images)[:BATCH]
+    full = np.concatenate([full, np.zeros((BATCH - len(full),) + full.shape[1:],
+                                          np.float32)])
+    return sizes, images, full
+
+
+def serve_deit(torch, np, engine, sizes, images, tag):
+    """Serve the requests through ``ClassifyScheduler`` after a warm
+    batch, the launch counts set to 0 just before; returns (batches,
+    seconds, launches).  Raises unless every request finished in order
+    with finite logits of its shape."""
+    from repro_torch.serving.scheduler import ClassifyRequest, ClassifyScheduler
+    engine.logits_batch(np.zeros((BATCH, 224, 224, 3), np.float32))  # warm
+    torch.cuda.synchronize()
+    sched = ClassifyScheduler(engine)
+    for uid, imgs in enumerate(images):
+        sched.submit(ClassifyRequest(uid, imgs))
+    reset_counts()
+    t0 = time.perf_counter()
+    n_batches = 0
+    while sched.step():
+        n_batches += 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    log(f"[{tag}] request sizes={sizes} batches={n_batches} "
+        f"serve_s={serve_s!r} launches={launches}")
+    done = sched.finished
+    if [r.uid for r in done] != list(range(len(sizes))):
+        raise AssertionError(f"{tag}: requests did not all finish in order")
+    for r, n in zip(done, sizes):
+        if r.logits.shape != (n, 1000) or r.labels.shape != (n,) or \
+                not np.isfinite(r.logits).all():
+            raise AssertionError(f"{tag}: request {r.uid}: bad result shapes")
+    return n_batches, serve_s, launches
+
+
 def slice_phase(torch, np):
     from repro_torch.configs.deit import DEIT_BASE
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.models.vit import ViT
     from repro_torch.serving.engine import (ServeConfig, ViTServingEngine,
                                             params_to)
-    from repro_torch.serving.scheduler import ClassifyRequest, ClassifyScheduler
 
     L = DEIT_BASE.n_layers
     per_forward = {"mxint_matmul": 2 * L + 2, "mxint_ln_matmul": 4 * L,
@@ -876,42 +949,15 @@ def slice_phase(torch, np):
     engine = ViTServingEngine(model, params,
                               ServeConfig(batch=BATCH, pack_weights=True),
                               device=DEVICE)
-    rng = np.random.default_rng(SEED + 1)
-    sizes = [int(s) for s in rng.integers(1, BATCH + 1, size=5)]
-    images = [rng.normal(size=(n, 224, 224, 3)).astype(np.float32)
-              for n in sizes]
-    engine.logits_batch(np.zeros((BATCH, 224, 224, 3), np.float32))  # warm
-    torch.cuda.synchronize()
-
-    sched = ClassifyScheduler(engine)
-    for uid, imgs in enumerate(images):
-        sched.submit(ClassifyRequest(uid, imgs))
-    reset_counts()
-    t0 = time.perf_counter()
-    n_batches = 0
-    while sched.step():
-        n_batches += 1
-    torch.cuda.synchronize()
-    serve_s = time.perf_counter() - t0
-    launches = read_counts()
-    log(f"[slice] request sizes={sizes} batches={n_batches} "
-        f"serve_s={serve_s!r} launches={launches}")
-    done = sched.finished
-    if [r.uid for r in done] != list(range(len(sizes))):
-        raise AssertionError("requests did not all finish in order")
-    for r, n in zip(done, sizes):
-        if r.logits.shape != (n, 1000) or r.labels.shape != (n,) or \
-                not np.isfinite(r.logits).all():
-            raise AssertionError(f"request {r.uid}: bad result shapes")
+    sizes, images, full = deit_requests(np)
+    n_batches, serve_s, launches = serve_deit(torch, np, engine, sizes,
+                                              images, "slice")
     want = {n: c * n_batches for n, c in per_forward.items()}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     if sum(launches.values()) != (3 + 8 * L) * n_batches:
         raise AssertionError(f"launch total is not {3 + 8 * L} per batch")
 
-    full = np.concatenate(images)[:BATCH]
-    full = np.concatenate([full, np.zeros((BATCH - len(full),) + full.shape[1:],
-                                          np.float32)])
     ms_batch = time_ms(lambda: engine.logits_batch(full), iters=5)
     n_images = sum(sizes)
     stats = {"request_sizes": sizes, "batches": n_batches,
@@ -954,6 +1000,123 @@ def slice_phase(torch, np):
         raise AssertionError("card and CPU logits disagree beyond 1e-3 of "
                              "their scale or in argmax")
     return stats, launches
+
+
+def quant_config(mode, kw):
+    """A ``QuantConfig``; kw's "overrides" names a glob whose layer groups
+    run "sim"."""
+    from repro_torch.core.mx_types import QuantConfig, QuantOverride
+    kw = dict(kw)
+    pattern = kw.pop("overrides", None)
+    if pattern:
+        kw["overrides"] = ((pattern, QuantOverride(mode="sim")),)
+    return QuantConfig(mode=mode, **kw)
+
+
+def card_against_cpu(torch, np, model, params_cpu, images, packed, tag):
+    """(max gap, logit scale, differing elements, argmax equal) of
+    ``images`` through the model on the card and on the CPU."""
+    from repro_torch.serving.engine import (ServeConfig, ViTServingEngine,
+                                            params_to)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        eng = ViTServingEngine(model, params_to(params_cpu, dev), ServeConfig(
+            batch=len(images), pack_weights=packed), device=dev)
+        out[dev] = eng.classify(images)[1].float().cpu().numpy()
+        del eng
+    gpu, ref = out[DEVICE], out["cpu"]
+    gap, scale = float(np.abs(gpu - ref).max()), float(np.abs(ref).max())
+    differ = int((gpu != ref).sum())
+    agree = bool((gpu.argmax(-1) == ref.argmax(-1)).all())
+    log(f"[{tag}] card against cpu: max_abs_gap={gap!r} scale={scale!r} "
+        f"differing elements {differ} of {gpu.size}, argmax_agree={agree}")
+    if not agree or gap > 1e-3 * scale:
+        raise AssertionError(f"{tag}: card and CPU logits disagree beyond "
+                             f"1e-3 of their scale or in argmax")
+    return gap, scale, differ, agree
+
+
+def backends_phase(torch, np):
+    """DeiT-Base at full width and depth in the four non-kernel modes and
+    the kernel/sim-FFN mixed configuration (module docstring, item 7)."""
+    from repro_torch.configs.deit import DEIT_BASE
+    from repro_torch.models.vit import ViT
+    from repro_torch.serving.engine import ServeConfig, ViTServingEngine
+
+    L = DEIT_BASE.n_layers
+    mixed_per_forward = {"mxint_matmul": L + 2, "mxint_ln_matmul": 3 * L,
+                         "mxint_softmax": L, "mxint_gelu": 0,
+                         "mxint_layernorm": 1, "flash_attention": 0,
+                         "flash_attention_decode": 0}
+    assert sum(mixed_per_forward.values()) == 3 + 5 * L
+    sizes, images, full = deit_requests(np)
+    imgs4 = np.concatenate(images)[:4]
+    params = ViT(DEIT_BASE).init(SEED, device=DEVICE)     # the DeiT phase's
+    small = ViT(dataclasses.replace(DEIT_BASE, n_layers=2)).init(
+        SEED, device="cpu")
+    kernel = ViTServingEngine(
+        ViT(dataclasses.replace(DEIT_BASE, quant=quant_config(
+            "kernel", {"quantize_nonlinear": True}))), params,
+        ServeConfig(batch=BATCH, pack_weights=True), device=DEVICE)
+    kernel_logits = kernel.logits_batch(full).float().cpu()
+    del kernel
+    results, mixed_launches = {}, None
+    for label, (mode, kw, packed) in BACKENDS.items():
+        tag = f"backends {label}"
+        cfg = dataclasses.replace(DEIT_BASE, quant=quant_config(mode, kw))
+        engine = ViTServingEngine(ViT(cfg), params, ServeConfig(
+            batch=BATCH, pack_weights=packed), device=DEVICE)
+        n_batches, serve_s, launches = serve_deit(torch, np, engine, sizes,
+                                                  images, tag)
+        per_forward = (mixed_per_forward if label == "mixed"
+                       else dict.fromkeys(mixed_per_forward, 0))
+        want = {n: c * n_batches for n, c in per_forward.items()}
+        if launches != want:
+            raise AssertionError(f"{tag}: launches {launches} != {want}")
+        if label == "mixed":
+            mixed_launches = launches
+        ms = time_ms(lambda: engine.logits_batch(full), iters=5)
+        busy = device_ms(lambda: engine.logits_batch(full), iters=3,
+                         cats=BUSY_CATS)
+        res = {"mode": mode, "config": cfg.quant.describe(),
+               "overrides": kw.get("overrides"), "packed_planes": packed,
+               "batches": n_batches, "serve_s": serve_s,
+               "launches": launches,
+               "launches_per_forward": sum(per_forward.values()),
+               "ms_per_batch": ms, "images_per_s": BATCH / (ms / 1e3),
+               "device_busy_ms_per_batch": busy,
+               "device_idle_share": idle_share(busy, ms)}
+        log(f"[{tag}] ms_per_batch={ms!r} (batch {BATCH}) images_per_s="
+            f"{res['images_per_s']!r} device busy {busy!r} ms, idle share "
+            f"{res['device_idle_share']!r}; launches per forward "
+            f"{res['launches_per_forward']}")
+        if label == "sim":
+            logits = engine.logits_batch(full).float().cpu()
+            if not bool(torch.isfinite(logits).all()):
+                raise AssertionError(f"{tag}: non-finite logits")
+            scale = float(kernel_logits.abs().max())
+            gap = float((logits - kernel_logits).abs().max()) / scale
+            agree = float((logits.argmax(-1) == kernel_logits.argmax(-1))
+                          .float().mean())
+            res.update(sim_vs_kernel_max_gap_over_scale=gap,
+                       sim_vs_kernel_argmax_agreement=agree,
+                       sim_vs_kernel_tolerance=SIM_KERNEL_TOL)
+            log(f"[{tag}] against the all-kernel model, {L} layers, "
+                f"{BATCH} images: max gap / scale {gap!r} (limit "
+                f"{SIM_KERNEL_TOL['max_gap_over_scale']}), argmax agreement "
+                f"{agree!r} (limit {SIM_KERNEL_TOL['argmax_agreement']})")
+            if gap > SIM_KERNEL_TOL["max_gap_over_scale"] or \
+                    agree < SIM_KERNEL_TOL["argmax_agreement"]:
+                raise AssertionError(f"{tag}: sim and kernel logits differ "
+                                     f"beyond {SIM_KERNEL_TOL}")
+        del engine
+        gap, scale, differ, agree = card_against_cpu(
+            torch, np, ViT(dataclasses.replace(cfg, n_layers=2)), small,
+            imgs4, packed, tag)
+        res.update(cpu_gap=gap, cpu_logit_scale=scale,
+                   cpu_differing_elements=differ, argmax_agree=agree)
+        results[label] = res
+    return results, mixed_launches
 
 
 def lm_per_call(L: int, decode: bool, score: bool = False):
@@ -1126,55 +1289,81 @@ def lm_score_phase(torch, np, model, engine):
     return stats, launches
 
 
+# phase 6: label -> (mode, config kwargs, MXInt8 planes)
+LM_CPU_MODES = {"kernel": ("kernel", {"quantize_nonlinear": True}, True),
+                "off": ("off", {}, False),
+                "sim": ("sim", {"quantize_nonlinear": True}, True),
+                "packed": ("packed", {"quantize_nonlinear": True}, True)}
+
+
 def lm_cpu_phase(torch, np):
     """The Llama-3-8B architecture at full width, 2 layers, float32: the
-    card against the CPU's plain versions, serving and scoring."""
+    card against the CPU, serving and scoring, in kernel mode and in the
+    "off", "sim" and "packed" modes."""
     from repro_torch.configs.llama3_8b import FULL
-    from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
+    from repro_torch.core.mx_types import MXINT8_WEIGHT
     from repro_torch.models.transformer import DecoderLM
-    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
+                                            pack_params_mxint)
     from repro_torch.serving.scheduler import BatchScheduler, Request
 
-    for fn in (torch.exp, torch.sin, torch.cos, torch.log):
+    for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
         fn(torch.ones(1))       # first multi-threaded CPU calls may differ
-    cfg = dataclasses.replace(
-        FULL, n_layers=2, dtype=torch.float32,
-        quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
-    model = DecoderLM(cfg)
-    params = model.init(SEED, device="cpu", pack_fmt=MXINT8_WEIGHT)
+        fn(torch.ones(1, dtype=torch.float64))
+    base = dataclasses.replace(FULL, n_layers=2, dtype=torch.float32)
+    floats = DecoderLM(base).init(SEED, device="cpu")
+    planes = pack_params_mxint(floats, MXINT8_WEIGHT)
     rng = np.random.default_rng(SEED + 4)
-    prompts = [rng.integers(0, cfg.vocab, size=n).astype(np.int32)
+    prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
                for n in (100, 250)]
-    toks = rng.integers(0, cfg.vocab, size=(1, 640)).astype(np.int32)
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        t0 = time.perf_counter()
-        eng = ServingEngine(model, params, ServeConfig(max_len=300, batch=2),
-                            device=dev)
-        sched = BatchScheduler(eng, batch_size=2)
-        for uid, pr in enumerate(prompts):
-            sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
-        tokens = {r.uid: r.generated for r in sched.run()}
-        logits = model.forward(eng.params, toks).float().cpu().numpy()
-        out[dev] = (tokens, logits, time.perf_counter() - t0)
-        del eng
-        log(f"[lm cpu] {dev}: served and scored in {out[dev][2]!r} s")
-    (tg, lg, gs), (tc, lc, cs) = out[DEVICE], out["cpu"]
-    gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
-    diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
-    stats = {"layers": 2, "tokens_card": tg, "tokens_cpu": tc, "card_s": gs,
-             "cpu_s": cs, "score_logits_max_abs_gap": gap,
-             "score_logits_scale": scale, "argmax_differ": diff,
-             "positions": int(lg.shape[1])}
-    log(f"[lm cpu] tokens card={tg} cpu={tc}; 640-token logits "
-        f"max_abs_gap={gap!r} scale={scale!r}, argmax differs at {diff} of "
-        f"{lg.shape[1]} positions")
-    if tg != tc:
-        raise AssertionError("card and CPU generated different tokens")
-    if diff or gap > 1e-3 * scale:
-        raise AssertionError("card and CPU logits disagree beyond 1e-3 of "
-                             "their scale or in argmax")
-    return stats
+    toks = rng.integers(0, base.vocab, size=(1, 640)).astype(np.int32)
+    results = {}
+    for label, (mode, kw, packed) in LM_CPU_MODES.items():
+        model = DecoderLM(dataclasses.replace(base,
+                                              quant=quant_config(mode, kw)))
+        params = planes if packed else floats
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            reset_counts()
+            eng = ServingEngine(model, params, ServeConfig(max_len=300,
+                                                           batch=2),
+                                device=dev)
+            sched = BatchScheduler(eng, batch_size=2)
+            for uid, pr in enumerate(prompts):
+                sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
+            tokens = {r.uid: r.generated for r in sched.run()}
+            logits = model.forward(eng.params, toks).float().cpu().numpy()
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launches = read_counts()
+            out[dev] = (tokens, logits, time.perf_counter() - t0)
+            del eng
+            log(f"[lm cpu {label}] {dev}: served and scored in "
+                f"{out[dev][2]!r} s")
+        (tg, lg, gs), (tc, lc, cs) = out[DEVICE], out["cpu"]
+        gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
+        diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
+        results[label] = {
+            "layers": 2, "tokens_card": tg, "tokens_cpu": tc, "card_s": gs,
+            "cpu_s": cs, "score_logits_max_abs_gap": gap,
+            "score_logits_scale": scale, "argmax_differ": diff,
+            "score_logits_differing_elements": int((lg != lc).sum()),
+            "positions": int(lg.shape[1]), "card_launches": launches}
+        log(f"[lm cpu {label}] tokens card={tg} cpu={tc}; 640-token logits "
+            f"max_abs_gap={gap!r} scale={scale!r}, differing elements "
+            f"{results[label]['score_logits_differing_elements']}, argmax "
+            f"differs at {diff} of {lg.shape[1]} positions; card launches "
+            f"{launches}")
+        if tg != tc:
+            raise AssertionError(f"{label}: card and CPU generated different "
+                                 f"tokens")
+        if diff or gap > 1e-3 * scale:
+            raise AssertionError(f"{label}: card and CPU logits disagree "
+                                 f"beyond 1e-3 of their scale or in argmax")
+        if mode != "kernel" and any(launches.values()):
+            raise AssertionError(f"{label}: launched kernels {launches}")
+    return results
 
 
 def main(argv) -> int:
@@ -1191,8 +1380,13 @@ def main(argv) -> int:
     import numpy as np
     from repro_torch.kernels import _build
 
+    # every float32 matmul (the unembedding, the plain versions) in full
+    # float32: no TF32 tensor-core rounding
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1225,12 +1419,17 @@ def main(argv) -> int:
     del model, engine
     torch.cuda.empty_cache()
     cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np)
+    backend_stats, mixed_launches = phase("backends", backends_phase, torch,
+                                          np)
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
              ("lm serve", lm_stats["launches"],
               common + ("flash_attention_decode",)),
-             ("lm score", score_launches, common + ("flash_attention",)))
+             ("lm score", score_launches, common + ("flash_attention",)),
+             ("deit mixed", mixed_launches, ("mxint_ln_matmul",
+                                             "mxint_matmul", "mxint_softmax",
+                                             "mxint_layernorm")))
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -1241,7 +1440,8 @@ def main(argv) -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
-         "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats}, indent=1))
+         "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
+         "backends": backend_stats}, indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

@@ -6,8 +6,11 @@ points run on ``cuda`` unless the caller passes ``device="cpu"``; on the
 CPU every kernel wrapper runs its plain PyTorch version instead of the
 CUDA kernel.
 
-This slice covers the paper's deployment: a DeiT classifier served fully
-MXInt-quantized (``QuantConfig(mode="kernel", quantize_nonlinear=True)``)
-on packed weight planes through ``ViTServingEngine`` and
-``ClassifyScheduler``.
+It covers the DeiT classifier and the dense decoder LM, served through
+``ViTServingEngine`` / ``ClassifyScheduler`` and ``ServingEngine`` /
+``BatchScheduler``, in the five execution modes of ``QuantConfig``: the
+paper's deployment ``mode="kernel"`` on packed weight planes, the float
+baseline "off", quantize-dequantize "fake", the bit-accurate MXInt oracle
+"sim" and the dequantize-then-float "packed", with per-layer-group
+overrides (``QuantOverride``).
 """

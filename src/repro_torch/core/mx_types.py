@@ -2,20 +2,21 @@
 
 A block of values shares one 8-bit exponent while each value keeps a small
 signed-integer mantissa; a value is reconstructed as ``x = 2**e_block * m``
-(paper Eq. 2).  Counterpart of ``repro.core.mx_types`` without the
-per-layer overrides, which come with the design-space exploration port.
+(paper Eq. 2).  Counterpart of ``repro.core.mx_types``: the formats, the
+non-linear datapath knobs, and ``QuantConfig`` with its per-layer-group
+overrides.
 """
 from __future__ import annotations
 
 import dataclasses
+import fnmatch
 import functools
 import math
 from typing import Optional
 
 import torch
 
-# The five execution-mode names of the reference.  Only "kernel" has a
-# backend in this port so far (see ``repro_torch.datapath``).
+# The five execution-mode names (see ``QuantConfig``).
 MODES = ("off", "fake", "sim", "packed", "kernel")
 
 # Masking sentinel shared by the attention models, ops and kernels (the
@@ -119,13 +120,54 @@ class NonlinearConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class QuantOverride:
+    """A per-layer-group patch on a ``QuantConfig``.
+
+    Every field is optional; None inherits from the base config.  A config
+    carries overrides as ``(pattern, override)`` pairs, ``pattern`` an
+    ``fnmatch`` glob matched against the scope tag a model passes at its
+    call sites ("block/3/ffn", "head", ...): per-layer-group backends,
+    formats and LUT widths without forking the model code.
+    """
+
+    mode: Optional[str] = None
+    weight_fmt: Optional[MXFormat] = None
+    act_fmt: Optional[MXFormat] = None
+    nonlinear: Optional[NonlinearConfig] = None
+    quantize_nonlinear: Optional[bool] = None
+
+    _FIELDS = ("mode", "weight_fmt", "act_fmt", "nonlinear",
+               "quantize_nonlinear")
+
+    def patch(self) -> dict:
+        """The fields that are not None, as ``dataclasses.replace`` kwargs."""
+        return {f: getattr(self, f) for f in self._FIELDS
+                if getattr(self, f) is not None}
+
+
+@dataclasses.dataclass(frozen=True)
 class QuantConfig:
     """Quantization policy for a model.
 
-    ``mode`` names the execution backend (one of ``MODES``).  This port
-    implements "kernel": packed int8 weight planes fed straight into the
-    hand-written Hopper kernels, with LayerNorm, GELU and softmax on the
-    in-kernel MXInt datapaths when ``quantize_nonlinear`` is set.
+    ``mode`` names the execution backend (one of ``MODES``):
+
+      "off"    -- the float reference path;
+      "fake"   -- quantize-dequantize of the linears' weights and
+                  activations in float, straight-through gradients;
+      "sim"    -- the bit-accurate MXInt emulation (``core/nonlinear.py``
+                  for LayerNorm, GELU/SiLU and softmax), the oracle the
+                  kernels are held against;
+      "packed" -- packed int8 weight planes dequantized into float
+                  linears, the non-linear datapaths as in "sim";
+      "kernel" -- packed planes fed straight into the hand-written Hopper
+                  kernels, LayerNorm, GELU and softmax on the in-kernel
+                  MXInt datapaths when ``quantize_nonlinear`` is set.
+
+    ``emulate`` swaps the linears' MXInt grid for the Table V baselines
+    ("int": per-tensor integers, "fp8": e4m3); ``nl_emulate`` swaps the
+    non-linear datapaths for the Tables II-IV baselines ("fixedpoint",
+    "relu6").  Both are float emulations with no kernel counterpart.
+    ``overrides``: ``(glob, QuantOverride)`` pairs resolved by ``scoped``.
     """
 
     mode: str = "off"
@@ -134,21 +176,88 @@ class QuantConfig:
     nonlinear: Optional[NonlinearConfig] = None
     quantize_nonlinear: bool = False
     nl_ops: tuple = ("layernorm", "gelu", "softmax")
+    emulate: Optional[str] = None
+    nl_emulate: Optional[str] = None
+    overrides: tuple = ()
 
     def __post_init__(self):
-        if getattr(self, "mode") not in MODES:
-            raise ValueError(f"unknown quant mode {getattr(self, 'mode')!r}")
+        mode = getattr(self, "mode")
+        if mode not in MODES:
+            raise ValueError(f"unknown quant mode {mode!r}")
+        if self.emulate not in (None, "int", "fp8"):
+            raise ValueError(f"unknown emulate {self.emulate!r}")
+        if mode == "kernel" and (self.emulate is not None or
+                                 self.nl_emulate is not None):
+            raise ValueError("mode='kernel' runs the MXInt kernel datapaths; "
+                             "emulate/nl_emulate baselines are float "
+                             "emulations only")
         if self.quantize_nonlinear and self.nonlinear is None:
             object.__setattr__(self, "nonlinear", NonlinearConfig())
+        entries = getattr(self, "overrides")
+        if entries:
+            norm = []
+            for entry in entries:
+                try:
+                    pattern, ov = entry
+                except (TypeError, ValueError):
+                    raise ValueError(
+                        f"overrides entries must be (pattern, QuantOverride) "
+                        f"pairs, got {entry!r}") from None
+                if not isinstance(pattern, str) or not pattern:
+                    raise ValueError(f"override pattern must be a non-empty "
+                                     f"glob string, got {pattern!r}")
+                if not isinstance(ov, QuantOverride):
+                    raise TypeError(f"override for {pattern!r} must be a "
+                                    f"QuantOverride, got "
+                                    f"{type(ov).__name__}")
+                norm.append((pattern, ov))
+            object.__setattr__(self, "overrides", tuple(norm))
 
     @property
     def enabled(self) -> bool:
         return getattr(self, "mode") != "off"
 
+    @property
+    def has_overrides(self) -> bool:
+        """True when per-layer-group patches are attached."""
+        return bool(getattr(self, "overrides"))
+
     def scoped(self, scope: Optional[str]) -> "QuantConfig":
-        """The effective config for layer group ``scope``: this config,
-        since the port carries no per-layer patches yet."""
-        return self
+        """The effective config for layer group ``scope``.
+
+        Matching patterns apply in declaration order, later entries
+        winning field by field; the result has no overrides (so scoping is
+        idempotent) and is cached per scope on this instance.  With no
+        overrides, or ``scope`` None, this is ``self``.
+        """
+        if scope is None or not self.has_overrides:
+            return self
+        cache = self.__dict__.setdefault("_scoped_cache", {})
+        got = cache.get(scope)
+        if got is None:
+            patch: dict = {}
+            for pattern, ov in getattr(self, "overrides"):
+                if fnmatch.fnmatchcase(scope, pattern):
+                    patch.update(ov.patch())
+            got = cache[scope] = dataclasses.replace(self, overrides=(),
+                                                     **patch)
+        return got
+
+    def describe(self) -> dict:
+        """JSON-serializable summary of the config."""
+        nl = self.nonlinear
+        return {
+            "mode": getattr(self, "mode"),
+            "weight_fmt": {"mant_bits": self.weight_fmt.mant_bits,
+                           "block_size": self.weight_fmt.block_size},
+            "act_fmt": {"mant_bits": self.act_fmt.mant_bits,
+                        "block_size": self.act_fmt.block_size},
+            "quantize_nonlinear": self.quantize_nonlinear,
+            "nonlinear": None if nl is None else {
+                "ln_lut_bits": nl.ln_lut_bits,
+                "gelu_lut_bits": nl.gelu_lut_bits,
+                "softmax_r_bits": nl.softmax_r_bits},
+        }
 
     @functools.cached_property
     def datapath(self):

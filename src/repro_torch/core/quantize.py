@@ -64,6 +64,17 @@ def pow2i(n: torch.Tensor) -> torch.Tensor:
     return torch.where(n > 127, torch.full_like(out, float("inf")), out)
 
 
+def repeat_blocks(t: torch.Tensor, block: int, axis: int) -> torch.Tensor:
+    """Each entry of ``t`` repeated ``block`` times along ``axis`` (one per
+    element of its block): an expand and a reshape, where
+    ``repeat_interleave`` may wait for the device to size its output."""
+    axis = axis % t.ndim
+    shape = t.shape[:axis + 1] + (block,) + t.shape[axis + 1:]
+    out = t.unsqueeze(axis + 1).expand(shape)
+    return out.reshape(t.shape[:axis] + (t.shape[axis] * block,) +
+                       t.shape[axis + 1:])
+
+
 def _resolve_block(dim: int, block_size: int) -> int:
     """Clamp the block size to the dimension: the block itself when it
     divides ``dim``, ``dim`` when smaller, else the largest divisor of
@@ -103,8 +114,60 @@ def quantize(x: torch.Tensor, fmt: MXFormat, axis: int = -1) -> MXTensor:
 
 def dequantize(t: MXTensor, dtype=torch.float32) -> torch.Tensor:
     """Reconstruct x = m * 2^e."""
-    scale = pow2i(t.exponent).repeat_interleave(t.block_size, dim=t.scale_axis)
+    scale = repeat_blocks(pow2i(t.exponent), t.block_size, t.scale_axis)
     return (t.mantissa.to(torch.float32) * scale).to(dtype)
+
+
+def quantize_dequantize(x: torch.Tensor, fmt: MXFormat,
+                        axis: int = -1) -> torch.Tensor:
+    """x snapped onto the MXInt grid, in x's dtype."""
+    return dequantize(quantize(x, fmt, axis), dtype=x.dtype)
+
+
+class _FakeQuant(torch.autograd.Function):
+    """Quantize-dequantize forward, straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x, mant_bits, block_size, axis):
+        fmt = MXFormat(mant_bits=mant_bits, block_size=block_size)
+        return quantize_dequantize(x, fmt, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def fake_quant(x: torch.Tensor, mant_bits: int, block_size: int,
+               axis: int) -> torch.Tensor:
+    """``quantize_dequantize`` whose gradient passes through unchanged."""
+    return _FakeQuant.apply(x, mant_bits, block_size, axis)
+
+
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c with c filled into a tensor on x's device: ATen multiplies a
+    CUDA tensor by the reciprocal of a host scalar divisor, which can
+    differ from the quotient in the last bit; a tensor divisor divides.
+    The fill copies nothing from the host, so nothing waits."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
+def per_tensor_int_qdq(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Symmetric per-tensor integer quantize-dequantize (the paper's IntN
+    rows of Table V)."""
+    lim = 2 ** (bits - 1)
+    amax = torch.clamp(x.abs().amax(), min=1e-12)
+    s = div(amax, lim - 1)
+    return (torch.clamp(torch.round(x / s), -lim, lim - 1) * s).to(x.dtype)
+
+
+def fp8_e4m3_qdq(x: torch.Tensor) -> torch.Tensor:
+    """e4m3 emulation: 3 explicit mantissa bits (frexp exponent clipped to
+    [-6, 9], round half to even), saturating at +-448."""
+    xf = x.to(torch.float32)
+    _, e = torch.frexp(xf)
+    scale = pow2i(3 - e.clamp(-6, 9))
+    q = torch.round(xf * scale) / scale
+    return torch.clamp(q, -448.0, 448.0).to(x.dtype)
 
 
 def requantize_to_max_exponent(t: MXTensor, axis: int = -1):
@@ -121,7 +184,7 @@ def requantize_to_max_exponent(t: MXTensor, axis: int = -1):
         raise ValueError("requantize must reduce along the block axis")
     e = t.exponent.to(torch.int32)
     e_max = e.amax(dim=axis, keepdim=True)
-    shift = (e_max - e).repeat_interleave(t.block_size, dim=axis)
+    shift = repeat_blocks(e_max - e, t.block_size, axis)
     m = t.mantissa.to(torch.int32) >> shift.clamp(max=31)
     return m, e_max
 

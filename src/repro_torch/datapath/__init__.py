@@ -1,11 +1,16 @@
 """Execution backends for the quantized-op protocol.
 
-One ``Datapath`` instance per execution mode.  ``resolve(q)`` maps a
-config to its backend; models reach it through the cached
-``QuantConfig.datapath`` and never branch on the mode themselves.
+One ``Datapath`` instance per execution mode:
 
-Only "kernel" has a backend in this port so far; every other mode raises
-``NotImplementedError`` naming the work queue in ROADMAP.md that brings it.
+  "off" / "fake"    -> ``torch_float``   (float; "fake" adds QDQ)
+  "sim" / "packed"  -> ``mxint_sim``     (bit-accurate MXInt emulation,
+                                          the Tables II-V baselines)
+  "kernel"          -> ``hopper_kernel`` (the hand-written Hopper kernels
+                                          and the fused LN -> linear)
+
+``resolve(q, scope)`` maps a config to its backend; models reach it
+through the cached ``QuantConfig.datapath`` and never branch on the mode
+themselves.  ``register_backend`` lets another backend claim a mode.
 """
 from __future__ import annotations
 
@@ -13,10 +18,25 @@ from typing import Dict
 
 from repro_torch.datapath.base import Datapath
 from repro_torch.datapath.hopper_kernel import HopperKernelDatapath
+from repro_torch.datapath.mxint_sim import MXIntSimDatapath
+from repro_torch.datapath.torch_float import TorchFloatDatapath
 
-__all__ = ["Datapath", "HopperKernelDatapath", "resolve", "backends"]
+__all__ = ["Datapath", "resolve", "register_backend", "backends",
+           "TorchFloatDatapath", "MXIntSimDatapath", "HopperKernelDatapath"]
 
-_BACKENDS: Dict[str, Datapath] = {"kernel": HopperKernelDatapath()}
+_BACKENDS: Dict[str, Datapath] = {}
+
+
+def register_backend(mode: str, backend: Datapath,
+                     override: bool = False) -> Datapath:
+    """Register ``backend`` for the execution mode ``mode``; registering a
+    mode twice raises unless ``override``."""
+    if not override and mode in _BACKENDS:
+        raise ValueError(f"mode {mode!r} already has backend "
+                         f"{_BACKENDS[mode].name!r}")
+    _BACKENDS[mode] = backend
+    return backend
+
 
 def backends() -> Dict[str, Datapath]:
     """Copy of the mode -> backend registry."""
@@ -24,13 +44,18 @@ def backends() -> Dict[str, Datapath]:
 
 
 def resolve(q, scope=None) -> Datapath:
-    """Backend for the config's execution mode (``scope`` is accepted for
-    the reference's signature; the port has no per-scope patches)."""
+    """Backend for the config's mode, after the overrides of ``scope``
+    (a scope whose override swaps the mode resolves to another backend)."""
     mode = getattr(q.scoped(scope), "mode")
-    backend = _BACKENDS.get(mode)
-    if backend is None:
-        raise NotImplementedError(
-            f"mode {mode!r} is not ported yet: the sim, packed, off and fake "
-            f"backends and nonlinear.py are queued in ROADMAP.md "
-            f"('Other backends')")
-    return backend
+    try:
+        return _BACKENDS[mode]
+    except KeyError:
+        raise ValueError(f"no datapath backend registered for mode "
+                         f"{mode!r}; known: {sorted(_BACKENDS)}") from None
+
+
+register_backend("off", TorchFloatDatapath(qdq_linears=False))
+register_backend("fake", TorchFloatDatapath(qdq_linears=True))
+register_backend("sim", MXIntSimDatapath(qdq_linears=True))
+register_backend("packed", MXIntSimDatapath(qdq_linears=False))
+register_backend("kernel", HopperKernelDatapath())

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import nonlinear as nl
 from repro_torch.core.quantize import MXTensor, pack_weight
 from repro_torch.datapath.base import Datapath
 from repro_torch.kernels import ops
@@ -93,9 +94,11 @@ class HopperKernelDatapath(Datapath):
         if not self.nl_on(q, "softmax"):
             return super().softmax(x, q=q, axis=axis)
         if axis not in (-1, x.ndim - 1):
-            raise NotImplementedError(
-                "the MXInt softmax kernel reduces the last axis; other axes "
-                "need the sim datapath (nonlinear.py), not yet ported")
+            # the whole-row kernel reduces the last axis; along another
+            # axis the op is the sim datapath, as in the reference
+            y = nl.softmax_value(x.to(torch.float32), q.nonlinear, q.act_fmt,
+                                 axis=axis)
+            return y.to(x.dtype)
         y = ops.mxint_softmax_op(x, act_block=q.act_fmt.block_size,
                                  mant_bits=q.act_fmt.mant_bits,
                                  r_bits=q.nonlinear.softmax_r_bits,

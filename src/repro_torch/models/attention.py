@@ -3,10 +3,16 @@
 This module owns the orchestration (projections, RoPE, cache ring
 arithmetic, mask semantics); the attention core dispatches through the
 backend resolved from the config (``quant.datapath``): the cache-less path
-to ``attention`` (the kernels' whole-row or flash attention), decode to
-``attention_decode`` (one fused kernel over the ring).  Prefill into a
-cache runs ``_q_chunked_attention``, plain float attention that the
-reference computes outside any kernel in every mode.
+to ``attention``, decode to ``attention_decode``.  The kernel backend runs
+them in the kernels (whole-row, flash, one fused decode kernel over the
+ring); the float and sim backends run ``_direct_attention`` (the masked
+softmax on the whole score matrix) or ``_q_chunked_attention``.  Prefill
+into a cache runs ``_q_chunked_attention``, plain float attention that
+the reference computes outside any kernel in every mode.
+
+Float products and sums run in float64 and round once to float32 (then
+to the model dtype), so they do not depend on the device's summation
+order.
 
 KV caches are (b, W, kv_heads, hd) rings, written in place.  With a window
 W < max_len, slot i of row b at step t holds absolute position
@@ -18,7 +24,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.core.mx_types import QuantConfig
+from repro_torch.core.mx_types import NEG_INF, QuantConfig
+from repro_torch.kernels.mxint_layernorm import f32
 from repro_torch.models import layers as L
 from repro_torch.models.model_api import ModelConfig
 
@@ -31,6 +38,44 @@ def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
     shape = (batch, W, cfg.n_kv_heads, cfg.hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _gqa_scores(q, k, scale: float) -> torch.Tensor:
+    """q: (b, s, kv, g, hd); k: (b, S, kv, hd) -> (b, kv, g, s, S) scores
+    in q's dtype, times ``scale``."""
+    s = torch.einsum("bskgd,bSkd->bkgsS", q.double(), k.double())
+    return s.float().to(q.dtype) * f32(scale)
+
+
+def positions_mask(positions: torch.Tensor, s: int, kv_len: int,
+                   causal: bool, window: int) -> torch.Tensor:
+    """(1|b, s, kv_len) bool mask from per-row positions (1|b, >=s).
+    Self-attention keys carry the queries' position values; cross keys
+    are indices."""
+    pos2 = positions if positions.ndim == 2 else positions.reshape(1, -1)
+    q_pos = pos2[:, -s:]
+    if kv_len == s:
+        k_pos = q_pos[:, None, :]
+    else:
+        k_pos = torch.arange(kv_len, device=positions.device)[None, None, :]
+    mask = torch.ones((q_pos.shape[0], s, kv_len), dtype=torch.bool,
+                      device=positions.device)
+    if causal:
+        mask &= q_pos[:, :, None] >= k_pos
+    if window > 0:
+        mask &= (q_pos[:, :, None] - k_pos) < window
+    return mask
+
+
+def _direct_attention(q, k, v, mask, quant: QuantConfig, scale: float):
+    """The masked softmax of the whole score matrix through the backend's
+    softmax, then P.V.  mask broadcasts against (b, kv, g, s, S)."""
+    sc = torch.where(mask, _gqa_scores(q, k, scale).to(torch.float32),
+                     NEG_INF)
+    p = L.softmax(sc, quant, axis=-1).to(q.dtype)
+    p = torch.where(mask, p, 0.0)
+    o = torch.einsum("bkgsS,bSkd->bskgd", p.double(), v.double())
+    return o.float().to(q.dtype)
 
 
 def _q_chunked_attention(q, k, v, *, causal: bool, window: int, chunk: int,

@@ -17,23 +17,25 @@ from repro_torch.models.model_api import Param
 
 def embed_lookup(tokens: torch.Tensor, table: Param, q: QuantConfig,
                  dtype) -> torch.Tensor:
-    """Rows of the embedding table for ``tokens``.  A packed table has its
-    mantissa and exponent rows gathered first and only those dequantized:
-    the same bits as dequantizing the whole (vocab, d) table, which never
-    happens per step."""
+    """Rows of the embedding table for ``tokens``, through the backend's
+    ``weight_value``.  A packed table has its mantissa and exponent rows
+    gathered first and only those dequantized: the same bits as
+    dequantizing the whole (vocab, d) table, which never happens per step.
+    A float table goes through ``weight_value`` whole, since a backend
+    that quantize-dequantizes it blocks along the vocab axis."""
     tv = table.value
     if isinstance(tv, MXTensor):
         tv = tv._replace(mantissa=tv.mantissa[tokens],
                          exponent=tv.exponent[tokens])
-    else:
-        tv = tv[tokens]
-    return q.datapath.weight_value(tv, q=q, dtype=dtype)
+        return q.datapath.weight_value(tv, q=q, dtype=dtype)
+    return q.datapath.weight_value(tv, q=q, dtype=dtype)[tokens]
 
 
 def unembed(x: torch.Tensor, table: Param, q: QuantConfig) -> torch.Tensor:
-    """x (..., d) against the (vocab, d) table: the dequantized table in a
-    plain ``torch.matmul``, a product the reference leaves outside any
-    kernel."""
+    """x (..., d) against the (vocab, d) table: the backend's
+    ``weight_value`` of the table (dequantized planes, or quantize-
+    dequantized floats in "fake" and "sim") in a plain ``torch.matmul``, a
+    product the reference leaves outside any kernel."""
     tf = q.datapath.weight_value(table.value, q=q, dtype=x.dtype)
     return torch.matmul(x, tf.t())
 

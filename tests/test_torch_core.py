@@ -144,14 +144,21 @@ def test_pack_weight_matches():
 # ---------------------------------------------------------------------------
 # config and dispatch
 # ---------------------------------------------------------------------------
-def test_quant_config_resolves_only_kernel():
+def test_quant_config_resolves_each_mode_to_the_reference_counterpart():
+    """Each of the five modes resolves to the port's counterpart of the
+    reference's backend, with the same capability flags."""
+    from repro.core.mx_types import QuantConfig as JQuantConfig
+    names = {"torch_float": "xla_float", "mxint_sim": "mxint_sim",
+             "hopper_kernel": "pallas_kernel"}
+    for mode in ("off", "fake", "sim", "packed", "kernel"):
+        dp = QuantConfig(mode=mode, quantize_nonlinear=True).datapath
+        ref = JQuantConfig(mode=mode, quantize_nonlinear=True).datapath
+        assert names[dp.name] == ref.name, mode
+        assert (dp.qdq_linears, dp.quantized_nonlinear) == \
+            (ref.qdq_linears, ref.quantized_nonlinear), mode
     q = QuantConfig(mode="kernel", quantize_nonlinear=True)
-    assert q.datapath.name == "hopper_kernel"
     assert q.nonlinear == NonlinearConfig()
     assert q.scoped("block/0/attn") is q
-    for other in ("off", "fake", "sim", "packed"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            QuantConfig(mode=other).datapath
     with pytest.raises(ValueError):
         QuantConfig(mode="bogus")
 
