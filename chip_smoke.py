@@ -27,7 +27,12 @@
    for shared memory, subnormal scales, saturated shifts, 12-bit
    mantissas, no beta).  The LN kernels' timed cases include the Llama
    final RMSNorm and ``mxint_matmul`` at the fused kernel's shapes; one
-   bf16 ``mxint_ln_linear_op`` decode call must run 2 device ops.
+   bf16 ``mxint_ln_linear_op`` decode call must run 2 device ops.  The
+   row kernels (softmax, GELU, LN, both flash kernels) are also held at
+   MXInt6 and MXInt12; the shapes Qwen3-14B and Phi-4-mini add (per-head
+   q/k RMSNorm rows of 128, decode and flash at G 5 and 3) are timed.
+   ``mxint_matmul`` at ``act_mant_bits=10`` must raise before it launches,
+   and its C entry must refuse 10 bits (its act tile is int8).
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -43,8 +48,15 @@
    classes, random weights from a seed, packed MXInt6 planes) serves 5
    requests of 1-16 images through ``ViTServingEngine(batch=16)`` and
    ``ClassifyScheduler``; every kernel's launch count must equal
-   (3 + 8 * 12) forwards' worth per batch, kernel by kernel.  One 4-image
-   batch is compared with the same model on the CPU through the plain
+   (3 + 8 * 12) forwards' worth per batch, kernel by kernel.  Telemetry,
+   the registry reset at the phase's start: submitted == completed +
+   in_flight after every scheduler step, each step's
+   ``scheduler/kernel_launches`` sample equal to the kernels' own counts
+   of that step (3 + 8 * 12), the ``kernel/launches/*`` counters equal to
+   theirs, and the ``scheduler/classify_step`` span's mean within 5% or
+   0.5 ms of CUDA events around the same steps' forwards (the span is
+   device-true); the snapshot's JSON and Prometheus sizes are printed.
+   One 4-image batch is compared with the same model on the CPU through the plain
    versions: argmax equal and logits within 1e-3 of their scale.  One
    forward is also split by kernel with CUDA events around each call.
    One batch, one decode step (phase 4) and one score forward (phase 5)
@@ -54,7 +66,10 @@
    weights from a seed, packed MXInt8 planes) serves 8 requests of 37-1000
    prompt tokens and 24 new tokens each through ``ServingEngine`` and
    ``BatchScheduler(batch_size=4)``, ``max_len`` 2048; every slot prefill
-   must launch 257 kernels and every decode step 289, kernel by kernel.
+   must launch 257 kernels and every decode step 289, kernel by kernel,
+   with the DeiT phase's telemetry checks (each call's
+   ``scheduler/kernel_launches`` sample equal to its counts).  The
+   unembedding of a step is timed.
 5. LM score phase: one 1024-token ``DecoderLM.loss`` forward at full size;
    32 ``flash_attention`` launches, no whole-row softmax.
 6. LM card against CPU: the same architecture at full width, 2 layers, in
@@ -77,7 +92,18 @@
    layers and 4 images (argmax equal, logits within 1e-3 of their scale,
    the count of differing elements printed), and sim is held against the
    all-kernel model at full depth within ``SIM_KERNEL_TOL``.
-8. Prints one JSON line of per-kernel results, then as the last line
+8. Probes: the reference's four kernel probe labels
+   (``repro_torch.telemetry.probes``), each timed by a device-true span;
+   their mean ms are printed beside the card's name and power limit.
+9. Qwen3-14B (40 layers, d 5120, 40 heads over 8, qk-norm, vocab 151936)
+   and Phi-4-mini (32 layers, d 3072, 24 heads over 8, tied embeddings,
+   vocab 200064), each at full width and depth, random
+   packed MXInt8 weights: 4 requests of 37-700 prompt tokens and 16 new
+   tokens through the LM serve phase's checks, with the launch counts
+   ``lm_per_call`` derives (Qwen3-14B 401 a slot prefill and 441 a decode
+   step, Phi-4-mini 257 and 289); then a 2-layer full-width card-against-
+   CPU check in kernel, "sim" and "packed" mode, phase 6's tolerance.
+10. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -98,11 +124,6 @@ sys.path.insert(0, str(ROOT / "src"))
 SEED = 0
 BATCH = 16
 DEVICE = "cuda"
-# published H100 SXM peaks (NVIDIA data sheet), dense
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-BF16_OPS_PER_S = 989e12
-F32_OPS_PER_S = 67e12
 # f32 operations per element of the row datapaths, counted from their
 # stages (quantize, align, LUT, scale, requantize); for the flash kernels
 # per score of a (query, key) pair that the masks keep.  The flash
@@ -156,12 +177,38 @@ TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "llama3_8b_decode_rms_wq",
                "llama3_8b_decode_rms_wk", "llama3_8b_decode_rms_wi",
                "llama3_8b_score_rms_wq", "llama3_8b_score_rms_wi",
-               "llama3_8b_decode_silu", "llama3_8b_score_silu"}
+               "llama3_8b_decode_silu", "llama3_8b_score_silu",
+               # the shapes Qwen3-14B and Phi-4-mini add: per-head q/k
+               # RMSNorm rows of 128, decode and flash at G 5 and 3
+               "qwen3_14b_decode_q_norm", "qwen3_14b_decode_k_norm",
+               "qwen3_14b_prefill_q_norm",
+               "qwen3_14b_decode_b4_W2048_served_mxint",
+               "phi4_mini_decode_b4_W2048_served_mxint",
+               "qwen3_14b_g5_650_causal_mxint",
+               "phi4_mini_g3_650_causal_mxint"}
+# act mantissa widths of the row kernels' MXInt6 and MXInt12 cases
+MANT_BITS = {"mant6": 6, "mant12": 12}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
 LM_MAX_LEN = 2048
 LM_SCORE_TOKENS = 1024
+# Qwen3-14B and Phi-4-mini (config modules), at full width and depth:
+# served 4 requests of 37-700 prompt tokens, 16 new tokens each; their
+# 2-layer card-against-CPU check serves prompts of 37 and 100 tokens and
+# scores 520 (past 512 x 512 scores: the flash path), fewer than Llama's
+# 100, 250 and 640, to keep the CPU's plain versions inside the smoke's
+# time
+NEW_LMS = ("qwen3_14b", "phi4_mini_3_8b")
+NEW_LM_PROMPTS = (37, 150, 400, 700)
+NEW_LM_NEW_TOKENS = 16
+NEW_LM_CPU_PROMPTS = (37, 100)
+NEW_LM_CPU_SCORE = 520
+# launches of a slot prefill and a decode step at full depth, from
+# lm_per_call: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
+# layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40
+FULL_DEPTH_LAUNCHES = {"llama3_8b": (257, 289), "phi4_mini_3_8b": (257, 289),
+                       "qwen3_14b": (401, 441)}
 # "sim" against the all-kernel model on the same weights and images: the
 # linears' f32 sums run in another order (float64 against the kernels'
 # ordered f32 steps) and the GELU clips at -128 against -127, so a later
@@ -255,33 +302,27 @@ def idle_share(busy_ms, wall_ms):
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
           bf16_ops: float = 0.0):
-    """(least time in ms, what bounds it) on the published peaks."""
-    t_mem = nbytes / HBM_BYTES_PER_S
-    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    """(least time in ms, what bounds it) on the H100's published dense
+    peaks (``repro_torch.telemetry.export``: HBM, bf16 and int8 tensor
+    cores, float32)."""
+    from repro_torch.telemetry.export import (DEFAULT_PEAKS, F32_OPS_PER_S,
+                                              INT8_OPS_PER_S)
+    t_mem = nbytes / DEFAULT_PEAKS.hbm_bytes_per_s
+    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / DEFAULT_PEAKS.flops_per_s
              + f32_ops / F32_OPS_PER_S)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
 
-def counters():
-    """kernel name -> (module, name of its launch counter)."""
-    from repro_torch.kernels import (flash_attention, mxint_gelu,
-                                     mxint_layernorm, mxint_ln_matmul,
-                                     mxint_matmul, mxint_softmax)
-    out = {m.__name__.rsplit(".", 1)[-1]: (m, "launches") for m in (
-        mxint_matmul, mxint_ln_matmul, mxint_softmax, mxint_gelu,
-        mxint_layernorm, flash_attention)}
-    out["flash_attention_decode"] = (flash_attention, "decode_launches")
-    return out
-
-
 def reset_counts():
-    for m, attr in counters().values():
+    from repro_torch.kernels import ops
+    for m, attr in ops.LAUNCH_COUNTERS.values():
         setattr(m, attr, 0)
 
 
 def read_counts():
-    return {n: getattr(m, attr) for n, (m, attr) in counters().items()}
+    from repro_torch.kernels import ops
+    return ops.launch_counts()
 
 
 def count_diff(after, before):
@@ -475,8 +516,12 @@ def kernel_cases(torch, np):
             ("b16_n256_quantized", 256, 256, 16, True, None),
             ("unaligned_b16_n256", 256, 256, 16, True, "offset"),
             ("b12_n96_raw", 100, 96, 12, False, None),
-            ("b15_n300", 100, 300, 15, True, None)):
+            ("b15_n300", 100, 300, 15, True, None),
+            # MXInt6 and MXInt12 scores and probabilities
+            ("mant6_deit_scores_n197_b1", 12 * 197, 197, 1, True, "mant6"),
+            ("mant12_b16_n256", 256, 256, 16, True, "mant12")):
         a = x(R, n, scale=4.0)
+        mb = MANT_BITS.get(how, 8)
         if how == "causal":
             keep = torch.arange(n, device=dev)[None, :] <= \
                 (torch.arange(R, device=dev) % n)[:, None]
@@ -489,10 +534,10 @@ def kernel_cases(torch, np):
         log(f"[kernel] mxint_softmax {label} route {geom}")
         cases["mxint_softmax"].append((
             label,
-            lambda a=a, blk=blk, q=qout: mxint_softmax.mxint_softmax(
-                a, act_block=blk, quantize_out=q),
-            lambda a=a, blk=blk, q=qout: mxint_softmax.softmax_rows(
-                a, act_block=blk, mant_bits=8, r_bits=2, quantize_out=q),
+            lambda a=a, blk=blk, q=qout, mb=mb: mxint_softmax.mxint_softmax(
+                a, act_block=blk, mant_bits=mb, quantize_out=q),
+            lambda a=a, blk=blk, q=qout, mb=mb: mxint_softmax.softmax_rows(
+                a, act_block=blk, mant_bits=mb, r_bits=2, quantize_out=q),
             bound(2 * R * n * 4, f32_ops=ROW_OPS["mxint_softmax"] * R * n),
             None))
     # GELU: act block 16 (the float4 route) at the DeiT and Llama shapes,
@@ -509,8 +554,11 @@ def kernel_cases(torch, np):
             ("b1_37x197", 37, 197, "gelu", 1, None),
             ("b2_37x194", 37, 194, "gelu", 2, None),
             ("b12_37x96", 37, 96, "gelu", 12, None),
-            ("unaligned_b16_37x768", 37, 768, "gelu", 16, "offset")):
+            ("unaligned_b16_37x768", 37, 768, "gelu", 16, "offset"),
+            ("mant6_37x768", 37, 768, "gelu", 16, "mant6"),
+            ("mant12_37x768_silu", 37, 768, "silu", 16, "mant12")):
         a = x(R, d, scale=2.0)
+        mb = MANT_BITS.get(how, 8)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
         if how == "offset":
@@ -524,10 +572,11 @@ def kernel_cases(torch, np):
             log(f"[kernel] mxint_gelu {label} route {geom}")
         cases["mxint_gelu"].append((
             label,
-            lambda a=a, fn=fn, blk=blk: mxint_gelu.mxint_gelu(
-                a, fn=fn, act_block=blk),
-            lambda a=a, lut=lut, dom=domain, blk=blk: mxint_gelu.gelu_rows(
-                a, lut, act_block=blk, mant_bits=8, domain=dom),
+            lambda a=a, fn=fn, blk=blk, mb=mb: mxint_gelu.mxint_gelu(
+                a, fn=fn, act_block=blk, mant_bits=mb),
+            lambda a=a, lut=lut, dom=domain, blk=blk, mb=mb:
+                mxint_gelu.gelu_rows(a, lut, act_block=blk, mant_bits=mb,
+                                     domain=dom),
             bound(2 * R * d * 4, f32_ops=ROW_OPS["mxint_gelu"] * R * d),
             None))
     # the LM's final RMSNorm: bf16 rows and scale as the model hands them,
@@ -554,12 +603,19 @@ def kernel_cases(torch, np):
             ("subnormal_scales_40x768", 40, 768, 16, True, "subnormal"),
             ("outlier_block_37x768", 37, 768, 16, True, "outlier"),
             ("mant12_37x768", 37, 768, 16, True, "mant12"),
+            ("mant6_37x768", 37, 768, 16, True, "mant6"),
+            # Qwen3-14B's per-head q and k RMSNorm: bf16 rows of 128 (a
+            # decode step's 4 x 40 and 4 x 8 heads, a 1024-token prefill's
+            # 1024 x 40)
+            ("qwen3_14b_decode_q_norm", LM_BATCH * 40, 128, 16, True, "rms"),
+            ("qwen3_14b_decode_k_norm", LM_BATCH * 8, 128, 16, True, "rms"),
+            ("qwen3_14b_prefill_q_norm", 1024 * 40, 128, 16, True, "rms"),
             ("bf16_rows_f32_scales_37x768", 37, 768, 16, True, "mixed"),
             ("no_beta_ln_37x768", 37, 768, 16, True, "no_beta")):
         rms = how == "rms"
         a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or how == "no_beta" else 0.1 * x(d)
-        mb = 12 if how == "mant12" else 8
+        mb = MANT_BITS.get(how, 8)
         if rms:
             a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
         if how == "mixed":
@@ -608,6 +664,7 @@ def flash_cases(torch, np, x):
     bf16, f32 = torch.bfloat16, torch.float32
     mx = dict(exp_mode="mxint", quantize_scores=True)
     fl = dict(exp_mode="float", quantize_scores=False)
+    mx6, mx12 = dict(mx, mant_bits=6), dict(mx, mant_bits=12)
     cases = {"flash_attention_decode": [], "flash_attention": []}
     depths = ((0, 37), (0, 700), (0, 1500), (0, 2048))
     ragged = ((0, 37), (0, 120), (0, 299), (0, 300))
@@ -637,7 +694,18 @@ def flash_cases(torch, np, x):
             ("ragged_W333_g3_d100_mxint", 333, 8, 3, 100, 16, bf16, mx,
              ((0, 37), (0, 200), (0, 256), (0, 333))),
             ("ragged_W1024_mxint_f32", 1024, 8, 4, 128, 16, f32, mx,
-             ((0, 37), (0, 129), (0, 700), (0, 1024)))):
+             ((0, 37), (0, 129), (0, 700), (0, 1024))),
+            # the served rings of Qwen3-14B (G 5) and Phi-4-mini (G 3):
+            # prompts of 37-700 tokens plus 16 new ones
+            ("qwen3_14b_decode_b4_W2048_served_mxint", 2048, 8, 5, 128, 16,
+             bf16, mx, ((0, 53), (0, 316), (0, 500), (0, 716))),
+            ("phi4_mini_decode_b4_W2048_served_mxint", 2048, 8, 3, 128, 16,
+             bf16, mx, ((0, 53), (0, 316), (0, 500), (0, 716))),
+            # MXInt6 and MXInt12 scores and probabilities
+            ("mant6_W700_g5_mxint", 700, 8, 5, 128, 16, bf16, mx6,
+             ((0, 37), (0, 400), (0, 513), (0, 700))),
+            ("mant12_W700_g3_mxint", 700, 8, 3, 128, 16, bf16, mx12,
+             ((0, 37), (0, 400), (0, 513), (0, 700)))):
         q = x(4, hkv, g, d, scale=1.5).to(dt)
         k = x(4, W, hkv, d, scale=1.5).to(dt)
         v = x(4, W, hkv, d).to(dt)
@@ -663,8 +731,8 @@ def flash_cases(torch, np, x):
                 fa.flash_attention_decode(q, k, v, valid, act_block=b, **kw),
             lambda q=q, k=k, v=v, valid=valid, b=blk, d=d, kw=kw:
                 fa.decode_rows(q, k, v, valid, r_bits=2, act_block=b,
-                               mant_bits=8, scale=fa.f32(d ** -0.5),
-                               **kw).to(q.dtype),
+                               scale=fa.f32(d ** -0.5),
+                               **{"mant_bits": 8, **kw}).to(q.dtype),
             bound(n_valid * hkv * d * 2 * size + 2 * q.numel() * size
                   + valid.numel() * 4,
                   bf16_ops=4.0 * pairs * d if dt == bf16 else 0.0,
@@ -696,6 +764,11 @@ def flash_cases(torch, np, x):
              bf16, mx),
             ("qwen3_14b_g5_300_full_float", 300, False, 0, 40, 5, 128, 16,
              bf16, fl),
+            # MXInt6 and MXInt12 scores and probabilities
+            ("qwen3_14b_g5_650_causal_mant6", 650, True, 0, 40, 5, 128, 16,
+             bf16, mx6),
+            ("phi4_mini_g3_650_causal_mant12", 650, True, 0, 24, 3, 128, 16,
+             bf16, mx12),
             # float32 operands take the ordered kernel: bit for bit
             ("ragged_650_window256_mxint_f32", 650, True, 256, 32, 4, 128, 16,
              f32, mx)):
@@ -719,14 +792,14 @@ def flash_cases(torch, np, x):
                                    act_block=b, **kw),
             lambda q=q, k=k, v=v, c=causal, w=window, g=g, b=blk, kw=kw:
                 fa.flash_rows(q, k, v, causal=c, window=w, kv_groups=g,
-                              r_bits=2, act_block=b, mant_bits=8,
+                              r_bits=2, act_block=b,
                               scale=fa.f32(q.shape[-1] ** -0.5),
-                              **kw).to(q.dtype),
+                              **{"mant_bits": 8, **kw}).to(q.dtype),
             bound(size * (2 * q.numel() + k.numel() + v.numel()),
                   bf16_ops=ops if dt == bf16 else 0.0,
                   f32_ops=ROW_OPS["flash"] * pairs
                   + (ops if dt == f32 else 0.0)),
-            lib, FLASH_TOL[(dt == bf16, kw is mx)]))
+            lib, FLASH_TOL[(dt == bf16, kw["quantize_scores"])]))
     return cases
 
 
@@ -755,6 +828,49 @@ def ln_linear_op_ops(torch, np):
         raise AssertionError(f"mxint_ln_linear_op ran {n} device ops a call, "
                              "more than the kernel and the output cast")
     return n
+
+
+def matmul_width_check(torch):
+    """``mxint_matmul`` at ``act_mant_bits=10`` on the card: the wrapper
+    raises before it launches anything, and the C entry point, called
+    directly, returns cudaErrorInvalidValue at 10 bits (and launches at
+    8).  Its act tile is int8, so a wider mantissa would wrap.  Raises
+    otherwise."""
+    import ctypes
+    from repro_torch.core.mx_types import MXINT8_WEIGHT
+    from repro_torch.core.quantize import pack_weight
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import mxint_matmul as mm
+    M, K, N = 16, 256, 128
+    a = torch.ones(M, K, device=DEVICE)
+    w = pack_weight(torch.ones(K, N, device=DEVICE) / 16, MXINT8_WEIGHT)
+    before = read_counts()
+    try:
+        mm.mxint_matmul(a, w.mantissa, w.exponent, w_block=w.block_size,
+                        act_mant_bits=10)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("mxint_matmul took act_mant_bits=10 on the card")
+    torch.cuda.synchronize()
+    if read_counts() != before:
+        raise AssertionError("mxint_matmul launched at act_mant_bits=10")
+    out = torch.zeros(M, N, device=DEVICE)
+    geom = mm.gemm_geometry(M, N, K, mm.sm_count(a.device))
+    fn = _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p])
+    rcs = {}
+    for bits in (10, 8):
+        rcs[bits] = fn(*mm.launch_args(a, w.mantissa, w.exponent, out), M,
+                       K, N, w.block_size, bits, *geom.args(),
+                       _build.stream_ptr(a.device))
+        torch.cuda.synchronize()
+    log(f"[kernel] mxint_matmul act_mant_bits=10: wrapper raised "
+        f"ValueError({msg!r}); C entry returned {rcs[10]} at 10 bits, "
+        f"{rcs[8]} at 8")
+    if rcs[10] == 0 or rcs[8] != 0:
+        raise AssertionError(f"mxint_matmul_launch returned {rcs}")
+    return {"wrapper_error": msg, "c_entry_rc": rcs}
 
 
 def within_bf16_ulp(torch, got, want):
@@ -845,6 +961,8 @@ def kernel_phase(torch, np, only=None):
             res["cases"].append(case)
         if name == "mxint_ln_matmul":
             res["ln_linear_op_device_ops"] = ln_linear_op_ops(torch, np)
+        if name == "mxint_matmul":
+            res["act_width_check"] = matmul_width_check(torch)
         results[name] = res
         log(json.dumps({"kernel": name, "max_abs_err": res["max_abs_err"],
                         "mismatches": sum(c["mismatches"]
@@ -898,27 +1016,118 @@ def deit_requests(np):
     return sizes, images, full
 
 
-def serve_deit(torch, np, engine, sizes, images, tag):
+def conserved(tag):
+    """Raise unless the scheduler telemetry's submitted == completed +
+    in_flight (a step boundary's invariant)."""
+    from repro_torch import telemetry as T
+    snap = T.snapshot()
+    sub = snap["counters"].get("scheduler/submitted", 0)
+    comp = snap["counters"].get("scheduler/completed", 0)
+    fly = snap["gauges"].get("scheduler/in_flight", 0)
+    if sub != comp + fly:
+        raise AssertionError(f"{tag}: submitted {sub} != completed {comp} + "
+                             f"in flight {fly}")
+
+
+def launch_samples():
+    """(count, sum) of the ``scheduler/kernel_launches`` histogram."""
+    from repro_torch import telemetry as T
+    h = T.snapshot()["histograms"].get("scheduler/kernel_launches")
+    return (0, 0.0) if h is None else (h["count"], h["sum"])
+
+
+def check_launch_counters(tag, launches):
+    """Raise unless the ``kernel/launches/<kernel>`` counters equal the
+    kernels' own counts over the same run."""
+    from repro_torch import telemetry as T
+    counters = T.snapshot()["counters"]
+    got = {n: counters.get(f"kernel/launches/{n}") for n in launches}
+    if got != launches:
+        raise AssertionError(f"{tag}: telemetry counted launches {got}, the "
+                             f"kernels {launches}")
+
+
+def telemetry_report(tag):
+    """The default registry's snapshot, with its JSON and Prometheus text
+    sizes logged."""
+    from repro_torch import telemetry as T
+    from repro_torch.telemetry.export import json_snapshot, prometheus_text
+    snap = json_snapshot()
+    log(f"[{tag} telemetry] snapshot {len(json.dumps(snap))} bytes of JSON, "
+        f"{len(prometheus_text(snap))} bytes of Prometheus text; "
+        f"{len(snap['counters'])} counters, {len(snap['gauges'])} gauges, "
+        f"{len(snap['histograms'])} histograms")
+    return snap
+
+
+def serve_deit(torch, np, engine, sizes, images, tag, per_batch):
     """Serve the requests through ``ClassifyScheduler`` after a warm
-    batch, the launch counts set to 0 just before; returns (batches,
-    seconds, launches).  Raises unless every request finished in order
-    with finite logits of its shape."""
+    batch, the telemetry registry reset and the launch counts set to 0
+    just before; returns (batches, seconds, launches, telemetry).  Raises
+    unless every request finished in order with finite logits of its
+    shape, submitted == completed + in_flight after every step, each
+    step's ``scheduler/kernel_launches`` sample equals the kernels' own
+    counts of that step and ``per_batch`` (kernel -> launches a batch),
+    and the ``scheduler/classify_step`` span's mean agrees with CUDA events
+    around the same steps' forwards within 5% or 0.5 ms (the span is
+    device-true)."""
+    from repro_torch import telemetry as T
     from repro_torch.serving.scheduler import ClassifyRequest, ClassifyScheduler
     engine.logits_batch(np.zeros((BATCH, 224, 224, 3), np.float32))  # warm
     torch.cuda.synchronize()
+    T.reset()
     sched = ClassifyScheduler(engine)
     for uid, imgs in enumerate(images):
         sched.submit(ClassifyRequest(uid, imgs))
+        conserved(tag)
+    events = []
+    forward = engine.logits_batch
+
+    def timed_forward(chunk):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = forward(chunk)
+        end.record()
+        events.append((start, end))
+        return out
+
+    engine.logits_batch = timed_forward
     reset_counts()
+    want = sum(per_batch.values())
     t0 = time.perf_counter()
     n_batches = 0
-    while sched.step():
-        n_batches += 1
+    try:
+        while True:
+            before, samples = read_counts(), launch_samples()
+            n = sched.step()
+            conserved(tag)
+            step = sum(count_diff(read_counts(), before).values())
+            new = launch_samples()
+            if not n:
+                break
+            n_batches += 1
+            if new != (samples[0] + 1, samples[1] + step) or step != want:
+                raise AssertionError(
+                    f"{tag}: step {n_batches} launched {step} kernels (want "
+                    f"{want}); kernel_launches went {samples} -> {new}")
+    finally:
+        del engine.logits_batch
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_counts()
+    check_launch_counters(tag, launches)
+    ev_ms = [s.elapsed_time(e) for s, e in events]
+    n_span, span_ms = T.span_stats("scheduler/classify_step")
+    ev_mean = statistics.mean(ev_ms)
     log(f"[{tag}] request sizes={sizes} batches={n_batches} "
-        f"serve_s={serve_s!r} launches={launches}")
+        f"serve_s={serve_s!r} launches={launches}; classify_step span mean "
+        f"{span_ms!r} ms over {n_span} steps, CUDA events {ev_mean!r} ms "
+        f"({ev_ms})")
+    if n_span != n_batches or len(ev_ms) != n_batches or \
+            abs(span_ms - ev_mean) > max(0.05 * ev_mean, 0.5):
+        raise AssertionError(f"{tag}: the classify_step span ({span_ms} ms) "
+                             f"and CUDA events ({ev_mean} ms) disagree")
     done = sched.finished
     if [r.uid for r in done] != list(range(len(sizes))):
         raise AssertionError(f"{tag}: requests did not all finish in order")
@@ -926,7 +1135,13 @@ def serve_deit(torch, np, engine, sizes, images, tag):
         if r.logits.shape != (n, 1000) or r.labels.shape != (n,) or \
                 not np.isfinite(r.logits).all():
             raise AssertionError(f"{tag}: request {r.uid}: bad result shapes")
-    return n_batches, serve_s, launches
+    snap = T.snapshot()
+    if snap["counters"]["scheduler/images_classified"] != sum(sizes) or \
+            snap["counters"]["scheduler/completed"] != len(sizes):
+        raise AssertionError(f"{tag}: telemetry lost images or requests")
+    return n_batches, serve_s, launches, {
+        "classify_step_span_ms": span_ms, "classify_step_events_ms": ev_mean,
+        "snapshot": telemetry_report(tag)}
 
 
 def slice_phase(torch, np):
@@ -950,8 +1165,8 @@ def slice_phase(torch, np):
                               ServeConfig(batch=BATCH, pack_weights=True),
                               device=DEVICE)
     sizes, images, full = deit_requests(np)
-    n_batches, serve_s, launches = serve_deit(torch, np, engine, sizes,
-                                              images, "slice")
+    n_batches, serve_s, launches, telemetry = serve_deit(
+        torch, np, engine, sizes, images, "slice", per_forward)
     want = {n: c * n_batches for n, c in per_forward.items()}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
@@ -964,7 +1179,8 @@ def slice_phase(torch, np):
              "images": n_images, "serve_s": serve_s,
              "serve_images_per_s": n_images / serve_s,
              "ms_per_batch": ms_batch,
-             "images_per_s": BATCH / (ms_batch / 1e3), "launches": launches}
+             "images_per_s": BATCH / (ms_batch / 1e3), "launches": launches,
+             "telemetry": telemetry}
     busy = device_ms(lambda: engine.logits_batch(full), iters=5,
                      cats=BUSY_CATS)
     stats.update(device_busy_ms_per_batch=busy,
@@ -1066,10 +1282,10 @@ def backends_phase(torch, np):
         cfg = dataclasses.replace(DEIT_BASE, quant=quant_config(mode, kw))
         engine = ViTServingEngine(ViT(cfg), params, ServeConfig(
             batch=BATCH, pack_weights=packed), device=DEVICE)
-        n_batches, serve_s, launches = serve_deit(torch, np, engine, sizes,
-                                                  images, tag)
         per_forward = (mixed_per_forward if label == "mixed"
                        else dict.fromkeys(mixed_per_forward, 0))
+        n_batches, serve_s, launches, telemetry = serve_deit(
+            torch, np, engine, sizes, images, tag, per_forward)
         want = {n: c * n_batches for n, c in per_forward.items()}
         if launches != want:
             raise AssertionError(f"{tag}: launches {launches} != {want}")
@@ -1083,6 +1299,9 @@ def backends_phase(torch, np):
                "batches": n_batches, "serve_s": serve_s,
                "launches": launches,
                "launches_per_forward": sum(per_forward.values()),
+               "classify_step_span_ms": telemetry["classify_step_span_ms"],
+               "classify_step_events_ms":
+                   telemetry["classify_step_events_ms"],
                "ms_per_batch": ms, "images_per_s": BATCH / (ms / 1e3),
                "device_busy_ms_per_batch": busy,
                "device_idle_share": idle_share(busy, ms)}
@@ -1119,26 +1338,37 @@ def backends_phase(torch, np):
     return results, mixed_launches
 
 
-def lm_per_call(L: int, decode: bool, score: bool = False):
+def lm_per_call(L: int, decode: bool, score: bool = False,
+                qk_norm: bool = False):
     """Kernel launches of one slot prefill, decode step or cache-less
-    forward of an L-layer dense decoder in kernel mode."""
+    forward of an L-layer dense decoder in kernel mode: per layer 5 fused
+    norm -> linears (q, k, v, gate, up), 2 linears (attention and FFN
+    out), the SiLU, the attention kernel where there is one, and with
+    qk-norm the per-head q and k RMSNorms; then the final RMSNorm."""
     return {"mxint_ln_matmul": 5 * L, "mxint_matmul": 2 * L,
-            "mxint_gelu": L, "mxint_layernorm": 1, "mxint_softmax": 0,
+            "mxint_gelu": L, "mxint_layernorm": 1 + (2 * L if qk_norm else 0),
+            "mxint_softmax": 0,
             "flash_attention": L if score else 0,
             "flash_attention_decode": L if decode else 0}
 
 
-def lm_serve_phase(torch, np):
-    """Llama-3-8B at full size through ServingEngine and BatchScheduler;
-    every slot prefill and decode step timed and its launches checked."""
-    from repro_torch.configs.llama3_8b import FULL
+def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
+    """A dense LM at full size (``full``) through ServingEngine and
+    BatchScheduler(batch_size=LM_BATCH), the
+    telemetry registry reset at its start: every slot prefill and decode
+    step timed and its launches checked against ``lm_per_call``,
+    submitted == completed + in_flight after every scheduler step, and
+    each step's ``scheduler/kernel_launches`` samples equal to the
+    kernels' own counts of its calls.  Then one decode step split by
+    kernel, its device busy time, and the unembedding's time a step."""
+    from repro_torch import telemetry as T
     from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.scheduler import BatchScheduler, Request
 
     cfg = dataclasses.replace(
-        FULL, quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
+        full, quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
     L = cfg.n_layers
     model = DecoderLM(cfg)
     t0 = time.perf_counter()
@@ -1148,7 +1378,9 @@ def lm_serve_phase(torch, np):
     engine = ServingEngine(model, params, ServeConfig(
         max_len=LM_MAX_LEN, batch=LM_BATCH, pack_weights=True,
         weight_fmt=MXINT8_WEIGHT), device=DEVICE)
-    log(f"[lm] {cfg.name} {L} layers packed on the card in {init_s!r} s, "
+    log(f"[{tag}] {cfg.name} {L} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
+        f"packed on the card in {init_s!r} s, "
         f"{torch.cuda.memory_allocated() / 2 ** 30!r} GiB allocated")
     # warm up both steps on a scratch cache (cuBLAS handles, allocator)
     scratch = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
@@ -1179,51 +1411,80 @@ def lm_serve_phase(torch, np):
     engine._prefill_slot = timed("prefill", prefill)
     engine._decode = timed("decode", decode)
     rng = np.random.default_rng(SEED + 2)
+    T.reset()
     sched = BatchScheduler(engine, batch_size=LM_BATCH)
-    for uid, n in enumerate(LM_PROMPTS):
+    for uid, n in enumerate(prompts):
         sched.submit(Request(uid=uid, prompt=rng.integers(
             0, cfg.vocab, size=n).astype(np.int32),
-            max_new_tokens=LM_NEW_TOKENS))
+            max_new_tokens=new_tokens))
+        conserved(tag)
     reset_counts()
     t0 = time.perf_counter()
+    while True:
+        seen, samples = len(calls), launch_samples()
+        live = sched.step()
+        conserved(tag)
+        step = [sum(c[3].values()) for c in calls[seen:]]
+        new = launch_samples()
+        if new != (samples[0] + len(step), samples[1] + sum(step)):
+            raise AssertionError(f"{tag}: calls launched {step}; "
+                                 f"kernel_launches went {samples} -> {new}")
+        if live == 0 and not sched.queue:
+            break
     done = sched.run()
+    conserved(tag)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t0
     launches = read_counts()
     engine._prefill_slot, engine._decode = prefill, decode
+    check_launch_counters(tag, launches)
 
-    if sorted(r.uid for r in done) != list(range(len(LM_PROMPTS))):
-        raise AssertionError("LM requests did not all finish")
+    if sorted(r.uid for r in done) != list(range(len(prompts))):
+        raise AssertionError(f"{tag}: requests did not all finish")
     for r in done:
-        if len(r.generated) != LM_NEW_TOKENS or \
+        if len(r.generated) != new_tokens or \
                 not all(0 <= t < cfg.vocab for t in r.generated):
-            raise AssertionError(f"request {r.uid}: {r.generated}")
+            raise AssertionError(f"{tag}: request {r.uid}: {r.generated}")
     pre = [c for c in calls if c[0] == "prefill"]
     dec = [c for c in calls if c[0] == "decode"]
     for kind, _, _, got in calls:
-        want = lm_per_call(L, decode=kind == "decode")
+        want = lm_per_call(L, decode=kind == "decode", qk_norm=cfg.qk_norm)
         if got != want:
-            raise AssertionError(f"{kind} launched {got}, expected {want}")
-    per_step = sum(lm_per_call(L, decode=True).values())
-    per_prefill = sum(lm_per_call(L, decode=False).values())
-    assert (per_step, per_prefill) == (289, 257), (per_step, per_prefill)
+            raise AssertionError(f"{tag}: {kind} launched {got}, expected "
+                                 f"{want}")
+    per_step = sum(lm_per_call(L, True, qk_norm=cfg.qk_norm).values())
+    per_prefill = sum(lm_per_call(L, False, qk_norm=cfg.qk_norm).values())
+    snap = T.snapshot()
+    h = snap["histograms"]["scheduler/kernel_launches"]
+    if (h["min"], h["max"], h["count"]) != (per_prefill, per_step,
+                                            len(calls)):
+        raise AssertionError(f"{tag}: kernel_launches samples {h}")
+    if snap["counters"]["scheduler/completed"] != len(prompts) or \
+            snap["counters"]["scheduler/tokens_generated"] != \
+            len(prompts) * (new_tokens - 1):
+        raise AssertionError(f"{tag}: telemetry lost requests or tokens")
     by_bucket = {}
     for _, P, ms, _ in pre:
         by_bucket.setdefault(P, []).append(ms)
     dec_ms = [ms for *_, ms, _ in dec]
     step_ms = statistics.median(dec_ms)
+    n_span, span_ms = T.span_stats("scheduler/decode_step")
     stats = {"model": cfg.name, "layers": L, "init_s": init_s,
-             "prompts": list(LM_PROMPTS), "new_tokens": LM_NEW_TOKENS,
-             "batch": LM_BATCH, "max_len": LM_MAX_LEN, "serve_s": serve_s,
+             "prompts": list(prompts),
+             "new_tokens": new_tokens, "batch": LM_BATCH,
+             "max_len": LM_MAX_LEN, "serve_s": serve_s,
              "prefill_ms_by_bucket": by_bucket, "decode_steps": len(dec),
              "decode_ms": dec_ms, "decode_ms_median": step_ms,
              "decode_tokens_per_s": LM_BATCH / (step_ms / 1e3),
+             "decode_step_span_ms_mean": span_ms,
              "launches_per_decode_step": per_step,
              "launches_per_slot_prefill": per_prefill,
              "launches": launches,
-             "tokens": {r.uid: r.generated for r in done}}
+             "tokens": {r.uid: r.generated for r in done},
+             "telemetry": telemetry_report(tag)}
     # one decode step split by kernel (rows at four depths of the ring)
-    names = [n for n, c in lm_per_call(L, decode=True).items() if c]
+    names = [n for n, c in lm_per_call(L, True, qk_norm=cfg.qk_norm).items()
+             if c]
     cache = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
     cache["index"] = torch.tensor([37, 700, 1500, 2000], dtype=torch.int32,
                                   device=DEVICE)
@@ -1239,16 +1500,25 @@ def lm_serve_phase(torch, np):
     stats.update(decode_step_device_busy_ms=busy,
                  decode_step_device_idle_share=idle_share(busy, step_total))
     del cache
-    log(f"[lm serve] one decode step {step_total!r} ms by kernel {by_kernel}"
+    # the unembedding of a decode step: the (vocab, d) planes dequantized
+    # and one torch.matmul, every step
+    h_last = torch.randn(LM_BATCH, 1, cfg.d_model, device=DEVICE).to(cfg.dtype)
+    unembed = lambda: model.logits(engine.params, h_last)  # noqa: E731
+    stats["unembed_ms_events"] = time_ms(unembed, iters=5)
+    stats["unembed_device_ms"] = device_ms(unembed, iters=3, cats=BUSY_CATS)
+    log(f"[{tag}] one decode step {step_total!r} ms by kernel {by_kernel}"
         f", other (unembedding, embedding, RoPE, glue, gaps) "
         f"{stats['decode_step_ms_other']!r}; device busy {busy!r} ms, idle "
-        f"share {stats['decode_step_device_idle_share']!r}")
-    log(f"[lm serve] {len(LM_PROMPTS)} requests x {LM_NEW_TOKENS} tokens "
+        f"share {stats['decode_step_device_idle_share']!r}; the unembedding "
+        f"({cfg.vocab} x {cfg.d_model}) {stats['unembed_ms_events']!r} ms by "
+        f"events, {stats['unembed_device_ms']!r} device")
+    log(f"[{tag}] {len(prompts)} requests x {new_tokens} tokens "
         f"in {serve_s!r} s; {len(pre)} slot prefills, {len(dec)} decode "
         f"steps; launches {launches}")
-    log(f"[lm serve] prefill ms by bucket {by_bucket}")
-    log(f"[lm serve] decode ms per step median={step_ms!r} "
-        f"min={min(dec_ms)!r} max={max(dec_ms)!r}; decode tokens/s at batch "
+    log(f"[{tag}] prefill ms by bucket {by_bucket}")
+    log(f"[{tag}] decode ms per step median={step_ms!r} "
+        f"min={min(dec_ms)!r} max={max(dec_ms)!r}; decode_step span mean "
+        f"{span_ms!r} ms over {n_span}; decode tokens/s at batch "
         f"{LM_BATCH}={stats['decode_tokens_per_s']!r}; launches per decode "
         f"step {per_step}, per slot prefill {per_prefill}")
     return model, engine, stats
@@ -1296,11 +1566,11 @@ LM_CPU_MODES = {"kernel": ("kernel", {"quantize_nonlinear": True}, True),
                 "packed": ("packed", {"quantize_nonlinear": True}, True)}
 
 
-def lm_cpu_phase(torch, np):
-    """The Llama-3-8B architecture at full width, 2 layers, float32: the
-    card against the CPU, serving and scoring, in kernel mode and in the
-    "off", "sim" and "packed" modes."""
-    from repro_torch.configs.llama3_8b import FULL
+def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag):
+    """A dense LM architecture (``full``) at full width, 2 layers, float32:
+    the card against the CPU, serving 2 requests of ``prompt_lens`` tokens
+    (4 new tokens each) and scoring ``score_tokens`` tokens, in each of
+    ``modes`` (labels of ``LM_CPU_MODES``)."""
     from repro_torch.core.mx_types import MXINT8_WEIGHT
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving.engine import (ServeConfig, ServingEngine,
@@ -1310,15 +1580,17 @@ def lm_cpu_phase(torch, np):
     for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
         fn(torch.ones(1))       # first multi-threaded CPU calls may differ
         fn(torch.ones(1, dtype=torch.float64))
-    base = dataclasses.replace(FULL, n_layers=2, dtype=torch.float32)
+    base = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
     floats = DecoderLM(base).init(SEED, device="cpu")
     planes = pack_params_mxint(floats, MXINT8_WEIGHT)
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
-               for n in (100, 250)]
-    toks = rng.integers(0, base.vocab, size=(1, 640)).astype(np.int32)
+               for n in prompt_lens]
+    toks = rng.integers(0, base.vocab, size=(1, score_tokens)).astype(
+        np.int32)
     results = {}
-    for label, (mode, kw, packed) in LM_CPU_MODES.items():
+    for label in modes:
+        mode, kw, packed = LM_CPU_MODES[label]
         model = DecoderLM(dataclasses.replace(base,
                                               quant=quant_config(mode, kw)))
         params = planes if packed else floats
@@ -1339,7 +1611,7 @@ def lm_cpu_phase(torch, np):
                 launches = read_counts()
             out[dev] = (tokens, logits, time.perf_counter() - t0)
             del eng
-            log(f"[lm cpu {label}] {dev}: served and scored in "
+            log(f"[{tag} {label}] {dev}: served and scored in "
                 f"{out[dev][2]!r} s")
         (tg, lg, gs), (tc, lc, cs) = out[DEVICE], out["cpu"]
         gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
@@ -1350,20 +1622,67 @@ def lm_cpu_phase(torch, np):
             "score_logits_scale": scale, "argmax_differ": diff,
             "score_logits_differing_elements": int((lg != lc).sum()),
             "positions": int(lg.shape[1]), "card_launches": launches}
-        log(f"[lm cpu {label}] tokens card={tg} cpu={tc}; 640-token logits "
+        log(f"[{tag} {label}] tokens card={tg} cpu={tc}; {score_tokens}-token "
+            f"logits "
             f"max_abs_gap={gap!r} scale={scale!r}, differing elements "
             f"{results[label]['score_logits_differing_elements']}, argmax "
             f"differs at {diff} of {lg.shape[1]} positions; card launches "
             f"{launches}")
         if tg != tc:
-            raise AssertionError(f"{label}: card and CPU generated different "
-                                 f"tokens")
+            raise AssertionError(f"{tag} {label}: card and CPU generated "
+                                 f"different tokens")
         if diff or gap > 1e-3 * scale:
-            raise AssertionError(f"{label}: card and CPU logits disagree "
-                                 f"beyond 1e-3 of their scale or in argmax")
+            raise AssertionError(f"{tag} {label}: card and CPU logits "
+                                 f"disagree beyond 1e-3 of their scale or in "
+                                 f"argmax")
         if mode != "kernel" and any(launches.values()):
-            raise AssertionError(f"{label}: launched kernels {launches}")
+            raise AssertionError(f"{tag} {label}: launched kernels "
+                                 f"{launches}")
     return results
+
+
+def telemetry_step_us(iters: int = 2000) -> float:
+    """Host microseconds of the telemetry one scheduler decode step
+    records (its span with an attribute and the profiler annotation, the
+    launch fold, a counter, the tokens/s gauge and the three occupancy
+    gauges), by the host clock over ``iters`` empty steps; the registry is
+    reset after."""
+    from repro_torch import telemetry as T
+    from repro_torch.serving.scheduler import _count_launches
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        with T.span("cost/decode_step", live=4) as sp, _count_launches():
+            pass
+        T.counter("cost/tokens_generated").inc(4)
+        T.gauge("cost/tokens_per_s").set(4 / max(sp.elapsed_s, 1e-9))
+        for g in ("queue_depth", "slots_active", "in_flight"):
+            T.gauge(f"cost/{g}").set(1)
+    us = (time.perf_counter() - t0) / iters * 1e6
+    T.reset()
+    return us
+
+
+def probes_phase(smi):
+    """The reference's four probe labels on the card, each timed by a
+    device-true span (CUDA events); and the host cost of a scheduler
+    step's telemetry."""
+    from repro_torch.telemetry.probes import PROBES, run_probes
+    ms = run_probes(tuple(PROBES), repeats=10, device=DEVICE)
+    us = telemetry_step_us()
+    log(f"[probes] {smi}: " + ", ".join(f"{k} {v!r} ms"
+                                        for k, v in ms.items()))
+    log(f"[probes] telemetry of one scheduler step: {us!r} us of host time")
+    return {"card": smi, "mean_ms": ms, "telemetry_step_us": us}
+
+
+def check_full_depth_launches(name, stats):
+    """Raise unless a serve phase launched the counts of
+    ``FULL_DEPTH_LAUNCHES`` a slot prefill and a decode step."""
+    got = (stats["launches_per_slot_prefill"],
+           stats["launches_per_decode_step"])
+    if got != FULL_DEPTH_LAUNCHES[name]:
+        raise AssertionError(f"{name}: {got} launches a slot prefill and a "
+                             f"decode step, not {FULL_DEPTH_LAUNCHES[name]}")
 
 
 def main(argv) -> int:
@@ -1411,16 +1730,37 @@ def main(argv) -> int:
             f"{time.perf_counter() - t_start!r} s since the build")
         return out
 
+    import importlib
+    from repro_torch.configs import llama3_8b
     kernels = phase("kernel", kernel_phase, torch, np)
     stats, launches = phase("deit", slice_phase, torch, np)
-    model, engine, lm_stats = phase("lm serve", lm_serve_phase, torch, np)
+    model, engine, lm_stats = phase(
+        "lm serve", lm_serve_phase, torch, np, llama3_8b.FULL, LM_PROMPTS,
+        LM_NEW_TOKENS, "lm serve")
+    check_full_depth_launches("llama3_8b", lm_stats)
     score_stats, score_launches = phase("lm score", lm_score_phase, torch,
                                         np, model, engine)
     del model, engine
     torch.cuda.empty_cache()
-    cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np)
+    cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np,
+                      llama3_8b.FULL, tuple(LM_CPU_MODES), (100, 250), 640,
+                      "lm cpu")
     backend_stats, mixed_launches = phase("backends", backends_phase, torch,
                                           np)
+    probe_stats = phase("probes", probes_phase, smi)
+    new_lms = {}
+    for name in NEW_LMS:
+        full = importlib.import_module(f"repro_torch.configs.{name}").FULL
+        model, engine, serve = phase(
+            f"{name} serve", lm_serve_phase, torch, np, full, NEW_LM_PROMPTS,
+            NEW_LM_NEW_TOKENS, name)
+        check_full_depth_launches(name, serve)
+        del model, engine
+        torch.cuda.empty_cache()
+        new_lms[name] = {"serve": serve, "card_vs_cpu": phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
+            ("kernel", "sim", "packed"), NEW_LM_CPU_PROMPTS,
+            NEW_LM_CPU_SCORE, f"{name} cpu")}
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
@@ -1429,7 +1769,10 @@ def main(argv) -> int:
              ("lm score", score_launches, common + ("flash_attention",)),
              ("deit mixed", mixed_launches, ("mxint_ln_matmul",
                                              "mxint_matmul", "mxint_softmax",
-                                             "mxint_layernorm")))
+                                             "mxint_layernorm"))) + tuple(
+        (f"{name} serve", res["serve"]["launches"],
+         common + ("flash_attention_decode",))
+        for name, res in new_lms.items())
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -1441,7 +1784,8 @@ def main(argv) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
-         "backends": backend_stats}, indent=1))
+         "backends": backend_stats, "probes": probe_stats, **new_lms},
+        indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

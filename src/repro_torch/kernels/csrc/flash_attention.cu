@@ -39,8 +39,9 @@
 //   f32, the sums run in the tensor cores' order), K/V tiles come through
 //   cp.async double buffers and ldmatrix, and the row stages run in
 //   registers on the mma accumulator layout (flash_mma_kernel below).  P
-//   on the MXInt act grid (quantized scores) is exact in bf16, so one mma
-//   takes it; any other P is split into bf16 hi + mid + lo (f32's 24
+//   on the MXInt act grid (quantized scores) of at most kBf16MantBits bits
+//   is exact in bf16, so one mma takes it; any other P (wider act
+//   mantissas, or float P) is split into bf16 hi + mid + lo (f32's 24
 //   bits), three mmas.  A block visits only the tiles tile_span gives it
 //   (no trailing tile under causal, no leading tile a window hides); that
 //   is exact, see attend_rows in kernels/flash_attention.py.  What bounds
@@ -442,6 +443,9 @@ flash_kernel(const float* q, const float* k, const float* v,
 // amax, exponent max, row max, row sum) is in-thread work plus
 // __shfl_xor_sync over offsets 1 and 2.
 constexpr int kMmaRows = 128;
+// the widest act mantissa whose grid values bf16 holds exactly: b bits
+// carry b - 1 significant bits, bf16 carries 8
+constexpr int kBf16MantBits = 9;
 constexpr int kMmaWarps = kMmaRows / 16;
 constexpr int kMmaThreads = kMmaWarps * kWarp;
 constexpr int kNT = kTileK / 8;                    // 8-key n-tiles per tile
@@ -637,9 +641,11 @@ __device__ __forceinline__ void tile_span(int first, int last, int n_tiles,
 }
 
 // kQuant: quantized scores (Eq. 2-3, P on the act grid); kMxint: the
-// Eq. 14-19 exp datapath (else float exp); kB: the act block.  Compile-time,
-// so that the row stages are straight-line code
-template <bool kQuant, bool kMxint, int kB>
+// Eq. 14-19 exp datapath (else float exp); kB: the act block; kSplit: P
+// goes into P.V as bf16 hi + mid + lo (float P, or act mantissas wider
+// than kBf16MantBits), else as one bf16 (exact).  Compile-time, so that
+// the row stages are straight-line code
+template <bool kQuant, bool kMxint, int kB, bool kSplit>
 __global__ void __launch_bounds__(kMmaThreads, 1)
 flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
@@ -857,7 +863,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         float v0 = s[2 * kk + (r >> 1)][2 * (r & 1)];
         float v1 = s[2 * kk + (r >> 1)][2 * (r & 1) + 1];
         pa[r] = pack_bf16(v0, v1);
-        if (!kQuant) {      // P to f32 precision as hi + mid + lo
+        if constexpr (kSplit) {      // P to f32 precision: hi + mid + lo
           v0 = __fsub_rn(v0, bf16_round(v0));
           v1 = __fsub_rn(v1, bf16_round(v1));
           pm[r] = pack_bf16(v0, v1);
@@ -872,7 +878,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
         ldsm_x4_trans(b, tv + (kk * 16 + v_key) * ks + dp * 16 + v_col);
         mma_bf16(o[2 * dp], pa, b[0], b[1]);
         mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
-        if (!kQuant) {
+        if constexpr (kSplit) {
           mma_bf16(o[2 * dp], pm, b[0], b[1]);
           mma_bf16(o[2 * dp + 1], pm, b[2], b[3]);
           mma_bf16(o[2 * dp], pl, b[0], b[1]);
@@ -1321,9 +1327,9 @@ struct MmaLaunch {
   cudaStream_t st;
 };
 
-template <bool kQuant, bool kMxint, int kB>
+template <bool kQuant, bool kMxint, int kB, bool kSplit = !kQuant>
 int launch_mma(const MmaLaunch& l) {
-  auto* kern = flash_mma_kernel<kQuant, kMxint, kB>;
+  auto* kern = flash_mma_kernel<kQuant, kMxint, kB, kSplit>;
   const int per_block = kMmaRows / l.groups;
   // x: KV heads, y: position blocks (the kernel walks them longest first)
   const dim3 grid(l.n_kv, (l.p.n_rows + per_block - 1) / per_block);
@@ -1401,6 +1407,16 @@ extern "C" int flash_attention_launch(
                       groups, bh / groups, p, st};
     if (!mxint) return launch_mma<false, false, 1>(l);
     if (!quantize) return launch_mma<false, true, 1>(l);
+    if (mant_bits > kBf16MantBits) {     // P's grid values exceed bf16
+      switch (block) {
+        case 1: return launch_mma<true, true, 1, true>(l);
+        case 2: return launch_mma<true, true, 2, true>(l);
+        case 4: return launch_mma<true, true, 4, true>(l);
+        case 8: return launch_mma<true, true, 8, true>(l);
+        case 16: return launch_mma<true, true, 16, true>(l);
+        default: return launch_mma<true, true, 32, true>(l);
+      }
+    }
     switch (block) {
       case 1: return launch_mma<true, true, 1>(l);
       case 2: return launch_mma<true, true, 2>(l);

@@ -99,8 +99,9 @@ extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
                                    void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
   const bool chunked = K > kMaxChunk;
+  // the act tile is int8: a mantissa wider than 8 bits would wrap
   if (K % kAB != 0 || w_block % kAB != 0 || !geom_ok(g) ||
-      (chunked && n_per > kMaxAccTiles))
+      (chunked && n_per > kMaxAccTiles) || mant_bits < 2 || mant_bits > 8)
     return (int)cudaErrorInvalidValue;
   const size_t smem = gemm_smem_bytes(g, chunked ? kMaxChunk : K);
   const void* fn = chunked ? (const void*)mxint_matmul_kernel<true>

@@ -357,9 +357,11 @@ def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
 
     - 'mma' for bfloat16, the dtype the model serves and scores in: q.k and
       P.V on the bf16 tensor cores (``mma.sync``), the row stages in
-      registers.  Its f32 sums run in no fixed order, so the card holds it
-      to the plain version within a tolerance.  Head dims that are
-      multiples of 16 up to 128, at most 128 query heads per KV head.
+      registers.  P enters P.V exactly: as one bf16 where it lies on an
+      act grid of at most 9 mantissa bits, else split into three bf16
+      parts.  Its f32 sums run in no fixed order, so the card holds it to
+      the plain version within a tolerance.  Head dims that are multiples
+      of 16 up to 128, at most 128 query heads per KV head.
     - 'ordered' for float32: the CUDA-core kernel whose sums repeat the
       plain version's order, so the card holds it bit for bit.
 

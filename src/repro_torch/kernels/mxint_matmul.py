@@ -54,6 +54,9 @@ from repro_torch.kernels.mxint_layernorm import (
     MAX_LUT, SMEM_LIMIT, block_quantize_rows, lut_tensor, sm_count)
 
 ACT_BLOCK = 16        # the CUDA kernel's activation block
+# act mantissa widths the CUDA kernel takes: its act tile is int8 (the
+# plain version, like the reference, takes any width)
+MIN_ACT_MANT_BITS, MAX_ACT_MANT_BITS = 2, 8
 
 # the GEMM core's constants (csrc/mxint_common.cuh, csrc/mxint_matmul.cu)
 WARP_COLS = 16                      # a warp's columns: two n8 mma tiles
@@ -220,6 +223,17 @@ def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
             f"K={K}, w_block={w_block}, act_block={act_block}")
 
 
+def check_act_mant_bits(act_mant_bits: int):
+    """Raise unless the kernel's int8 act tile holds mantissas of
+    ``act_mant_bits`` bits (clipped to +-(2^(b-1) - 1)); a wider mantissa
+    would wrap in the cast to int8."""
+    if not MIN_ACT_MANT_BITS <= act_mant_bits <= MAX_ACT_MANT_BITS:
+        raise ValueError(
+            f"mxint_matmul kernel takes {MIN_ACT_MANT_BITS} <= act_mant_bits "
+            f"<= {MAX_ACT_MANT_BITS} (int8 act mantissas), got "
+            f"{act_mant_bits}")
+
+
 def launch_args(x, w_mant, w_exp, out):
     return (x.data_ptr(), w_mant.data_ptr(), w_exp.data_ptr(), out.data_ptr())
 
@@ -229,13 +243,16 @@ def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                  act_mant_bits: int = 8) -> torch.Tensor:
     """y = Q_act(x) @ (w_mant * 2^w_exp) for x (M, K) f32.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor runs the plain version, at any ``act_mant_bits``; a CUDA
+    tensor launches the kernel, which takes 2-8 bits and raises for any
+    other width before it touches the card.
     """
     M, K = x.shape
     check_planes(K, w_mant, w_exp, w_block, act_block)
     if x.device.type == "cpu":
         return matmul_blocks(x, w_mant, w_exp, w_block=w_block,
                              act_block=act_block, act_mant_bits=act_mant_bits)
+    check_act_mant_bits(act_mant_bits)
     global launches
     if x.dtype != torch.float32 or act_block != ACT_BLOCK or \
             w_mant.dtype != torch.int8 or w_exp.dtype != torch.int8:

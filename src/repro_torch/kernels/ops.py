@@ -9,12 +9,18 @@ of the flash tile), so nothing is padded in memory.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.core.mx_types import NEG_INF
 from repro_torch.core.quantize import _resolve_block
+from repro_torch.kernels import flash_attention as _flash
+from repro_torch.kernels import mxint_gelu as _gelu
+from repro_torch.kernels import mxint_layernorm as _layernorm
+from repro_torch.kernels import mxint_ln_matmul as _ln_matmul
+from repro_torch.kernels import mxint_matmul as _matmul
+from repro_torch.kernels import mxint_softmax as _softmax
 from repro_torch.kernels.flash_attention import (TILE_K, flash_attention,
                                                  flash_attention_decode)
 from repro_torch.kernels.mxint_gelu import mxint_gelu
@@ -23,9 +29,24 @@ from repro_torch.kernels.mxint_ln_matmul import mxint_ln_matmul
 from repro_torch.kernels.mxint_matmul import mxint_matmul
 from repro_torch.kernels.mxint_softmax import mxint_softmax
 
+# kernel name -> (its module, the module's launch counter)
+LAUNCH_COUNTERS = {"mxint_matmul": (_matmul, "launches"),
+                   "mxint_ln_matmul": (_ln_matmul, "launches"),
+                   "mxint_softmax": (_softmax, "launches"),
+                   "mxint_gelu": (_gelu, "launches"),
+                   "mxint_layernorm": (_layernorm, "launches"),
+                   "flash_attention": (_flash, "launches"),
+                   "flash_attention_decode": (_flash, "decode_launches")}
+
 # the whole-row 'paper' attention holds the full score matrix; beyond this
 # many scores per (batch, head) the backend takes the blocked flash kernel
 PAPER_MAX_SCORES = 512 * 512
+
+
+def launch_counts() -> Dict[str, int]:
+    """Kernel name -> CUDA launches so far (the plain versions launch
+    nothing)."""
+    return {n: getattr(m, a) for n, (m, a) in LAUNCH_COUNTERS.items()}
 
 
 def _flatten_rows(x: torch.Tensor):

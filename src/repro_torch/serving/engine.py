@@ -6,7 +6,10 @@ with the reference's packing rules.  ``ServingEngine`` serves a decoder LM:
 prefill, slot prefill (one request into one row of a live cache, which
 the per-row ``cache['index']`` makes sound) and batched decode steps.
 ``ViTServingEngine`` serves a classifier in fixed-size batches.  Both run
-on one device, eagerly, so there is no compile cache to watch.
+on one device, eagerly, so there is no compile cache to watch.  Both
+record the reference's ``serving/*`` telemetry; their spans are given the
+engine's device, so on the card they time the device's work (CUDA events,
+a sync at the span's end).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import telemetry as T
 from repro_torch.core.mx_types import MXINT6_WEIGHT, MXFormat
 from repro_torch.core.quantize import MXTensor, pack_weight
 from repro_torch.models.model_api import Param, tree_map
@@ -206,15 +210,21 @@ class ServingEngine:
         temperature > 0, sampled."""
         tokens = torch.as_tensor(np.asarray(batch["tokens"]),
                                  device=self.device)
-        cache = self.model.cache_init(tokens.shape[0], self.cfg.max_len,
-                                      self.device)
-        logits, cache = self._prefill(self.params, {"tokens": tokens}, cache)
-        tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
-        out = [tok]
-        for _ in range(max_new_tokens - 1):
-            tok, cache = self._decode(self.params, tok, cache)
-            out.append(tok)
-        return torch.cat(out, dim=1)
+        bsz, plen = tokens.shape[:2]
+        T.histogram("serving/batch_size", T.DEFAULT_SIZE_BUCKETS).record(bsz)
+        T.histogram("serving/prefill_len",
+                    T.DEFAULT_SIZE_BUCKETS).record(plen)
+        with T.span("serving/generate", device=self.device, batch=bsz,
+                    new_tokens=max_new_tokens):
+            cache = self.model.cache_init(bsz, self.cfg.max_len, self.device)
+            logits, cache = self._prefill(self.params, {"tokens": tokens},
+                                          cache)
+            tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+            out = [tok]
+            for _ in range(max_new_tokens - 1):
+                tok, cache = self._decode(self.params, tok, cache)
+                out.append(tok)
+            return torch.cat(out, dim=1)
 
 
 class ViTServingEngine:
@@ -250,13 +260,15 @@ class ViTServingEngine:
         padding rows are dropped from the result)."""
         images = np.asarray(images, dtype=np.float32)
         n, batch = images.shape[0], self.cfg.batch
-        chunks = []
-        for i in range(0, n, batch):
-            chunk = images[i:i + batch]
-            pad = batch - chunk.shape[0]
-            if pad:
-                chunk = np.concatenate(
-                    [chunk, np.zeros((pad,) + chunk.shape[1:], chunk.dtype)])
-            chunks.append(self.logits_batch(chunk)[:batch - pad])
-        logits = torch.cat(chunks, dim=0)
-        return logits.argmax(dim=-1), logits
+        T.histogram("serving/batch_size", T.DEFAULT_SIZE_BUCKETS).record(batch)
+        with T.span("serving/classify", device=self.device, images=n):
+            chunks = []
+            for i in range(0, n, batch):
+                chunk = images[i:i + batch]
+                pad = batch - chunk.shape[0]
+                if pad:
+                    chunk = np.concatenate([chunk, np.zeros(
+                        (pad,) + chunk.shape[1:], chunk.dtype)])
+                chunks.append(self.logits_batch(chunk)[:batch - pad])
+            logits = torch.cat(chunks, dim=0)
+            return logits.argmax(dim=-1), logits

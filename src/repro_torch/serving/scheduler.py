@@ -11,17 +11,45 @@ from the front of the queue, across request boundaries, zero-padding only
 the final partial chunk; a request completes when its last image is
 classified.  Every step runs the same (batch, H, W, 3) shape.
 
-The reference's schedulers also publish telemetry; that waits for the
-telemetry port (ROADMAP.md).
+Both publish to ``repro_torch.telemetry`` under the reference's names:
+``scheduler/submitted``/``completed``/``admissions`` counters,
+``queue_depth``/``slots_active``/``in_flight`` gauges (conserving
+``submitted == completed + in_flight`` at step boundaries),
+``request_latency_ms`` histograms, throughput gauges and the step spans.
+The port runs eagerly, so the reference's ``serving/recompiles`` has no
+counterpart; in its place every engine call folds the kernels' launches
+into ``kernel/launches/<kernel>`` and one ``scheduler/kernel_launches``
+sample (a launch count that moves from step to step is what a recompile
+was on the TPU).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from collections import deque
 from typing import List, Optional
 
 import numpy as np
 import torch
+
+from repro_torch import telemetry as T
+from repro_torch.kernels import ops
+
+
+@contextlib.contextmanager
+def _count_launches():
+    """Fold the kernel launches of the engine call inside into the
+    ``kernel/launches/<kernel>`` counters (created at 0, so a run on the
+    CPU, whose plain versions launch nothing, exports them at 0) and one
+    sample of ``scheduler/kernel_launches``."""
+    before = ops.launch_counts()
+    yield
+    total = 0
+    for name, n in ops.launch_counts().items():
+        T.counter(f"kernel/launches/{name}").inc(n - before[name])
+        total += n - before[name]
+    T.histogram("scheduler/kernel_launches",
+                T.DEFAULT_SIZE_BUCKETS).record(total)
 
 
 @dataclasses.dataclass
@@ -35,6 +63,7 @@ class Request:
     max_new_tokens: int = 16
     generated: List[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    _submit_ts: Optional[float] = None  # set by the scheduler at submit
 
 
 class BatchScheduler:
@@ -73,7 +102,10 @@ class BatchScheduler:
             raise ValueError(
                 f"prompt length {len(req.prompt)} > prefill_len "
                 f"{self.prefill_len}")
+        req._submit_ts = T.walltime()
         self.queue.append(req)
+        T.counter("scheduler/submitted").inc()
+        self._update_gauges()
 
     def _bucket(self, n: int) -> int:
         """Slot-prefill pad length of an ``n``-token prompt."""
@@ -90,6 +122,16 @@ class BatchScheduler:
                 len(req.generated) >= req.max_new_tokens:
             req.done = True
 
+    def _update_gauges(self):
+        """Publish the queue and slot gauges.  The invariant:
+        ``scheduler/submitted == scheduler/completed +
+        scheduler/in_flight`` at every step boundary (a done row counts as
+        in flight until it is evicted)."""
+        slots = sum(1 for r in self.active if r is not None)
+        T.gauge("scheduler/queue_depth").set(len(self.queue))
+        T.gauge("scheduler/slots_active").set(slots)
+        T.gauge("scheduler/in_flight").set(len(self.queue) + slots)
+
     def _evict(self):
         """Move done requests out of their rows; in wave mode only once
         the whole batch is done."""
@@ -100,6 +142,11 @@ class BatchScheduler:
             if r is not None and r.done:
                 self.finished.append(r)
                 self.active[i] = None
+                T.counter("scheduler/completed").inc()
+                T.histogram("scheduler/request_latency_ms",
+                            T.DEFAULT_MS_BUCKETS).record(
+                    (T.walltime() - r._submit_ts) * 1e3)
+        self._update_gauges()
 
     def _admit(self):
         """Fill free rows from the queue front, one slot prefill each."""
@@ -119,12 +166,19 @@ class BatchScheduler:
                                                    eng.device)
                 self._tok = np.zeros((self.batch, 1), np.int32)
             n = len(req.prompt)
-            tokens = np.zeros((1, self._bucket(n)), np.int32)
+            P = self._bucket(n)
+            tokens = np.zeros((1, P), np.int32)
             tokens[0, :n] = req.prompt
-            tok, self._cache = eng._prefill_slot(
-                eng.params, torch.as_tensor(tokens, device=eng.device), n, i,
-                self._cache)
-            t = int(tok[0])
+            T.histogram("serving/prefill_len",
+                        T.DEFAULT_SIZE_BUCKETS).record(P)
+            # a host span: the step ends in the token's readback, so it
+            # holds the device's time too
+            with T.span("scheduler/slot_prefill"), _count_launches():
+                tok, self._cache = eng._prefill_slot(
+                    eng.params, torch.as_tensor(tokens, device=eng.device),
+                    n, i, self._cache)
+                t = int(tok[0])
+            T.counter("scheduler/admissions").inc()
             self.active[i] = req
             self._record(req, t)
             self._tok[i, 0] = t
@@ -137,15 +191,23 @@ class BatchScheduler:
         self._admit()
         live = [r for r in self.active if r is not None and not r.done]
         if not live:
+            self._update_gauges()
             return 0
         eng = self.engine
-        tok, self._cache = eng._decode(
-            eng.params, torch.as_tensor(self._tok, device=eng.device),
-            self._cache)
-        self._tok = tok.cpu().numpy()
+        # a host span: the step ends in the tokens' readback
+        with T.span("scheduler/decode_step", live=len(live)) as sp, \
+                _count_launches():
+            tok, self._cache = eng._decode(
+                eng.params, torch.as_tensor(self._tok, device=eng.device),
+                self._cache)
+            self._tok = tok.cpu().numpy()
         for i, r in enumerate(self.active):
             if r is not None and not r.done:
                 self._record(r, int(self._tok[i, 0]))
+        T.counter("scheduler/tokens_generated").inc(len(live))
+        if sp.elapsed_s:
+            T.gauge("scheduler/tokens_per_s").set(len(live) / sp.elapsed_s)
+        self._update_gauges()
         return sum(1 for r in self.active if r is not None and not r.done)
 
     def run(self, max_steps: int = 1024) -> List[Request]:
@@ -171,6 +233,7 @@ class ClassifyRequest:
     labels: Optional[np.ndarray] = None
     done: bool = False
     _next: int = 0                     # images admitted so far
+    _submit_ts: Optional[float] = None  # set by the scheduler at submit
 
 
 class ClassifyScheduler:
@@ -190,7 +253,16 @@ class ClassifyScheduler:
         """Enqueue; its images are admitted, possibly over several steps,
         in FIFO order.  A zero-image request completes in queue order with
         empty results."""
+        req._submit_ts = T.walltime()
         self.queue.append(req)
+        T.counter("scheduler/submitted").inc()
+        self._update_gauges()
+
+    def _update_gauges(self):
+        """A classifier holds no rows: in flight is the queue (the same
+        invariant as ``BatchScheduler``'s)."""
+        T.gauge("scheduler/queue_depth").set(len(self.queue))
+        T.gauge("scheduler/in_flight").set(len(self.queue))
 
     def _evict_completed(self):
         while self.queue and \
@@ -201,6 +273,11 @@ class ClassifyScheduler:
                 req.labels = np.zeros((0,), np.int64)
             req.done = True
             self.finished.append(req)
+            T.counter("scheduler/completed").inc()
+            T.histogram("scheduler/request_latency_ms",
+                        T.DEFAULT_MS_BUCKETS).record(
+                (T.walltime() - req._submit_ts) * 1e3)
+        self._update_gauges()
 
     def step(self) -> int:
         """Classify up to ``batch`` images off the queue front; returns the
@@ -220,7 +297,15 @@ class ClassifyScheduler:
         chunk = np.zeros((self.batch,) + img.shape[1:], np.float32)
         for j, (req, i) in enumerate(take):
             chunk[j] = req.images[i]
-        logits = self.engine.logits_batch(chunk).float().cpu().numpy()
+        # a host span: the step ends in the logits' readback
+        with T.span("scheduler/classify_step", images=len(take)) as sp, \
+                _count_launches():
+            logits = self.engine.logits_batch(chunk).float().cpu().numpy()
+        # the rows filled this step (the rest of the batch is padding)
+        T.gauge("scheduler/slots_active").set(len(take))
+        T.counter("scheduler/images_classified").inc(len(take))
+        if sp.elapsed_s:
+            T.gauge("scheduler/images_per_s").set(len(take) / sp.elapsed_s)
         for j, (req, i) in enumerate(take):
             if req.logits is None:
                 n = req.images.shape[0]

@@ -999,3 +999,43 @@ def test_core_epilogue_matches_plain_version(x_scale, w_scale, case):
         assert s < -149
     if case == "overflow":                  # inf products, inf - inf
         assert not np.isfinite(got).any()
+
+
+@pytest.mark.parametrize("bits", [1, 9, 10, 16, 24])
+def test_matmul_kernel_refuses_wide_act_mantissas(bits):
+    """The CUDA kernel's act tile is int8: a mantissa of more than 8 bits
+    would wrap in the cast, so the wrapper raises before it touches the
+    card (as ``mxint_ln_matmul`` does)."""
+    with pytest.raises(ValueError, match="act_mant_bits"):
+        mxint_matmul.check_act_mant_bits(bits)
+
+
+@pytest.mark.parametrize("bits", range(2, 9))
+def test_matmul_kernel_takes_2_to_8_bit_act_mantissas(bits):
+    mxint_matmul.check_act_mant_bits(bits)
+
+
+def test_wide_act_format_raises_before_any_launch():
+    """``QuantConfig(mode="kernel", act_fmt=MXFormat(10, 16))`` reaches
+    ``mxint_matmul`` through every linear.  On a tensor off the CPU (here a
+    meta tensor, as a CUDA one would be) the check raises before the
+    kernel is built or launched; on the CPU the plain version computes any
+    width, as the reference does."""
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.core.quantize import MXTensor
+    from repro_torch.models.model_api import Param
+    q = QuantConfig(mode="kernel", act_fmt=MXFormat(10, 16))
+    K, N = 64, 32
+    before = ops.launch_counts()
+
+    def linear(device):
+        w = MXTensor(torch.zeros(K, N, dtype=torch.int8, device=device),
+                     torch.zeros(K // 32, N, dtype=torch.int8, device=device),
+                     -2, 8, 32)
+        x = torch.ones(3, K, device=device)
+        return q.datapath.linear(x, Param(w, ("embed", "mlp")), q=q)
+
+    with pytest.raises(ValueError, match="act_mant_bits"):
+        linear("meta")
+    assert linear("cpu").shape == (3, N)
+    assert ops.launch_counts() == before
