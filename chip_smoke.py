@@ -31,8 +31,15 @@
    row kernels (softmax, GELU, LN, both flash kernels) are also held at
    MXInt6 and MXInt12; the shapes Qwen3-14B and Phi-4-mini add (per-head
    q/k RMSNorm rows of 128, decode and flash at G 5 and 3) are timed.
-   ``mxint_matmul`` at ``act_mant_bits=10`` must raise before it launches,
-   and its C entry must refuse 10 bits (its act tile is int8).
+   The widened act formats (``WIDE_ACT``, ``WIDE_ROW_BLOCKS``): both
+   matmul kernels at act blocks 4, 8, 32, 64 and 256 and at 10-, 12- and
+   16-bit act mantissas (at blocks 16 and 32), at DeiT-Base's FFN shapes
+   (timed) and a Llama decode shape; softmax, GELU and LN at act blocks
+   32, 64 and 128 at the DeiT shapes (timed).  ``mxint_matmul`` computes
+   at ``act_mant_bits=10`` and must raise before it launches at 17 bits
+   and at act block 12, and its C entry must refuse 17 bits (its act tile
+   holds int16 at most); a kernel-mode linear on 10-bit weights (int16
+   planes) must raise.
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -103,7 +110,28 @@
    ``lm_per_call`` derives (Qwen3-14B 401 a slot prefill and 441 a decode
    step, Phi-4-mini 257 and 289); then a 2-layer full-width card-against-
    CPU check in kernel, "sim" and "packed" mode, phase 6's tolerance.
-10. Prints one JSON line of per-kernel results, then as the last line
+10. DSE phase: kernel-mode DeiT-Base at full width and depth, random
+   weights from seed 0, calibrated on 32 images of
+   ``SyntheticImageData(n_classes=1000, image_size=224, seed=0)``
+   (``repro_torch.dse``): (a) the reference CLI's per-group space
+   (``block/*/attn`` and ``block/*/ffn`` at weight bits 3, 4, 6, 8: 16
+   points, exhaustive), (b) act bits 6, 8, 12 x act blocks 16, 32 on
+   every scope (6 points), (c) the greedy driver at the 1% budget on (a).
+   Per candidate: accuracy (argmax agreement with the float model),
+   fidelity, weight bits, the predicted device-memory bytes of one
+   DeiT-Base forward's kernels at batch 16 (the Hopper cost table, each
+   row times its calls, at each call site's act format), ms per
+   evaluation (the device-true
+   ``span/dse/eval``) and launches per forward (3 + 8 x 12, each checked);
+   the Pareto fronts.  Then space (b) at 2 layers on the card and on the
+   CPU (16 images): logits bit for bit, accuracy equal, fidelity within
+   1e-6.  The probes phase (8) prints the four probe labels' measured
+   time against the cost table's prediction (``predicted_vs_measured``).
+11. Widened serve: DeiT-Base served through ``ClassifyScheduler`` with the
+   FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``) and
+   with 12-bit acts everywhere, the DeiT phase's telemetry and launch
+   checks; ms per batch.
+12. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -121,16 +149,16 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the bounds and their operation counts come from the Hopper cost table;
+# the flash kernels' q.k and P.V products (4 * head dim operations per
+# kept pair) have bf16 operands, so their least time is at the bf16
+# tensor-core rate
+from repro_torch.analysis.cost_model import (ROW_OPS, bound,  # noqa: E402
+                                             gemm_f32_ops)
+
 SEED = 0
 BATCH = 16
 DEVICE = "cuda"
-# f32 operations per element of the row datapaths, counted from their
-# stages (quantize, align, LUT, scale, requantize); for the flash kernels
-# per score of a (query, key) pair that the masks keep.  The flash
-# kernels' q.k and P.V products (4 * head dim operations per kept pair)
-# have bf16 operands, so their least time is at the bf16 tensor-core rate.
-ROW_OPS = {"mxint_layernorm": 30, "mxint_softmax": 30, "mxint_gelu": 16,
-           "flash": 36}
 REPLACES = {
     "mxint_matmul": "src/repro/kernels/mxint_matmul.py:109",
     "mxint_ln_matmul": "src/repro/kernels/mxint_ln_matmul.py:89",
@@ -185,9 +213,21 @@ TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "qwen3_14b_decode_b4_W2048_served_mxint",
                "phi4_mini_decode_b4_W2048_served_mxint",
                "qwen3_14b_g5_650_causal_mxint",
-               "phi4_mini_g3_650_causal_mxint"}
+               "phi4_mini_g3_650_causal_mxint",
+               # the softmax's long route at block 16 (registers a block)
+               "long_n1040_b16", "long_rows_2x262144_b16"}
 # act mantissa widths of the row kernels' MXInt6 and MXInt12 cases
 MANT_BITS = {"mant6": 6, "mant12": 12}
+# the widened act formats of the matmul kernels' cases: (act block, act
+# mantissa bits); and the row kernels' act blocks past 16
+WIDE_ACT = ((4, 8), (8, 8), (32, 8), (64, 8), (256, 8), (16, 10), (16, 12),
+            (16, 16), (32, 10), (32, 12), (32, 16))
+WIDE_ROW_BLOCKS = (32, 64, 128)
+# the widened formats are timed at the DeiT shapes
+TIMED_CASES |= {f"deit_base_b16_{s}_a{b}_m{m}" for s in ("ffn_wo", "ln2_wi")
+                for b, m in WIDE_ACT} | {
+    f"{s}_b{b}" for s in ("deit_rows_n256", "deit_base_b16_ffn",
+                          "deit_base_b16_final_ln") for b in WIDE_ROW_BLOCKS}
 LM_PROMPTS = (37, 64, 120, 255, 300, 512, 700, 1000)
 LM_NEW_TOKENS = 24
 LM_BATCH = 4
@@ -204,6 +244,11 @@ NEW_LM_PROMPTS = (37, 150, 400, 700)
 NEW_LM_NEW_TOKENS = 16
 NEW_LM_CPU_PROMPTS = (37, 100)
 NEW_LM_CPU_SCORE = 520
+# the DSE phase: calibration images; its card-against-CPU check's depth and
+# images (the CPU's plain versions take about 5 s a candidate at 16)
+DSE_IMAGES = 32
+DSE_CPU_LAYERS = 2
+DSE_CPU_IMAGES = 16
 # launches of a slot prefill and a decode step at full depth, from
 # lm_per_call: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
 # layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40
@@ -300,20 +345,6 @@ def idle_share(busy_ms, wall_ms):
     return None if busy_ms is None else 1.0 - busy_ms / wall_ms
 
 
-def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
-          bf16_ops: float = 0.0):
-    """(least time in ms, what bounds it) on the H100's published dense
-    peaks (``repro_torch.telemetry.export``: HBM, bf16 and int8 tensor
-    cores, float32)."""
-    from repro_torch.telemetry.export import (DEFAULT_PEAKS, F32_OPS_PER_S,
-                                              INT8_OPS_PER_S)
-    t_mem = nbytes / DEFAULT_PEAKS.hbm_bytes_per_s
-    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / DEFAULT_PEAKS.flops_per_s
-             + f32_ops / F32_OPS_PER_S)
-    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
-                                     else "operations")
-
-
 def reset_counts():
     from repro_torch.kernels import ops
     for m, attr in ops.LAUNCH_COUNTERS.values():
@@ -337,12 +368,6 @@ def flash_pairs(sq, sk, causal, window):
         hi = min(sk, i + 1) if causal else sk
         total += max(0, hi - lo)
     return total
-
-
-def gemm_f32_ops(M, N, K):
-    """The ordered f32 sum of the matmul kernels: a multiply and an add
-    per output element and 16-wide act block."""
-    return 2.0 * M * N * (K // 16)
 
 
 def kernel_cases(torch, np):
@@ -648,8 +673,107 @@ def kernel_cases(torch, np):
                   + (1 if b is None else 2) * d * g.element_size(),
                   f32_ops=ROW_OPS["mxint_layernorm"] * R * d),
             None))
+    widened_cases(torch, cases, x, planes, rows)
     cases.update(flash_cases(torch, np, x))
     return cases
+
+
+def widened_cases(torch, cases, x, planes, rows):
+    """The act formats past block 16 and 8 bits (``WIDE_ACT``): the matmul
+    kernels at act blocks 4, 8, 32, 64 and 256 and at act mantissas of 10,
+    12 and 16 bits (at blocks 16 and 32), at DeiT-Base's FFN ``wo`` / LN2
+    -> ``wi`` and a Llama decode shape; the row kernels at act blocks 32,
+    64 and 128 at the DeiT shapes (softmax on rows of 256: DeiT's 197 is
+    prime, so its act block resolves to 1)."""
+    from repro_torch.core.mx_types import MXINT6_WEIGHT, MXINT8_WEIGHT
+    from repro_torch.core.quantize import dequantize
+    from repro_torch.kernels import (mxint_gelu, mxint_layernorm,
+                                     mxint_ln_matmul, mxint_matmul,
+                                     mxint_softmax)
+    for (label, M, K, N), (blk, mb) in ((s, f) for s in (
+            ("deit_base_b16_ffn_wo", rows, 3072, 768),
+            ("llama3_8b_decode_attn_wo", LM_BATCH, 4096, 4096))
+            for f in WIDE_ACT):
+        a = x(M, K)
+        w = planes(K, N, MXINT6_WEIGHT if label.startswith("deit")
+                   else MXINT8_WEIGHT)
+        wd = dequantize(w)
+        cases["mxint_matmul"].append((
+            f"{label}_a{blk}_m{mb}",
+            lambda a=a, w=w, blk=blk, mb=mb: mxint_matmul.mxint_matmul(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=blk, act_mant_bits=mb),
+            lambda a=a, w=w, blk=blk, mb=mb: mxint_matmul.matmul_blocks(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=blk, act_mant_bits=mb),
+            bound(M * K * 4 + w.mantissa.numel() + w.exponent.numel()
+                  + M * N * 4, int8_ops=(2.0 if mb > 8 else 1.0)
+                  * 2.0 * M * N * K, f32_ops=gemm_f32_ops(M, N, K, blk)),
+            lambda a=a, wd=wd: torch.matmul(a, wd)))
+    for (label, M, d, N), (blk, mb) in ((s, f) for s in (
+            ("deit_base_b16_ln2_wi", rows, 768, 3072),
+            ("llama3_8b_decode_rms_wq", LM_BATCH, 4096, 4096))
+            for f in WIDE_ACT):
+        rms = label.startswith("llama")
+        a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
+        b = None if rms else 0.1 * x(d)
+        if rms:
+            a, g = a.to(torch.bfloat16), g.to(torch.bfloat16)
+        w = planes(d, N, MXINT8_WEIGHT if rms else MXINT6_WEIGHT)
+        wd = dequantize(w)
+        cases["mxint_ln_matmul"].append((
+            f"{label}_a{blk}_m{mb}",
+            lambda a=a, g=g, b=b, w=w, rms=rms, blk=blk, mb=mb:
+                mxint_ln_matmul.mxint_ln_matmul(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, mant_bits=mb, rms_only=rms),
+            lambda a=a, g=g, b=b, w=w, rms=rms, blk=blk, mb=mb:
+                mxint_ln_matmul.ln_matmul_rows(
+                    a, g, torch.zeros_like(g) if b is None else b,
+                    w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, mant_bits=mb, lut_bits=5, rms_only=rms),
+            bound(a.numel() * a.element_size()
+                  + (1 if b is None else 2) * d * g.element_size()
+                  + w.mantissa.numel() + w.exponent.numel() + M * N * 4,
+                  int8_ops=(2.0 if mb > 8 else 1.0) * 2.0 * M * N * d,
+                  f32_ops=ROW_OPS["mxint_layernorm"] * M * d
+                  + gemm_f32_ops(M, N, d, blk)),
+            lambda a=a, wd=wd: torch.matmul(a.to(torch.float32), wd)))
+    for blk in WIDE_ROW_BLOCKS:
+        R, n = BATCH * 12 * 197, 256
+        a = x(R, n, scale=4.0)
+        log(f"[kernel] mxint_softmax deit_rows_n256_b{blk} route "
+            f"{mxint_softmax.softmax_geometry(R, n, blk)}")
+        cases["mxint_softmax"].append((
+            f"deit_rows_n256_b{blk}",
+            lambda a=a, blk=blk: mxint_softmax.mxint_softmax(
+                a, act_block=blk, quantize_out=True),
+            lambda a=a, blk=blk: mxint_softmax.softmax_rows(
+                a, act_block=blk, mant_bits=8, r_bits=2, quantize_out=True),
+            bound(2 * R * n * 4, f32_ops=ROW_OPS["mxint_softmax"] * R * n),
+            None))
+        a = x(rows, 3072, scale=2.0)
+        table, domain = mxint_gelu.gelu_table("gelu", 5, 3.0)
+        lut = mxint_layernorm.lut_tensor(table, a.device)
+        cases["mxint_gelu"].append((
+            f"deit_base_b16_ffn_b{blk}",
+            lambda a=a, blk=blk: mxint_gelu.mxint_gelu(a, act_block=blk),
+            lambda a=a, lut=lut, dom=domain, blk=blk: mxint_gelu.gelu_rows(
+                a, lut, act_block=blk, mant_bits=8, domain=dom),
+            bound(2 * a.numel() * 4, f32_ops=ROW_OPS["mxint_gelu"]
+                  * a.numel()),
+            None))
+        a, g, b = x(rows, 768, scale=2.0), 1.0 + 0.1 * x(768), 0.1 * x(768)
+        cases["mxint_layernorm"].append((
+            f"deit_base_b16_final_ln_b{blk}",
+            lambda a=a, g=g, b=b, blk=blk: mxint_layernorm.mxint_layernorm(
+                a, g, b, act_block=blk, quantize_out=True),
+            lambda a=a, g=g, b=b, blk=blk: mxint_layernorm.layernorm_rows(
+                a, g, b, act_block=blk, mant_bits=8, lut_bits=5,
+                rms_only=False, quantize_out=True),
+            bound(2 * a.numel() * 4 + 2 * 768 * 4,
+                  f32_ops=ROW_OPS["mxint_layernorm"] * a.numel()),
+            None))
 
 
 def flash_cases(torch, np, x):
@@ -831,46 +955,72 @@ def ln_linear_op_ops(torch, np):
 
 
 def matmul_width_check(torch):
-    """``mxint_matmul`` at ``act_mant_bits=10`` on the card: the wrapper
-    raises before it launches anything, and the C entry point, called
-    directly, returns cudaErrorInvalidValue at 10 bits (and launches at
-    8).  Its act tile is int8, so a wider mantissa would wrap.  Raises
-    otherwise."""
-    import ctypes
-    from repro_torch.core.mx_types import MXINT8_WEIGHT
+    """``mxint_matmul`` on the card at ``act_mant_bits`` 10 and 17: at 10
+    the wrapper computes (equal to the plain version); at 17 it raises
+    before it launches anything, and the C entry point, called directly,
+    returns cudaErrorInvalidValue at 17 bits (and launches at 10 and 8).
+    Its act tile holds int16 at most, so a wider mantissa would wrap.  Act
+    block 12 (neither a divisor of 16 nor a multiple) raises in the
+    wrapper.  Also records what a kernel-mode linear does with 10-bit
+    weights (``QuantConfig(mode="kernel", weight_fmt=MXFormat(10, 256))``:
+    int16 weight planes, which the wrappers refuse).  Raises otherwise."""
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, MXFormat, QuantConfig
     from repro_torch.core.quantize import pack_weight
     from repro_torch.kernels import _build
     from repro_torch.kernels import mxint_matmul as mm
+    from repro_torch.models.model_api import Param
     M, K, N = 16, 256, 128
     a = torch.ones(M, K, device=DEVICE)
     w = pack_weight(torch.ones(K, N, device=DEVICE) / 16, MXINT8_WEIGHT)
+    got = mm.mxint_matmul(a, w.mantissa, w.exponent, w_block=w.block_size,
+                          act_mant_bits=10)
+    want = mm.matmul_blocks(a, w.mantissa, w.exponent, w_block=w.block_size,
+                            act_block=16, act_mant_bits=10)
+    if not bool((got == want).all()):
+        raise AssertionError("mxint_matmul at 10 bits differs from its plain "
+                             "version")
+    # act block 12 on planes of 48-blocks (12 divides them and K)
+    a12 = torch.ones(M, 192, device=DEVICE)
+    w12 = pack_weight(torch.ones(192, N, device=DEVICE) / 16, MXFormat(8, 48))
     before = read_counts()
-    try:
-        mm.mxint_matmul(a, w.mantissa, w.exponent, w_block=w.block_size,
-                        act_mant_bits=10)
-    except ValueError as e:
-        msg = str(e)
-    else:
-        raise AssertionError("mxint_matmul took act_mant_bits=10 on the card")
+    msgs = {}
+    for key, (xa, wa, kw) in (
+            ("act_mant_bits=17", (a, w, {"act_mant_bits": 17})),
+            ("act_block=12", (a12, w12, {"act_block": 12}))):
+        try:
+            mm.mxint_matmul(xa, wa.mantissa, wa.exponent,
+                            w_block=wa.block_size, **kw)
+        except ValueError as e:
+            msgs[key] = str(e)
+        else:
+            raise AssertionError(f"mxint_matmul took {key} on the card")
     torch.cuda.synchronize()
     if read_counts() != before:
-        raise AssertionError("mxint_matmul launched at act_mant_bits=10")
+        raise AssertionError("mxint_matmul launched outside its domain")
     out = torch.zeros(M, N, device=DEVICE)
-    geom = mm.gemm_geometry(M, N, K, mm.sm_count(a.device))
-    fn = _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 10 + [ctypes.c_void_p])
     rcs = {}
-    for bits in (10, 8):
-        rcs[bits] = fn(*mm.launch_args(a, w.mantissa, w.exponent, out), M,
-                       K, N, w.block_size, bits, *geom.args(),
-                       _build.stream_ptr(a.device))
+    for bits in (17, 10, 8):
+        geom = mm.gemm_geometry(M, N, K, mm.sm_count(a.device),
+                                wide=bits > 8)
+        rcs[bits] = mm.matmul_entry()(
+            *mm.launch_args(a, w.mantissa, w.exponent, out), M, K, N,
+            w.block_size, bits, 16, *geom.args(), geom.kc,
+            _build.stream_ptr(a.device))
         torch.cuda.synchronize()
-    log(f"[kernel] mxint_matmul act_mant_bits=10: wrapper raised "
-        f"ValueError({msg!r}); C entry returned {rcs[10]} at 10 bits, "
-        f"{rcs[8]} at 8")
-    if rcs[10] == 0 or rcs[8] != 0:
+    q = QuantConfig(mode="kernel", weight_fmt=MXFormat(10, 256))
+    wq = Param(torch.ones(K, N, device=DEVICE) / 16, ("embed", "mlp"))
+    try:
+        q.datapath.linear(a, wq, q=q)
+    except ValueError as e:
+        msgs["weight_fmt=MXFormat(10, 256)"] = str(e)
+    else:
+        raise AssertionError("a kernel-mode linear took 10-bit weights")
+    log(f"[kernel] mxint_matmul act widths: 10 bits computed, equal to the "
+        f"plain version; wrapper raised {msgs!r}; C entry returned "
+        f"{rcs[17]} at 17 bits, {rcs[10]} at 10, {rcs[8]} at 8")
+    if rcs[17] == 0 or rcs[10] != 0 or rcs[8] != 0:
         raise AssertionError(f"mxint_matmul_launch returned {rcs}")
-    return {"wrapper_error": msg, "c_entry_rc": rcs}
+    return {"wrapper_errors": msgs, "c_entry_rc": rcs}
 
 
 def within_bf16_ulp(torch, got, want):
@@ -1666,13 +1816,229 @@ def probes_phase(smi):
     """The reference's four probe labels on the card, each timed by a
     device-true span (CUDA events); and the host cost of a scheduler
     step's telemetry."""
+    from repro_torch.telemetry.export import predicted_vs_measured
     from repro_torch.telemetry.probes import PROBES, run_probes
     ms = run_probes(tuple(PROBES), repeats=10, device=DEVICE)
+    join = predicted_vs_measured()          # the Hopper cost table's rows
     us = telemetry_step_us()
     log(f"[probes] {smi}: " + ", ".join(f"{k} {v!r} ms"
                                         for k, v in ms.items()))
+    for k in join["kernels"]:
+        log(f"[probes] predicted vs measured {k['label']}: measured "
+            f"{k['measured_ms']!r} ms, predicted {k['predicted_ms']!r} ms "
+            f"({k['bottleneck']}), achieved fraction "
+            f"{k['achieved_fraction']!r}")
+    if sorted(k["label"] for k in join["kernels"]) != sorted(PROBES) or \
+            join["unmatched"]:
+        raise AssertionError(f"the probes did not all join the cost table: "
+                             f"{join}")
     log(f"[probes] telemetry of one scheduler step: {us!r} us of host time")
-    return {"card": smi, "mean_ms": ms, "telemetry_step_us": us}
+    return {"card": smi, "mean_ms": ms, "predicted_vs_measured": join,
+            "telemetry_step_us": us}
+
+
+def dse_spaces():
+    """The DSE phase's spaces on kernel-mode DeiT-Base (MXInt8 weights of
+    256-blocks, MXInt8 activations of 16-blocks, the MXInt non-linears):
+    (a) the reference CLI's per-group space, ``block/*/attn`` and
+    ``block/*/ffn`` at weight bits {3, 4, 6, 8}, 16 points; (b) an act space
+    on every scope, act bits {6, 8, 12} x act blocks {16, 32}, 6 points."""
+    from repro_torch.core.mx_types import MXFormat, QuantConfig
+    from repro_torch.dse.space import GroupSpace, SearchSpace
+    base = QuantConfig(mode="kernel", quantize_nonlinear=True,
+                       weight_fmt=MXFormat(8, 256), act_fmt=MXFormat(8, 16))
+    widths = (3, 4, 6, 8)
+    per_group = SearchSpace(base=base, groups=(
+        GroupSpace(scope="block/*/attn", weight_mant_bits=widths),
+        GroupSpace(scope="block/*/ffn", weight_mant_bits=widths)))
+    act = SearchSpace(base=base, groups=(
+        GroupSpace(scope="*", act_mant_bits=(6, 8, 12),
+                   act_block_size=(16, 32)),))
+    return per_group, act
+
+
+def dse_run(torch, ev, points, tag):
+    """Evaluate ``points`` in turn, each with the launch counts set to 0
+    just before and read just after; returns (results, rows, launches)."""
+    from repro_torch import telemetry as T
+    rows, total = [], {}
+    results = []
+    for p in points:
+        hist = T.snapshot()["histograms"].get("span/dse/eval/ms")
+        before_ms = 0.0 if hist is None else hist["sum"]
+        n_before = ev.n_evaluated
+        reset_counts()
+        r = ev(p)
+        counts = read_counts()
+        fresh = ev.n_evaluated > n_before
+        ms = T.snapshot()["histograms"]["span/dse/eval/ms"]["sum"] - before_ms
+        for n, c in counts.items():
+            total[n] = total.get(n, 0) + c
+        launches = sum(counts.values())
+        row = {"point": {f"{s}:{k}": v for (s, k), v in sorted(p.items())},
+               "accuracy": r.accuracy, "fidelity": r.fidelity,
+               "weight_bits": r.cost.weight_bits,
+               "act_bits": r.cost.act_bits,
+               "hbm_bytes": r.cost.kernel_hbm_bytes,
+               "ms_per_eval": ms, "launches_per_forward": launches}
+        log(f"[dse {tag}] {row['point']} accuracy={r.accuracy!r} "
+            f"fidelity={r.fidelity!r} weight_bits={r.cost.weight_bits!r} "
+            f"predicted_hbm_bytes={r.cost.kernel_hbm_bytes} "
+            f"ms_per_eval={ms!r} launches_per_forward={launches}")
+        if not bool(torch.isfinite(ev.logits_for(p)).all()):
+            raise AssertionError(f"dse {tag}: non-finite logits at {p}")
+        if fresh and launches != 3 + 8 * ev.cfg.n_layers:
+            raise AssertionError(f"dse {tag}: {launches} launches a kernel-"
+                                 f"mode forward, not {3 + 8 * ev.cfg.n_layers}")
+        results.append(r)
+        rows.append(row)
+    return results, rows, total
+
+
+def dse_front(results, tag):
+    from repro_torch.dse.report import pareto_front
+    front = pareto_front(results)
+    for i in front:
+        r = results[i]
+        log(f"[dse {tag}] pareto: {dict(sorted(r.point.items()))} accuracy="
+            f"{r.accuracy!r} weight_bits={r.cost.weight_bits!r} "
+            f"hbm_bytes={r.cost.kernel_hbm_bytes}")
+    return front
+
+
+def dse_phase(torch, np):
+    """Design-space exploration in kernel mode on DeiT-Base at full width
+    and depth (module docstring, item 10)."""
+    from repro_torch import telemetry as T
+    from repro_torch.analysis.cost_model import DEIT_BASE_LABELS
+    from repro_torch.configs.deit import DEIT_BASE
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.dse.drivers import greedy_search
+    from repro_torch.dse.evaluate import Evaluator
+    from repro_torch.models.vit import ViT
+    per_group, act = dse_spaces()
+    params = ViT(DEIT_BASE).init(SEED, device=DEVICE)
+    images = SyntheticImageData(n_classes=DEIT_BASE.n_classes,
+                                batch=DSE_IMAGES,
+                                image_size=DEIT_BASE.image_size, seed=SEED,
+                                device=DEVICE).next_batch()["images"]
+    T.reset()
+    ev = Evaluator(per_group, DEIT_BASE, params, images,
+                   kernel_rows=DEIT_BASE_LABELS, device=DEVICE)
+    ev.reference                        # the float model, once
+    out, launches = {}, {}
+    for tag, space, evaluator in (
+            ("a", per_group, ev),
+            ("b", act, Evaluator(act, DEIT_BASE, params, images,
+                                 kernel_rows=DEIT_BASE_LABELS,
+                                 device=DEVICE))):
+        results, rows, counts = dse_run(torch, evaluator, space.points(), tag)
+        for n, c in counts.items():
+            launches[n] = launches.get(n, 0) + c
+        out[tag] = {"space": space.describe(), "candidates": rows,
+                    "pareto": dse_front(results, tag)}
+    # (c) the greedy driver at the 1% budget on space (a), through the
+    # evaluator of (a): every point it visits is in its cache
+    hits = T.counter("dse/cache_hits").value
+    g = greedy_search(per_group, ev, budget=0.01)
+    out["c"] = {"bits": g.bits, "metric": g.metric, "trace": g.trace,
+                "cache_hits": T.counter("dse/cache_hits").value - hits}
+    log(f"[dse c] greedy at budget 0.01: bits {g.bits}, score {g.metric!r}, "
+        f"trace {g.trace}, {out['c']['cache_hits']} cache hits")
+    snap = T.snapshot()
+    span_ms = snap["histograms"]["span/dse/eval/ms"]
+    out["evaluations"] = snap["counters"]["dse/evaluations"]
+    out["ms_per_eval"] = span_ms["mean"]
+    out["evals_per_s"] = 1e3 / span_ms["mean"]
+    log(f"[dse] {out['evaluations']} evaluations of {DSE_IMAGES} images, "
+        f"{span_ms['mean']!r} ms each (span/dse/eval, device-true), "
+        f"{out['evals_per_s']!r} evaluations/s")
+    del ev, params
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = dse_card_vs_cpu(torch, act, images)
+    return out, launches
+
+
+def dse_card_vs_cpu(torch, space, images):
+    """Space (b) at 2 layers of DeiT-Base on the card and on the CPU (the
+    kernels' plain versions), the same weights and images: per candidate
+    the logits bit for bit, accuracy equal, fidelity within 1e-6."""
+    import dataclasses as dc
+    from repro_torch.configs.deit import DEIT_BASE
+    from repro_torch.dse.evaluate import Evaluator
+    from repro_torch.models.vit import ViT
+    cfg = dc.replace(DEIT_BASE, n_layers=DSE_CPU_LAYERS)
+    params = ViT(cfg).init(SEED, device="cpu")
+    imgs = images[:DSE_CPU_IMAGES].cpu()
+    evs = {dev: Evaluator(space, cfg, params, imgs, kernel_rows=(),
+                          device=dev) for dev in (DEVICE, "cpu")}
+    rows = []
+    for p in space.points():
+        r = {dev: ev(p) for dev, ev in evs.items()}
+        card = evs[DEVICE].logits_for(p).cpu()
+        cpu = evs["cpu"].logits_for(p)
+        differ = int((card != cpu).sum())
+        row = {"point": {f"{s}:{k}": v for (s, k), v in sorted(p.items())},
+               "differing_logits": differ,
+               "accuracy": (r[DEVICE].accuracy, r["cpu"].accuracy),
+               "fidelity_gap": abs(r[DEVICE].fidelity - r["cpu"].fidelity)}
+        log(f"[dse card vs cpu] {row['point']}: {differ} differing logits of "
+            f"{card.numel()}, accuracy {row['accuracy']}, fidelity gap "
+            f"{row['fidelity_gap']!r}")
+        if differ or r[DEVICE].accuracy != r["cpu"].accuracy or \
+                row["fidelity_gap"] > 1e-6:
+            raise AssertionError(f"dse card vs cpu: {row}")
+        rows.append(row)
+    return rows
+
+
+def widened_serve_phase(torch, np):
+    """DeiT-Base at full width and depth served through
+    ``ClassifyScheduler`` in kernel mode with act formats past block 16 and
+    8 bits: ``QuantOverride(act_fmt=MXFormat(8, 32))`` on ``block/*/ffn``,
+    and ``act_fmt=MXFormat(12, 16)`` globally; 3 + 8 x 12 launches a
+    batch, kernel by kernel, ms per batch by CUDA events."""
+    from repro_torch.configs.deit import DEIT_BASE
+    from repro_torch.core.mx_types import MXFormat, QuantConfig, QuantOverride
+    from repro_torch.models.vit import ViT
+    from repro_torch.serving.engine import ServeConfig, ViTServingEngine
+    L = DEIT_BASE.n_layers
+    per_forward = {"mxint_matmul": 2 * L + 2, "mxint_ln_matmul": 4 * L,
+                   "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1,
+                   "flash_attention": 0, "flash_attention_decode": 0}
+    sizes, images, full = deit_requests(np)
+    params = ViT(DEIT_BASE).init(SEED, device=DEVICE)
+    out, launches = {}, {}
+    for label, q in (
+            ("ffn_act_block_32", QuantConfig(
+                mode="kernel", quantize_nonlinear=True,
+                overrides=(("block/*/ffn",
+                            QuantOverride(act_fmt=MXFormat(8, 32))),))),
+            ("act_12_bits", QuantConfig(mode="kernel",
+                                        quantize_nonlinear=True,
+                                        act_fmt=MXFormat(12, 16)))):
+        tag = f"widened {label}"
+        engine = ViTServingEngine(
+            ViT(dataclasses.replace(DEIT_BASE, quant=q)), params,
+            ServeConfig(batch=BATCH, pack_weights=True), device=DEVICE)
+        n_batches, serve_s, got, telemetry = serve_deit(
+            torch, np, engine, sizes, images, tag, per_forward)
+        if got != {n: c * n_batches for n, c in per_forward.items()}:
+            raise AssertionError(f"{tag}: launches {got}")
+        ms = time_ms(lambda: engine.logits_batch(full), iters=5)
+        logits = engine.logits_batch(full)
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{tag}: non-finite logits")
+        out[label] = {"config": q.describe(), "batches": n_batches,
+                      "serve_s": serve_s, "launches": got,
+                      "ms_per_batch": ms,
+                      "classify_step_span_ms":
+                          telemetry["classify_step_span_ms"]}
+        log(f"[{tag}] ms_per_batch={ms!r} (batch {BATCH}) launches {got}")
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        del engine
+    return out, launches
 
 
 def check_full_depth_launches(name, stats):
@@ -1748,6 +2114,9 @@ def main(argv) -> int:
     backend_stats, mixed_launches = phase("backends", backends_phase, torch,
                                           np)
     probe_stats = phase("probes", probes_phase, smi)
+    dse_stats, dse_launches = phase("dse", dse_phase, torch, np)
+    widened_stats, widened_launches = phase("widened serve",
+                                            widened_serve_phase, torch, np)
     new_lms = {}
     for name in NEW_LMS:
         full = importlib.import_module(f"repro_torch.configs.{name}").FULL
@@ -1769,7 +2138,10 @@ def main(argv) -> int:
              ("lm score", score_launches, common + ("flash_attention",)),
              ("deit mixed", mixed_launches, ("mxint_ln_matmul",
                                              "mxint_matmul", "mxint_softmax",
-                                             "mxint_layernorm"))) + tuple(
+                                             "mxint_layernorm")),
+             ("dse", dse_launches, common + ("mxint_softmax",)),
+             ("deit widened acts", widened_launches,
+              common + ("mxint_softmax",))) + tuple(
         (f"{name} serve", res["serve"]["launches"],
          common + ("flash_attention_decode",))
         for name, res in new_lms.items())
@@ -1784,7 +2156,8 @@ def main(argv) -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
-         "backends": backend_stats, "probes": probe_stats, **new_lms},
+         "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
+         "widened_serve": widened_stats, **new_lms},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

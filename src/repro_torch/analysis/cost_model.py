@@ -1,0 +1,289 @@
+"""Hopper cost table: closed-form operations, device-memory bytes and
+shared memory per kernel label.
+
+Counterpart of ``repro.analysis.cost_model`` in its role (the static
+table the design-space exploration prices candidates with and the probes'
+predicted-vs-measured join reads), with the H100's contents.  Nothing is
+captured or executed: each row is a closed form of its shape.
+
+* **Operations**, split by the unit that runs them: ``int8_ops`` (the
+  matmul kernels' products on the int8 tensor cores, 2 M N K; twice that
+  for 9-16-bit act mantissas, a high and a low byte), ``bf16_ops`` (the
+  bf16 flash kernel's q.k and P.V products) and ``f32_ops`` (the ordered
+  f32 sum of the matmul kernels, a multiply and an add per output element
+  and act block; the row datapaths' stages, ``ROW_OPS`` per element; the
+  float32 flash kernel's products).  ``flops`` is their sum.
+* **Bytes**: every operand read once and every output written once
+  (``operands``, ``bytes_traffic`` each, ``hbm_bytes`` their sum), what the
+  function must move whatever the kernel re-reads.  Weight planes are
+  priced at one byte an element, as the reference's table prices them;
+  ``repro_torch.dse.evaluate`` scales the mantissa operand by
+  ``weight_bits / 8``, as the reference does, since the paper's hardware
+  stores packed mantissas.  The H100's int8 planes do not shrink with the
+  mantissa width: on this card the scaled bytes are the format's, not
+  the kernel's traffic.
+* **Shared memory** (``smem_bytes``): a CTA's, from the kernels' own
+  geometry (``gemm_geometry``, ``ln_geometry``, the flash kernels'
+  layouts).
+
+``bound`` turns a row into the least time the card could take: the larger
+of its bytes over the H100's 3.35 TB/s and its operations over the
+published dense peaks of their units (``repro_torch.telemetry.export``).
+``chip_smoke.py`` computes every kernel case's bound with it.
+
+Labels: the reference's four probe labels (``matmul-deit``,
+``flash-deit``, ``matmul-bench``, ``ln-matmul-bench``) at the shapes the
+port's probes run (``repro_torch.telemetry.probes``: without the TPU's
+padding), and DeiT-Base's deployment kernels at batch 16 (``deit-base-*``,
+with ``calls`` a forward and the ``scope`` of their call sites, the tag
+the model's forward passes to ``QuantConfig.scoped``; ``{i}`` stands for
+each of the ``layers`` blocks).  The table is built at one act format
+(``act_block``, ``act_mant_bits``; default the paper's 16-element blocks
+of 8 bits): the act format moves the matmul kernels' ordered sum, their
+int8 products and their shared memory, and the LN stage's geometry.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.telemetry.export import (DEFAULT_PEAKS, F32_OPS_PER_S,
+                                          INT8_OPS_PER_S)
+
+H100_SMS = 132
+DEIT_BASE_LAYERS = 12
+# f32 operations per element of the row datapaths, counted from their
+# stages (quantize, align, LUT, scale, requantize); for the flash kernels
+# per score of a (query, key) pair that the masks keep
+ROW_OPS = {"mxint_layernorm": 30, "mxint_softmax": 30, "mxint_gelu": 16,
+           "flash": 36}
+
+
+def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
+          bf16_ops: float = 0.0) -> Tuple[float, str]:
+    """(least time in ms, what bounds it: "bytes" or "operations") on the
+    H100's published dense peaks: HBM, int8 and bf16 tensor cores, float32
+    outside them."""
+    t_mem = nbytes / DEFAULT_PEAKS.hbm_bytes_per_s
+    t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / DEFAULT_PEAKS.flops_per_s
+             + f32_ops / F32_OPS_PER_S)
+    return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
+                                     else "operations")
+
+
+def gemm_f32_ops(M: int, N: int, K: int, act_block: int = 16) -> float:
+    """The ordered f32 sum of the matmul kernels: a multiply and an add per
+    output element and act block, K / act_block blocks in all."""
+    return 2.0 * M * N * (K // act_block)
+
+
+def _operand(name: str, dtype: str, numel: int, elem_bytes: int) -> dict:
+    return {"name": name, "dtype": dtype, "numel": int(numel),
+            "bytes_traffic": int(numel) * elem_bytes}
+
+
+def _row(label: str, kernel: str, shape: dict, operands: List[dict], *,
+         int8_ops: float = 0.0, bf16_ops: float = 0.0, f32_ops: float = 0.0,
+         smem_bytes: int = 0, calls: Optional[int] = None,
+         scope: Optional[str] = None) -> dict:
+    hbm = sum(o["bytes_traffic"] for o in operands)
+    flops = int8_ops + bf16_ops + f32_ops
+    ms, by = bound(hbm, int8_ops=int8_ops, f32_ops=f32_ops, bf16_ops=bf16_ops)
+    row = {"label": label, "kernel": kernel, "shape": shape,
+           "flops": int(flops), "int8_ops": int(int8_ops),
+           "bf16_ops": int(bf16_ops), "f32_ops": int(f32_ops),
+           "hbm_bytes": int(hbm), "smem_bytes": int(smem_bytes),
+           "intensity": round(flops / hbm, 3) if hbm else 0.0,
+           "bound_ms": ms, "bound_by": by, "operands": operands}
+    if calls is not None:
+        row["calls"] = calls
+    if scope is not None:
+        row["scope"] = scope
+        if "{i}" in scope:
+            row["layers"] = DEIT_BASE_LAYERS
+    return row
+
+
+def _dtype(nbytes: int) -> str:
+    return {2: "bfloat16", 4: "float32"}[nbytes]
+
+
+def matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
+               act_block: int = 16, act_mant_bits: int = 8,
+               fused_ln: bool = False, x_bytes: int = 4,
+               param_bytes: int = 4, beta: bool = True,
+               calls: Optional[int] = None,
+               scope: Optional[str] = None) -> dict:
+    """``mxint_matmul`` (or, ``fused_ln``, ``mxint_ln_matmul``): x (M, K),
+    int8 planes (K, N) and (K / w_block, N), f32 out (M, N); the fused
+    kernel also reads gamma (and beta) and runs the LN stage."""
+    from repro_torch.kernels.mxint_matmul import (gemm_geometry,
+                                                  gemm_smem_bytes)
+    ops = [_operand("x", _dtype(x_bytes), M * K, x_bytes)]
+    if fused_ln:
+        ops.append(_operand("gamma", _dtype(param_bytes), K, param_bytes))
+        if beta:
+            ops.append(_operand("beta", _dtype(param_bytes), K, param_bytes))
+    ops += [_operand("w_mant", "int8", K * N, 1),
+            _operand("w_exp", "int8", (K // w_block) * N, 1),
+            _operand("out", "float32", M * N, 4)]
+    act_block = min(act_block, K)
+    wide = act_mant_bits > 8
+    g = gemm_geometry(M, N, K, H100_SMS, fused_ln=fused_ln,
+                      act_block=act_block, wide=wide)
+    smem = gemm_smem_bytes(g.bm, g.bn, g.bk, g.ns, K if fused_ln else g.kc,
+                           act_block, 2 if wide else 1)
+    f32 = gemm_f32_ops(M, N, K, act_block)
+    if fused_ln:
+        f32 += ROW_OPS["mxint_layernorm"] * M * K
+    return _row(label, "mxint_ln_matmul" if fused_ln else "mxint_matmul",
+                {"M": M, "K": K, "N": N, "w_block": w_block,
+                 "act_block": act_block, "act_mant_bits": act_mant_bits},
+                ops, int8_ops=(2.0 if wide else 1.0) * 2.0 * M * N * K,
+                f32_ops=f32, smem_bytes=smem, calls=calls, scope=scope)
+
+
+def softmax_row(label: str, rows: int, n: int,
+                calls: Optional[int] = None,
+                scope: Optional[str] = None) -> dict:
+    """``mxint_softmax`` on (rows, n) f32."""
+    from repro_torch.kernels.mxint_softmax import SMEM_BYTES
+    return _row(label, "mxint_softmax", {"rows": rows, "n": n},
+                [_operand("x", "float32", rows * n, 4),
+                 _operand("out", "float32", rows * n, 4)],
+                f32_ops=ROW_OPS["mxint_softmax"] * rows * n,
+                smem_bytes=SMEM_BYTES, calls=calls, scope=scope)
+
+
+def gelu_row(label: str, rows: int, d: int,
+             calls: Optional[int] = None,
+             scope: Optional[str] = None) -> dict:
+    """``mxint_gelu`` on (rows, d) f32."""
+    from repro_torch.kernels.mxint_gelu import SMEM_BYTES
+    return _row(label, "mxint_gelu", {"rows": rows, "d": d},
+                [_operand("x", "float32", rows * d, 4),
+                 _operand("out", "float32", rows * d, 4)],
+                f32_ops=ROW_OPS["mxint_gelu"] * rows * d,
+                smem_bytes=SMEM_BYTES, calls=calls, scope=scope)
+
+
+def layernorm_row(label: str, rows: int, d: int, act_block: int = 16,
+                  calls: Optional[int] = None,
+                  scope: Optional[str] = None) -> dict:
+    """``mxint_layernorm`` on (rows, d) f32 with f32 gamma and beta."""
+    from repro_torch.kernels.mxint_layernorm import (LN_STATIC_SMEM,
+                                                     ln_geometry)
+    g = ln_geometry(rows, d, act_block, H100_SMS)
+    return _row(label, "mxint_layernorm", {"rows": rows, "d": d,
+                                           "act_block": act_block},
+                [_operand("x", "float32", rows * d, 4),
+                 _operand("gamma", "float32", d, 4),
+                 _operand("beta", "float32", d, 4),
+                 _operand("out", "float32", rows * d, 4)],
+                f32_ops=ROW_OPS["mxint_layernorm"] * rows * d,
+                smem_bytes=g.smem + LN_STATIC_SMEM, calls=calls,
+                scope=scope)
+
+
+def flash_row(label: str, heads: int, kv_heads: int, S: int, d: int, *,
+              causal: bool, elem_bytes: int,
+              calls: Optional[int] = None) -> dict:
+    """``flash_attention`` over ``heads`` query heads of S positions (one
+    batch row), K/V of ``kv_heads`` heads: q, k, v read once, o written
+    once; q.k and P.V products (4 d a kept pair) on the bf16 tensor cores
+    for bf16 operands, in f32 on the ordered kernel for float32 ones."""
+    pairs = heads * (S * (S + 1) // 2 if causal else S * S)
+    prod = 4.0 * pairs * d
+    dt = _dtype(elem_bytes)
+    if elem_bytes == 4:    # the ordered kernel: q rows, K/V tile, scores,
+        smem = 4 * (32 * 128 + 128 * 129 + 32 * 128 + 32 * 128 + 5 * 32
+                    + 256)         # acc, row state, LUT (smem_floats(32))
+    else:                  # K, V tiles (2 each), the CTA's q rows, LUT
+        smem = 4 * 128 * (d + 8) * 2 + 128 * (d + 8) * 2 + 256 * 4
+    return _row(label, "flash_attention",
+                {"heads": heads, "kv_heads": kv_heads, "S": S, "d": d,
+                 "causal": causal},
+                [_operand("q", dt, heads * S * d, elem_bytes),
+                 _operand("k", dt, kv_heads * S * d, elem_bytes),
+                 _operand("v", dt, kv_heads * S * d, elem_bytes),
+                 _operand("out", dt, heads * S * d, elem_bytes)],
+                bf16_ops=prod if elem_bytes == 2 else 0.0,
+                f32_ops=ROW_OPS["flash"] * pairs
+                + (prod if elem_bytes == 4 else 0.0),
+                smem_bytes=smem, calls=calls)
+
+
+def _deit_base_rows(batch: int = 16, act_block: int = 16,
+                    act_mant_bits: int = 8) -> List[dict]:
+    """DeiT-Base's kernels in kernel mode at ``batch`` images (197 tokens,
+    d 768, 12 heads, d_ff 3072, MXInt6 planes of 256-blocks; the
+    softmax's 197 resolves its act block to 1), with their calls a
+    forward (3 + 8 x 12 in all) and their scopes."""
+    L, d, ff, M = DEIT_BASE_LAYERS, 768, 3072, batch * 197
+    act = dict(act_block=act_block, act_mant_bits=act_mant_bits)
+    attn, ffn = "block/{i}/attn", "block/{i}/ffn"
+    return [
+        matmul_row("deit-base-patch", batch * 196, d, d, w_block=256,
+                   calls=1, scope="patch", **act),
+        matmul_row("deit-base-ln1-qkv", M, d, d, w_block=256, fused_ln=True,
+                   calls=3 * L, scope=attn, **act),
+        softmax_row("deit-base-softmax", batch * 12 * 197, 197, calls=L,
+                    scope=attn),
+        matmul_row("deit-base-attn-wo", M, d, d, w_block=256, calls=L,
+                   scope=attn, **act),
+        matmul_row("deit-base-ln2-wi", M, d, ff, w_block=256, fused_ln=True,
+                   calls=L, scope=ffn, **act),
+        gelu_row("deit-base-gelu", M, ff, calls=L, scope=ffn),
+        matmul_row("deit-base-ffn-wo", M, ff, d, w_block=256, calls=L,
+                   scope=ffn, **act),
+        layernorm_row("deit-base-final-ln", M, d, act_block=act_block,
+                      calls=1, scope="final_ln"),
+        matmul_row("deit-base-head", batch, d, 1000, w_block=256, calls=1,
+                   scope="head", **act),
+    ]
+
+
+def build_table(act_block: int = 16, act_mant_bits: int = 8) -> List[dict]:
+    """Every row at one act format: the four probe labels, then DeiT-Base's
+    deployment."""
+    act = dict(act_block=act_block, act_mant_bits=act_mant_bits)
+    return [
+        matmul_row("matmul-deit", 394, 192, 192, w_block=32, **act),
+        flash_row("flash-deit", 6, 6, 197, 64, causal=False, elem_bytes=4),
+        matmul_row("matmul-bench", 128, 1024, 512, w_block=256, **act),
+        matmul_row("ln-matmul-bench", 256, 768, 768, w_block=32,
+                   fused_ln=True, **act),
+    ] + _deit_base_rows(**act)
+
+
+_TABLE_MEMO: Dict[Tuple[int, int], List[dict]] = {}
+
+
+def table(refresh: bool = False, *, act_block: int = 16,
+          act_mant_bits: int = 8) -> List[dict]:
+    """The cost table at one act format, memoized per format.  Rows are
+    shallow copies; treat operand entries as read-only."""
+    key = (act_block, act_mant_bits)
+    if refresh or key not in _TABLE_MEMO:
+        _TABLE_MEMO[key] = build_table(*key)
+    return [dict(r) for r in _TABLE_MEMO[key]]
+
+
+def query(labels: Optional[Sequence[str]] = None, *, act_block: int = 16,
+          act_mant_bits: int = 8) -> Dict[str, dict]:
+    """Label-keyed cost rows at one act format; with ``labels`` given,
+    KeyError on any unknown label, naming the known ones."""
+    rows = {r["label"]: r for r in table(act_block=act_block,
+                                         act_mant_bits=act_mant_bits)}
+    if labels is None:
+        return rows
+    missing = sorted(set(labels) - set(rows))
+    if missing:
+        raise KeyError(f"unknown cost-model labels {missing}; known: "
+                       f"{sorted(rows)}")
+    return {label: rows[label] for label in labels}
+
+
+DEIT_BASE_LABELS = ("deit-base-patch", "deit-base-ln1-qkv",
+                    "deit-base-softmax", "deit-base-attn-wo",
+                    "deit-base-ln2-wi", "deit-base-gelu", "deit-base-ffn-wo",
+                    "deit-base-final-ln", "deit-base-head")

@@ -56,3 +56,9 @@ def silu_table(bits: int, domain: float) -> tuple:
     n = 2 ** bits
     centers = -domain + (2.0 * domain / n) * (np.arange(n) + 0.5)
     return tuple((centers / (1.0 + np.exp(-centers))).astype(np.float32).tolist())
+
+
+def table_bytes(entries: int, value_bits: int = 16) -> int:
+    """Area proxy for DSE tables (the paper counts LUT entries; this counts
+    bytes)."""
+    return entries * value_bits // 8

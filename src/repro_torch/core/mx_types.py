@@ -78,6 +78,10 @@ class MXFormat:
         # symmetric clip keeps quantization idempotent and sign-symmetric
         return -(2 ** (self.mant_bits - 1) - 1)
 
+    def density_vs(self, baseline_bits: float = 32.0) -> float:
+        """Memory density multiplier against a scalar format (Fig. 1b)."""
+        return baseline_bits / self.bits_per_element
+
 
 MXINT8_ACT = MXFormat(mant_bits=8, block_size=16)      # A8.5
 MXINT8_WEIGHT = MXFormat(mant_bits=8, block_size=256)

@@ -49,6 +49,14 @@ class MXTensor(NamedTuple):
         return self._replace(mantissa=self.mantissa.to(device),
                              exponent=self.exponent.to(device))
 
+    def nbytes_packed(self) -> int:
+        """Bytes this tensor occupies in packed storage (sub-byte mantissas
+        counted at their true bit cost, as dense bit-packing would give;
+        the card's planes hold a byte a mantissa)."""
+        n = self.mantissa.numel()
+        return int((n * self.mant_bits + self.exponent.numel() * 8 + 7)
+                   // 8)
+
 
 def pow2i(n: torch.Tensor) -> torch.Tensor:
     """Exact float32 2^n for an integer tensor ``n``, from exponent bits.
@@ -194,3 +202,17 @@ def pack_weight(w: torch.Tensor, fmt: MXFormat, axis: int = 0) -> MXTensor:
     contraction dimension, so each output feature's blocks run along the
     reduction, the layout the matmul kernels consume."""
     return quantize(w, fmt, axis=axis)
+
+
+def packed_bytes(tree) -> int:
+    """Total packed bytes of a parameter tree (dicts, lists, ``Param``
+    leaves) that may mix ``MXTensor`` planes and plain tensors."""
+    if isinstance(tree, MXTensor):
+        return tree.nbytes_packed()
+    if isinstance(tree, dict):
+        return sum(packed_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        if hasattr(tree, "value") and hasattr(tree, "axes"):   # a Param
+            return packed_bytes(tree.value)
+        return sum(packed_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()

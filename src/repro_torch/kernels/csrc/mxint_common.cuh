@@ -13,10 +13,17 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace mx {
 
 constexpr int kWarp = 32;
 constexpr int kMaxBlock = 16;     // act blocks held in registers
+// the largest act block of the row kernels (one warp of float4 lanes)
+// and of the LN stage of the fused kernel (two warps: the GEMM core's
+// largest act block)
+constexpr int kMaxRowBlock = 128;
+constexpr int kMaxLnBlock = 256;
 constexpr int kMaxLut = 256;      // shared-memory LUT copy
 constexpr unsigned kFull = 0xffffffffu;
 // 1.5 * 2^23 as float bits and value: for an integer |v| < 2^22, the bits
@@ -127,20 +134,6 @@ __device__ __forceinline__ float exp2_datapath(float z, const float* lut,
   return __fmul_rn(lut[idx], pow2i(ni));
 }
 
-// quantize-dequantize a block of b values in place onto the MXInt grid
-__device__ __forceinline__ void grid_requant(float (&y)[kMaxBlock], int b,
-                                             int mant_bits, float lim) {
-  float amax = 0.0f;
-#pragma unroll
-  for (int i = 0; i < kMaxBlock; ++i)
-    if (i < b) amax = fmaxf(amax, fabsf(y[i]));
-  int e = block_exp(amax, mant_bits);
-  float inv = pow2i(-e), scale = pow2i(e);
-#pragma unroll
-  for (int i = 0; i < kMaxBlock; ++i)
-    if (i < b) y[i] = __fmul_rn(quant_mant(y[i], inv, lim), scale);
-}
-
 // load a LUT into shared memory (call before __syncthreads)
 __device__ __forceinline__ void load_lut(float* dst, const float* src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
@@ -150,10 +143,11 @@ __device__ __forceinline__ void load_lut(float* dst, const float* src, int n) {
 // Fig. 3 LayerNorm / RMSNorm of a CTA's rows, every thread at work
 // ---------------------------------------------------------------------------
 // The rows are cut into pieces of consecutive elements of one act block:
-// P = 4 on the vector route (one 16-byte f32 or 8-byte bf16 access; an act
-// block of 4, 8 or 16 spans B / 4 adjacent lanes of a warp, its group), or
-// a whole block on the scalar route (P = 0: any block up to 16 at any
-// alignment; the group is one lane).  Piece p of the CTA's rows is piece
+// P = 4 on the vector route (one 16-byte f32 or 8-byte bf16 access; a
+// power-of-two act block of 4-128 spans B / 4 adjacent lanes of a warp,
+// its group, and one of 256 the two warps of an aligned pair), or a whole
+// block on the scalar route (P = 0: any block up to 16 at any alignment;
+// the group is one lane).  Piece p of the CTA's rows is piece
 // p % ppr of row p / ppr, and thread t takes pieces t, t + T, ..., so a
 // warp's accesses are contiguous.  Four phases, each closed by
 // __syncthreads:
@@ -164,7 +158,8 @@ __device__ __forceinline__ void load_lut(float* dst, const float* src, int n) {
 //     (LayerNorm) by a warp reduction and an atomicAdd
 //  3. the variance, the one step whose bits depend on its order: warp w
 //     takes rows w, w + W, ...; lane l adds c * c over the staged blocks
-//     l, l + 32, ... of the row, element by element, then the butterfly
+//     l, l + 32, ... of the row, element by element (a block past 16 in
+//     16-element pieces, in order), then the butterfly
 //     (warp_row_sum's order); then the rsqrt LUT
 //  4. per piece y = (c * inv) * gamma (+ beta), handed to the caller's
 //     epilogue, which may overwrite the piece's staged mantissas and its
@@ -256,6 +251,12 @@ __device__ __forceinline__ void load_staged(const M* src, int n,
     const uint32_t w = *reinterpret_cast<const uint32_t*>(src);
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = (int)(int8_t)(w >> (8 * i));
+  } else if constexpr (P == 4 && sizeof(M) == 2) {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    q[0] = (int)(int16_t)(w.x & 0xffffu);
+    q[1] = (int)(int16_t)(w.x >> 16);
+    q[2] = (int)(int16_t)(w.y & 0xffffu);
+    q[3] = (int)(int16_t)(w.y >> 16);
   } else if constexpr (P == 4) {
     const int4 w = *reinterpret_cast<const int4*>(src);
     q[0] = w.x;
@@ -275,6 +276,10 @@ __device__ __forceinline__ void store_staged(M* dst, int n,
     *reinterpret_cast<uint32_t*>(dst) =
         (q[0] & 0xff) | ((q[1] & 0xff) << 8) | ((q[2] & 0xff) << 16) |
         ((uint32_t)q[3] << 24);
+  } else if constexpr (P == 4 && sizeof(M) == 2) {
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2((q[0] & 0xffff) | ((uint32_t)q[1] << 16),
+                   (q[2] & 0xffff) | ((uint32_t)q[3] << 16));
   } else if constexpr (P == 4) {
     *reinterpret_cast<int4*>(dst) = make_int4(q[0], q[1], q[2], q[3]);
   } else {
@@ -284,8 +289,33 @@ __device__ __forceinline__ void store_staged(M* dst, int n,
   }
 }
 
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// max of a over a group of G = 8-64 lanes: xor partners in an aligned
+// group of up to a warp; 64: then over warps 2j and 2j + 1, which meet at
+// their own named barrier (1 + j; barrier 0 is __syncthreads), so the CTA
+// need not; both warps call it the same number of times.  Not inlined: the
+// default groups (1-4 lanes) keep their two shuffles and no barrier in
+// their code.
+__device__ __noinline__ float wide_group_max(float a, int G) {
+  __shared__ float xchg[16];            // one slot per warp of 512 threads
+  for (int off = 1; off < G && off < kWarp; off <<= 1)
+    a = fmaxf(a, __shfl_xor_sync(kFull, a, off));
+  if (G > kWarp) {
+    const int wp = threadIdx.x / kWarp;
+    if (threadIdx.x % kWarp == 0) xchg[wp] = a;
+    named_barrier(1 + wp / 2, 2 * kWarp);
+    a = fmaxf(a, xchg[wp ^ 1]);
+    named_barrier(1 + wp / 2, 2 * kWarp);  // before a later call overwrites
+  }
+  return a;
+}
+
 // max |v| over the piece, then over its group's G lanes (xor partners in
-// an aligned group of 1, 2 or 4; every lane of the warp calls it)
+// an aligned group of 1 to 32 lanes; 64: both warps of an aligned pair;
+// every lane of the warp calls it)
 template <int P>
 __device__ __forceinline__ float group_amax(const float (&v)[kPieceSlots<P>],
                                             int n, int G) {
@@ -293,9 +323,13 @@ __device__ __forceinline__ float group_amax(const float (&v)[kPieceSlots<P>],
 #pragma unroll
   for (int i = 0; i < kPieceSlots<P>; ++i)
     if (i < n) a = fmaxf(a, fabsf(v[i]));
-  if constexpr (P == 4) {               // G = 1, 2 or 4: xor 0 is a no-op
-    a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 1));
-    a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 2));
+  if constexpr (P == 4) {
+    if (G <= 4) {                       // G = 1, 2 or 4: xor 0 is a no-op
+      a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 1));
+      a = fmaxf(a, __shfl_xor_sync(kFull, a, (G - 1) & 2));
+    } else {
+      a = wide_group_max(a, G);
+    }
   }
   return a;
 }
@@ -376,8 +410,9 @@ struct RowFold {
   }
 };
 
-// the staged mantissas of one block (B <= 16): one or four 16-byte loads
-// at B = 16, else element by element
+// the staged mantissas of one block or 16-element piece of a block
+// (B <= 16): one, two or four 16-byte loads at B = 16, else element by
+// element
 template <typename M>
 __device__ __forceinline__ void load_block(const M* src, int B,
                                            int (&m)[kMaxBlock]) {
@@ -388,6 +423,15 @@ __device__ __forceinline__ void load_block(const M* src, int B,
 #pragma unroll
       for (int i = 0; i < kMaxBlock; ++i)
         m[i] = (int)(int8_t)(ws[i / 4] >> (8 * (i % 4)));
+    } else if constexpr (sizeof(M) == 2) {
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const uint4 w = reinterpret_cast<const uint4*>(src)[q];
+        const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          m[8 * q + i] = (int)(int16_t)(ws[i / 2] >> (16 * (i % 2)));
+      }
     } else {
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
@@ -404,13 +448,13 @@ __device__ __forceinline__ void load_block(const M* src, int B,
   }
 }
 
-// a mantissa to and from its stage type M: an int8 stage (mant_bits <= 8)
-// converts by the bias adds, an int32 stage (any mant_bits) by the
-// conversion unit
+// a mantissa to and from its stage type M: an int8 (mant_bits <= 8) or
+// int16 (<= 16) stage converts by the bias adds, an int32 stage (any
+// mant_bits) by the conversion unit
 template <typename M>
 __device__ __forceinline__ int stage_quant(float x, float inv, float lim,
                                            int ilim) {
-  if constexpr (sizeof(M) == 1)
+  if constexpr (sizeof(M) <= 2)
     return quant_mant_small(x, inv, ilim);
   else
     return (int)quant_mant(x, inv, lim);
@@ -418,7 +462,7 @@ __device__ __forceinline__ int stage_quant(float x, float inv, float lim,
 
 template <typename M>
 __device__ __forceinline__ float stage_f32(int m) {
-  if constexpr (sizeof(M) == 1)
+  if constexpr (sizeof(M) <= 2)
     return small_i2f(m);
   else
     return (float)m;
@@ -442,7 +486,7 @@ __device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
   const int T_ = blockDim.x, lane = threadIdx.x % kWarp;
   const int n = P ? P : a.block;              // elements of a piece
   const int G = P ? a.block / P : 1;          // lanes of a block
-  const int gshift = G == 4 ? 2 : G == 2 ? 1 : 0;
+  const int gshift = __ffs(G) - 1;            // G is a power of two
   const int ppr = a.d / n;
   const int steps = (a.rows * ppr + T_ - 1) / T_;
   const bool warp_rows = ppr % kWarp == 0;
@@ -523,15 +567,28 @@ __device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
         a.rms_only ? 0.0f : __fmul_rn((float)st.vars(r).isum, a.inv_d);
     const M* row = st.m + r * st.m_ld;
     float acc = 0.0f;
-    for (int b = lane; b < nb; b += kWarp) {
-      int m[kMaxBlock];
-      load_block(row + b * a.block, a.block, m);
+    auto chain = [&](const int (&m)[kMaxBlock], int n) {
 #pragma unroll
       for (int i = 0; i < kMaxBlock; ++i) {
-        if (i < a.block) {
+        if (i < n) {
           const float mi = stage_f32<M>(m[i]);
           const float c = a.rms_only ? mi : __fsub_rn(mi, mean);
           acc = __fadd_rn(acc, __fmul_rn(c, c));
+        }
+      }
+    };
+    if (a.block <= kMaxBlock) {
+      for (int b = lane; b < nb; b += kWarp) {
+        int m[kMaxBlock];
+        load_block(row + b * a.block, a.block, m);
+        chain(m, a.block);
+      }
+    } else {       // a multiple of 16: its 16-element pieces in order
+      for (int b = lane; b < nb; b += kWarp) {
+        for (int i0 = 0; i0 < a.block; i0 += kMaxBlock) {
+          int m[kMaxBlock];
+          load_block(row + b * a.block + i0, kMaxBlock, m);
+          chain(m, kMaxBlock);
         }
       }
     }
@@ -590,8 +647,9 @@ __device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
 // A CTA of gemm_threads(bm) threads owns a row tile of bm (16, 24 or 32)
 // rows and n_per consecutive column tiles of bn columns; gemm_geometry
 // (kernels/mxint_matmul.py) picks them from the shape and the card's SM
-// count.  The CTA's prologue fills sA (int8 act mantissas, row stride
-// K + 16) and sE (one int8 exponent per 16-block) for its rows.  The core
+// count.  The CTA's prologue fills sA (act mantissas, row stride K + 16
+// elements: int8, or int16 for 9-16 bits) and sE (one int8 exponent per
+// act block) for its rows.  The core
 // streams the planes' bk x bn tiles, in their stored [K][N] layout, through
 // a ring of ns shared-memory stages by cp.async, each tile once per CTA,
 // with the exponent-plane row of each 16-row block beside it.  Each warp
@@ -603,8 +661,25 @@ __device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
 // as two rounded steps, in increasing K order, as the plain version adds
 // them.  No two blocks share an mma and no K range is split, so each output
 // element's sum is one thread's, in the plain version's order.
+//
+// Other act formats (the kernel's V, from the act block and width):
+//  V 0  act block 16, 2-8 bits: the path above.
+//  V 1  any other act block of 2-8 bits.  A block of B = 16 s (s > 1)
+//       k16 steps, B dividing w_block: its s mma.sync chain their int32
+//       sums (|dot| <= 256 * 127 * 127 < 2^31), then one scaled add.  A
+//       block dividing 16: per k16 step, one mma per block on the A
+//       fragments with the columns outside the block zeroed.
+//  V 2  9-16 bits, any act block of V 1: the int16 mantissa m = 256 hi +
+//       lo splits into its signed high byte and unsigned low byte (the
+//       two bytes of the int16 in shared memory); one s8 x s8 and one
+//       u8 x s8 mma a step, combined as 256 dot_hi + dot_lo in int32
+//       (|dot| <= 256 * 32767 * 127 < 2^31).
+// V 1 and 2 convert the block's dot with __int2float_rn (round to nearest
+// even, as the plain version's float64 dot rounded to float32), then add
+// (float)dot * 2^(e_a + e_w) in the same two rounded steps.
 constexpr int kMaxThreads = 512;
-constexpr int kAB = 16;           // act block of the GEMM = the mma depth
+constexpr int kAB = 16;           // the mma depth: a k16 step of K
+constexpr int kMaxAB = 256;       // the largest act block (|dot| < 2^31)
 constexpr int kMaxStages = 4;     // depth of the weight ring, at most
 constexpr int kWarpCols = 16;     // a warp's columns: two n8 mma tiles
 constexpr int kMaxTileCols = 8 * kWarpCols;
@@ -635,12 +710,25 @@ __host__ __device__ __forceinline__ int a_rows(int bm) {
   return (bm + 15) / 16 * 16;
 }
 
-// sE row stride: K / 16 exponents, rounded up to whole words and padded to
-// an odd word count, so that the 8 rows a fragment reads at one act block
-// fall in 8 distinct banks
-__host__ __device__ __forceinline__ int e_stride(int K) {
-  const int w = (K / kAB + 3) / 4;
+// sE row stride for nb act blocks a row: nb exponents, rounded up to whole
+// words and padded to an odd word count, so that the 8 rows a fragment
+// reads at one act block fall in 8 distinct banks
+__host__ __device__ __forceinline__ int e_stride(int nb) {
+  const int w = (nb + 3) / 4;
   return 4 * (w | 1);
+}
+
+// the kernel variant of an act format (see above)
+__host__ __forceinline__ int act_variant(int ab, int mant_bits) {
+  return mant_bits > 8 ? 2 : ab == kAB ? 0 : 1;
+}
+
+// an act block the core takes: a multiple of 16 up to kMaxAB dividing
+// w_block, or a divisor of 16
+__host__ __forceinline__ bool act_block_ok(int ab, int w_block) {
+  if (ab >= kAB)
+    return ab % kAB == 0 && ab <= kMaxAB && w_block % ab == 0;
+  return ab >= 1 && kAB % ab == 0;
 }
 
 // shared row stride of a staged weight tile: bn bytes (at least 16), plus
@@ -663,10 +751,12 @@ __host__ __forceinline__ bool geom_ok(const GemmGeom& g) {
          g.ns <= kMaxStages;
 }
 
-// kc: the K columns sA holds (K, or the chunk width)
-__host__ __forceinline__ size_t gemm_smem_bytes(const GemmGeom& g, int kc) {
-  return (size_t)a_rows(g.bm) * a_stride(kc) +
-         (((size_t)g.bm * e_stride(kc) + 15) & ~(size_t)15) +
+// kc: the K columns sA holds (K, or the chunk width); ab: the act block;
+// a_bytes: 1 or 2 (int8 or int16 act mantissas)
+__host__ __forceinline__ size_t gemm_smem_bytes(const GemmGeom& g, int kc,
+                                                int ab, int a_bytes) {
+  return (size_t)a_rows(g.bm) * a_stride(kc) * a_bytes +
+         (((size_t)g.bm * e_stride(kc / ab) + 15) & ~(size_t)15) +
          (size_t)g.ns * stage_bytes(g) + kMaxLut * sizeof(float);
 }
 
@@ -679,13 +769,14 @@ struct GemmSmem {
 };
 
 __device__ __forceinline__ GemmSmem carve(unsigned char* base,
-                                          const GemmGeom& g, int kc) {
+                                          const GemmGeom& g, int kc, int ab,
+                                          int a_bytes) {
   GemmSmem s;
   size_t off = 0;
   s.a = (int8_t*)(base + off);
-  off += (size_t)a_rows(g.bm) * a_stride(kc);
+  off += (size_t)a_rows(g.bm) * a_stride(kc) * a_bytes;
   s.e = (int8_t*)(base + off);
-  off += ((size_t)g.bm * e_stride(kc) + 15) & ~(size_t)15;
+  off += ((size_t)g.bm * e_stride(kc / ab) + 15) & ~(size_t)15;
   s.w = (int8_t*)(base + off);
   off += (size_t)g.ns * stage_bytes(g);
   s.lut = (float*)(base + off);
@@ -781,6 +872,7 @@ struct WStream {
   const int8_t* wm;
   const int8_t* we;
   int N, w_block, kbase, kc, n0, n_tiles, nst, vec, vec_shift;
+  int ab;                               // the act block
 };
 
 template <int V>
@@ -894,6 +986,16 @@ __device__ __forceinline__ void load_block(BlockIn& in, const GemmSmem& s,
   in.ea[1] = NH == 2 ? s.e[(r + 8) * e_ld + kb] : 0;
 }
 
+// B fragments from a lane's four staged 2-byte pieces: lane (g, t) holds
+// K rows 4t..4t+3 of columns 2g (p 0) and 2g + 1 (p 1)
+__device__ __forceinline__ void b_frags(const uint32_t (&x)[4],
+                                        uint32_t (&b)[2]) {
+  const uint32_t x01 = __byte_perm(x[0], x[1], 0x5410);
+  const uint32_t x23 = __byte_perm(x[2], x[3], 0x5410);
+  b[0] = __byte_perm(x01, x23, 0x6420);
+  b[1] = __byte_perm(x01, x23, 0x7531);
+}
+
 // one block's products and scaled adds: acc[p][i] is the mma C layout of
 // n8 tile p (p 0: the even columns of the 16, p 1: the odd ones), rows g
 // (i < 2) and g + 8 (i >= 2); NH 1 skips rows g + 8 (all past the tile)
@@ -901,12 +1003,8 @@ template <int NH>
 __device__ __forceinline__ void mma_block(const BlockIn& in,
                                           float (&acc)[2][4],
                                           const float (&pw)[2][2]) {
-  // B fragments: lane (g, t) holds K rows 4t..4t+3 of columns 2g (p 0)
-  // and 2g + 1 (p 1)
-  const uint32_t x01 = __byte_perm(in.x[0], in.x[1], 0x5410);
-  const uint32_t x23 = __byte_perm(in.x[2], in.x[3], 0x5410);
-  const uint32_t b[2] = {__byte_perm(x01, x23, 0x6420),
-                         __byte_perm(x01, x23, 0x7531)};
+  uint32_t b[2];
+  b_frags(in.x, b);
   const float pa0 = pow2_e8(in.ea[0]);
   const float pa1 = pow2_e8(in.ea[1]);
 #pragma unroll
@@ -961,6 +1059,158 @@ __device__ __forceinline__ void mma_stage(const GemmSmem& s,
   }
 }
 
+// ---- V 1 and 2: any act block, 2-16 bits --------------------------------
+// d += a * b on the int8 tensor cores: a s8 (hi) or u8 (lo) 16 x 16, b s8
+template <bool U>
+__device__ __forceinline__ void mma_acc(int (&d)[4], uint32_t a0, uint32_t a1,
+                                        uint32_t b) {
+  if constexpr (U)
+    asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "r"(a0), "r"(a1), "r"(b));
+}
+
+// the B fragments of one k16 step (load_block's, two n8 tiles)
+__device__ __forceinline__ void load_b(uint32_t (&b)[2], const int8_t* wr,
+                                       int ld) {
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = *reinterpret_cast<const uint16_t*>(wr + 4 * i * ld);
+  b_frags(x, b);
+}
+
+// the A fragments of rows r and r + 8 at columns col .. col + 3 (col =
+// 16 step + 4 t): the s8 words (hi) and, with W, the int16 tile's low
+// bytes (lo, u8) beside its high bytes (hi)
+template <bool W>
+struct AFrag {
+  uint32_t hi[2], lo[2];
+};
+
+template <bool W>
+__device__ __forceinline__ void load_a(AFrag<W>& f, const int8_t* a, int r,
+                                       int col, int a_ld) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (W) {
+      const uint2 v = *reinterpret_cast<const uint2*>(
+          reinterpret_cast<const int16_t*>(a) + (r + 8 * h) * a_ld + col);
+      f.lo[h] = __byte_perm(v.x, v.y, 0x6420);
+      f.hi[h] = __byte_perm(v.x, v.y, 0x7531);
+    } else {
+      f.hi[h] = *reinterpret_cast<const uint32_t*>(a + (r + 8 * h) * a_ld +
+                                                    col);
+      f.lo[h] = 0;
+    }
+  }
+}
+
+// the bytes of a lane's A word (columns c .. c + 3) inside the block
+// [lo, lo + n) of the step's 16 columns, c = 4 t: lo - c = rel
+__device__ __forceinline__ uint32_t block_mask(int rel, int n) {
+  const int s = min(max(rel, 0), 4), e = min(max(rel + n, 0), 4);
+  return (uint32_t)((1ull << (8 * e)) - (1ull << (8 * s)));
+}
+
+template <bool W>
+__device__ __forceinline__ void mma_frag(int (&dh)[2][4], int (&dl)[2][4],
+                                         const AFrag<W>& f,
+                                         const uint32_t (&b)[2],
+                                         uint32_t m) {
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    mma_acc<false>(dh[p], f.hi[0] & m, f.hi[1] & m, b[p]);
+    if constexpr (W) mma_acc<true>(dl[p], f.lo[0] & m, f.lo[1] & m, b[p]);
+  }
+}
+
+// a block's scaled adds: dot = dh (+ 256 dh + dl with W), exact in int32,
+// rounded once to float
+template <int NH, bool W>
+__device__ __forceinline__ void block_adds(float (&acc)[2][4],
+                                           const int (&dh)[2][4],
+                                           const int (&dl)[2][4], int ea0,
+                                           int ea1, const float (&pw)[2][2]) {
+  const float pa[2] = {pow2_e8(ea0), pow2_e8(ea1)};
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 2 * NH; ++i) {
+      const int d = W ? dh[p][i] * 256 + dl[p][i] : dh[p][i];
+      acc[p][i] = __fadd_rn(acc[p][i],
+                            __fmul_rn(__int2float_rn(d),
+                                      __fmul_rn(pa[i >> 1], pw[p][i & 1])));
+    }
+}
+
+// mma_stage for V 1 and 2: the act block ab in k16 steps (ab >= 16: ab / 16
+// steps a block, a block's first step at a multiple of them, since bk and
+// the chunk are multiples of ab) or per step (ab < 16: 16 / ab blocks)
+template <int NH, bool W>
+__device__ __forceinline__ void mma_stage_any(const GemmSmem& s,
+                                              const int8_t* stage,
+                                              const GemmGeom& g,
+                                              const WStream& ws,
+                                              const WarpTile& w, int ks0,
+                                              int a_ld, int e_ld,
+                                              float (&acc)[2][4]) {
+  const int lane = threadIdx.x % kWarp, gq = lane >> 2, tq = lane & 3;
+  const int ld = w_stride(g.bn);
+  const int nks = min(g.bk / kAB, ws.kc / kAB - ks0);
+  const int8_t* ex = stage + g.bk * ld + w.wc + 4 * tq;
+  const int8_t* wr = stage + tq * ld + w.wc + 2 * gq;
+  const int r = w.r0 + gq;
+  const int ab = ws.ab;
+  const int steps = ab >= kAB ? ab / kAB : 1;   // k16 steps of a block
+  const int per = ab >= kAB ? 1 : kAB / ab;     // blocks of a k16 step
+  for (int k = 0; k < nks;) {
+    const int k_lo = ws.kbase + (ks0 + k) * kAB;
+    const int run = min(nks, k + ((k_lo / ws.w_block + 1) * ws.w_block -
+                                  k_lo) / kAB);
+    float pw[2][2];
+    pw[0][0] = pow2_e8(ex[k * ld]);
+    pw[1][0] = pow2_e8(ex[k * ld + 1]);
+    pw[0][1] = pow2_e8(ex[k * ld + 2]);
+    pw[1][1] = pow2_e8(ex[k * ld + 3]);
+    if (per == 1) {
+      for (; k < run; k += steps) {
+        int dh[2][4] = {}, dl[2][4] = {};
+        for (int j = 0; j < steps; ++j) {
+          uint32_t b[2];
+          load_b(b, wr + (k + j) * kAB * ld, ld);
+          AFrag<W> f;
+          load_a<W>(f, s.a, r, (ks0 + k + j) * kAB + 4 * tq, a_ld);
+          mma_frag<W>(dh, dl, f, b, 0xffffffffu);
+        }
+        const int eb = (ks0 + k) / steps;
+        block_adds<NH, W>(acc, dh, dl, s.e[r * e_ld + eb],
+                          NH == 2 ? s.e[(r + 8) * e_ld + eb] : 0, pw);
+      }
+    } else {
+      for (; k < run; ++k) {
+        uint32_t b[2];
+        load_b(b, wr + k * kAB * ld, ld);
+        AFrag<W> f;
+        load_a<W>(f, s.a, r, (ks0 + k) * kAB + 4 * tq, a_ld);
+        for (int j = 0; j < per; ++j) {
+          int dh[2][4] = {}, dl[2][4] = {};
+          mma_frag<W>(dh, dl, f, b, block_mask(j * ab - 4 * tq, ab));
+          const int eb = (ks0 + k) * per + j;
+          block_adds<NH, W>(acc, dh, dl, s.e[r * e_ld + eb],
+                            NH == 2 ? s.e[(r + 8) * e_ld + eb] : 0, pw);
+        }
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ void zero_acc(float (&acc)[2][4]) {
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -1000,7 +1250,7 @@ __device__ __forceinline__ void store_tile(const float (&acc)[2][4],
 // A warp whose 16 rows lie past M computes nothing; one whose rows g + 8
 // do, or lie past the tile (a decode batch of at most 8 rows; the second
 // warp row of a 24-row tile), skips them.
-template <int NACC>
+template <int NACC, int V>
 __device__ __forceinline__ void stream_run(const GemmSmem& s,
                                            const WStream& ws,
                                            const GemmGeom& g, int a_ld,
@@ -1020,10 +1270,17 @@ __device__ __forceinline__ void stream_run(const GemmSmem& s,
       const int8_t* stage = s.w + (j % g.ns) * stage_bytes(g);
       const int kb0 = st * (g.bk / kAB);
       auto run = [&](float (&a)[2][4]) {
-        if (w.rows > 8)
-          mma_stage<2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
-        else
-          mma_stage<1>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+        if constexpr (V == 0) {
+          if (w.rows > 8)
+            mma_stage<2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+          else
+            mma_stage<1>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+        } else {
+          if (w.rows > 8)
+            mma_stage_any<2, V == 2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+          else
+            mma_stage_any<1, V == 2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+        }
       };
       if (NACC == 1 || t == 0)          // static indices: acc stays in
         run(acc[0]);                    // registers

@@ -8,11 +8,13 @@
 // gelu_geometry (kernels/mxint_gelu.py) picks the route from the shape and
 // alignment, and sizes the grid from the SM count; both routes walk the
 // tensor grid-stride:
-//  - gelu_vec4_kernel (act blocks 4, 8, 16, 16-byte aligned): each lane
-//    moves one float4, so a warp instruction covers 512 contiguous bytes;
-//    an act block is block / 4 adjacent lanes, which take its amax by
-//    __shfl_xor_sync (max is exact in any order).
-//  - gelu_scalar_kernel (any other block): one thread per act block.
+//  - gelu_vec4_kernel (power-of-two act blocks 4-128, 16-byte aligned):
+//    each lane moves one float4, so a warp instruction covers 512
+//    contiguous bytes; an act block is block / 4 adjacent lanes (up to
+//    the warp), which take its amax by __shfl_xor_sync (max is exact in
+//    any order).
+//  - gelu_scalar_kernel (any other block up to 128): one thread per act
+//    block, which reads it twice (its amax, then its elements).
 #include "mxint_common.cuh"
 
 using namespace mx;
@@ -84,20 +86,19 @@ gelu_scalar_kernel(const float* __restrict__ x,
     float* yb = y + b * block;
     const int e = block_exp(block_amax(xb, block), mant_bits);
     const float inv = pow2i(-e), scale = pow2i(e);
-#pragma unroll
-    for (int i = 0; i < kMaxBlock; ++i)
-      if (i < block) yb[i] = gelu_elem(xb[i], inv, scale, a, lut);
+    for (int i = 0; i < block; ++i)
+      yb[i] = gelu_elem(xb[i], inv, scale, a, lut);
   }
 }
 
-// vec 4: the float4 route (block 4, 8 or 16, 16-byte aligned), vec 1: the
-// scalar route; threads and grid from gelu_geometry
+// vec 4: the float4 route (power-of-two blocks 4-128, 16-byte aligned),
+// vec 1: the scalar route; threads and grid from gelu_geometry
 extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
                                  long long numel, int block, int mant_bits,
                                  int lut_n, float domain, float idx_scale,
                                  int vec, int threads, int grid,
                                  void* stream) {
-  if (block < 1 || block > kMaxBlock || numel % block != 0 ||
+  if (block < 1 || block > kMaxRowBlock || numel % block != 0 ||
       lut_n > kMaxLut || threads < kWarp || threads > kMaxEltThreads ||
       threads % kWarp != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
@@ -105,7 +106,7 @@ extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
                    lut_n};
   cudaStream_t s = (cudaStream_t)stream;
   if (vec == 4) {
-    if ((block != 4 && block != 8 && block != 16) || (uintptr_t)x % 16 ||
+    if (block < 4 || (block & (block - 1)) != 0 || (uintptr_t)x % 16 ||
         (uintptr_t)y % 16)
       return (int)cudaErrorInvalidValue;
     gelu_vec4_kernel<<<grid, threads, 0, s>>>(

@@ -9,7 +9,8 @@
 // fixed lane order, and every thread writes its pieces' outputs (optionally
 // requantized onto the act grid).  ln_geometry (kernels/mxint_layernorm.py)
 // picks the route from the shape, dtype and alignment: P = 4 (float4 / bf16
-// quad accesses; act blocks 4, 8, 16) or a block a thread (P = 0), and R.
+// quad accesses; power-of-two act blocks 4-128, a block over 1-32 lanes)
+// or a block a thread (P = 0, act blocks up to 16), and R.
 // Rows whose stage does not fit shared memory (GS) are staged in a global
 // scratch buffer instead, one row a CTA.  x is f32 or bf16 (T), gamma and
 // beta f32 or bf16 (a flag), beta may be null; y is f32.
@@ -113,10 +114,11 @@ extern "C" int mxint_layernorm_launch(
     float inv_d, int lut_n, float lut_scale, int rms_only, int quantize_out,
     int x_bf16, int params_bf16, int vec, int rows_per_cta, void* stream) {
   const bool gs = scratch != nullptr;
-  if (block < 1 || block > kMaxBlock || d % block != 0 || lut_n > kMaxLut ||
+  if (block < 1 || block > (vec ? kMaxRowBlock : kMaxBlock) ||
+      d % block != 0 || lut_n > kMaxLut ||
       rows_per_cta < 1 || rows_per_cta > kLnMaxRows ||
       (gs && rows_per_cta != 1) ||
-      (vec && (block % 4 != 0 || block == 12 ||
+      (vec && (block < 4 || (block & (block - 1)) != 0 ||
                !aligned_to(x_bf16 ? 8 : 16, x, y, nullptr) ||
                !aligned_to(params_bf16 ? 8 : 16, gamma, beta, nullptr) ||
                (uintptr_t)y % 16 != 0)))

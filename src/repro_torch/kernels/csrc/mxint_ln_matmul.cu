@@ -8,81 +8,103 @@
 using namespace mx;
 
 // The prologue: the shared row stage ln_rows (mxint_common.cuh) on every
-// thread of the CTA, staged in place: each row's slot of sA (int8, stride
-// d + 16) holds its mantissas, sE its block exponents, and the row's 16
-// bytes of padding past d its LnRowVars; phase 4 overwrites each piece with
-// the LN output's act mantissas (the grid requantization's, which act
-// quantization keeps) and each block's exponent.  Rows past M are zero.
-template <typename T, int P>
+// thread of the CTA, staged in place: each row's slot of sA (A: int8, or
+// int16 at 9-16 bits; stride d + 16) holds its mantissas, sE its block
+// exponents, and the row's padding past d its LnRowVars; phase 4
+// overwrites each piece with the LN output's act mantissas (the grid
+// requantization's, which act quantization keeps) and each block's
+// exponent.  Rows past M are zero.  V: the GEMM core's act variant.
+template <typename T, int P, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 mxint_ln_matmul_kernel(const T* __restrict__ x, const void* gamma,
                        const void* beta, const float* __restrict__ lut_g,
                        const int8_t* __restrict__ wm,
                        const int8_t* __restrict__ we, float* __restrict__ out,
                        int M, int d, int N, int w_block, int mant_bits,
-                       float inv_d, int lut_n, float lut_scale, int rms_only,
-                       int params_bf16, GemmGeom g, int vec, int vec_shift) {
+                       int ab_arg, float inv_d, int lut_n, float lut_scale,
+                       int rms_only, int params_bf16, GemmGeom g, int vec,
+                       int vec_shift) {
+  using A = std::conditional_t<V == 2, int16_t, int8_t>;
+  const int ab = V == 0 ? kAB : ab_arg;     // a compile-time 16 in V 0
   extern __shared__ __align__(16) unsigned char smem[];
-  const GemmSmem s = carve(smem, g, d);
+  const GemmSmem s = carve(smem, g, d, ab, sizeof(A));
   const int tiles = (N + g.bn - 1) / g.bn;
   const int tile0 = blockIdx.y * g.n_per;
   const WStream ws{wm, we, N, w_block, 0, d, tile0 * g.bn,
                    min(g.n_per, tiles - tile0), (d + g.bk - 1) / g.bk, vec,
-                   vec_shift};
+                   vec_shift, ab};
   stream_begin(ws, g, s.w);
   load_lut(s.lut, lut_g, lut_n);
   const int m0 = blockIdx.x * g.bm;
   const int rows = min(g.bm, M - m0);
-  const int nkb = d / kAB;
-  const int sa = a_stride(d), se = e_stride(d);
-  const LnStage<int8_t> st{s.a, sa, s.e, se,
-                           reinterpret_cast<unsigned char*>(s.a) + d, sa};
+  const int sa = a_stride(d), se = e_stride(d / ab);
+  A* sm = reinterpret_cast<A*>(s.a);
+  const LnStage<A> st{sm, sa, s.e, se,
+                      reinterpret_cast<unsigned char*>(sm + d),
+                      (int)(sa * sizeof(A))};
   if (threadIdx.x < g.bm) st.vars(threadIdx.x) = LnRowVars{-128, 0, 0.0f,
                                                            0.0f};
+  const int row16 = d * (int)sizeof(A) / 16;       // 16-byte words of a row
   for (int r = rows; r < g.bm; ++r) {
-    for (int c = threadIdx.x; c < nkb; c += blockDim.x) {
-      *reinterpret_cast<int4*>(s.a + r * sa + c * kAB) = make_int4(0, 0, 0, 0);
-      s.e[r * se + c] = 0;
-    }
+    for (int c = threadIdx.x; c < row16; c += blockDim.x)
+      reinterpret_cast<int4*>(sm + r * sa)[c] = make_int4(0, 0, 0, 0);
+    for (int c = threadIdx.x; c < d / ab; c += blockDim.x) s.e[r * se + c] = 0;
   }
   __syncthreads();
   const int ilim = (1 << (mant_bits - 1)) - 1;
   const float lim = (float)ilim;
-  const LnArgs a{x + (size_t)m0 * d, gamma, beta, s.lut, rows, d, kAB,
+  const LnArgs a{x + (size_t)m0 * d, gamma, beta, s.lut, rows, d, ab,
                  mant_bits, lut_n, rms_only, params_bf16, inv_d, lut_scale,
                  lim};
   // the LN output onto the act grid (grid_requant): its mantissas are also
   // its act quantization's, and its exponent is, but for a block whose
   // mantissas are all 0 (act exponent 0): quantizing grid values again is
-  // exact (tests/test_torch_kernels.py checks every mant_bits 2-8)
+  // exact (tests/test_torch_kernels.py checks every mant_bits 2-16).  bf16
+  // rows: the plain version's round trip of the LN output through x.dtype
+  // is exact up to 8 mantissa bits (bf16 holds 8 significant bits); past
+  // them the grid values are rounded to bf16 and act-quantized anew.
   ln_rows<T, P>(a, st, [=](const LnPiece& pc,
                            float (&y)[kPieceSlots<P>]) {
-    const float amax = group_amax<P>(y, pc.n, pc.G);
-    const int e = block_exp(amax, mant_bits);
-    const float inv = pow2_e8(-e);
+    float amax = group_amax<P>(y, pc.n, pc.G);
+    int e = block_exp(amax, mant_bits);
+    float inv = pow2_e8(-e);
+    if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+      if (mant_bits > 8) {                           // CTA-uniform
+        const float scale = pow2_e8(e);
+#pragma unroll
+        for (int i = 0; i < kPieceSlots<P>; ++i)
+          if (i < pc.n)
+            y[i] = __bfloat162float(__float2bfloat16_rn(__fmul_rn(
+                small_i2f(quant_mant_small(y[i], inv, ilim)), scale)));
+        amax = group_amax<P>(y, pc.n, pc.G);
+        e = block_exp(amax, mant_bits);
+        inv = pow2_e8(-e);
+      }
+    }
     int q[kPieceSlots<P>];
 #pragma unroll
     for (int i = 0; i < kPieceSlots<P>; ++i)
       q[i] = i < pc.n ? quant_mant_small(y[i], inv, ilim) : 0;
     if (!pc.valid) return;
-    store_staged<P>(s.a + pc.r * sa + pc.j, pc.n, q);
+    store_staged<P>(sm + pc.r * sa + pc.j, pc.n, q);
     if (pc.leader)
       s.e[pc.r * se + pc.b] =
           quant_mant_small(amax, inv, ilim) == 0 ? 0 : (int8_t)e;
   });
   float acc[1][2][4];
   zero_acc(acc[0]);
-  stream_run<1>(s, ws, g, sa, se, m0, M, acc, out);
+  stream_run<1, V>(s, ws, g, sa, se, m0, M, acc, out);
 }
 
-template <typename T, int P>
+template <typename T, int P, int V>
 static int launch(const void* x, const void* gamma, const void* beta,
                   const float* lut, const int8_t* wm, const int8_t* we,
                   float* out, int M, int d, int N, int w_block, int mant_bits,
-                  float inv_d, int lut_n, float lut_scale, int rms_only,
-                  int params_bf16, const GemmGeom& g, cudaStream_t stream) {
-  const size_t smem = gemm_smem_bytes(g, d);
-  const void* fn = (const void*)mxint_ln_matmul_kernel<T, P>;
+                  int ab, float inv_d, int lut_n, float lut_scale,
+                  int rms_only, int params_bf16, const GemmGeom& g,
+                  cudaStream_t stream) {
+  const size_t smem = gemm_smem_bytes(g, d, ab, V == 2 ? 2 : 1);
+  const void* fn = (const void*)mxint_ln_matmul_kernel<T, P, V>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -94,7 +116,7 @@ static int launch(const void* x, const void* gamma, const void* beta,
   void* args[] = {(void*)&xt, (void*)&gamma, (void*)&beta, (void*)&lut,
                   (void*)&wm, (void*)&we, (void*)&out, (void*)&M,
                   (void*)&d, (void*)&N, (void*)&w_block, (void*)&mant_bits,
-                  (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
+                  (void*)&ab, (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
                   (void*)&rms_only, (void*)&params_bf16, (void*)&g,
                   (void*)&vec, (void*)&vec_shift};
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(g.bm)), args, smem,
@@ -104,34 +126,49 @@ static int launch(const void* x, const void* gamma, const void* beta,
 }
 
 // x f32 or bf16 (x_bf16), gamma and beta f32 or bf16 (params_bf16), beta
-// may be null; ln_vec: the LN stage's P = 4 route (x, gamma and beta aligned
-// to four of their elements), else a block a thread
+// may be null; ab: the act block; ln_vec: the LN stage's P = 4 route
+// (power-of-two act blocks 4-256; x, gamma and beta aligned to four of
+// their elements), else a block a thread (act blocks up to 16); act
+// mantissas of 2-16 bits (the LN stage and the act tile hold int16 at
+// most)
 extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
                                       const void* beta, const float* lut,
                                       const int8_t* wm, const int8_t* we,
                                       float* out, int M, int d, int N,
-                                      int w_block, int mant_bits, float inv_d,
-                                      int lut_n, float lut_scale, int rms_only,
-                                      int x_bf16, int params_bf16, int ln_vec,
-                                      int bm, int bn, int n_per, int bk,
-                                      int ns, void* stream) {
+                                      int w_block, int mant_bits, int ab,
+                                      float inv_d, int lut_n, float lut_scale,
+                                      int rms_only, int x_bf16,
+                                      int params_bf16, int ln_vec, int bm,
+                                      int bn, int n_per, int bk, int ns,
+                                      void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
   const int xa = x_bf16 ? 8 : 16, pa = params_bf16 ? 8 : 16;
+  const int unit = ab > kAB ? ab : kAB;
   if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut || !geom_ok(g) ||
-      mant_bits > 8 ||
-      (ln_vec && ((uintptr_t)x % xa != 0 || (uintptr_t)gamma % pa != 0 ||
-                  (uintptr_t)beta % pa != 0)))
+      !act_block_ok(ab, w_block) || d % ab != 0 || bk % unit != 0 ||
+      mant_bits < 2 || mant_bits > 16 ||
+      (ln_vec ? (ab < 4 || ab > kMaxLnBlock || (ab & (ab - 1)) != 0 ||
+                 (uintptr_t)x % xa != 0 || (uintptr_t)gamma % pa != 0 ||
+                 (uintptr_t)beta % pa != 0)
+              : ab > kMaxBlock))
     return (int)cudaErrorInvalidValue;
   auto cs = (cudaStream_t)stream;
-#define LNMM_LAUNCH(T, P)                                                   \
-  return launch<T, P>(x, gamma, beta, lut, wm, we, out, M, d, N, w_block,   \
-                      mant_bits, inv_d, lut_n, lut_scale, rms_only,         \
-                      params_bf16, g, cs)
-  if (x_bf16) {
-    if (ln_vec) LNMM_LAUNCH(__nv_bfloat16, 4);
-    LNMM_LAUNCH(__nv_bfloat16, 0);
+#define LNMM_LAUNCH(T, P, V)                                                \
+  return launch<T, P, V>(x, gamma, beta, lut, wm, we, out, M, d, N,         \
+                         w_block, mant_bits, ab, inv_d, lut_n, lut_scale,   \
+                         rms_only, params_bf16, g, cs)
+#define LNMM_ROUTES(V)                                                      \
+  if (x_bf16) {                                                             \
+    if (ln_vec) LNMM_LAUNCH(__nv_bfloat16, 4, V);                           \
+    LNMM_LAUNCH(__nv_bfloat16, 0, V);                                       \
+  }                                                                         \
+  if (ln_vec) LNMM_LAUNCH(float, 4, V);                                     \
+  LNMM_LAUNCH(float, 0, V)
+  switch (act_variant(ab, mant_bits)) {
+    case 0: LNMM_ROUTES(0);
+    case 1: LNMM_ROUTES(1);
+    default: LNMM_ROUTES(2);
   }
-  if (ln_vec) LNMM_LAUNCH(float, 4);
-  LNMM_LAUNCH(float, 0);
+#undef LNMM_ROUTES
 #undef LNMM_LAUNCH
 }

@@ -1,26 +1,64 @@
 // MXInt matmul with in-kernel activation quantization, sm_90a.
 // Counterpart of repro/kernels/mxint_matmul.py:mxint_matmul (quantize_act).
-// y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N], act block 16.
+// y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N]; act blocks that
+// divide 16 or are multiples of 16 dividing w_block, act mantissas of
+// 2-16 bits (the GEMM core's V 0-2, mxint_common.cuh).
 #include "mxint_common.cuh"
 
 using namespace mx;
 
-// A CTA stages the quantized rows of at most kMaxChunk columns of x in
-// shared memory.  A longer K (Llama-3-8B's FFN wo has 14336) is walked in
-// kMaxChunk-wide chunks inside the one launch: each chunk is quantized in
-// turn and its block products are added onto the partial sums of the CTA's
-// (at most kMaxAccTiles) column tiles, which stay in registers.  The sums
-// run in increasing K order, as for a short K and as in the plain version.
+// A CTA stages the quantized rows of at most kc columns of x in shared
+// memory (kc from gemm_geometry: 4096, less where the act format's tile
+// would not fit).  A longer K (Llama-3-8B's FFN wo has 14336) is walked in
+// kc-wide chunks inside the one launch: each chunk is quantized in turn and
+// its block products are added onto the partial sums of the CTA's (at
+// most kMaxAccTiles) column tiles, which stay in registers.  The sums run
+// in increasing K order, as for a short K and as in the plain version.
 constexpr int kMaxChunk = 4096;
+
+// V 1 and 2: one lane an act block of ab elements: its amax, then its
+// mantissas (int8 or int16) and exponent
+template <int V>
+__device__ __forceinline__ void quantize_rows_any(
+    const GemmSmem& s, const float* __restrict__ x, int M, int K, int m0,
+    int k0, int kc, int a_ld, int e_ld, int mant_bits, float lim, int bm,
+    int ab) {
+  using A = std::conditional_t<V == 2, int16_t, int8_t>;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int nb = kc / ab;
+  A* sa = reinterpret_cast<A*>(s.a);
+  for (int r = warp; r < bm; r += blockDim.x / kWarp) {
+    const int row = m0 + r;
+    for (int b = lane; b < nb; b += kWarp) {
+      A* dm = sa + r * a_ld + b * ab;
+      if (row < M) {
+        const float* xb = x + (size_t)row * K + k0 + b * ab;
+        const int e = block_exp(block_amax(xb, ab), mant_bits);
+        const float inv = pow2i(-e);
+        for (int i = 0; i < ab; ++i) dm[i] = (A)quant_mant(xb[i], inv, lim);
+        s.e[r * e_ld + b] = (int8_t)e;
+      } else {
+        for (int i = 0; i < ab; ++i) dm[i] = 0;
+        s.e[r * e_ld + b] = 0;
+      }
+    }
+  }
+}
 
 // quantize x[m0 : m0 + bm, k0 : k0 + kc] into s (row strides a_ld, e_ld);
 // rows past M are zero
+template <int V>
 __device__ __forceinline__ void quantize_rows(const GemmSmem& s,
                                               const float* __restrict__ x,
                                               int M, int K, int m0, int k0,
                                               int kc, int a_ld, int e_ld,
                                               int mant_bits, float lim,
-                                              int bm) {
+                                              int bm, int ab) {
+  if constexpr (V != 0) {
+    quantize_rows_any<V>(s, x, M, K, m0, k0, kc, a_ld, e_ld, mant_bits, lim,
+                         bm, ab);
+    return;
+  }
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nkb = kc / kAB;
   for (int r = warp; r < bm; r += blockDim.x / kWarp) {
@@ -42,48 +80,55 @@ __device__ __forceinline__ void quantize_rows(const GemmSmem& s,
   }
 }
 
-// K <= kMaxChunk: quantize the CTA's rows of x once (while the first weight
-// stages load), then stream its column tiles against them.  K > kMaxChunk:
-// the chunks of K in order, each quantized once and streamed against all
-// of the CTA's n_per <= kMaxAccTiles tiles.
-template <bool CHUNKED>
+// K <= kc: quantize the CTA's rows of x once (while the first weight
+// stages load), then stream its column tiles against them.  K > kc: the
+// chunks of K in order, each quantized once and streamed against all of
+// the CTA's n_per <= kMaxAccTiles tiles.
+template <bool CHUNKED, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 mxint_matmul_kernel(const float* __restrict__ x,
                     const int8_t* __restrict__ wm,
                     const int8_t* __restrict__ we, float* __restrict__ out,
                     int M, int K, int N, int w_block, int mant_bits,
-                    GemmGeom g, int vec, int vec_shift) {
+                    int ab_arg, int kc_arg, GemmGeom g, int vec,
+                    int vec_shift) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int kc_max = CHUNKED ? kMaxChunk : K;
-  const GemmSmem s = carve(smem, g, kc_max);
-  const int a_ld = a_stride(kc_max), e_ld = e_stride(kc_max);
+  // V 0: act block 16 and chunks of kMaxChunk, as compile-time constants
+  // (the launcher sends V 0 nothing else), so the core's shared-memory
+  // strides fold into its address arithmetic
+  const int ab = V == 0 ? kAB : ab_arg;
+  const int kc = V == 0 ? kMaxChunk : kc_arg;
+  const int kc_max = CHUNKED ? kc : K;
+  const GemmSmem s = carve(smem, g, kc_max, ab, V == 2 ? 2 : 1);
+  const int a_ld = a_stride(kc_max), e_ld = e_stride(kc_max / ab);
   const int m0 = blockIdx.x * g.bm;
   const int tiles = (N + g.bn - 1) / g.bn;
   const int tile0 = blockIdx.y * g.n_per;
   const float lim = (float)((1 << (mant_bits - 1)) - 1);
   WStream ws{wm, we, N, w_block, 0, K, tile0 * g.bn,
              min(g.n_per, tiles - tile0), (K + g.bk - 1) / g.bk, vec,
-             vec_shift};
+             vec_shift, ab};
   if (!CHUNKED) {
     float acc[1][2][4];
     zero_acc(acc[0]);
     stream_begin(ws, g, s.w);
-    quantize_rows(s, x, M, K, m0, 0, K, a_ld, e_ld, mant_bits, lim, g.bm);
-    stream_run<1>(s, ws, g, a_ld, e_ld, m0, M, acc, out);
+    quantize_rows<V>(s, x, M, K, m0, 0, K, a_ld, e_ld, mant_bits, lim, g.bm,
+                     ab);
+    stream_run<1, V>(s, ws, g, a_ld, e_ld, m0, M, acc, out);
     return;
   }
   float acc[kMaxAccTiles][2][4];
 #pragma unroll
   for (int t = 0; t < kMaxAccTiles; ++t) zero_acc(acc[t]);
-  for (int k0 = 0; k0 < K; k0 += kMaxChunk) {
+  for (int k0 = 0; k0 < K; k0 += kc) {
     ws.kbase = k0;
-    ws.kc = min(K - k0, kMaxChunk);
+    ws.kc = min(K - k0, kc);
     ws.nst = (ws.kc + g.bk - 1) / g.bk;
     __syncthreads();            // the last chunk's reads of s are done
     stream_begin(ws, g, s.w);
-    quantize_rows(s, x, M, K, m0, k0, ws.kc, a_ld, e_ld, mant_bits, lim,
-                  g.bm);
-    stream_run<kMaxAccTiles>(s, ws, g, a_ld, e_ld, m0, M, acc, nullptr);
+    quantize_rows<V>(s, x, M, K, m0, k0, ws.kc, a_ld, e_ld, mant_bits, lim,
+                     g.bm, ab);
+    stream_run<kMaxAccTiles, V>(s, ws, g, a_ld, e_ld, m0, M, acc, nullptr);
   }
   const WarpTile w = warp_tile(g, m0, M);
 #pragma unroll
@@ -92,20 +137,39 @@ mxint_matmul_kernel(const float* __restrict__ x,
       store_tile(acc[t], w, out, m0, N, g.bn, ws.n0 + t * g.bn);
 }
 
+// ab: the act block; kc: the K columns a CTA stages at once (K > kc walks
+// K in chunks), a multiple of ab and 16 up to kMaxChunk; bk a multiple of
+// ab.  The act tile holds int16 mantissas at most: a mantissa wider than
+// 16 bits would wrap.
 extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
                                    const int8_t* we, float* out, int M, int K,
-                                   int N, int w_block, int mant_bits, int bm,
-                                   int bn, int n_per, int bk, int ns,
-                                   void* stream) {
+                                   int N, int w_block, int mant_bits, int ab,
+                                   int bm, int bn, int n_per, int bk, int ns,
+                                   int kc, void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
-  const bool chunked = K > kMaxChunk;
-  // the act tile is int8: a mantissa wider than 8 bits would wrap
+  const bool chunked = K > kc;
+  const int unit = ab > kAB ? ab : kAB;
   if (K % kAB != 0 || w_block % kAB != 0 || !geom_ok(g) ||
-      (chunked && n_per > kMaxAccTiles) || mant_bits < 2 || mant_bits > 8)
+      !act_block_ok(ab, w_block) || K % ab != 0 || bk % unit != 0 ||
+      kc < unit || kc > kMaxChunk || kc % unit != 0 ||
+      (chunked && n_per > kMaxAccTiles) || mant_bits < 2 || mant_bits > 16)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = gemm_smem_bytes(g, chunked ? kMaxChunk : K);
-  const void* fn = chunked ? (const void*)mxint_matmul_kernel<true>
-                           : (const void*)mxint_matmul_kernel<false>;
+  // V 0 takes only the full chunk (a narrower one runs V 1, which also
+  // takes act block 16)
+  const int V = act_variant(ab, mant_bits) == 0 && chunked &&
+                        kc != kMaxChunk
+                    ? 1
+                    : act_variant(ab, mant_bits);
+  const size_t smem = gemm_smem_bytes(g, chunked ? kc : K, ab,
+                                      V == 2 ? 2 : 1);
+  const void* kernels[2][3] = {
+      {(const void*)mxint_matmul_kernel<false, 0>,
+       (const void*)mxint_matmul_kernel<false, 1>,
+       (const void*)mxint_matmul_kernel<false, 2>},
+      {(const void*)mxint_matmul_kernel<true, 0>,
+       (const void*)mxint_matmul_kernel<true, 1>,
+       (const void*)mxint_matmul_kernel<true, 2>}};
+  const void* fn = kernels[chunked][V];
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -115,8 +179,8 @@ extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
   const dim3 grid((M + bm - 1) / bm, (tiles + n_per - 1) / n_per);
   void* args[] = {(void*)&x, (void*)&wm, (void*)&we, (void*)&out,
                   (void*)&M, (void*)&K, (void*)&N, (void*)&w_block,
-                  (void*)&mant_bits, (void*)&g, (void*)&vec,
-                  (void*)&vec_shift};
+                  (void*)&mant_bits, (void*)&ab, (void*)&kc, (void*)&g,
+                  (void*)&vec, (void*)&vec_shift};
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;

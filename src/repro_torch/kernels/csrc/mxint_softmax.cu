@@ -12,10 +12,14 @@
 //    parameter) bounds the elements a lane holds, so every register index
 //    is static; V = 4 moves a lane's elements in float4 (act block a
 //    multiple of 4, 16-byte aligned rows).
-//  - softmax_long_kernel: rows longer than the registers hold; four passes
-//    re-read the row (L1/L2 resident): lambda, the max aligned mantissa,
-//    the sum of 2^z, then the Eq. 20 divide and the optional act-grid
-//    quantization of the output.
+//  - softmax_long_kernel: rows longer than the registers hold, and act
+//    blocks past 32 elements a lane; four passes re-read the row (L1/L2
+//    resident): lambda, the max aligned mantissa, the sum of 2^z, then
+//    the Eq. 20 divide and the optional act-grid quantization of the
+//    output.  Blocks up to kMaxBlock keep a block's mantissas and outputs
+//    in registers; longer ones (up to kMaxRowBlock) walk the block
+//    element by element in every pass and compute each output twice
+//    (the block's amax, then the values).
 // Both add each lane's elements in order (block by block, element by
 // element), then a butterfly over the 32 lanes: warp_row_sum's order.
 #include "mxint_common.cuh"
@@ -24,7 +28,8 @@ using namespace mx;
 
 constexpr int kRowThreads = 256;
 
-// aligned mantissas of block b and its exponent
+// aligned mantissas of block b (at most kMaxBlock elements) and its
+// exponent, in registers
 __device__ __forceinline__ void aligned_block(const float* xr, int b,
                                               int block, int mant_bits,
                                               float lim, int emax,
@@ -37,6 +42,40 @@ __device__ __forceinline__ void aligned_block(const float* xr, int b,
   for (int i = 0; i < kMaxBlock; ++i)
     if (i < block) mi[i] = ((int)quant_mant(xb[i], inv, lim)) >> sh;
 }
+
+// quantize-dequantize a block of b values in place onto the MXInt grid
+__device__ __forceinline__ void grid_requant(float (&y)[kMaxBlock], int b,
+                                             int mant_bits, float lim) {
+  float amax = 0.0f;
+#pragma unroll
+  for (int i = 0; i < kMaxBlock; ++i)
+    if (i < b) amax = fmaxf(amax, fabsf(y[i]));
+  int e = block_exp(amax, mant_bits);
+  float inv = pow2i(-e), scale = pow2i(e);
+#pragma unroll
+  for (int i = 0; i < kMaxBlock; ++i)
+    if (i < b) y[i] = __fmul_rn(quant_mant(y[i], inv, lim), scale);
+}
+
+// a longer block's quantization aligned to lambda, element by element:
+// element i's mantissa is (int)quant_mant(xb[i], inv, lim) >> sh
+struct AlignedBlock {
+  const float* xb;
+  float inv, lim;
+  int sh;
+
+  __device__ __forceinline__ AlignedBlock(const float* xr, int b, int block,
+                                          int mant_bits, float lim_,
+                                          int emax)
+      : xb(xr + b * block), lim(lim_) {
+    const int e = block_exp(block_amax(xb, block), mant_bits);
+    inv = pow2i(-e);
+    sh = min(emax - e, 31);
+  }
+  __device__ __forceinline__ int operator[](int i) const {
+    return ((int)quant_mant(xb[i], inv, lim)) >> sh;
+  }
+};
 
 __device__ __forceinline__ float p_of(int mi, int mmax, float plam,
                                       float log2e, const float* lut, int n) {
@@ -204,6 +243,27 @@ softmax_regs_kernel(const float* __restrict__ x,
 // ---------------------------------------------------------------------------
 // long route
 // ---------------------------------------------------------------------------
+// f(i, m) for each element i of block b and its aligned mantissa m: from
+// registers for blocks up to kMaxBlock (kRegs), else re-read one by one
+template <bool kRegs, typename F>
+__device__ __forceinline__ void each_aligned(const float* xr, int b,
+                                             int block, int mant_bits,
+                                             float lim, int emax, F f) {
+  if constexpr (kRegs) {
+    int mi[kMaxBlock];
+    aligned_block(xr, b, block, mant_bits, lim, emax, mi);
+#pragma unroll
+    for (int i = 0; i < kMaxBlock; ++i)
+      if (i < block) f(i, mi[i]);
+  } else {
+    const AlignedBlock mi(xr, b, block, mant_bits, lim, emax);
+    for (int i = 0; i < block; ++i) f(i, mi[i]);
+  }
+}
+
+// kRegs: act blocks up to kMaxBlock, each block's mantissas and outputs in
+// registers; else any block up to kMaxRowBlock, re-read in every pass
+template <bool kRegs>
 __global__ void __launch_bounds__(kRowThreads)
 softmax_long_kernel(const float* __restrict__ x,
                     const float* __restrict__ lut_g, float* __restrict__ y,
@@ -226,43 +286,54 @@ softmax_long_kernel(const float* __restrict__ x,
   emax = warp_max_i(emax);
   // pass 2: max of the aligned mantissas
   int mmax = INT_MIN;
-  for (int b = lane; b < nb; b += kWarp) {
-    int mi[kMaxBlock];
-    aligned_block(xr, b, block, mant_bits, lim, emax, mi);
-#pragma unroll
-    for (int i = 0; i < kMaxBlock; ++i)
-      if (i < block) mmax = max(mmax, mi[i]);
-  }
+  for (int b = lane; b < nb; b += kWarp)
+    each_aligned<kRegs>(xr, b, block, mant_bits, lim, emax,
+                        [&](int, int m) { mmax = max(mmax, m); });
   mmax = warp_max_i(mmax);
   const float plam = pow2i(emax);
   // pass 3: row sum of 2^z, lane order then butterfly
   float acc = 0.0f;
-  for (int b = lane; b < nb; b += kWarp) {
-    int mi[kMaxBlock];
-    aligned_block(xr, b, block, mant_bits, lim, emax, mi);
-#pragma unroll
-    for (int i = 0; i < kMaxBlock; ++i)
-      if (i < block) acc = __fadd_rn(acc, p_of(mi[i], mmax, plam, log2e, lut,
-                                               lut_n));
-  }
+  for (int b = lane; b < nb; b += kWarp)
+    each_aligned<kRegs>(xr, b, block, mant_bits, lim, emax, [&](int, int m) {
+      acc = __fadd_rn(acc, p_of(m, mmax, plam, log2e, lut, lut_n));
+    });
   acc = warp_sum_tree(acc);
   int s_e;
   const float s_m = frexpf(acc, &s_e);               // LZC + shift in HW
   const float s_scale = pow2i(-s_e);
   // pass 4: Eq. 20 divide, optional output quantization, write
   for (int b = lane; b < nb; b += kWarp) {
-    int mi[kMaxBlock];
-    aligned_block(xr, b, block, mant_bits, lim, emax, mi);
-    float v[kMaxBlock];
-#pragma unroll
-    for (int i = 0; i < kMaxBlock; ++i)
-      if (i < block)
-        v[i] = __fmul_rn(__fdiv_rn(p_of(mi[i], mmax, plam, log2e, lut, lut_n),
+    if constexpr (kRegs) {
+      float v[kMaxBlock];
+      each_aligned<kRegs>(xr, b, block, mant_bits, lim, emax,
+                          [&](int i, int m) {
+        v[i] = __fmul_rn(__fdiv_rn(p_of(m, mmax, plam, log2e, lut, lut_n),
                                    s_m), s_scale);
-    if (quantize_out) grid_requant(v, block, mant_bits, lim);
+      });
+      if (quantize_out) grid_requant(v, block, mant_bits, lim);
 #pragma unroll
-    for (int i = 0; i < kMaxBlock; ++i)
-      if (i < block) yr[b * block + i] = v[i];
+      for (int i = 0; i < kMaxBlock; ++i)
+        if (i < block) yr[b * block + i] = v[i];
+    } else {
+      const AlignedBlock mi(xr, b, block, mant_bits, lim, emax);
+      auto prob = [&](int i) {
+        return __fmul_rn(__fdiv_rn(p_of(mi[i], mmax, plam, log2e, lut, lut_n),
+                                   s_m), s_scale);
+      };
+      float inv = 1.0f, scale = 1.0f;
+      if (quantize_out) {               // grid_requant over the block
+        float amax = 0.0f;
+        for (int i = 0; i < block; ++i) amax = fmaxf(amax, fabsf(prob(i)));
+        const int e = block_exp(amax, mant_bits);
+        inv = pow2i(-e);
+        scale = pow2i(e);
+      }
+      for (int i = 0; i < block; ++i) {
+        const float v = prob(i);
+        yr[b * block + i] =
+            quantize_out ? __fmul_rn(quant_mant(v, inv, lim), scale) : v;
+      }
+    }
   }
 }
 
@@ -295,10 +366,12 @@ extern "C" int mxint_softmax_launch(const float* x, const float* lut,
                                     int mant_bits, int lut_n, float log2e,
                                     int quantize_out, int per_lane, int vec,
                                     int grid, void* stream) {
-  if (block < 1 || block > kMaxBlock || n % block != 0 || lut_n > kMaxLut ||
+  if (block < 1 || block > kMaxRowBlock || n % block != 0 ||
+      lut_n > kMaxLut ||
       (long long)grid * (kRowThreads / kWarp) < rows)
     return (int)cudaErrorInvalidValue;
-  RowKernel k = softmax_long_kernel;
+  RowKernel k = block <= kMaxBlock ? softmax_long_kernel<true>
+                                   : softmax_long_kernel<false>;
   if (per_lane != 0) {
     const int need = (n / block + kWarp - 1) / kWarp * block;
     const bool aligned = (uintptr_t)x % 16 == 0 && (uintptr_t)y % 16 == 0;

@@ -16,10 +16,11 @@ clips negatives to -2^(m-1) instead, so this op follows the kernel.
 On the H100 the kernel is bound by memory: DeiT's (rows, 4d) FFN tile is
 read once and written once.  ``gelu_geometry`` picks the route from the
 shape and the alignment alone and sizes a grid-stride grid from the SM
-count: act blocks of 4, 8 and 16 on 16-byte aligned data give each lane
-one float4 (block / 4 adjacent lanes a block, the block amax by warp
-shuffles), so a warp instruction moves 512 contiguous bytes; any other
-block runs one thread per act block.  The LUT sits in shared memory.
+count: power-of-two act blocks of 4-128 on 16-byte aligned data give each
+lane one float4 (block / 4 adjacent lanes a block, up to the whole warp,
+the block amax by warp shuffles), so a warp instruction moves 512
+contiguous bytes; any other block up to 128 runs one thread per act
+block.  The LUT sits in shared memory.
 """
 from __future__ import annotations
 
@@ -41,7 +42,7 @@ from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
 MAX_THREADS = 256          # a CTA at most; fewer where that fills more SMs
 MIN_THREADS = 64
 THREADS_PER_SM = 2048      # resident threads of an SM: the grid's cap
-VEC_BLOCKS = (4, 8, 16)    # act blocks of the float4 route
+VEC_BLOCKS = (4, 8, 16, 32, 64, 128)   # act blocks of the float4 route
 SMEM_BYTES = 4 * MAX_LUT   # a CTA's shared memory: the LUT copy
 
 launches = 0

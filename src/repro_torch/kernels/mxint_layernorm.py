@@ -18,7 +18,8 @@ a few dozen operations per element.  A CTA of ``LN_THREADS`` threads
 normalizes up to ``LN_MAX_ROWS`` rows with the row stage it shares with
 ``mxint_ln_matmul`` (``ln_rows`` in ``csrc/mxint_common.cuh``): every
 thread reads, quantizes and aligns its pieces of the rows (four elements
-in one 16-byte f32 or 8-byte bf16 access, or a whole act block), the
+in one 16-byte f32 or 8-byte bf16 access, an act block over 1-32 adjacent
+lanes whose amax meets by shuffles; or a whole act block of at most 16), the
 aligned mantissas are staged in shared memory, one warp a row adds the
 variance, and every thread writes its pieces.  ``ln_geometry`` picks the
 route from the shape, dtype and alignment alone.  The LUT sits in shared
@@ -42,7 +43,9 @@ from repro_torch.core.quantize import _TINY, pow2i
 from repro_torch.kernels import _build
 
 WARP = 32
-MAX_BLOCK = 16       # largest act block the CUDA row stages hold in registers
+SCALAR_MAX_BLOCK = 16   # largest act block a thread holds in registers
+MAX_BLOCK = 128      # largest act block of the row kernels: a warp of float4
+MAX_LN_BLOCK = 256   # the fused kernel's LN stage: two warps (a named barrier)
 MAX_LUT = 256        # entries of the shared-memory LUT copy
 SMEM_LIMIT = 232448  # the H100's 227 KB a CTA may use
 
@@ -50,7 +53,7 @@ SMEM_LIMIT = 232448  # the H100's 227 KB a CTA may use
 LN_THREADS = 256     # a CTA of the layernorm kernel
 LN_MAX_ROWS = 8      # rows a CTA normalizes at most
 LN_PIECE = 4         # elements of a vector-route piece (one 16/8-byte access)
-LN_VEC_BLOCKS = (4, 8, 16)          # act blocks of 1, 2 or 4 pieces
+LN_VEC_BLOCKS = (4, 8, 16, 32, 64, 128, 256)   # act blocks of 1-64 pieces
 LN_STATIC_SMEM = 4 * MAX_LUT + 16 * LN_MAX_ROWS   # the LUT, the row scalars
 
 launches = 0
@@ -98,10 +101,24 @@ class LnGeometry(NamedTuple):
 
 def ln_piece(block: int, aligned: bool) -> int:
     """The LN stage's piece: 4 elements (one 16-byte f32 or 8-byte bf16
-    access; the act block spans 1, 2 or 4 lanes) where the block allows and
-    every row and scale starts on four elements, else 0 (a block a
-    thread, any block and alignment)."""
+    access; the act block spans 1-64 lanes) where the block allows and
+    every row and scale starts on four elements, else 0 (a block a thread:
+    blocks up to 16 at any alignment)."""
     return LN_PIECE if block in LN_VEC_BLOCKS and aligned else 0
+
+
+def check_ln_route(block: int, piece: int, max_block: int = MAX_BLOCK):
+    """Raise unless the LN stage takes the act block on its route: up to
+    ``max_block`` on the four-element route, up to SCALAR_MAX_BLOCK a
+    thread (a longer block needs its rows and scales on four elements and
+    a power of two)."""
+    if block > max_block or (not piece and block > SCALAR_MAX_BLOCK):
+        raise ValueError(
+            f"the LN stage takes act blocks up to {SCALAR_MAX_BLOCK}, and "
+            f"powers of two up to {max_block} on rows and scales aligned to "
+            f"four elements; got {block}"
+            + ("" if piece or block > max_block else " (unaligned or not a "
+               "power of two)"))
 
 
 def aligned4(*tensors) -> bool:
@@ -252,15 +269,16 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                               quantize_out=quantize_out)
     global launches
     x, gamma, beta = kernel_operands(x, gamma, beta)
-    if act_block > MAX_BLOCK or 2 ** lut_bits > MAX_LUT:
-        raise ValueError(f"mxint_layernorm kernel takes act_block <= "
-                         f"{MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    if 2 ** lut_bits > MAX_LUT:
+        raise ValueError(f"mxint_layernorm kernel takes at most {MAX_LUT} "
+                         "LUT entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_layernorm", x, gamma, lut,
                         *([] if beta is None else [beta]))
     out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
     geom = ln_geometry(rows, d, act_block, sm_count(x.device),
                        aligned4(x, gamma, beta, out))
+    check_ln_route(act_block, geom.vec)
     scratch = (torch.empty(rows * geom.stage_words, dtype=torch.int32,
                            device=x.device) if geom.stage_words else None)
     fn = _build.entry("mxint_layernorm", [ctypes.c_void_p] * 6 + [

@@ -34,16 +34,18 @@ output element and act block at the published f32 rate: like
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core import luts
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_LUT, aligned4, f32,
+from repro_torch.kernels.mxint_layernorm import (MAX_LN_BLOCK, MAX_LUT,
+                                                 aligned4, check_ln_route, f32,
                                                  kernel_operands, layernorm_rows,
                                                  ln_piece, lut_tensor)
-from repro_torch.kernels.mxint_matmul import (ACT_BLOCK, check_planes,
+from repro_torch.kernels.mxint_matmul import (check_act_format, check_planes,
                                               gemm_geometry, launch_args,
                                               matmul_blocks, sm_count)
 
@@ -64,6 +66,14 @@ def ln_matmul_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                          act_block=act_block, act_mant_bits=mant_bits)
 
 
+@functools.lru_cache(maxsize=None)
+def ln_matmul_entry():
+    """The C entry point ``mxint_ln_matmul_launch``."""
+    return _build.entry("mxint_ln_matmul", [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
+        [ctypes.c_int] * 9 + [ctypes.c_void_p])
+
+
 def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     beta: Optional[torch.Tensor], w_mant: torch.Tensor,
                     w_exp: torch.Tensor, *, w_block: int, act_block: int = 16,
@@ -71,7 +81,12 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     rms_only: bool = False) -> torch.Tensor:
     """MXIntLN(x) @ (w_mant * 2^w_exp) for x (M, d); no bias.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
+    which takes ``mxint_matmul``'s act formats (2-16 bits; act blocks that
+    divide 16, or multiples of 16 up to 256 dividing ``w_block``) where its
+    LN stage takes the block (``check_ln_route``: past 16 on rows and
+    scales aligned to four elements), and raises otherwise before it
+    touches the card.
     """
     M, d = x.shape
     act_block = min(act_block, d)
@@ -86,29 +101,29 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     # the kernel reads f32 or bf16 rows and scales as they come (the
     # reference's kernel reads them as f32; bf16 to f32 is exact)
     x, gamma, beta = kernel_operands(x.contiguous(), gamma, beta)
-    if act_block != ACT_BLOCK or mant_bits > 8 or \
-            2 ** lut_bits > MAX_LUT or w_mant.dtype != torch.int8 or \
-            w_exp.dtype != torch.int8:
-        raise ValueError("mxint_ln_matmul kernel takes int8 planes, "
-                         f"act_block == {ACT_BLOCK}, mant_bits <= 8 (int8 "
-                         f"act mantissas) and at most {MAX_LUT} LUT entries")
+    check_act_format(mant_bits, act_block, w_block)
+    piece = ln_piece(act_block, aligned4(x, gamma, beta))
+    check_ln_route(act_block, piece, MAX_LN_BLOCK)
+    if 2 ** lut_bits > MAX_LUT or w_mant.dtype != torch.int8 or \
+            w_exp.dtype != torch.int8 or d % 16:
+        raise ValueError("mxint_ln_matmul kernel takes int8 planes, rows of "
+                         f"a multiple of 16 and at most {MAX_LUT} LUT "
+                         "entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_ln_matmul", x, gamma, lut, w_mant, w_exp,
                         *([] if beta is None else [beta]))
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    geom = gemm_geometry(M, N, d, sm_count(x.device), fused_ln=True)
-    fn = _build.entry("mxint_ln_matmul", [ctypes.c_void_p] * 7 + [
-        ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
-        [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    geom = gemm_geometry(M, N, d, sm_count(x.device), fused_ln=True,
+                         act_block=act_block, wide=mant_bits > 8)
     xp, wmp, wep, outp = launch_args(x, w_mant, w_exp, out)
-    rc = fn(xp, gamma.data_ptr(), None if beta is None else beta.data_ptr(),
-            lut.data_ptr(), wmp, wep, outp, M, d, N, w_block, mant_bits,
-            f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
-            int(rms_only), int(x.dtype == torch.bfloat16),
-            int(gamma.dtype == torch.bfloat16),
-            ln_piece(act_block, aligned4(x, gamma, beta)), *geom.args(),
-            _build.stream_ptr(x.device))
+    rc = ln_matmul_entry()(
+        xp, gamma.data_ptr(), None if beta is None else beta.data_ptr(),
+        lut.data_ptr(), wmp, wep, outp, M, d, N, w_block, mant_bits,
+        act_block, f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
+        int(rms_only), int(x.dtype == torch.bfloat16),
+        int(gamma.dtype == torch.bfloat16), piece, *geom.args(),
+        _build.stream_ptr(x.device))
     _build.check(rc, "mxint_ln_matmul")
     launches += 1
     return out

@@ -7,12 +7,22 @@ datapath uses) with ``csrc/mxint_matmul.cu``:
     y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N]
 
 ``w_mant`` is a (K, N) int8 mantissa plane and ``w_exp`` a
-(K / w_block, N) int8 exponent plane.  Each 16-element activation block
-along K is quantized as ``_quantize_act_tile`` does; the int32 dot of that
-block with the int8 weight mantissas is exact, and scaling it by
-2^(e_x + e_w) is exact too, because 16 divides ``w_block`` so one block
-pair shares one scale.  The scaled block products are added into an f32
+(K / w_block, N) int8 exponent plane.  Each activation block along K is
+quantized as ``_quantize_act_tile`` does; the int32 dot of that block with
+the int8 weight mantissas is exact, and scaling it by 2^(e_x + e_w) is
+exact too, because the act block divides ``w_block`` (or 16, which
+divides ``w_block``), so one block pair shares one scale.  The dot is
+rounded once to f32 and the scaled block products are added into an f32
 accumulator in increasing K order.
+
+Act formats: blocks that divide 16 (1, 2, 4, 8) and multiples of 16 up to
+256 that divide ``w_block``; mantissas of 2-16 bits.  The default, block 16
+at 2-8 bits, runs one ``mma.sync`` a block; a longer block chains its
+k16 steps' mma sums, a shorter one masks the A fragments per block, and
+9-16 bits split each int16 mantissa into its signed high and unsigned low
+byte, one mma each (``csrc/mxint_common.cuh``, V 0-2).  Any other act
+block, and mantissas past 16 bits, raise before anything touches the
+card.
 
 On the H100, at DeiT-Base batch 16 the FFN ``wo`` reads x (3152, 3072) f32
 (38.7 MB), 2.4 MB of planes and writes (3152, 768) f32 (9.7 MB): about
@@ -25,8 +35,8 @@ by instruction issue in that epilogue.  The GEMM core
 one ``mma.sync`` m16n8k16 per act block and 16 x 8 outputs, whose int32
 result is the block's exact dot, then the plain version's two rounded
 steps per element.  A CTA (8 warps per 16 rows) quantizes its 16, 24 or
-32 rows of x once into shared memory (int8 mantissas plus one exponent per
-16-block) while the first weight tiles load, then streams its column
+32 rows of x once into shared memory (int8 or int16 mantissas plus one
+exponent per act block) while the first weight tiles load, then streams its column
 tiles: the planes' tiles go through a ring of stages by ``cp.async``, each
 once per CTA.  ``gemm_geometry`` sizes the tiles from the shape and the
 card's SM count: 16-row tiles and narrow column tiles at decode, so that
@@ -53,10 +63,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.mxint_layernorm import (
     MAX_LUT, SMEM_LIMIT, block_quantize_rows, lut_tensor, sm_count)
 
-ACT_BLOCK = 16        # the CUDA kernel's activation block
-# act mantissa widths the CUDA kernel takes: its act tile is int8 (the
-# plain version, like the reference, takes any width)
-MIN_ACT_MANT_BITS, MAX_ACT_MANT_BITS = 2, 8
+ACT_BLOCK = 16        # the mma depth; the act block of the default path
+MAX_ACT_BLOCK = 256   # |dot| <= 256 * 32767 * 127 < 2^31
+# act mantissa widths the CUDA kernel takes: its act tile is int8, or int16
+# above 8 bits (the plain version, like the reference, takes any width)
+MIN_ACT_MANT_BITS, MAX_ACT_MANT_BITS = 2, 16
 
 # the GEMM core's constants (csrc/mxint_common.cuh, csrc/mxint_matmul.cu)
 WARP_COLS = 16                      # a warp's columns: two n8 mma tiles
@@ -88,19 +99,27 @@ def _pow2_table() -> tuple:
 def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                   *, w_block: int, act_block: int,
                   act_mant_bits: int) -> torch.Tensor:
-    """Plain version: block products summed in increasing K order.  The
-    block scales come from a table of ``pow2i``, the same exact values."""
+    """Plain version: block products summed in increasing K order.  Each
+    block's dot is exact, then rounded once to f32 (float32 products where
+    every partial sum stays below 2^24, else float64); the block scales
+    come from a table of ``pow2i``, the same exact values."""
     M, K = x.shape
     N = w_mant.shape[1]
     nb = K // act_block
     xm, xe = block_quantize_rows(x, act_block, act_mant_bits)
-    wm = w_mant.to(torch.float32).reshape(nb, act_block, N)
+    w_max = (torch.iinfo(w_mant.dtype).max if not w_mant.is_floating_point()
+             else 2 ** 24)
+    exact = torch.float32 if act_block * (2 ** (act_mant_bits - 1) - 1) * \
+        w_max < 2 ** 24 else torch.float64
+    xm = xm.to(exact)
+    wm = w_mant.to(exact).reshape(nb, act_block, N)
     we = w_exp.to(torch.int32).repeat_interleave(w_block // act_block, dim=0)
     table = lut_tensor(_pow2_table(), x.device)
     xe = xe + 254
     acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
     for k in range(nb):
-        acc = acc + (xm[:, k] @ wm[k]) * table[xe[:, k, None] + we[None, k]]
+        dot = (xm[:, k] @ wm[k]).to(torch.float32)
+        acc = acc + dot * table[xe[:, k, None] + we[None, k]]
     return acc
 
 
@@ -117,6 +136,7 @@ class GemmGeometry:
     ns: int
     chunked: bool
     grid: tuple
+    kc: int = MAX_CHUNK     # K columns a CTA stages at once
 
     def args(self):
         return (self.bm, self.bn, self.n_per, self.bk, self.ns)
@@ -136,19 +156,28 @@ def w_row(r: int) -> int:
     return (r & ~15) | ((r & 3) << 2) | ((r >> 2) & 3)
 
 
-def gemm_smem_bytes(bm: int, bn: int, bk: int, ns: int, kc: int) -> int:
-    """Dynamic shared memory of a CTA that holds kc columns of its rows
-    (``gemm_smem_bytes`` in ``csrc/mxint_common.cuh``)."""
+def gemm_smem_bytes(bm: int, bn: int, bk: int, ns: int, kc: int,
+                    act_block: int = ACT_BLOCK, a_bytes: int = 1) -> int:
+    """Dynamic shared memory of a CTA that holds kc columns of its rows,
+    act mantissas of ``a_bytes`` bytes (``gemm_smem_bytes`` in
+    ``csrc/mxint_common.cuh``)."""
     stage = (bk + bk // ACT_BLOCK) * w_stride(bn)
-    e_stride = 4 * ((kc // ACT_BLOCK + 3) // 4 | 1)
+    e_stride = 4 * ((kc // act_block + 3) // 4 | 1)
     a_rows = -(-bm // 16) * 16          # whole 16-row groups
-    return (a_rows * (kc + 16) + (bm * e_stride + 15) // 16 * 16
+    return (a_rows * (kc + 16) * a_bytes + (bm * e_stride + 15) // 16 * 16
             + ns * stage + MAX_LUT * 4)
+
+
+def act_unit(act_block: int) -> int:
+    """The K granule of an act format: bk and the chunk are multiples of
+    it (a whole block, and whole k16 steps)."""
+    return max(act_block, ACT_BLOCK)
 
 
 @functools.lru_cache(maxsize=None)
 def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
-                  fused_ln: bool = False) -> GemmGeometry:
+                  fused_ln: bool = False, act_block: int = ACT_BLOCK,
+                  wide: bool = False) -> GemmGeometry:
     """Tiles of the GEMM core for y[M, N] = x[M, K] @ W[K, N] on a card of
     ``n_sm`` SMs.
 
@@ -163,40 +192,65 @@ def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
     card times each CTA's tiles plus its prologue.  K is never split: one
     thread owns every output element's whole ordered sum.  K beyond
     MAX_CHUNK is walked in chunks, except with ``fused_ln``: the fused
-    LayerNorm kernel holds its whole rows.
+    LayerNorm kernel holds its whole rows.  An act format whose tile does
+    not fit (short act blocks: an exponent an element; 9-16 bits: int16
+    mantissas) stages narrower chunks, and with ``fused_ln`` fewer rows:
+    16-row tiles where 24 or 32 do not fit.  ``wide``: act mantissas of
+    9-16 bits.  Raises where no geometry fits shared memory.
     Cached: a decode step asks for the same few shapes every call."""
     best = None
     for bm in (16,) if M <= 16 else (32, 24):
-        geom, cost = _tile_geometry(M, N, K, n_sm, bm, fused_ln)
-        if best is None or cost < best[1]:
-            best = (geom, cost)
+        got = _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block, wide)
+        if got is not None and (best is None or got[1] < best[1]):
+            best = got
+    if best is None and M > 16:
+        best = _tile_geometry(M, N, K, n_sm, 16, fused_ln, act_block, wide)
+    if best is None:
+        raise ValueError(f"no GEMM tile of {M}x{K}->{N} at act block "
+                         f"{act_block}{' (int16)' if wide else ''} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
     return best[0]
 
 
-def _tile_geometry(M, N, K, n_sm, bm, fused_ln):
+def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
+                   wide=False):
     """gemm_geometry at row tile bm: (geometry, estimated time in units of
-    one 32 x 128 tile's work)."""
+    one 32 x 128 tile's work), or None where nothing fits shared memory."""
     rows = -(-M // bm)
     bn = MAX_TILE_COLS
     while bn > (4 if bm == 16 else WARP_COLS) and \
             rows * -(-N // bn) < n_sm:
         bn //= 2
-    chunked = not fused_ln and K > MAX_CHUNK
-    kc = K if fused_ln else min(K, MAX_CHUNK)
+    unit = act_unit(act_block)
+    a_bytes = 2 if wide else 1
+
+    def smem(b, ns, kc):
+        return gemm_smem_bytes(bm, bn, b, ns, kc, act_block, a_bytes)
+
     if bm == 16:
         # a decode batch streams the planes: a deep ring of small stages,
         # two 256-thread CTAs to an SM
-        ns, bk = DECODE_STAGES, min(512, max(128, 8192 // bn))
+        bk0 = -(-min(512, max(128, 8192 // bn)) // unit) * unit
+        ns, bks = DECODE_STAGES, (bk0,) + tuple(
+            b for b in (256, 128, 64) if b < bk0 and b % unit == 0)
     else:
         # many rows: the products bound it; two large stages (one
         # __syncthreads per 16 act blocks), one 512-thread CTA to an SM
-        ns = 2
-        bk = next((b for b in (256, 128) if gemm_smem_bytes(
-            bm, bn, b, ns, kc) <= SMEM_LIMIT), 64)
+        ns, bks = 2, tuple(b for b in (256, 128, 64) if b % unit == 0) or \
+            (unit,)
+    # the K columns staged at once: all of them (fused LN), else chunks of
+    # at most MAX_CHUNK, narrower where the tile would not fit
+    kcs = (K,) if fused_ln else tuple(
+        c for c in range(min(K, MAX_CHUNK) // unit * unit, 0, -unit)
+        if c == K or c % 256 == 0 or c == unit)
+    kc, bk = next(((c, b) for c in kcs for b in bks
+                   if smem(b, ns, c) <= SMEM_LIMIT), (None, None))
+    if kc is None:
+        return None
+    chunked = K > kc
     # CTAs an SM holds: two of 256 threads or one of 512, fewer if shared
     # memory runs out
-    per_sm = max(1, min(2 if bm == 16 else 1,
-                        SMEM_LIMIT // gemm_smem_bytes(bm, bn, bk, ns, kc)))
+    per_sm = max(1, min(2 if bm == 16 else 1, SMEM_LIMIT // smem(bk, ns, kc)))
     tile = (EPILOGUE_SHARE * bm / 32 + (1 - EPILOGUE_SHARE) * -(-bm // 16)
             / 2) * bn / MAX_TILE_COLS
     prologue = PROLOGUE_TILES * bm / 32
@@ -209,7 +263,7 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln):
     n_per = min(range(1, (MAX_ACC_TILES if chunked else tiles) + 1),
                 key=cost)
     return (GemmGeometry(bm, bn, n_per, bk, ns, chunked,
-                         (rows, -(-tiles // n_per))), cost(n_per))
+                         (rows, -(-tiles // n_per)), kc), cost(n_per))
 
 
 def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
@@ -224,14 +278,45 @@ def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
 
 
 def check_act_mant_bits(act_mant_bits: int):
-    """Raise unless the kernel's int8 act tile holds mantissas of
-    ``act_mant_bits`` bits (clipped to +-(2^(b-1) - 1)); a wider mantissa
-    would wrap in the cast to int8."""
+    """Raise unless the kernel's act tile (int8, or int16 above 8 bits)
+    holds mantissas of ``act_mant_bits`` bits (clipped to
+    +-(2^(b-1) - 1)); a wider mantissa would wrap in the cast to int16."""
     if not MIN_ACT_MANT_BITS <= act_mant_bits <= MAX_ACT_MANT_BITS:
         raise ValueError(
             f"mxint_matmul kernel takes {MIN_ACT_MANT_BITS} <= act_mant_bits "
-            f"<= {MAX_ACT_MANT_BITS} (int8 act mantissas), got "
+            f"<= {MAX_ACT_MANT_BITS} (int16 act mantissas), got "
             f"{act_mant_bits}")
+
+
+def check_act_block(act_block: int, w_block: int):
+    """Raise unless the GEMM core takes the act block: a divisor of 16, or
+    a multiple of 16 up to MAX_ACT_BLOCK that divides ``w_block``
+    (``act_block_ok`` in ``csrc/mxint_common.cuh``)."""
+    if act_block >= ACT_BLOCK:
+        ok = act_block % ACT_BLOCK == 0 and act_block <= MAX_ACT_BLOCK \
+            and w_block % act_block == 0
+    else:
+        ok = act_block >= 1 and ACT_BLOCK % act_block == 0
+    if not ok:
+        raise ValueError(
+            f"the GEMM core takes act blocks that divide {ACT_BLOCK} or are "
+            f"multiples of {ACT_BLOCK} up to {MAX_ACT_BLOCK} dividing "
+            f"w_block={w_block}, got {act_block}")
+
+
+@functools.lru_cache(maxsize=None)
+def check_act_format(act_mant_bits: int, act_block: int, w_block: int):
+    """``check_act_mant_bits`` and ``check_act_block`` once per format: a
+    format that passes is cached, so the launch path pays one lookup."""
+    check_act_mant_bits(act_mant_bits)
+    check_act_block(act_block, w_block)
+
+
+@functools.lru_cache(maxsize=None)
+def matmul_entry():
+    """The C entry point ``mxint_matmul_launch``."""
+    return _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
 def launch_args(x, w_mant, w_exp, out):
@@ -243,29 +328,30 @@ def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                  act_mant_bits: int = 8) -> torch.Tensor:
     """y = Q_act(x) @ (w_mant * 2^w_exp) for x (M, K) f32.
 
-    A CPU tensor runs the plain version, at any ``act_mant_bits``; a CUDA
-    tensor launches the kernel, which takes 2-8 bits and raises for any
-    other width before it touches the card.
+    A CPU tensor runs the plain version, at any act format; a CUDA tensor
+    launches the kernel, which takes 2-16 bits and the act blocks of
+    ``check_act_block``, and raises for any other format before it touches
+    the card.
     """
     M, K = x.shape
     check_planes(K, w_mant, w_exp, w_block, act_block)
     if x.device.type == "cpu":
         return matmul_blocks(x, w_mant, w_exp, w_block=w_block,
                              act_block=act_block, act_mant_bits=act_mant_bits)
-    check_act_mant_bits(act_mant_bits)
+    check_act_format(act_mant_bits, act_block, w_block)
     global launches
-    if x.dtype != torch.float32 or act_block != ACT_BLOCK or \
+    if x.dtype != torch.float32 or K % ACT_BLOCK or \
             w_mant.dtype != torch.int8 or w_exp.dtype != torch.int8:
         raise ValueError("mxint_matmul kernel takes f32 x, int8 planes and "
-                         f"act_block == {ACT_BLOCK}")
+                         f"K a multiple of {ACT_BLOCK}")
     _build.require_cuda("mxint_matmul", x, w_mant, w_exp)
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    geom = gemm_geometry(M, N, K, sm_count(x.device))
-    fn = _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 10 + [ctypes.c_void_p])
-    rc = fn(*launch_args(x, w_mant, w_exp, out), M, K, N, w_block,
-            act_mant_bits, *geom.args(), _build.stream_ptr(x.device))
+    geom = gemm_geometry(M, N, K, sm_count(x.device), act_block=act_block,
+                         wide=act_mant_bits > 8)
+    rc = matmul_entry()(*launch_args(x, w_mant, w_exp, out), M, K, N,
+                        w_block, act_mant_bits, act_block, *geom.args(),
+                        geom.kc, _build.stream_ptr(x.device))
     _build.check(rc, "mxint_matmul")
     launches += 1
     return out

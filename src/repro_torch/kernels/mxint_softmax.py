@@ -21,7 +21,11 @@ alignment alone:
   mantissa and 2^z once, then writes once; with an act block that is a
   multiple of 4 and 16-byte aligned rows in float4;
 - the long route (``per_lane`` 0), for longer rows (up to
-  ``ops.PAPER_MAX_SCORES`` keys): four passes re-read the row from L1/L2.
+  ``ops.PAPER_MAX_SCORES`` keys) and for act blocks a lane cannot hold (64
+  and 128): four passes re-read the row from L1/L2, each walking a block
+  element by element.
+
+Act blocks up to ``MAX_BLOCK`` (128) at any alignment.
 
 197 is prime, so DeiT's act block resolves to 1 and every element carries
 its own exponent.  The pow2 LUT sits in shared memory.  Both routes sum in

@@ -13,9 +13,12 @@ reference's.  Three surfaces over one :meth:`Registry.snapshot`:
   against rows of a static cost table by label, and reports the achieved
   fraction of the roofline per kernel.
 
-The port has no Hopper cost table yet, so :func:`load_cost_rows` takes a
-path only.  The peaks are the H100's and are the one definition of them
-in the port: ``chip_smoke.py`` computes its bounds from these.
+Without a path :func:`load_cost_rows` returns the port's Hopper cost
+table (``repro_torch.analysis.cost_model``), whose rows split their
+operations by unit (int8 and bf16 tensor cores, float32); the join then
+predicts a row's time as ``cost_model.bound`` does.  The peaks are the
+H100's and are the one definition of them in the port: the cost table
+and ``chip_smoke.py`` compute their bounds from these.
 """
 from __future__ import annotations
 
@@ -111,14 +114,13 @@ def prometheus_text(snapshot: Optional[dict] = None, registry=None) -> str:
 # ---------------------------------------------------------------------------
 def load_cost_rows(path: Union[str, Path, None] = None
                    ) -> Dict[str, dict]:
-    """Static cost-table rows keyed by label (sweep and fusion rows) from
-    a JSON report at ``path`` (a report with a ``cost_model`` key, or the
-    bare payload).  Without a path it raises: the port has no Hopper cost
-    table of its own yet (ROADMAP.md, queue 1, item 8)."""
+    """Static cost-table rows keyed by label: without a path the port's
+    Hopper cost table (``repro_torch.analysis.cost_model.query()``), else
+    the sweep and fusion rows of a JSON report at ``path`` (a report with
+    a ``cost_model`` key, or the bare payload)."""
     if path is None:
-        raise ValueError(
-            "load_cost_rows needs a cost report path: a Hopper cost table "
-            "waits for ROADMAP.md queue 1 item 8")
+        from repro_torch.analysis.cost_model import query
+        return query()
     payload = json.loads(Path(path).read_text())
     payload = payload.get("cost_model", payload)
     rows = list(payload.get("rows", []))
@@ -136,7 +138,10 @@ def predicted_vs_measured(snapshot: Optional[dict] = None,
     static cost-model rows of the same label.
 
     Per joined kernel: measured mean wall-clock, the analytic roofline
-    time ``max(flops/peak_flops, hbm_bytes/peak_bw)``, which term binds,
+    time ``max(flops/peak_flops, hbm_bytes/peak_bw)`` (for a row that
+    splits its operations by unit, as the Hopper table's do, the compute
+    term is the sum of int8, bf16 and f32 operations over their own
+    peaks), which term binds,
     and the achieved fraction ``predicted/measured`` (1.0 == running at
     the roofline; the CPU's plain versions sit far below it).
     Measured spans with no table row land in ``unmatched`` — a probe
@@ -165,7 +170,12 @@ def predicted_vs_measured(snapshot: Optional[dict] = None,
         measured_ms = h["mean"]
         flops = int(row.get("flops", 0))
         hbm = int(row.get("hbm_bytes", 0))
-        compute_s = flops / peaks.flops_per_s
+        if "int8_ops" in row:
+            compute_s = (row["int8_ops"] / INT8_OPS_PER_S
+                         + row["bf16_ops"] / peaks.flops_per_s
+                         + row["f32_ops"] / F32_OPS_PER_S)
+        else:
+            compute_s = flops / peaks.flops_per_s
         memory_s = hbm / peaks.hbm_bytes_per_s
         predicted_s = max(compute_s, memory_s)
         measured_s = measured_ms / 1e3

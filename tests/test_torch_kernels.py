@@ -551,7 +551,8 @@ def test_ln_stage_walk(rows, d, block, aligned):
 
 
 @pytest.mark.parametrize("d,block", [(768, 16), (4096, 16), (192, 16),
-                                     (768, 8), (384, 8), (197, 1), (96, 3)])
+                                     (768, 8), (384, 8), (197, 1), (96, 3),
+                                     (768, 32), (768, 128), (1024, 256)])
 def test_ln_variance_chains_in_warp_row_sum_order(d, block):
     """Each of a row's 32 variance chains reads the staged row (int8 at
     mxint_ln_matmul's stride d + 16, int32 at mxint_layernorm's d) at
@@ -618,7 +619,7 @@ def test_ln_matmul_stage_in_place(rows, bm, d, aligned):
     assert threads >= bm                    # a thread sets each row's vars
 
 
-@pytest.mark.parametrize("mant_bits", range(2, 9))
+@pytest.mark.parametrize("mant_bits", range(2, 17))
 def test_act_quant_of_grid_values_is_exact(mant_bits):
     """mxint_ln_matmul stores the LN output's grid mantissas as its act
     mantissas: act quantization of values on the MXInt grid gives the
@@ -1001,41 +1002,274 @@ def test_core_epilogue_matches_plain_version(x_scale, w_scale, case):
         assert not np.isfinite(got).any()
 
 
-@pytest.mark.parametrize("bits", [1, 9, 10, 16, 24])
+@pytest.mark.parametrize("bits", [1, 17, 24])
 def test_matmul_kernel_refuses_wide_act_mantissas(bits):
-    """The CUDA kernel's act tile is int8: a mantissa of more than 8 bits
-    would wrap in the cast, so the wrapper raises before it touches the
-    card (as ``mxint_ln_matmul`` does)."""
+    """The CUDA kernel's act tile holds int16 at most: a mantissa of more
+    than 16 bits would wrap in the cast, so the wrapper raises before it
+    touches the card (as ``mxint_ln_matmul`` does)."""
     with pytest.raises(ValueError, match="act_mant_bits"):
         mxint_matmul.check_act_mant_bits(bits)
 
 
-@pytest.mark.parametrize("bits", range(2, 9))
+@pytest.mark.parametrize("bits", range(2, 17))
 def test_matmul_kernel_takes_2_to_8_bit_act_mantissas(bits):
+    """2-8 bits (an int8 act tile) and, since the act tile holds int16
+    above 8 bits, 9-16."""
     mxint_matmul.check_act_mant_bits(bits)
 
 
 def test_wide_act_format_raises_before_any_launch():
-    """``QuantConfig(mode="kernel", act_fmt=MXFormat(10, 16))`` reaches
-    ``mxint_matmul`` through every linear.  On a tensor off the CPU (here a
-    meta tensor, as a CUDA one would be) the check raises before the
-    kernel is built or launched; on the CPU the plain version computes any
-    width, as the reference does."""
+    """``QuantConfig(mode="kernel", act_fmt=MXFormat(20, 16))`` and an act
+    block of 12 reach ``mxint_matmul`` through every linear.  On a tensor
+    off the CPU (here a meta tensor, as a CUDA one would be) the checks
+    raise before the kernel is built or launched; on the CPU the plain
+    version computes any format, as the reference does."""
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.core.quantize import MXTensor
     from repro_torch.models.model_api import Param
-    q = QuantConfig(mode="kernel", act_fmt=MXFormat(10, 16))
-    K, N = 64, 32
+    K, N = 96, 32
     before = ops.launch_counts()
+    for fmt, match in ((MXFormat(20, 16), "act_mant_bits"),
+                       (MXFormat(8, 12), "act blocks")):
+        q = QuantConfig(mode="kernel", act_fmt=fmt)
 
-    def linear(device):
-        w = MXTensor(torch.zeros(K, N, dtype=torch.int8, device=device),
-                     torch.zeros(K // 32, N, dtype=torch.int8, device=device),
-                     -2, 8, 32)
-        x = torch.ones(3, K, device=device)
-        return q.datapath.linear(x, Param(w, ("embed", "mlp")), q=q)
+        def linear(device):
+            w = MXTensor(torch.zeros(K, N, dtype=torch.int8, device=device),
+                         torch.zeros(K // 48, N, dtype=torch.int8,
+                                     device=device), -2, 8, 48)
+            x = torch.ones(3, K, device=device)
+            return q.datapath.linear(x, Param(w, ("embed", "mlp")), q=q)
 
-    with pytest.raises(ValueError, match="act_mant_bits"):
-        linear("meta")
-    assert linear("cpu").shape == (3, N)
+        with pytest.raises(ValueError, match=match):
+            linear("meta")
+        assert linear("cpu").shape == (3, N)
     assert ops.launch_counts() == before
+
+
+# ---------------------------------------------------------------------------
+# the widened act formats
+# ---------------------------------------------------------------------------
+WIDE_FORMATS = [(4, 8), (8, 8), (32, 8), (64, 8), (16, 10), (16, 12),
+                (16, 16), (32, 12)]
+
+
+def _wide_tol(block, bits, want):
+    """The parity contract for the matmul kernels: bit for bit where both
+    packages' block dots are exact (every partial sum below 2^24: 8-bit
+    acts at any block here); past that the reference's f32 dot rounds its
+    partial sums (terms up to 16 x 32767 x 127 > 2^24) and the plain
+    version's (float64, rounded once) does not.  Measured: the matmul bit
+    for bit at these seeds; the fused kernel at 16 bits 9 of 320 elements
+    apart, by 6.5e-6 of the output scale; held to 2e-5 of it."""
+    exact = block * (2 ** (bits - 1) - 1) * 127 < 2 ** 24
+    return 0.0 if exact else 2e-5 * float(np.abs(want).max())
+
+
+@pytest.mark.parametrize("block,bits", WIDE_FORMATS)
+def test_matmul_wide_act_formats_plain_vs_pallas(block, bits):
+    M, K, N = 10, 256, 40
+    x = _x((M, K), seed=block + bits)
+    p, jp = _planes(K, N, seed=N)
+    got = mxint_matmul.mxint_matmul(_t(x), p.mantissa, p.exponent,
+                                    w_block=p.block_size, act_block=block,
+                                    act_mant_bits=bits)
+    want = np.asarray(j_mm(jnp.asarray(x), jp.mantissa, jp.exponent,
+                           w_block=jp.block_size, act_block=block,
+                           act_mant_bits=bits, quantize_act=True, bm=M, bn=N,
+                           bk=K, interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_wide_tol(block, bits, want))
+
+
+@pytest.mark.parametrize("block,bits", WIDE_FORMATS)
+def test_ln_matmul_wide_act_formats_plain_vs_pallas(block, bits):
+    """f32 rows against the reference's fused kernel; the fused op equals
+    LN then the linear op bit for bit, bf16 rows too (past 8 bits the LN
+    output's round trip through bf16 rounds it, and the plain version
+    quantizes the rounded values anew, as the reference does)."""
+    M, d, N = 8, 256, 40
+    x = _x((M, d), seed=3, scale=2.0)
+    g = 1.0 + 0.1 * _x((d,), seed=4)
+    b = 0.1 * _x((d,), seed=5)
+    p, jp = _planes(d, N, seed=6)
+    got = mxint_ln_matmul.mxint_ln_matmul(
+        _t(x), _t(g), _t(b), p.mantissa, p.exponent, w_block=p.block_size,
+        act_block=block, mant_bits=bits)
+    want = np.asarray(j_lnmm(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                             jp.mantissa, jp.exponent, w_block=jp.block_size,
+                             act_block=block, mant_bits=bits, bm=M, bn=N,
+                             interpret=True))
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=_wide_tol(block, bits, want))
+    for xt in (_t(x), _t(x).to(torch.bfloat16)):
+        fused = ops.mxint_ln_linear_op(xt, _t(g), _t(b), p.mantissa,
+                                       p.exponent, w_block=p.block_size,
+                                       act_block=block, mant_bits=bits)
+        h = ops.mxint_layernorm_op(xt, _t(g), _t(b), act_block=block,
+                                   mant_bits=bits, quantize_out=True)
+        unfused = ops.mxint_linear(h.to(xt.dtype), p.mantissa, p.exponent,
+                                   w_block=p.block_size, act_block=block,
+                                   act_mant_bits=bits)
+        np.testing.assert_array_equal(fused.float().numpy(),
+                                      unfused.float().numpy())
+
+
+@pytest.mark.parametrize("block", [32, 64, 128])
+@pytest.mark.parametrize("kernel", ["layernorm", "softmax", "gelu"])
+def test_row_kernels_wide_blocks_plain_vs_pallas(kernel, block):
+    """Act blocks past 16: a block over 8, 16 or 32 float4 lanes on the
+    card; the plain versions against the Pallas functions, bit for bit
+    (the LN variance and the softmax sum run in another order: measured,
+    no flip at these seeds)."""
+    if kernel == "layernorm":
+        x = _x((5, 768), seed=block, scale=2.0)
+        x[0, :block] *= np.float32(40.0)
+        g, b = 1.0 + 0.1 * _x((768,), seed=1), 0.1 * _x((768,), seed=2)
+        got = mxint_layernorm.mxint_layernorm(_t(x), _t(g), _t(b),
+                                              act_block=block,
+                                              quantize_out=True)
+        want = j_ln(jnp.asarray(x), jnp.asarray(g), jnp.asarray(b),
+                    act_block=block, quantize_out=True, block_rows=5,
+                    interpret=True)
+    elif kernel == "softmax":
+        x = _x((4, 256), seed=block, scale=4.0)
+        got = mxint_softmax.mxint_softmax(_t(x), act_block=block,
+                                          quantize_out=True)
+        want = j_sm(jnp.asarray(x), act_block=block, quantize_out=True,
+                    block_rows=4, interpret=True)
+    else:
+        x = _x((6, 256), seed=block, scale=3.0)
+        x[2, :block] = np.float32(5.0)
+        got = mxint_gelu.mxint_gelu(_t(x), act_block=block)
+        want = j_gelu(jnp.asarray(x), act_block=block, block_rows=6,
+                      interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("rows,d,block,threads", [
+    (3152, 768, 32, 512), (37, 768, 64, 256), (24, 768, 128, 512),
+    (16, 768, 256, 256), (4, 4096, 256, 512), (8, 768, 128, 256)])
+def test_ln_stage_walk_wide_blocks(rows, d, block, threads):
+    """Blocks of 32-256 on the vector route: each block is G = block / 4
+    consecutive threads of one warp step, aligned to G (up to a warp: its
+    xor partners; 64: the two warps of an aligned pair, which meet at their
+    named barrier in ``wide_group_max``), every lane of a block in the same step
+    (the shuffles and the barrier need every lane)."""
+    assert mxint_layernorm.ln_piece(block, True) == 4
+    assert mxint_layernorm.ln_piece(block, False) == 0
+    walk, n, ppr, steps = _ln_walk(min(rows, 32), d, block, 4, threads)
+    G = block // 4
+    groups = {}
+    for k, t, r, j in walk:
+        groups.setdefault((r, j // block), []).append((k, t))
+    for members in groups.values():
+        ts = sorted(t for _, t in members)
+        assert len({k for k, _ in members}) == 1
+        assert ts == list(range(ts[0], ts[0] + G)) and ts[0] % G == 0
+        if G > WARP:
+            assert ts[0] // WARP % 2 == 0 and G == 2 * WARP
+
+
+@pytest.mark.parametrize("block", [1, 2, 4, 8])
+def test_block_mask_selects_each_blocks_columns(block):
+    """``block_mask`` (csrc/mxint_common.cuh): for a block that divides 16,
+    lane t's A word holds columns 4t..4t+3 of the k16 step; the mask keeps
+    exactly the bytes of block j, so the j-th mma's dot is block j's."""
+    def block_mask(rel, n):
+        s, e = min(max(rel, 0), 4), min(max(rel + n, 0), 4)
+        return ((1 << (8 * e)) - (1 << (8 * s))) & 0xFFFFFFFF
+
+    for j in range(16 // block):
+        for t in range(4):
+            m = block_mask(j * block - 4 * t, block)
+            cols = [4 * t + i for i in range(4) if (m >> (8 * i)) & 0xFF]
+            assert all((m >> (8 * i)) & 0xFF in (0, 0xFF) for i in range(4))
+            assert cols == [c for c in range(4 * t, 4 * t + 4)
+                            if j * block <= c < (j + 1) * block]
+
+
+def test_wide_act_mantissa_split_is_exact():
+    """9-16-bit act mantissas: the int16 tile's little-endian bytes taken
+    by ``__byte_perm`` 0x6420 (low bytes, u8) and 0x7531 (high bytes, s8)
+    of a lane's two words give m = 256 hi + lo for every int16, and a
+    block's dot of 256 * (hi . w) + (lo . w) is the exact dot, in int32,
+    up to 256 elements of 16 bits against 8-bit weights."""
+    m = np.append(np.arange(-32767, 32768), 0).astype(np.int16)
+    raw = m.view(np.uint8).reshape(-1, 8)         # 4 int16 = two words
+    words = raw.view("<u4").reshape(-1, 2)
+    lo = np.array([_byte_perm(a, b, 0x6420) for a, b in words[::97]],
+                  np.uint32)
+    hi = np.array([_byte_perm(a, b, 0x7531) for a, b in words[::97]],
+                  np.uint32)
+    lo_b = lo.view(np.uint8).astype(np.int64).reshape(-1, 4)
+    hi_b = hi.view(np.uint8).view(np.int8).astype(np.int64).reshape(-1, 4)
+    want = m.reshape(-1, 4)[::97].astype(np.int64)
+    np.testing.assert_array_equal(hi_b * 256 + lo_b, want)
+    rng = np.random.default_rng(0)
+    a = rng.integers(-32767, 32768, size=(64, 256))
+    w = rng.integers(-127, 128, size=(256, 8))
+    a[0], w[:, 0] = 32767, 127                    # the largest dot
+    dot = a @ w
+    hi_a, lo_a = a >> 8, a & 0xFF
+    np.testing.assert_array_equal(256 * (hi_a @ w) + lo_a @ w, dot)
+    assert np.abs(dot).max() < 2 ** 31 and np.abs(hi_a @ w).max() < 2 ** 31
+
+
+@pytest.mark.parametrize("block,wide", [(16, False), (4, False), (1, False),
+                                        (32, False), (256, False),
+                                        (16, True), (32, True), (1, True),
+                                        (256, True)])
+@pytest.mark.parametrize("M,N,K,fused_ln", [
+    (3152, 768, 3072, False), (3152, 3072, 768, True), (4, 4096, 4096, True),
+    (4, 4096, 14336, False), (1024, 4096, 14336, False),
+    (33, 1024, 14336, False)])
+def test_gemm_geometry_act_formats(M, N, K, fused_ln, block, wide):
+    """Every act format's tiles fit the H100's shared memory; bk and the
+    staged chunk are whole act blocks (and k16 steps); a K longer than
+    the chunk is walked in chunks (at most MAX_ACC_TILES column tiles a
+    CTA); the fused kernel holds its whole rows; and the default format's
+    geometry is the one the default arguments give."""
+    g = mxint_matmul.gemm_geometry(M, N, K, 132, fused_ln=fused_ln,
+                                   act_block=block, wide=wide)
+    unit = max(block, 16)
+    kc = K if fused_ln else g.kc
+    assert g.bk % unit == 0 and kc % unit == 0 and g.kc <= max(
+        K, mxint_matmul.MAX_CHUNK)
+    assert g.chunked == (K > g.kc) and (not fused_ln or not g.chunked)
+    if g.chunked:
+        assert g.n_per <= mxint_matmul.MAX_ACC_TILES
+    assert mxint_matmul.gemm_smem_bytes(g.bm, g.bn, g.bk, g.ns, kc, block,
+                                        2 if wide else 1) <= \
+        mxint_matmul.SMEM_LIMIT
+    if block == 16 and not wide:
+        assert g == mxint_matmul.gemm_geometry(M, N, K, 132,
+                                               fused_ln=fused_ln)
+
+
+@pytest.mark.parametrize("block,w_block,ok", [
+    (1, 256, True), (2, 32, True), (4, 256, True), (8, 256, True),
+    (16, 16, True), (32, 256, True), (256, 256, True), (64, 32, False),
+    (12, 48, False), (24, 48, False), (512, 512, False), (3, 48, False)])
+def test_act_block_domain(block, w_block, ok):
+    if ok:
+        mxint_matmul.check_act_block(block, w_block)
+    else:
+        with pytest.raises(ValueError, match="act blocks"):
+            mxint_matmul.check_act_block(block, w_block)
+
+
+@pytest.mark.parametrize("block,aligned,ok", [
+    (16, False, True), (12, False, True), (32, True, True), (128, True, True),
+    (32, False, False), (48, True, False), (256, True, False)])
+def test_ln_route_domain(block, aligned, ok):
+    """The row kernels take blocks up to 16 a thread at any alignment and
+    powers of two up to 128 on aligned rows; the fused kernel's LN stage
+    up to 256."""
+    piece = mxint_layernorm.ln_piece(block, aligned)
+    if ok:
+        mxint_layernorm.check_ln_route(block, piece)
+    else:
+        with pytest.raises(ValueError, match="LN stage"):
+            mxint_layernorm.check_ln_route(block, piece)
+    mxint_layernorm.check_ln_route(256, mxint_layernorm.ln_piece(256, True),
+                                   mxint_layernorm.MAX_LN_BLOCK)

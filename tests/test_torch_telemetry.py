@@ -137,10 +137,13 @@ def test_default_peaks_are_the_h100s():
 
 
 def test_load_cost_rows_takes_a_path_only(tmp_path):
-    with pytest.raises(ValueError, match="item 8"):
-        export.load_cost_rows()
-    with pytest.raises(ValueError, match="item 8"):
-        predicted_vs_measured(Registry().snapshot())
+    """A path reads a report as the reference does; without one the port
+    now has its own rows, the Hopper cost table (``tests/test_torch_dse.py``
+    holds its contents), and the join runs on it."""
+    rows = export.load_cost_rows()
+    assert {"matmul-deit", "flash-deit", "matmul-bench",
+            "ln-matmul-bench"} <= set(rows)
+    assert predicted_vs_measured(Registry().snapshot())["kernels"] == []
     path = tmp_path / "cost.json"
     path.write_text(json.dumps({"cost_model": {"rows": ROWS[:1],
                                                "fusion_rows": ROWS[1:]}}))
