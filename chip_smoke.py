@@ -79,7 +79,7 @@
    unembedding of a step is timed.
 5. LM score phase: one 1024-token ``DecoderLM.loss`` forward at full size;
    32 ``flash_attention`` launches, no whole-row softmax.
-6. LM card against CPU: the same architecture at full width, 2 layers, in
+6. LM card against CPU: the same architecture at full width, 1 layer, in
    float32, serves 2 requests (prompts 100 and 250, ``max_len`` 300, 4 new
    tokens) and scores 640 tokens (the flash path in kernel mode) on the
    card and on the CPU (the kernels' plain versions in kernel mode): in
@@ -108,7 +108,7 @@
    packed MXInt8 weights: 4 requests of 37-700 prompt tokens and 16 new
    tokens through the LM serve phase's checks, with the launch counts
    ``lm_per_call`` derives (Qwen3-14B 401 a slot prefill and 441 a decode
-   step, Phi-4-mini 257 and 289); then a 2-layer full-width card-against-
+   step, Phi-4-mini 257 and 289); then a 1-layer full-width card-against-
    CPU check in kernel, "sim" and "packed" mode, phase 6's tolerance.
 10. DSE phase: kernel-mode DeiT-Base at full width and depth, random
    weights from seed 0, calibrated on 32 images of
@@ -131,7 +131,27 @@
    FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``) and
    with 12-bit acts everywhere, the DeiT phase's telemetry and launch
    checks; ms per batch.
-12. Prints one JSON line of per-kernel results, then as the last line
+12. Mixture of experts: Mixtral-8x7B (32 layers, d 4096, 32 heads over
+   8, 8 experts top-2, d_ff 14336, vocab 32000, window 4096) and
+   Granite-MoE-3B (32 layers, d 1536, 24 heads over 8, 40 experts top-8,
+   d_ff 512, tied vocab 49155), each at full width and depth with random
+   packed MXInt8 weights, after every earlier model is freed (the free
+   memory logged): served as in phase 9 (4 requests of 37-700 tokens, 16
+   new), with 257 launches a slot prefill and 289 a decode step (a MoE
+   layer: q, k, v fused norm -> linears, the decode attention, the
+   attention's out and the router linears, the RMSNorm before the FFN,
+   the gates' softmax, the experts' SiLU); one decode step split by
+   kernel and "experts" (the expert stacks' dequantize and einsums),
+   beside the byte bounds of the planes read once and of the dequantize;
+   one 1024-token ``loss`` forward with the load-balancing loss; then a
+   2-layer card-against-CPU check in kernel mode, phase 6's tolerance.
+   The kernel phase holds the MoE shapes: routers at N 8 and 40, the
+   gates' softmax over rows of 2 and 8, the SiLU over (E x C, d_ff)
+   capacity buffers, the RMSNorm before the FFN.
+13. DeepSeek-67B at full width (d 8192, 64 heads over 8, d_ff 22016,
+   vocab 102400) and 64 of its 95 layers, served as in phase 9, 513
+   launches a slot prefill and 577 a decode step.
+14. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -215,7 +235,16 @@ TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "qwen3_14b_g5_650_causal_mxint",
                "phi4_mini_g3_650_causal_mxint",
                # the softmax's long route at block 16 (registers a block)
-               "long_n1040_b16", "long_rows_2x262144_b16"}
+               "long_n1040_b16", "long_rows_2x262144_b16",
+               # the MoE shapes: routers, gates, the experts' SiLU, LN2
+               "mixtral_decode_router", "mixtral_prefill_router",
+               "granite_decode_router", "granite_prefill_router",
+               "mixtral_decode_gates_4x2", "mixtral_prefill_gates_1024x2",
+               "granite_decode_gates_4x8", "granite_prefill_gates_1024x8",
+               "unaligned_granite_gates_1024x8",
+               "mixtral_decode_experts_silu", "mixtral_prefill_experts_silu",
+               "granite_decode_experts_silu", "mixtral_decode_ln2_rms",
+               "granite_decode_ln2_rms"}
 # act mantissa widths of the row kernels' MXInt6 and MXInt12 cases
 MANT_BITS = {"mant6": 6, "mant12": 12}
 # the widened act formats of the matmul kernels' cases: (act block, act
@@ -233,27 +262,50 @@ LM_NEW_TOKENS = 24
 LM_BATCH = 4
 LM_MAX_LEN = 2048
 LM_SCORE_TOKENS = 1024
+# layers of phase 6 (Llama-3-8B card against CPU in four modes): 1, cut
+# from 2 for the smoke's time; most of the CPU's time there is the plain
+# kernels and the unembedding, per call
+LM_CPU_LAYERS = 1
 # Qwen3-14B and Phi-4-mini (config modules), at full width and depth:
 # served 4 requests of 37-700 prompt tokens, 16 new tokens each; their
-# 2-layer card-against-CPU check serves prompts of 37 and 100 tokens and
-# scores 520 (past 512 x 512 scores: the flash path), fewer than Llama's
-# 100, 250 and 640, to keep the CPU's plain versions inside the smoke's
-# time
+# card-against-CPU check serves prompts of 37 and 100 tokens and scores
+# 520 (past 512 x 512 scores: the flash path), fewer than Llama's 100, 250
+# and 640, in kernel, "sim" and "packed" mode (the only check of those
+# modes over a tied table, Phi-4-mini's, and over per-head q/k RMSNorms,
+# Qwen3-14B's), at NEW_LM_CPU_LAYERS layers: 1, cut from 2 for the
+# smoke's time (at 2 layers the CPU side took 255 and 91 s)
 NEW_LMS = ("qwen3_14b", "phi4_mini_3_8b")
 NEW_LM_PROMPTS = (37, 150, 400, 700)
 NEW_LM_NEW_TOKENS = 16
+NEW_LM_CPU_MODES = ("kernel", "sim", "packed")
 NEW_LM_CPU_PROMPTS = (37, 100)
 NEW_LM_CPU_SCORE = 520
+NEW_LM_CPU_LAYERS = 1
 # the DSE phase: calibration images; its card-against-CPU check's depth and
 # images (the CPU's plain versions take about 5 s a candidate at 16)
 DSE_IMAGES = 32
 DSE_CPU_LAYERS = 2
 DSE_CPU_IMAGES = 16
+# the mixture-of-experts decoders (config modules) at full width and
+# depth, served as NEW_LMS are; their card-against-CPU check in kernel
+# mode at MOE_CPU_LAYERS layers: two, so that one layer's expert outputs
+# feed the next layer's router.  DeepSeek-67B at full width and
+# DEEPSEEK_LAYERS of its 95 layers: all 95 would hold 62.8 GiB of planes,
+# 3.0 GiB of ring at batch 4 and about 11 GiB of float32 temporaries
+# while the unembedding is dequantized, too close to the card's 79.2 GiB
+MOE_LMS = ("mixtral_8x7b", "granite_moe_3b_a800m")
+MOE_CPU_LAYERS = 2
+DEEPSEEK_LAYERS = 64
 # launches of a slot prefill and a decode step at full depth, from
 # lm_per_call: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
-# layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40
+# layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40;
+# a MoE layer launches as many as a dense one (Mixtral-8x7B and
+# Granite-MoE-3B, 32 layers); DeepSeek-67B at its 64 served layers
 FULL_DEPTH_LAUNCHES = {"llama3_8b": (257, 289), "phi4_mini_3_8b": (257, 289),
-                       "qwen3_14b": (401, 441)}
+                       "qwen3_14b": (401, 441),
+                       "mixtral_8x7b": (257, 289),
+                       "granite_moe_3b_a800m": (257, 289),
+                       "deepseek_67b": (513, 577)}
 # "sim" against the all-kernel model on the same weights and images: the
 # linears' f32 sums run in another order (float64 against the kernels'
 # ordered f32 steps) and the GELU clips at -128 against -127, so a later
@@ -412,7 +464,8 @@ def kernel_cases(torch, np):
         return torch.from_numpy(a.astype(np.float32)).to(dev)
 
     def lm(label):
-        return label.startswith("llama3_8b")
+        return label.startswith(("llama3_8b", "mixtral", "granite",
+                                 "deepseek"))
 
     rows = BATCH * 197
     S = LM_SCORE_TOKENS
@@ -442,7 +495,16 @@ def kernel_cases(torch, np):
                            ("m33_k14336_n1024", 33, 14336, 1024),
                            ("m200_k14336_n4096", 200, 14336, 4096),
                            ("subnormal_m40_k768_n520", 40, 768, 520),
-                           ("extreme_m48_k1024_n512", 48, 1024, 512)):
+                           ("extreme_m48_k1024_n512", 48, 1024, 512),
+                           # the MoE routers, narrower than any other N: a
+                           # decode step's 4 rows and a 1024-token prefill
+                           # bucket's; DeepSeek-67B's FFN out (K 22016)
+                           ("mixtral_decode_router", LM_BATCH, 4096, 8),
+                           ("mixtral_prefill_router", 1024, 4096, 8),
+                           ("granite_decode_router", LM_BATCH, 1536, 40),
+                           ("granite_prefill_router", 1024, 1536, 40),
+                           ("deepseek_decode_ffn_wo", LM_BATCH, 22016,
+                            8192)):
         a = x(M, K)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
@@ -485,7 +547,11 @@ def kernel_cases(torch, np):
                            # the LN stage's scalar route: rows offset by 4
                            # bytes; a LayerNorm without beta (zero)
                            ("unaligned_m37_d768_n1001", 37, 768, 1001),
-                           ("no_beta_ln_m24_d768_n256", 24, 768, 256)):
+                           ("no_beta_ln_m24_d768_n256", 24, 768, 256),
+                           # DeepSeek-67B's d 8192: RMS -> wq and -> wi
+                           ("deepseek_decode_rms_wq", LM_BATCH, 8192, 8192),
+                           ("deepseek_decode_rms_wi", LM_BATCH, 8192,
+                            22016)):
         rms = lm(label)
         a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or label.startswith("no_beta") else 0.1 * x(d)
@@ -544,7 +610,16 @@ def kernel_cases(torch, np):
             ("b15_n300", 100, 300, 15, True, None),
             # MXInt6 and MXInt12 scores and probabilities
             ("mant6_deit_scores_n197_b1", 12 * 197, 197, 1, True, "mant6"),
-            ("mant12_b16_n256", 256, 256, 16, True, "mant12")):
+            ("mant12_b16_n256", 256, 256, 16, True, "mant12"),
+            # the MoE gates: the top-k router logits, rows of k with the
+            # act block clamped to the row; rows of 2 take the scalar
+            # route (a block of 2 is no float4), rows of 8 the float4
+            # route and, 4 bytes off, the scalar one
+            ("mixtral_decode_gates_4x2", LM_BATCH, 2, 2, True, None),
+            ("mixtral_prefill_gates_1024x2", 1024, 2, 2, True, None),
+            ("granite_decode_gates_4x8", LM_BATCH, 8, 8, True, None),
+            ("granite_prefill_gates_1024x8", 1024, 8, 8, True, None),
+            ("unaligned_granite_gates_1024x8", 1024, 8, 8, True, "offset")):
         a = x(R, n, scale=4.0)
         mb = MANT_BITS.get(how, 8)
         if how == "causal":
@@ -581,7 +656,15 @@ def kernel_cases(torch, np):
             ("b12_37x96", 37, 96, "gelu", 12, None),
             ("unaligned_b16_37x768", 37, 768, "gelu", 16, "offset"),
             ("mant6_37x768", 37, 768, "gelu", 16, "mant6"),
-            ("mant12_37x768_silu", 37, 768, "silu", 16, "mant12")):
+            ("mant12_37x768_silu", 37, 768, "silu", 16, "mant12"),
+            # the MoE experts' SiLU over their (E x C, d_ff) capacity
+            # buffers: Mixtral decode (C 8) and a 1024-token prefill
+            # bucket (C 320), Granite decode (40 experts, C 8)
+            ("mixtral_decode_experts_silu", 8 * 8, 14336, "silu", 16, None),
+            ("mixtral_prefill_experts_silu", 8 * 320, 14336, "silu", 16,
+             None),
+            ("granite_decode_experts_silu", 40 * 8, 512, "silu", 16,
+             None)):
         a = x(R, d, scale=2.0)
         mb = MANT_BITS.get(how, 8)
         if lm(label):
@@ -636,7 +719,11 @@ def kernel_cases(torch, np):
             ("qwen3_14b_decode_k_norm", LM_BATCH * 8, 128, 16, True, "rms"),
             ("qwen3_14b_prefill_q_norm", 1024 * 40, 128, 16, True, "rms"),
             ("bf16_rows_f32_scales_37x768", 37, 768, 16, True, "mixed"),
-            ("no_beta_ln_37x768", 37, 768, 16, True, "no_beta")):
+            ("no_beta_ln_37x768", 37, 768, 16, True, "no_beta"),
+            # the MoE layers' RMSNorm before the FFN (no fused linear
+            # follows it): a decode step's bf16 rows
+            ("mixtral_decode_ln2_rms", LM_BATCH, 4096, 16, True, "rms"),
+            ("granite_decode_ln2_rms", LM_BATCH, 1536, 16, True, "rms")):
         rms = how == "rms"
         a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or how == "no_beta" else 0.1 * x(d)
@@ -1125,9 +1212,13 @@ def kernel_phase(torch, np, only=None):
 def kernel_breakdown(torch, run, names):
     """ms of one ``run()`` spent in each kernel op, from CUDA events
     recorded around every call (the host work between the two events is
-    inside)."""
+    inside).  The name "experts" stands for the MoE expert products
+    (``moe._expert_mm``: the stack's dequantize and its einsum)."""
     from repro_torch.kernels import ops
-    saved = {n: getattr(ops, n) for n in names}
+    from repro_torch.models import moe
+    where = {n: (moe, "_expert_mm") if n == "experts" else (ops, n)
+             for n in names}
+    saved = {n: getattr(*where[n]) for n in names}
     events = {n: [] for n in names}
 
     def timed(name, fn):
@@ -1143,12 +1234,12 @@ def kernel_breakdown(torch, run, names):
 
     try:
         for n in names:
-            setattr(ops, n, timed(n, saved[n]))
+            setattr(*where[n], timed(n, saved[n]))
         run()
         torch.cuda.synchronize()
     finally:
         for n in names:
-            setattr(ops, n, saved[n])
+            setattr(*where[n], saved[n])
     return {n: sum(s.elapsed_time(e) for s, e in ev)
             for n, ev in events.items()}
 
@@ -1488,16 +1579,21 @@ def backends_phase(torch, np):
     return results, mixed_launches
 
 
-def lm_per_call(L: int, decode: bool, score: bool = False,
-                qk_norm: bool = False):
+def lm_per_call(cfg, decode: bool, score: bool = False):
     """Kernel launches of one slot prefill, decode step or cache-less
-    forward of an L-layer dense decoder in kernel mode: per layer 5 fused
-    norm -> linears (q, k, v, gate, up), 2 linears (attention and FFN
-    out), the SiLU, the attention kernel where there is one, and with
-    qk-norm the per-head q and k RMSNorms; then the final RMSNorm."""
-    return {"mxint_ln_matmul": 5 * L, "mxint_matmul": 2 * L,
-            "mxint_gelu": L, "mxint_layernorm": 1 + (2 * L if qk_norm else 0),
-            "mxint_softmax": 0,
+    forward of the decoder ``cfg`` in kernel mode.  Per layer, dense: 5
+    fused norm -> linears (q, k, v, gate, up), 2 linears (attention and
+    FFN out) and the SiLU; MoE: 3 fused norm -> linears (q, k, v), 2
+    linears (attention out, router), the RMSNorm before the FFN, the
+    gates' softmax and the experts' SiLU; then the attention kernel where
+    there is one, and with qk-norm the per-head q and k RMSNorms; after
+    the layers the final RMSNorm."""
+    L, moe = cfg.n_layers, cfg.ffn_kind == "moe"
+    return {"mxint_ln_matmul": (3 if moe else 5) * L, "mxint_matmul": 2 * L,
+            "mxint_gelu": L,
+            "mxint_layernorm": 1 + (2 * L if cfg.qk_norm else 0)
+            + (L if moe else 0),
+            "mxint_softmax": L if moe else 0,
             "flash_attention": L if score else 0,
             "flash_attention_decode": L if decode else 0}
 
@@ -1510,7 +1606,8 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     submitted == completed + in_flight after every scheduler step, and
     each step's ``scheduler/kernel_launches`` samples equal to the
     kernels' own counts of its calls.  Then one decode step split by
-    kernel, its device busy time, and the unembedding's time a step."""
+    kernel (and, for a MoE model, the expert products beside their byte
+    bounds), its device busy time, and the unembedding's time a step."""
     from repro_torch import telemetry as T
     from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
     from repro_torch.models.transformer import DecoderLM
@@ -1520,7 +1617,12 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     cfg = dataclasses.replace(
         full, quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
     L = cfg.n_layers
+    moe = cfg.ffn_kind == "moe"
     model = DecoderLM(cfg)
+    free, total = torch.cuda.mem_get_info()
+    log(f"[{tag}] before the weights: {free / 2 ** 30!r} GiB free of "
+        f"{total / 2 ** 30!r}, {torch.cuda.memory_allocated() / 2 ** 30!r} "
+        f"allocated")
     t0 = time.perf_counter()
     params = model.init(SEED, device=DEVICE, pack_fmt=MXINT8_WEIGHT)
     torch.cuda.synchronize()
@@ -1528,10 +1630,12 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     engine = ServingEngine(model, params, ServeConfig(
         max_len=LM_MAX_LEN, batch=LM_BATCH, pack_weights=True,
         weight_fmt=MXINT8_WEIGHT), device=DEVICE)
+    allocated = torch.cuda.memory_allocated() / 2 ** 30
     log(f"[{tag}] {cfg.name} {L} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, vocab {cfg.vocab}, "
-        f"packed on the card in {init_s!r} s, "
-        f"{torch.cuda.memory_allocated() / 2 ** 30!r} GiB allocated")
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff {cfg.d_ff}"
+        + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}" if moe
+           else "") + f", vocab {cfg.vocab}, "
+        f"packed on the card in {init_s!r} s, {allocated!r} GiB allocated")
     # warm up both steps on a scratch cache (cuBLAS handles, allocator)
     scratch = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
     tok, scratch = engine._prefill_slot(
@@ -1598,12 +1702,12 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     pre = [c for c in calls if c[0] == "prefill"]
     dec = [c for c in calls if c[0] == "decode"]
     for kind, _, _, got in calls:
-        want = lm_per_call(L, decode=kind == "decode", qk_norm=cfg.qk_norm)
+        want = lm_per_call(cfg, decode=kind == "decode")
         if got != want:
             raise AssertionError(f"{tag}: {kind} launched {got}, expected "
                                  f"{want}")
-    per_step = sum(lm_per_call(L, True, qk_norm=cfg.qk_norm).values())
-    per_prefill = sum(lm_per_call(L, False, qk_norm=cfg.qk_norm).values())
+    per_step = sum(lm_per_call(cfg, True).values())
+    per_prefill = sum(lm_per_call(cfg, False).values())
     snap = T.snapshot()
     h = snap["histograms"]["scheduler/kernel_launches"]
     if (h["min"], h["max"], h["count"]) != (per_prefill, per_step,
@@ -1620,7 +1724,7 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     step_ms = statistics.median(dec_ms)
     n_span, span_ms = T.span_stats("scheduler/decode_step")
     stats = {"model": cfg.name, "layers": L, "init_s": init_s,
-             "prompts": list(prompts),
+             "gib_allocated": allocated, "prompts": list(prompts),
              "new_tokens": new_tokens, "batch": LM_BATCH,
              "max_len": LM_MAX_LEN, "serve_s": serve_s,
              "prefill_ms_by_bucket": by_bucket, "decode_steps": len(dec),
@@ -1633,8 +1737,8 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
              "tokens": {r.uid: r.generated for r in done},
              "telemetry": telemetry_report(tag)}
     # one decode step split by kernel (rows at four depths of the ring)
-    names = [n for n, c in lm_per_call(L, True, qk_norm=cfg.qk_norm).items()
-             if c]
+    names = [n for n, c in lm_per_call(cfg, True).items() if c] + (
+        ["experts"] if moe else [])
     cache = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
     cache["index"] = torch.tensor([37, 700, 1500, 2000], dtype=torch.int32,
                                   device=DEVICE)
@@ -1649,6 +1753,9 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     busy = device_ms(step, iters=3, cats=BUSY_CATS)
     stats.update(decode_step_device_busy_ms=busy,
                  decode_step_device_idle_share=idle_share(busy, step_total))
+    if moe:
+        stats["experts"] = expert_bounds(engine.params, by_kernel["experts"],
+                                         tag)
     del cache
     # the unembedding of a decode step: the (vocab, d) planes dequantized
     # and one torch.matmul, every step
@@ -1674,10 +1781,35 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     return model, engine, stats
 
 
-def lm_score_phase(torch, np, model, engine):
-    """One full-size 1024-token loss forward: the flash kernel in every
-    layer."""
-    L = model.cfg.n_layers
+def expert_bounds(params, expert_ms, tag):
+    """A decode step's expert products (``expert_ms`` by events) beside
+    byte bounds at the card's memory rate: the MXInt planes of every
+    expert stack read once; the dequantize the reference's
+    ``weight_value`` does (the planes read, the bf16 stack written and
+    read again by the einsum); and the passes the port makes (the planes
+    read, the float32 mantissas and their float32 products each written
+    and read, the float64 stack written and read by the einsum)."""
+    elems = plane_bytes = 0
+    for layer in params["layers"]:
+        for name in ("wi", "wg", "wo"):
+            w = layer["ffn"][name].value
+            elems += w.mantissa.numel()
+            plane_bytes += w.mantissa.numel() + w.exponent.numel()
+    planes_ms, _ = bound(plane_bytes)
+    dequant_ms, _ = bound(plane_bytes + 2 * 2 * elems)
+    passes_ms, _ = bound(plane_bytes + (8 + 8 + 16) * elems)
+    log(f"[{tag}] a decode step's expert products {expert_ms!r} ms by "
+        f"events; bounds: the planes read once ({plane_bytes / 1e9!r} GB) "
+        f"{planes_ms!r} ms, dequantized to bf16 and read again "
+        f"{dequant_ms!r} ms, the port's passes {passes_ms!r} ms")
+    return {"ms": expert_ms, "plane_bytes": plane_bytes,
+            "planes_once_ms": planes_ms, "dequantize_bound_ms": dequant_ms,
+            "port_passes_bound_ms": passes_ms}
+
+
+def lm_score_phase(torch, np, model, engine, tag="lm score"):
+    """One full-size 1024-token loss forward (with a MoE model's
+    load-balancing loss): the flash kernel in every layer."""
     toks = np.random.default_rng(SEED + 3).integers(
         0, model.cfg.vocab, size=(1, LM_SCORE_TOKENS)).astype(np.int32)
     model.loss(engine.params, {"tokens": toks})           # warm
@@ -1688,22 +1820,23 @@ def lm_score_phase(torch, np, model, engine):
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     launches = read_counts()
-    want = lm_per_call(L, decode=False, score=True)
+    want = lm_per_call(model.cfg, decode=False, score=True)
     if launches != want:
-        raise AssertionError(f"score launched {launches}, expected {want}")
+        raise AssertionError(f"{tag}: launched {launches}, expected {want}")
     if not (0.0 < loss < 2.0 * float(np.log(model.cfg.vocab))):
         raise AssertionError(f"loss {loss} is not finite and plausible")
     stats = {"tokens": LM_SCORE_TOKENS, "loss": loss, "ms": score_s * 1e3,
              "tokens_per_s": LM_SCORE_TOKENS / score_s, "launches": launches}
     run = lambda: model.loss(engine.params, {"tokens": toks})  # noqa: E731
     stats["ms_by_kernel"] = kernel_breakdown(
-        torch, run, [n for n, c in want.items() if c])
+        torch, run, [n for n, c in want.items() if c]
+        + (["experts"] if model.cfg.ffn_kind == "moe" else []))
     busy = device_ms(run, iters=2, cats=BUSY_CATS)
     stats.update(device_busy_ms=busy,
                  device_idle_share=idle_share(busy, stats["ms"]))
-    log(f"[lm score] ms by kernel {stats['ms_by_kernel']}; device busy "
+    log(f"[{tag}] ms by kernel {stats['ms_by_kernel']}; device busy "
         f"{busy!r} ms, idle share {stats['device_idle_share']!r}")
-    log(f"[lm score] {LM_SCORE_TOKENS} tokens loss={loss!r} "
+    log(f"[{tag}] {LM_SCORE_TOKENS} tokens loss={loss!r} "
         f"ms={stats['ms']!r} tokens/s={stats['tokens_per_s']!r} "
         f"launches {launches}")
     return stats, launches
@@ -1716,11 +1849,13 @@ LM_CPU_MODES = {"kernel": ("kernel", {"quantize_nonlinear": True}, True),
                 "packed": ("packed", {"quantize_nonlinear": True}, True)}
 
 
-def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag):
-    """A dense LM architecture (``full``) at full width, 2 layers, float32:
-    the card against the CPU, serving 2 requests of ``prompt_lens`` tokens
-    (4 new tokens each) and scoring ``score_tokens`` tokens, in each of
-    ``modes`` (labels of ``LM_CPU_MODES``)."""
+def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
+                 layers):
+    """An LM architecture (``full``) at full width, ``layers`` layers,
+    float32: the card against the CPU, serving 2 requests of
+    ``prompt_lens`` tokens (4 new tokens each) and scoring
+    ``score_tokens`` tokens, in each of ``modes`` (labels of
+    ``LM_CPU_MODES``)."""
     from repro_torch.core.mx_types import MXINT8_WEIGHT
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving.engine import (ServeConfig, ServingEngine,
@@ -1730,7 +1865,7 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag):
     for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
         fn(torch.ones(1))       # first multi-threaded CPU calls may differ
         fn(torch.ones(1, dtype=torch.float64))
-    base = dataclasses.replace(full, n_layers=2, dtype=torch.float32)
+    base = dataclasses.replace(full, n_layers=layers, dtype=torch.float32)
     floats = DecoderLM(base).init(SEED, device="cpu")
     planes = pack_params_mxint(floats, MXINT8_WEIGHT)
     rng = np.random.default_rng(SEED + 4)
@@ -1767,8 +1902,8 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag):
         gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
         diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
         results[label] = {
-            "layers": 2, "tokens_card": tg, "tokens_cpu": tc, "card_s": gs,
-            "cpu_s": cs, "score_logits_max_abs_gap": gap,
+            "layers": layers, "tokens_card": tg, "tokens_cpu": tc,
+            "card_s": gs, "cpu_s": cs, "score_logits_max_abs_gap": gap,
             "score_logits_scale": scale, "argmax_differ": diff,
             "score_logits_differing_elements": int((lg != lc).sum()),
             "positions": int(lg.shape[1]), "card_launches": launches}
@@ -2041,6 +2176,31 @@ def widened_serve_phase(torch, np):
     return out, launches
 
 
+def moe_phases(torch, np, phase):
+    """Each of ``MOE_LMS`` at full width and depth: served (the LM serve
+    phase's checks, launches pinned), one 1024-token ``loss`` forward with
+    the load-balancing loss, then held card against CPU in kernel mode at
+    ``MOE_CPU_LAYERS`` layers.  Every earlier model is freed first."""
+    import importlib
+    torch.cuda.empty_cache()
+    out = {}
+    for name in MOE_LMS:
+        full = importlib.import_module(f"repro_torch.configs.{name}").FULL
+        model, engine, serve = phase(
+            f"{name} serve", lm_serve_phase, torch, np, full, NEW_LM_PROMPTS,
+            NEW_LM_NEW_TOKENS, name)
+        check_full_depth_launches(name, serve)
+        score, _ = phase(f"{name} score", lm_score_phase, torch, np, model,
+                         engine, f"{name} score")
+        del model, engine
+        torch.cuda.empty_cache()
+        out[name] = {"serve": serve, "score": score, "card_vs_cpu": phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
+            ("kernel",), NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE, f"{name} cpu",
+            MOE_CPU_LAYERS)}
+    return out
+
+
 def check_full_depth_launches(name, stats):
     """Raise unless a serve phase launched the counts of
     ``FULL_DEPTH_LAUNCHES`` a slot prefill and a decode step."""
@@ -2110,7 +2270,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np,
                       llama3_8b.FULL, tuple(LM_CPU_MODES), (100, 250), 640,
-                      "lm cpu")
+                      "lm cpu", LM_CPU_LAYERS)
     backend_stats, mixed_launches = phase("backends", backends_phase, torch,
                                           np)
     probe_stats = phase("probes", probes_phase, smi)
@@ -2128,8 +2288,18 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
         new_lms[name] = {"serve": serve, "card_vs_cpu": phase(
             f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
-            ("kernel", "sim", "packed"), NEW_LM_CPU_PROMPTS,
-            NEW_LM_CPU_SCORE, f"{name} cpu")}
+            NEW_LM_CPU_MODES, NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE,
+            f"{name} cpu", NEW_LM_CPU_LAYERS)}
+    moe_lms = moe_phases(torch, np, phase)
+    ds_full = dataclasses.replace(
+        importlib.import_module("repro_torch.configs.deepseek_67b").FULL,
+        n_layers=DEEPSEEK_LAYERS)
+    model, engine, ds_serve = phase("deepseek_67b serve", lm_serve_phase,
+                                    torch, np, ds_full, NEW_LM_PROMPTS,
+                                    NEW_LM_NEW_TOKENS, "deepseek_67b")
+    check_full_depth_launches("deepseek_67b", ds_serve)
+    del model, engine
+    torch.cuda.empty_cache()
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
@@ -2144,7 +2314,14 @@ def main(argv) -> int:
               common + ("mxint_softmax",))) + tuple(
         (f"{name} serve", res["serve"]["launches"],
          common + ("flash_attention_decode",))
-        for name, res in new_lms.items())
+        for name, res in new_lms.items()) + tuple(
+        (f"{name} {what}", res[what]["launches"],
+         common + ("mxint_softmax", attn))
+        for name, res in moe_lms.items()
+        for what, attn in (("serve", "flash_attention_decode"),
+                           ("score", "flash_attention"))) + (
+        ("deepseek_67b serve", ds_serve["launches"],
+         common + ("flash_attention_decode",)),)
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -2157,7 +2334,8 @@ def main(argv) -> int:
         {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
          "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
-         "widened_serve": widened_stats, **new_lms},
+         "widened_serve": widened_stats, **new_lms, **moe_lms,
+         "deepseek_67b": {"serve": ds_serve}},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -48,7 +48,9 @@ def lm_params(model, arrays: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The reference ``DecoderLM``'s parameters as numpy arrays (``embed``,
     ``final_norm``, ``unembed``, and the blocks stacked on a leading axis
     under ``units/u0_attn``; ``tail`` empty) -> the port's Param tree on
-    ``device``, whose ``layers`` is a per-layer list."""
+    ``device``, whose ``layers`` is a per-layer list.  A MoE layer's
+    router and (E, ...) expert stacks come across as its other leaves
+    do: layer i's slice of each stacked array."""
     arrays = dict(arrays)
     units, tail = arrays.pop("units", {}), arrays.pop("tail", {})
     if set(units) != {"u0_attn"} or tail:

@@ -121,9 +121,15 @@ def quantize(x: torch.Tensor, fmt: MXFormat, axis: int = -1) -> MXTensor:
 
 
 def dequantize(t: MXTensor, dtype=torch.float32) -> torch.Tensor:
-    """Reconstruct x = m * 2^e."""
-    scale = repeat_blocks(pow2i(t.exponent), t.block_size, t.scale_axis)
-    return (t.mantissa.to(torch.float32) * scale).to(dtype)
+    """Reconstruct x = m * 2^e: the float32 product, cast to ``dtype``.
+    Each block's 2^e broadcasts over the block's elements, so no scale the
+    size of the tensor is written."""
+    m = t.mantissa
+    axis = t.scale_axis % m.ndim
+    blocks = m.shape[:axis] + (t.exponent.shape[axis], -1) + m.shape[axis + 1:]
+    scale = pow2i(t.exponent).unsqueeze(axis + 1)
+    return (m.reshape(blocks).to(torch.float32) * scale).reshape(
+        m.shape).to(dtype)
 
 
 def quantize_dequantize(x: torch.Tensor, fmt: MXFormat,

@@ -37,13 +37,26 @@ def tree_map(fn: Callable, tree):
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    """The mixture-of-experts FFN: ``num_experts`` experts, each token
+    routed to ``top_k`` of them; each expert takes at most
+    ``capacity_factor`` times its even share of a batch's routed tokens;
+    ``router_aux_loss`` weighs the load-balancing loss."""
+    num_experts: int = 8
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    router_aux_loss: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ViT family
-    and the dense decoder LM read.
+    and the decoder LM read.
 
     unit: the repeating pattern of block kinds; the port's decoder runs
     ``("attn",)`` stacks.  window / local_attn_window: sliding-window size
-    of the attention blocks, 0 for full attention.
+    of the attention blocks, 0 for full attention.  ffn_kind: "swiglu",
+    "geglu", "gelu" or "moe" (then ``moe`` holds its ``MoEConfig``).
     """
 
     name: str = "model"
@@ -60,6 +73,7 @@ class ModelConfig:
     window: int = 0
     local_attn_window: int = 0
     ffn_kind: str = "swiglu"
+    moe: Optional[MoEConfig] = None
     image_size: int = 224
     patch_size: int = 16
     n_classes: int = 1000
@@ -80,6 +94,15 @@ class ModelConfig:
             raise ValueError(f"unit {self.unit} does not tile "
                              f"{self.n_layers} layers")
         return self.n_layers // len(self.unit)
+
+    def validate(self):
+        """Raise unless the fields fit together; returns the config."""
+        self.resolved_n_units
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError("n_heads must be a multiple of n_kv_heads")
+        if self.ffn_kind == "moe" and self.moe is None:
+            raise ValueError("ffn_kind 'moe' needs a MoEConfig")
+        return self
 
 
 def dense_init(gen: torch.Generator, shape, axes, scale=None,

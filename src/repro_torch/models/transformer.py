@@ -1,18 +1,22 @@
-"""The decoder-only LM for dense ``("attn",)`` stacks (Llama-3 and kin).
+"""The decoder-only LM for ``("attn",)`` stacks (Llama-3, Mixtral and kin).
 
 Pre-norm residual blocks: RMSNorm fused into the q/k/v projections, GQA
-attention with RoPE, RMSNorm fused into the gated FFN's input linears.  A
-Python loop runs the layers over a per-layer parameter list (the
-reference scans stacked parameters).  The KV cache carries a per-row
-``index`` vector, so rows advance independently: a new request can be
-prefilled into one row while the others keep decoding.
+attention with RoPE, then the FFN: RMSNorm fused into the gated FFN's
+input linears, or for ``ffn_kind="moe"`` an RMSNorm and the
+mixture-of-experts FFN (``models/moe.py``), whose load-balancing loss is
+summed over the layers and added to ``loss``.  A Python loop runs the
+layers over a per-layer parameter list (the reference scans stacked
+parameters).  The KV cache carries a per-row ``index`` vector, so rows
+advance independently: a new request can be prefilled into one row while
+the others keep decoding.
 
-With ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` a decode step
-launches 9 kernels per layer (5 fused norm->linears, 2 linears, the SiLU,
-the decode attention) and the final RMSNorm; a prefill the same without
-the attention kernel, which stays plain float attention as in the
-reference; a ``loss`` forward longer than 512 tokens runs the flash
-kernel in every layer.  Mixture-of-experts, recurrent blocks and the
+With ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` every layer
+of a decode step launches the decode attention kernel; a prefill's
+attention stays plain float attention as in the reference, and a ``loss``
+forward longer than 512 tokens runs the flash kernel in every layer.  The
+kernels each layer launches are counted in
+``tests/test_torch_lm.py::test_kernel_launch_structure`` and in
+``chip_smoke.py``'s ``lm_per_call``.  Recurrent blocks and the
 encoder-decoder are not ported yet.
 """
 from __future__ import annotations
@@ -25,6 +29,7 @@ from repro_torch.core.mx_types import MXFormat
 from repro_torch.core.quantize import pack_weight
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.model_api import ModelConfig, Param
 
 
@@ -33,12 +38,10 @@ class DecoderLM:
         if tuple(cfg.unit) != ("attn",):
             raise NotImplementedError(
                 f"unit {cfg.unit}: the port's decoder runs ('attn',) stacks; "
-                f"recurrent and MoE blocks are queued in ROADMAP.md")
-        if cfg.ffn_kind not in ("swiglu", "geglu", "gelu"):
+                f"recurrent blocks are queued in ROADMAP.md")
+        if cfg.ffn_kind not in ("swiglu", "geglu", "gelu", "moe"):
             raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r}")
-        if cfg.n_heads % cfg.n_kv_heads:
-            raise ValueError("n_heads must be a multiple of n_kv_heads")
-        self.cfg = cfg
+        self.cfg = cfg.validate()
         self.window = cfg.local_attn_window or cfg.window
 
     # -- params -------------------------------------------------------------
@@ -47,10 +50,13 @@ class DecoderLM:
         "ones" or "small" (normal with scale 0.02)."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
-        ffn = {"wi": ((d, cfg.d_ff), ("embed", "mlp"), "dense"),
-               "wo": ((cfg.d_ff, d), ("mlp", "embed"), "dense")}
-        if cfg.ffn_kind != "gelu":
-            ffn["wg"] = ((d, cfg.d_ff), ("embed", "mlp"), "dense")
+        if cfg.ffn_kind == "moe":
+            ffn = M.moe_param_spec(cfg)
+        else:
+            ffn = {"wi": ((d, cfg.d_ff), ("embed", "mlp"), "dense"),
+                   "wo": ((cfg.d_ff, d), ("mlp", "embed"), "dense")}
+            if cfg.ffn_kind != "gelu":
+                ffn["wg"] = ((d, cfg.d_ff), ("embed", "mlp"), "dense")
         mix = {
             "wq": ((d, cfg.n_heads * hd), ("embed", "q_heads"), "dense"),
             "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"), "dense"),
@@ -132,9 +138,15 @@ class DecoderLM:
                 "index": ("batch",)}
 
     # -- forward ----------------------------------------------------------------
-    def _run_stack(self, params, x, *, positions, cache, cache_index):
+    def _run_stack(self, params, x, *, positions, cache, cache_index,
+                   with_aux=False):
+        """Returns (x after the final norm, the cache, the layers' summed
+        MoE load-balancing loss: a float32 scalar, 0 for a dense FFN, or
+        None unless ``with_aux``)."""
         cfg = self.cfg
         quant = cfg.quant
+        aux = (torch.zeros((), dtype=torch.float32, device=x.device)
+               if with_aux else None)
         for i, lp in enumerate(params["layers"]):
             o, _ = A.attention(
                 lp["mix"], x, cfg, quant=quant, positions=positions,
@@ -142,12 +154,20 @@ class DecoderLM:
                 cache_index=cache_index, window=self.window,
                 prenorm=("rms", lp["ln1"], None))
             x = x + o
-            x = x + L.ffn(x, lp["ffn"], cfg.ffn_kind, quant,
+            if cfg.ffn_kind == "moe":
+                h = L.rmsnorm(x, lp["ln2"], q=quant, eps=cfg.norm_eps)
+                f, a = M.moe_ffn(h, lp["ffn"], cfg, quant=quant,
+                                 with_aux=with_aux)
+                if with_aux:
+                    aux = aux + a
+            else:
+                f = L.ffn(x, lp["ffn"], cfg.ffn_kind, quant,
                           prenorm=("rms", lp["ln2"], None), eps=cfg.norm_eps)
+            x = x + f
         x = L.rmsnorm(x, params["final_norm"], q=quant, eps=cfg.norm_eps)
         if cache is not None:
             cache["index"] = (cache_index + x.shape[1]).to(torch.int32)
-        return x, cache
+        return x, cache, aux
 
     def _embed(self, params, tokens):
         return L.embed_lookup(tokens.long(), params["embed"], self.cfg.quant,
@@ -159,32 +179,39 @@ class DecoderLM:
         return L.unembed(x, table, cfg.quant)
 
     # -- entry points -----------------------------------------------------------
+    def _forward(self, params, tokens, with_aux=False):
+        """(logits, the MoE load-balancing loss or None unless
+        ``with_aux``) of a cache-less forward."""
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
+        x, _, aux = self._run_stack(params, x, positions=positions,
+                                    cache=None, cache_index=None,
+                                    with_aux=with_aux)
+        return self.logits(params, x), aux
+
     @torch.no_grad()
     def forward(self, params, tokens) -> torch.Tensor:
         """Cache-less forward: (b, s) tokens -> (b, s, vocab) logits, each
         position attending causally to the positions up to it."""
         dev = params["final_norm"].value.device
-        tokens = torch.as_tensor(tokens).to(dev)
-        x = self._embed(params, tokens)
-        positions = torch.arange(tokens.shape[1], device=dev)[None, :]
-        x, _ = self._run_stack(params, x, positions=positions, cache=None,
-                               cache_index=None)
-        return self.logits(params, x)
+        return self._forward(params, torch.as_tensor(tokens).to(dev))[0]
 
     @torch.no_grad()
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token negative log-likelihood of batch['tokens'] (b, s),
-        weighted by an optional batch['loss_mask'] (b, s).  Inference only:
-        nothing here carries a gradient."""
+        weighted by an optional batch['loss_mask'] (b, s), plus the MoE
+        load-balancing loss of every layer (0 for a dense FFN).  Inference
+        only: nothing here carries a gradient."""
         dev = params["final_norm"].value.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        logits = self.forward(params, tokens)[:, :-1]
+        logits, aux = self._forward(params, tokens, with_aux=True)
+        logits = logits[:, :-1]
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
         mask = batch.get("loss_mask")
         mask = (torch.as_tensor(mask, dtype=torch.float32, device=dev)[:, 1:]
                 if mask is not None else torch.ones_like(nll))
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0) + aux
 
     @torch.no_grad()
     def prefill(self, params, tokens, cache, lengths=None):
@@ -197,7 +224,7 @@ class DecoderLM:
         dev = tokens.device
         x = self._embed(params, tokens)
         positions = torch.arange(s, device=dev)[None, :]
-        x, cache = self._run_stack(
+        x, cache, _ = self._run_stack(
             params, x, positions=positions, cache=cache,
             cache_index=torch.zeros(b, dtype=torch.int32, device=dev))
         if lengths is None:
@@ -213,7 +240,8 @@ class DecoderLM:
         """token: (b, 1).  One step; row i reads and writes its cache at its
         own ``cache['index'][i]``."""
         x = self._embed(params, token)
-        x, cache = self._run_stack(params, x, positions=None, cache=cache,
-                                   cache_index=cache["index"])
+        x, cache, _ = self._run_stack(params, x, positions=None,
+                                      cache=cache,
+                                      cache_index=cache["index"])
         return self.logits(params, x), cache
 

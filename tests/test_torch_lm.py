@@ -1,11 +1,17 @@
 """The port's decoder LM slice against the reference ``DecoderLM`` in
 kernel mode (``QuantConfig(mode='kernel', quantize_nonlinear=True)``).
 
-Each case runs for three dense configs (the ``lm`` fixture's params):
-``llama3_8b``; ``qwen3_14b`` (per-head q/k RMSNorm, 2 query heads per KV
-head in SMOKE, head dim 16); ``phi4_mini_3_8b`` (tied embeddings: one
-packed table serves the row gather and the unembedding; 3 query heads per
-KV head, head dim 8).  The reference's SMOKE parameters (f32) go through
+Each case runs for three configs here (the ``lm`` fixture's params,
+``HERE``): ``llama3_8b``; ``qwen3_14b`` (per-head q/k RMSNorm, 2 query
+heads per KV head in SMOKE, head dim 16); ``phi4_mini_3_8b`` (tied
+embeddings: one packed table serves the row gather and the unembedding;
+3 query heads per KV head, head dim 8).  ``tests/test_torch_lm_zoo.py``
+runs the same cases for three more, so that the test runner can give the
+two files to two workers: ``deepseek_67b`` (3 layers, one KV head for 8
+query heads) and the mixture-of-experts decoders ``mixtral_8x7b`` (4
+experts top-2, a 16-slot sliding-window ring) and ``granite_moe_3b_a800m``
+(8 experts top-4, tied embeddings), whose ``loss`` adds the layers'
+load-balancing loss.  The reference's SMOKE parameters (f32) go through
 ``convert.lm_params``; both packages pack them to MXInt8 planes and serve
 or score the same numpy tokens.  The reference runs under two scoped fixes
 for the installed jax (the ``TPUCompilerParams`` alias and an exact
@@ -22,9 +28,11 @@ reference's jitted steps round as its op-by-op run does.
 
 Tolerance: the port's attention products and row sums run in another
 order than the reference's and its RoPE and prefill softmax call torch's
-transcendental functions rather than XLA's, so logits are held to 1e-5
-of their scale (measured gap: 0, bit-identical, for all three configs);
-generated tokens must be identical.
+transcendental functions rather than XLA's, and its MoE expert products
+run in float64 against XLA's float32 dot, so logits are held to 1e-5 of
+their scale (measured gap: 0, bit-identical, for all six configs: the
+next MXInt stage absorbs the last-bit differences); generated tokens
+must be identical.
 """
 import dataclasses
 import inspect
@@ -38,7 +46,10 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
+from repro.configs import deepseek_67b as jdeepseek  # noqa: E402
+from repro.configs import granite_moe_3b_a800m as jgranite  # noqa: E402
 from repro.configs import llama3_8b as jllama  # noqa: E402
+from repro.configs import mixtral_8x7b as jmixtral  # noqa: E402
 from repro.configs import phi4_mini_3_8b as jphi  # noqa: E402
 from repro.configs import qwen3_14b as jqwen  # noqa: E402
 from repro.core.mx_types import MXINT8_WEIGHT as J_W8  # noqa: E402
@@ -55,7 +66,10 @@ from repro.serving.engine import pack_params_mxint as j_pack  # noqa: E402
 from repro.serving.scheduler import BatchScheduler as JBatchScheduler  # noqa: E402
 from repro.serving.scheduler import Request as JRequest  # noqa: E402
 from repro_torch import convert  # noqa: E402
+from repro_torch.configs import deepseek_67b as deepseek  # noqa: E402
+from repro_torch.configs import granite_moe_3b_a800m as granite  # noqa: E402
 from repro_torch.configs import llama3_8b as llama  # noqa: E402
+from repro_torch.configs import mixtral_8x7b as mixtral  # noqa: E402
 from repro_torch.configs import phi4_mini_3_8b as phi  # noqa: E402
 from repro_torch.configs import qwen3_14b as qwen  # noqa: E402
 from repro_torch.core.mx_types import (MXINT8_WEIGHT, NEG_INF,  # noqa: E402
@@ -71,7 +85,13 @@ KERNEL = dict(mode="kernel", quantize_nonlinear=True)
 MAX_LEN = 300                # three 128-slot tiles, the last one padded
 # config name -> (reference config module, port config module)
 CONFIGS = {"llama3_8b": (jllama, llama), "qwen3_14b": (jqwen, qwen),
-           "phi4_mini_3_8b": (jphi, phi)}
+           "phi4_mini_3_8b": (jphi, phi),
+           "deepseek_67b": (jdeepseek, deepseek),
+           "mixtral_8x7b": (jmixtral, mixtral),
+           "granite_moe_3b_a800m": (jgranite, granite)}
+# the configs whose cases run in this file; test_torch_lm_zoo.py runs the
+# others
+HERE = ("llama3_8b", "qwen3_14b", "phi4_mini_3_8b")
 VOCAB = 512                  # every SMOKE config's
 SMOKE_NAMES = {pcfg.SMOKE.name: name for name, (_, pcfg) in CONFIGS.items()}
 # the loss's tolerance, relative: Llama's losses are bit-identical (measured
@@ -80,8 +100,13 @@ SMOKE_NAMES = {pcfg.SMOKE.name: name for name, (_, pcfg) in CONFIGS.items()}
 # contract: Qwen3's 640-token logits differ at 1 of 640 positions, by
 # 7.2e-3 of their scale 0.733 (argmax equal), and its loss by 6.2e-6 (9.9e-7
 # relative); Phi-4-mini's logits are bit-identical and its losses differ by
-# one ulp (4.8e-7, torch's and XLA's log-softmax sums).  Held to 1e-5.
-LOSS_TOL = {"llama3_8b": 1e-6, "qwen3_14b": 1e-5, "phi4_mini_3_8b": 1e-5}
+# one ulp (4.8e-7, torch's and XLA's log-softmax sums).  DeepSeek-67B's
+# 640-token loss differs by 2.4e-6 (3.8e-7 relative), its 512-token loss
+# not at all; Mixtral's and Granite-MoE's losses, the layers' load-
+# balancing loss included, are bit-identical.  Held to 1e-5.
+LOSS_TOL = {"llama3_8b": 1e-6, "qwen3_14b": 1e-5, "phi4_mini_3_8b": 1e-5,
+            "deepseek_67b": 1e-5, "mixtral_8x7b": 1e-5,
+            "granite_moe_3b_a800m": 1e-5}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -128,36 +153,43 @@ def _ref_engine(jm, params, batch, pack=True):
     return eng
 
 
-def _models(name, window=0):
+def _models(name, window=None):
+    """Both packages' SMOKE models in kernel mode; ``window`` replaces the
+    config's own (0 for the dense configs, 16 for Mixtral)."""
     jcfg, pcfg = CONFIGS[name]
-    jm = build_model(dataclasses.replace(jcfg.SMOKE, window=window,
+    w = pcfg.SMOKE.window if window is None else window
+    jm = build_model(dataclasses.replace(jcfg.SMOKE, window=w,
                                          quant=JQuantConfig(**KERNEL)))
-    pm = DecoderLM(dataclasses.replace(pcfg.SMOKE, window=window,
+    pm = DecoderLM(dataclasses.replace(pcfg.SMOKE, window=w,
                                        quant=QuantConfig(**KERNEL)))
     return jm, pm
 
 
 def test_smoke_configs_are_the_references():
     """FULL and SMOKE of each port config equal the reference's field for
-    field, over the fields the port's ModelConfig has."""
+    field, over the fields the port's ModelConfig has (the ``MoEConfig``
+    field for field too)."""
     for jcfg, pcfg in CONFIGS.values():
         for which in ("FULL", "SMOKE"):
             j, p = getattr(jcfg, which), getattr(pcfg, which)
             for f in dataclasses.fields(p):
-                if f.name in ("quant", "dtype"):
+                if f.name in ("quant", "dtype", "moe"):
                     continue
                 assert getattr(p, f.name) == getattr(j, f.name), \
                     (j.name, which, f.name)
+            assert (p.moe is None) == (j.moe is None), (j.name, which)
+            if p.moe is not None:
+                assert dataclasses.asdict(p.moe) == dataclasses.asdict(
+                    j.moe), (j.name, which)
             assert str(p.dtype).split(".")[-1] == str(
                 jnp.dtype(j.dtype)), (j.name, which)
         assert pcfg.SMOKE.vocab == VOCAB
 
 
-@pytest.fixture(scope="module", params=list(CONFIGS))
-def lm(request):
+def make_lm(name):
     """(reference model, its engine, port model, its engine), both with
-    the SMOKE parameters packed to MXInt8 planes."""
-    jm, pm = _models(request.param)
+    the SMOKE parameters of config ``name`` packed to MXInt8 planes."""
+    jm, pm = _models(name)
     jp = jax.jit(jm.init)(jax.random.key(0))
     arrays = jax.tree_util.tree_map(np.asarray, unwrap(jp))
     pp = convert.lm_params(pm, arrays, device="cpu")
@@ -168,6 +200,17 @@ def lm(request):
                                              weight_fmt=MXINT8_WEIGHT),
                          device="cpu")
     return jm, jeng, pm, peng
+
+
+@pytest.fixture(scope="module", params=HERE)
+def config(request):
+    """The config a case runs for (``test_torch_lm_zoo.py`` gives others)."""
+    return request.param
+
+
+@pytest.fixture(scope="module")
+def lm(config):
+    return make_lm(config)
 
 
 def _tokens(shape, seed):
@@ -191,6 +234,8 @@ def test_packed_planes_equal_reference(lm):
     jl = unwrap(jeng.params)["units"]["u0_attn"]
     names = [("mix", "wq"), ("mix", "wo"), ("ffn", "wi"), ("ffn", "wg"),
              ("ffn", "wo")]
+    if pm.cfg.ffn_kind == "moe":      # the expert stacks and the router
+        names.append(("ffn", "router"))
     if pm.cfg.qk_norm:
         names += [("mix", "q_norm"), ("mix", "k_norm")]
     for i, layer in enumerate(peng.params["layers"]):
@@ -256,7 +301,8 @@ def test_loss_at_640_tokens_vs_reference(lm):
     want = float(_ref_jit(jm.loss)(jeng.params,
                                    {"tokens": jnp.asarray(toks)}))
     got = float(pm.loss(peng.params, {"tokens": torch.from_numpy(toks)}))
-    # measured gap: 0 (bit-identical) for Llama; the others see LOSS_TOL
+    # measured gap: 0 (bit-identical) for Llama, Mixtral and Granite-MoE;
+    # the others see LOSS_TOL
     tol = LOSS_TOL[SMOKE_NAMES[pm.cfg.name]]
     assert abs(got - want) <= tol * abs(want), (got, want)
 
@@ -269,8 +315,9 @@ def test_loss_at_512_tokens_vs_reference(lm):
     want = float(_ref_jit(jm.loss)(jeng.params,
                                    {"tokens": jnp.asarray(toks)}))
     got = float(pm.loss(peng.params, {"tokens": torch.from_numpy(toks)}))
-    # measured gap: 0 (bit-identical) for Llama and Phi-4-mini, 4.8e-7 (one
-    # ulp, 7.6e-8 relative) for Qwen3; the logits are bit-identical
+    # measured gap: 0 (bit-identical) for Llama, Phi-4-mini, DeepSeek-67B,
+    # Mixtral and Granite-MoE, 4.8e-7 (one ulp, 7.6e-8 relative) for Qwen3;
+    # the logits are bit-identical
     tol = LOSS_TOL[SMOKE_NAMES[pm.cfg.name]]
     assert abs(got - want) <= tol * abs(want), (got, want)
 
@@ -353,14 +400,13 @@ def test_window_ring_decode_vs_reference(lm):
                          device="cpu")
     prompt = _tokens((1, 80), 4)
     assert pm.cache_init(1, MAX_LEN, "cpu")["layers"][0]["k"].shape == \
-        (1, 64, 2, pm.cfg.hd)
+        (1, 64, pm.cfg.n_kv_heads, pm.cfg.hd)
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)},
                                     max_new_tokens=9))
     got = peng.generate({"tokens": prompt}, max_new_tokens=9).numpy()
     np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
 def test_kernel_launch_structure(monkeypatch, config):
     """Per decode step: 5 fused norm->linears, 2 linears, 1 SiLU and 1
     decode attention per layer, then the final RMSNorm; a slot prefill the
@@ -368,7 +414,11 @@ def test_kernel_launch_structure(monkeypatch, config):
     layer, a 512-token loss 1 whole-row softmax per layer instead.  With
     qk-norm (Qwen3) every layer adds 2 RMSNorms (q and k, per head) to
     each: at Qwen3-14B's 40 layers a decode step launches 11 x 40 + 1 =
-    441 kernels and a slot prefill 10 x 40 + 1 = 401."""
+    441 kernels and a slot prefill 10 x 40 + 1 = 401.  A MoE layer runs 3
+    fused norm->linears (q, k, v), 2 linears (the attention's out and the
+    router), the RMSNorm before the FFN, the gates' softmax and the
+    experts' SiLU: as many launches as a dense layer, 289 a decode step and
+    257 a slot prefill at Mixtral-8x7B's 32 layers."""
     names = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
              "mxint_layernorm", "mxint_softmax", "flash_attention",
              "flash_attention_decode")
@@ -388,9 +438,11 @@ def test_kernel_launch_structure(monkeypatch, config):
     eng = ServingEngine(pm, pp, ServeConfig(max_len=64, batch=2),
                         device="cpu")
     norms = 2 if smoke.qk_norm else 0
-    per_layer = {"mxint_ln_matmul": 5 * L, "mxint_matmul": 2 * L,
-                 "mxint_gelu": L, "mxint_layernorm": 1 + norms * L,
-                 "mxint_softmax": 0}
+    moe = smoke.ffn_kind == "moe"
+    per_layer = {"mxint_ln_matmul": (3 if moe else 5) * L,
+                 "mxint_matmul": 2 * L, "mxint_gelu": L,
+                 "mxint_layernorm": 1 + (norms + moe) * L,
+                 "mxint_softmax": L if moe else 0}
 
     def take():
         out = dict(calls)
@@ -413,12 +465,16 @@ def test_kernel_launch_structure(monkeypatch, config):
     if smoke.qk_norm:               # the full config's counts, by the same
         full = qwen.FULL.n_layers   # per-layer structure
         assert ((9 + norms) * full + 1, (8 + norms) * full + 1) == (441, 401)
+    if moe:
+        full = mixtral.FULL.n_layers
+        assert (9 * full + 1, 8 * full + 1) == (289, 257)
     pm.loss(eng.params, {"tokens": _tokens((1, 640), 6)})
     assert take() == {**per_layer, "flash_attention": L,
                       "flash_attention_decode": 0}
     pm.loss(eng.params, {"tokens": _tokens((1, 512), 6)})
-    assert take() == {**per_layer, "mxint_softmax": L, "flash_attention": 0,
-                      "flash_attention_decode": 0}
+    assert take() == {**per_layer,
+                      "mxint_softmax": per_layer["mxint_softmax"] + L,
+                      "flash_attention": 0, "flash_attention_decode": 0}
 
 
 def test_init_packs_each_tensor_as_it_goes():
