@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention_decode   # one kernel
+    python3 chip_smoke.py --training          # the training phases only
 
 1. Prints the card's name and power limit, then builds the six CUDA
    sources from ``src/repro_torch/kernels/csrc`` (seven kernels) and prints
@@ -151,7 +152,42 @@
 13. DeepSeek-67B at full width (d 8192, 64 heads over 8, d_ff 22016,
    vocab 102400) and 64 of its 95 layers, served as in phase 9, 513
    launches a slot prefill and 577 a decode step.
-14. Prints one JSON line of per-kernel results, then as the last line
+14. Train: DeiT-Base at full width and depth (random weights from seed
+   0) trained through ``TrainLoop`` on ``SyntheticImageData(n_classes=
+   1000, image_size=224, batch=64, seed=0)`` in "fake" (QDQ with the
+   serving formats, weights MXInt6/256, acts MXInt8/16): one step run
+   twice from one state (is the backward deterministic?), one step on a
+   fixed batch timed by CUDA events and traced (device busy ms, idle
+   share, the products' kernels, the top kernels by time; the forward-
+   backward and the AdamW update apart), then 8 steps with a checkpoint
+   at step 4, and a fresh loop from a fresh state resumed from that
+   checkpoint to step 8: the resumed params and moments must equal the
+   straight run's bit for bit when the repeated step was deterministic.
+   Per run: loss and grad norm at each step, ms per step (the
+   ``train/step`` span; median and range), the span against CUDA events
+   from each batch's draw to the step's return, the peak GiB allocated.
+   Then 3 steps in "off", reported the same way.  Then one value-and-
+   grad of DeiT-Micro in "off", "fake" and "sim" on the card and on the
+   CPU: every gradient leaf within ``GRAD_CPU_TOL`` of its scale.
+15. Accuracy: ``benchmarks/common.py``'s recipe on the card: the micro
+   DeiT (4 layers, d 64, 100 classes) trained 700 steps at batch 64 in
+   "off" on its hard 100-class task, then evaluated (8 batches of 128
+   from seed 99) as float, in Table V's eight rows ("fake", with the fp8
+   and per-tensor int emulations) and in "sim" and kernel mode (packed
+   planes, the MXInt non-linears) at MXInt8/MXInt8 and MXInt6/MXInt8:
+   accuracy and delta against float, the reference's two claims
+   (printed, not gated), kernel against sim argmax agreement, kernel-mode
+   launches 2 x (3 + 8 x 4) a batch.  The same trained params on the CPU
+   must give the same sim and kernel-mode accuracy.  ``make_train_step``
+   must refuse kernel mode and packed planes on the card.
+16. LM train: Llama-3-8B at full width cut to 2 layers (float32, about
+   1.49 G parameters) trained 4 steps in "off" on ``SyntheticLMData(
+   vocab=128256, batch=2, seq_len=512, seed=5)``: ms per step, peak
+   GiB, finite losses and grad norms.  Then the SMOKE Llama-3 trained 5
+   steps from one initial state on the card and on the CPU: losses
+   within ``LM_SMOKE_LOSS_TOL`` relative, the largest parameter gap
+   printed.
+17. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -160,6 +196,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -321,6 +358,49 @@ BACKENDS = {"off": ("off", {}, False), "fake": ("fake", {}, False),
             "packed": ("packed", {"quantize_nonlinear": True}, True),
             "mixed": ("kernel", {"quantize_nonlinear": True,
                                  "overrides": "block/*/ffn"}, True)}
+
+# the training phases.  DeiT-Base at full width in "fake" (the serving
+# formats) for TRAIN_STEPS steps at batch TRAIN_BATCH (26.8 GiB at peak),
+# a checkpoint every TRAIN_RESUME_AT steps and a resume from the first
+# one; then TRAIN_OFF_STEPS steps in "off"
+TRAIN_BATCH = 64
+TRAIN_STEPS = 8
+TRAIN_RESUME_AT = 4
+TRAIN_OFF_STEPS = 3
+TRAIN_LR = 1e-4
+# DeiT-Micro's gradients card against CPU, largest gap over each leaf's
+# scale: the float64 products round once on both devices; the float32
+# sums over the batch of the broadcast leaves' gradients run in another
+# order on each
+GRAD_CPU_TOL = 1e-5
+# the accuracy phase: benchmarks/common.py's recipe (BENCH_DEIT, _TASK:
+# DEIT_MICRO with 100 classes on a hard 100-class task; 700 steps at batch
+# 64, lr 1e-3, weight decay 0.01, "off"; eval_accuracy over 8 batches of
+# 128 from seed 99), and Table V's rows (name, weight bits, act bits,
+# emulate) of benchmarks/table5_quantization.py
+ACC_TASK = dict(n_classes=100, image_size=32, noise=1.0, class_sep=0.25,
+                outlier_channels=False)
+ACC_STEPS = 700
+ACC_LR = 1e-3
+ACC_EVAL_BATCHES = 8
+ACC_EVAL_SEED = 99
+TABLE5_ROWS = (("float8_e4m3", 8, 8, "fp8"), ("int16_w16a16", 16, 16, "int"),
+               ("int8_w8a8", 8, 8, "int"), ("mxint8_w8.03/a8.5", 8, 8, None),
+               ("mxint6_w6.03/a8.5", 6, 8, None),
+               ("mxint6_w6.03/a6.5", 6, 6, None),
+               ("mxint4_w4.03/a6.5", 4, 6, None))
+# the LM train phase: Llama-3-8B at full width cut to LM_TRAIN_LAYERS of
+# its 32 layers (about 1.49 G parameters: with their gradients and AdamW
+# moments about 24 GiB in float32), "off", batch 2 x 512 tokens; then the
+# SMOKE config LM_SMOKE_STEPS steps on the card and on the CPU, the
+# losses held to LM_SMOKE_LOSS_TOL relative (the f32 unembedding's sums
+# run in another order on each device)
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_STEPS = 4
+LM_TRAIN_BATCH = 2
+LM_TRAIN_SEQ = 512
+LM_SMOKE_STEPS = 5
+LM_SMOKE_LOSS_TOL = 1e-5
 
 
 def log(*a):
@@ -1809,7 +1889,14 @@ def expert_bounds(params, expert_ms, tag):
 
 def lm_score_phase(torch, np, model, engine, tag="lm score"):
     """One full-size 1024-token loss forward (with a MoE model's
-    load-balancing loss): the flash kernel in every layer."""
+    load-balancing loss): the flash kernel in every layer.  Scoring runs
+    under ``torch.no_grad()``: ``loss`` is differentiable, and the score
+    timings must not build a graph."""
+    with torch.no_grad():
+        return _lm_score(torch, np, model, engine, tag)
+
+
+def _lm_score(torch, np, model, engine, tag):
     toks = np.random.default_rng(SEED + 3).integers(
         0, model.cfg.vocab, size=(1, LM_SCORE_TOKENS)).astype(np.int32)
     model.loss(engine.params, {"tokens": toks})           # warm
@@ -2201,6 +2288,563 @@ def moe_phases(torch, np, phase):
     return out
 
 
+# ---------------------------------------------------------------------------
+# training (phases 14-16)
+# ---------------------------------------------------------------------------
+def peak_gib(torch):
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def state_leaves(state):
+    from repro_torch.train.checkpoint import _flatten
+    return [(p, t.detach()) for p, t, _ in _flatten(state)]
+
+
+def state_gap(a, b):
+    """(leaves that differ, the largest gap over its leaf's scale) of two
+    train states of one structure."""
+    differ, worst = 0, 0.0
+    for (pa, ta), (pb, tb) in zip(state_leaves(a), state_leaves(b)):
+        if pa != pb:
+            raise AssertionError(f"state paths differ: {pa} {pb}")
+        if not bool((ta == tb).all()):
+            differ += 1
+            gap = float((ta.double() - tb.double()).abs().max())
+            scale = float(tb.double().abs().max()) or 1.0
+            worst = max(worst, gap / scale)
+    return differ, worst
+
+
+def timed_loop(torch, loop):
+    """Bracket each of ``loop``'s steps with CUDA events, from its batch's
+    draw to the train step's return (the ``train/step`` span holds the
+    same work plus the loss readback)."""
+    pairs, pending = [], []
+    draw, step = loop.data.next_batch, loop.step_fn
+
+    def next_batch():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        pending.append(ev)
+        return draw()
+
+    def step_fn(state, batch):
+        out = step(state, batch)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        pairs.append((pending.pop(), ev))
+        return out
+
+    loop.data.next_batch, loop.step_fn = next_batch, step_fn
+    return pairs
+
+
+def run_loop(torch, loop, start_step, tag):
+    """Run ``loop`` from ``start_step``; its steps' losses, grad norms,
+    span times and CUDA-event times."""
+    from repro_torch import telemetry as T
+    pairs = timed_loop(torch, loop)
+    T.reset("span/train")
+    metrics = loop.run(start_step=start_step)
+    torch.cuda.synchronize()
+    events = [s.elapsed_time(e) for s, e in pairs]
+    n, span_mean = T.span_stats("train/step")
+    ev_mean = statistics.mean(events)
+    out = {"steps": [m["step"] for m in metrics],
+           "loss": [m["loss"] for m in metrics],
+           "grad_norm": [m["grad_norm"] for m in metrics],
+           "step_ms": events, "step_ms_median": statistics.median(events),
+           "step_ms_min": min(events), "step_ms_max": max(events),
+           "span_ms_mean": span_mean, "events_ms_mean": ev_mean}
+    log(f"[{tag}] steps {out['steps']}: loss {out['loss']} grad norm "
+        f"{out['grad_norm']}")
+    log(f"[{tag}] ms per step by CUDA events (batch draw to the step's "
+        f"return) median {out['step_ms_median']!r} (min "
+        f"{out['step_ms_min']!r}, max {out['step_ms_max']!r}), mean "
+        f"{ev_mean!r}; train/step span mean {span_mean!r} ms over {n}")
+    if n != len(metrics) or not span_mean >= ev_mean or \
+            span_mean - ev_mean > max(0.05 * ev_mean, 5.0):
+        raise AssertionError(f"{tag}: the train/step span ({span_mean!r} ms) "
+                             f"is not the events' {ev_mean!r} ms plus the "
+                             f"loss readback (5% or 5 ms)")
+    if not all(math.isfinite(x) for x in out["loss"] + out["grad_norm"]):
+        raise AssertionError(f"{tag}: non-finite loss or grad norm")
+    return out
+
+
+def step_profile(torch, model, step_fn, state, batch, tag):
+    """One train step on a fixed batch: ms by CUDA events, the device's
+    busy ms and idle share from a trace, the device time by kernel name
+    (the ten largest) and in the products' kernels (GEMMs), and the
+    forward-backward and the AdamW update apart."""
+    from repro_torch.models.model_api import Param, tree_leaves, \
+        tree_unflatten
+    from repro_torch.optim.adamw import AdamWConfig, adamw_update
+    from repro_torch.train.step import value_and_grad
+    ms = time_ms(lambda: step_fn(state, batch), iters=2, warmup=1)
+    events = trace_events(lambda: step_fn(state, batch), iters=1)
+    busy = sum(e.get("dur", 0) for e in events) / 1e3
+    by_name, by_kind = {}, {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name, ms_k = short_kernel_name(e["name"]), e["dur"] / 1e3
+            by_name[name] = by_name.get(name, 0.0) + ms_k
+            kind = kernel_kind(e["name"])
+            by_kind[kind] = by_kind.get(kind, 0.0) + ms_k
+    gemm = by_kind.get("products (GEMMs)", 0.0)
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:10])
+    model_loss = lambda p, b: model.loss(p, b).float()  # noqa: E731
+    fb_ms = time_ms(lambda: value_and_grad(model_loss, state.params, batch),
+                    iters=2, warmup=1)
+    _, grads = value_and_grad(model_loss, state.params, batch)
+    gtree = tree_unflatten(state.params, [
+        Param(g, p.axes) for g, p in zip(grads, tree_leaves(state.params))])
+    lr = torch.tensor(1e-3, device=DEVICE)
+    opt_ms = time_ms(lambda: adamw_update(gtree, state.opt, state.params, lr,
+                                          AdamWConfig()), iters=3)
+    out = {"ms_events": ms, "device_busy_ms": busy,
+           "device_idle_share": idle_share(busy, ms),
+           "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+           "device_ms_products": gemm,
+           "device_ms_other_kernels": sum(by_name.values()) - gemm,
+           "device_ms_by_kind": by_kind,
+           "device_ms_by_kernel_top10": top,
+           "forward_backward_ms": fb_ms, "adamw_ms": opt_ms}
+    log(f"[{tag}] a step on a fixed batch {ms!r} ms: device busy {busy!r} "
+        f"ms, idle share {out['device_idle_share']!r}, {out['kernels']} "
+        f"kernels; products (GEMMs) {gemm!r} ms, other kernels "
+        f"{out['device_ms_other_kernels']!r} ms; forward+backward {fb_ms!r} "
+        f"ms, AdamW update {opt_ms!r} ms")
+    log(f"[{tag}] device ms by kind {by_kind}; by kernel, top 10: {top}")
+    return out
+
+
+def kernel_kind(name: str) -> str:
+    """The group of a device kernel in a training step's trace."""
+    low = name.lower()
+    if any(s in low for s in ("gemm", "xmma", "cutlass")):
+        return "products (GEMMs)"
+    if "direct_copy_kernel" in name:
+        return "copies and dtype casts"
+    if "reduce_kernel" in name:
+        return "reductions"
+    return "other elementwise"
+
+
+def short_kernel_name(name: str) -> str:
+    """A trace kernel name without ATen's namespaces and template
+    arguments, with the functor that tells elementwise kernels apart."""
+    import re
+    base = name.replace("void ", "").replace("at::native::", "")
+    head = base.split("<", 1)[0]
+    tags = [m.group(0) for m in (
+        re.search(r"\w+Functor\w*<\w+>|\w+_kernel_(?:cuda|impl)", base),
+        re.search(r"lambda\((?!int\))\w+\)", base)) if m]
+    return head + (f"[{', '.join(tags)}]" if tags else "")
+
+
+def deit_train(torch, np, mode, batch, steps, root, tag, resume_at=None):
+    """DeiT-Base at full width and depth trained ``steps`` steps through
+    ``TrainLoop`` in ``mode`` (the serving formats: weights MXInt6/256,
+    acts MXInt8/16), checkpoints every ``resume_at`` steps; with
+    ``resume_at``, a fresh loop from a fresh state then resumes from that
+    checkpoint and runs to ``steps``, and both final states are
+    compared."""
+    import shutil
+    from repro_torch.configs.deit import DEIT_BASE
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.vit import ViT
+    from repro_torch.optim.schedules import constant_schedule
+    from repro_torch.train import make_train_state, make_train_step
+    from repro_torch.train.loop import LoopConfig, TrainLoop
+
+    model = ViT(dataclasses.replace(DEIT_BASE,
+                                    quant=QuantConfig(mode=mode)))
+    step_fn = make_train_step(model, lr_fn=lambda s: constant_schedule(
+        s, TRAIN_LR))
+
+    def data():
+        return SyntheticImageData(n_classes=1000, image_size=224,
+                                  batch=batch, seed=SEED, device=DEVICE)
+
+    def loop(state, ck, total):
+        return TrainLoop(train_step=step_fn, state=state, data=data(),
+                         cfg=LoopConfig(
+                             total_steps=total,
+                             checkpoint_every=resume_at or 10 ** 6,
+                             log_every=1, checkpoint_dir=str(ck),
+                             metrics_path=str(root / f"{mode}.jsonl"),
+                             heartbeat_path=str(root / f"{mode}_hb.json")))
+
+    out = {"mode": mode, "batch": batch, "config":
+           model.cfg.quant.describe()}
+    state = make_train_state(model, SEED, DEVICE)
+    probe = data().next_batch()
+    # determinism: one step twice from one state and batch
+    a, _ = step_fn(state, probe)
+    b, _ = step_fn(state, probe)
+    differ, worst = state_gap(a, b)
+    out["repeat_step_differing_leaves"] = differ
+    out["repeat_step_max_gap_over_scale"] = worst
+    log(f"[{tag}] one step twice from one state: {differ} leaves differ "
+        f"(largest gap / scale {worst!r})")
+    del a, b
+    out["profile"] = step_profile(torch, model, step_fn, state, probe, tag)
+    del probe
+    torch.cuda.reset_peak_memory_stats()
+    straight = loop(state, root / f"{mode}_a", steps)
+    out["straight"] = run_loop(torch, straight, 0, tag)
+    out["peak_gib"] = peak_gib(torch)
+    log(f"[{tag}] batch {batch}: peak {out['peak_gib']!r} GiB allocated")
+    if resume_at is None:
+        return out
+    src = root / f"{mode}_a" / f"step_{resume_at:06d}"
+    shutil.copytree(src, root / f"{mode}_b" / src.name)
+    resumed = loop(make_train_state(model, SEED, DEVICE), root / f"{mode}_b",
+                   steps)
+    got = resumed.try_resume()
+    if got != resume_at or resumed.data.state.next_index != resume_at or \
+            int(resumed.state.step) != resume_at:
+        raise AssertionError(f"{tag}: resumed at {got}, data at "
+                             f"{resumed.data.state.next_index}")
+    out["resumed"] = run_loop(torch, resumed, resume_at, f"{tag} resumed")
+    differ, worst = state_gap(resumed.state, straight.state)
+    out["resume_differing_leaves"] = differ
+    out["resume_max_gap_over_scale"] = worst
+    deterministic = out["repeat_step_differing_leaves"] == 0
+    log(f"[{tag}] resumed at {resume_at} and run to {steps} against the "
+        f"straight run: {differ} of {len(state_leaves(straight.state))} "
+        f"leaves differ (largest gap / scale {worst!r}); the backward is "
+        f"{'deterministic' if deterministic else 'not deterministic'}")
+    if deterministic and differ:
+        raise AssertionError(f"{tag}: the resumed run is not the straight "
+                             f"run bit for bit")
+    if not deterministic and worst > 10 * max(
+            out["repeat_step_max_gap_over_scale"], 1e-7):
+        raise AssertionError(f"{tag}: the resumed run is further from the "
+                             f"straight run than repeated steps are")
+    if out["resumed"]["loss"] != out["straight"]["loss"][resume_at:] and \
+            deterministic:
+        raise AssertionError(f"{tag}: resumed losses differ")
+    return out
+
+
+def grads_card_vs_cpu(torch, np):
+    """One value-and-grad of DeiT-Micro (batch 16) in "off", "fake" and
+    "sim" on the card and on the CPU from the same params and batch: the
+    float64 products are rounded once in the backward as in the forward;
+    what differs is the float32 sums over the batch of the broadcast
+    leaves' gradients (biases, LayerNorm gains, class and position
+    embeddings), which run in another order on each device, and the
+    float32 log-softmax of the loss (held to 1e-6 relative)."""
+    from repro_torch.configs.deit import DEIT_MICRO
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.vit import ViT
+    from repro_torch.train import make_train_state, train_state_to
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.step import value_and_grad
+
+    out = {}
+    for mode, kw in (("off", {}), ("fake", {}),
+                     ("sim", {"quantize_nonlinear": True})):
+        model = ViT(dataclasses.replace(DEIT_MICRO, quant=QuantConfig(
+            mode=mode, **kw)))
+        state = make_train_state(model, SEED, "cpu")
+        res = {}
+        for dev in (DEVICE, "cpu"):
+            st = train_state_to(state, dev)
+            batch = SyntheticImageData(n_classes=10, batch=16, image_size=32,
+                                       seed=SEED, device=dev).next_batch()
+            loss, grads = value_and_grad(
+                lambda p, b: model.loss(p, b).float(), st.params, batch)
+            res[dev] = (float(loss), [g.cpu() for g in grads])
+        names = [n for n, _, _ in _flatten(state.params)]
+        differ = {n: int((a != b).sum()) for n, a, b in zip(
+            names, res[DEVICE][1], res["cpu"][1]) if bool((a != b).any())}
+        worst = max(float((a.double() - b.double()).abs().max()) /
+                    (float(b.abs().max()) or 1.0)
+                    for a, b in zip(res[DEVICE][1], res["cpu"][1]))
+        out[mode] = {"loss_card": res[DEVICE][0], "loss_cpu": res["cpu"][0],
+                     "leaves": len(names), "differing_elements_by_leaf":
+                     differ, "max_gap_over_scale": worst}
+        log(f"[train grads] DeiT-Micro {mode}: loss card {res[DEVICE][0]!r} "
+            f"cpu {res['cpu'][0]!r}; gradients: {len(differ)} of "
+            f"{len(names)} leaves differ {differ}, largest gap / scale "
+            f"{worst!r} (limit {GRAD_CPU_TOL})")
+        if abs(res[DEVICE][0] - res["cpu"][0]) > 1e-6 * abs(res["cpu"][0]) \
+                or worst > GRAD_CPU_TOL:
+            raise AssertionError(f"train grads {mode}: card and CPU differ "
+                                 f"beyond {GRAD_CPU_TOL}")
+    return out
+
+
+def train_phase(torch, np):
+    """Full-width DeiT-Base trained in "fake" with a checkpoint and a
+    resume, then in "off"; DeiT-Micro's gradients card against CPU
+    (module docstring, item 14)."""
+    import shutil
+    root = ROOT / "build" / "train_phase"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = {"fake": deit_train(torch, np, "fake", TRAIN_BATCH, TRAIN_STEPS,
+                              root, "train fake",
+                              resume_at=TRAIN_RESUME_AT)}
+    torch.cuda.empty_cache()
+    out["off"] = deit_train(torch, np, "off", TRAIN_BATCH, TRAIN_OFF_STEPS,
+                            root, "train off")
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["grads_card_vs_cpu"] = grads_card_vs_cpu(torch, np)
+    return out
+
+
+def accuracy_rows():
+    """(label, mode, weight bits, act bits, emulate, packed planes): the
+    float model, Table V's rows (``benchmarks/table5_quantization.py``)
+    in "fake", and sim and kernel mode at MXInt8/MXInt8 and
+    MXInt6/MXInt8 with the MXInt non-linears."""
+    rows = [("float32", "off", None, None, None, False)]
+    rows += [(name, "fake", w, a, em, False)
+             for name, w, a, em in TABLE5_ROWS]
+    rows += [(f"{mode}_w{w}a8", mode, w, 8, None, mode == "kernel")
+             for mode in ("sim", "kernel") for w in (8, 6)]
+    return rows
+
+
+def accuracy_config(mode, w, a, emulate):
+    from repro_torch.configs.deit import DEIT_MICRO
+    from repro_torch.core.mx_types import MXFormat, QuantConfig
+    base = dataclasses.replace(DEIT_MICRO, n_classes=ACC_TASK["n_classes"])
+    if mode == "off":
+        return base
+    return dataclasses.replace(base, quant=QuantConfig(
+        mode=mode, weight_fmt=MXFormat(mant_bits=w, block_size=256),
+        act_fmt=MXFormat(mant_bits=a, block_size=16), emulate=emulate,
+        quantize_nonlinear=mode in ("sim", "kernel")))
+
+
+def eval_accuracy(torch, np, model, params, device):
+    """``benchmarks/common.py``'s ``eval_accuracy``: the mean of
+    ``model.accuracy`` over ACC_EVAL_BATCHES batches of 128 from seed
+    ACC_EVAL_SEED; also the predicted classes."""
+    from repro_torch.data.pipeline import SyntheticImageData
+    d = SyntheticImageData(batch=128, seed=ACC_EVAL_SEED, device=device,
+                           **ACC_TASK)
+    accs, preds = [], []
+    with torch.no_grad():
+        for _ in range(ACC_EVAL_BATCHES):
+            b = d.next_batch()
+            accs.append(float(model.accuracy(params, b)))
+            preds.append(model.logits(params, b["images"]).argmax(-1).cpu())
+    return float(np.mean(accs)), torch.cat(preds)
+
+
+def accuracy_phase(torch, np):
+    """``benchmarks/common.py``'s micro-DeiT recipe trained on the card,
+    then evaluated in every row of ``accuracy_rows`` (module docstring,
+    item 15)."""
+    from repro_torch.core.mx_types import MXFormat
+    from repro_torch.data.pipeline import SyntheticImageData
+    from repro_torch.models.model_api import Param, tree_map
+    from repro_torch.models.vit import ViT
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.serving.engine import pack_params_mxint, params_to
+    from repro_torch.train import make_train_state, make_train_step
+
+    t_phase = time.perf_counter()
+    model = ViT(accuracy_config("off", None, None, None))
+    state = make_train_state(model, SEED, DEVICE)
+    step = make_train_step(model, lr_fn=lambda s: torch.tensor(
+        ACC_LR, device=DEVICE), opt_cfg=AdamWConfig(weight_decay=0.01))
+    data = SyntheticImageData(batch=64, seed=SEED, device=DEVICE, **ACC_TASK)
+    first, _ = step(state, data.batch_at(0))             # warm
+    del first
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses = []
+    for i in range(ACC_STEPS):
+        state, m = step(state, data.next_batch())
+        if i % 100 == 0 or i == ACC_STEPS - 1:
+            losses.append((i + 1, float(m["loss"])))
+    end.record()
+    end.synchronize()
+    train_s = time.perf_counter() - t0
+    ms_step = start.elapsed_time(end) / ACC_STEPS
+    log(f"[accuracy] trained {ACC_STEPS} steps (batch 64, lr {ACC_LR}, "
+        f"weight decay 0.01) in {train_s!r} s: {ms_step!r} ms a step by "
+        f"events; loss at steps {losses}")
+    # the modes that carry no gradient are refused on the card too
+    refused = []
+    try:
+        make_train_step(ViT(accuracy_config("kernel", 8, 8, None)),
+                        lr_fn=lambda s: ACC_LR)
+    except ValueError:
+        refused.append("kernel mode")
+    packed_state = state._replace(params=pack_params_mxint(
+        state.params, MXFormat(mant_bits=8, block_size=256)))
+    try:
+        step(packed_state, data.next_batch())
+    except ValueError:
+        refused.append("packed planes")
+    if refused != ["kernel mode", "packed planes"]:
+        raise AssertionError(f"make_train_step refused only {refused}")
+    del packed_state
+    params = tree_map(lambda p: Param(p.value.detach(), p.axes),
+                      state.params)
+    params_cpu = params_to(params, "cpu")
+    rows, preds = {}, {}
+    kernel_launches = dict.fromkeys(read_counts(), 0)
+    for label, mode, w, a, em, packed in accuracy_rows():
+        m = ViT(accuracy_config(mode, w, a, em))
+        p = (pack_params_mxint(params, MXFormat(mant_bits=w,
+                                                 block_size=256))
+             if packed else params)
+        reset_counts()
+        acc, preds[label] = eval_accuracy(torch, np, m, p, DEVICE)
+        launches = read_counts()
+        if mode == "kernel":
+            for n, c in launches.items():
+                kernel_launches[n] += c
+            per_forward = 3 + 8 * m.cfg.n_layers
+            want = 2 * ACC_EVAL_BATCHES * per_forward
+            if sum(launches.values()) != want:
+                raise AssertionError(f"accuracy {label}: {launches} "
+                                     f"launches, not {want}")
+        elif any(launches.values()):
+            raise AssertionError(f"accuracy {label}: launched {launches}")
+        rows[label] = {"accuracy": acc}
+    base = rows["float32"]["accuracy"]
+    for label, r in rows.items():
+        r["delta"] = r["accuracy"] - base
+    # the same trained params on the CPU: the plain versions in kernel
+    # mode, and sim
+    cpu = {}
+    for label, mode, w, a, em, packed in accuracy_rows():
+        if mode not in ("sim", "kernel"):
+            continue
+        m = ViT(accuracy_config(mode, w, a, em))
+        p = (pack_params_mxint(params_cpu, MXFormat(mant_bits=w,
+                                                     block_size=256))
+             if packed else params_cpu)
+        cpu[label], cpu_preds = eval_accuracy(torch, np, m, p, "cpu")
+        rows[label]["cpu_accuracy"] = cpu[label]
+        rows[label]["cpu_predictions_differ"] = int(
+            (cpu_preds != preds[label]).sum())
+        if cpu[label] != rows[label]["accuracy"]:
+            raise AssertionError(f"accuracy {label}: card "
+                                 f"{rows[label]['accuracy']!r}, CPU "
+                                 f"{cpu[label]!r}")
+    agreement = {w: float((preds[f"kernel_w{w}a8"] == preds[f"sim_w{w}a8"])
+                          .float().mean()) for w in (8, 6)}
+    accs = {k: r["accuracy"] for k, r in rows.items()}
+    claims = {
+        "mxint8_within_1pct": accs["mxint8_w8.03/a8.5"] >= base - 0.01,
+        "monotone_mx_bits":
+            accs["mxint4_w4.03/a6.5"] <= accs["mxint6_w6.03/a6.5"] + 0.02
+            and accs["mxint6_w6.03/a8.5"] <= accs["mxint8_w8.03/a8.5"] + 0.02}
+    for label, r in rows.items():
+        log(f"[accuracy] {label}: accuracy {r['accuracy']!r} delta "
+            f"{r['delta']!r}" + (f", CPU {r['cpu_accuracy']!r} "
+                                 f"({r['cpu_predictions_differ']} of "
+                                 f"{128 * ACC_EVAL_BATCHES} predictions "
+                                 f"differ)" if "cpu_accuracy" in r else ""))
+    log(f"[accuracy] kernel against sim argmax agreement {agreement}; "
+        f"claims {claims}; kernel-mode launches {kernel_launches}")
+    return {"steps": ACC_STEPS, "train_s": train_s, "ms_per_step": ms_step,
+            "losses": losses, "refused": refused, "rows": rows,
+            "kernel_vs_sim_argmax_agreement": agreement, "claims": claims,
+            "phase_s": time.perf_counter() - t_phase}, kernel_launches
+
+
+def lm_train_phase(torch, np):
+    """Llama-3-8B at full width, LM_TRAIN_LAYERS layers, trained in "off";
+    then the SMOKE Llama-3 trained on the card and on the CPU (module
+    docstring, item 16)."""
+    from repro_torch.configs import llama3_8b
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models.model_api import tree_leaves
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.train import (make_train_state, make_train_step,
+                                   train_state_to)
+
+    def lr(s):
+        return torch.tensor(1e-4, device=s.device)
+
+    cfg = dataclasses.replace(llama3_8b.FULL, n_layers=LM_TRAIN_LAYERS,
+                              dtype=torch.float32)
+    model = DecoderLM(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, SEED, DEVICE)
+    n_params = sum(p.value.numel() for p in tree_leaves(state.params))
+    step = make_train_step(model, lr_fn=lr)
+    data = SyntheticLMData(vocab=cfg.vocab, batch=LM_TRAIN_BATCH,
+                           seq_len=LM_TRAIN_SEQ, seed=5, device=DEVICE)
+    ms, losses, norms = [], [], []
+    for _ in range(LM_TRAIN_STEPS):
+        batch = data.next_batch()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        ms.append(start.elapsed_time(end))
+    out = {"layers": LM_TRAIN_LAYERS, "params": n_params,
+           "batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ, "loss": losses,
+           "grad_norm": norms, "step_ms": ms,
+           "step_ms_median": statistics.median(ms),
+           "peak_gib": peak_gib(torch)}
+    log(f"[lm train] Llama-3-8B at full width, {LM_TRAIN_LAYERS} layers "
+        f"({n_params} parameters, float32), batch {LM_TRAIN_BATCH} x "
+        f"{LM_TRAIN_SEQ}: ms per step {ms} (the first warm), peak "
+        f"{out['peak_gib']!r} GiB allocated; loss {losses}, grad norm "
+        f"{norms}")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
+        raise AssertionError("lm train: non-finite loss or grad norm")
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    smoke = DecoderLM(llama3_8b.SMOKE)
+    step = make_train_step(smoke, lr_fn=lr)
+    states = {"cpu": make_train_state(smoke, SEED, "cpu")}
+    states[DEVICE] = train_state_to(states["cpu"], DEVICE)
+    curves = {}
+    for dev in (DEVICE, "cpu"):
+        d = SyntheticLMData(vocab=smoke.cfg.vocab, batch=4, seq_len=32,
+                            seed=5, device=dev)
+        curves[dev] = []
+        for _ in range(LM_SMOKE_STEPS):
+            states[dev], m = step(states[dev], d.next_batch())
+            curves[dev].append(float(m["loss"]))
+    rel = max(abs(g - c) / abs(c) for g, c in zip(curves[DEVICE],
+                                                   curves["cpu"]))
+    differ, worst = state_gap(train_state_to(states[DEVICE], "cpu"),
+                              states["cpu"])
+    par = max(float((a.value.detach().cpu() - b.value.detach()).abs().max())
+              for a, b in zip(tree_leaves(states[DEVICE].params),
+                              tree_leaves(states["cpu"].params)))
+    out["smoke_card_vs_cpu"] = {
+        "steps": LM_SMOKE_STEPS, "loss_card": curves[DEVICE],
+        "loss_cpu": curves["cpu"], "max_loss_gap_rel": rel,
+        "tolerance": LM_SMOKE_LOSS_TOL, "differing_leaves": differ,
+        "max_gap_over_scale": worst, "max_param_gap": par}
+    log(f"[lm train] SMOKE Llama-3, {LM_SMOKE_STEPS} steps card against "
+        f"CPU: losses {curves[DEVICE]} / {curves['cpu']}, largest relative "
+        f"gap {rel!r} (limit {LM_SMOKE_LOSS_TOL}); {differ} state leaves "
+        f"differ, largest gap / scale {worst!r}, largest parameter gap "
+        f"{par!r}")
+    if rel > LM_SMOKE_LOSS_TOL:
+        raise AssertionError("lm train: card and CPU losses differ beyond "
+                             f"{LM_SMOKE_LOSS_TOL}")
+    return out
+
+
 def check_full_depth_launches(name, stats):
     """Raise unless a serve phase launched the counts of
     ``FULL_DEPTH_LAUNCHES`` a slot prefill and a decode step."""
@@ -2217,6 +2861,9 @@ def main(argv) -> int:
     ap.add_argument("--kernels", nargs="+", metavar="NAME",
                     help="build, then run only the kernel phase of these "
                          "kernels (a quick check; prints no 'ok' line)")
+    ap.add_argument("--training", action="store_true",
+                    help="build, then run only the training phases (14-16; "
+                         "prints no 'ok' line)")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -2245,6 +2892,23 @@ def main(argv) -> int:
     if args.kernels:
         kernels = kernel_phase(torch, np, only=set(args.kernels))
         log(json.dumps({"partial": sorted(kernels)}))
+        return 0
+    if args.training:
+        t = time.perf_counter()
+        train = train_phase(torch, np)
+        log(f"[time] train phase {time.perf_counter() - t!r} s")
+        t = time.perf_counter()
+        acc, _ = accuracy_phase(torch, np)
+        log(f"[time] accuracy phase {time.perf_counter() - t!r} s")
+        t = time.perf_counter()
+        lm = lm_train_phase(torch, np)
+        log(f"[time] lm train phase {time.perf_counter() - t!r} s")
+        out = ROOT / "build"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_training.json").write_text(json.dumps(
+            {"card": smi, "train": train, "accuracy": acc, "lm_train": lm},
+            indent=1))
+        log(json.dumps({"partial": ["train", "accuracy", "lm train"]}))
         return 0
 
     t_start = time.perf_counter()
@@ -2300,6 +2964,9 @@ def main(argv) -> int:
     check_full_depth_launches("deepseek_67b", ds_serve)
     del model, engine
     torch.cuda.empty_cache()
+    train_stats = phase("train", train_phase, torch, np)
+    acc_stats, acc_launches = phase("accuracy", accuracy_phase, torch, np)
+    lm_train_stats = phase("lm train", lm_train_phase, torch, np)
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
@@ -2321,7 +2988,8 @@ def main(argv) -> int:
         for what, attn in (("serve", "flash_attention_decode"),
                            ("score", "flash_attention"))) + (
         ("deepseek_67b serve", ds_serve["launches"],
-         common + ("flash_attention_decode",)),)
+         common + ("flash_attention_decode",)),
+        ("accuracy kernel mode", acc_launches, common + ("mxint_softmax",)))
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -2335,7 +3003,8 @@ def main(argv) -> int:
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
          "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
          "widened_serve": widened_stats, **new_lms, **moe_lms,
-         "deepseek_67b": {"serve": ds_serve}},
+         "deepseek_67b": {"serve": ds_serve}, "train": train_stats,
+         "accuracy": acc_stats, "lm_train": lm_train_stats},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

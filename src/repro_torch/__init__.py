@@ -13,4 +13,11 @@ paper's deployment ``mode="kernel"`` on packed weight planes, the float
 baseline "off", quantize-dequantize "fake", the bit-accurate MXInt oracle
 "sim" and the dequantize-then-float "packed", with per-layer-group
 overrides (``QuantOverride``).
+
+It trains them too: ``optim`` (AdamW, schedules) and ``train``
+(``TrainState``, ``make_train_step`` by ``torch.autograd`` with
+microbatches, ``CheckpointManager``, ``TrainLoop`` with resume,
+heartbeats and straggler flags) over the synthetic streams of
+``data.pipeline``, in "off", "fake" (straight-through QDQ) and "sim";
+kernel mode and packed planes carry no gradient and are refused.
 """

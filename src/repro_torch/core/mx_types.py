@@ -88,6 +88,8 @@ MXINT8_WEIGHT = MXFormat(mant_bits=8, block_size=256)
 MXINT6_WEIGHT = MXFormat(mant_bits=6, block_size=256)  # W6.03
 MXINT6_ACT = MXFormat(mant_bits=6, block_size=16)
 MXINT4_WEIGHT = MXFormat(mant_bits=4, block_size=256)
+# the OCP Microscaling MXINT8 layout: int8 mantissas, block 32
+MXINT8_OCP = MXFormat(mant_bits=8, block_size=32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,17 +1,20 @@
-"""Deterministic synthetic image data.
+"""Deterministic synthetic data pipelines.
 
-Counterpart of ``repro.data.pipeline`` for the image stream the DeiT
-design-space exploration calibrates on (the LM and seq2seq streams wait
-for the training slice).  Production properties kept even though the data
-is synthetic:
+Counterpart of ``repro.data.pipeline``: the Markov-chain token stream
+the LMs train on (with optional vision embeddings), the frame-to-token
+seq2seq stream, and the class-conditional image stream DeiT trains and
+the design-space exploration calibrates on.  Production properties kept
+even though the data is synthetic:
 
   * deterministic and seekable: batch i is a pure function of (seed, i),
     so resuming from a checkpoint replays the exact stream (the
     ``DataState`` is part of the checkpoint);
   * host-shardable: each data-parallel host builds only its slice
     (shard_index / num_shards);
-  * learnable structure: class-conditional Gaussian blobs, so PTQ
-    experiments have a real signal to lose.
+  * learnable structure: LM streams are Markov-chain token sequences (so
+    a training run shows the loss going down), image streams are
+    class-conditional Gaussian blobs (so PTQ experiments have a real
+    signal to lose).
 
 The generator is numpy's, seeded exactly as the reference seeds it, so
 both packages yield the same batches bit for bit; the port hands them to
@@ -65,6 +68,70 @@ class _Seekable:
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         while True:
             yield self.next_batch()
+
+
+class SyntheticLMData(_Seekable):
+    """Markov-chain token stream with vocab bucketing (learnable
+    bigrams): int32 ``tokens`` (b, seq) and, with ``vision_tokens``,
+    float32 ``vision_embeds`` (b, vision_tokens, vision_dim)."""
+
+    def __init__(self, *, vocab: int, batch: int, seq_len: int, seed: int = 0,
+                 shard_index: int = 0, num_shards: int = 1,
+                 vision_tokens: int = 0, vision_dim: int = 0,
+                 structure_seed: int = 1234, device="cuda"):
+        super().__init__(seed, shard_index, num_shards, device)
+        self.vocab = vocab
+        self.batch = batch // num_shards
+        self.seq = seq_len
+        self.vision_tokens = vision_tokens
+        self.vision_dim = vision_dim
+        # the task (transition structure) is fixed by structure_seed, so
+        # train and eval streams with different sample seeds share it
+        g = np.random.default_rng(structure_seed)
+        self._succ = g.integers(0, vocab, size=(vocab, 4))
+
+    def batch_at(self, index: int) -> Dict[str, torch.Tensor]:
+        rng = self._rng_for(index)
+        toks = np.empty((self.batch, self.seq), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, self.batch)
+        choices = rng.integers(0, 4, size=(self.batch, self.seq))
+        noise = rng.random((self.batch, self.seq)) < 0.05
+        rand_tok = rng.integers(0, self.vocab, size=(self.batch, self.seq))
+        for t in range(1, self.seq):
+            nxt = self._succ[toks[:, t - 1], choices[:, t]]
+            toks[:, t] = np.where(noise[:, t], rand_tok[:, t], nxt)
+        out = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if self.vision_tokens:
+            emb = rng.normal(size=(self.batch, self.vision_tokens,
+                                   self.vision_dim)).astype(np.float32)
+            out["vision_embeds"] = torch.from_numpy(emb).to(self.device)
+        return out
+
+
+class SyntheticSeq2SeqData(_Seekable):
+    """Frame embeddings -> token targets for the encoder-decoder: int32
+    ``tokens`` (b, seq) and float32 ``frames`` (b, seq, d_model)."""
+
+    def __init__(self, *, vocab: int, batch: int, seq_len: int, d_model: int,
+                 seed: int = 0, shard_index: int = 0, num_shards: int = 1,
+                 device="cuda"):
+        super().__init__(seed, shard_index, num_shards, device)
+        self.vocab = vocab
+        self.batch = batch // num_shards
+        self.seq = seq_len
+        self.d = d_model
+
+    def batch_at(self, index: int) -> Dict[str, torch.Tensor]:
+        rng = self._rng_for(index)
+        toks = rng.integers(0, self.vocab,
+                            size=(self.batch, self.seq)).astype(np.int32)
+        # frames correlate with the tokens (projected one-hot + noise)
+        proj = np.random.default_rng(self.state.seed).normal(
+            size=(64, self.d)).astype(np.float32)
+        frames = proj[toks % 64] + 0.1 * rng.normal(
+            size=(self.batch, self.seq, self.d)).astype(np.float32)
+        return {"tokens": torch.from_numpy(toks).to(self.device),
+                "frames": torch.from_numpy(frames).to(self.device)}
 
 
 class SyntheticImageData(_Seekable):

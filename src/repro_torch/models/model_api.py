@@ -27,13 +27,47 @@ def is_param(x) -> bool:
     return isinstance(x, Param)
 
 
-def tree_map(fn: Callable, tree):
-    """Apply ``fn`` to every ``Param`` leaf of a tree of dicts and lists."""
+def tree_map(fn: Callable, tree, *rest):
+    """Apply ``fn`` to every ``Param`` leaf of a tree of dicts and lists;
+    with ``rest``, trees of the same structure, ``fn`` also takes their
+    leaves at the same place."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, list):
-        return [tree_map(fn, v) for v in tree]
-    return fn(tree)
+        return [tree_map(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, dict keys in sorted order
+    (the reference's pytree order)."""
+    if isinstance(tree, dict):
+        return [l for k in sorted(tree) for l in tree_leaves(tree[k])]
+    if isinstance(tree, list):
+        return [l for v in tree for l in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves):
+    """A tree shaped like ``like`` holding ``leaves`` in ``tree_leaves``
+    order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            out = {k: build(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, list):
+            return [build(v) for v in t]
+        return next(it)
+
+    out = build(like)
+    end = object()
+    if next(it, end) is not end:
+        raise ValueError("more leaves than the tree has places")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

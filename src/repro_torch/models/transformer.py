@@ -196,12 +196,12 @@ class DecoderLM:
         dev = params["final_norm"].value.device
         return self._forward(params, torch.as_tensor(tokens).to(dev))[0]
 
-    @torch.no_grad()
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token negative log-likelihood of batch['tokens'] (b, s),
         weighted by an optional batch['loss_mask'] (b, s), plus the MoE
-        load-balancing loss of every layer (0 for a dense FFN).  Inference
-        only: nothing here carries a gradient."""
+        load-balancing loss of every layer (0 for a dense FFN).  It carries
+        a gradient to the float parameters that require one (training);
+        callers that only score run it under ``torch.no_grad()``."""
         dev = params["final_norm"].value.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
         logits, aux = self._forward(params, tokens, with_aux=True)

@@ -3,7 +3,8 @@
 Patchify is an exact reshape plus a linear (the stride-16 convolution with
 channel-major features, so shared exponents align with channels); class
 token and learned position embeddings; pre-LayerNorm encoder blocks with
-GELU MLPs; a classification head on the CLS token.
+GELU MLPs; a classification head on the CLS token; ``loss`` and
+``accuracy`` over ``{"images", "labels"}`` batches.
 
 Every operator routes through the layer primitives, so with
 ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` a forward launches
@@ -135,6 +136,28 @@ class ViT:
         pooled = x[:, 0] if self.cfg.pool == "cls" else x.mean(1)
         return L.linear(pooled, params["head"], params["head_b"],
                         q=self.cfg.quant, scope="head")
+
+    def _batch(self, params, batch):
+        dev = params["head_b"].value.device
+        return (torch.as_tensor(batch["images"]).to(dev),
+                torch.as_tensor(batch["labels"]).to(dev))
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean negative log-likelihood of batch['labels'] (b,) under the
+        float32 log-softmax of the logits of batch['images'] (b, H, W, 3).
+        Differentiable in the modes that train ("off", "fake", "sim")."""
+        images, labels = self._batch(params, batch)
+        logits = self.logits(params, images).to(torch.float32)
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[:, None].long())[:, 0]
+        return nll.mean()
+
+    def accuracy(self, params, batch) -> torch.Tensor:
+        """Share of the batch whose logits' argmax (the first of equal
+        maxima) is its label, a float32 scalar."""
+        images, labels = self._batch(params, batch)
+        logits = self.logits(params, images)
+        return (logits.argmax(-1) == labels.long()).to(torch.float32).mean()
 
 
 def layer_params(blocks, i: int):

@@ -1,0 +1,141 @@
+"""Train and eval steps.
+
+Counterpart of ``repro.train.step``.  ``make_train_step`` returns a
+``(state, batch) -> (state, metrics)`` function: the loss and its
+gradients by ``torch.autograd``, then ``adamw_update``.  Options:
+
+  * microbatches=N   -- gradient accumulation over N equal slices of the
+                        batch's leading axis, the losses and gradients
+                        summed in float32 and scaled by 1/N;
+  * grad_compression -- MXInt-compressed pod-axis gradient reduction.  It
+                        needs a mesh with a "pod" axis, which waits for
+                        the tensor-parallel slice; without one it is off,
+                        as in the reference.
+
+Gradients flow in the modes the reference trains in: "off" (float),
+"fake" (quantize-dequantize with straight-through gradients) and "sim"
+(whose integer stages stop gradients, as the reference's do).  Kernel
+mode and packed ``MXTensor`` planes carry no gradient (a kernel launch is
+invisible to autograd), so the step raises ``ValueError`` for them before
+any forward, rather than seem to train while every gradient is dropped.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from repro_torch.core.quantize import MXTensor
+from repro_torch.models.model_api import Param, tree_leaves, tree_unflatten
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.train.state import TrainState
+
+
+def _modes(q) -> set:
+    """Every execution mode a config can resolve to, overrides included."""
+    return {getattr(q, "mode")} | {getattr(ov, "mode") or getattr(q, "mode")
+                                   for _, ov in getattr(q, "overrides")}
+
+
+def check_trainable(model, params=None) -> None:
+    """Raise ``ValueError`` unless ``model`` (and ``params``, when given)
+    can carry gradients: no kernel mode in any layer group, no packed
+    planes."""
+    if "kernel" in _modes(model.cfg.quant):
+        raise ValueError("mode='kernel' is inference only: the Hopper "
+                         "kernels carry no gradient; train in 'off', "
+                         "'fake' or 'sim'")
+    if params is not None:
+        for leaf in tree_leaves(params):
+            if isinstance(leaf.value, MXTensor):
+                raise ValueError("packed MXTensor planes carry no gradient; "
+                                 "train on float parameters")
+
+
+def _slice(batch: Dict, i: int, n: int) -> Dict:
+    out = {}
+    for k, x in batch.items():
+        x = torch.as_tensor(x)
+        size = x.shape[0] // n
+        out[k] = x[i * size:(i + 1) * size]
+    return out
+
+
+def value_and_grad(loss_fn: Callable, params, batch):
+    """(loss as a float32 scalar, detached; the gradient of every leaf of
+    ``params`` in ``tree_leaves`` order, zeros where the loss does not
+    reach it)."""
+    leaves = [p.value for p in tree_leaves(params)]
+    loss = loss_fn(params, batch)
+    if loss.requires_grad:
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    else:
+        grads = [None] * len(leaves)
+    grads = [torch.zeros_like(v) if g is None else g
+             for g, v in zip(grads, leaves)]
+    return loss.detach(), grads
+
+
+def _microbatch_value_and_grad(loss_fn, params, batch, n_micro: int):
+    """Accumulate the loss and gradients over n_micro slices of the
+    leading batch axis, in float32, then scale by 1/n_micro."""
+    loss_acc = None
+    grad_acc = [torch.zeros(p.value.shape, dtype=torch.float32,
+                            device=p.value.device)
+                for p in tree_leaves(params)]
+    for i in range(n_micro):
+        loss, grads = value_and_grad(loss_fn, params,
+                                     _slice(batch, i, n_micro))
+        loss_acc = (torch.zeros((), dtype=torch.float32, device=loss.device)
+                    if loss_acc is None else loss_acc) + loss
+        grad_acc = [a + g for a, g in zip(grad_acc, grads)]
+    scale = 1.0 / n_micro
+    return loss_acc * scale, [g * scale for g in grad_acc]
+
+
+def _has_pod_axis(mesh) -> bool:
+    names = getattr(mesh, "axis_names", None) or getattr(
+        mesh, "mesh_dim_names", None) or ()
+    return "pod" in names
+
+
+def make_train_step(model, *, lr_fn: Callable, opt_cfg: AdamWConfig = None,
+                    microbatches: int = 1, grad_compression: bool = False,
+                    mesh=None) -> Callable:
+    opt_cfg = opt_cfg or AdamWConfig()
+    check_trainable(model)
+    if grad_compression and mesh is not None and _has_pod_axis(mesh):
+        raise NotImplementedError(
+            "compressed_psum over a 'pod' axis waits for the port's "
+            "tensor-parallel slice")
+
+    def loss_fn(params, batch):
+        return model.loss(params, batch).to(torch.float32)
+
+    def train_step(state: TrainState, batch):
+        check_trainable(model, state.params)
+        if microbatches > 1:
+            loss, grads = _microbatch_value_and_grad(
+                loss_fn, state.params, batch, microbatches)
+        else:
+            loss, grads = value_and_grad(loss_fn, state.params, batch)
+        grads = tree_unflatten(state.params, [
+            Param(g, p.axes) for g, p in zip(grads,
+                                             tree_leaves(state.params))])
+        lr = lr_fn(state.step)
+        new_params, new_opt, gnorm = adamw_update(
+            grads, state.opt, state.params, lr, opt_cfg)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   "step": state.step}
+        return TrainState(new_params, new_opt, state.step + 1,
+                          state.err_fb), metrics
+
+    return train_step
+
+
+def make_eval_step(model) -> Callable:
+    """``(params, batch) -> loss``, with no autograd graph."""
+    def eval_step(params, batch):
+        with torch.no_grad():
+            return model.loss(params, batch)
+    return eval_step
