@@ -132,13 +132,14 @@
    FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``) and
    with 12-bit acts everywhere, the DeiT phase's telemetry and launch
    checks; ms per batch.
-12. Mixture of experts: Mixtral-8x7B (32 layers, d 4096, 32 heads over
-   8, 8 experts top-2, d_ff 14336, vocab 32000, window 4096) and
-   Granite-MoE-3B (32 layers, d 1536, 24 heads over 8, 40 experts top-8,
-   d_ff 512, tied vocab 49155), each at full width and depth with random
-   packed MXInt8 weights, after every earlier model is freed (the free
-   memory logged): served as in phase 9 (4 requests of 37-700 tokens, 16
-   new), with 257 launches a slot prefill and 289 a decode step (a MoE
+12. Mixture of experts: Mixtral-8x7B (d 4096, 32 heads over 8, 8
+   experts top-2, d_ff 14336, vocab 32000, window 4096) and Granite-MoE-3B
+   (d 1536, 24 heads over 8, 40 experts top-8, d_ff 512, tied vocab
+   49155), each at full width and ``MOE_SERVE_LAYERS`` (16) of their 32
+   layers with random packed MXInt8 weights, after every earlier model is
+   freed (the free memory logged): served as in phase 9 (4 requests of
+   37-700 tokens, 16 new), with 129 launches a slot prefill and 145 a
+   decode step (a MoE
    layer: q, k, v fused norm -> linears, the decode attention, the
    attention's out and the router linears, the RMSNorm before the FFN,
    the gates' softmax, the experts' SiLU); one decode step split by
@@ -150,9 +151,31 @@
    gates' softmax over rows of 2 and 8, the SiLU over (E x C, d_ff)
    capacity buffers, the RMSNorm before the FFN.
 13. DeepSeek-67B at full width (d 8192, 64 heads over 8, d_ff 22016,
-   vocab 102400) and 64 of its 95 layers, served as in phase 9, 513
-   launches a slot prefill and 577 a decode step.
-14. Train: DeiT-Base at full width and depth (random weights from seed
+   vocab 102400) and ``DEEPSEEK_LAYERS`` (32) of its 95 layers, served as
+   in phase 9, 257 launches a slot prefill and 289 a decode step.
+14. Recurrent families: RecurrentGemma-2B (26 layers: (rec, rec, attn) x
+   8 and a (rec, rec) tail; d 2560, RG-LRU width 2560, local attention of
+   10 heads over one KV head at head dim 256, window 2048, GeGLU 7680,
+   tied vocab 256000) and xLSTM-350M (24 layers: (7 mLSTM + 1 sLSTM) x 3;
+   d 1024, 4 heads, no FFN, tied vocab 50304), each at full width and
+   depth with random packed MXInt8 weights: 4 requests of 64-512 prompt
+   tokens (powers of two: a prompt fills its bucket, so no pad token
+   enters a recurrent state) and 16 new tokens through the LM serve
+   phase's checks, the launches of every call from ``lm_per_call`` by
+   block kind (RecurrentGemma 263 a slot prefill and 271 a decode step;
+   xLSTM 202 a decode step and 171 + 6 P a P-token slot prefill, its
+   sLSTM layers 2 linears a token); one decode step split by kernel
+   beside the unembedding; one 512-token slot prefill split by kernel and
+   by recurrent scan (``rglru_scan``, ``mlstm_scan``, ``slstm_scan``); a
+   1024-token score (RecurrentGemma: ``flash_attention`` at head dim 256)
+   and RecurrentGemma's 512-token one (the whole-row softmax); then one
+   unit (RecurrentGemma 3 layers, xLSTM 8) card against CPU in kernel,
+   "sim" and "packed" mode, phase 6's tolerance.  The kernel phase holds
+   both flash kernels at head dim 256 (G 10 over one KV head, rings of 64,
+   512 and 2048 slots, a wrapped ring, the 1024-token score, both dtypes)
+   and kernels 1-5 at the two models' shapes (``mxint_matmul`` at N 4:
+   the mLSTM gates).
+15. Train: DeiT-Base at full width and depth (random weights from seed
    0) trained through ``TrainLoop`` on ``SyntheticImageData(n_classes=
    1000, image_size=224, batch=64, seed=0)`` in "fake" (QDQ with the
    serving formats, weights MXInt6/256, acts MXInt8/16): one step run
@@ -169,7 +192,7 @@
    Then 3 steps in "off", reported the same way.  Then one value-and-
    grad of DeiT-Micro in "off", "fake" and "sim" on the card and on the
    CPU: every gradient leaf within ``GRAD_CPU_TOL`` of its scale.
-15. Accuracy: ``benchmarks/common.py``'s recipe on the card: the micro
+16. Accuracy: ``benchmarks/common.py``'s recipe on the card: the micro
    DeiT (4 layers, d 64, 100 classes) trained 700 steps at batch 64 in
    "off" on its hard 100-class task, then evaluated (8 batches of 128
    from seed 99) as float, in Table V's eight rows ("fake", with the fp8
@@ -180,14 +203,14 @@
    launches 2 x (3 + 8 x 4) a batch.  The same trained params on the CPU
    must give the same sim and kernel-mode accuracy.  ``make_train_step``
    must refuse kernel mode and packed planes on the card.
-16. LM train: Llama-3-8B at full width cut to 2 layers (float32, about
+17. LM train: Llama-3-8B at full width cut to 2 layers (float32, about
    1.49 G parameters) trained 4 steps in "off" on ``SyntheticLMData(
    vocab=128256, batch=2, seq_len=512, seed=5)``: ms per step, peak
    GiB, finite losses and grad norms.  Then the SMOKE Llama-3 trained 5
    steps from one initial state on the card and on the CPU: losses
    within ``LM_SMOKE_LOSS_TOL`` relative, the largest parameter gap
    printed.
-17. Prints one JSON line of per-kernel results, then as the last line
+18. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -281,7 +304,26 @@ TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "unaligned_granite_gates_1024x8",
                "mixtral_decode_experts_silu", "mixtral_prefill_experts_silu",
                "granite_decode_experts_silu", "mixtral_decode_ln2_rms",
-               "granite_decode_ln2_rms"}
+               "granite_decode_ln2_rms",
+               # head dim 256: RecurrentGemma-2B's served decode ring and
+               # its 1024-token score (SDPA timed beside both)
+               "recurrentgemma_decode_b4_W2048_served_mxint",
+               "recurrentgemma_decode_b4_W2048_served_mxint_f32",
+               "recurrentgemma_score_1024_causal_mxint",
+               "recurrentgemma_score_1024_causal_mxint_f32",
+               "recurrentgemma_score_1024_causal_float",
+               # kernels 1-5 at RecurrentGemma-2B's and xLSTM-350M's
+               # decode and score shapes
+               "recurrentgemma_decode_rglru_w_a",
+               "recurrentgemma_decode_ffn_wo", "recurrentgemma_score_ffn_wo",
+               "xlstm_decode_gate_w_f", "xlstm_prefill_gate_w_f",
+               "xlstm_slstm_token_w_in", "xlstm_decode_slstm_r_in",
+               "recurrentgemma_decode_rms_wq", "recurrentgemma_decode_rms_wk",
+               "recurrentgemma_score_rms_wi",
+               "recurrentgemma_score512_causal_n512_g10",
+               "recurrentgemma_decode_rglru_gelu",
+               "recurrentgemma_score_geglu", "recurrentgemma_decode_rms",
+               "xlstm_decode_rms"}
 # act mantissa widths of the row kernels' MXInt6 and MXInt12 cases
 MANT_BITS = {"mant6": 6, "mant12": 12}
 # the widened act formats of the matmul kernels' cases: (act block, act
@@ -324,25 +366,62 @@ DSE_IMAGES = 32
 DSE_CPU_LAYERS = 2
 DSE_CPU_IMAGES = 16
 # the mixture-of-experts decoders (config modules) at full width and
-# depth, served as NEW_LMS are; their card-against-CPU check in kernel
-# mode at MOE_CPU_LAYERS layers: two, so that one layer's expert outputs
-# feed the next layer's router.  DeepSeek-67B at full width and
-# DEEPSEEK_LAYERS of its 95 layers: all 95 would hold 62.8 GiB of planes,
-# 3.0 GiB of ring at batch 4 and about 11 GiB of float32 temporaries
-# while the unembedding is dequantized, too close to the card's 79.2 GiB
+# MOE_SERVE_LAYERS of their 32 layers, served as NEW_LMS are; their
+# card-against-CPU check in kernel mode at MOE_CPU_LAYERS layers: two, so
+# that one layer's expert outputs feed the next layer's router.
+# DeepSeek-67B at full width and DEEPSEEK_LAYERS of its 95 layers (all 95
+# would hold 62.8 GiB of planes, 3.0 GiB of ring at batch 4 and about 11
+# GiB of float32 temporaries while the unembedding is dequantized, too
+# close to the card's 79.2 GiB).  Both depths were cut (DeepSeek from 64,
+# the MoE serves from 32, in that order) to keep the smoke under 1000 s
+# of command time with the recurrent phases; the layers run the same
+# kernels at the same shapes, only fewer times.
 MOE_LMS = ("mixtral_8x7b", "granite_moe_3b_a800m")
+MOE_SERVE_LAYERS = 16
 MOE_CPU_LAYERS = 2
-DEEPSEEK_LAYERS = 64
+DEEPSEEK_LAYERS = 32
+# the recurrent families (config modules) at full width and depth: served
+# REC_PROMPTS (powers of two: no pad token enters a recurrent state),
+# REC_NEW_TOKENS each, batch LM_BATCH, max_len LM_MAX_LEN; scored
+# LM_SCORE_TOKENS tokens (RecurrentGemma also REC_SOFTMAX_SCORE: the
+# whole-row softmax); a REC_PREFILL_SPLIT-token slot prefill split by
+# kernel and by scan; card against CPU at one unit in REC_CPU_MODES,
+# serving REC_CPU_PROMPTS and scoring REC_CPU_SCORE tokens: RecurrentGemma
+# 520, past 512 x 512 scores (the flash path, as the other LMs' checks
+# score: the whole-row path's score and P.V products are float32
+# ``torch.matmul`` calls, which sum in another order on each device; at
+# 512 tokens and head dim 256 that moved act-grid steps, about 1% of the
+# logit scale, argmax equal), xLSTM 512 (whole 256-token mLSTM chunks)
+REC_LMS = ("recurrentgemma_2b", "xlstm_350m")
+REC_PROMPTS = (64, 128, 256, 512)
+REC_NEW_TOKENS = 16
+REC_SOFTMAX_SCORE = 512
+REC_PREFILL_SPLIT = 512
+REC_CPU_MODES = ("kernel", "sim", "packed")
+REC_CPU_PROMPTS = (64, 128)
+REC_CPU_SCORE = {"recurrentgemma_2b": 520, "xlstm_350m": 512}
+# the recurrent scans a prefill split times, by the block kind that runs
+# them
+REC_SCANS = {"rglru_scan": "rec", "mlstm_scan": "mlstm",
+             "slstm_scan": "slstm"}
 # launches of a slot prefill and a decode step at full depth, from
 # lm_per_call: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
 # layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40;
 # a MoE layer launches as many as a dense one (Mixtral-8x7B and
-# Granite-MoE-3B, 32 layers); DeepSeek-67B at its 64 served layers
+# Granite-MoE-3B at their 16 served layers); DeepSeek-67B at its 32;
+# RecurrentGemma-2B 18 rec layers of 11 (an RMSNorm, 5 linears and the
+# GELU, the FFN's 2 fused norm -> linears, GELU and out linear) and 8 attn
+# layers of 8 (9 a decode step), + 1; xLSTM-350M 21 mLSTM layers of 9 (an
+# RMSNorm, 8 linears) and 3 sLSTM layers of 2 + 2 P (the RMSNorm, 2
+# linears a token, the out linear), + 1: at a 64-token prefill 580, a
+# decode step 202.  The slot prefill's count is at a 64-token bucket.
 FULL_DEPTH_LAUNCHES = {"llama3_8b": (257, 289), "phi4_mini_3_8b": (257, 289),
                        "qwen3_14b": (401, 441),
-                       "mixtral_8x7b": (257, 289),
-                       "granite_moe_3b_a800m": (257, 289),
-                       "deepseek_67b": (513, 577)}
+                       "mixtral_8x7b": (129, 145),
+                       "granite_moe_3b_a800m": (129, 145),
+                       "deepseek_67b": (257, 289),
+                       "recurrentgemma_2b": (263, 271),
+                       "xlstm_350m": (580, 202)}
 # "sim" against the all-kernel model on the same weights and images: the
 # linears' f32 sums run in another order (float64 against the kernels'
 # ordered f32 steps) and the GELU clips at -128 against -127, so a later
@@ -545,7 +624,7 @@ def kernel_cases(torch, np):
 
     def lm(label):
         return label.startswith(("llama3_8b", "mixtral", "granite",
-                                 "deepseek"))
+                                 "deepseek", "recurrentgemma", "xlstm"))
 
     rows = BATCH * 197
     S = LM_SCORE_TOKENS
@@ -584,7 +663,26 @@ def kernel_cases(torch, np):
                            ("granite_decode_router", LM_BATCH, 1536, 40),
                            ("granite_prefill_router", 1024, 1536, 40),
                            ("deepseek_decode_ffn_wo", LM_BATCH, 22016,
-                            8192)):
+                            8192),
+                           # RecurrentGemma-2B: the RG-LRU's linears (its
+                           # gates 2560 -> 2560), the GeGLU's out; xLSTM:
+                           # the mLSTM gates, N 4 (the narrowest N), its
+                           # q/k/v and up, and the sLSTM's linears, one
+                           # token a row in a slot prefill's loop
+                           ("recurrentgemma_decode_rglru_w_a", LM_BATCH,
+                            2560, 2560),
+                           ("recurrentgemma_prefill_rglru_w_a", 512, 2560,
+                            2560),
+                           ("recurrentgemma_decode_ffn_wo", LM_BATCH, 7680,
+                            2560),
+                           ("recurrentgemma_score_ffn_wo", S, 7680, 2560),
+                           ("xlstm_decode_gate_w_f", LM_BATCH, 1024, 4),
+                           ("xlstm_prefill_gate_w_f", 512, 1024, 4),
+                           ("xlstm_decode_up", LM_BATCH, 1024, 2048),
+                           ("xlstm_prefill_wq", 512, 1024, 1024),
+                           ("xlstm_slstm_token_w_in", 1, 1024, 4096),
+                           ("xlstm_decode_slstm_r_in", LM_BATCH, 1024,
+                            4096)):
         a = x(M, K)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
@@ -631,7 +729,17 @@ def kernel_cases(torch, np):
                            # DeepSeek-67B's d 8192: RMS -> wq and -> wi
                            ("deepseek_decode_rms_wq", LM_BATCH, 8192, 8192),
                            ("deepseek_decode_rms_wi", LM_BATCH, 8192,
-                            22016)):
+                            22016),
+                           # RecurrentGemma-2B's attention q (2560), k and
+                           # v (256: one KV head of 256), GeGLU's inputs
+                           ("recurrentgemma_decode_rms_wq", LM_BATCH, 2560,
+                            2560),
+                           ("recurrentgemma_decode_rms_wk", LM_BATCH, 2560,
+                            256),
+                           ("recurrentgemma_decode_rms_wi", LM_BATCH, 2560,
+                            7680),
+                           ("recurrentgemma_score_rms_wi", S, 2560,
+                            7680)):
         rms = lm(label)
         a, g = x(M, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or label.startswith("no_beta") else 0.1 * x(d)
@@ -699,7 +807,11 @@ def kernel_cases(torch, np):
             ("mixtral_prefill_gates_1024x2", 1024, 2, 2, True, None),
             ("granite_decode_gates_4x8", LM_BATCH, 8, 8, True, None),
             ("granite_prefill_gates_1024x8", 1024, 8, 8, True, None),
-            ("unaligned_granite_gates_1024x8", 1024, 8, 8, True, "offset")):
+            ("unaligned_granite_gates_1024x8", 1024, 8, 8, True, "offset"),
+            # RecurrentGemma-2B's 512-token score: 10 heads' causal rows
+            # of 512 keys
+            ("recurrentgemma_score512_causal_n512_g10", 10 * 512, 512, 16,
+             True, "causal")):
         a = x(R, n, scale=4.0)
         mb = MANT_BITS.get(how, 8)
         if how == "causal":
@@ -744,7 +856,16 @@ def kernel_cases(torch, np):
             ("mixtral_prefill_experts_silu", 8 * 320, 14336, "silu", 16,
              None),
             ("granite_decode_experts_silu", 40 * 8, 512, "silu", 16,
-             None)):
+             None),
+            # RecurrentGemma-2B: the RG-LRU's y branch (width 2560) and
+            # the GeGLU gate (7680)
+            ("recurrentgemma_decode_rglru_gelu", LM_BATCH, 2560, "gelu", 16,
+             None),
+            ("recurrentgemma_prefill_rglru_gelu", 512, 2560, "gelu", 16,
+             None),
+            ("recurrentgemma_decode_geglu", LM_BATCH, 7680, "gelu", 16,
+             None),
+            ("recurrentgemma_score_geglu", S, 7680, "gelu", 16, None)):
         a = x(R, d, scale=2.0)
         mb = MANT_BITS.get(how, 8)
         if lm(label):
@@ -803,7 +924,13 @@ def kernel_cases(torch, np):
             # the MoE layers' RMSNorm before the FFN (no fused linear
             # follows it): a decode step's bf16 rows
             ("mixtral_decode_ln2_rms", LM_BATCH, 4096, 16, True, "rms"),
-            ("granite_decode_ln2_rms", LM_BATCH, 1536, 16, True, "rms")):
+            ("granite_decode_ln2_rms", LM_BATCH, 1536, 16, True, "rms"),
+            # the pre-norm of every rec, mlstm and slstm block (no fused
+            # linear follows it): RecurrentGemma d 2560, xLSTM d 1024
+            ("recurrentgemma_decode_rms", LM_BATCH, 2560, 16, True, "rms"),
+            ("recurrentgemma_prefill_rms", 512, 2560, 16, True, "rms"),
+            ("xlstm_decode_rms", LM_BATCH, 1024, 16, True, "rms"),
+            ("xlstm_prefill_rms", 512, 1024, 16, True, "rms")):
         rms = how == "rms"
         a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or how == "no_beta" else 0.1 * x(d)
@@ -996,7 +1123,36 @@ def flash_cases(torch, np, x):
             ("mant6_W700_g5_mxint", 700, 8, 5, 128, 16, bf16, mx6,
              ((0, 37), (0, 400), (0, 513), (0, 700))),
             ("mant12_W700_g3_mxint", 700, 8, 3, 128, 16, bf16, mx12,
-             ((0, 37), (0, 400), (0, 513), (0, 700)))):
+             ((0, 37), (0, 400), (0, 513), (0, 700))),
+            # RecurrentGemma-2B: head dim 256, 10 query heads over one KV
+            # head; its served rings (prompts of 64-512 tokens plus 16 new
+            # ones), rings of 64 and 512 slots, a wrapped window ring
+            # (every slot live) beside rows short of it, both dtypes; head
+            # dim 160 takes part of the second half of the columns
+            ("recurrentgemma_decode_b4_W2048_served_mxint", 2048, 1, 10,
+             256, 16, bf16, mx, ((0, 80), (0, 144), (0, 272), (0, 528))),
+            ("recurrentgemma_decode_b4_W2048_served_mxint_f32", 2048, 1, 10,
+             256, 16, f32, mx, ((0, 80), (0, 144), (0, 272), (0, 528))),
+            ("recurrentgemma_decode_b4_W2048_wrapped_mxint", 2048, 1, 10,
+             256, 16, bf16, mx, ((0, 2048), (0, 1500), (0, 37),
+                                 (0, 2048, 900, 1100))),
+            ("recurrentgemma_decode_b4_W2048_wrapped_mxint_f32", 2048, 1, 10,
+             256, 16, f32, mx, ((0, 2048), (0, 1500), (0, 37),
+                                (0, 2048, 900, 1100))),
+            ("recurrentgemma_decode_b4_W512_mxint", 512, 1, 10, 256, 16,
+             bf16, mx, ((0, 37), (0, 129), (0, 300), (0, 512))),
+            ("recurrentgemma_decode_b4_W512_mxint_f32", 512, 1, 10, 256, 16,
+             f32, mx, ((0, 37), (0, 129), (0, 300), (0, 512))),
+            ("recurrentgemma_decode_b4_W64_mxint", 64, 1, 10, 256, 16, bf16,
+             mx, ((0, 1), (0, 17), (0, 40), (0, 64))),
+            ("recurrentgemma_decode_b4_W64_mxint_f32", 64, 1, 10, 256, 16,
+             f32, mx, ((0, 1), (0, 17), (0, 40), (0, 64))),
+            ("recurrentgemma_decode_b4_W2048_float", 2048, 1, 10, 256, 16,
+             bf16, fl, ((0, 80), (0, 144), (0, 272), (0, 528))),
+            ("ragged_W300_g10_d160_mxint", 300, 1, 10, 160, 16, bf16, mx,
+             ragged),
+            ("ragged_W300_g10_d160_mxint_f32", 300, 1, 10, 160, 16, f32, mx,
+             ragged)):
         q = x(4, hkv, g, d, scale=1.5).to(dt)
         k = x(4, W, hkv, d, scale=1.5).to(dt)
         v = x(4, W, hkv, d).to(dt)
@@ -1062,7 +1218,30 @@ def flash_cases(torch, np, x):
              bf16, mx12),
             # float32 operands take the ordered kernel: bit for bit
             ("ragged_650_window256_mxint_f32", 650, True, 256, 32, 4, 128, 16,
-             f32, mx)):
+             f32, mx),
+            # RecurrentGemma-2B's 1024-token score: head dim 256, 10 query
+            # heads over one KV head, local window 2048 (two warps a row
+            # group in the bf16 kernel, the 256-column layout in the
+            # ordered one); a window inside the sequence, 12-bit scores
+            # (P split in three), float, head dims 160 and 192
+            ("recurrentgemma_score_1024_causal_mxint", 1024, True, 2048, 10,
+             10, 256, 16, bf16, mx),
+            ("recurrentgemma_score_1024_causal_float", 1024, True, 2048, 10,
+             10, 256, 16, bf16, fl),
+            ("recurrentgemma_score_1024_causal_mxint_f32", 1024, True, 2048,
+             10, 10, 256, 16, f32, mx),
+            ("ragged_650_window256_d256_g10_mxint", 650, True, 256, 10, 10,
+             256, 16, bf16, mx),
+            ("ragged_650_window256_d256_g10_mxint_f32", 650, True, 256, 10,
+             10, 256, 16, f32, mx),
+            ("recurrentgemma_g10_650_causal_mant12", 650, True, 0, 10, 10,
+             256, 16, bf16, mx12),
+            ("ragged_300_full_d192_g2_b32_mxint", 300, False, 0, 8, 2, 192,
+             32, bf16, mx),
+            ("ragged_200_window100_d160_g4_b4_mxint", 200, True, 100, 8, 4,
+             160, 4, bf16, mx),
+            ("ragged_300_full_d160_g4_float", 300, False, 0, 8, 4, 160, 16,
+             bf16, fl)):
         hkv = h // g
         q = x(h, S, d, scale=1.5).to(dt)
         k = x(hkv, S, d, scale=1.5).to(dt)
@@ -1071,7 +1250,7 @@ def flash_cases(torch, np, x):
         size = q.element_size()
         ops = 4.0 * pairs * d
         lib = None
-        if kw is fl and window == 0 and causal:
+        if kw is fl and causal and (window == 0 or window >= S):
             def lib(q=q, k=k, v=v):
                 return F.scaled_dot_product_attention(
                     q[None], k[None], v[None], is_causal=True,
@@ -1293,11 +1472,13 @@ def kernel_breakdown(torch, run, names):
     """ms of one ``run()`` spent in each kernel op, from CUDA events
     recorded around every call (the host work between the two events is
     inside).  The name "experts" stands for the MoE expert products
-    (``moe._expert_mm``: the stack's dequantize and its einsum)."""
+    (``moe._expert_mm``: the stack's dequantize and its einsum), the names
+    of ``REC_SCANS`` for the recurrent scans of ``models/recurrent.py``
+    (the linears they launch inside)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import moe
-    where = {n: (moe, "_expert_mm") if n == "experts" else (ops, n)
-             for n in names}
+    from repro_torch.models import moe, recurrent
+    where = {n: (moe, "_expert_mm") if n == "experts" else
+             (recurrent, n) if n in REC_SCANS else (ops, n) for n in names}
     saved = {n: getattr(*where[n]) for n in names}
     events = {n: [] for n in names}
 
@@ -1659,23 +1840,60 @@ def backends_phase(torch, np):
     return results, mixed_launches
 
 
-def lm_per_call(cfg, decode: bool, score: bool = False):
-    """Kernel launches of one slot prefill, decode step or cache-less
-    forward of the decoder ``cfg`` in kernel mode.  Per layer, dense: 5
-    fused norm -> linears (q, k, v, gate, up), 2 linears (attention and
-    FFN out) and the SiLU; MoE: 3 fused norm -> linears (q, k, v), 2
-    linears (attention out, router), the RMSNorm before the FFN, the
-    gates' softmax and the experts' SiLU; then the attention kernel where
-    there is one, and with qk-norm the per-head q and k RMSNorms; after
-    the layers the final RMSNorm."""
-    L, moe = cfg.n_layers, cfg.ffn_kind == "moe"
-    return {"mxint_ln_matmul": (3 if moe else 5) * L, "mxint_matmul": 2 * L,
-            "mxint_gelu": L,
-            "mxint_layernorm": 1 + (2 * L if cfg.qk_norm else 0)
-            + (L if moe else 0),
-            "mxint_softmax": L if moe else 0,
-            "flash_attention": L if score else 0,
-            "flash_attention_decode": L if decode else 0}
+def lm_per_call(cfg, decode: bool, score: bool = False,
+                tokens: int = LM_SCORE_TOKENS):
+    """Kernel launches of one slot prefill (of ``tokens`` tokens), decode
+    step or cache-less forward (``score``, of ``tokens`` tokens) of the
+    decoder ``cfg`` in kernel mode, layer by layer from its block kinds.
+    attn: 3 fused norm -> linears (q, k, v) and the out linear, with
+    qk-norm the per-head q and k RMSNorms, and the attention kernel where
+    there is one (a decode step's; a forward's flash kernel past 512 x
+    512 scores, the whole-row softmax up to it; a prefill's attention is
+    float).  The FFN after an attn or rec layer, dense: 2 fused norm ->
+    linears (gate, up), the SiLU or GELU and the out linear; MoE: the
+    RMSNorm, the router linear, the gates' softmax and the experts' SiLU.
+    rec: the RMSNorm, 5 linears (y, x, the two gates, out) and the GELU.
+    mlstm: the RMSNorm and 8 linears (q, k, v, the two gates, out, up,
+    down).  slstm: the RMSNorm, 2 linears a token and the out linear.
+    After the layers the final RMSNorm."""
+    s = 1 if decode else tokens
+    c = {n: 0 for n in REPLACES}
+    c["mxint_layernorm"] = 1
+    moe = cfg.ffn_kind == "moe"
+    for kind in cfg.layer_kinds:
+        if kind == "attn":
+            c["mxint_ln_matmul"] += 3
+            c["mxint_matmul"] += 1
+            c["mxint_layernorm"] += 2 if cfg.qk_norm else 0
+            if decode:
+                c["flash_attention_decode"] += 1
+            elif score:
+                c["flash_attention" if s * s > 512 * 512
+                  else "mxint_softmax"] += 1
+        elif kind == "rec":
+            c["mxint_layernorm"] += 1
+            c["mxint_matmul"] += 5
+            c["mxint_gelu"] += 1
+        else:
+            c["mxint_layernorm"] += 1
+            c["mxint_matmul"] += 8 if kind == "mlstm" else 2 * s + 1
+        if kind in ("attn", "rec") and cfg.ffn_kind != "none":
+            if moe:
+                c["mxint_layernorm"] += 1
+                c["mxint_matmul"] += 1
+                c["mxint_softmax"] += 1
+            else:
+                c["mxint_ln_matmul"] += 2
+                c["mxint_matmul"] += 1
+            c["mxint_gelu"] += 1
+    return c
+
+
+def cut_depth(cfg, units: int):
+    """``cfg`` cut to ``units`` repeats of its unit and no tail (a dense
+    stack: ``units`` layers)."""
+    return dataclasses.replace(cfg, n_units=units, tail=(),
+                               n_layers=units * len(cfg.unit))
 
 
 def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
@@ -1711,7 +1929,8 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
         max_len=LM_MAX_LEN, batch=LM_BATCH, pack_weights=True,
         weight_fmt=MXINT8_WEIGHT), device=DEVICE)
     allocated = torch.cuda.memory_allocated() / 2 ** 30
-    log(f"[{tag}] {cfg.name} {L} layers, d {cfg.d_model}, "
+    log(f"[{tag}] {cfg.name} {L} layers ({' '.join(cfg.layer_kinds)}), "
+        f"d {cfg.d_model}, "
         f"{cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff {cfg.d_ff}"
         + (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}" if moe
            else "") + f", vocab {cfg.vocab}, "
@@ -1781,16 +2000,18 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
             raise AssertionError(f"{tag}: request {r.uid}: {r.generated}")
     pre = [c for c in calls if c[0] == "prefill"]
     dec = [c for c in calls if c[0] == "decode"]
-    for kind, _, _, got in calls:
-        want = lm_per_call(cfg, decode=kind == "decode")
+    totals = []
+    for kind, P, _, got in calls:
+        want = lm_per_call(cfg, decode=kind == "decode", tokens=P or 1)
         if got != want:
             raise AssertionError(f"{tag}: {kind} launched {got}, expected "
                                  f"{want}")
+        totals.append(sum(want.values()))
     per_step = sum(lm_per_call(cfg, True).values())
-    per_prefill = sum(lm_per_call(cfg, False).values())
+    per_prefill = sum(lm_per_call(cfg, False, tokens=64).values())
     snap = T.snapshot()
     h = snap["histograms"]["scheduler/kernel_launches"]
-    if (h["min"], h["max"], h["count"]) != (per_prefill, per_step,
+    if (h["min"], h["max"], h["count"]) != (min(totals), max(totals),
                                             len(calls)):
         raise AssertionError(f"{tag}: kernel_launches samples {h}")
     if snap["counters"]["scheduler/completed"] != len(prompts) or \
@@ -1813,6 +2034,7 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
              "decode_step_span_ms_mean": span_ms,
              "launches_per_decode_step": per_step,
              "launches_per_slot_prefill": per_prefill,
+             "launches_per_call_range": [min(totals), max(totals)],
              "launches": launches,
              "tokens": {r.uid: r.generated for r in done},
              "telemetry": telemetry_report(tag)}
@@ -1857,7 +2079,8 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
         f"min={min(dec_ms)!r} max={max(dec_ms)!r}; decode_step span mean "
         f"{span_ms!r} ms over {n_span}; decode tokens/s at batch "
         f"{LM_BATCH}={stats['decode_tokens_per_s']!r}; launches per decode "
-        f"step {per_step}, per slot prefill {per_prefill}")
+        f"step {per_step}, per 64-token slot prefill {per_prefill}, per "
+        f"call {min(totals)}-{max(totals)}")
     return model, engine, stats
 
 
@@ -1887,18 +2110,22 @@ def expert_bounds(params, expert_ms, tag):
             "port_passes_bound_ms": passes_ms}
 
 
-def lm_score_phase(torch, np, model, engine, tag="lm score"):
-    """One full-size 1024-token loss forward (with a MoE model's
-    load-balancing loss): the flash kernel in every layer.  Scoring runs
+def lm_score_phase(torch, np, model, engine, tag="lm score",
+                   tokens=LM_SCORE_TOKENS, trace=True):
+    """One full-size loss forward of ``tokens`` tokens (with a MoE
+    model's load-balancing loss): at 1024 tokens the flash kernel in every
+    attention layer.  ``trace``: also trace two forwards for the device's
+    busy time (xLSTM's 1024-token forward issues some 10^5 device ops;
+    its busy time is read from a traced prefill instead).  Scoring runs
     under ``torch.no_grad()``: ``loss`` is differentiable, and the score
     timings must not build a graph."""
     with torch.no_grad():
-        return _lm_score(torch, np, model, engine, tag)
+        return _lm_score(torch, np, model, engine, tag, tokens, trace)
 
 
-def _lm_score(torch, np, model, engine, tag):
+def _lm_score(torch, np, model, engine, tag, n_tokens, trace):
     toks = np.random.default_rng(SEED + 3).integers(
-        0, model.cfg.vocab, size=(1, LM_SCORE_TOKENS)).astype(np.int32)
+        0, model.cfg.vocab, size=(1, n_tokens)).astype(np.int32)
     model.loss(engine.params, {"tokens": toks})           # warm
     torch.cuda.synchronize()
     reset_counts()
@@ -1907,23 +2134,23 @@ def _lm_score(torch, np, model, engine, tag):
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     launches = read_counts()
-    want = lm_per_call(model.cfg, decode=False, score=True)
+    want = lm_per_call(model.cfg, decode=False, score=True, tokens=n_tokens)
     if launches != want:
         raise AssertionError(f"{tag}: launched {launches}, expected {want}")
     if not (0.0 < loss < 2.0 * float(np.log(model.cfg.vocab))):
         raise AssertionError(f"loss {loss} is not finite and plausible")
-    stats = {"tokens": LM_SCORE_TOKENS, "loss": loss, "ms": score_s * 1e3,
-             "tokens_per_s": LM_SCORE_TOKENS / score_s, "launches": launches}
+    stats = {"tokens": n_tokens, "loss": loss, "ms": score_s * 1e3,
+             "tokens_per_s": n_tokens / score_s, "launches": launches}
     run = lambda: model.loss(engine.params, {"tokens": toks})  # noqa: E731
     stats["ms_by_kernel"] = kernel_breakdown(
         torch, run, [n for n, c in want.items() if c]
         + (["experts"] if model.cfg.ffn_kind == "moe" else []))
-    busy = device_ms(run, iters=2, cats=BUSY_CATS)
+    busy = device_ms(run, iters=2, cats=BUSY_CATS) if trace else None
     stats.update(device_busy_ms=busy,
                  device_idle_share=idle_share(busy, stats["ms"]))
     log(f"[{tag}] ms by kernel {stats['ms_by_kernel']}; device busy "
         f"{busy!r} ms, idle share {stats['device_idle_share']!r}")
-    log(f"[{tag}] {LM_SCORE_TOKENS} tokens loss={loss!r} "
+    log(f"[{tag}] {n_tokens} tokens loss={loss!r} "
         f"ms={stats['ms']!r} tokens/s={stats['tokens_per_s']!r} "
         f"launches {launches}")
     return stats, launches
@@ -1938,11 +2165,11 @@ LM_CPU_MODES = {"kernel": ("kernel", {"quantize_nonlinear": True}, True),
 
 def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
                  layers):
-    """An LM architecture (``full``) at full width, ``layers`` layers,
-    float32: the card against the CPU, serving 2 requests of
-    ``prompt_lens`` tokens (4 new tokens each) and scoring
-    ``score_tokens`` tokens, in each of ``modes`` (labels of
-    ``LM_CPU_MODES``)."""
+    """An LM architecture (``full``) at full width, ``layers`` repeats of
+    its unit (``layers`` layers of a dense stack) and no tail, float32: the
+    card against the CPU, serving 2 requests of ``prompt_lens`` tokens (4
+    new tokens each) and scoring ``score_tokens`` tokens, in each of
+    ``modes`` (labels of ``LM_CPU_MODES``)."""
     from repro_torch.core.mx_types import MXINT8_WEIGHT
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving.engine import (ServeConfig, ServingEngine,
@@ -1952,9 +2179,10 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
     for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
         fn(torch.ones(1))       # first multi-threaded CPU calls may differ
         fn(torch.ones(1, dtype=torch.float64))
-    base = dataclasses.replace(full, n_layers=layers, dtype=torch.float32)
+    base = dataclasses.replace(cut_depth(full, layers), dtype=torch.float32)
     floats = DecoderLM(base).init(SEED, device="cpu")
-    planes = pack_params_mxint(floats, MXINT8_WEIGHT)
+    planes = pack_params_mxint(floats, MXINT8_WEIGHT,
+                               DecoderLM(base).layer_stacks())
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
                for n in prompt_lens]
@@ -1989,7 +2217,7 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
         gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
         diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
         results[label] = {
-            "layers": layers, "tokens_card": tg, "tokens_cpu": tc,
+            "layers": base.n_layers, "tokens_card": tg, "tokens_cpu": tc,
             "card_s": gs, "cpu_s": cs, "score_logits_max_abs_gap": gap,
             "score_logits_scale": scale, "argmax_differ": diff,
             "score_logits_differing_elements": int((lg != lc).sum()),
@@ -2264,17 +2492,19 @@ def widened_serve_phase(torch, np):
 
 
 def moe_phases(torch, np, phase):
-    """Each of ``MOE_LMS`` at full width and depth: served (the LM serve
-    phase's checks, launches pinned), one 1024-token ``loss`` forward with
-    the load-balancing loss, then held card against CPU in kernel mode at
-    ``MOE_CPU_LAYERS`` layers.  Every earlier model is freed first."""
+    """Each of ``MOE_LMS`` at full width and ``MOE_SERVE_LAYERS`` layers:
+    served (the LM serve phase's checks, launches pinned), one 1024-token
+    ``loss`` forward with the load-balancing loss, then held card against
+    CPU in kernel mode at ``MOE_CPU_LAYERS`` layers.  Every earlier model
+    is freed first."""
     import importlib
     torch.cuda.empty_cache()
     out = {}
     for name in MOE_LMS:
         full = importlib.import_module(f"repro_torch.configs.{name}").FULL
         model, engine, serve = phase(
-            f"{name} serve", lm_serve_phase, torch, np, full, NEW_LM_PROMPTS,
+            f"{name} serve", lm_serve_phase, torch, np,
+            cut_depth(full, MOE_SERVE_LAYERS), NEW_LM_PROMPTS,
             NEW_LM_NEW_TOKENS, name)
         check_full_depth_launches(name, serve)
         score, _ = phase(f"{name} score", lm_score_phase, torch, np, model,
@@ -2288,8 +2518,75 @@ def moe_phases(torch, np, phase):
     return out
 
 
+def prefill_split(torch, model, engine, tag):
+    """One ``REC_PREFILL_SPLIT``-token slot prefill into a scratch cache:
+    ms by CUDA events around the call, split by kernel and by recurrent
+    scan (a scan's events hold the linears it launches: the sLSTM loop's
+    two a token), and the device's busy time and idle share."""
+    P = REC_PREFILL_SPLIT
+    toks = torch.zeros(1, P, dtype=torch.int32, device=DEVICE)
+    cache = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
+    run = lambda: engine._prefill_slot(  # noqa: E731
+        engine.params, toks, P, 0, cache)
+    run()
+    total = time_ms(run, iters=3, warmup=1)
+    want = lm_per_call(model.cfg, False, tokens=P)
+    by_kernel = kernel_breakdown(torch, run, [n for n, c in want.items()
+                                              if c])
+    by_scan = kernel_breakdown(torch, run, [
+        n for n, k in REC_SCANS.items() if k in model.cfg.layer_kinds])
+    busy = device_ms(run, iters=1, cats=BUSY_CATS)
+    out = {"tokens": P, "ms_events": total, "launches": sum(want.values()),
+           "ms_by_kernel": by_kernel,
+           "ms_other": total - sum(by_kernel.values()),
+           "ms_by_scan": by_scan, "device_busy_ms": busy,
+           "device_idle_share": idle_share(busy, total)}
+    log(f"[{tag}] a {P}-token slot prefill {total!r} ms by events, "
+        f"{out['launches']} launches; by kernel {by_kernel}, other "
+        f"{out['ms_other']!r}; by scan (their linears inside) {by_scan}; "
+        f"device busy {busy!r} ms, idle share {out['device_idle_share']!r}")
+    del cache
+    return out
+
+
+def recurrent_phases(torch, np, phase):
+    """Each of ``REC_LMS`` at full width and depth: served (the LM serve
+    phase's checks, every call's launches from ``lm_per_call``), one
+    slot prefill split by kernel and scan, a 1024-token score (with an
+    attention layer, a ``REC_SOFTMAX_SCORE``-token one too), then one unit
+    held card against CPU in ``REC_CPU_MODES``.  Every earlier model is
+    freed first."""
+    import importlib
+    torch.cuda.empty_cache()
+    out = {}
+    for name in REC_LMS:
+        full = importlib.import_module(f"repro_torch.configs.{name}").FULL
+        model, engine, serve = phase(
+            f"{name} serve", lm_serve_phase, torch, np, full, REC_PROMPTS,
+            REC_NEW_TOKENS, name)
+        check_full_depth_launches(name, serve)
+        serve["prefill_split"] = prefill_split(torch, model, engine, name)
+        res = {"serve": serve}
+        res["score"], _ = phase(f"{name} score", lm_score_phase, torch, np,
+                                model, engine, f"{name} score",
+                                LM_SCORE_TOKENS, "attn" in full.layer_kinds)
+        if "attn" in full.layer_kinds:
+            res["score_softmax"], _ = phase(
+                f"{name} score {REC_SOFTMAX_SCORE}", lm_score_phase, torch,
+                np, model, engine, f"{name} score {REC_SOFTMAX_SCORE}",
+                REC_SOFTMAX_SCORE)
+        del model, engine
+        torch.cuda.empty_cache()
+        res["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
+            REC_CPU_MODES, REC_CPU_PROMPTS, REC_CPU_SCORE[name],
+            f"{name} cpu", 1)
+        out[name] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
-# training (phases 14-16)
+# training (phases 15-17)
 # ---------------------------------------------------------------------------
 def peak_gib(torch):
     return torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2862,7 +3159,7 @@ def main(argv) -> int:
                     help="build, then run only the kernel phase of these "
                          "kernels (a quick check; prints no 'ok' line)")
     ap.add_argument("--training", action="store_true",
-                    help="build, then run only the training phases (14-16; "
+                    help="build, then run only the training phases (15-17; "
                          "prints no 'ok' line)")
     args = ap.parse_args(argv)
     import torch
@@ -2955,15 +3252,16 @@ def main(argv) -> int:
             NEW_LM_CPU_MODES, NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE,
             f"{name} cpu", NEW_LM_CPU_LAYERS)}
     moe_lms = moe_phases(torch, np, phase)
-    ds_full = dataclasses.replace(
+    ds_full = cut_depth(
         importlib.import_module("repro_torch.configs.deepseek_67b").FULL,
-        n_layers=DEEPSEEK_LAYERS)
+        DEEPSEEK_LAYERS)
     model, engine, ds_serve = phase("deepseek_67b serve", lm_serve_phase,
                                     torch, np, ds_full, NEW_LM_PROMPTS,
                                     NEW_LM_NEW_TOKENS, "deepseek_67b")
     check_full_depth_launches("deepseek_67b", ds_serve)
     del model, engine
     torch.cuda.empty_cache()
+    rec_lms = recurrent_phases(torch, np, phase)
     train_stats = phase("train", train_phase, torch, np)
     acc_stats, acc_launches = phase("accuracy", accuracy_phase, torch, np)
     lm_train_stats = phase("lm train", lm_train_phase, torch, np)
@@ -2989,7 +3287,21 @@ def main(argv) -> int:
                            ("score", "flash_attention"))) + (
         ("deepseek_67b serve", ds_serve["launches"],
          common + ("flash_attention_decode",)),
-        ("accuracy kernel mode", acc_launches, common + ("mxint_softmax",)))
+        ("accuracy kernel mode", acc_launches, common + ("mxint_softmax",)),
+        # RecurrentGemma: a prefill's attention is float, the decode
+        # kernel runs in every step, the flash kernel in the 1024-token
+        # score, the whole-row softmax in the 512-token one; xLSTM has no
+        # attention, no FFN and no GELU
+        ("recurrentgemma_2b serve", rec_lms["recurrentgemma_2b"]["serve"][
+            "launches"], common + ("flash_attention_decode",)),
+        ("recurrentgemma_2b score", rec_lms["recurrentgemma_2b"]["score"][
+            "launches"], common + ("flash_attention",)),
+        ("recurrentgemma_2b score 512", rec_lms["recurrentgemma_2b"][
+            "score_softmax"]["launches"], common + ("mxint_softmax",)),
+        ("xlstm_350m serve", rec_lms["xlstm_350m"]["serve"]["launches"],
+         ("mxint_matmul", "mxint_layernorm")),
+        ("xlstm_350m score", rec_lms["xlstm_350m"]["score"]["launches"],
+         ("mxint_matmul", "mxint_layernorm")))
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -3003,7 +3315,8 @@ def main(argv) -> int:
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
          "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
          "widened_serve": widened_stats, **new_lms, **moe_lms,
-         "deepseek_67b": {"serve": ds_serve}, "train": train_stats,
+         "deepseek_67b": {"serve": ds_serve}, **rec_lms,
+         "train": train_stats,
          "accuracy": acc_stats, "lm_train": lm_train_stats},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

@@ -11,6 +11,7 @@ from repro_torch.models.model_api import ModelConfig
 
 FULL = ModelConfig(
     name="deepseek_67b",
+    family="dense",
     n_layers=95,
     d_model=8192,
     n_heads=64,
@@ -18,6 +19,7 @@ FULL = ModelConfig(
     d_ff=22016,
     vocab=102400,
     unit=("attn",),
+    n_units=95,
     rope_theta=10000.0,
     ffn_kind="swiglu",
     dtype=torch.bfloat16,
@@ -25,6 +27,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="deepseek_67b_smoke",
+    family="dense",
     n_layers=3,
     d_model=64,
     n_heads=8,
@@ -32,6 +35,7 @@ SMOKE = ModelConfig(
     d_ff=160,
     vocab=512,
     unit=("attn",),
+    n_units=3,
     ffn_kind="swiglu",
     dtype=torch.float32,
 )

@@ -12,6 +12,7 @@ from repro_torch.models.model_api import ModelConfig, MoEConfig
 
 FULL = ModelConfig(
     name="granite_moe_3b_a800m",
+    family="moe",
     n_layers=32,
     d_model=1536,
     n_heads=24,
@@ -28,6 +29,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="granite_moe_smoke",
+    family="moe",
     n_layers=2,
     d_model=48,
     n_heads=6,

@@ -9,6 +9,7 @@ from repro_torch.models.model_api import ModelConfig
 
 FULL = ModelConfig(
     name="llama3_8b",
+    family="dense",
     n_layers=32,
     d_model=4096,
     n_heads=32,
@@ -23,6 +24,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="llama3_8b_smoke",
+    family="dense",
     n_layers=2,
     d_model=64,
     n_heads=4,

@@ -12,6 +12,7 @@ from repro_torch.models.model_api import ModelConfig, MoEConfig
 
 FULL = ModelConfig(
     name="mixtral_8x7b",
+    family="moe",
     n_layers=32,
     d_model=4096,
     n_heads=32,
@@ -28,6 +29,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="mixtral_smoke",
+    family="moe",
     n_layers=2,
     d_model=64,
     n_heads=4,

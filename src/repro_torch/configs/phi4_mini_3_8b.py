@@ -13,6 +13,7 @@ from repro_torch.models.model_api import ModelConfig
 
 FULL = ModelConfig(
     name="phi4_mini_3_8b",
+    family="dense",
     n_layers=32,
     d_model=3072,
     n_heads=24,
@@ -28,6 +29,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="phi4_mini_smoke",
+    family="dense",
     n_layers=2,
     d_model=48,
     n_heads=6,

@@ -12,6 +12,7 @@ from repro_torch.models.model_api import ModelConfig
 
 FULL = ModelConfig(
     name="qwen3_14b",
+    family="dense",
     n_layers=40,
     d_model=5120,
     n_heads=40,
@@ -28,6 +29,7 @@ FULL = ModelConfig(
 
 SMOKE = ModelConfig(
     name="qwen3_14b_smoke",
+    family="dense",
     n_layers=2,
     d_model=64,
     n_heads=4,

@@ -46,25 +46,33 @@ def vit_params(model, arrays: Dict[str, Any], device="cuda") -> Dict[str, Any]:
 
 def lm_params(model, arrays: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """The reference ``DecoderLM``'s parameters as numpy arrays (``embed``,
-    ``final_norm``, ``unembed``, and the blocks stacked on a leading axis
-    under ``units/u0_attn``; ``tail`` empty) -> the port's Param tree on
-    ``device``, whose ``layers`` is a per-layer list.  A MoE layer's
+    ``final_norm``, ``unembed``; under ``units/u{j}_{kind}`` the blocks of
+    unit position j stacked on a leading ``n_units`` axis, under
+    ``tail/t{j}_{kind}`` the tail's blocks unstacked) -> the port's Param
+    tree on ``device``, whose ``layers`` is a per-layer list in the
+    reference's order: the unit repeats, then the tail.  A MoE layer's
     router and (E, ...) expert stacks come across as its other leaves
     do: layer i's slice of each stacked array."""
+    cfg = model.cfg
     arrays = dict(arrays)
     units, tail = arrays.pop("units", {}), arrays.pop("tail", {})
-    if set(units) != {"u0_attn"} or tail:
-        raise ValueError("lm_params takes ('attn',) stacks without a tail")
-    n = model.cfg.n_layers
+    unit_keys = [f"u{j}_{k}" for j, k in enumerate(cfg.unit)]
+    tail_keys = [f"t{j}_{k}" for j, k in enumerate(cfg.tail)]
+    if set(units) != set(unit_keys) or set(tail) != set(tail_keys):
+        raise ValueError(f"units {sorted(units)} / tail {sorted(tail)}: "
+                         f"keys differ from the model's {unit_keys} / "
+                         f"{tail_keys}")
+    n = cfg.resolved_n_units
 
     def layer(tree, i):
         if isinstance(tree, dict):
             return {k: layer(v, i) for k, v in tree.items()}
         a = np.asarray(tree)
         if a.shape[0] != n:
-            raise ValueError(f"stacked leaf with {a.shape[0]} layers, "
+            raise ValueError(f"stacked leaf with {a.shape[0]} units, "
                              f"expected {n}")
         return a[i]
 
-    arrays["layers"] = [layer(units["u0_attn"], i) for i in range(n)]
+    arrays["layers"] = [layer(units[k], u) for u in range(n)
+                        for k in unit_keys] + [tail[k] for k in tail_keys]
     return _convert(model, model.param_spec(), arrays, device)

@@ -10,6 +10,9 @@ launch builds, or ``build_all()`` does it up front.
 Flags: ``sm_90a``, no ``--use_fast_math`` (it would change the Eq. 20
 divide and the 2^-126 tail) and ``-fmad=false``, so that nvcc never fuses a
 multiply and an add that the plain versions round separately.
+``-split-compile=0`` runs the optimizer over a source's device functions
+on every host thread (``flash_attention.cu`` holds some fifty kernel
+instances and is the longest of the builds).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("mxint_matmul", "mxint_ln_matmul", "mxint_softmax", "mxint_gelu",
            "mxint_layernorm", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-split-compile=0")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _ENTRIES: Dict[str, Callable] = {}

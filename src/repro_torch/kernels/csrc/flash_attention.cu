@@ -77,7 +77,8 @@ using namespace mx;
 namespace {
 
 constexpr int kTileK = 128;
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;          // head dims the kernels take
+constexpr int kNarrowD = 128;       // the widest head dim of the base layouts
 constexpr int kPerLane = kTileK / kWarp;          // 4 keys per lane
 constexpr float kNegInf = -2.0e38f;               // the masking sentinel
 constexpr float kNegInfHalf = -1.0e38f;           // fully-masked-row guard
@@ -157,11 +158,11 @@ struct Problem {
   float scale, log2e;
 };
 
-// shared memory, in floats: q rows | K or V tile | scores | acc | row state
-// | LUT
-__host__ __device__ constexpr size_t smem_floats(int rows) {
-  return (size_t)rows * kMaxD + (size_t)kTileK * (kMaxD + 1) +
-         (size_t)rows * kTileK + (size_t)rows * kMaxD + 5 * (size_t)rows +
+// shared memory of the ordered kernel for head dims up to maxd, in
+// floats: q rows | K or V tile | scores | acc | row state | LUT
+__host__ __device__ constexpr size_t smem_floats(int rows, int maxd) {
+  return (size_t)rows * maxd + (size_t)kTileK * (maxd + 1) +
+         (size_t)rows * kTileK + (size_t)rows * maxd + 5 * (size_t)rows +
          kMaxLut;
 }
 
@@ -287,10 +288,10 @@ __device__ __forceinline__ void row_stages(float* srow,
 }
 
 // The whole key loop for up to ROWS query rows of one (batch, head), f32
-// operands.  q/out point at row 0 of the problem (row stride d); rows
-// [row0, row0 + ROWS) are this CTA's.  k/v point at key 0 (key stride
-// p.key_stride).
-template <int ROWS, int THREADS>
+// operands, head dims up to MAXD.  q/out point at row 0 of the problem
+// (row stride d); rows [row0, row0 + ROWS) are this CTA's.  k/v point at
+// key 0 (key stride p.key_stride).
+template <int ROWS, int THREADS, int MAXD>
 __device__ void attend_rows(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -304,10 +305,10 @@ __device__ void attend_rows(const float* __restrict__ q,
   constexpr int kWarps = THREADS / kWarp;
   extern __shared__ __align__(16) float smem[];
   float* sq = smem;                                   // ROWS x d
-  float* skv = sq + ROWS * kMaxD;                     // 128 x (d + 1)
-  float* ss = skv + kTileK * (kMaxD + 1);             // ROWS x 128
+  float* skv = sq + ROWS * MAXD;                      // 128 x (d + 1)
+  float* ss = skv + kTileK * (MAXD + 1);              // ROWS x 128
   float* sacc = ss + ROWS * kTileK;                   // ROWS x d
-  float* sm = sacc + ROWS * kMaxD;
+  float* sm = sacc + ROWS * MAXD;
   float* sl = sm + ROWS;
   float* salpha = sl + ROWS;
   float* slm = salpha + ROWS;
@@ -374,9 +375,9 @@ __device__ void attend_rows(const float* __restrict__ q,
           j < nk ? to_f32(v[(size_t)(k0 + j) * p.key_stride + c]) : 0.0f;
     }
     __syncthreads();
-    // P.V over the tile's real keys in order, then the running update
-    const int col = jt;
-    if (col < d) {
+    // P.V over the tile's real keys in order, then the running update;
+    // thread (jt, rb) owns columns jt, jt + 128
+    for (int col = jt; col < d; col += kTileK) {
       float dot[kRowsPerThread];
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) dot[i] = 0.0f;
@@ -411,18 +412,22 @@ __device__ void attend_rows(const float* __restrict__ q,
   }
 }
 
+// 32 rows a CTA: at head dim 256 the shared memory is 210 KB of the 227
+// KB a block may take (64 rows would not fit)
 constexpr int kFlashRows = 32, kFlashThreads = 256;
 
-// the ordered route of flash_attention: float32 operands
+// the ordered route of flash_attention: float32 operands, head dims up to
+// MAXD (the layout of 128 below it, of 256 above)
+template <int MAXD>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_kernel(const float* q, const float* k, const float* v,
              const float* lut, float* out, int groups, Problem p) {
   const int bh = blockIdx.y;
   const size_t qoff = (size_t)bh * p.n_rows * p.d;
   const size_t koff = (size_t)(bh / groups) * p.n_keys * p.d;
-  attend_rows<kFlashRows, kFlashThreads>(q + qoff, k + koff, v + koff, lut,
-                                         out + qoff, blockIdx.x * kFlashRows,
-                                         p);
+  attend_rows<kFlashRows, kFlashThreads, MAXD>(
+      q + qoff, k + koff, v + koff, lut, out + qoff,
+      blockIdx.x * kFlashRows, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -449,7 +454,7 @@ constexpr int kBf16MantBits = 9;
 constexpr int kMmaWarps = kMmaRows / 16;
 constexpr int kMmaThreads = kMmaWarps * kWarp;
 constexpr int kNT = kTileK / 8;                    // 8-key n-tiles per tile
-constexpr int kMaxDT = kMaxD / 8;                  // 8-wide n-tiles of O
+constexpr int kMaxDT = kNarrowD / 8;               // 8-wide n-tiles of O
 
 __host__ __device__ constexpr int kv_stride(int d) { return d + 8; }
 
@@ -534,66 +539,73 @@ __device__ __forceinline__ float quad_sum(float v) {
   return __fadd_rn(v, __shfl_xor_sync(kFull, v, 2));
 }
 
-// One row's keys in this lane: x[j][e] is key 8j + 2t + e of the tile.
-// a[j] becomes the amax of the act block (B keys, a power of two from 2 to
-// 32) that holds keys 8j + 2t and 8j + 2t + 1: a block of B >= 8 keys is
-// B / 8 n-tiles across the quad, a block of 4 keys a pair of lanes, a
-// block of 2 keys the lane's own pair.
-template <int B>
-__device__ __forceinline__ void pair_block_amax(const float (&x)[kNT][2],
-                                                float (&a)[kNT]) {
+// One row's keys in this lane: x[j][e] is key 8j + 2t + e of the lane's
+// NT n-tiles.  a[j] becomes the amax of the act block (B keys, a power of
+// two from 2 to 32) that holds keys 8j + 2t and 8j + 2t + 1: a block of B
+// >= 8 keys is B / 8 n-tiles across the quad, a block of 4 keys a pair of
+// lanes, a block of 2 keys the lane's own pair.
+template <int B, int NT>
+__device__ __forceinline__ void pair_block_amax(const float (&x)[NT][2],
+                                                float (&a)[NT]) {
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) a[j] = fmaxf(fabsf(x[j][0]), fabsf(x[j][1]));
+  for (int j = 0; j < NT; ++j) a[j] = fmaxf(fabsf(x[j][0]), fabsf(x[j][1]));
   if (B >= 16) {
 #pragma unroll
-    for (int j = 0; j < kNT; j += 2) a[j] = fmaxf(a[j], a[j + 1]);
+    for (int j = 0; j < NT; j += 2) a[j] = fmaxf(a[j], a[j + 1]);
   }
   if (B >= 32) {
 #pragma unroll
-    for (int j = 0; j < kNT; j += 4) a[j] = fmaxf(a[j], a[j + 2]);
+    for (int j = 0; j < NT; j += 4) a[j] = fmaxf(a[j], a[j + 2]);
   }
   constexpr int step = B >= 32 ? 4 : B >= 16 ? 2 : 1;
 #pragma unroll
-  for (int j = 0; j < kNT; ++j) {
+  for (int j = 0; j < NT; ++j) {
     if (j % step) continue;
     if (B >= 4) a[j] = fmaxf(a[j], __shfl_xor_sync(kFull, a[j], 1));
     if (B >= 8) a[j] = fmaxf(a[j], __shfl_xor_sync(kFull, a[j], 2));
   }
   if (B >= 32) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) a[j] = a[j & ~3];
+    for (int j = 0; j < NT; ++j) a[j] = a[j & ~3];
   } else if (B >= 16) {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) a[j] = a[j & ~1];
+    for (int j = 0; j < NT; ++j) a[j] = a[j & ~1];
   }
 }
 
+struct SameRow {
+  __device__ __forceinline__ int operator()(int v) const { return v; }
+};
+
 // Eq. 2-3 on one row: quantize per act block, requantize to the row's max
-// exponent, dequantize (exact); x holds the masked, pad-filled scores
-template <int B>
-__device__ __forceinline__ void quantize_scores_row(float (&x)[kNT][2],
-                                                    int mant_bits, float lim) {
-  int eb[kNT];
+// exponent, dequantize (exact); x holds the masked, pad-filled scores.
+// row_max(v) takes the quad's max exponent to the row's (the identity
+// where the quad holds the whole row)
+template <int B, int NT, typename RowMax = SameRow>
+__device__ __forceinline__ void quantize_scores_row(float (&x)[NT][2],
+                                                    int mant_bits, float lim,
+                                                    RowMax row_max = {}) {
+  int eb[NT];
   int emax = -128;
   if (B >= 2) {
-    float a[kNT];
+    float a[NT];
     pair_block_amax<B>(x, a);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       eb[j] = block_exp(a[j], mant_bits);
       emax = max(emax, eb[j]);
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 2; ++e)
         emax = max(emax, block_exp(fabsf(x[j][e]), mant_bits));
   }
-  emax = quad_max_i(emax);
+  emax = row_max(quad_max_i(emax));
   const float plam = pow2_sel(emax);
 #pragma unroll
-  for (int j = 0; j < kNT; ++j)
+  for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int ev = B >= 2 ? eb[j] : block_exp(fabsf(x[j][e]), mant_bits);
@@ -604,14 +616,14 @@ __device__ __forceinline__ void quantize_scores_row(float (&x)[kNT][2],
 }
 
 // snap one row onto the MXInt act grid, block by block
-template <int B>
-__device__ __forceinline__ void grid_requant_row(float (&x)[kNT][2],
+template <int B, int NT>
+__device__ __forceinline__ void grid_requant_row(float (&x)[NT][2],
                                                  int mant_bits, float lim) {
   if (B >= 2) {
-    float a[kNT];
+    float a[NT];
     pair_block_amax<B>(x, a);
 #pragma unroll
-    for (int j = 0; j < kNT; ++j) {
+    for (int j = 0; j < NT; ++j) {
       const int e = block_exp(a[j], mant_bits);
       const float inv = pow2_sel(-e), sc = pow2_sel(e);
 #pragma unroll
@@ -620,7 +632,7 @@ __device__ __forceinline__ void grid_requant_row(float (&x)[kNT][2],
     }
   } else {
 #pragma unroll
-    for (int j = 0; j < kNT; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int e = block_exp(fabsf(x[j][h]), mant_bits);
@@ -741,7 +753,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
 #pragma unroll
-    for (int kk = 0; kk < kMaxD / 16; ++kk) {
+    for (int kk = 0; kk < kNarrowD / 16; ++kk) {
       if (kk * 16 >= d) break;
       uint32_t qa[4];                     // rows of the warp, d 16kk..+15
       ldsm_x4(qa, wq + kk * 16);
@@ -928,6 +940,355 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 flash_attention at head dims 129-256: two warps a row group
+// ---------------------------------------------------------------------------
+// At D 256 the narrow kernel's O accumulator (D / 8 n-tiles of 4 floats a
+// lane) would double to 128 registers beside S's 64, past the 255 a thread
+// has.  Here the two warps of a row group split the work in halves: warp
+// half hf computes S for keys [64 hf, 64 hf + 64) of the tile over the
+// whole d (the q.k products in the narrow kernel's order: mma steps over
+// d in order), runs the row stages on its 64 keys, and owns O's columns
+// [128 hf, 128 hf + 128).  The row reductions that span both halves (the
+// Eq. 2-3 row exponent max, the row max, the row sum) meet through shared
+// memory at a named barrier of the pair, and each warp combines the two
+// halves in the same order, so both hold the same m, l, alpha and 2^-l_e.
+// P goes through shared memory as f32: each warp writes its half, and
+// each reads all 128 keys of its rows for P.V.  A CTA holds 64 rows (4
+// row groups, 8 warps); K and V tiles (66 KB each at D 256) are single
+// buffers: K of the next tile loads during the row stages and P.V, V of
+// the next tile during the next S.
+constexpr int kWideRows = 64;
+constexpr int kWideGroups = kWideRows / 16;
+constexpr int kWideNT = kNT / 2;                   // key n-tiles of a half
+constexpr int kWideDT = kNarrowD / 8;              // O n-tiles of a half
+constexpr int kPStride = kTileK + 8;               // floats a P row
+
+// shared memory: K tile | V tile | Q rows | P (f32) | exchange | LUT
+__host__ __device__ constexpr size_t wide_smem_bytes(int d) {
+  return (size_t)2 * kTileK * kv_stride(d) * 2 +
+         (size_t)kWideRows * kv_stride(d) * 2 +
+         sizeof(float) * ((size_t)kWideRows * kPStride +
+                          (size_t)kWideGroups * 3 * 2 * 16 + kMaxLut);
+}
+
+__device__ __forceinline__ void pair_sync(int group) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + group), "r"(64));
+}
+
+// The value of this lane's row (quad-reduced already) from both halves of
+// the pair, combined in half order: slot[half][row]
+struct PairMax {
+  float* slot;
+  int half, row, group;
+  bool writer;
+  __device__ __forceinline__ int operator()(int v) const {
+    if (writer) reinterpret_cast<int*>(slot)[half * 16 + row] = v;
+    pair_sync(group);
+    const int* s = reinterpret_cast<const int*>(slot);
+    return max(s[row], s[16 + row]);
+  }
+  __device__ __forceinline__ float max_f(float v) const {
+    if (writer) slot[half * 16 + row] = v;
+    pair_sync(group);
+    return fmaxf(slot[row], slot[16 + row]);
+  }
+  __device__ __forceinline__ float sum_f(float v) const {
+    if (writer) slot[half * 16 + row] = v;
+    pair_sync(group);
+    return __fadd_rn(slot[row], slot[16 + row]);
+  }
+};
+
+template <bool kQuant, bool kMxint, int kB, bool kSplit>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_mma_wide_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const float* __restrict__ lut_g,
+                      __nv_bfloat16* __restrict__ out, int groups,
+                      Problem p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int d = p.d, ks = kv_stride(d);
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sv = sk + kTileK * ks;
+  __nv_bfloat16* sq = sv + kTileK * ks;
+  float* sp = reinterpret_cast<float*>(sq + kWideRows * ks);
+  float* sx = sp + kWideRows * kPStride;
+  float* lut = sx + kWideGroups * 3 * 2 * 16;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int g = lane / 4, tq = lane % 4;
+  const int rg = warp / 2, hf = warp % 2;           // row group, half
+  const int P = kWideRows / groups;                 // positions per CTA
+  const int n_blocks = gridDim.y;
+  const int p0 = (n_blocks - 1 - (int)blockIdx.y) * P;  // longest first
+  const int kvh = blockIdx.x;
+  const int n_tiles = (p.n_keys + kTileK - 1) / kTileK;
+  int t0, t1;
+  tile_span(p0, min(p0 + P, p.n_rows) - 1, n_tiles, p, &t0, &t1);
+  const __nv_bfloat16* kb = k + (size_t)kvh * p.n_keys * d;
+  const __nv_bfloat16* vb = v + (size_t)kvh * p.n_keys * d;
+  const int chunks = d / 8;                          // 16-byte row chunks
+
+  auto load_kv = [&](const __nv_bfloat16* src, __nv_bfloat16* dst, int t) {
+    const int k0 = t * kTileK;
+    for (int i = tid; i < kTileK * chunks; i += kMmaThreads) {
+      const int j = i / chunks, c = (i % chunks) * 8;
+      const bool ok = k0 + j < p.n_keys;
+      cp_async16(dst + j * ks + c, src + (ok ? (size_t)(k0 + j) * d + c : 0),
+                 ok);
+    }
+  };
+  auto row_at = [&](int i, bool* ok) {
+    const int head = i / P, pos = p0 + i % P;
+    *ok = head < groups && pos < p.n_rows;
+    return *ok ? ((size_t)kvh * groups + head) * p.n_rows + pos : 0;
+  };
+  for (int i = tid; i < kWideRows * chunks; i += kMmaThreads) {
+    const int r = i / chunks, c = (i % chunks) * 8;
+    bool ok;
+    const size_t row = row_at(r, &ok);
+    cp_async16(sq + r * ks + c, q + row * d + c, ok);
+  }
+  load_kv(kb, sk, t0);
+  cp_async_commit();                               // Q and K(t0)
+  load_kv(vb, sv, t0);
+  cp_async_commit();                               // V(t0)
+  load_lut(lut, lut_g, p.lut_n);
+
+  int pos[2];
+  bool row_ok[2];
+  __nv_bfloat16* orow[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int i = rg * 16 + g + 8 * h;
+    pos[h] = p0 + i % P;
+    orow[h] = out + row_at(i, &row_ok[h]) * d;
+  }
+  const int c0 = hf * kNarrowD;                    // this warp's O columns
+  float o[kWideDT][4];
+#pragma unroll
+  for (int n = 0; n < kWideDT; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[n][c] = 0.0f;
+  float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.0f, 0.0f};
+  const float lim = (float)((1 << (p.mant_bits - 1)) - 1);
+  const int mi = lane / 8, mr = lane % 8;
+  const int k_key = (mi / 2) * 8 + mr, k_col = (mi % 2) * 8;
+  const int v_key = (mi % 2) * 8 + mr, v_col = (mi / 2) * 8;
+  const __nv_bfloat16* wq = sq + (rg * 16 + v_key) * ks + v_col;
+  float* prow = sp + (rg * 16 + g) * kPStride;     // row g; row g + 8 below
+  float* xslot = sx + rg * 3 * 2 * 16;
+
+  for (int t = t0; t <= t1; ++t) {
+    cp_async_wait_prev();                          // K(t) (and Q) landed
+    __syncthreads();
+    const int k0 = t * kTileK;
+    const bool last = t == n_tiles - 1;
+
+    // S = Q K^T for this half's 64 keys
+    float s[kWideNT][4];
+#pragma unroll
+    for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[j][c] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kMaxD / 16; ++kk) {
+      if (kk * 16 >= d) break;
+      uint32_t qa[4];
+      ldsm_x4(qa, wq + kk * 16);
+#pragma unroll
+      for (int jp = 0; jp < kWideNT / 2; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, sk + (hf * 64 + jp * 16 + k_key) * ks + kk * 16 + k_col);
+        mma_bf16(s[2 * jp], qa, b[0], b[1]);
+        mma_bf16(s[2 * jp + 1], qa, b[2], b[3]);
+      }
+    }
+    __syncthreads();                               // K tile read by all
+    if (t < t1) load_kv(kb, sk, t + 1);
+    cp_async_commit();                             // K(t + 1)
+
+    float alpha[2], lm[2], inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rel = k0 + hf * 64 + 2 * tq;
+      const int khi = p.causal ? pos[h] - rel : INT_MAX;
+      const int klo = p.window > 0 ? pos[h] - p.window + 1 - rel : INT_MIN;
+      const int kreal = p.n_keys - rel;
+      auto keep = [&](int j, int e) {
+        return 8 * j + e >= klo && 8 * j + e <= khi;
+      };
+      auto real = [&](int j, int e) { return 8 * j + e < kreal; };
+      float x[kWideNT][2];
+#pragma unroll
+      for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          x[j][e] = keep(j, e) ? __fmul_rn(s[j][2 * h + e], p.scale)
+                               : kNegInf;
+          if (kQuant && !real(j, e)) x[j][e] = pow2_sel(-100);  // pad fill
+        }
+      if constexpr (kQuant) {
+        const PairMax em{xslot + 2 * 16 * 0, hf, g + 8 * h, rg, tq == 0};
+        quantize_scores_row<kB>(x, p.mant_bits, lim, em);
+      }
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (!real(j, e)) x[j][e] = kNegInf;
+          tmax = fmaxf(tmax, x[j][e]);
+        }
+      const float m_prev = m_run[h];
+      const PairMax mx{xslot + 2 * 16 * 1, hf, g + 8 * h, rg, tq == 0};
+      const float m_new = fmaxf(m_prev, mx.max_f(quad_max(tmax)));
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dt = __fsub_rn(x[j][e], m_new);
+          float pr = kMxint ? exp2_datapath_sel(__fmul_rn(dt, p.log2e), lut,
+                                                p.lut_n)
+                            : exp_nonpos(dt);
+          if constexpr (kQuant) {
+            acc = __fadd_rn(acc, real(j, e) ? pr : 0.0f);
+          } else {
+            pr = keep(j, e) && real(j, e) ? pr : 0.0f;
+            acc = __fadd_rn(acc, pr);
+          }
+          x[j][e] = pr;
+        }
+      const PairMax sm{xslot + 2 * 16 * 2, hf, g + 8 * h, rg, tq == 0};
+      const float psum = sm.sum_f(quad_sum(acc));
+      float al = exp_nonpos(__fsub_rn(m_prev, m_new));
+      if (m_prev <= kNegInfHalf) al = 0.0f;
+      const float l_new = __fadd_rn(__fmul_rn(l_run[h], al), psum);
+      lm[h] = 1.0f;
+      inv[h] = 1.0f;
+      if (last) {
+        int le;
+        lm[h] = frexpf(fmaxf(l_new, kMinL), &le);            // Eq. 20
+        inv[h] = pow2_sel(-le);
+      }
+      if constexpr (kQuant) {
+        if (last) {
+#pragma unroll
+          for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              x[j][e] = __fmul_rn(__fdiv_rn(x[j][e], lm[h]), inv[h]);
+        }
+        grid_requant_row<kB>(x, p.mant_bits, lim);
+#pragma unroll
+        for (int j = 0; j < kWideNT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (!(keep(j, e) && real(j, e))) x[j][e] = 0.0f;
+      }
+      // this half's P of the row into shared memory
+      float* pw = prow + 8 * h * kPStride + hf * 64 + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kWideNT; ++j)
+        *reinterpret_cast<float2*>(pw + 8 * j) = make_float2(x[j][0], x[j][1]);
+      alpha[h] = al;
+      m_run[h] = m_new;
+      l_run[h] = l_new;
+    }
+
+    const bool flush_first = last && kQuant;
+#pragma unroll
+    for (int n = 0; n < kWideDT; ++n) {
+      if (c0 + n * 8 >= d) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int h = c >> 1;
+        float a = __fmul_rn(o[n][c], alpha[h]);
+        if (flush_first) a = __fmul_rn(__fdiv_rn(a, lm[h]), inv[h]);
+        o[n][c] = a;
+      }
+    }
+    cp_async_wait_prev();                          // V(t) landed
+    __syncthreads();                               // and both halves' P
+#pragma unroll
+    for (int kk = 0; kk < kNT / 2; ++kk) {
+      // P of keys 16kk .. 16kk + 15, rows g and g + 8, as an A fragment
+      uint32_t pa[4], pmid[4], plo[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float2 pv = *reinterpret_cast<const float2*>(
+            prow + 8 * (r & 1) * kPStride + 16 * kk + 8 * (r >> 1) + 2 * tq);
+        float v0 = pv.x, v1 = pv.y;
+        pa[r] = pack_bf16(v0, v1);
+        if constexpr (kSplit) {      // P to f32 precision: hi + mid + lo
+          v0 = __fsub_rn(v0, bf16_round(v0));
+          v1 = __fsub_rn(v1, bf16_round(v1));
+          pmid[r] = pack_bf16(v0, v1);
+          plo[r] = pack_bf16(__fsub_rn(v0, bf16_round(v0)),
+                             __fsub_rn(v1, bf16_round(v1)));
+        }
+      }
+#pragma unroll
+      for (int dp = 0; dp < kWideDT / 2; ++dp) {
+        if (c0 + dp * 16 >= d) break;
+        uint32_t b[4];
+        ldsm_x4_trans(b, sv + (kk * 16 + v_key) * ks + c0 + dp * 16 + v_col);
+        mma_bf16(o[2 * dp], pa, b[0], b[1]);
+        mma_bf16(o[2 * dp + 1], pa, b[2], b[3]);
+        if constexpr (kSplit) {
+          mma_bf16(o[2 * dp], pmid, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], pmid, b[2], b[3]);
+          mma_bf16(o[2 * dp], plo, b[0], b[1]);
+          mma_bf16(o[2 * dp + 1], plo, b[2], b[3]);
+        }
+      }
+    }
+    if (last && !kQuant) {
+#pragma unroll
+      for (int n = 0; n < kWideDT; ++n) {
+        if (c0 + n * 8 >= d) break;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          o[n][c] = __fmul_rn(__fdiv_rn(o[n][c], lm[c >> 1]), inv[c >> 1]);
+      }
+    }
+    __syncthreads();                               // V tile and P read
+    if (t < t1) load_kv(vb, sv, t + 1);
+    cp_async_commit();                             // V(t + 1)
+  }
+  cp_async_wait_all();
+  if (t1 < n_tiles - 1) {
+    // the tiles after t1 are fully masked for every row of the block: all
+    // they would do is the last tile's normalization
+    float lmv[2], invv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int le;
+      lmv[h] = frexpf(fmaxf(l_run[h], kMinL), &le);
+      invv[h] = pow2_sel(-le);
+    }
+#pragma unroll
+    for (int n = 0; n < kWideDT; ++n) {
+      if (c0 + n * 8 >= d) break;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        o[n][c] = __fmul_rn(__fdiv_rn(o[n][c], lmv[c >> 1]), invv[c >> 1]);
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!row_ok[h]) continue;
+#pragma unroll
+    for (int n = 0; n < kWideDT; ++n) {
+      if (c0 + n * 8 >= d) break;
+      *reinterpret_cast<uint32_t*>(orow[h] + c0 + n * 8 + 2 * tq) =
+          pack_bf16(o[n][2 * h], o[n][2 * h + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // flash_attention_decode
 // ---------------------------------------------------------------------------
 // Replaces repro/kernels/flash_attention.py:322 (flash_attention_decode; its
@@ -1007,12 +1368,13 @@ __host__ __device__ constexpr int dec_q_stride(int d) {
   return (d + 7) / 8 * 8;
 }
 
-// shared memory: K tiles (2) | V tiles (2) | q rows | scores (3) | row
+// shared memory: K tiles (kbuf) | V tiles (2) | q rows | scores (3) | row
 // state (m, l, alpha x 2, l_m, 2^-l_e) | LUT | the last valid slot
 template <typename T>
 __host__ __device__ constexpr size_t dec_smem_bytes(int rows, int d,
-                                                    int cols) {
-  return (size_t)2 * kTileK * (dec_k_stride<T>(d) + dec_v_stride<T>(cols)) *
+                                                    int cols, int kbuf) {
+  return (size_t)kTileK *
+             (kbuf * dec_k_stride<T>(d) + 2 * dec_v_stride<T>(cols)) *
              sizeof(T) +
          sizeof(float) * ((size_t)rows * (dec_q_stride(d) +
                                           3 * kScoreStride + 6) +
@@ -1097,6 +1459,8 @@ struct DecodeGrid {
   int n_split;      // CTAs along D: column slices
   int cols;         // columns a slice
   int vec;          // 16-byte cp.async loads (D whole chunks, aligned)
+  int kbuf;         // K tile buffers: 2, or 1 where two do not fit (f32
+                    // at D > 128); with one, the score warps load K
 };
 
 template <typename T, int ROWS>
@@ -1112,7 +1476,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ks = dec_k_stride<T>(d), vs = dec_v_stride<T>(gr.cols);
   const int qs = dec_q_stride(d);
   T* sk = reinterpret_cast<T*>(smem_raw);
-  T* sv = sk + 2 * kTileK * ks;
+  T* sv = sk + gr.kbuf * kTileK * ks;
   float* sq = reinterpret_cast<float*>(sv + 2 * kTileK * vs);
   float* ss = sq + ROWS * qs;                         // 3 x ROWS x 132
   float* sm = ss + 3 * ROWS * kScoreStride;
@@ -1146,16 +1510,18 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool is_pv = !is_score && tid < 2 * kDecGroup;
   const int lt = tid - kDecGroup, rw = warp - 2 * kDecGroup / kWarp;
 
-  // K tile t and V tile t (this CTA's columns) into buffer t & 1, by the
-  // P.V warps: 16-byte cp.async, or element by element
-  auto load_k = [&](int t) {
+  // K tile t into buffer t & (kbuf - 1), by the 128 threads i0 of a
+  // group, and V tile t (this CTA's columns) into buffer t & 1, by the P.V
+  // warps: 16-byte cp.async, or element by element
+  const int kmask = gr.kbuf - 1;
+  auto load_k = [&](int t, int i0) {
     const int k0 = t * kTileK, n = W - k0;
-    T* dst = sk + (t & 1) * kTileK * ks;
+    T* dst = sk + (t & kmask) * kTileK * ks;
     const T* src = kb + (size_t)k0 * p.key_stride;
     if (gr.vec)
-      cp_tile(dst, ks, src, p.key_stride, d / VEC, n, lt, kDecGroup);
+      cp_tile(dst, ks, src, p.key_stride, d / VEC, n, i0, kDecGroup);
     else
-      copy_tile(dst, ks, src, p.key_stride, d, n, lt, kDecGroup);
+      copy_tile(dst, ks, src, p.key_stride, d, n, i0, kDecGroup);
   };
   auto load_v = [&](int t) {
     const int k0 = t * kTileK, n = W - k0;
@@ -1167,7 +1533,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       copy_tile(dst, vs, src, p.key_stride, ncol, n, lt, kDecGroup);
   };
 
-  if (is_pv) load_k(0);
+  if (is_pv) load_k(0, lt);
   cp_async_commit();
   load_lut(lut, lut_g, p.lut_n);
   for (int i = tid; i < ROWS * qs; i += THREADS) {
@@ -1175,9 +1541,9 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sq[i] = r < rows && c < d ? to_f32(q[qoff + (size_t)r * d + c]) : 0.0f;
   }
   if (!gr.vec) {
-    // the score loop reads K in whole chunks: zero both buffers past d
+    // the score loop reads K in whole chunks: zero the buffers past d
     const int pad = ks - d;
-    for (int i = tid; i < 2 * kTileK * pad; i += THREADS)
+    for (int i = tid; i < gr.kbuf * kTileK * pad; i += THREADS)
       store(sk + (i / pad) * ks + d + i % pad, 0.0f);
   }
   if (tid < ROWS) {
@@ -1217,7 +1583,7 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float s[ROWS];
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) s[r] = 0.0f;
-        const T* kr = sk + (ts & 1) * kTileK * ks + tid * ks;
+        const T* kr = sk + (ts & kmask) * kTileK * ks + tid * ks;
         for (int c = 0; c < d; c += VEC) {
           float kf[VEC];
           load_chunk(kr + c, kf);
@@ -1235,8 +1601,14 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int r = 0; r < ROWS; ++r)
           so[r * kScoreStride] = __fmul_rn(s[r], p.scale);
       }
+      if (gr.kbuf == 1) {
+        // one K buffer: once every score warp has read it, the next tile
+        asm volatile("bar.sync 1, %0;\n" ::"r"(kDecGroup));
+        if (t + 2 <= t_stop) load_k(t + 2, tid);
+        cp_async_commit();
+      }
     } else if (is_pv) {
-      if (t + 2 <= t_stop) load_k(t + 2);
+      if (gr.kbuf == 2 && t + 2 <= t_stop) load_k(t + 2, lt);
       if (t >= 0 && t <= t_stop) load_v(t);
       cp_async_commit();
       const int tp = t - 1;
@@ -1327,13 +1699,18 @@ struct MmaLaunch {
   cudaStream_t st;
 };
 
+// query rows a CTA of the bf16 route holds at head dim d
+int mma_rows(int d) { return d > kNarrowD ? kWideRows : kMmaRows; }
+
 template <bool kQuant, bool kMxint, int kB, bool kSplit = !kQuant>
 int launch_mma(const MmaLaunch& l) {
-  auto* kern = flash_mma_kernel<kQuant, kMxint, kB, kSplit>;
-  const int per_block = kMmaRows / l.groups;
+  const bool wide = l.p.d > kNarrowD;
+  auto* kern = wide ? flash_mma_wide_kernel<kQuant, kMxint, kB, kSplit>
+                    : flash_mma_kernel<kQuant, kMxint, kB, kSplit>;
+  const int per_block = mma_rows(l.p.d) / l.groups;
   // x: KV heads, y: position blocks (the kernel walks them longest first)
   const dim3 grid(l.n_kv, (l.p.n_rows + per_block - 1) / per_block);
-  const size_t smem = mma_smem_bytes(l.p.d);
+  const size_t smem = wide ? wide_smem_bytes(l.p.d) : mma_smem_bytes(l.p.d);
   int rc = allow_smem(kern, smem);
   if (rc) return rc;
   kern<<<grid, kMmaThreads, smem, l.st>>>(l.q, l.k, l.v, l.lut, l.out,
@@ -1353,10 +1730,18 @@ struct DecodeLaunch {
 };
 
 template <typename T, int ROWS>
-int launch_decode(const DecodeLaunch& l) {
+int launch_decode(DecodeLaunch l) {
   auto* kern = decode_kernel<T, ROWS>;
-  const size_t smem = dec_smem_bytes<T>(ROWS, l.p.d, l.gr.cols);
-  int rc = allow_smem(kern, smem);
+  int dev = 0, optin = 0;
+  int rc = (int)cudaGetDevice(&dev);
+  if (!rc)
+    rc = (int)cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (rc) return rc;
+  l.gr.kbuf =
+      dec_smem_bytes<T>(ROWS, l.p.d, l.gr.cols, 2) <= (size_t)optin ? 2 : 1;
+  const size_t smem = dec_smem_bytes<T>(ROWS, l.p.d, l.gr.cols, l.gr.kbuf);
+  rc = allow_smem(kern, smem);
   if (rc) return rc;
   const unsigned grid =
       (unsigned)l.n_problems * l.gr.row_blocks * l.gr.n_split;
@@ -1400,7 +1785,7 @@ extern "C" int flash_attention_launch(
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16) {
     // the tensor-core route (see the header)
-    if (d % 16 != 0 || groups > kMmaRows) return (int)cudaErrorInvalidValue;
+    if (d % 16 != 0 || groups > mma_rows(d)) return (int)cudaErrorInvalidValue;
     if (quantize && !mxint) return (int)cudaErrorInvalidValue;
     const MmaLaunch l{(const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
                       (const __nv_bfloat16*)v, lut, (__nv_bfloat16*)out,
@@ -1428,12 +1813,15 @@ extern "C" int flash_attention_launch(
   }
   // the ordered route for float32 operands
   const dim3 grid((sq + kFlashRows - 1) / kFlashRows, bh);
-  const size_t smem = smem_floats(kFlashRows) * sizeof(float);
-  int rc = allow_smem(flash_kernel, smem);
+  const bool wide = d > kNarrowD;
+  auto* kern = wide ? flash_kernel<kMaxD> : flash_kernel<kNarrowD>;
+  const size_t smem =
+      smem_floats(kFlashRows, wide ? kMaxD : kNarrowD) * sizeof(float);
+  int rc = allow_smem(kern, smem);
   if (rc) return rc;
-  flash_kernel<<<grid, kFlashThreads, smem, st>>>(
-      (const float*)q, (const float*)k, (const float*)v, lut, (float*)out,
-      groups, p);
+  kern<<<grid, kFlashThreads, smem, st>>>((const float*)q, (const float*)k,
+                                          (const float*)v, lut, (float*)out,
+                                          groups, p);
   return (int)cudaGetLastError();
 }
 
@@ -1451,7 +1839,7 @@ extern "C" int flash_attention_decode_launch(
   // the geometry of decode_geometry in kernels/flash_attention.py
   const bool aligned = (((uintptr_t)k | (uintptr_t)v) & 15) == 0;
   const DecodeGrid gr{hkv, (g + rows - 1) / rows, (d + cols - 1) / cols, cols,
-                      d % vec == 0 && aligned};
+                      d % vec == 0 && aligned, 2};
   const DecodeLaunch l{q, k, v, valid, lut, out, b * hkv, gr, p,
                        (cudaStream_t)stream};
   return bf16 ? launch_decode_rows<__nv_bfloat16>(l, rows)

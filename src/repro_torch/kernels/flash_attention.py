@@ -56,10 +56,12 @@ from repro_torch.kernels.mxint_layernorm import (WARP, block_quantize_rows,
 from repro_torch.kernels.mxint_softmax import LOG2E, exp2_datapath
 
 TILE_K = 128            # keys per tile, fixed by the numerics
-MAX_HEAD_DIM = 128      # head dims the kernels take
+MAX_HEAD_DIM = 256      # head dims the kernels take
 MAX_ACT_BLOCK = 32      # a score act block is a group of lanes of one warp
 MMA_K = 16              # bf16 route: head dims are multiples of the mma depth
 MMA_ROWS = 128          # bf16 route: query rows (positions x heads) a block
+MMA_WIDE_D = 128        # bf16 route: past this head dim, two warps a row
+MMA_WIDE_ROWS = 64      # group and this many query rows a block
 DECODE_THREADS = 128    # decode kernel: threads a CTA (a key's scores each)
 DECODE_MAX_ROWS = 8     # decode kernel: query rows a CTA at most
 DECODE_SLICE_BYTES = 256  # decode kernel: widest P.V column slice, bytes
@@ -361,7 +363,9 @@ def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
       act grid of at most 9 mantissa bits, else split into three bf16
       parts.  Its f32 sums run in no fixed order, so the card holds it to
       the plain version within a tolerance.  Head dims that are multiples
-      of 16 up to 128, at most 128 query heads per KV head.
+      of 16 up to 256; at most 128 query heads per KV head up to head dim
+      128, 64 past it (where a block holds 64 query rows and two warps
+      share a row group's keys and O columns).
     - 'ordered' for float32: the CUDA-core kernel whose sums repeat the
       plain version's order, so the card holds it bit for bit.
 
@@ -375,10 +379,11 @@ def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
         raise NotImplementedError(
             f"flash_attention: bf16 head dim {d} is not a multiple of "
             f"{MMA_K}, which the tensor-core kernel needs")
-    if kv_groups > MMA_ROWS:
+    rows = MMA_WIDE_ROWS if d > MMA_WIDE_D else MMA_ROWS
+    if kv_groups > rows:
         raise NotImplementedError(
-            f"flash_attention: kv_groups {kv_groups} > {MMA_ROWS}, the rows "
-            f"of one block of the tensor-core kernel")
+            f"flash_attention: kv_groups {kv_groups} > {rows}, the rows "
+            f"of one block of the tensor-core kernel at head dim {d}")
     return "mma"
 
 
@@ -430,7 +435,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mant_bits: int = 8, scale: float = None,
                     kv_groups: int = 1) -> torch.Tensor:
     """q: (BH, Sq, D); k, v: (BH // kv_groups, Sk, D), query head b reads KV
-    head b // kv_groups.  Any Sq, Sk; D <= 128.  Returns (BH, Sq, D) in
+    head b // kv_groups.  Any Sq, Sk; D <= 256.  Returns (BH, Sq, D) in
     q's dtype.  ``act_block`` must already be resolved against the tile.
 
     A CPU tensor runs the plain version ``flash_rows``.  A CUDA tensor
@@ -479,7 +484,7 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-position decode over a KV cache ring.  q: (B, Hkv, G, D), the
     G query heads of a KV head as rows; k, v: (B, W, Hkv, D), the cache's
     native layout; valid: (B, W), nonzero where row b's slot holds a live
-    key.  Any G and W, D <= 128.  Returns (B, Hkv, G, D) in q's dtype.
+    key.  Any G and W, D <= 256.  Returns (B, Hkv, G, D) in q's dtype.
 
     A CPU tensor runs the plain version ``decode_rows``; a CUDA tensor
     launches the decode kernel with the ``decode_geometry`` grid, or

@@ -96,30 +96,65 @@ def _pow2_table() -> tuple:
     return tuple(pow2i(torch.arange(-254, 255)).tolist())
 
 
+_PLAIN_CHUNK = 1 << 22      # scaled block products the plain version holds
+
+
 def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                   *, w_block: int, act_block: int,
                   act_mant_bits: int) -> torch.Tensor:
     """Plain version: block products summed in increasing K order.  Each
     block's dot is exact, then rounded once to f32 (float32 products where
-    every partial sum stays below 2^24, else float64); the block scales
-    come from a table of ``pow2i``, the same exact values."""
+    every partial sum stays below 2^24, else float64) and scaled by 2^(e_x
+    + e_w).  The scaled products are taken for a run of blocks at once (at
+    most ``_PLAIN_CHUNK`` of them), then added to the f32 sum one block
+    after the other.  Where every scale 2^e_x, 2^e_w and 2^(e_x + e_w)
+    lies in the normal range, the scales go into the operands (power-of-two
+    factors, exact), so each dot comes out scaled, with no rounding but
+    the f64 dot's own to f32; otherwise each dot is multiplied by its scale
+    from a table of ``pow2i``, which handles the subnormal and overflowing
+    scales.  Both give the same bits where both apply."""
     M, K = x.shape
     N = w_mant.shape[1]
     nb = K // act_block
     xm, xe = block_quantize_rows(x, act_block, act_mant_bits)
     w_max = (torch.iinfo(w_mant.dtype).max if not w_mant.is_floating_point()
              else 2 ** 24)
-    exact = torch.float32 if act_block * (2 ** (act_mant_bits - 1) - 1) * \
-        w_max < 2 ** 24 else torch.float64
-    xm = xm.to(exact)
+    x_max = 2 ** (act_mant_bits - 1) - 1
+    exact = torch.float32 if act_block * x_max * w_max < 2 ** 24 \
+        else torch.float64
+    xm = xm.to(exact).transpose(0, 1)                 # (nb, M, act_block)
     wm = w_mant.to(exact).reshape(nb, act_block, N)
     we = w_exp.to(torch.int32).repeat_interleave(w_block // act_block, dim=0)
-    table = lut_tensor(_pow2_table(), x.device)
-    xe = xe + 254
+    xe = xe.transpose(0, 1)                           # (nb, M)
+    x_lo, x_hi = int(xe.min()), int(xe.max())
+    w_lo, w_hi = int(we.min()), int(we.max())
+    folded = (min(x_lo, w_lo, x_lo + w_lo) >= -126 and
+              x_hi + w_hi + (act_block * x_max * w_max).bit_length() < 128
+              and x_hi + x_max.bit_length() < 128
+              and w_hi + int(w_max).bit_length() < 128)
+    # the weight scales go into the weight planes when they are the
+    # smaller of the two (more rows than an act block), else into the dots
+    fold_w = folded and M > act_block
+    table = lut_tensor(_pow2_table(), x.device)       # pow2i(n - 254)
+    if folded:
+        xm = xm * table[xe + 254].to(exact)[..., None]
+        w_scale = table[we + 254].to(exact)[:, None, :]   # (nb, 1, N)
+        if fold_w:
+            wm = wm * w_scale
+    else:
+        xe = xe + 254
     acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
-    for k in range(nb):
-        dot = (xm[:, k] @ wm[k]).to(torch.float32)
-        acc = acc + dot * table[xe[:, k, None] + we[None, k]]
+    step = max(1, _PLAIN_CHUNK // max(1, M * N))
+    for k0 in range(0, nb, step):
+        k1 = min(nb, k0 + step)
+        prods = torch.matmul(xm[k0:k1], wm[k0:k1])
+        if folded and not fold_w:
+            prods = prods * w_scale[k0:k1]
+        prods = prods.to(torch.float32)
+        if not folded:
+            prods = prods * table[xe[k0:k1, :, None] + we[k0:k1, None, :]]
+        for p in prods:
+            acc = acc + p
     return acc
 
 

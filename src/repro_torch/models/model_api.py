@@ -87,13 +87,18 @@ class ModelConfig:
     """The fields of the reference's ``ModelConfig`` that the ViT family
     and the decoder LM read.
 
-    unit: the repeating pattern of block kinds; the port's decoder runs
-    ``("attn",)`` stacks.  window / local_attn_window: sliding-window size
-    of the attention blocks, 0 for full attention.  ffn_kind: "swiglu",
-    "geglu", "gelu" or "moe" (then ``moe`` holds its ``MoEConfig``).
+    unit / n_units / tail: the stack is ``unit`` repeated ``n_units``
+    times (default: as often as it tiles ``n_layers`` after the tail),
+    then ``tail``; block kinds "attn", "rec" (RG-LRU), "mlstm" and
+    "slstm".  window / local_attn_window: sliding-window size of the
+    attention blocks, 0 for full attention.  ffn_kind: "swiglu", "geglu",
+    "gelu", "moe" (then ``moe`` holds its ``MoEConfig``) or "none".
+    lru_width / conv_width: the RG-LRU's width (default d_model) and its
+    temporal convolution's taps.
     """
 
     name: str = "model"
+    family: str = "dense"
     n_layers: int = 4
     d_model: int = 512
     n_heads: int = 8
@@ -102,12 +107,16 @@ class ModelConfig:
     vocab: int = 32000
     head_dim: Optional[int] = None
     unit: Tuple[str, ...] = ("attn",)
+    n_units: Optional[int] = None
+    tail: Tuple[str, ...] = ()
     rope_theta: float = 10000.0
     qk_norm: bool = False
     window: int = 0
     local_attn_window: int = 0
     ffn_kind: str = "swiglu"
     moe: Optional[MoEConfig] = None
+    lru_width: Optional[int] = None
+    conv_width: int = 4
     image_size: int = 224
     patch_size: int = 16
     n_classes: int = 1000
@@ -123,15 +132,25 @@ class ModelConfig:
 
     @property
     def resolved_n_units(self) -> int:
-        """Repeats of ``unit`` that tile the stack."""
-        if self.n_layers % len(self.unit):
-            raise ValueError(f"unit {self.unit} does not tile "
-                             f"{self.n_layers} layers")
-        return self.n_layers // len(self.unit)
+        """Repeats of ``unit`` before the tail."""
+        if self.n_units is not None:
+            return self.n_units
+        body = self.n_layers - len(self.tail)
+        if body % len(self.unit):
+            raise ValueError(f"unit {self.unit} does not tile the "
+                             f"{body} layers before the tail {self.tail}")
+        return body // len(self.unit)
+
+    @property
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """The block kind of each layer: the unit repeats, then the tail."""
+        return tuple(self.unit) * self.resolved_n_units + tuple(self.tail)
 
     def validate(self):
         """Raise unless the fields fit together; returns the config."""
-        self.resolved_n_units
+        if len(self.layer_kinds) != self.n_layers:
+            raise ValueError(f"{self.resolved_n_units} x {self.unit} + "
+                             f"{self.tail} is not {self.n_layers} layers")
         if self.n_heads % self.n_kv_heads:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.ffn_kind == "moe" and self.moe is None:

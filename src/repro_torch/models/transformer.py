@@ -1,23 +1,36 @@
-"""The decoder-only LM for ``("attn",)`` stacks (Llama-3, Mixtral and kin).
+"""The decoder-only LM: dense, mixture-of-experts and recurrent stacks.
 
-Pre-norm residual blocks: RMSNorm fused into the q/k/v projections, GQA
-attention with RoPE, then the FFN: RMSNorm fused into the gated FFN's
-input linears, or for ``ffn_kind="moe"`` an RMSNorm and the
-mixture-of-experts FFN (``models/moe.py``), whose load-balancing loss is
-summed over the layers and added to ``loss``.  A Python loop runs the
-layers over a per-layer parameter list (the reference scans stacked
-parameters).  The KV cache carries a per-row ``index`` vector, so rows
-advance independently: a new request can be prefilled into one row while
-the others keep decoding.
+The stack is ``cfg.unit`` repeated ``cfg.n_units`` times, then
+``cfg.tail``; a layer is one of four block kinds, each pre-norm residual:
 
-With ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` every layer
-of a decode step launches the decode attention kernel; a prefill's
+- "attn": RMSNorm fused into the q/k/v projections, GQA attention with
+  RoPE (sliding-window with ``local_attn_window`` or ``window``);
+- "rec": RMSNorm, the RG-LRU block (``models/recurrent.py``);
+- "mlstm", "slstm": RMSNorm, the xLSTM block, which carries its own
+  projections and no FFN.
+
+"attn" and "rec" layers end in the FFN unless ``ffn_kind`` is "none":
+RMSNorm fused into the gated FFN's input linears, or for
+``ffn_kind="moe"`` an RMSNorm and the mixture-of-experts FFN
+(``models/moe.py``), whose load-balancing loss is summed over the layers
+and added to ``loss``.  A Python loop runs the layers over a per-layer
+parameter list, in the reference's order (the unit repeats, then the
+tail), and ``cfg.layer_kinds`` gives each one's kind (the reference scans
+stacked parameters).  The cache holds each layer's KV ring or recurrent
+state and a per-row ``index`` vector, so rows advance independently: a
+new request can be prefilled into one row while the others keep
+decoding.  A right-padded slot prefill runs the recurrent layers over
+the pad tokens too, as the reference does, so their state is the state
+after the padded length.
+
+With ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` every attn
+layer of a decode step launches the decode attention kernel; a prefill's
 attention stays plain float attention as in the reference, and a ``loss``
-forward longer than 512 tokens runs the flash kernel in every layer.  The
-kernels each layer launches are counted in
+forward longer than 512 tokens runs the flash kernel in every attn layer.
+The kernels each layer launches are counted in
 ``tests/test_torch_lm.py::test_kernel_launch_structure`` and in
-``chip_smoke.py``'s ``lm_per_call``.  Recurrent blocks and the
-encoder-decoder are not ported yet.
+``chip_smoke.py``'s ``lm_per_call``.  The encoder-decoder is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -30,26 +43,60 @@ from repro_torch.core.quantize import pack_weight
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import recurrent as R
 from repro_torch.models.model_api import ModelConfig, Param
+
+KINDS = ("attn", "rec", "mlstm", "slstm")
+_MIXER_SPEC = {"rec": R.rglru_param_spec, "mlstm": R.mlstm_param_spec,
+               "slstm": R.slstm_param_spec}
 
 
 class DecoderLM:
     def __init__(self, cfg: ModelConfig):
-        if tuple(cfg.unit) != ("attn",):
-            raise NotImplementedError(
-                f"unit {cfg.unit}: the port's decoder runs ('attn',) stacks; "
-                f"recurrent blocks are queued in ROADMAP.md")
-        if cfg.ffn_kind not in ("swiglu", "geglu", "gelu", "moe"):
+        if cfg.ffn_kind not in ("swiglu", "geglu", "gelu", "moe", "none"):
             raise NotImplementedError(f"ffn kind {cfg.ffn_kind!r}")
+        unknown = (set(cfg.unit) | set(cfg.tail)) - set(KINDS)
+        if unknown:
+            raise NotImplementedError(f"block kinds {sorted(unknown)}: the "
+                                      f"decoder runs {KINDS}")
         self.cfg = cfg.validate()
+        self.kinds = cfg.layer_kinds
         self.window = cfg.local_attn_window or cfg.window
 
+    def layer_stacks(self) -> list:
+        """Per layer, the size of the reference's stack that holds its
+        parameters: ``n_units`` for a unit layer, 1 for a tail layer.
+        ``pack_params_mxint``'s size rule counts it."""
+        n = self.cfg.resolved_n_units
+        return [n] * (n * len(self.cfg.unit)) + [1] * len(self.cfg.tail)
+
     # -- params -------------------------------------------------------------
-    def layer_spec(self) -> Dict[str, Any]:
+    def layer_spec(self, kind: str = "attn") -> Dict[str, Any]:
         """One layer's (shape, axes, init) leaves; init is "dense",
-        "ones" or "small" (normal with scale 0.02)."""
+        "ones", "zeros", "small" (normal with scale 0.02), ("normal",
+        scale), ("full", value) or ("linspace", lo, hi)."""
         cfg = self.cfg
         d, hd = cfg.d_model, cfg.hd
+        spec = {"ln1": ((d,), ("embed",), "ones")}
+        if kind != "attn":
+            spec["mix"] = _MIXER_SPEC[kind](cfg)
+            if kind != "rec":
+                return spec               # xLSTM blocks: no FFN
+        else:
+            mix = {
+                "wq": ((d, cfg.n_heads * hd), ("embed", "q_heads"), "dense"),
+                "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"),
+                       "dense"),
+                "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"),
+                       "dense"),
+                "wo": ((cfg.n_heads * hd, d), ("q_heads", "embed"), "dense"),
+            }
+            if cfg.qk_norm:
+                mix["q_norm"] = ((hd,), (None,), "ones")
+                mix["k_norm"] = ((hd,), (None,), "ones")
+            spec["mix"] = mix
+        if cfg.ffn_kind == "none":
+            return spec
         if cfg.ffn_kind == "moe":
             ffn = M.moe_param_spec(cfg)
         else:
@@ -57,21 +104,13 @@ class DecoderLM:
                    "wo": ((cfg.d_ff, d), ("mlp", "embed"), "dense")}
             if cfg.ffn_kind != "gelu":
                 ffn["wg"] = ((d, cfg.d_ff), ("embed", "mlp"), "dense")
-        mix = {
-            "wq": ((d, cfg.n_heads * hd), ("embed", "q_heads"), "dense"),
-            "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"), "dense"),
-            "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"), "dense"),
-            "wo": ((cfg.n_heads * hd, d), ("q_heads", "embed"), "dense"),
-        }
-        if cfg.qk_norm:
-            mix["q_norm"] = ((hd,), (None,), "ones")
-            mix["k_norm"] = ((hd,), (None,), "ones")
-        return {"ln1": ((d,), ("embed",), "ones"), "mix": mix,
-                "ln2": ((d,), ("embed",), "ones"), "ffn": ffn}
+        spec["ln2"] = ((d,), ("embed",), "ones")
+        spec["ffn"] = ffn
+        return spec
 
     def param_spec(self) -> Dict[str, Any]:
         """The whole tree: embed, final_norm, unembed (unless tied) and
-        ``layers``, a list of ``layer_spec`` trees."""
+        ``layers``, a list of ``layer_spec`` trees in layer order."""
         cfg = self.cfg
         spec = {"embed": ((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                           "small"),
@@ -79,7 +118,7 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             spec["unembed"] = ((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                                "small")
-        spec["layers"] = [self.layer_spec() for _ in range(cfg.n_layers)]
+        spec["layers"] = [self.layer_spec(k) for k in self.kinds]
         return spec
 
     def init(self, seed: int = 0, device="cuda",
@@ -96,19 +135,23 @@ class DecoderLM:
         device = torch.device(device)
         counter = [0]
 
+        stacks = self.layer_stacks()
+
         def make(spec, stack):
             if isinstance(spec, dict):
                 return {k: make(v, stack) for k, v in spec.items()}
             if isinstance(spec, list):
-                return [make(v, len(spec)) for v in spec]
+                return [make(v, n) for v, n in zip(spec, stacks)]
             shape, axes, kind = spec
             counter[0] += 1
-            if kind == "ones":
-                return Param(torch.ones(shape, dtype=cfg.dtype,
-                                        device=device), axes)
+            if kind in ("ones", "zeros") or kind[0] in ("full", "linspace"):
+                return Param(_constant(kind, shape, device).to(cfg.dtype),
+                             axes)
             gen = torch.Generator(device=device)
             gen.manual_seed(seed * 1_000_003 + counter[0])
-            scale = 0.02 if kind == "small" else shape[-2] ** -0.5
+            scale = {"small": 0.02, "dense": shape[-2] ** -0.5}.get(kind)
+            if scale is None:
+                scale = kind[1]                      # ("normal", scale)
             v = torch.randn(shape, generator=gen, dtype=torch.float32,
                             device=device).mul_(scale).to(cfg.dtype)
             p = Param(v, axes)
@@ -120,40 +163,80 @@ class DecoderLM:
         return make(self.param_spec(), 1)
 
     # -- cache ----------------------------------------------------------------
-    def cache_init(self, batch: int, max_len: int, device="cuda"):
-        """Per-layer (batch, W, kv_heads, hd) rings and a per-row ``index``
-        (batch,): row i's next write position and its live-token count."""
+    def _layer_cache(self, kind, batch, max_len, device):
         cfg = self.cfg
-        return {"layers": [A.init_kv_cache(cfg, batch, max_len, self.window,
-                                           cfg.dtype, device)
-                           for _ in range(cfg.n_layers)],
+        if kind == "attn":
+            return A.init_kv_cache(cfg, batch, max_len, self.window,
+                                   cfg.dtype, device)
+        if kind == "rec":
+            return R.rglru_state_init(cfg, batch, cfg.dtype, device)
+        if kind == "mlstm":
+            return R.mlstm_state_init(cfg, batch, device)
+        return R.slstm_state_init(cfg, batch, device)
+
+    def cache_init(self, batch: int, max_len: int, device="cuda"):
+        """Per layer a (batch, W, kv_heads, hd) K/V ring ("attn") or the
+        recurrent state ("rec": conv history and h in the model dtype;
+        "mlstm": [C, n], "slstm": [h, c, n, m] in float32), and a per-row
+        ``index`` (batch,): row i's next write position and its
+        live-token count."""
+        return {"layers": [self._layer_cache(k, batch, max_len, device)
+                           for k in self.kinds],
                 "index": torch.zeros(batch, dtype=torch.int32,
                                      device=device)}
 
     def cache_axes(self):
         """The cache tree with each leaf's logical axes ("batch" marks the
         row axis a slot prefill writes)."""
-        return {"layers": [{"k": A.CACHE_AXES, "v": A.CACHE_AXES}
-                           for _ in range(self.cfg.n_layers)],
+        axes = {"attn": {"k": A.CACHE_AXES, "v": A.CACHE_AXES},
+                "rec": R.RGLRU_STATE_AXES, "mlstm": R.MLSTM_STATE_AXES,
+                "slstm": R.SLSTM_STATE_AXES}
+        return {"layers": [axes[k] for k in self.kinds],
                 "index": ("batch",)}
 
     # -- forward ----------------------------------------------------------------
+    def _mixer(self, kind, lp, x, *, positions, cache, cache_index):
+        """The block's pre-norm and mixer: (output, its new state or
+        None)."""
+        cfg = self.cfg
+        quant = cfg.quant
+        if kind == "attn":
+            o, _ = A.attention(
+                lp["mix"], x, cfg, quant=quant, positions=positions,
+                cache=cache, cache_index=cache_index, window=self.window,
+                prenorm=("rms", lp["ln1"], None))
+            return o, None
+        h = L.rmsnorm(x, lp["ln1"], q=quant, eps=cfg.norm_eps)
+        decode = positions is None
+        if kind == "rec":
+            return R.rglru_block(lp["mix"], h, cfg, quant=quant,
+                                 state=cache, decode=decode)
+        if kind == "mlstm":
+            return R.mlstm_block(lp["mix"], h, cfg, quant=quant,
+                                 state=cache, decode=decode)
+        if decode:
+            return R.slstm_step(lp["mix"], h, cfg, quant, cache)
+        return R.slstm_scan(lp["mix"], h, cfg, quant, cache)
+
     def _run_stack(self, params, x, *, positions, cache, cache_index,
                    with_aux=False):
         """Returns (x after the final norm, the cache, the layers' summed
         MoE load-balancing loss: a float32 scalar, 0 for a dense FFN, or
-        None unless ``with_aux``)."""
+        None unless ``with_aux``).  ``positions`` None is a decode step."""
         cfg = self.cfg
         quant = cfg.quant
         aux = (torch.zeros((), dtype=torch.float32, device=x.device)
                if with_aux else None)
-        for i, lp in enumerate(params["layers"]):
-            o, _ = A.attention(
-                lp["mix"], x, cfg, quant=quant, positions=positions,
+        for i, (kind, lp) in enumerate(zip(self.kinds, params["layers"])):
+            o, state = self._mixer(
+                kind, lp, x, positions=positions,
                 cache=None if cache is None else cache["layers"][i],
-                cache_index=cache_index, window=self.window,
-                prenorm=("rms", lp["ln1"], None))
+                cache_index=cache_index)
+            if state is not None and cache is not None:
+                cache["layers"][i] = state
             x = x + o
+            if "ffn" not in lp:
+                continue
             if cfg.ffn_kind == "moe":
                 h = L.rmsnorm(x, lp["ln2"], q=quant, eps=cfg.norm_eps)
                 f, a = M.moe_ffn(h, lp["ffn"], cfg, quant=quant,
@@ -245,3 +328,15 @@ class DecoderLM:
                                       cache_index=cache["index"])
         return self.logits(params, x), cache
 
+
+def _constant(kind, shape, device) -> torch.Tensor:
+    """The float32 values of a constant init: "ones", "zeros", ("full",
+    value) or ("linspace", lo, hi) over the last axis."""
+    if kind == "ones":
+        return torch.ones(shape, device=device)
+    if kind == "zeros":
+        return torch.zeros(shape, device=device)
+    if kind[0] == "full":
+        return torch.full(shape, float(kind[1]), device=device)
+    return torch.linspace(kind[1], kind[2], shape[-1],
+                          device=device).expand(shape).contiguous()

@@ -82,16 +82,20 @@ def should_pack(p: Param, stack: int = 1) -> bool:
     return shape[contraction_axis(p)] >= 16
 
 
-def pack_params_mxint(params, fmt: MXFormat):
+def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None):
     """Param tree -> Param tree with ``MXTensor`` values on large matmul
     weights, blocks along the contraction axis; everything else as is.
-    The leaves of a list (the decoder's per-layer trees) are sized as one
-    stack."""
+    The size rule counts a leaf of a list (the decoder's per-layer trees)
+    as one of a stack, as the reference's stacked leaves are:
+    ``layer_stacks[i]`` layers for element i (``DecoderLM.layer_stacks``:
+    ``n_units`` for a unit layer, 1 for a tail layer), or the list's
+    length when it is None."""
     def walk(tree, stack):
         if isinstance(tree, dict):
             return {k: walk(v, stack) for k, v in tree.items()}
         if isinstance(tree, list):
-            return [walk(v, len(tree)) for v in tree]
+            stacks = layer_stacks or [len(tree)] * len(tree)
+            return [walk(v, n) for v, n in zip(tree, stacks)]
         if not should_pack(tree, stack):
             return tree
         return Param(pack_weight(tree.value.to(torch.float32), fmt,
@@ -193,7 +197,8 @@ class ServingEngine:
         self.cfg = serve_cfg
         self.device = _device(device, "ServingEngine")
         if serve_cfg.pack_weights:
-            params = pack_params_mxint(params, serve_cfg.weight_fmt)
+            params = pack_params_mxint(params, serve_cfg.weight_fmt,
+                                       model.layer_stacks())
         self.params = params_to(params, self.device)
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(seed)

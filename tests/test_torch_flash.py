@@ -156,6 +156,73 @@ def test_decode_plain_vs_pallas(g, exp_mode, quantize, W, tol):
     assert gap <= tol * scale, (gap, scale)
 
 
+# head dim 256, 10 query heads over one KV head (RecurrentGemma-2B's local
+# attention): (causal, window, exp_mode, quantize_scores, S, tolerance)
+WIDE_FLASH_CASES = [
+    (True, 128, "mxint", True, 300, 5e-7),        # measured 7.7e-8
+    (True, 0, "float", False, 260, 2e-6),         # measured 5.1e-7
+]
+
+
+@pytest.mark.parametrize(
+    "causal,window,exp_mode,quantize,S,tol", WIDE_FLASH_CASES,
+    ids=[f"d256-g10-w{c[1]}-{c[2]}{'-q' if c[3] else ''}-S{c[4]}"
+         for c in WIDE_FLASH_CASES])
+def test_flash_plain_vs_pallas_head_dim_256(causal, window, exp_mode,
+                                            quantize, S, tol):
+    """The plain version at head dim 256 (the widened kernels' width),
+    10 query heads reading one KV head, against the reference's Pallas
+    ``flash_attention``."""
+    b, hkv, g, d = 1, 1, 10, 256
+    q = _x((b, hkv * g, S, d), 11, 1.5)
+    k = _x((b, hkv, S, d), 12, 1.5)
+    v = _x((b, hkv, S, d), 13)
+    kw = dict(causal=causal, window=window, exp_mode=exp_mode,
+              quantize_scores=quantize, softmax_variant="online")
+    got = ops.attention_op(_t(q), _t(k), _t(v), **kw)
+    want = jops.attention_op(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             **kw)
+    gap, scale = _gap(got, want)
+    assert got.shape == (b, hkv * g, S, d)
+    assert gap <= tol * scale, (gap, scale)
+
+
+@pytest.mark.parametrize("quantize", [True, False], ids=["mxint-q", "mxint"])
+def test_decode_plain_vs_pallas_head_dim_256(quantize):
+    """The decode plain version at head dim 256, G 10 over one KV head, on
+    a ring of 300 slots: a short row, a wrapped window ring (a hole where
+    the window's first slot is) and a full row."""
+    b, hkv, g, d, W = 3, 1, 10, 256, 300
+    q = _x((b, hkv, g, d), 14, 1.5)
+    k = _x((b, W, hkv, d), 15, 1.5)
+    v = _x((b, W, hkv, d), 16)
+    valid = np.zeros((b, W), np.int32)
+    valid[0, :37] = 1
+    valid[1, :] = 1
+    valid[1, 200:201] = 0
+    valid[2, :] = 1
+    kw = dict(exp_mode="mxint", quantize_scores=quantize)
+    got = ops.attention_decode_op(_t(q), _t(k), _t(v), _t(valid), **kw)
+    want = jops.attention_decode_op(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), jnp.asarray(valid), **kw)
+    gap, scale = _gap(got, want)
+    # measured: 1.3e-7 with quantized scores, 5.8e-7 without
+    assert got.shape == (b, hkv, g, d)
+    assert gap <= (1e-6 if quantize else 2e-6) * scale, (gap, scale)
+
+
+def test_head_dims_past_256_raise():
+    """272 is past the widest head dim the kernels take: both ops raise
+    with the stated message, on the CPU as on the card."""
+    q = torch.zeros(10, 8, 272)
+    with pytest.raises(NotImplementedError, match="head dim 272 > 256"):
+        fa.flash_attention(q, q[:1], q[:1], kv_groups=10)
+    with pytest.raises(NotImplementedError, match="head dim 272 > 256"):
+        fa.flash_attention_decode(q[None, :1, :2], q[None, :, :1],
+                                  q[None, :, :1],
+                                  torch.ones(1, 10, dtype=torch.int32))
+
+
 # (causal, window, kv_groups, S): masked whole-row attention, S <= 512
 PAPER_CASES = [
     (True, 0, 1, 197),                            # measured 7.7e-8
@@ -364,6 +431,12 @@ def test_kernel_route_by_dtype():
     assert fa.kernel_route(torch.bfloat16, 128, 4) == "mma"
     assert fa.kernel_route(torch.bfloat16, 16, 1) == "mma"
     assert fa.kernel_route(torch.float32, 100, 4) == "ordered"
+    # head dims past 128: two warps a row group, 64 query rows a block
+    assert fa.kernel_route(torch.bfloat16, 256, 10) == "mma"
+    assert fa.kernel_route(torch.bfloat16, 160, 64) == "mma"
+    assert fa.kernel_route(torch.float32, 256, 10) == "ordered"
+    with pytest.raises(NotImplementedError, match="kv_groups 65 > 64"):
+        fa.kernel_route(torch.bfloat16, 256, 65)
     with pytest.raises(NotImplementedError, match="multiple of 16"):
         fa.kernel_route(torch.bfloat16, 72, 4)
     with pytest.raises(NotImplementedError, match="kv_groups"):
@@ -373,7 +446,7 @@ def test_kernel_route_by_dtype():
 
 
 def test_flash_ops_check_their_arguments():
-    q = torch.zeros(2, 8, 160)
+    q = torch.zeros(2, 8, 272)
     with pytest.raises(NotImplementedError, match="head dim"):
         fa.flash_attention(q, q, q)
     with pytest.raises(ValueError, match="mxint"):

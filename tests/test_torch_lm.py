@@ -11,7 +11,11 @@ two files to two workers: ``deepseek_67b`` (3 layers, one KV head for 8
 query heads) and the mixture-of-experts decoders ``mixtral_8x7b`` (4
 experts top-2, a 16-slot sliding-window ring) and ``granite_moe_3b_a800m``
 (8 experts top-4, tied embeddings), whose ``loss`` adds the layers'
-load-balancing loss.  The reference's SMOKE parameters (f32) go through
+load-balancing loss; ``tests/test_torch_lm_recurrent.py`` runs them for
+the recurrent families, ``recurrentgemma_2b`` ((rec, rec, attn) and a
+(rec, rec) tail, a 16-slot local-attention ring) and ``xlstm_350m`` (two
+units of 3 mLSTM + 1 sLSTM, no FFN).  The reference's SMOKE parameters
+(f32) go through
 ``convert.lm_params``; both packages pack them to MXInt8 planes and serve
 or score the same numpy tokens.  The reference runs under two scoped fixes
 for the installed jax (the ``TPUCompilerParams`` alias and an exact
@@ -52,6 +56,8 @@ from repro.configs import llama3_8b as jllama  # noqa: E402
 from repro.configs import mixtral_8x7b as jmixtral  # noqa: E402
 from repro.configs import phi4_mini_3_8b as jphi  # noqa: E402
 from repro.configs import qwen3_14b as jqwen  # noqa: E402
+from repro.configs import recurrentgemma_2b as jrg  # noqa: E402
+from repro.configs import xlstm_350m as jxl  # noqa: E402
 from repro.core.mx_types import MXINT8_WEIGHT as J_W8  # noqa: E402
 from repro.core.mx_types import NEG_INF as J_NEG_INF  # noqa: E402
 from repro.core.mx_types import QuantConfig as JQuantConfig  # noqa: E402
@@ -72,6 +78,8 @@ from repro_torch.configs import llama3_8b as llama  # noqa: E402
 from repro_torch.configs import mixtral_8x7b as mixtral  # noqa: E402
 from repro_torch.configs import phi4_mini_3_8b as phi  # noqa: E402
 from repro_torch.configs import qwen3_14b as qwen  # noqa: E402
+from repro_torch.configs import recurrentgemma_2b as rg  # noqa: E402
+from repro_torch.configs import xlstm_350m as xl  # noqa: E402
 from repro_torch.core.mx_types import (MXINT8_WEIGHT, NEG_INF,  # noqa: E402
                                        QuantConfig)
 from repro_torch.kernels import ops  # noqa: E402
@@ -88,10 +96,12 @@ CONFIGS = {"llama3_8b": (jllama, llama), "qwen3_14b": (jqwen, qwen),
            "phi4_mini_3_8b": (jphi, phi),
            "deepseek_67b": (jdeepseek, deepseek),
            "mixtral_8x7b": (jmixtral, mixtral),
-           "granite_moe_3b_a800m": (jgranite, granite)}
-# the configs whose cases run in this file; test_torch_lm_zoo.py runs the
-# others
+           "granite_moe_3b_a800m": (jgranite, granite),
+           "recurrentgemma_2b": (jrg, rg), "xlstm_350m": (jxl, xl)}
+# the configs whose cases run in this file; test_torch_lm_recurrent.py
+# runs RECURRENT, test_torch_lm_zoo.py the others
 HERE = ("llama3_8b", "qwen3_14b", "phi4_mini_3_8b")
+RECURRENT = ("recurrentgemma_2b", "xlstm_350m")
 VOCAB = 512                  # every SMOKE config's
 SMOKE_NAMES = {pcfg.SMOKE.name: name for name, (_, pcfg) in CONFIGS.items()}
 # the loss's tolerance, relative: Llama's losses are bit-identical (measured
@@ -229,35 +239,55 @@ def test_neg_inf_equals_reference():
     assert NEG_INF == J_NEG_INF
 
 
+def _ref_layers(cfg, tree):
+    """(the reference subtree, the unit repeat or None) of each port
+    layer: the unit repeats, then the tail."""
+    out = [(tree["units"][f"u{j}_{k}"], u)
+           for u in range(cfg.resolved_n_units)
+           for j, k in enumerate(cfg.unit)]
+    return out + [(tree["tail"][f"t{j}_{k}"], None)
+                  for j, k in enumerate(cfg.tail)]
+
+
+def _leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves(tree[k], prefix + (k,))]
+    return [(prefix, tree)]
+
+
 def test_packed_planes_equal_reference(lm):
+    """Every leaf of every layer is packed or float as the reference's is,
+    with its planes or values: a unit layer's slice of the reference's
+    stack, a tail layer's own leaf."""
     jm, jeng, pm, peng = lm
-    jl = unwrap(jeng.params)["units"]["u0_attn"]
-    names = [("mix", "wq"), ("mix", "wo"), ("ffn", "wi"), ("ffn", "wg"),
-             ("ffn", "wo")]
-    if pm.cfg.ffn_kind == "moe":      # the expert stacks and the router
-        names.append(("ffn", "router"))
-    if pm.cfg.qk_norm:
-        names += [("mix", "q_norm"), ("mix", "k_norm")]
-    for i, layer in enumerate(peng.params["layers"]):
-        for grp, name in names:
-            p, ref = layer[grp][name].value, jl[grp][name]
-            if hasattr(ref, "mantissa"):
-                np.testing.assert_array_equal(p.mantissa.numpy(),
-                                              np.asarray(ref.mantissa)[i])
-                np.testing.assert_array_equal(p.exponent.numpy(),
-                                              np.asarray(ref.exponent)[i])
+    ref = unwrap(jeng.params)
+    for layer, (rl, u) in zip(peng.params["layers"],
+                              _ref_layers(pm.cfg, ref)):
+        theirs = dict(_leaves(rl))
+        mine = _leaves(layer)
+        assert {k for k, _ in mine} == set(theirs)
+        for key, p in mine:
+            r = theirs[key]
+            if hasattr(r, "mantissa"):
+                np.testing.assert_array_equal(
+                    p.value.mantissa.numpy(),
+                    np.asarray(r.mantissa if u is None else r.mantissa[u]))
+                np.testing.assert_array_equal(
+                    p.value.exponent.numpy(),
+                    np.asarray(r.exponent if u is None else r.exponent[u]))
             else:
-                assert not hasattr(p, "mantissa")
-                np.testing.assert_array_equal(p.numpy(), np.asarray(ref)[i])
+                assert not hasattr(p.value, "mantissa"), key
+                np.testing.assert_array_equal(
+                    p.value.numpy(), np.asarray(r if u is None else r[u]))
     tables = ("embed",) if pm.cfg.tie_embeddings else ("embed", "unembed")
-    assert set(tables) == {k for k in unwrap(jeng.params)
-                           if k in ("embed", "unembed")}
+    assert set(tables) == {k for k in ref if k in ("embed", "unembed")}
     for name in tables:
-        p, ref = peng.params[name].value, unwrap(jeng.params)[name]
+        p, r = peng.params[name].value, ref[name]
         np.testing.assert_array_equal(p.mantissa.numpy(),
-                                      np.asarray(ref.mantissa))
+                                      np.asarray(r.mantissa))
         np.testing.assert_array_equal(p.exponent.numpy(),
-                                      np.asarray(ref.exponent))
+                                      np.asarray(r.exponent))
     arrays = {"embed": np.zeros((7, 64), np.float32),
               "units": {"u0_attn": {}}, "tail": {}}
     with pytest.raises(ValueError, match="keys"):
@@ -399,12 +429,63 @@ def test_window_ring_decode_vs_reference(lm):
                                                        batch=1),
                          device="cpu")
     prompt = _tokens((1, 80), 4)
-    assert pm.cache_init(1, MAX_LEN, "cpu")["layers"][0]["k"].shape == \
-        (1, 64, pm.cfg.n_kv_heads, pm.cfg.hd)
+    ring = min(MAX_LEN, pm.cfg.local_attn_window or 64)
+    for kind, c in zip(pm.kinds, pm.cache_init(1, MAX_LEN, "cpu")["layers"]):
+        if kind == "attn":
+            assert c["k"].shape == (1, ring, pm.cfg.n_kv_heads, pm.cfg.hd)
     want = np.asarray(jeng.generate({"tokens": jnp.asarray(prompt)},
                                     max_new_tokens=9))
     got = peng.generate({"tokens": prompt}, max_new_tokens=9).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def lm_launches(cfg, tokens: int, decode: bool = False,
+                score: bool = False):
+    """Kernel launches of one call in kernel mode, by block kind, from the
+    reference's code: a slot prefill of ``tokens`` tokens, a decode step
+    or (``score``) a cache-less forward.  attn: 3 fused norm -> q/k/v and
+    the out linear, with qk-norm 2 RMSNorms, and the decode kernel (a
+    step), the flash kernel (a forward past 512 x 512 scores) or the
+    whole-row softmax (a forward up to it); a prefill's attention is
+    float.  The FFN of an attn or rec layer: 2 fused norm -> wi/wg, the
+    SiLU or GELU and wo; MoE: the RMSNorm, the router, the gates' softmax
+    and the experts' SiLU.  rec: the RMSNorm, 5 linears (y, x, the two
+    gates, out) and the GELU.  mlstm: the RMSNorm and 8 linears (q, k, v,
+    the two gates, out, up, down).  slstm: the RMSNorm, 2 linears a token
+    and the out linear.  Then the final RMSNorm."""
+    s = 1 if decode else tokens
+    c = dict.fromkeys(("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
+                       "mxint_layernorm", "mxint_softmax", "flash_attention",
+                       "flash_attention_decode"), 0)
+    c["mxint_layernorm"] = 1
+    moe = cfg.ffn_kind == "moe"
+    for kind in cfg.layer_kinds:
+        if kind == "attn":
+            c["mxint_ln_matmul"] += 3
+            c["mxint_matmul"] += 1
+            c["mxint_layernorm"] += 2 if cfg.qk_norm else 0
+            if decode:
+                c["flash_attention_decode"] += 1
+            elif score:
+                c["flash_attention" if s * s > 512 * 512
+                  else "mxint_softmax"] += 1
+        elif kind == "rec":
+            c["mxint_layernorm"] += 1
+            c["mxint_matmul"] += 5
+            c["mxint_gelu"] += 1
+        else:
+            c["mxint_layernorm"] += 1
+            c["mxint_matmul"] += 8 if kind == "mlstm" else 2 * s + 1
+        if kind in ("attn", "rec") and cfg.ffn_kind != "none":
+            if moe:
+                c["mxint_layernorm"] += 1
+                c["mxint_matmul"] += 1
+                c["mxint_softmax"] += 1
+            else:
+                c["mxint_ln_matmul"] += 2
+                c["mxint_matmul"] += 1
+            c["mxint_gelu"] += 1
+    return c
 
 
 def test_kernel_launch_structure(monkeypatch, config):
@@ -418,7 +499,11 @@ def test_kernel_launch_structure(monkeypatch, config):
     fused norm->linears (q, k, v), 2 linears (the attention's out and the
     router), the RMSNorm before the FFN, the gates' softmax and the
     experts' SiLU: as many launches as a dense layer, 289 a decode step and
-    257 a slot prefill at Mixtral-8x7B's 32 layers."""
+    257 a slot prefill at Mixtral-8x7B's 32 layers.  The recurrent
+    configs run their SMOKE stacks, held to ``lm_launches``: at full depth
+    RecurrentGemma-2B launches 263 kernels a slot prefill and 271 a decode
+    step, xLSTM-350M 580 a 64-token slot prefill (its 3 sLSTM layers 2 a
+    token) and 202 a decode step."""
     names = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
              "mxint_layernorm", "mxint_softmax", "flash_attention",
              "flash_attention_decode")
@@ -432,8 +517,10 @@ def test_kernel_launch_structure(monkeypatch, config):
         monkeypatch.setattr(ops, name, counted)
     L = 3
     smoke = CONFIGS[config][1].SMOKE
-    pm = DecoderLM(dataclasses.replace(smoke, n_layers=L,
-                                       quant=QuantConfig(**KERNEL)))
+    dense = smoke.unit == ("attn",)
+    if dense:
+        smoke = dataclasses.replace(smoke, n_layers=L, n_units=None)
+    pm = DecoderLM(dataclasses.replace(smoke, quant=QuantConfig(**KERNEL)))
     pp = pm.init(1, device="cpu", pack_fmt=MXINT8_WEIGHT)
     eng = ServingEngine(pm, pp, ServeConfig(max_len=64, batch=2),
                         device="cpu")
@@ -454,13 +541,28 @@ def test_kernel_launch_structure(monkeypatch, config):
     eng._prefill_slot(eng.params, torch.from_numpy(_tokens((1, 16), 5)), 11,
                       1, cache)
     prefill = take()
+    assert prefill == lm_launches(pm.cfg, 16)
+    if not dense:
+        eng._decode(eng.params, torch.zeros(2, 1, dtype=torch.int32), cache)
+        assert take() == lm_launches(pm.cfg, 1, decode=True)
+        # xLSTM takes whole 256-token mLSTM chunks: 640 would not do
+        for n in (640, 512) if "attn" in pm.kinds else (512,):
+            pm.loss(eng.params, {"tokens": _tokens((1, n), 6)})
+            assert take() == lm_launches(pm.cfg, n, score=True)
+        full = CONFIGS[config][1].FULL
+        got = (sum(lm_launches(full, 64).values()),
+               sum(lm_launches(full, 1, decode=True).values()))
+        assert got == {"recurrentgemma_2b": (263, 271),
+                       "xlstm_350m": (580, 202)}[config]
+        return
     assert prefill == {**per_layer, "flash_attention": 0,
                        "flash_attention_decode": 0}
     assert sum(prefill.values()) == (8 + norms) * L + 1
     eng._decode(eng.params, torch.zeros(2, 1, dtype=torch.int32), cache)
     step = take()
     assert step == {**per_layer, "flash_attention": 0,
-                    "flash_attention_decode": L}
+                    "flash_attention_decode": L} == \
+        lm_launches(pm.cfg, 1, decode=True)
     assert sum(step.values()) == (9 + norms) * L + 1
     if smoke.qk_norm:               # the full config's counts, by the same
         full = qwen.FULL.n_layers   # per-layer structure
@@ -470,11 +572,13 @@ def test_kernel_launch_structure(monkeypatch, config):
         assert (9 * full + 1, 8 * full + 1) == (289, 257)
     pm.loss(eng.params, {"tokens": _tokens((1, 640), 6)})
     assert take() == {**per_layer, "flash_attention": L,
-                      "flash_attention_decode": 0}
+                      "flash_attention_decode": 0} == \
+        lm_launches(pm.cfg, 640, score=True)
     pm.loss(eng.params, {"tokens": _tokens((1, 512), 6)})
     assert take() == {**per_layer,
                       "mxint_softmax": per_layer["mxint_softmax"] + L,
-                      "flash_attention": 0, "flash_attention_decode": 0}
+                      "flash_attention": 0, "flash_attention_decode": 0} == \
+        lm_launches(pm.cfg, 512, score=True)
 
 
 def test_init_packs_each_tensor_as_it_goes():

@@ -20,8 +20,8 @@ import test_torch_lm as base  # noqa: E402
 from test_torch_lm import jax_reference, lm  # noqa: E402,F401  (fixtures)
 
 ZOO = ("deepseek_67b", "mixtral_8x7b", "granite_moe_3b_a800m")
-assert not set(ZOO) & set(base.HERE) and \
-    set(ZOO) | set(base.HERE) == set(base.CONFIGS)
+assert not set(ZOO) & (set(base.HERE) | set(base.RECURRENT)) and \
+    set(ZOO) | set(base.HERE) | set(base.RECURRENT) == set(base.CONFIGS)
 
 
 @pytest.fixture(scope="module", params=ZOO)

@@ -238,12 +238,14 @@ def test_packing_decisions_are_the_references(name, which):
 
 
 def test_decoder_rejects_what_is_not_ported():
-    """The decoder takes the moe FFN kind and needs its MoEConfig;
-    recurrent units still raise, pointing at ROADMAP.md."""
+    """The decoder takes the moe FFN kind and needs its MoEConfig; a block
+    kind it does not know raises (the recurrent kinds are ported)."""
     with pytest.raises(ValueError, match="MoEConfig"):
         DecoderLM(dataclasses.replace(mixtral.SMOKE, moe=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        DecoderLM(dataclasses.replace(mixtral.SMOKE, unit=("rec",)))
+    with pytest.raises(NotImplementedError, match="block kinds"):
+        DecoderLM(dataclasses.replace(mixtral.SMOKE, unit=("cross",)))
+    assert DecoderLM(dataclasses.replace(mixtral.SMOKE, unit=("rec",))
+                     ).kinds == ("rec", "rec")
     model = DecoderLM(mixtral.SMOKE)
     ffn = model.layer_spec()["ffn"]
     assert ffn["wi"][:2] == ((4, 64, 96), ("expert", "embed", "mlp"))
