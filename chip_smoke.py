@@ -108,7 +108,7 @@
    vocab 200064), each at full width and depth, random
    packed MXInt8 weights: 4 requests of 37-700 prompt tokens and 16 new
    tokens through the LM serve phase's checks, with the launch counts
-   ``lm_per_call`` derives (Qwen3-14B 401 a slot prefill and 441 a decode
+   ``lm_launches`` derives (Qwen3-14B 401 a slot prefill and 441 a decode
    step, Phi-4-mini 257 and 289); then a 1-layer full-width card-against-
    CPU check in kernel, "sim" and "packed" mode, phase 6's tolerance.
 10. DSE phase: kernel-mode DeiT-Base at full width and depth, random
@@ -135,10 +135,10 @@
 12. Mixture of experts: Mixtral-8x7B (d 4096, 32 heads over 8, 8
    experts top-2, d_ff 14336, vocab 32000, window 4096) and Granite-MoE-3B
    (d 1536, 24 heads over 8, 40 experts top-8, d_ff 512, tied vocab
-   49155), each at full width and ``MOE_SERVE_LAYERS`` (16) of their 32
+   49155), each at full width and ``MOE_SERVE_LAYERS`` (8) of their 32
    layers with random packed MXInt8 weights, after every earlier model is
    freed (the free memory logged): served as in phase 9 (4 requests of
-   37-700 tokens, 16 new), with 129 launches a slot prefill and 145 a
+   37-700 tokens, 16 new), with 65 launches a slot prefill and 73 a
    decode step (a MoE
    layer: q, k, v fused norm -> linears, the decode attention, the
    attention's out and the router linears, the RMSNorm before the FFN,
@@ -151,8 +151,8 @@
    gates' softmax over rows of 2 and 8, the SiLU over (E x C, d_ff)
    capacity buffers, the RMSNorm before the FFN.
 13. DeepSeek-67B at full width (d 8192, 64 heads over 8, d_ff 22016,
-   vocab 102400) and ``DEEPSEEK_LAYERS`` (32) of its 95 layers, served as
-   in phase 9, 257 launches a slot prefill and 289 a decode step.
+   vocab 102400) and ``DEEPSEEK_LAYERS`` (16) of its 95 layers, served as
+   in phase 9, 129 launches a slot prefill and 145 a decode step.
 14. Recurrent families: RecurrentGemma-2B (26 layers: (rec, rec, attn) x
    8 and a (rec, rec) tail; d 2560, RG-LRU width 2560, local attention of
    10 heads over one KV head at head dim 256, window 2048, GeGLU 7680,
@@ -161,7 +161,7 @@
    depth with random packed MXInt8 weights: 4 requests of 64-512 prompt
    tokens (powers of two: a prompt fills its bucket, so no pad token
    enters a recurrent state) and 16 new tokens through the LM serve
-   phase's checks, the launches of every call from ``lm_per_call`` by
+   phase's checks, the launches of every call from ``lm_launches`` by
    block kind (RecurrentGemma 263 a slot prefill and 271 a decode step;
    xLSTM 202 a decode step and 171 + 6 P a P-token slot prefill, its
    sLSTM layers 2 linears a token); one decode step split by kernel
@@ -170,12 +170,44 @@
    1024-token score (RecurrentGemma: ``flash_attention`` at head dim 256)
    and RecurrentGemma's 512-token one (the whole-row softmax); then one
    unit (RecurrentGemma 3 layers, xLSTM 8) card against CPU in kernel,
-   "sim" and "packed" mode, phase 6's tolerance.  The kernel phase holds
+   "sim" and "packed" mode, phase 6's tolerance, RecurrentGemma scoring
+   520 tokens (the flash kernel) and 512 (the whole-row softmax, whose
+   score and P.V products run in float64, rounded once).  The kernel phase holds
    both flash kernels at head dim 256 (G 10 over one KV head, rings of 64,
    512 and 2048 slots, a wrapped ring, the 1024-token score, both dtypes)
    and kernels 1-5 at the two models' shapes (``mxint_matmul`` at N 4:
    the mLSTM gates).
-15. Train: DeiT-Base at full width and depth (random weights from seed
+15. VLM: LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, d
+   4096, 32 heads over 8, d_ff 14336, vocab 32000, 2880 vision positions
+   of dim 1024) on random packed MXInt8 planes (the projector stays
+   float and is packed at each call): 4 requests of 3072 positions (2880
+   vision, 192 text) through ``ServingEngine.generate``, 16 new tokens,
+   ``max_len`` 4096; 258 launches the prefill (the projector's linear and
+   8 a layer; its attention is float) and 289 every decode step, kernel
+   by kernel (``lm_launches``); the prefill, one decode step (by kernel,
+   busy time, idle share) and the unembedding timed; a 3072-position
+   score with vision embeddings (290 launches, the flash kernel in every
+   layer).  Then 1 layer card against CPU, kernel mode, 448 vision
+   positions: 2 requests of 512 positions (4 new tokens) and a
+   576-position score (the flash kernel), phase 6's tolerance.
+16. Encoder-decoder: SeamlessM4T-medium at full width and depth (12 +
+   12 layers, d 1024, 16 heads, d_ff 4096, vocab 256206) on random
+   packed MXInt8 planes: 4 requests of 1024 frames (the encoder's non-
+   causal flash kernel) and 16 prompt tokens through ``generate``, 16
+   new tokens, then 4 of 256 frames (the encoder's whole-row softmax);
+   302 launches a prefill and 169 a decode step, kernel by kernel
+   (``encdec_launches``: the cross-attention's whole-row softmax and the
+   decode kernel in every step); the encoder, ``encode_kv``, a decode
+   step (by kernel) and the unembedding timed.  Then 1 + 1 layers card
+   against CPU, kernel mode, at 256 and 640 frames: 2 requests (4 new
+   tokens) and a cache-less forward's logits, phase 6's tolerance.
+   The kernel phase holds kernels 1-7 at the two models' new shapes
+   (the projector, Seamless's linears, GELU and RMSNorm at d 1024 and
+   d_ff 4096, softmax rows of 1024 and 256 keys at one query a head, the
+   non-causal flash kernel at head dim 64 over 1024 frames, the flash
+   kernel at 3072 positions, decode rings of 4096 slots at G 4 and of 512
+   at G 1, head dim 64), SDPA timed beside each attention case.
+17. Train: DeiT-Base at full width and depth (random weights from seed
    0) trained through ``TrainLoop`` on ``SyntheticImageData(n_classes=
    1000, image_size=224, batch=64, seed=0)`` in "fake" (QDQ with the
    serving formats, weights MXInt6/256, acts MXInt8/16): one step run
@@ -192,7 +224,7 @@
    Then 3 steps in "off", reported the same way.  Then one value-and-
    grad of DeiT-Micro in "off", "fake" and "sim" on the card and on the
    CPU: every gradient leaf within ``GRAD_CPU_TOL`` of its scale.
-16. Accuracy: ``benchmarks/common.py``'s recipe on the card: the micro
+18. Accuracy: ``benchmarks/common.py``'s recipe on the card: the micro
    DeiT (4 layers, d 64, 100 classes) trained 700 steps at batch 64 in
    "off" on its hard 100-class task, then evaluated (8 batches of 128
    from seed 99) as float, in Table V's eight rows ("fake", with the fp8
@@ -203,14 +235,22 @@
    launches 2 x (3 + 8 x 4) a batch.  The same trained params on the CPU
    must give the same sim and kernel-mode accuracy.  ``make_train_step``
    must refuse kernel mode and packed planes on the card.
-17. LM train: Llama-3-8B at full width cut to 2 layers (float32, about
+19. LM train: Llama-3-8B at full width cut to 2 layers (float32, about
    1.49 G parameters) trained 4 steps in "off" on ``SyntheticLMData(
    vocab=128256, batch=2, seq_len=512, seed=5)``: ms per step, peak
    GiB, finite losses and grad norms.  Then the SMOKE Llama-3 trained 5
    steps from one initial state on the card and on the CPU: losses
    within ``LM_SMOKE_LOSS_TOL`` relative, the largest parameter gap
    printed.
-18. Prints one JSON line of per-kernel results, then as the last line
+20. Recurrent and new-family training: RecurrentGemma-2B at full width
+   and 2 of its 8 units (6 layers) and xLSTM-350M at full width and
+   depth, 3 steps each in "off" on ``SyntheticLMData(batch=2,
+   seq_len=256, seed=5)``: ms per step, the sLSTM loops' share of it
+   (CUDA events around each ``slstm_scan``, the forward's), peak GiB,
+   finite losses and grad norms.  Then the SMOKE RecurrentGemma, xLSTM,
+   LLaVA (vision embeddings) and Seamless (frames) each trained 5 steps
+   on the card and on the CPU: losses within ``LM_SMOKE_LOSS_TOL``.
+21. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -235,6 +275,9 @@ sys.path.insert(0, str(ROOT / "src"))
 # tensor-core rate
 from repro_torch.analysis.cost_model import (ROW_OPS, bound,  # noqa: E402
                                              gemm_f32_ops)
+# every call's launches, by kernel, from the model's block kinds
+from repro_torch.models.launches import (encdec_launches,  # noqa: E402
+                                         lm_launches)
 
 SEED = 0
 BATCH = 16
@@ -323,7 +366,24 @@ TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
                "recurrentgemma_score512_causal_n512_g10",
                "recurrentgemma_decode_rglru_gelu",
                "recurrentgemma_score_geglu", "recurrentgemma_decode_rms",
-               "xlstm_decode_rms"}
+               "xlstm_decode_rms",
+               # LLaVA-NeXT-Mistral-7B and SeamlessM4T-medium: the
+               # projector, Seamless's linears, GELU and RMSNorm, its
+               # whole-row cross-attention and encoder rows, its encoder's
+               # non-causal flash, LLaVA's 3072-position flash and 4096-
+               # slot decode ring, Seamless's decode ring (SDPA beside
+               # each attention case)
+               "llava_prefill_vision_proj", "seamless_decode_wq",
+               "seamless_decode_ffn_wo", "seamless_encode_kv",
+               "seamless_encoder_ffn_wi", "seamless_encoder_ffn_wo",
+               "seamless_decode_cross_n1024", "seamless_decode_cross_n256",
+               "seamless_prefill_cross_16x1024", "seamless_encoder_256",
+               "seamless_decode_gelu", "seamless_encoder_gelu",
+               "seamless_decode_rms", "seamless_encoder_rms",
+               "seamless_encoder_1024_full_d64_mxint",
+               "llava_score_3072_causal_mxint",
+               "llava_decode_b4_W4096_served_mxint",
+               "seamless_decode_b4_W512_g1_d64_mxint"}
 # act mantissa widths of the row kernels' MXInt6 and MXInt12 cases
 MANT_BITS = {"mant6": 6, "mant12": 12}
 # the widened act formats of the matmul kernels' cases: (act block, act
@@ -349,10 +409,13 @@ LM_CPU_LAYERS = 1
 # served 4 requests of 37-700 prompt tokens, 16 new tokens each; their
 # card-against-CPU check serves prompts of 37 and 100 tokens and scores
 # 520 (past 512 x 512 scores: the flash path), fewer than Llama's 100, 250
-# and 640, in kernel, "sim" and "packed" mode (the only check of those
-# modes over a tied table, Phi-4-mini's, and over per-head q/k RMSNorms,
-# Qwen3-14B's), at NEW_LM_CPU_LAYERS layers: 1, cut from 2 for the
-# smoke's time (at 2 layers the CPU side took 255 and 91 s)
+# and 640, in kernel, "sim" and "packed" mode (the only checks of "sim"
+# and "packed" over a tied table, Phi-4-mini's, and over per-head q/k
+# RMSNorms, Qwen3-14B's), at NEW_LM_CPU_LAYERS layers: 1, cut from 2 for
+# the smoke's time (at 2 layers the CPU side took 255 and 91 s).
+# Every card-against-CPU check draws and packs its parameters on the card
+# and copies them to the CPU (``cpu_check_params``): drawn on the CPU they
+# took 20-40 s a check
 NEW_LMS = ("qwen3_14b", "phi4_mini_3_8b")
 NEW_LM_PROMPTS = (37, 150, 400, 700)
 NEW_LM_NEW_TOKENS = 16
@@ -367,19 +430,20 @@ DSE_CPU_LAYERS = 2
 DSE_CPU_IMAGES = 16
 # the mixture-of-experts decoders (config modules) at full width and
 # MOE_SERVE_LAYERS of their 32 layers, served as NEW_LMS are; their
-# card-against-CPU check in kernel mode at MOE_CPU_LAYERS layers: two, so
-# that one layer's expert outputs feed the next layer's router.
-# DeepSeek-67B at full width and DEEPSEEK_LAYERS of its 95 layers (all 95
-# would hold 62.8 GiB of planes, 3.0 GiB of ring at batch 4 and about 11
-# GiB of float32 temporaries while the unembedding is dequantized, too
-# close to the card's 79.2 GiB).  Both depths were cut (DeepSeek from 64,
-# the MoE serves from 32, in that order) to keep the smoke under 1000 s
-# of command time with the recurrent phases; the layers run the same
-# kernels at the same shapes, only fewer times.
+# card-against-CPU check in kernel mode at MOE_CPU_LAYERS layers (2: one
+# layer's expert outputs feed the next layer's router).  DeepSeek-67B at full width and DEEPSEEK_LAYERS of its
+# 95 layers (all 95 would hold 62.8 GiB of planes, 3.0 GiB of ring at
+# batch 4 and about 11 GiB of float32 temporaries while the unembedding
+# is dequantized, too close to the card's 79.2 GiB).  The depths were cut
+# (DeepSeek from 64 to 32 and the MoE serves from 32 to 16 with the
+# recurrent phases; DeepSeek to 16 and the MoE serves to 8 with the VLM,
+# the encoder-decoder and the recurrent training) to keep the smoke under
+# its command time; the layers run the same kernels at the same shapes,
+# only fewer times.
 MOE_LMS = ("mixtral_8x7b", "granite_moe_3b_a800m")
-MOE_SERVE_LAYERS = 16
+MOE_SERVE_LAYERS = 8
 MOE_CPU_LAYERS = 2
-DEEPSEEK_LAYERS = 32
+DEEPSEEK_LAYERS = 16
 # the recurrent families (config modules) at full width and depth: served
 # REC_PROMPTS (powers of two: no pad token enters a recurrent state),
 # REC_NEW_TOKENS each, batch LM_BATCH, max_len LM_MAX_LEN; scored
@@ -388,10 +452,10 @@ DEEPSEEK_LAYERS = 32
 # kernel and by scan; card against CPU at one unit in REC_CPU_MODES,
 # serving REC_CPU_PROMPTS and scoring REC_CPU_SCORE tokens: RecurrentGemma
 # 520, past 512 x 512 scores (the flash path, as the other LMs' checks
-# score: the whole-row path's score and P.V products are float32
-# ``torch.matmul`` calls, which sum in another order on each device; at
-# 512 tokens and head dim 256 that moved act-grid steps, about 1% of the
-# logit scale, argmax equal), xLSTM 512 (whole 256-token mLSTM chunks)
+# score), and 512 (the whole-row path, whose score and P.V products are
+# float64, rounded once: as float32 ``torch.matmul`` calls they summed in
+# another order on each device and moved act-grid steps at 512 tokens,
+# about 1% of the logit scale); xLSTM 512 (whole 256-token mLSTM chunks)
 REC_LMS = ("recurrentgemma_2b", "xlstm_350m")
 REC_PROMPTS = (64, 128, 256, 512)
 REC_NEW_TOKENS = 16
@@ -399,16 +463,16 @@ REC_SOFTMAX_SCORE = 512
 REC_PREFILL_SPLIT = 512
 REC_CPU_MODES = ("kernel", "sim", "packed")
 REC_CPU_PROMPTS = (64, 128)
-REC_CPU_SCORE = {"recurrentgemma_2b": 520, "xlstm_350m": 512}
+REC_CPU_SCORE = {"recurrentgemma_2b": (520, 512), "xlstm_350m": 512}
 # the recurrent scans a prefill split times, by the block kind that runs
 # them
 REC_SCANS = {"rglru_scan": "rec", "mlstm_scan": "mlstm",
              "slstm_scan": "slstm"}
 # launches of a slot prefill and a decode step at full depth, from
-# lm_per_call: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
+# lm_launches: Llama-3-8B and Phi-4-mini 8 L + 1 and 9 L + 1 at 32
 # layers; Qwen3-14B adds 2 RMSNorms a layer, 10 L + 1 and 11 L + 1 at 40;
 # a MoE layer launches as many as a dense one (Mixtral-8x7B and
-# Granite-MoE-3B at their 16 served layers); DeepSeek-67B at its 32;
+# Granite-MoE-3B at their 8 served layers); DeepSeek-67B at its 16;
 # RecurrentGemma-2B 18 rec layers of 11 (an RMSNorm, 5 linears and the
 # GELU, the FFN's 2 fused norm -> linears, GELU and out linear) and 8 attn
 # layers of 8 (9 a decode step), + 1; xLSTM-350M 21 mLSTM layers of 9 (an
@@ -417,9 +481,9 @@ REC_SCANS = {"rglru_scan": "rec", "mlstm_scan": "mlstm",
 # decode step 202.  The slot prefill's count is at a 64-token bucket.
 FULL_DEPTH_LAUNCHES = {"llama3_8b": (257, 289), "phi4_mini_3_8b": (257, 289),
                        "qwen3_14b": (401, 441),
-                       "mixtral_8x7b": (129, 145),
-                       "granite_moe_3b_a800m": (129, 145),
-                       "deepseek_67b": (257, 289),
+                       "mixtral_8x7b": (65, 73),
+                       "granite_moe_3b_a800m": (65, 73),
+                       "deepseek_67b": (129, 145),
                        "recurrentgemma_2b": (263, 271),
                        "xlstm_350m": (580, 202)}
 # "sim" against the all-kernel model on the same weights and images: the
@@ -480,6 +544,56 @@ LM_TRAIN_BATCH = 2
 LM_TRAIN_SEQ = 512
 LM_SMOKE_STEPS = 5
 LM_SMOKE_LOSS_TOL = 1e-5
+# the VLM, LLaVA-NeXT-Mistral-7B at full width and depth: VLM_BATCH
+# requests of its 2880 vision positions and VLM_TEXT text tokens (3072 in
+# all: the query-chunked prefill takes multiples of 1024), VLM_NEW_TOKENS
+# new ones, max_len VLM_MAX_LEN; one 3072-position score with vision
+# embeddings (the flash kernel).  Card against CPU at 1 layer with
+# VLM_CPU_VISION vision positions: prompts of VLM_CPU_VISION +
+# VLM_CPU_TEXT positions (the whole-row prefill) and a VLM_CPU_SCORE-
+# position score (past 512 x 512 scores: the flash kernel).  Launches of
+# the prefill (8 L + 1 and the projector's linear), a decode step (9 L +
+# 1) and the score (9 L + 1 and the projector's linear) at 32 layers
+VLM_BATCH = 4
+VLM_TEXT = 192
+VLM_NEW_TOKENS = 16
+VLM_MAX_LEN = 4096
+VLM_CPU_VISION = 448
+VLM_CPU_TEXT = 64
+VLM_CPU_SCORE = 576
+VLM_LAUNCHES = {"prefill": 258, "decode": 289, "score": 290}
+# the encoder-decoder, SeamlessM4T-medium at full width and depth:
+# LM_BATCH requests of ENCDEC_FRAMES frames (the flash encoder) and of
+# ENCDEC_SHORT_FRAMES (the whole-row encoder), ENCDEC_PROMPT prompt
+# tokens, ENCDEC_NEW_TOKENS new ones, max_len ENCDEC_MAX_LEN; card
+# against CPU at 1 + 1 layers at ENCDEC_CPU_FRAMES frames.  Launches of a
+# prefill and a decode step (``encdec_launches``) by frame count: a
+# prefill runs 12 encoder layers of 10 (2 RMSNorms, 6 linears, the GELU,
+# the attention kernel), enc_norm, encode_kv's 24 linears, 12 decoder
+# layers of 13 (3 RMSNorms, 8 linears, the GELU, the cross-attention's
+# kernel) and the final RMSNorm: 302; a decode step the decoder layers
+# with the decode kernel, 14 each, and the final RMSNorm: 169
+ENCDEC_FRAMES = 1024
+ENCDEC_SHORT_FRAMES = 256
+ENCDEC_PROMPT = 16
+ENCDEC_NEW_TOKENS = 16
+ENCDEC_MAX_LEN = 512
+ENCDEC_CPU_FRAMES = (256, 640)
+ENCDEC_LAUNCHES = {1024: (302, 169), 256: (302, 169)}
+# training the recurrent families: RecurrentGemma-2B at full width and 2
+# of its 8 units (6 layers, with the tied 256000 x 2560 table about 1.2 G
+# parameters; the whole model's 2.7 G with their gradients, AdamW moments
+# and the float64 copies the products keep for the backward would pass
+# the card's 80 GB), xLSTM-350M at full width and depth; REC_TRAIN_STEPS
+# steps in "off" at batch REC_TRAIN_BATCH x REC_TRAIN_SEQ tokens; then
+# each of REC_TRAIN_SMOKES trained LM_SMOKE_STEPS steps on the card and
+# on the CPU
+REC_TRAIN_UNITS = {"recurrentgemma_2b": 2, "xlstm_350m": None}
+REC_TRAIN_STEPS = 3
+REC_TRAIN_BATCH = 2
+REC_TRAIN_SEQ = 256
+REC_TRAIN_SMOKES = ("recurrentgemma_2b", "xlstm_350m",
+                    "llava_next_mistral_7b", "seamless_m4t_medium")
 
 
 def log(*a):
@@ -593,6 +707,7 @@ def kernel_cases(torch, np):
                                      mxint_ln_matmul, mxint_matmul,
                                      mxint_softmax)
     from repro_torch.kernels.mxint_matmul import sm_count
+    import torch.nn.functional as F
     rng = np.random.default_rng(SEED)
     dev = DEVICE
 
@@ -624,7 +739,8 @@ def kernel_cases(torch, np):
 
     def lm(label):
         return label.startswith(("llama3_8b", "mixtral", "granite",
-                                 "deepseek", "recurrentgemma", "xlstm"))
+                                 "deepseek", "recurrentgemma", "xlstm",
+                                 "llava", "seamless"))
 
     rows = BATCH * 197
     S = LM_SCORE_TOKENS
@@ -682,12 +798,29 @@ def kernel_cases(torch, np):
                            ("xlstm_prefill_wq", 512, 1024, 1024),
                            ("xlstm_slstm_token_w_in", 1, 1024, 4096),
                            ("xlstm_decode_slstm_r_in", LM_BATCH, 1024,
-                            4096)):
+                            4096),
+                           # LLaVA's projector over a batch's 2880 vision
+                           # positions a row (MXInt6: the config's weight
+                           # format, packed at each call); SeamlessM4T's
+                           # linears, d 1024 and d_ff 4096: a decode
+                           # step's q (and cross q, out), encode_kv and
+                           # the encoder's FFN over 4 x 1024 frames
+                           ("llava_prefill_vision_proj", VLM_BATCH * 2880,
+                            1024, 4096),
+                           ("seamless_decode_wq", LM_BATCH, 1024, 1024),
+                           ("seamless_decode_ffn_wo", LM_BATCH, 4096, 1024),
+                           ("seamless_encode_kv", LM_BATCH * ENCDEC_FRAMES,
+                            1024, 1024),
+                           ("seamless_encoder_ffn_wi",
+                            LM_BATCH * ENCDEC_FRAMES, 1024, 4096),
+                           ("seamless_encoder_ffn_wo",
+                            LM_BATCH * ENCDEC_FRAMES, 4096, 1024)):
         a = x(M, K)
         if lm(label):
             a = a.to(torch.bfloat16).to(torch.float32)
-        w = planes(K, N, MXINT6_WEIGHT if label.startswith("deit") or
-                   label == "ragged" else MXINT8_WEIGHT)
+        w = planes(K, N, MXINT6_WEIGHT if label.startswith(
+            ("deit", "llava_prefill_vision")) or label == "ragged"
+            else MXINT8_WEIGHT)
         if label.startswith("subnormal"):
             a = a * 2.0 ** -120
         if label.startswith("extreme"):
@@ -811,7 +944,18 @@ def kernel_cases(torch, np):
             # RecurrentGemma-2B's 512-token score: 10 heads' causal rows
             # of 512 keys
             ("recurrentgemma_score512_causal_n512_g10", 10 * 512, 512, 16,
-             True, "causal")):
+             True, "causal"),
+            # SeamlessM4T's whole-row attention: a decode step's cross-
+            # attention, one query a head over 1024 and over 256 frames,
+            # a 16-token prefill's, and the encoder at 256 frames
+            ("seamless_decode_cross_n1024", LM_BATCH * 16, 1024, 16, True,
+             None),
+            ("seamless_decode_cross_n256", LM_BATCH * 16, 256, 16, True,
+             None),
+            ("seamless_prefill_cross_16x1024", LM_BATCH * 16 * 16, 1024, 16,
+             True, None),
+            ("seamless_encoder_256", LM_BATCH * 16 * 256, 256, 16, True,
+             None)):
         a = x(R, n, scale=4.0)
         mb = MANT_BITS.get(how, 8)
         if how == "causal":
@@ -824,6 +968,17 @@ def kernel_cases(torch, np):
         geom = mxint_softmax.softmax_geometry(R, n, blk,
                                               a.data_ptr() % 16 == 0)
         log(f"[kernel] mxint_softmax {label} route {geom}")
+        lib = None
+        if label.startswith("seamless"):
+            # beside it, SDPA of the whole attention whose scores these
+            # rows are (bf16, head dim 64): what one PyTorch call takes
+            # for the score product, a float softmax and P.V
+            sq = R // (LM_BATCH * 16)
+            qa, ka, va = (x(LM_BATCH, 16, m, 64).to(torch.bfloat16)
+                          for m in (sq, n, n))
+
+            def lib(qa=qa, ka=ka, va=va):
+                return F.scaled_dot_product_attention(qa, ka, va)
         cases["mxint_softmax"].append((
             label,
             lambda a=a, blk=blk, q=qout, mb=mb: mxint_softmax.mxint_softmax(
@@ -831,7 +986,7 @@ def kernel_cases(torch, np):
             lambda a=a, blk=blk, q=qout, mb=mb: mxint_softmax.softmax_rows(
                 a, act_block=blk, mant_bits=mb, r_bits=2, quantize_out=q),
             bound(2 * R * n * 4, f32_ops=ROW_OPS["mxint_softmax"] * R * n),
-            None))
+            lib))
     # GELU: act block 16 (the float4 route) at the DeiT and Llama shapes,
     # blocks 8 and 4 (float4, 2 and 1 lanes a block), and the scalar route:
     # blocks 1 (an odd width), 2 and 12, and block 16 on rows offset by 4
@@ -865,7 +1020,12 @@ def kernel_cases(torch, np):
              None),
             ("recurrentgemma_decode_geglu", LM_BATCH, 7680, "gelu", 16,
              None),
-            ("recurrentgemma_score_geglu", S, 7680, "gelu", 16, None)):
+            ("recurrentgemma_score_geglu", S, 7680, "gelu", 16, None),
+            # SeamlessM4T's FFN GELU (d_ff 4096): a decode step's rows and
+            # the encoder's 4 x 1024 frames
+            ("seamless_decode_gelu", LM_BATCH, 4096, "gelu", 16, None),
+            ("seamless_encoder_gelu", LM_BATCH * ENCDEC_FRAMES, 4096, "gelu",
+             16, None)):
         a = x(R, d, scale=2.0)
         mb = MANT_BITS.get(how, 8)
         if lm(label):
@@ -930,7 +1090,12 @@ def kernel_cases(torch, np):
             ("recurrentgemma_decode_rms", LM_BATCH, 2560, 16, True, "rms"),
             ("recurrentgemma_prefill_rms", 512, 2560, 16, True, "rms"),
             ("xlstm_decode_rms", LM_BATCH, 1024, 16, True, "rms"),
-            ("xlstm_prefill_rms", 512, 1024, 16, True, "rms")):
+            ("xlstm_prefill_rms", 512, 1024, 16, True, "rms"),
+            # SeamlessM4T's every norm (no fused linear follows any): d
+            # 1024, a decode step's rows and the encoder's frames
+            ("seamless_decode_rms", LM_BATCH, 1024, 16, True, "rms"),
+            ("seamless_encoder_rms", LM_BATCH * ENCDEC_FRAMES, 1024, 16,
+             True, "rms")):
         rms = how == "rms"
         a, g = x(R, d, scale=2.0), 1.0 + 0.1 * x(d)
         b = None if rms or how == "no_beta" else 0.1 * x(d)
@@ -1152,7 +1317,15 @@ def flash_cases(torch, np, x):
             ("ragged_W300_g10_d160_mxint", 300, 1, 10, 160, 16, bf16, mx,
              ragged),
             ("ragged_W300_g10_d160_mxint_f32", 300, 1, 10, 160, 16, f32, mx,
-             ragged)):
+             ragged),
+            # LLaVA's served ring: 4096 slots, G 4, rows of 3072 prompt
+            # positions and up to 16 new tokens; SeamlessM4T's self-
+            # attention ring, G 1 over 16 heads at head dim 64, every row
+            # at one (scalar) index
+            ("llava_decode_b4_W4096_served_mxint", VLM_MAX_LEN, 8, 4, 128,
+             16, bf16, mx, ((0, 3073), (0, 3078), (0, 3083), (0, 3088))),
+            ("seamless_decode_b4_W512_g1_d64_mxint", ENCDEC_MAX_LEN, 16, 1,
+             64, 16, bf16, mx, ((0, 24),) * 4)):
         q = x(4, hkv, g, d, scale=1.5).to(dt)
         k = x(4, W, hkv, d, scale=1.5).to(dt)
         v = x(4, W, hkv, d).to(dt)
@@ -1165,7 +1338,7 @@ def flash_cases(torch, np, x):
         pairs = n_valid * hkv * g
         size = q.element_size()
         lib = None
-        if W == LM_MAX_LEN and (kw is fl or label in TIMED_CASES):
+        if label in TIMED_CASES or (W == LM_MAX_LEN and kw is fl):
             mask = (valid != 0)[:, None, None, :]
 
             def lib(q=q, k=k, v=v, mask=mask, hkv=hkv, g=g, d=d):
@@ -1241,7 +1414,14 @@ def flash_cases(torch, np, x):
             ("ragged_200_window100_d160_g4_b4_mxint", 200, True, 100, 8, 4,
              160, 4, bf16, mx),
             ("ragged_300_full_d160_g4_float", 300, False, 0, 8, 4, 160, 16,
-             bf16, fl)):
+             bf16, fl),
+            # SeamlessM4T's encoder over 1024 frames: non-causal, 16 heads
+            # over 16 at head dim 64, the batch of 4 as 64 heads; LLaVA's
+            # 3072-position score, causal, 32 heads over 8
+            ("seamless_encoder_1024_full_d64_mxint", ENCDEC_FRAMES, False,
+             0, LM_BATCH * 16, 1, 64, 16, bf16, mx),
+            ("llava_score_3072_causal_mxint", 3072, True, 0, 32, 4, 128, 16,
+             bf16, mx)):
         hkv = h // g
         q = x(h, S, d, scale=1.5).to(dt)
         k = x(hkv, S, d, scale=1.5).to(dt)
@@ -1250,10 +1430,11 @@ def flash_cases(torch, np, x):
         size = q.element_size()
         ops = 4.0 * pairs * d
         lib = None
-        if kw is fl and causal and (window == 0 or window >= S):
-            def lib(q=q, k=k, v=v):
+        if (kw is fl and causal or label in TIMED_CASES) and \
+                (window == 0 or window >= S):
+            def lib(q=q, k=k, v=v, c=causal):
                 return F.scaled_dot_product_attention(
-                    q[None], k[None], v[None], is_causal=True,
+                    q[None], k[None], v[None], is_causal=c,
                     enable_gqa=True)
         cases["flash_attention"].append((
             label,
@@ -1646,6 +1827,48 @@ def serve_deit(torch, np, engine, sizes, images, tag, per_batch):
         "snapshot": telemetry_report(tag)}
 
 
+def attention_products_ms(torch, cfg):
+    """The whole-row attention's q.kT and P.V products at one layer's
+    shape of ``cfg`` (a ViT) at batch ``BATCH``: (BATCH x heads) rows of
+    (tokens x head dim) operands, in float64 rounded once to float32, as
+    ``ops._paper_softmax_attention`` computes them, and as two float32
+    ``torch.matmul`` calls (full float32, no TF32): ms by CUDA events
+    (casts included) and device ms from a trace, one layer and one batch
+    of ``cfg.n_layers`` layers; part of the DeiT phase's "other"."""
+    n = (cfg.image_size // cfg.patch_size) ** 2 + 1
+    hd = cfg.d_model // cfg.n_heads
+    g = torch.Generator(device=DEVICE).manual_seed(SEED)
+    q, k, v = (torch.randn(BATCH * cfg.n_heads, n, hd, device=DEVICE,
+                           generator=g) for _ in range(3))
+    p = torch.softmax(torch.randn(BATCH * cfg.n_heads, n, n, device=DEVICE,
+                                  generator=g), -1)
+
+    def f64():
+        torch.matmul(q.double(), k.double().transpose(1, 2)).float()
+        torch.matmul(p.double(), v.double()).float()
+
+    def f32():
+        torch.matmul(q, k.transpose(1, 2))
+        torch.matmul(p, v)
+
+    res = {"rows": BATCH * cfg.n_heads, "tokens": n, "head_dim": hd}
+    for name, fn in (("float64", f64), ("float32", f32)):
+        ms, dev = time_ms(fn, iters=20), device_ms(fn, iters=10)
+        res[name] = {"ms_per_layer": ms, "device_ms_per_layer": dev,
+                     "ms_per_batch": ms * cfg.n_layers,
+                     "device_ms_per_batch": None if dev is None else
+                     dev * cfg.n_layers}
+    log(f"[slice] whole-row attention products, {res['rows']} rows of "
+        f"{n} x {hd} a layer: float64 (the port) "
+        f"{res['float64']['ms_per_layer']!r} ms / "
+        f"{res['float64']['device_ms_per_layer']!r} device, float32 "
+        f"{res['float32']['ms_per_layer']!r} / "
+        f"{res['float32']['device_ms_per_layer']!r}; a batch of "
+        f"{cfg.n_layers} layers {res['float64']['ms_per_batch']!r} against "
+        f"{res['float32']['ms_per_batch']!r} ms")
+    return res
+
+
 def slice_phase(torch, np):
     from repro_torch.configs.deit import DEIT_BASE
     from repro_torch.core.mx_types import QuantConfig
@@ -1696,6 +1919,7 @@ def slice_phase(torch, np):
     stats["other_ms_per_batch"] = ms_batch - sum(per_kernel.values())
     log(f"[slice] device ms per batch by kernel {per_kernel}, other "
         f"(attention products, glue, gaps) {stats['other_ms_per_batch']!r}")
+    stats["attention_products"] = attention_products_ms(torch, cfg)
 
     # the same model on the CPU through the plain versions
     imgs4 = np.concatenate(images)[:4]
@@ -1840,55 +2064,6 @@ def backends_phase(torch, np):
     return results, mixed_launches
 
 
-def lm_per_call(cfg, decode: bool, score: bool = False,
-                tokens: int = LM_SCORE_TOKENS):
-    """Kernel launches of one slot prefill (of ``tokens`` tokens), decode
-    step or cache-less forward (``score``, of ``tokens`` tokens) of the
-    decoder ``cfg`` in kernel mode, layer by layer from its block kinds.
-    attn: 3 fused norm -> linears (q, k, v) and the out linear, with
-    qk-norm the per-head q and k RMSNorms, and the attention kernel where
-    there is one (a decode step's; a forward's flash kernel past 512 x
-    512 scores, the whole-row softmax up to it; a prefill's attention is
-    float).  The FFN after an attn or rec layer, dense: 2 fused norm ->
-    linears (gate, up), the SiLU or GELU and the out linear; MoE: the
-    RMSNorm, the router linear, the gates' softmax and the experts' SiLU.
-    rec: the RMSNorm, 5 linears (y, x, the two gates, out) and the GELU.
-    mlstm: the RMSNorm and 8 linears (q, k, v, the two gates, out, up,
-    down).  slstm: the RMSNorm, 2 linears a token and the out linear.
-    After the layers the final RMSNorm."""
-    s = 1 if decode else tokens
-    c = {n: 0 for n in REPLACES}
-    c["mxint_layernorm"] = 1
-    moe = cfg.ffn_kind == "moe"
-    for kind in cfg.layer_kinds:
-        if kind == "attn":
-            c["mxint_ln_matmul"] += 3
-            c["mxint_matmul"] += 1
-            c["mxint_layernorm"] += 2 if cfg.qk_norm else 0
-            if decode:
-                c["flash_attention_decode"] += 1
-            elif score:
-                c["flash_attention" if s * s > 512 * 512
-                  else "mxint_softmax"] += 1
-        elif kind == "rec":
-            c["mxint_layernorm"] += 1
-            c["mxint_matmul"] += 5
-            c["mxint_gelu"] += 1
-        else:
-            c["mxint_layernorm"] += 1
-            c["mxint_matmul"] += 8 if kind == "mlstm" else 2 * s + 1
-        if kind in ("attn", "rec") and cfg.ffn_kind != "none":
-            if moe:
-                c["mxint_layernorm"] += 1
-                c["mxint_matmul"] += 1
-                c["mxint_softmax"] += 1
-            else:
-                c["mxint_ln_matmul"] += 2
-                c["mxint_matmul"] += 1
-            c["mxint_gelu"] += 1
-    return c
-
-
 def cut_depth(cfg, units: int):
     """``cfg`` cut to ``units`` repeats of its unit and no tail (a dense
     stack: ``units`` layers)."""
@@ -1900,7 +2075,7 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     """A dense LM at full size (``full``) through ServingEngine and
     BatchScheduler(batch_size=LM_BATCH), the
     telemetry registry reset at its start: every slot prefill and decode
-    step timed and its launches checked against ``lm_per_call``,
+    step timed and its launches checked against ``lm_launches``,
     submitted == completed + in_flight after every scheduler step, and
     each step's ``scheduler/kernel_launches`` samples equal to the
     kernels' own counts of its calls.  Then one decode step split by
@@ -2002,13 +2177,13 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
     dec = [c for c in calls if c[0] == "decode"]
     totals = []
     for kind, P, _, got in calls:
-        want = lm_per_call(cfg, decode=kind == "decode", tokens=P or 1)
+        want = lm_launches(cfg, P or 1, decode=kind == "decode")
         if got != want:
             raise AssertionError(f"{tag}: {kind} launched {got}, expected "
                                  f"{want}")
         totals.append(sum(want.values()))
-    per_step = sum(lm_per_call(cfg, True).values())
-    per_prefill = sum(lm_per_call(cfg, False, tokens=64).values())
+    per_step = sum(lm_launches(cfg, 1, decode=True).values())
+    per_prefill = sum(lm_launches(cfg, 64).values())
     snap = T.snapshot()
     h = snap["histograms"]["scheduler/kernel_launches"]
     if (h["min"], h["max"], h["count"]) != (min(totals), max(totals),
@@ -2039,7 +2214,7 @@ def lm_serve_phase(torch, np, full, prompts, new_tokens, tag):
              "tokens": {r.uid: r.generated for r in done},
              "telemetry": telemetry_report(tag)}
     # one decode step split by kernel (rows at four depths of the ring)
-    names = [n for n, c in lm_per_call(cfg, True).items() if c] + (
+    names = [n for n, c in lm_launches(cfg, 1, decode=True).items() if c] + (
         ["experts"] if moe else [])
     cache = model.cache_init(LM_BATCH, LM_MAX_LEN, DEVICE)
     cache["index"] = torch.tensor([37, 700, 1500, 2000], dtype=torch.int32,
@@ -2134,7 +2309,7 @@ def _lm_score(torch, np, model, engine, tag, n_tokens, trace):
     torch.cuda.synchronize()
     score_s = time.perf_counter() - t0
     launches = read_counts()
-    want = lm_per_call(model.cfg, decode=False, score=True, tokens=n_tokens)
+    want = lm_launches(model.cfg, n_tokens, score=True)
     if launches != want:
         raise AssertionError(f"{tag}: launched {launches}, expected {want}")
     if not (0.0 < loss < 2.0 * float(np.log(model.cfg.vocab))):
@@ -2168,33 +2343,30 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
     """An LM architecture (``full``) at full width, ``layers`` repeats of
     its unit (``layers`` layers of a dense stack) and no tail, float32: the
     card against the CPU, serving 2 requests of ``prompt_lens`` tokens (4
-    new tokens each) and scoring ``score_tokens`` tokens, in each of
-    ``modes`` (labels of ``LM_CPU_MODES``)."""
-    from repro_torch.core.mx_types import MXINT8_WEIGHT
+    new tokens each) and scoring ``score_tokens`` tokens (a count, or a
+    tuple of counts each scored), in each of ``modes`` (labels of
+    ``LM_CPU_MODES``)."""
     from repro_torch.models.transformer import DecoderLM
-    from repro_torch.serving.engine import (ServeConfig, ServingEngine,
-                                            pack_params_mxint)
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
     from repro_torch.serving.scheduler import BatchScheduler, Request
 
-    for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
-        fn(torch.ones(1))       # first multi-threaded CPU calls may differ
-        fn(torch.ones(1, dtype=torch.float64))
+    warm_cpu(torch)
     base = dataclasses.replace(cut_depth(full, layers), dtype=torch.float32)
-    floats = DecoderLM(base).init(SEED, device="cpu")
-    planes = pack_params_mxint(floats, MXINT8_WEIGHT,
-                               DecoderLM(base).layer_stacks())
+    floats, planes = cpu_check_params(torch, DecoderLM(base))
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
                for n in prompt_lens]
-    toks = rng.integers(0, base.vocab, size=(1, score_tokens)).astype(
-        np.int32)
+    if isinstance(score_tokens, int):
+        score_tokens = (score_tokens,)
+    scores = [rng.integers(0, base.vocab, size=(1, n)).astype(np.int32)
+              for n in score_tokens]
     results = {}
     for label in modes:
         mode, kw, packed = LM_CPU_MODES[label]
         model = DecoderLM(dataclasses.replace(base,
                                               quant=quant_config(mode, kw)))
         params = planes if packed else floats
-        out = {}
+        out, seconds = {}, {}
         for dev in (DEVICE, "cpu"):
             t0 = time.perf_counter()
             reset_counts()
@@ -2205,39 +2377,26 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
             for uid, pr in enumerate(prompts):
                 sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
             tokens = {r.uid: r.generated for r in sched.run()}
-            logits = model.forward(eng.params, toks).float().cpu().numpy()
+            logits = np.concatenate([
+                model.forward(eng.params, toks).float().cpu().numpy()[0]
+                for toks in scores])[None]
             if dev == DEVICE:
                 torch.cuda.synchronize()
                 launches = read_counts()
-            out[dev] = (tokens, logits, time.perf_counter() - t0)
+            out[dev] = (tokens, logits)
+            seconds[dev] = time.perf_counter() - t0
             del eng
             log(f"[{tag} {label}] {dev}: served and scored in "
-                f"{out[dev][2]!r} s")
-        (tg, lg, gs), (tc, lc, cs) = out[DEVICE], out["cpu"]
-        gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
-        diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
-        results[label] = {
-            "layers": base.n_layers, "tokens_card": tg, "tokens_cpu": tc,
-            "card_s": gs, "cpu_s": cs, "score_logits_max_abs_gap": gap,
-            "score_logits_scale": scale, "argmax_differ": diff,
-            "score_logits_differing_elements": int((lg != lc).sum()),
-            "positions": int(lg.shape[1]), "card_launches": launches}
-        log(f"[{tag} {label}] tokens card={tg} cpu={tc}; {score_tokens}-token "
-            f"logits "
-            f"max_abs_gap={gap!r} scale={scale!r}, differing elements "
-            f"{results[label]['score_logits_differing_elements']}, argmax "
-            f"differs at {diff} of {lg.shape[1]} positions; card launches "
-            f"{launches}")
-        if tg != tc:
-            raise AssertionError(f"{tag} {label}: card and CPU generated "
-                                 f"different tokens")
-        if diff or gap > 1e-3 * scale:
-            raise AssertionError(f"{tag} {label}: card and CPU logits "
-                                 f"disagree beyond 1e-3 of their scale or in "
-                                 f"argmax")
+                f"{seconds[dev]!r} s")
+        res = compare_card_cpu(f"{tag} {label}", out)
+        res.update(layers=base.n_layers, score_tokens=score_tokens,
+                   card_s=seconds[DEVICE], cpu_s=seconds["cpu"],
+                   card_launches=launches)
+        log(f"[{tag} {label}] card launches {launches}")
         if mode != "kernel" and any(launches.values()):
             raise AssertionError(f"{tag} {label}: launched kernels "
                                  f"{launches}")
+        results[label] = res
     return results
 
 
@@ -2530,7 +2689,7 @@ def prefill_split(torch, model, engine, tag):
         engine.params, toks, P, 0, cache)
     run()
     total = time_ms(run, iters=3, warmup=1)
-    want = lm_per_call(model.cfg, False, tokens=P)
+    want = lm_launches(model.cfg, P)
     by_kernel = kernel_breakdown(torch, run, [n for n, c in want.items()
                                               if c])
     by_scan = kernel_breakdown(torch, run, [
@@ -2551,7 +2710,7 @@ def prefill_split(torch, model, engine, tag):
 
 def recurrent_phases(torch, np, phase):
     """Each of ``REC_LMS`` at full width and depth: served (the LM serve
-    phase's checks, every call's launches from ``lm_per_call``), one
+    phase's checks, every call's launches from ``lm_launches``), one
     slot prefill split by kernel and scan, a 1024-token score (with an
     attention layer, a ``REC_SOFTMAX_SCORE``-token one too), then one unit
     held card against CPU in ``REC_CPU_MODES``.  Every earlier model is
@@ -2585,8 +2744,492 @@ def recurrent_phases(torch, np, phase):
     return out
 
 
+def timed_generate(torch, engine, batch, new_tokens, want, tag):
+    """``engine.generate(batch, new_tokens)`` with the prefill and every
+    decode step timed (host clock after a synchronize) and their launches
+    held to ``want(kind)``, kind "prefill" or "decode"; returns (tokens,
+    prefill ms, the decode steps' ms)."""
+    calls = []
+    prefill, decode = engine._prefill, engine._decode
+
+    def timed(kind, fn):
+        def call(*a, **k):
+            before = read_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            calls.append((kind, (time.perf_counter() - t) * 1e3,
+                          count_diff(read_counts(), before)))
+            return out
+        return call
+
+    engine._prefill = timed("prefill", prefill)
+    engine._decode = timed("decode", decode)
+    try:
+        toks = engine.generate(batch, max_new_tokens=new_tokens)
+    finally:
+        engine._prefill, engine._decode = prefill, decode
+    for kind, _, got in calls:
+        if got != want(kind):
+            raise AssertionError(f"{tag}: {kind} launched {got}, expected "
+                                 f"{want(kind)}")
+    pre = [ms for kind, ms, _ in calls if kind == "prefill"]
+    dec = [ms for kind, ms, _ in calls if kind == "decode"]
+    if len(pre) != 1 or len(dec) != new_tokens - 1:
+        raise AssertionError(f"{tag}: {len(pre)} prefills and {len(dec)} "
+                             f"decode steps")
+    return toks, pre[0], dec
+
+
+def check_tokens(tag, toks, rows, new_tokens, vocab):
+    if tuple(toks.shape) != (rows, new_tokens) or \
+            not bool(((toks >= 0) & (toks < vocab)).all()):
+        raise AssertionError(f"{tag}: generated {tuple(toks.shape)} tokens "
+                             f"outside the vocabulary")
+
+
+def vision_batch(np, rows, vision, text, cfg, seed):
+    """A VLM batch: ``vision`` + ``text`` tokens a row (the first
+    ``vision`` positions are overwritten by the projected embeddings) and
+    float32 vision embeddings."""
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, size=(
+                rows, vision + text)).astype(np.int32),
+            "vision_embeds": rng.normal(size=(
+                rows, vision, cfg.vision_dim)).astype(np.float32)}
+
+
+def vlm_phase(torch, np):
+    """LLaVA-NeXT-Mistral-7B at full width and depth on random packed
+    MXInt8 planes: ``VLM_BATCH`` requests of 2880 vision positions and
+    ``VLM_TEXT`` text tokens through ``ServingEngine.generate``,
+    ``VLM_NEW_TOKENS`` new, ``max_len`` ``VLM_MAX_LEN``; the launches of
+    the prefill (the projector's linear, the layers' float prefill
+    attention) and of every decode step held to ``lm_launches``; one
+    decode step split by kernel beside the unembedding; then a
+    ``VLM_BATCH`` x 3072-position score with vision embeddings (the flash
+    kernel), its launches held too."""
+    from repro_torch.configs import llava_next_mistral_7b as llava
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    tag = "llava"
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(llava.FULL, quant=QuantConfig(
+        mode="kernel", quantize_nonlinear=True))
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=DEVICE, pack_fmt=MXINT8_WEIGHT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=VLM_MAX_LEN, batch=VLM_BATCH, pack_weights=True,
+        weight_fmt=MXINT8_WEIGHT), device=DEVICE)
+    allocated = torch.cuda.memory_allocated() / 2 ** 30
+    P = cfg.vision_tokens + VLM_TEXT
+    log(f"[{tag}] {cfg.name} {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}, {cfg.vision_tokens} vision positions of "
+        f"{cfg.vision_dim}: packed on the card in {init_s!r} s, "
+        f"{allocated!r} GiB allocated; vision_proj stays float "
+        f"({type(engine.params['vision_proj'].value).__name__})")
+    batch = vision_batch(np, VLM_BATCH, cfg.vision_tokens, VLM_TEXT, cfg,
+                         SEED + 7)
+    want = {"prefill": lm_launches(cfg, P, vision=True),
+            "decode": lm_launches(cfg, 1, decode=True)}
+    reset_counts()
+    t0 = time.perf_counter()
+    toks, pre_ms, dec_ms = timed_generate(torch, engine, batch,
+                                          VLM_NEW_TOKENS, want.get, tag)
+    serve_s = time.perf_counter() - t0
+    launches = read_counts()
+    check_tokens(tag, toks, VLM_BATCH, VLM_NEW_TOKENS, cfg.vocab)
+    peak = peak_gib(torch)
+    stats = {"model": cfg.name, "layers": cfg.n_layers, "init_s": init_s,
+             "gib_allocated": allocated, "peak_gib": peak,
+             "batch": VLM_BATCH, "positions": P,
+             "vision_positions": cfg.vision_tokens,
+             "new_tokens": VLM_NEW_TOKENS, "max_len": VLM_MAX_LEN,
+             "serve_s": serve_s, "prefill_ms": pre_ms, "decode_ms": dec_ms,
+             "decode_ms_median": statistics.median(dec_ms),
+             "launches_per_prefill": sum(want["prefill"].values()),
+             "launches_per_decode_step": sum(want["decode"].values()),
+             "launches": launches, "tokens": toks.tolist()}
+    log(f"[{tag}] {VLM_BATCH} requests of {P} positions, {VLM_NEW_TOKENS} "
+        f"new tokens in {serve_s!r} s: prefill {pre_ms!r} ms "
+        f"({stats['launches_per_prefill']} launches), decode ms per step "
+        f"median {stats['decode_ms_median']!r} (min {min(dec_ms)!r}, max "
+        f"{max(dec_ms)!r}; {stats['launches_per_decode_step']} launches); "
+        f"peak {peak!r} GiB allocated; launches {launches}")
+    # one decode step split by kernel, rows at the served depth
+    cache = model.cache_init(VLM_BATCH, VLM_MAX_LEN, DEVICE)
+    cache["index"] = torch.full((VLM_BATCH,), P + VLM_NEW_TOKENS // 2,
+                                dtype=torch.int32, device=DEVICE)
+    step = lambda: engine._decode(engine.params, torch.zeros(  # noqa: E731
+        VLM_BATCH, 1, dtype=torch.int32, device=DEVICE), cache)
+    step()
+    step_total = time_ms(step, iters=5)
+    by_kernel = kernel_breakdown(torch, step, [
+        n for n, c in want["decode"].items() if c])
+    busy = device_ms(step, iters=3, cats=BUSY_CATS)
+    h_last = torch.randn(VLM_BATCH, 1, cfg.d_model,
+                         device=DEVICE).to(cfg.dtype)
+    unembed = lambda: model.logits(engine.params, h_last)  # noqa: E731
+    stats.update(decode_step_ms_events=step_total,
+                 decode_step_ms_by_kernel=by_kernel,
+                 decode_step_ms_other=step_total - sum(by_kernel.values()),
+                 decode_step_device_busy_ms=busy,
+                 decode_step_device_idle_share=idle_share(busy, step_total),
+                 unembed_ms_events=time_ms(unembed, iters=5))
+    log(f"[{tag}] one decode step {step_total!r} ms by kernel {by_kernel}, "
+        f"other {stats['decode_step_ms_other']!r}; device busy {busy!r} ms, "
+        f"idle share {stats['decode_step_device_idle_share']!r}; the "
+        f"unembedding {stats['unembed_ms_events']!r} ms")
+    del cache
+    # the prefill split by kernel (the projector is one mxint_matmul)
+    pre_cache = model.cache_init(VLM_BATCH, VLM_MAX_LEN, DEVICE)
+    tb = {k: torch.as_tensor(v, device=DEVICE) for k, v in batch.items()}
+    run = lambda: engine._prefill(engine.params, tb, pre_cache)  # noqa: E731
+    stats["prefill_ms_by_kernel"] = kernel_breakdown(torch, run, [
+        n for n, c in want["prefill"].items() if c])
+    log(f"[{tag}] the prefill by kernel {stats['prefill_ms_by_kernel']}")
+    del pre_cache
+    # a score with vision embeddings: the flash kernel in every layer
+    with torch.no_grad():
+        sb = {"tokens": tb["tokens"][:1], "vision_embeds":
+              tb["vision_embeds"][:1]}
+        model.loss(engine.params, sb)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = float(model.loss(engine.params, sb))
+        torch.cuda.synchronize()
+        score_ms = (time.perf_counter() - t0) * 1e3
+        got = read_counts()
+        want_score = lm_launches(cfg, P, score=True, vision=True)
+        if got != want_score:
+            raise AssertionError(f"{tag} score: launched {got}, expected "
+                                 f"{want_score}")
+        if not (0.0 < loss < 2.0 * float(np.log(cfg.vocab))):
+            raise AssertionError(f"{tag} score: loss {loss}")
+        by_kernel = kernel_breakdown(torch, lambda: model.loss(
+            engine.params, sb), [n for n, c in want_score.items() if c])
+    stats["score"] = {"positions": P, "loss": loss, "ms": score_ms,
+                      "launches": got, "ms_by_kernel": by_kernel}
+    log(f"[{tag} score] {P} positions with vision embeddings: loss "
+        f"{loss!r}, {score_ms!r} ms, launches {got}; by kernel {by_kernel}")
+    for what, n in (("prefill", stats["launches_per_prefill"]),
+                    ("decode", stats["launches_per_decode_step"]),
+                    ("score", sum(want_score.values()))):
+        if n != VLM_LAUNCHES[what]:
+            raise AssertionError(f"{tag}: {n} launches a {what}, not "
+                                 f"{VLM_LAUNCHES[what]}")
+    del model, engine, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def compare_card_cpu(tag, out):
+    """Raise unless the card's and the CPU's tokens are identical and
+    their logits agree in argmax and within 1e-3 of their scale; returns
+    the comparison.  ``out[dev]`` = (tokens, logits numpy)."""
+    import numpy as np
+    (tg, lg), (tc, lc) = out[DEVICE], out["cpu"]
+    gap, scale = float(np.abs(lg - lc).max()), float(np.abs(lc).max())
+    diff = int((lg.argmax(-1) != lc.argmax(-1)).sum())
+    res = {"tokens_card": tg, "tokens_cpu": tc, "logits_max_abs_gap": gap,
+           "logits_scale": scale, "argmax_differ": diff,
+           "logits_differing_elements": int((lg != lc).sum()),
+           "positions": int(np.prod(lg.shape[:-1]))}
+    log(f"[{tag}] tokens card={tg} cpu={tc}; logits max_abs_gap={gap!r} "
+        f"scale={scale!r}, differing elements "
+        f"{res['logits_differing_elements']}, argmax differs at {diff} of "
+        f"{res['positions']} positions")
+    if tg != tc:
+        raise AssertionError(f"{tag}: card and CPU generated different "
+                             f"tokens")
+    if diff or gap > 1e-3 * scale:
+        raise AssertionError(f"{tag}: card and CPU logits disagree beyond "
+                             f"1e-3 of their scale or in argmax")
+    return res
+
+
+def vlm_cpu_phase(torch, np):
+    """LLaVA at full width, 1 layer, float32, ``VLM_CPU_VISION`` vision
+    positions, in kernel mode on MXInt8 planes, on the card and on the
+    CPU: 2 requests of ``VLM_CPU_VISION`` + ``VLM_CPU_TEXT`` positions
+    through ``generate`` (4 new tokens; the whole-row prefill), and a
+    ``VLM_CPU_SCORE``-position forward with vision embeddings (past 512 x
+    512 scores: the flash kernel)."""
+    from repro_torch.configs import llava_next_mistral_7b as llava
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    warm_cpu(torch)
+    cfg = dataclasses.replace(
+        cut_depth(llava.FULL, 1), dtype=torch.float32,
+        vision_tokens=VLM_CPU_VISION,
+        quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
+    model = build_model(cfg)
+    _, planes = cpu_check_params(torch, model)
+    serve = vision_batch(np, 2, VLM_CPU_VISION, VLM_CPU_TEXT, cfg, SEED + 8)
+    score = vision_batch(np, 1, VLM_CPU_VISION,
+                         VLM_CPU_SCORE - VLM_CPU_VISION, cfg, SEED + 9)
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        t0 = time.perf_counter()
+        reset_counts()
+        eng = ServingEngine(model, planes, ServeConfig(max_len=1024,
+                                                       batch=2), device=dev)
+        toks = eng.generate(serve, max_new_tokens=4).tolist()
+        logits = model.forward(eng.params, score["tokens"],
+                               torch.as_tensor(score["vision_embeds"]))
+        out[dev] = (toks, logits.float().cpu().numpy())
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+            launches = read_counts()
+        log(f"[vlm cpu] {dev}: served and scored in "
+            f"{time.perf_counter() - t0!r} s")
+        del eng
+    res = compare_card_cpu("vlm cpu", out)
+    res.update(layers=1, vision_positions=VLM_CPU_VISION,
+               prompt_positions=VLM_CPU_VISION + VLM_CPU_TEXT,
+               score_positions=VLM_CPU_SCORE, card_launches=launches)
+    if not launches["flash_attention"]:
+        raise AssertionError("vlm cpu: the score did not take the flash "
+                             "kernel")
+    return res
+
+
+def frames_batch(np, rows, frames, tokens, cfg, seed):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, cfg.vocab, size=(
+                rows, tokens)).astype(np.int32),
+            "frames": rng.normal(size=(rows, frames, cfg.d_model)).astype(
+                np.float32)}
+
+
+def encdec_phase(torch, np):
+    """SeamlessM4T-medium at full width and depth (12 + 12 layers) on
+    random packed MXInt8 planes: ``LM_BATCH`` requests of
+    ``ENCDEC_FRAMES`` frames and ``ENCDEC_PROMPT`` prompt tokens through
+    ``ServingEngine.generate`` (``ENCDEC_NEW_TOKENS`` new), then one batch
+    at ``ENCDEC_SHORT_FRAMES`` frames (the whole-row encoder); every
+    prefill's and decode step's launches held to ``encdec_launches``;
+    the encoder, ``encode_kv``, a decode step (split by kernel) and the
+    unembedding timed."""
+    from repro_torch.configs import seamless_m4t_medium as seamless
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    tag = "seamless"
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(seamless.FULL, quant=QuantConfig(
+        mode="kernel", quantize_nonlinear=True))
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(SEED, device=DEVICE, pack_fmt=MXINT8_WEIGHT)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=ENCDEC_MAX_LEN, batch=LM_BATCH, pack_weights=True,
+        weight_fmt=MXINT8_WEIGHT), device=DEVICE)
+    allocated = torch.cuda.memory_allocated() / 2 ** 30
+    log(f"[{tag}] {cfg.name} {cfg.n_encoder_layers} + {cfg.n_layers} "
+        f"layers, d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}: packed on the card in {init_s!r} s, "
+        f"{allocated!r} GiB allocated")
+    stats = {"model": cfg.name, "layers": [cfg.n_encoder_layers,
+                                           cfg.n_layers],
+             "init_s": init_s, "gib_allocated": allocated,
+             "batch": LM_BATCH, "prompt": ENCDEC_PROMPT,
+             "new_tokens": ENCDEC_NEW_TOKENS, "max_len": ENCDEC_MAX_LEN}
+    for frames in (ENCDEC_FRAMES, ENCDEC_SHORT_FRAMES):
+        batch = frames_batch(np, LM_BATCH, frames, ENCDEC_PROMPT, cfg,
+                             SEED + frames)
+        want = {"prefill": encdec_launches(cfg, frames, ENCDEC_PROMPT),
+                "decode": encdec_launches(cfg, frames, 1, decode=True)}
+        reset_counts()
+        t0 = time.perf_counter()
+        toks, pre_ms, dec_ms = timed_generate(
+            torch, engine, batch, ENCDEC_NEW_TOKENS, want.get, tag)
+        serve_s = time.perf_counter() - t0
+        launches = read_counts()
+        check_tokens(tag, toks, LM_BATCH, ENCDEC_NEW_TOKENS, cfg.vocab)
+        n = {k: sum(v.values()) for k, v in want.items()}
+        if (n["prefill"], n["decode"]) != ENCDEC_LAUNCHES[frames]:
+            raise AssertionError(f"{tag}: {n} launches at {frames} frames, "
+                                 f"not {ENCDEC_LAUNCHES[frames]}")
+        stats[f"serve_{frames}"] = {
+            "frames": frames, "serve_s": serve_s, "prefill_ms": pre_ms,
+            "decode_ms": dec_ms, "decode_ms_median": statistics.median(
+                dec_ms), "launches_per_prefill": n["prefill"],
+            "launches_per_decode_step": n["decode"], "launches": launches,
+            "tokens": toks.tolist()}
+        log(f"[{tag}] {LM_BATCH} requests of {frames} frames and "
+            f"{ENCDEC_PROMPT} tokens, {ENCDEC_NEW_TOKENS} new, in {serve_s!r}"
+            f" s: prefill {pre_ms!r} ms ({n['prefill']} launches), decode ms "
+            f"per step median {statistics.median(dec_ms)!r} (min "
+            f"{min(dec_ms)!r}, max {max(dec_ms)!r}; {n['decode']} launches);"
+            f" launches {launches}")
+    stats["peak_gib"] = peak_gib(torch)
+    # the encoder and encode_kv at ENCDEC_FRAMES frames, a decode step
+    batch = frames_batch(np, LM_BATCH, ENCDEC_FRAMES, ENCDEC_PROMPT, cfg,
+                         SEED + ENCDEC_FRAMES)
+    frames = torch.as_tensor(batch["frames"], device=DEVICE)
+    with torch.no_grad():
+        memory = model.encode(engine.params, frames)
+        stats["encode_ms"] = time_ms(
+            lambda: model.encode(engine.params, frames), iters=3)
+        stats["encode_ms_by_kernel"] = kernel_breakdown(
+            torch, lambda: model.encode(engine.params, frames),
+            ["mxint_matmul", "mxint_layernorm", "mxint_gelu",
+             "flash_attention"])
+        stats["encode_kv_ms"] = time_ms(
+            lambda: model.encode_kv(engine.params, memory), iters=3)
+        cache = model.cache_init(LM_BATCH, ENCDEC_MAX_LEN, DEVICE)
+        _, cache = engine._prefill(engine.params, {
+            "frames": frames, "tokens": torch.as_tensor(
+                batch["tokens"], device=DEVICE)}, cache)
+        tok = torch.zeros(LM_BATCH, 1, dtype=torch.int32, device=DEVICE)
+
+        def step():
+            cache["index"] = torch.full((), ENCDEC_PROMPT, dtype=torch.int32,
+                                        device=DEVICE)
+            return engine._decode(engine.params, tok, cache)
+
+        step()
+        step_total = time_ms(step, iters=5)
+        names = [n for n, c in encdec_launches(
+            cfg, ENCDEC_FRAMES, 1, decode=True).items() if c]
+        by_kernel = kernel_breakdown(torch, step, names)
+        busy = device_ms(step, iters=3, cats=BUSY_CATS)
+        h_last = torch.randn(LM_BATCH, 1, cfg.d_model,
+                             device=DEVICE).to(cfg.dtype)
+        stats.update(
+            decode_step_ms_events=step_total,
+            decode_step_ms_by_kernel=by_kernel,
+            decode_step_ms_other=step_total - sum(by_kernel.values()),
+            decode_step_device_busy_ms=busy,
+            decode_step_device_idle_share=idle_share(busy, step_total),
+            unembed_ms_events=time_ms(lambda: model.logits(
+                engine.params, h_last), iters=5))
+    log(f"[{tag}] the encoder at {ENCDEC_FRAMES} frames {stats['encode_ms']!r}"
+        f" ms by kernel {stats['encode_ms_by_kernel']}; encode_kv "
+        f"{stats['encode_kv_ms']!r} ms; one decode step {step_total!r} ms by "
+        f"kernel {by_kernel}, other {stats['decode_step_ms_other']!r}; "
+        f"device busy {busy!r} ms, idle share "
+        f"{stats['decode_step_device_idle_share']!r}; the unembedding "
+        f"({cfg.vocab} x {cfg.d_model}) {stats['unembed_ms_events']!r} ms; "
+        f"peak {stats['peak_gib']!r} GiB")
+    del cache, memory, model, engine, params
+    torch.cuda.empty_cache()
+    return stats
+
+
+def encdec_cpu_phase(torch, np):
+    """SeamlessM4T-medium at full width, 1 + 1 layers, float32, kernel
+    mode on MXInt8 planes, on the card and on the CPU, at each of
+    ``ENCDEC_CPU_FRAMES`` frames (256: the whole-row encoder; 640: the
+    flash kernel): 2 requests of ``ENCDEC_PROMPT`` tokens through
+    ``generate`` (4 new), and a cache-less forward's logits."""
+    from repro_torch.configs import seamless_m4t_medium as seamless
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    warm_cpu(torch)
+    cfg = dataclasses.replace(
+        seamless.FULL, n_layers=1, n_encoder_layers=1, dtype=torch.float32,
+        quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
+    model = build_model(cfg)
+    _, planes = cpu_check_params(torch, model)
+    results = {}
+    for frames in ENCDEC_CPU_FRAMES:
+        batch = frames_batch(np, 2, frames, ENCDEC_PROMPT, cfg, SEED + 11)
+        out = {}
+        for dev in (DEVICE, "cpu"):
+            t0 = time.perf_counter()
+            reset_counts()
+            eng = ServingEngine(model, planes, ServeConfig(max_len=64,
+                                                           batch=2),
+                                device=dev)
+            toks = eng.generate(batch, max_new_tokens=4).tolist()
+            logits = model.forward(eng.params, batch["frames"],
+                                   batch["tokens"])
+            out[dev] = (toks, logits.float().cpu().numpy())
+            if dev == DEVICE:
+                torch.cuda.synchronize()
+                launches = read_counts()
+            log(f"[encdec cpu {frames}] {dev}: served and scored in "
+                f"{time.perf_counter() - t0!r} s")
+            del eng
+        res = compare_card_cpu(f"encdec cpu {frames}", out)
+        encoder = "flash_attention" if frames * frames > 512 * 512 \
+            else "mxint_softmax"
+        if not launches[encoder]:
+            raise AssertionError(f"encdec cpu {frames}: the encoder did not "
+                                 f"take {encoder}")
+        res.update(frames=frames, layers=[1, 1], card_launches=launches)
+        results[frames] = res
+    return results
+
+
+def warm_cpu(torch):
+    """Run each transcendental op once on one element: the CPU build may
+    compute them inexactly on a first multi-threaded call."""
+    for fn in (torch.exp, torch.sin, torch.cos, torch.log, torch.erf):
+        fn(torch.ones(1))
+        fn(torch.ones(1, dtype=torch.float64))
+
+
+def cpu_check_params(torch, model):
+    """(float parameters, the same packed to MXInt8 planes), both on the
+    CPU, for a card-against-CPU check: drawn and packed on the card (the
+    CPU takes many times as long to draw a full-width model), then copied,
+    so both sides read the same values."""
+    from repro_torch.core.mx_types import MXINT8_WEIGHT
+    from repro_torch.serving.engine import pack_params_mxint, params_to
+    floats = model.init(SEED, device=DEVICE)
+    planes = params_to(pack_params_mxint(floats, MXINT8_WEIGHT,
+                                         model.layer_stacks()), "cpu")
+    floats = params_to(floats, "cpu")
+    torch.cuda.empty_cache()
+    return floats, planes
+
+
+def rec_train_phase(torch, np):
+    """Training the recurrent families and the two new decoders (module
+    docstring, item 20): RecurrentGemma-2B at full width and
+    ``REC_TRAIN_UNITS`` units, xLSTM-350M at full width and depth, each
+    ``REC_TRAIN_STEPS`` steps in "off" (``train_full``); then the SMOKE
+    RecurrentGemma, xLSTM, LLaVA and Seamless each card against CPU
+    (``smoke_card_vs_cpu``)."""
+    import importlib
+    out = {}
+    for name, units in REC_TRAIN_UNITS.items():
+        full = importlib.import_module(f"repro_torch.configs.{name}").FULL
+        cfg = dataclasses.replace(full if units is None else
+                                  cut_depth(full, units),
+                                  dtype=torch.float32)
+        out[name] = train_full(torch, np, "rec train", name, cfg,
+                               REC_TRAIN_STEPS, REC_TRAIN_BATCH,
+                               REC_TRAIN_SEQ)
+    for name in REC_TRAIN_SMOKES:
+        cfg = importlib.import_module(f"repro_torch.configs.{name}").SMOKE
+        out[f"{name}_smoke_card_vs_cpu"] = smoke_card_vs_cpu(
+            torch, np, "rec train", name, cfg)
+    return out
+
+
 # ---------------------------------------------------------------------------
-# training (phases 15-17)
+# training (phases 17-20)
 # ---------------------------------------------------------------------------
 def peak_gib(torch):
     return torch.cuda.max_memory_allocated() / 2 ** 30
@@ -2880,7 +3523,7 @@ def grads_card_vs_cpu(torch, np):
 def train_phase(torch, np):
     """Full-width DeiT-Base trained in "fake" with a checkpoint and a
     resume, then in "off"; DeiT-Micro's gradients card against CPU
-    (module docstring, item 14)."""
+    (module docstring, item 17)."""
     import shutil
     root = ROOT / "build" / "train_phase"
     shutil.rmtree(root, ignore_errors=True)
@@ -2941,7 +3584,7 @@ def eval_accuracy(torch, np, model, params, device):
 def accuracy_phase(torch, np):
     """``benchmarks/common.py``'s micro-DeiT recipe trained on the card,
     then evaluated in every row of ``accuracy_rows`` (module docstring,
-    item 15)."""
+    item 18)."""
     from repro_torch.core.mx_types import MXFormat
     from repro_torch.data.pipeline import SyntheticImageData
     from repro_torch.models.model_api import Param, tree_map
@@ -3058,63 +3701,101 @@ def accuracy_phase(torch, np):
             "phase_s": time.perf_counter() - t_phase}, kernel_launches
 
 
-def lm_train_phase(torch, np):
-    """Llama-3-8B at full width, LM_TRAIN_LAYERS layers, trained in "off";
-    then the SMOKE Llama-3 trained on the card and on the CPU (module
-    docstring, item 16)."""
-    from repro_torch.configs import llama3_8b
+def train_full(torch, np, tag, name, cfg, steps, batch, seq):
+    """``cfg`` (full width, float32) trained ``steps`` steps in "off" on
+    the card on ``SyntheticLMData`` batches of ``batch`` x ``seq`` tokens:
+    ms per step by CUDA events (the first warm), the sLSTM loops' forward
+    inside each step (events around every ``slstm_scan``: 0 without
+    sLSTM layers), the peak GiB allocated; raises unless every loss and
+    grad norm is finite."""
     from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.models import build_model
+    from repro_torch.models import recurrent as R
     from repro_torch.models.model_api import tree_leaves
-    from repro_torch.models.transformer import DecoderLM
-    from repro_torch.train import (make_train_state, make_train_step,
-                                   train_state_to)
+    from repro_torch.train import make_train_state, make_train_step
 
-    def lr(s):
-        return torch.tensor(1e-4, device=s.device)
-
-    cfg = dataclasses.replace(llama3_8b.FULL, n_layers=LM_TRAIN_LAYERS,
-                              dtype=torch.float32)
-    model = DecoderLM(cfg)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = make_train_state(model, SEED, DEVICE)
     n_params = sum(p.value.numel() for p in tree_leaves(state.params))
-    step = make_train_step(model, lr_fn=lr)
-    data = SyntheticLMData(vocab=cfg.vocab, batch=LM_TRAIN_BATCH,
-                           seq_len=LM_TRAIN_SEQ, seed=5, device=DEVICE)
-    ms, losses, norms = [], [], []
-    for _ in range(LM_TRAIN_STEPS):
-        batch = data.next_batch()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        state, m = step(state, batch)
-        end.record()
-        losses.append(float(m["loss"]))
-        norms.append(float(m["grad_norm"]))
-        ms.append(start.elapsed_time(end))
-    out = {"layers": LM_TRAIN_LAYERS, "params": n_params,
-           "batch": LM_TRAIN_BATCH, "seq_len": LM_TRAIN_SEQ, "loss": losses,
-           "grad_norm": norms, "step_ms": ms,
-           "step_ms_median": statistics.median(ms),
+    step = make_train_step(
+        model, lr_fn=lambda s: torch.tensor(1e-4, device=s.device))
+    data = SyntheticLMData(vocab=cfg.vocab, batch=batch, seq_len=seq,
+                           seed=5, device=DEVICE)
+    ms, losses, norms, loop_ms = [], [], [], []
+    scan, events = R.slstm_scan, []
+
+    def timed_scan(*a, **k):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        res = scan(*a, **k)
+        e.record()
+        events.append((s, e))
+        return res
+
+    R.slstm_scan = timed_scan
+    try:
+        for _ in range(steps):
+            b = data.next_batch()
+            events.clear()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step(state, b)
+            end.record()
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            ms.append(start.elapsed_time(end))
+            loop_ms.append(sum(s.elapsed_time(e) for s, e in events))
+    finally:
+        R.slstm_scan = scan
+    res = {"layers": cfg.n_layers, "params": n_params, "batch": batch,
+           "seq_len": seq, "loss": losses, "grad_norm": norms,
+           "step_ms": ms, "step_ms_median": statistics.median(ms),
+           "slstm_loop_forward_ms": loop_ms,
+           "slstm_loop_forward_share": [a / b for a, b in zip(loop_ms, ms)],
            "peak_gib": peak_gib(torch)}
-    log(f"[lm train] Llama-3-8B at full width, {LM_TRAIN_LAYERS} layers "
-        f"({n_params} parameters, float32), batch {LM_TRAIN_BATCH} x "
-        f"{LM_TRAIN_SEQ}: ms per step {ms} (the first warm), peak "
-        f"{out['peak_gib']!r} GiB allocated; loss {losses}, grad norm "
-        f"{norms}")
+    log(f"[{tag}] {name} at full width, {cfg.n_layers} layers "
+        f"({n_params} parameters, float32), batch {batch} x {seq}: ms per "
+        f"step {ms} (the first warm), the sLSTM loops' forward {loop_ms} "
+        f"ms; peak {res['peak_gib']!r} GiB allocated; loss {losses}, grad "
+        f"norm {norms}")
     if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
-        raise AssertionError("lm train: non-finite loss or grad norm")
+        raise AssertionError(f"{tag} {name}: non-finite loss or grad norm")
     del state, step, model
     torch.cuda.empty_cache()
+    return res
 
-    smoke = DecoderLM(llama3_8b.SMOKE)
-    step = make_train_step(smoke, lr_fn=lr)
+
+def smoke_card_vs_cpu(torch, np, tag, name, cfg):
+    """The SMOKE ``cfg`` trained ``LM_SMOKE_STEPS`` steps on the card and
+    on the CPU from one initial state, each on its own copy of one stream
+    (``SyntheticSeq2SeqData`` for an encoder-decoder, ``SyntheticLMData``
+    with the config's vision embeddings otherwise): raises unless the
+    losses agree within ``LM_SMOKE_LOSS_TOL`` relative; the differing
+    state leaves and the largest parameter gap are logged."""
+    from repro_torch.data.pipeline import (SyntheticLMData,
+                                           SyntheticSeq2SeqData)
+    from repro_torch.models import build_model
+    from repro_torch.models.model_api import tree_leaves
+    from repro_torch.train import (make_train_state, make_train_step,
+                                   train_state_to)
+
+    smoke = build_model(cfg)
+    step = make_train_step(
+        smoke, lr_fn=lambda s: torch.tensor(1e-4, device=s.device))
     states = {"cpu": make_train_state(smoke, SEED, "cpu")}
     states[DEVICE] = train_state_to(states["cpu"], DEVICE)
     curves = {}
     for dev in (DEVICE, "cpu"):
-        d = SyntheticLMData(vocab=smoke.cfg.vocab, batch=4, seq_len=32,
-                            seed=5, device=dev)
+        if cfg.is_encoder_decoder:
+            d = SyntheticSeq2SeqData(vocab=cfg.vocab, batch=4, seq_len=32,
+                                     d_model=cfg.d_model, seed=5, device=dev)
+        else:
+            d = SyntheticLMData(vocab=cfg.vocab, batch=4, seq_len=32, seed=5,
+                                vision_tokens=cfg.vision_tokens,
+                                vision_dim=cfg.vision_dim, device=dev)
         curves[dev] = []
         for _ in range(LM_SMOKE_STEPS):
             states[dev], m = step(states[dev], d.next_batch())
@@ -3126,19 +3807,32 @@ def lm_train_phase(torch, np):
     par = max(float((a.value.detach().cpu() - b.value.detach()).abs().max())
               for a, b in zip(tree_leaves(states[DEVICE].params),
                               tree_leaves(states["cpu"].params)))
-    out["smoke_card_vs_cpu"] = {
-        "steps": LM_SMOKE_STEPS, "loss_card": curves[DEVICE],
-        "loss_cpu": curves["cpu"], "max_loss_gap_rel": rel,
-        "tolerance": LM_SMOKE_LOSS_TOL, "differing_leaves": differ,
-        "max_gap_over_scale": worst, "max_param_gap": par}
-    log(f"[lm train] SMOKE Llama-3, {LM_SMOKE_STEPS} steps card against "
-        f"CPU: losses {curves[DEVICE]} / {curves['cpu']}, largest relative "
-        f"gap {rel!r} (limit {LM_SMOKE_LOSS_TOL}); {differ} state leaves "
+    res = {"steps": LM_SMOKE_STEPS, "loss_card": curves[DEVICE],
+           "loss_cpu": curves["cpu"], "max_loss_gap_rel": rel,
+           "tolerance": LM_SMOKE_LOSS_TOL, "differing_leaves": differ,
+           "max_gap_over_scale": worst, "max_param_gap": par}
+    log(f"[{tag}] SMOKE {name}, {LM_SMOKE_STEPS} steps card against CPU: "
+        f"losses {curves[DEVICE]} / {curves['cpu']}, largest relative gap "
+        f"{rel!r} (limit {LM_SMOKE_LOSS_TOL}); {differ} state leaves "
         f"differ, largest gap / scale {worst!r}, largest parameter gap "
         f"{par!r}")
     if rel > LM_SMOKE_LOSS_TOL:
-        raise AssertionError("lm train: card and CPU losses differ beyond "
-                             f"{LM_SMOKE_LOSS_TOL}")
+        raise AssertionError(f"{tag} {name}: card and CPU losses differ "
+                             f"beyond {LM_SMOKE_LOSS_TOL}")
+    return res
+
+
+def lm_train_phase(torch, np):
+    """Llama-3-8B at full width, LM_TRAIN_LAYERS layers, trained in "off"
+    (``train_full``); then the SMOKE Llama-3 card against CPU
+    (``smoke_card_vs_cpu``; module docstring, item 19)."""
+    from repro_torch.configs import llama3_8b
+    cfg = dataclasses.replace(llama3_8b.FULL, n_layers=LM_TRAIN_LAYERS,
+                              dtype=torch.float32)
+    out = train_full(torch, np, "lm train", "llama3_8b", cfg,
+                     LM_TRAIN_STEPS, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    out["smoke_card_vs_cpu"] = smoke_card_vs_cpu(
+        torch, np, "lm train", "llama3_8b", llama3_8b.SMOKE)
     return out
 
 
@@ -3159,7 +3853,7 @@ def main(argv) -> int:
                     help="build, then run only the kernel phase of these "
                          "kernels (a quick check; prints no 'ok' line)")
     ap.add_argument("--training", action="store_true",
-                    help="build, then run only the training phases (15-17; "
+                    help="build, then run only the training phases (17-20; "
                          "prints no 'ok' line)")
     args = ap.parse_args(argv)
     import torch
@@ -3200,12 +3894,16 @@ def main(argv) -> int:
         t = time.perf_counter()
         lm = lm_train_phase(torch, np)
         log(f"[time] lm train phase {time.perf_counter() - t!r} s")
+        t = time.perf_counter()
+        rec = rec_train_phase(torch, np)
+        log(f"[time] rec train phase {time.perf_counter() - t!r} s")
         out = ROOT / "build"
         out.mkdir(exist_ok=True)
         (out / "chip_smoke_training.json").write_text(json.dumps(
-            {"card": smi, "train": train, "accuracy": acc, "lm_train": lm},
-            indent=1))
-        log(json.dumps({"partial": ["train", "accuracy", "lm train"]}))
+            {"card": smi, "train": train, "accuracy": acc, "lm_train": lm,
+             "rec_train": rec}, indent=1))
+        log(json.dumps({"partial": ["train", "accuracy", "lm train",
+                                    "rec train"]}))
         return 0
 
     t_start = time.perf_counter()
@@ -3262,9 +3960,14 @@ def main(argv) -> int:
     del model, engine
     torch.cuda.empty_cache()
     rec_lms = recurrent_phases(torch, np, phase)
+    vlm_stats = phase("llava", vlm_phase, torch, np)
+    vlm_cpu = phase("llava card vs cpu", vlm_cpu_phase, torch, np)
+    encdec_stats = phase("seamless", encdec_phase, torch, np)
+    encdec_cpu = phase("seamless card vs cpu", encdec_cpu_phase, torch, np)
     train_stats = phase("train", train_phase, torch, np)
     acc_stats, acc_launches = phase("accuracy", accuracy_phase, torch, np)
     lm_train_stats = phase("lm train", lm_train_phase, torch, np)
+    rec_train_stats = phase("rec train", rec_train_phase, torch, np)
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
@@ -3301,7 +4004,24 @@ def main(argv) -> int:
         ("xlstm_350m serve", rec_lms["xlstm_350m"]["serve"]["launches"],
          ("mxint_matmul", "mxint_layernorm")),
         ("xlstm_350m score", rec_lms["xlstm_350m"]["score"]["launches"],
-         ("mxint_matmul", "mxint_layernorm")))
+         ("mxint_matmul", "mxint_layernorm")),
+        # LLaVA: the projector and the layers' linears, the decode kernel
+        # in every step, the flash kernel in the 3072-position score;
+        # Seamless: no fused norm -> linear; the encoder's flash kernel at
+        # 1024 frames, its whole-row softmax at 256, the cross-attention's
+        # whole-row softmax and the decode kernel in every step
+        ("llava serve", vlm_stats["launches"],
+         common + ("flash_attention_decode",)),
+        ("llava score", vlm_stats["score"]["launches"],
+         common + ("flash_attention",)),
+        (f"seamless serve {ENCDEC_FRAMES}",
+         encdec_stats[f"serve_{ENCDEC_FRAMES}"]["launches"],
+         ("mxint_matmul", "mxint_gelu", "mxint_layernorm", "mxint_softmax",
+          "flash_attention", "flash_attention_decode")),
+        (f"seamless serve {ENCDEC_SHORT_FRAMES}",
+         encdec_stats[f"serve_{ENCDEC_SHORT_FRAMES}"]["launches"],
+         ("mxint_matmul", "mxint_gelu", "mxint_layernorm", "mxint_softmax",
+          "flash_attention_decode")))
     for path, counts, names in paths:
         idle = [n for n in names if not counts[n]]
         if idle:
@@ -3316,8 +4036,11 @@ def main(argv) -> int:
          "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
          "widened_serve": widened_stats, **new_lms, **moe_lms,
          "deepseek_67b": {"serve": ds_serve}, **rec_lms,
+         "llava_next_mistral_7b": {**vlm_stats, "card_vs_cpu": vlm_cpu},
+         "seamless_m4t_medium": {**encdec_stats, "card_vs_cpu": encdec_cpu},
          "train": train_stats,
-         "accuracy": acc_stats, "lm_train": lm_train_stats},
+         "accuracy": acc_stats, "lm_train": lm_train_stats,
+         "rec_train": rec_train_stats},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

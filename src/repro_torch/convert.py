@@ -2,9 +2,10 @@
 
 The reference keeps its parameters as a tree of ``Param`` leaves with
 blocks stacked on a leading layers axis.  Given that tree unwrapped to
-nested dicts of numpy arrays, ``vit_params`` and ``lm_params`` return the
-port's Param tree with the same values and the axes of the port model's
-``param_spec``, after which both packages compute the same function.
+nested dicts of numpy arrays, ``vit_params``, ``lm_params`` and
+``encdec_params`` return the port's Param tree with the same values and
+the axes of the port model's ``param_spec``, after which both packages
+compute the same function.
 """
 from __future__ import annotations
 
@@ -52,7 +53,8 @@ def lm_params(model, arrays: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     tree on ``device``, whose ``layers`` is a per-layer list in the
     reference's order: the unit repeats, then the tail.  A MoE layer's
     router and (E, ...) expert stacks come across as its other leaves
-    do: layer i's slice of each stacked array."""
+    do: layer i's slice of each stacked array.  A VLM's ``vision_proj``
+    comes across as the tables do."""
     cfg = model.cfg
     arrays = dict(arrays)
     units, tail = arrays.pop("units", {}), arrays.pop("tail", {})
@@ -64,15 +66,33 @@ def lm_params(model, arrays: Dict[str, Any], device="cuda") -> Dict[str, Any]:
                          f"{tail_keys}")
     n = cfg.resolved_n_units
 
-    def layer(tree, i):
-        if isinstance(tree, dict):
-            return {k: layer(v, i) for k, v in tree.items()}
-        a = np.asarray(tree)
-        if a.shape[0] != n:
-            raise ValueError(f"stacked leaf with {a.shape[0]} units, "
-                             f"expected {n}")
-        return a[i]
-
-    arrays["layers"] = [layer(units[k], u) for u in range(n)
+    arrays["layers"] = [_layer(units[k], u, n) for u in range(n)
                         for k in unit_keys] + [tail[k] for k in tail_keys]
     return _convert(model, model.param_spec(), arrays, device)
+
+
+def encdec_params(model, arrays: Dict[str, Any],
+                  device="cuda") -> Dict[str, Any]:
+    """The reference ``EncDecLM``'s parameters as numpy arrays (``embed``,
+    ``enc_norm``, ``final_norm``, ``unembed``; ``enc_blocks`` and
+    ``dec_blocks`` stacked on a leading layer axis) -> the port's Param
+    tree on ``device``, whose ``enc_blocks`` and ``dec_blocks`` are
+    per-layer lists."""
+    arrays = dict(arrays)
+    for key, n in (("enc_blocks", model.cfg.n_encoder_layers),
+                   ("dec_blocks", model.cfg.n_layers)):
+        if key not in arrays:
+            raise ValueError(f"params: no {key}")
+        arrays[key] = [_layer(arrays[key], i, n) for i in range(n)]
+    return _convert(model, model.param_spec(), arrays, device)
+
+
+def _layer(tree, i: int, n: int):
+    """Layer i of a tree of arrays stacked on a leading axis of n."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i, n) for k, v in tree.items()}
+    a = np.asarray(tree)
+    if a.shape[0] != n:
+        raise ValueError(f"stacked leaf with {a.shape[0]} layers, "
+                         f"expected {n}")
+    return a[i]

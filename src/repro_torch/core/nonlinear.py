@@ -217,7 +217,9 @@ def fixedpoint_layernorm(x: torch.Tensor, gamma, beta, bits: int = 8,
     xq = _fixed_point_qdq(x, bits)
     mean = _mean64(xq, -1)
     var = torch.var(xq.double(), dim=-1, keepdim=True, correction=0).float()
-    y = (xq - mean) / torch.sqrt(var + eps)
+    # the IEEE float32 square root (through float64): torch's CPU float32
+    # sqrt is not correctly rounded
+    y = (xq - mean) / torch.sqrt((var + eps).double()).float()
     if gamma is not None:
         y = y * gamma
     if beta is not None:

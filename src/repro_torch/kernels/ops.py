@@ -128,14 +128,19 @@ def mxint_gelu_op(x: torch.Tensor, *, fn: str = "gelu", act_block: int = 16,
 def _paper_softmax_attention(qf, kf, vf, *, causal: bool, window: int,
                              act_block: int, mant_bits: int, r_bits: int,
                              groups: int) -> torch.Tensor:
-    """Whole-row attention: the score and P.V products stay
-    ``torch.matmul`` (the reference leaves them to XLA outside any Pallas
-    kernel) and the Eq. 14-20 softmax runs in the softmax kernel.  qf:
-    (b*kv, g*sq, d) with the g query heads of a KV head as group-major
-    rows, so the query position of row i is i % sq."""
+    """Whole-row attention: the score and P.V products stay outside the
+    kernels (the reference leaves them to XLA outside any Pallas kernel)
+    and the Eq. 14-20 softmax runs in the softmax kernel.  Both products
+    are computed in float64 and rounded once to float32, so they do not
+    depend on the device's summation order; around them the reference's
+    order holds: the rounded product times the float32 scale, then the
+    mask, and the kernel's quantized P into P.V.  qf: (b*kv, g*sq, d)
+    with the g query heads of a KV head as group-major rows, so the query
+    position of row i is i % sq."""
     gsq, d = qf.shape[1], qf.shape[2]
     sq, sk = gsq // groups, kf.shape[1]
-    s = torch.matmul(qf, kf.transpose(1, 2)) * f32(d ** -0.5)
+    s = torch.matmul(qf.double(), kf.double().transpose(1, 2)).float() \
+        * f32(d ** -0.5)
     masked = bool(causal or window > 0)
     if masked:
         q_pos = (torch.arange(gsq, device=qf.device) % sq)[:, None]
@@ -150,7 +155,7 @@ def _paper_softmax_attention(qf, kf, vf, *, causal: bool, window: int,
                          r_bits=r_bits, quantize_out=True)
     if masked:
         p = torch.where(mask[None], p, 0.0)
-    return torch.matmul(p, vf)
+    return torch.matmul(p.double(), vf.double()).float()
 
 
 def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -172,7 +177,8 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     K and V may carry fewer heads than q (GQA, laid out KV-major: q head i
     reads KV head i // groups).  Neither path copies K/V per query head.
-    Head dims above 128 raise ``NotImplementedError``.
+    The flash kernels take head dims up to ``MAX_HEAD_DIM`` (256) and
+    raise beyond it.
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]

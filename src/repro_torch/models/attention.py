@@ -1,4 +1,4 @@
-"""Attention: GQA, RoPE, sliding window, KV-cache rings.
+"""Attention: GQA, RoPE, sliding window, KV-cache rings, cross-attention.
 
 This module owns the orchestration (projections, RoPE, cache ring
 arithmetic, mask semantics); the attention core dispatches through the
@@ -9,6 +9,8 @@ ring); the float and sim backends run ``_direct_attention`` (the masked
 softmax on the whole score matrix) or ``_q_chunked_attention``.  Prefill
 into a cache runs ``_q_chunked_attention``, plain float attention that
 the reference computes outside any kernel in every mode.
+Cross-attention (``kv_override``: the encoder-decoder's per-layer
+encoder K/V) is cache-less and takes the backend's ``attention``.
 
 Float products and sums run in float64 and round once to float32 (then
 to the model dtype), so they do not depend on the device's summation
@@ -30,6 +32,21 @@ from repro_torch.models import layers as L
 from repro_torch.models.model_api import ModelConfig
 
 CACHE_AXES = ("batch", "kv_seq", "kv_heads", None)
+
+
+def attn_param_spec(cfg: ModelConfig, cross: bool = False):
+    """The (shape, axes, init) leaves of one attention: wq, wk, wv, wo,
+    and with ``cfg.qk_norm`` the per-head q/k RMSNorm scales, which a
+    cross-attention (``cross``) does without."""
+    d, hd = cfg.d_model, cfg.hd
+    spec = {"wq": ((d, cfg.n_heads * hd), ("embed", "q_heads"), "dense"),
+            "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"), "dense"),
+            "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"), "dense"),
+            "wo": ((cfg.n_heads * hd, d), ("q_heads", "embed"), "dense")}
+    if cfg.qk_norm and not cross:
+        spec["q_norm"] = ((hd,), (None,), "ones")
+        spec["k_norm"] = ((hd,), (None,), "ones")
+    return spec
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, window: int,
@@ -128,14 +145,18 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, quant: QuantConfig,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[Dict[str, torch.Tensor]] = None,
               cache_index: Optional[torch.Tensor] = None,
-              window: int = 0, causal: bool = True, use_rope: bool = True,
-              chunk: int = 1024, prenorm: Optional[Tuple] = None,
-              scope: Optional[str] = None):
+              window: int = 0, causal: bool = True,
+              kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              use_rope: bool = True, chunk: int = 1024,
+              prenorm: Optional[Tuple] = None, scope: Optional[str] = None):
     """Returns (output (b, s, d), the cache or None).
 
       cache None         -> cache-less (scoring, the ViT encoder)
       cache, s > 1       -> prefill: writes positions 0..s-1 of every row
       cache, s == 1      -> decode at each row's ``cache_index``
+      kv_override (k, v) -> cross-attention over the given (b, S, kv, hd)
+                            K/V: only wq projects, no cache is read or
+                            written, and RoPE (``use_rope``) touches q only
 
     The cache is updated in place (the reference returns a new one).
     prenorm: optional ('ln'|'rms', gamma, beta); x then arrives
@@ -148,8 +169,10 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, quant: QuantConfig,
     kvh = cfg.n_kv_heads
     g = cfg.n_heads // kvh
     scale = hd ** -0.5
-    x, prenorm = L.prenorm_linears(x, prenorm, [p["wq"], p["wk"], p["wv"]],
-                                   quant, cfg.norm_eps)
+    cross = kv_override is not None
+    x, prenorm = L.prenorm_linears(
+        x, prenorm, [p["wq"]] if cross else [p["wq"], p["wk"], p["wv"]],
+        quant, cfg.norm_eps)
 
     def in_proj(w):
         if prenorm is None:
@@ -159,11 +182,15 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, quant: QuantConfig,
                                   rms_only=(nk == "rms"))
 
     q = in_proj(p["wq"]).reshape(b, s, cfg.n_heads, hd)
-    k = in_proj(p["wk"]).reshape(b, s, kvh, hd)
-    v = in_proj(p["wv"]).reshape(b, s, kvh, hd)
+    if cross:
+        k, v = kv_override
+    else:
+        k = in_proj(p["wk"]).reshape(b, s, kvh, hd)
+        v = in_proj(p["wv"]).reshape(b, s, kvh, hd)
     if cfg.qk_norm and "q_norm" in p:
         q = L.rmsnorm(q, p["q_norm"], q=quant, eps=cfg.norm_eps)
-        k = L.rmsnorm(k, p["k_norm"], q=quant, eps=cfg.norm_eps)
+        if not cross:
+            k = L.rmsnorm(k, p["k_norm"], q=quant, eps=cfg.norm_eps)
 
     if positions is None:
         base = 0
@@ -175,10 +202,11 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *, quant: QuantConfig,
         positions = base + torch.arange(s, device=x.device)[None, :]
     if use_rope:
         q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
+        if not cross:
+            k = L.rope(k, positions, cfg.rope_theta)
     q = q.reshape(b, s, kvh, g, hd)
 
-    if cache is not None:
+    if cache is not None and not cross:
         ck, cv = cache["k"], cache["v"]
         W = ck.shape[1]
         if s == 1:

@@ -94,7 +94,14 @@ class ModelConfig:
     attention blocks, 0 for full attention.  ffn_kind: "swiglu", "geglu",
     "gelu", "moe" (then ``moe`` holds its ``MoEConfig``) or "none".
     lru_width / conv_width: the RG-LRU's width (default d_model) and its
-    temporal convolution's taps.
+    temporal convolution's taps.  is_encoder_decoder / n_encoder_layers:
+    the encoder-decoder (``EncDecLM``), whose encoder of
+    ``n_encoder_layers`` layers reads frame embeddings.  audio_frames
+    mirrors the reference's field of that name (SeamlessM4T sets it) so
+    that a config reads field for field as the reference's; neither
+    package's models read it.  vision_tokens / vision_dim: a VLM's
+    prefix of ``vision_tokens`` positions fed by the projector from
+    ``vision_dim``-wide embeddings.
     """
 
     name: str = "model"
@@ -117,6 +124,11 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     lru_width: Optional[int] = None
     conv_width: int = 4
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    vision_tokens: int = 0
+    vision_dim: int = 1024
+    audio_frames: bool = False
     image_size: int = 224
     patch_size: int = 16
     n_classes: int = 1000

@@ -25,8 +25,9 @@ sLSTM: scalar memory, inherently sequential: a loop over time, two
 linears a token.
 
 The linears go through the backend (``layers.linear``, the matmul kernel
-in kernel mode); the gates' transcendentals, the mLSTM's products and
-sums and its cumulative sums run in float64 and round once to float32, so
+in kernel mode); the gates' transcendentals, the RG-LRU's square root,
+the mLSTM's products and sums and its cumulative sums run in float64 and
+round once to float32, so
 they do not depend on the device; the elementwise updates are float32
 operations in the reference's order.  States are lists of tensors (the
 reference's tuples), so the slot-prefill scatter walks them.
@@ -84,7 +85,10 @@ def _rglru_gates(p, x, quant):
     i = _f64(torch.sigmoid, L.linear(x, p["w_i"], q=quant).float())
     log_a = (-_C_RGLRU * _f64(F.softplus, _value(p["lam"]))) * r
     a = _f64(torch.exp, log_a)
-    beta = torch.sqrt(torch.clamp(1.0 - a * a, min=f32(1e-12)))
+    # float64 and rounded once: the IEEE float32 square root on every
+    # device (torch's CPU float32 sqrt is not correctly rounded; the
+    # card's and XLA's are)
+    beta = _f64(torch.sqrt, torch.clamp(1.0 - a * a, min=f32(1e-12)))
     return a, beta * (i * x.float())
 
 

@@ -27,10 +27,16 @@ With ``QuantConfig(mode="kernel", quantize_nonlinear=True)`` every attn
 layer of a decode step launches the decode attention kernel; a prefill's
 attention stays plain float attention as in the reference, and a ``loss``
 forward longer than 512 tokens runs the flash kernel in every attn layer.
-The kernels each layer launches are counted in
-``tests/test_torch_lm.py::test_kernel_launch_structure`` and in
-``chip_smoke.py``'s ``lm_per_call``.  The encoder-decoder is not ported
-yet.
+The kernels each layer launches are derived in ``models/launches.py``,
+which the CPU tests and ``chip_smoke.py`` hold the launch counters to.
+
+A VLM config (``vision_tokens``) adds the ``vision_proj`` linear: its
+projected embeddings overwrite the first positions of the token
+embeddings in ``loss`` and ``prefill``.  ``EncDecLM`` is the encoder-
+decoder: an encoder over frame embeddings (non-causal attention, GELU
+FFN), then decoder layers with self-attention over a KV cache (a scalar
+``index``), cross-attention over per-layer encoder K/V, and the GELU
+FFN; its norms are separate RMSNorms, as in the reference.
 """
 from __future__ import annotations
 
@@ -63,12 +69,13 @@ class DecoderLM:
         self.kinds = cfg.layer_kinds
         self.window = cfg.local_attn_window or cfg.window
 
-    def layer_stacks(self) -> list:
-        """Per layer, the size of the reference's stack that holds its
-        parameters: ``n_units`` for a unit layer, 1 for a tail layer.
-        ``pack_params_mxint``'s size rule counts it."""
+    def layer_stacks(self) -> Dict[str, list]:
+        """Per layer of ``layers``, the size of the reference's stack that
+        holds its parameters: ``n_units`` for a unit layer, 1 for a tail
+        layer.  ``pack_params_mxint``'s size rule counts it."""
         n = self.cfg.resolved_n_units
-        return [n] * (n * len(self.cfg.unit)) + [1] * len(self.cfg.tail)
+        return {"layers": [n] * (n * len(self.cfg.unit))
+                + [1] * len(self.cfg.tail)}
 
     # -- params -------------------------------------------------------------
     def layer_spec(self, kind: str = "attn") -> Dict[str, Any]:
@@ -76,36 +83,19 @@ class DecoderLM:
         "ones", "zeros", "small" (normal with scale 0.02), ("normal",
         scale), ("full", value) or ("linspace", lo, hi)."""
         cfg = self.cfg
-        d, hd = cfg.d_model, cfg.hd
+        d = cfg.d_model
         spec = {"ln1": ((d,), ("embed",), "ones")}
         if kind != "attn":
             spec["mix"] = _MIXER_SPEC[kind](cfg)
             if kind != "rec":
                 return spec               # xLSTM blocks: no FFN
         else:
-            mix = {
-                "wq": ((d, cfg.n_heads * hd), ("embed", "q_heads"), "dense"),
-                "wk": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"),
-                       "dense"),
-                "wv": ((d, cfg.n_kv_heads * hd), ("embed", "kv_heads"),
-                       "dense"),
-                "wo": ((cfg.n_heads * hd, d), ("q_heads", "embed"), "dense"),
-            }
-            if cfg.qk_norm:
-                mix["q_norm"] = ((hd,), (None,), "ones")
-                mix["k_norm"] = ((hd,), (None,), "ones")
-            spec["mix"] = mix
+            spec["mix"] = A.attn_param_spec(cfg)
         if cfg.ffn_kind == "none":
             return spec
-        if cfg.ffn_kind == "moe":
-            ffn = M.moe_param_spec(cfg)
-        else:
-            ffn = {"wi": ((d, cfg.d_ff), ("embed", "mlp"), "dense"),
-                   "wo": ((cfg.d_ff, d), ("mlp", "embed"), "dense")}
-            if cfg.ffn_kind != "gelu":
-                ffn["wg"] = ((d, cfg.d_ff), ("embed", "mlp"), "dense")
         spec["ln2"] = ((d,), ("embed",), "ones")
-        spec["ffn"] = ffn
+        spec["ffn"] = (M.moe_param_spec(cfg) if cfg.ffn_kind == "moe"
+                       else ffn_param_spec(cfg, cfg.ffn_kind))
         return spec
 
     def param_spec(self) -> Dict[str, Any]:
@@ -118,49 +108,19 @@ class DecoderLM:
         if not cfg.tie_embeddings:
             spec["unembed"] = ((cfg.vocab, cfg.d_model), ("vocab", "embed"),
                                "small")
+        if cfg.vision_tokens:
+            # no contraction axis name: the packing rule leaves it float,
+            # and kernel mode packs it at each call, as the reference does
+            spec["vision_proj"] = ((cfg.vision_dim, cfg.d_model),
+                                   (None, "embed"), "dense")
         spec["layers"] = [self.layer_spec(k) for k in self.kinds]
         return spec
 
     def init(self, seed: int = 0, device="cuda",
              pack_fmt: Optional[MXFormat] = None) -> Dict[str, Any]:
-        """Random parameters from ``seed``.  Each tensor is drawn from its
-        own ``torch.Generator`` on ``device`` (seeded from ``seed`` and the
-        tensor's rank in the tree) and, with ``pack_fmt``, packed to MXInt
-        planes there before the next is drawn, with the packing rules of
-        ``serving.engine.pack_params_mxint``.  So a full-size model never
-        exists in float, on the device or on the host.  The values depend
-        on the device's generator."""
-        from repro_torch.serving.engine import contraction_axis, should_pack
-        cfg = self.cfg
-        device = torch.device(device)
-        counter = [0]
-
-        stacks = self.layer_stacks()
-
-        def make(spec, stack):
-            if isinstance(spec, dict):
-                return {k: make(v, stack) for k, v in spec.items()}
-            if isinstance(spec, list):
-                return [make(v, n) for v, n in zip(spec, stacks)]
-            shape, axes, kind = spec
-            counter[0] += 1
-            if kind in ("ones", "zeros") or kind[0] in ("full", "linspace"):
-                return Param(_constant(kind, shape, device).to(cfg.dtype),
-                             axes)
-            gen = torch.Generator(device=device)
-            gen.manual_seed(seed * 1_000_003 + counter[0])
-            scale = {"small": 0.02, "dense": shape[-2] ** -0.5}.get(kind)
-            if scale is None:
-                scale = kind[1]                      # ("normal", scale)
-            v = torch.randn(shape, generator=gen, dtype=torch.float32,
-                            device=device).mul_(scale).to(cfg.dtype)
-            p = Param(v, axes)
-            if pack_fmt is not None and should_pack(p, stack):
-                p = Param(pack_weight(v.to(torch.float32), pack_fmt,
-                                      axis=contraction_axis(p)), axes)
-            return p
-
-        return make(self.param_spec(), 1)
+        """Random parameters from ``seed`` (``init_params``)."""
+        return init_params(self.param_spec(), self.layer_stacks(),
+                           self.cfg.dtype, seed, device, pack_fmt)
 
     # -- cache ----------------------------------------------------------------
     def _layer_cache(self, kind, batch, max_len, device):
@@ -252,9 +212,18 @@ class DecoderLM:
             cache["index"] = (cache_index + x.shape[1]).to(torch.int32)
         return x, cache, aux
 
-    def _embed(self, params, tokens):
-        return L.embed_lookup(tokens.long(), params["embed"], self.cfg.quant,
-                              self.cfg.dtype)
+    def _embed(self, params, tokens, vision_embeds=None):
+        """Token embeddings; with a VLM config and ``vision_embeds`` (b, n,
+        vision_dim), the projected embeddings replace positions 0..n-1."""
+        cfg = self.cfg
+        x = L.embed_lookup(tokens.long(), params["embed"], cfg.quant,
+                           cfg.dtype)
+        if not cfg.vision_tokens or vision_embeds is None:
+            return x
+        ve = torch.as_tensor(vision_embeds).to(device=x.device,
+                                               dtype=cfg.dtype)
+        v = L.linear(ve, params["vision_proj"], q=cfg.quant)
+        return torch.cat([v.to(x.dtype), x[:, v.shape[1]:]], dim=1)
 
     def logits(self, params, x):
         cfg = self.cfg
@@ -262,10 +231,10 @@ class DecoderLM:
         return L.unembed(x, table, cfg.quant)
 
     # -- entry points -----------------------------------------------------------
-    def _forward(self, params, tokens, with_aux=False):
+    def _forward(self, params, tokens, with_aux=False, vision_embeds=None):
         """(logits, the MoE load-balancing loss or None unless
         ``with_aux``) of a cache-less forward."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, vision_embeds)
         positions = torch.arange(tokens.shape[1], device=x.device)[None, :]
         x, _, aux = self._run_stack(params, x, positions=positions,
                                     cache=None, cache_index=None,
@@ -273,21 +242,24 @@ class DecoderLM:
         return self.logits(params, x), aux
 
     @torch.no_grad()
-    def forward(self, params, tokens) -> torch.Tensor:
+    def forward(self, params, tokens, vision_embeds=None) -> torch.Tensor:
         """Cache-less forward: (b, s) tokens -> (b, s, vocab) logits, each
         position attending causally to the positions up to it."""
         dev = params["final_norm"].value.device
-        return self._forward(params, torch.as_tensor(tokens).to(dev))[0]
+        return self._forward(params, torch.as_tensor(tokens).to(dev),
+                             vision_embeds=vision_embeds)[0]
 
     def loss(self, params, batch) -> torch.Tensor:
         """Mean next-token negative log-likelihood of batch['tokens'] (b, s),
         weighted by an optional batch['loss_mask'] (b, s), plus the MoE
-        load-balancing loss of every layer (0 for a dense FFN).  It carries
-        a gradient to the float parameters that require one (training);
-        callers that only score run it under ``torch.no_grad()``."""
+        load-balancing loss of every layer (0 for a dense FFN); a VLM reads
+        batch['vision_embeds'] when given.  It carries a gradient to the
+        float parameters that require one (training); callers that only
+        score run it under ``torch.no_grad()``."""
         dev = params["final_norm"].value.device
         tokens = torch.as_tensor(batch["tokens"]).to(dev)
-        logits, aux = self._forward(params, tokens, with_aux=True)
+        logits, aux = self._forward(params, tokens, with_aux=True,
+                                    vision_embeds=batch.get("vision_embeds"))
         logits = logits[:, :-1]
         logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
         nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
@@ -297,15 +269,17 @@ class DecoderLM:
         return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0) + aux
 
     @torch.no_grad()
-    def prefill(self, params, tokens, cache, lengths=None):
+    def prefill(self, params, tokens, cache, vision_embeds=None,
+                lengths=None):
         """Writes the prompts into the cache; returns (logits (b, 1, vocab),
-        cache).  ``lengths``: optional (b,) real lengths of right-padded
-        prompts; row i's logits are taken at position lengths[i] - 1 and
-        its ``cache['index']`` set to lengths[i], so the pad slots are
-        masked by the decode validity."""
+        cache).  ``vision_embeds``: a VLM's (b, n, vision_dim) prefix
+        embeddings.  ``lengths``: optional (b,) real lengths of
+        right-padded prompts; row i's logits are taken at position
+        lengths[i] - 1 and its ``cache['index']`` set to lengths[i], so
+        the pad slots are masked by the decode validity."""
         b, s = tokens.shape
         dev = tokens.device
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, vision_embeds)
         positions = torch.arange(s, device=dev)[None, :]
         x, cache, _ = self._run_stack(
             params, x, positions=positions, cache=cache,
@@ -327,6 +301,245 @@ class DecoderLM:
                                       cache=cache,
                                       cache_index=cache["index"])
         return self.logits(params, x), cache
+
+
+class EncDecLM:
+    """The encoder-decoder (SeamlessM4T-style) with a stubbed modality
+    frontend: the encoder reads precomputed frame embeddings (b, S,
+    d_model).  Parameters: ``embed``, ``enc_blocks`` (a list of
+    ``n_encoder_layers`` trees: ln1, mix, ln2, ffn), ``enc_norm``,
+    ``dec_blocks`` (a list of ``n_layers`` trees: ln1, self_attn, ln_x,
+    cross_attn, ln2, ffn), ``final_norm`` and ``unembed``.  The cache
+    holds each decoder layer's K/V ring under ``self``, a scalar
+    ``index`` shared by the rows and, after ``prefill``, the per-layer
+    cross K/V under ``enc_kv``.  The reference serves it through
+    ``ServingEngine.generate`` only; it has no slot prefill."""
+
+    def __init__(self, cfg: ModelConfig):
+        if cfg.unit != ("attn",) or cfg.tail:
+            raise NotImplementedError("the encoder-decoder runs attn layers")
+        self.cfg = cfg.validate()
+        self.window = cfg.local_attn_window or cfg.window
+
+    def layer_stacks(self) -> Dict[str, list]:
+        """Each block list's stack sizes for ``pack_params_mxint``: the
+        reference stacks the encoder's and the decoder's blocks apart."""
+        ne, nd = self.cfg.n_encoder_layers, self.cfg.n_layers
+        return {"enc_blocks": [ne] * ne, "dec_blocks": [nd] * nd}
+
+    # -- params -------------------------------------------------------------
+    def enc_layer_spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        d = cfg.d_model
+        return {"ln1": ((d,), ("embed",), "ones"),
+                "mix": A.attn_param_spec(cfg),
+                "ln2": ((d,), ("embed",), "ones"),
+                "ffn": ffn_param_spec(cfg, "gelu")}
+
+    def dec_layer_spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        d = cfg.d_model
+        return {"ln1": ((d,), ("embed",), "ones"),
+                "self_attn": A.attn_param_spec(cfg),
+                "ln_x": ((d,), ("embed",), "ones"),
+                "cross_attn": A.attn_param_spec(cfg, cross=True),
+                "ln2": ((d,), ("embed",), "ones"),
+                "ffn": ffn_param_spec(cfg, "gelu")}
+
+    def param_spec(self) -> Dict[str, Any]:
+        cfg = self.cfg
+        table = ((cfg.vocab, cfg.d_model), ("vocab", "embed"), "small")
+        norm = ((cfg.d_model,), ("embed",), "ones")
+        return {"embed": table,
+                "enc_blocks": [self.enc_layer_spec()
+                               for _ in range(cfg.n_encoder_layers)],
+                "enc_norm": norm,
+                "dec_blocks": [self.dec_layer_spec()
+                               for _ in range(cfg.n_layers)],
+                "final_norm": norm,
+                "unembed": table}
+
+    def init(self, seed: int = 0, device="cuda",
+             pack_fmt: Optional[MXFormat] = None) -> Dict[str, Any]:
+        """Random parameters from ``seed`` (``init_params``)."""
+        return init_params(self.param_spec(), self.layer_stacks(),
+                           self.cfg.dtype, seed, device, pack_fmt)
+
+    # -- cache --------------------------------------------------------------
+    def cache_init(self, batch: int, max_len: int, device="cuda"):
+        """A (batch, W, kv_heads, hd) K/V ring per decoder layer under
+        ``self`` and a scalar ``index``: every row is at the same
+        position."""
+        cfg = self.cfg
+        return {"self": [A.init_kv_cache(cfg, batch, max_len, self.window,
+                                         cfg.dtype, device)
+                         for _ in range(cfg.n_layers)],
+                "index": torch.zeros((), dtype=torch.int32, device=device)}
+
+    # -- forward --------------------------------------------------------------
+    def encode(self, params, frames) -> torch.Tensor:
+        """(b, S, d_model) frame embeddings -> the encoder's output: per
+        layer RMSNorm, non-causal self-attention with RoPE, RMSNorm and
+        the GELU FFN, each residual; then ``enc_norm``."""
+        cfg = self.cfg
+        quant = cfg.quant
+        dev = params["enc_norm"].value.device
+        x = torch.as_tensor(frames).to(device=dev, dtype=cfg.dtype)
+        positions = torch.arange(x.shape[1], device=dev)[None, :]
+        for bp in params["enc_blocks"]:
+            h = L.rmsnorm(x, bp["ln1"], q=quant, eps=cfg.norm_eps)
+            o, _ = A.attention(bp["mix"], h, cfg, quant=quant,
+                               positions=positions, causal=False)
+            x = x + o
+            h = L.rmsnorm(x, bp["ln2"], q=quant, eps=cfg.norm_eps)
+            x = x + L.ffn(h, bp["ffn"], "gelu", quant)
+        return L.rmsnorm(x, params["enc_norm"], q=quant, eps=cfg.norm_eps)
+
+    def encode_kv(self, params, memory) -> list:
+        """The encoder output's cross K and V of every decoder layer: a
+        list of ((b, S, kv_heads, hd), (b, S, kv_heads, hd)) pairs (the
+        reference stacks them on a leading layer axis)."""
+        cfg = self.cfg
+        shape = (*memory.shape[:2], cfg.n_kv_heads, cfg.hd)
+        return [(L.linear(memory, bp["cross_attn"]["wk"],
+                          q=cfg.quant).reshape(shape),
+                 L.linear(memory, bp["cross_attn"]["wv"],
+                          q=cfg.quant).reshape(shape))
+                for bp in params["dec_blocks"]]
+
+    def _dec_stack(self, params, x, enc_kv, *, cache, cache_index,
+                   decode=False):
+        """The decoder layers and the final norm; ``cache`` None is a
+        cache-less forward, else a prefill from position 0 or (``decode``)
+        a step at the scalar ``cache_index``."""
+        cfg = self.cfg
+        quant = cfg.quant
+        positions = None if decode else \
+            torch.arange(x.shape[1], device=x.device)[None, :]
+        for i, bp in enumerate(params["dec_blocks"]):
+            h = L.rmsnorm(x, bp["ln1"], q=quant, eps=cfg.norm_eps)
+            o, _ = A.attention(
+                bp["self_attn"], h, cfg, quant=quant, positions=positions,
+                cache=None if cache is None else cache["self"][i],
+                cache_index=cache_index, window=self.window)
+            x = x + o
+            h = L.rmsnorm(x, bp["ln_x"], q=quant, eps=cfg.norm_eps)
+            o, _ = A.attention(bp["cross_attn"], h, cfg, quant=quant,
+                               kv_override=enc_kv[i], causal=False,
+                               use_rope=False)
+            x = x + o
+            h = L.rmsnorm(x, bp["ln2"], q=quant, eps=cfg.norm_eps)
+            x = x + L.ffn(h, bp["ffn"], "gelu", quant)
+        return L.rmsnorm(x, params["final_norm"], q=quant, eps=cfg.norm_eps)
+
+    def _embed(self, params, tokens):
+        dev = params["final_norm"].value.device
+        return L.embed_lookup(torch.as_tensor(tokens).to(dev).long(),
+                              params["embed"], self.cfg.quant, self.cfg.dtype)
+
+    def logits(self, params, x):
+        return L.unembed(x, params["unembed"], self.cfg.quant)
+
+    # -- entry points -----------------------------------------------------------
+    def _hidden(self, params, frames, tokens) -> torch.Tensor:
+        """The decoder's output after the final norm, cache-less."""
+        memory = self.encode(params, frames)
+        x = self._embed(params, tokens)
+        return self._dec_stack(params, x, self.encode_kv(params, memory),
+                               cache=None, cache_index=None)
+
+    @torch.no_grad()
+    def forward(self, params, frames, tokens) -> torch.Tensor:
+        """Cache-less forward: (b, S, d_model) frames and (b, s) tokens ->
+        (b, s, vocab) logits, each token attending causally to the tokens
+        up to it and to every frame."""
+        return self.logits(params, self._hidden(params, frames, tokens))
+
+    def loss(self, params, batch) -> torch.Tensor:
+        """Mean next-token negative log-likelihood of batch['tokens'] (b, s)
+        given batch['frames'] (b, S, d_model), with no mask (the
+        reference's).  Differentiable, as ``DecoderLM.loss`` is."""
+        x = self._hidden(params, batch["frames"], batch["tokens"])
+        logits = self.logits(params, x[:, :-1])
+        tokens = torch.as_tensor(batch["tokens"]).to(logits.device)
+        logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None].long())[..., 0]
+        return nll.mean()
+
+    @torch.no_grad()
+    def prefill(self, params, frames, tokens, cache):
+        """Encodes ``frames``, writes the prompts ``tokens`` (b, s) into the
+        cache; returns (logits (b, 1, vocab), the cache with ``enc_kv``
+        and ``index`` s)."""
+        memory = self.encode(params, frames)
+        enc_kv = self.encode_kv(params, memory)
+        x = self._embed(params, tokens)
+        x = self._dec_stack(params, x, enc_kv, cache=cache,
+                            cache_index=torch.zeros((), dtype=torch.int32,
+                                                    device=x.device))
+        return self.logits(params, x[:, -1:]), {
+            "self": cache["self"], "enc_kv": enc_kv,
+            "index": (cache["index"] + x.shape[1]).to(torch.int32)}
+
+    @torch.no_grad()
+    def decode_step(self, params, token, cache):
+        """token: (b, 1).  One step at the cache's scalar ``index``."""
+        x = self._embed(params, token)
+        x = self._dec_stack(params, x, cache["enc_kv"], cache=cache,
+                            cache_index=cache["index"], decode=True)
+        return self.logits(params, x), {
+            "self": cache["self"], "enc_kv": cache["enc_kv"],
+            "index": (cache["index"] + 1).to(torch.int32)}
+
+
+def ffn_param_spec(cfg: ModelConfig, kind: str) -> Dict[str, Any]:
+    """A dense FFN's leaves: wi and wo, and wg for the gated kinds."""
+    d = cfg.d_model
+    ffn = {"wi": ((d, cfg.d_ff), ("embed", "mlp"), "dense"),
+           "wo": ((cfg.d_ff, d), ("mlp", "embed"), "dense")}
+    if kind != "gelu":
+        ffn["wg"] = ((d, cfg.d_ff), ("embed", "mlp"), "dense")
+    return ffn
+
+
+def init_params(spec, stacks: Dict[str, list], dtype, seed: int = 0,
+                device="cuda", pack_fmt: Optional[MXFormat] = None):
+    """Random parameters of a ``param_spec`` tree from ``seed``.  Each
+    tensor is drawn from its own ``torch.Generator`` on ``device`` (seeded
+    from ``seed`` and the tensor's rank in the tree) and, with
+    ``pack_fmt``, packed to MXInt planes there before the next is drawn,
+    with the packing rules of ``serving.engine.pack_params_mxint``
+    (``stacks``: a list's stack sizes by its key, as ``layer_stacks``
+    gives them).  So a full-size model never exists in float, on the
+    device or on the host.  The values depend on the device's generator."""
+    from repro_torch.serving.engine import contraction_axis, should_pack
+    device = torch.device(device)
+    counter = [0]
+
+    def make(spec, stack, key):
+        if isinstance(spec, dict):
+            return {k: make(v, stack, k) for k, v in spec.items()}
+        if isinstance(spec, list):
+            sizes = stacks.get(key) or [len(spec)] * len(spec)
+            return [make(v, n, key) for v, n in zip(spec, sizes)]
+        shape, axes, kind = spec
+        counter[0] += 1
+        if kind in ("ones", "zeros") or kind[0] in ("full", "linspace"):
+            return Param(_constant(kind, shape, device).to(dtype), axes)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed * 1_000_003 + counter[0])
+        scale = {"small": 0.02, "dense": shape[-2] ** -0.5}.get(kind)
+        if scale is None:
+            scale = kind[1]                      # ("normal", scale)
+        v = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device).mul_(scale).to(dtype)
+        p = Param(v, axes)
+        if pack_fmt is not None and should_pack(p, stack):
+            p = Param(pack_weight(v.to(torch.float32), pack_fmt,
+                                  axis=contraction_axis(p)), axes)
+        return p
+
+    return make(spec, 1, None)
 
 
 def _constant(kind, shape, device) -> torch.Tensor:

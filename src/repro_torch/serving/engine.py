@@ -85,23 +85,30 @@ def should_pack(p: Param, stack: int = 1) -> bool:
 def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None):
     """Param tree -> Param tree with ``MXTensor`` values on large matmul
     weights, blocks along the contraction axis; everything else as is.
-    The size rule counts a leaf of a list (the decoder's per-layer trees)
-    as one of a stack, as the reference's stacked leaves are:
-    ``layer_stacks[i]`` layers for element i (``DecoderLM.layer_stacks``:
-    ``n_units`` for a unit layer, 1 for a tail layer), or the list's
-    length when it is None."""
-    def walk(tree, stack):
+    The size rule counts a leaf of a list (a model's per-layer trees) as
+    one of a stack, as the reference's stacked leaves are:
+    ``layer_stacks[key][i]`` layers for element i of the list under
+    ``key`` (the model's ``layer_stacks()``: for ``DecoderLM`` ``n_units``
+    for a unit layer, 1 for a tail layer; for ``EncDecLM`` the encoder's
+    and the decoder's depths), or the list's length for a list it does
+    not name."""
+    stacks_by_key = layer_stacks or {}
+
+    def walk(tree, stack, key):
         if isinstance(tree, dict):
-            return {k: walk(v, stack) for k, v in tree.items()}
+            return {k: walk(v, stack, k) for k, v in tree.items()}
         if isinstance(tree, list):
-            stacks = layer_stacks or [len(tree)] * len(tree)
-            return [walk(v, n) for v, n in zip(tree, stacks)]
+            stacks = stacks_by_key.get(key) or [len(tree)] * len(tree)
+            if len(stacks) != len(tree):
+                raise ValueError(f"{key}: {len(tree)} layers, "
+                                 f"{len(stacks)} stack sizes")
+            return [walk(v, n, key) for v, n in zip(tree, stacks)]
         if not should_pack(tree, stack):
             return tree
         return Param(pack_weight(tree.value.to(torch.float32), fmt,
                                  axis=contraction_axis(tree)), tree.axes)
 
-    return walk(params, 1)
+    return walk(params, 1, None)
 
 
 def params_to(params, device):
@@ -119,8 +126,17 @@ def _device(device, engine: str) -> torch.device:
 
 
 def make_prefill_step(model) -> Callable:
+    """Prefill a whole batch: an encoder-decoder's ``frames`` and
+    ``tokens``, or a decoder's ``tokens`` with a VLM's optional
+    ``vision_embeds``."""
+    enc_dec = model.cfg.is_encoder_decoder
+
     def prefill_step(params, batch, cache):
-        return model.prefill(params, batch["tokens"], cache)
+        if enc_dec:
+            return model.prefill(params, batch["frames"], batch["tokens"],
+                                 cache)
+        return model.prefill(params, batch["tokens"], cache,
+                             batch.get("vision_embeds"))
 
     return prefill_step
 
@@ -181,14 +197,16 @@ def make_decode_step(model, temperature: float = 0.0,
 
 
 class ServingEngine:
-    """Token generation for a decoder LM on one device.
+    """Token generation for a decoder LM or an encoder-decoder on one
+    device.
 
     With ``pack_weights=True`` and a model config in kernel mode, every
     linear reads packed int8 planes and every decode step scores the KV
     ring in the decode attention kernel.  ``BatchScheduler`` drives
-    ``_prefill_slot`` and ``_decode``; ``generate`` serves one batch.
-    ``seed`` seeds the generator that sampling (``temperature > 0``)
-    draws from.
+    ``_prefill_slot`` and ``_decode``; ``generate`` serves one batch.  An
+    encoder-decoder is served through ``generate`` only (it has no slot
+    prefill, as in the reference).  ``seed`` seeds the generator that
+    sampling (``temperature > 0``) draws from.
     """
 
     def __init__(self, model, params, serve_cfg: ServeConfig,
@@ -205,25 +223,26 @@ class ServingEngine:
         self._prefill = make_prefill_step(model)
         self._decode = make_decode_step(model, serve_cfg.temperature,
                                         self.gen)
-        self._prefill_slot = make_slot_prefill_step(model, serve_cfg.max_len,
-                                                    self.device)
+        self._prefill_slot = None if model.cfg.is_encoder_decoder else \
+            make_slot_prefill_step(model, serve_cfg.max_len, self.device)
 
     @torch.no_grad()
     def generate(self, batch, max_new_tokens: int = 16) -> torch.Tensor:
-        """batch['tokens']: (b, s) prompts of one length -> (b,
+        """batch['tokens']: (b, s) prompts of one length (with a VLM's
+        optional 'vision_embeds', an encoder-decoder's 'frames') -> (b,
         max_new_tokens) tokens: the first greedy, the rest greedy or, at
         temperature > 0, sampled."""
-        tokens = torch.as_tensor(np.asarray(batch["tokens"]),
-                                 device=self.device)
-        bsz, plen = tokens.shape[:2]
+        batch = {k: v.to(self.device) if isinstance(v, torch.Tensor)
+                 else torch.as_tensor(np.asarray(v), device=self.device)
+                 for k, v in batch.items()}
+        bsz, plen = batch["tokens"].shape[:2]
         T.histogram("serving/batch_size", T.DEFAULT_SIZE_BUCKETS).record(bsz)
         T.histogram("serving/prefill_len",
                     T.DEFAULT_SIZE_BUCKETS).record(plen)
         with T.span("serving/generate", device=self.device, batch=bsz,
                     new_tokens=max_new_tokens):
             cache = self.model.cache_init(bsz, self.cfg.max_len, self.device)
-            logits, cache = self._prefill(self.params, {"tokens": tokens},
-                                          cache)
+            logits, cache = self._prefill(self.params, batch, cache)
             tok = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
             out = [tok]
             for _ in range(max_new_tokens - 1):

@@ -91,7 +91,10 @@ def jax_reference():
                raising=False)
     mp.setattr(jnp, "exp2", exact_exp2)
     jax.clear_caches()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # as in test_torch_lm.py
     yield
+    torch.set_num_threads(threads)
     mp.undo()
     jax.clear_caches()
 

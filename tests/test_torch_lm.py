@@ -1,21 +1,21 @@
 """The port's decoder LM slice against the reference ``DecoderLM`` in
 kernel mode (``QuantConfig(mode='kernel', quantize_nonlinear=True)``).
 
-Each case runs for three configs here (the ``lm`` fixture's params,
-``HERE``): ``llama3_8b``; ``qwen3_14b`` (per-head q/k RMSNorm, 2 query
-heads per KV head in SMOKE, head dim 16); ``phi4_mini_3_8b`` (tied
-embeddings: one packed table serves the row gather and the unembedding;
-3 query heads per KV head, head dim 8).  ``tests/test_torch_lm_zoo.py``
-runs the same cases for three more, so that the test runner can give the
-two files to two workers: ``deepseek_67b`` (3 layers, one KV head for 8
+Each case that takes the ``config`` or the ``lm`` fixture runs here for
+``llama3_8b``, and for each other config in a file of its own
+(``CONFIG_FILES``), so that the test runner can give the configs to
+several workers: ``qwen3_14b`` (per-head q/k RMSNorm, 2 query heads per
+KV head in SMOKE, head dim 16); ``phi4_mini_3_8b`` (tied embeddings: one
+packed table serves the row gather and the unembedding; 3 query heads
+per KV head, head dim 8); ``deepseek_67b`` (3 layers, one KV head for 8
 query heads) and the mixture-of-experts decoders ``mixtral_8x7b`` (4
-experts top-2, a 16-slot sliding-window ring) and ``granite_moe_3b_a800m``
-(8 experts top-4, tied embeddings), whose ``loss`` adds the layers'
-load-balancing loss; ``tests/test_torch_lm_recurrent.py`` runs them for
-the recurrent families, ``recurrentgemma_2b`` ((rec, rec, attn) and a
-(rec, rec) tail, a 16-slot local-attention ring) and ``xlstm_350m`` (two
-units of 3 mLSTM + 1 sLSTM, no FFN).  The reference's SMOKE parameters
-(f32) go through
+experts top-2, a 16-slot sliding-window ring) and
+``granite_moe_3b_a800m`` (8 experts top-4, tied embeddings), whose
+``loss`` adds the layers' load-balancing loss; the recurrent families,
+``recurrentgemma_2b`` ((rec, rec, attn) and a (rec, rec) tail, a 16-slot
+local-attention ring) and ``xlstm_350m`` (two units of 3 mLSTM + 1
+sLSTM, no FFN), whose files keep a part of the cases.  The reference's
+SMOKE parameters (f32) go through
 ``convert.lm_params``; both packages pack them to MXInt8 planes and serve
 or score the same numpy tokens.  The reference runs under two scoped fixes
 for the installed jax (the ``TPUCompilerParams`` alias and an exact
@@ -40,6 +40,7 @@ must be identical.
 """
 import dataclasses
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -83,7 +84,8 @@ from repro_torch.configs import xlstm_350m as xl  # noqa: E402
 from repro_torch.core.mx_types import (MXINT8_WEIGHT, NEG_INF,  # noqa: E402
                                        QuantConfig)
 from repro_torch.kernels import ops  # noqa: E402
-from repro_torch.models.transformer import DecoderLM  # noqa: E402
+from repro_torch.models.launches import lm_launches  # noqa: E402
+from repro_torch.models.transformer import DecoderLM, EncDecLM  # noqa: E402
 from repro_torch.serving.engine import (ServeConfig,  # noqa: E402
                                         ServingEngine, make_decode_step,
                                         pack_params_mxint)
@@ -98,10 +100,21 @@ CONFIGS = {"llama3_8b": (jllama, llama), "qwen3_14b": (jqwen, qwen),
            "mixtral_8x7b": (jmixtral, mixtral),
            "granite_moe_3b_a800m": (jgranite, granite),
            "recurrentgemma_2b": (jrg, rg), "xlstm_350m": (jxl, xl)}
-# the configs whose cases run in this file; test_torch_lm_recurrent.py
-# runs RECURRENT, test_torch_lm_zoo.py the others
-HERE = ("llama3_8b", "qwen3_14b", "phi4_mini_3_8b")
+# the file that runs each config's cases: one config a file, so that the
+# test runner's workers share them out (``--dist loadfile`` gives a whole
+# file to one worker)
+CONFIG_FILES = {"llama3_8b": "test_torch_lm.py",
+                "qwen3_14b": "test_torch_lm_qwen3.py",
+                "phi4_mini_3_8b": "test_torch_lm_phi4.py",
+                "deepseek_67b": "test_torch_lm_deepseek.py",
+                "mixtral_8x7b": "test_torch_lm_mixtral.py",
+                "granite_moe_3b_a800m": "test_torch_lm_granite.py",
+                "recurrentgemma_2b": "test_torch_lm_recurrent.py",
+                "xlstm_350m": "test_torch_lm_xlstm.py"}
+HERE = ("llama3_8b",)
 RECURRENT = ("recurrentgemma_2b", "xlstm_350m")
+assert set(CONFIG_FILES) == set(CONFIGS) and all(
+    (Path(__file__).parent / f).is_file() for f in CONFIG_FILES.values())
 VOCAB = 512                  # every SMOKE config's
 SMOKE_NAMES = {pcfg.SMOKE.name: name for name, (_, pcfg) in CONFIGS.items()}
 # the loss's tolerance, relative: Llama's losses are bit-identical (measured
@@ -144,7 +157,14 @@ def jax_reference():
                raising=False)
     mp.setattr(jnp, "exp2", exact_exp2)
     jax.clear_caches()
+    # one intra-op thread: the test runner's workers share the cores, and
+    # torch's default of one spinning thread a core in every worker left
+    # the suite several times slower than the same work in one thread a
+    # worker; the results do not depend on it
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     mp.undo()
     jax.clear_caches()
 
@@ -214,7 +234,8 @@ def make_lm(name):
 
 @pytest.fixture(scope="module", params=HERE)
 def config(request):
-    """The config a case runs for (``test_torch_lm_zoo.py`` gives others)."""
+    """The config a case runs for (the files of ``CONFIG_FILES`` give
+    the others)."""
     return request.param
 
 
@@ -439,55 +460,6 @@ def test_window_ring_decode_vs_reference(lm):
     np.testing.assert_array_equal(got, want)
 
 
-def lm_launches(cfg, tokens: int, decode: bool = False,
-                score: bool = False):
-    """Kernel launches of one call in kernel mode, by block kind, from the
-    reference's code: a slot prefill of ``tokens`` tokens, a decode step
-    or (``score``) a cache-less forward.  attn: 3 fused norm -> q/k/v and
-    the out linear, with qk-norm 2 RMSNorms, and the decode kernel (a
-    step), the flash kernel (a forward past 512 x 512 scores) or the
-    whole-row softmax (a forward up to it); a prefill's attention is
-    float.  The FFN of an attn or rec layer: 2 fused norm -> wi/wg, the
-    SiLU or GELU and wo; MoE: the RMSNorm, the router, the gates' softmax
-    and the experts' SiLU.  rec: the RMSNorm, 5 linears (y, x, the two
-    gates, out) and the GELU.  mlstm: the RMSNorm and 8 linears (q, k, v,
-    the two gates, out, up, down).  slstm: the RMSNorm, 2 linears a token
-    and the out linear.  Then the final RMSNorm."""
-    s = 1 if decode else tokens
-    c = dict.fromkeys(("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
-                       "mxint_layernorm", "mxint_softmax", "flash_attention",
-                       "flash_attention_decode"), 0)
-    c["mxint_layernorm"] = 1
-    moe = cfg.ffn_kind == "moe"
-    for kind in cfg.layer_kinds:
-        if kind == "attn":
-            c["mxint_ln_matmul"] += 3
-            c["mxint_matmul"] += 1
-            c["mxint_layernorm"] += 2 if cfg.qk_norm else 0
-            if decode:
-                c["flash_attention_decode"] += 1
-            elif score:
-                c["flash_attention" if s * s > 512 * 512
-                  else "mxint_softmax"] += 1
-        elif kind == "rec":
-            c["mxint_layernorm"] += 1
-            c["mxint_matmul"] += 5
-            c["mxint_gelu"] += 1
-        else:
-            c["mxint_layernorm"] += 1
-            c["mxint_matmul"] += 8 if kind == "mlstm" else 2 * s + 1
-        if kind in ("attn", "rec") and cfg.ffn_kind != "none":
-            if moe:
-                c["mxint_layernorm"] += 1
-                c["mxint_matmul"] += 1
-                c["mxint_softmax"] += 1
-            else:
-                c["mxint_ln_matmul"] += 2
-                c["mxint_matmul"] += 1
-            c["mxint_gelu"] += 1
-    return c
-
-
 def test_kernel_launch_structure(monkeypatch, config):
     """Per decode step: 5 fused norm->linears, 2 linears, 1 SiLU and 1
     decode attention per layer, then the final RMSNorm; a slot prefill the
@@ -599,7 +571,8 @@ def test_init_packs_each_tensor_as_it_goes():
 
 def test_entry_points_default_to_cuda():
     for fn in (ServingEngine.__init__, DecoderLM.init, DecoderLM.cache_init,
-               convert.lm_params):
+               EncDecLM.init, EncDecLM.cache_init, convert.lm_params,
+               convert.encdec_params):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the no-device error is moot")
@@ -607,3 +580,13 @@ def test_entry_points_default_to_cuda():
                                        quant=QuantConfig(**KERNEL)))
     with pytest.raises(RuntimeError, match="cuda"):
         ServingEngine(pm, pm.init(0, device="cpu"), ServeConfig(batch=2))
+
+
+def per_config_cases(config: str, path: str) -> dict:
+    """The cases of this file that run per config (they take the
+    ``config`` or the ``lm`` fixture), for the file at ``path`` that runs
+    ``config`` to collect; it must be that config's file."""
+    assert CONFIG_FILES[config] == Path(path).name, (config, path)
+    return {name: fn for name, fn in globals().items()
+            if name.startswith("test_")
+            and {"config", "lm"} & set(inspect.signature(fn).parameters)}

@@ -45,6 +45,7 @@ from repro_torch import convert  # noqa: E402
 from repro_torch.configs import recurrentgemma_2b as rg  # noqa: E402
 from repro_torch.configs import xlstm_350m as xl  # noqa: E402
 from repro_torch.core.mx_types import MXINT8_WEIGHT, QuantConfig  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models.model_api import Param  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
@@ -147,6 +148,23 @@ def test_rglru_gates(rglru, mode):
     # measured: off 3.6e-7, sim 1.4e-7
     _gap(ga, wa, TOL[mode])
     _gap(gb, wb, TOL[mode])
+
+
+@pytest.mark.parametrize("mode", PARTS)
+def test_rglru_gates_take_the_ieee_square_root(rglru, mode):
+    """sqrt(1 - a^2) is the correctly rounded float32 square root, as
+    XLA's and the card's are (torch's CPU float32 sqrt is not correctly
+    rounded, so the card and the CPU once differed in a last bit here):
+    the gates' second output equals numpy's IEEE square root times the
+    input gate times x in float32, bit for bit."""
+    _, pp = rglru
+    _, pq = _quants(mode)
+    x = torch.from_numpy(_x((4, 256, 32), 5))
+    a, b = R._rglru_gates(pp, x, pq)
+    i = R._f64(torch.sigmoid, L.linear(x, pp["w_i"], q=pq).float()).numpy()
+    an = a.numpy()
+    beta = np.sqrt(np.maximum(np.float32(1) - an * an, np.float32(1e-12)))
+    np.testing.assert_array_equal(b.numpy(), beta * (i * x.numpy()))
 
 
 @pytest.mark.parametrize("h0", [False, True])

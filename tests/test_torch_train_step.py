@@ -1,20 +1,26 @@
 """One train step of the port against ``repro.train.step.make_train_step``.
 
-DeiT-Micro in "off", "fake" and "sim", and the SMOKE Llama-3 and Mixtral
-(the load-balancing loss in the loss): the loss, every gradient leaf,
-the grad norm and the updated params from the same parameters and numpy
-batches; 20 steps of DeiT-Micro in "off"; the train state's axes and
+DeiT-Micro in "off", "fake" and "sim"; the SMOKE Llama-3 and Mixtral
+(the load-balancing loss in the loss), the recurrent RecurrentGemma and
+xLSTM (also in "sim"), LLaVA (with vision embeddings) and Seamless
+(frames -> tokens) in "off": the loss, every gradient leaf, the grad
+norm and the updated params from the same parameters and numpy batches
+(the reference's gradients read in its ``make_train_step``'s own
+trace); 20 steps of DeiT-Micro in "off"; the train state's axes and
 ``ViT.accuracy``.  The reference's fixes, jit and helpers are those of
 ``tests/test_torch_train.py``; this file stands apart so that the test
 runner can give the two files to two workers.  Each test states its
 tolerance and the gap it measured.
 """
 import dataclasses
+import functools
+from unittest import mock
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+import torch.nn.functional as F  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -28,12 +34,17 @@ from repro.models.model_api import unwrap  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 from repro.train.state import make_train_state as j_train_state  # noqa: E402
 from repro.train.state import train_state_axes as j_state_axes  # noqa: E402
+from repro.train import step as j_step_module  # noqa: E402
 from repro.train.step import make_train_step as j_train_step  # noqa: E402
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import deit, llama3_8b, mixtral_8x7b  # noqa: E402
+from repro_torch.configs import (deit, llama3_8b,  # noqa: E402
+                                  llava_next_mistral_7b, mixtral_8x7b,
+                                  recurrentgemma_2b, seamless_m4t_medium,
+                                  xlstm_350m)
 from repro_torch.core.mx_types import QuantConfig  # noqa: E402
+from repro_torch.models import build_model as pbuild_model  # noqa: E402
+from repro_torch.models import recurrent as R  # noqa: E402
 from repro_torch.models.model_api import tree_leaves  # noqa: E402
-from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.models.vit import ViT  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import (abstract_train_state,  # noqa: E402
@@ -61,7 +72,7 @@ def _vit_pair(mode, n_classes=10, batch=8):
         quant=JQuantConfig(mode=mode, **kw)))
     pm = ViT(dataclasses.replace(deit.DEIT_MICRO, n_classes=n_classes,
                                  quant=QuantConfig(mode=mode, **kw)))
-    jst = j_train_state(jm, jax.random.key(0))
+    jst = _ref_state(jm)
     st = train_state_from_params(convert.vit_params(
         pm, jax.tree_util.tree_map(np.asarray, unwrap(jst.params)),
         device="cpu"))
@@ -74,43 +85,68 @@ def _torch_batch(b):
     return {k: torch.from_numpy(np.array(v)) for k, v in b.items()}
 
 
-def _check_step(jm, jst, pm, st, jb, conv, loss_tol):
+def _ref_state(jm):
+    """The reference's initial train state from key 0, jitted."""
+    return jax.jit(lambda k: j_train_state(jm, k))(jax.random.key(0))
+
+
+def _ref_train_step(jm, jst, jb):
+    """One step of the reference's jitted ``make_train_step``: (new
+    state, metrics, the gradients it hands to AdamW).  The gradients are
+    read in the step's own trace, so one compiled program gives all
+    three."""
+    seen = {}
+
+    def spy(grads, *a, **kw):
+        seen["grads"] = grads
+        return jadamw.adamw_update(grads, *a, **kw)
+
+    step = j_train_step(jm, lr_fn=lambda s: jnp.asarray(LR, jnp.float32))
+    with mock.patch.object(j_step_module, "adamw_update", spy):
+        return _ref_jit(lambda st, b: (*step(st, b), seen["grads"]))(jst, jb)
+
+
+def _check_step(jm, jst, pm, st, jb, conv, loss_tol, grad_tol=GRAD_TOL,
+                loose_leaves=0):
     """One step of both packages on one batch: loss, every gradient
-    leaf, the grad norm and the updated params."""
+    leaf, the grad norm and the updated params.  Every gradient leaf but
+    ``loose_leaves`` of them within ``GRAD_TOL`` of its scale, those and
+    the grad norm within ``grad_tol``.  Returns the reference's loss and
+    its gradients as the port's leaves."""
     tb = _torch_batch(jb)
-    jloss, jgrads = _ref_jit(jax.value_and_grad(
-        lambda p, b: jm.loss(p, b)))(jst.params, jb)
+    jst2, jmet, jgrads = _ref_train_step(jm, jst, jb)
+    jloss = jmet["loss"]
     loss, grads = value_and_grad(lambda p, b: pm.loss(p, b), st.params, tb)
     assert abs(float(loss) - float(jloss)) <= loss_tol * abs(float(jloss))
     want = [p.value for p in tree_leaves(conv(
         pm, jax.tree_util.tree_map(np.asarray, unwrap(jgrads)),
         device="cpu"))]
     assert len(want) == len(grads)
-    worst = max(_rel_gap(g, w) for g, w in zip(grads, want))
-    assert worst <= GRAD_TOL, worst
+    gaps = [_rel_gap(g, w) for g, w in zip(grads, want)]
+    assert max(gaps) <= grad_tol, max(gaps)
+    assert sum(gap > GRAD_TOL for gap in gaps) <= loose_leaves, gaps
     for g, w in zip(grads, want):              # zero exactly where the
         assert bool((w == 0).all()) == bool((g == 0).all())   # ref is
-    jstep = _ref_jit(j_train_step(
-        jm, lr_fn=lambda s: jnp.asarray(LR, jnp.float32)))
-    jst2, jmet = jstep(jst, jb)
     st2, met = make_train_step(pm, lr_fn=lambda s: torch.tensor(LR))(st, tb)
-    assert _rel_gap(met["grad_norm"], jmet["grad_norm"]) <= GRAD_TOL
+    assert _rel_gap(met["grad_norm"], jmet["grad_norm"]) <= grad_tol
     assert int(st2.step) == int(jst2.step) == 1
     # AdamW's first step moves each element by lr * (g / (|g| + eps) +
     # wd p): about lr * sign(g).  Where |g| is within the gradient gap of
     # 0 the sign may differ, so the params are held to 2.2 lr everywhere
     # and to two float32 ulps of max(1, |p|) where the reference's |g| >=
-    # 1e-5 (measured: 2.0e-4, and one ulp of the unit LayerNorm gains)
+    # 1e-5 (measured: 2.0e-4, and one ulp of the unit LayerNorm gains);
+    # a loose leaf's gradient gap may flip larger signs, so it is held to
+    # 2.2 lr alone
     new = tree_leaves(conv(pm, jax.tree_util.tree_map(
         np.asarray, unwrap(jst2.params)), device="cpu"))
-    for got, ref, g in zip(tree_leaves(st2.params), new, want):
+    for got, ref, g, g_gap in zip(tree_leaves(st2.params), new, want, gaps):
         gap = (got.value.detach() - ref.value).abs()
         assert float(gap.max()) <= 2.2 * LR
-        firm = g.abs() >= 1e-5
+        firm = (g.abs() >= 1e-5) & (g_gap <= GRAD_TOL)
         if bool(firm.any()):
             ulps = gap[firm] / ref.value[firm].abs().clamp(min=1.0)
             assert float(ulps.max()) <= 2.4e-7
-    return met
+    return float(jloss), want
 
 
 @pytest.mark.parametrize("mode", list(VIT_MODES))
@@ -121,21 +157,109 @@ def test_deit_micro_train_step_against_reference(mode):
     _check_step(jm, jst, pm, st, jd.next_batch(), convert.vit_params, 1e-6)
 
 
-@pytest.mark.parametrize("name", ["llama3_8b", "mixtral_8x7b"])
-def test_smoke_lm_train_step_against_reference(name):
+LM_CONFIGS = {"llama3_8b": llama3_8b, "mixtral_8x7b": mixtral_8x7b,
+              "recurrentgemma_2b": recurrentgemma_2b,
+              "xlstm_350m": xlstm_350m,
+              "llava_next_mistral_7b": llava_next_mistral_7b,
+              "seamless_m4t_medium": seamless_m4t_medium}
+LM_MODES = {"off": {}, "sim": {"quantize_nonlinear": True}}
+# measured, loss relative gap and largest gradient gap over its leaf's
+# scale: RecurrentGemma 1.5e-7 and 3.8e-6, xLSTM 7.7e-8 and 2.1e-6, LLaVA
+# 1.5e-7 and 1.7e-6, Seamless 7.6e-8 and 1.6e-6; in "sim" RecurrentGemma
+# 1.5e-7 and 6.8e-8, xLSTM 1.6e-5 and 2.3e-2 (below)
+# xLSTM in "sim": the gates' float64 transcendentals and products
+# (float32 in the reference) move one MXInt act-grid step of the forward,
+# as its serve and score tests measure (tests/test_torch_lm_recurrent.py),
+# so the loss is held to 1e-4 relative (measured 1.6e-5); in "sim" only
+# the tied embedding gets a gradient past the MXInt final RMSNorm, and it
+# carries the moved step: held to 5e-2 of its scale (measured 2.3e-2),
+# every other leaf to GRAD_TOL (measured 0).  That precision is the whole
+# cause: with the reference's own float32 ops for the gates and the
+# mLSTM's products (``_ref_f32``) the port's loss is within 3.1e-7 and
+# every gradient within 8.6e-8 of its scale, held to 1e-6 and GRAD_TOL.
+XLSTM_SIM_TOL = dict(loss_tol=1e-4, grad_tol=5e-2, loose_leaves=1)
+
+
+# the reference's float32 op for each float64 one of models/recurrent.py
+_JAX_OPS = {torch.sigmoid: jax.nn.sigmoid, F.softplus: jax.nn.softplus,
+            torch.exp: jnp.exp, torch.tanh: jnp.tanh, torch.sqrt: jnp.sqrt,
+            torch.cumsum: lambda x, a: jnp.cumsum(x, axis=a),
+            torch.sum: lambda x, a: jnp.sum(x, axis=a)}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_op(fn, args=(), eq=None):
+    """``fn`` (or ``einsum(eq)``) as the reference's float32 op, jitted as
+    its steps are: one compile for each op and argument."""
+    if eq is not None:
+        return _ref_jit(lambda *a: jnp.einsum(eq, *a))
+    return _ref_jit(lambda y: _JAX_OPS[fn](y, *args))
+
+
+def _on_jax(op, *xs):
+    """``op`` on torch tensors; the result carries no gradient (in "sim"
+    none reaches these gates)."""
+    return torch.from_numpy(np.array(op(*(jnp.asarray(x.detach().numpy())
+                                          for x in xs))))
+
+
+def _ref_f32(monkeypatch):
+    """The recurrent mixers' float64 transcendentals, cumulative sums and
+    einsums computed as the reference computes them: its float32 ops."""
+    monkeypatch.setattr(R, "_f64", lambda fn, x, *args: _on_jax(
+        _jax_op(fn, args), x))
+    monkeypatch.setattr(R, "_einsum", lambda eq, *xs: _on_jax(
+        _jax_op(None, eq=eq), *xs))
+
+
+@pytest.mark.parametrize("name,mode", [
+    pytest.param(n, "off", id=n) for n in LM_CONFIGS] + [
+    pytest.param(n, "sim", id=f"{n}_sim")
+    for n in ("recurrentgemma_2b", "xlstm_350m")])
+def test_smoke_lm_train_step_against_reference(name, mode):
     """SMOKE Llama-3 and Mixtral (4 experts top-2, the load-balancing
-    loss in the loss), "off", 4 x 32 tokens.  Loss tolerance 1e-6
-    relative; measured 3.0e-7 (Llama) and 1.5e-7 (Mixtral); gradients
-    within 1.2e-6 and 1.5e-6 of their scale."""
-    pcfg = {"llama3_8b": llama3_8b, "mixtral_8x7b": mixtral_8x7b}[name]
-    jm, pm = build_model(smoke_config(name)), DecoderLM(pcfg.SMOKE)
-    jst = j_train_state(jm, jax.random.key(0))
-    st = train_state_from_params(convert.lm_params(
+    loss in the loss), the recurrent RecurrentGemma and xLSTM (RG-LRU,
+    mLSTM and the sLSTM loop under autograd), LLaVA (a batch with
+    vision embeddings through ``vision_proj``) and Seamless (frames ->
+    tokens through the encoder, cross-attention and the decoder), 4 x 32
+    tokens, in "off"; the recurrent two also in "sim" (the MXInt
+    non-linears; their integer stages stop gradients, as the
+    reference's do).  Loss tolerance 1e-6 relative, gradients
+    ``GRAD_TOL``; measured 3.0e-7 (Llama) and 1.5e-7 (Mixtral), gradients
+    within 1.2e-6 and 1.5e-6 of their scale; the others' gaps are stated
+    above ``XLSTM_SIM_TOL``, to which xLSTM in "sim" is held, and held
+    to the old tolerances with the reference's float32 gates."""
+    pcfg = LM_CONFIGS[name].SMOKE
+    jcfg = smoke_config(name)
+    if mode != "off":
+        kw = LM_MODES[mode]
+        jcfg = dataclasses.replace(jcfg, quant=JQuantConfig(mode=mode, **kw))
+        pcfg = dataclasses.replace(pcfg, quant=QuantConfig(mode=mode, **kw))
+    jm, pm = build_model(jcfg), pbuild_model(pcfg)
+    conv = (convert.encdec_params if pcfg.is_encoder_decoder
+            else convert.lm_params)
+    jst = _ref_state(jm)
+    st = train_state_from_params(conv(
         pm, jax.tree_util.tree_map(np.asarray, unwrap(jst.params)),
         device="cpu"))
-    jb = jdata.SyntheticLMData(vocab=512, batch=4, seq_len=32,
-                               seed=5).next_batch()
-    _check_step(jm, jst, pm, st, jb, convert.lm_params, 1e-6)
+    if pcfg.is_encoder_decoder:
+        jd = jdata.SyntheticSeq2SeqData(vocab=512, batch=4, seq_len=32,
+                                        d_model=pcfg.d_model, seed=5)
+    else:
+        jd = jdata.SyntheticLMData(vocab=512, batch=4, seq_len=32, seed=5,
+                                   vision_tokens=pcfg.vision_tokens,
+                                   vision_dim=pcfg.vision_dim)
+    if (name, mode) == ("xlstm_350m", "sim"):
+        jb = jd.next_batch()
+        jloss, want = _check_step(jm, jst, pm, st, jb, conv, **XLSTM_SIM_TOL)
+        with pytest.MonkeyPatch.context() as mp:     # the witness
+            _ref_f32(mp)
+            loss, grads = value_and_grad(lambda p, b: pm.loss(p, b),
+                                         st.params, _torch_batch(jb))
+        assert abs(float(loss) - jloss) <= 1e-6 * abs(jloss)
+        assert max(_rel_gap(g, w) for g, w in zip(grads, want)) <= GRAD_TOL
+    else:
+        _check_step(jm, jst, pm, st, jd.next_batch(), conv, 1e-6)
 
 
 def test_train_state_axes_match_reference():

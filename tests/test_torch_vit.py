@@ -56,7 +56,10 @@ def jax_reference():
                raising=False)
     mp.setattr(jnp, "exp2", exact_exp2)
     jax.clear_caches()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)       # as in test_torch_lm.py
     yield
+    torch.set_num_threads(threads)
     mp.undo()
     jax.clear_caches()
 
@@ -122,9 +125,10 @@ def test_deit_micro_logits_vs_reference_kernel_mode():
     labels, got = eng.classify(imgs)
     got = got.numpy()
     np.testing.assert_array_equal(labels.numpy(), want.argmax(-1))
-    # the f32 sums of the attention products and of the matmul blocks run
-    # in another order than the reference's; measured gap: 0 (the logits
-    # are bit-identical)
+    # the f32 sums of the matmul blocks run in another order than the
+    # reference's, and the whole-row attention's products in float64
+    # rounded once; measured gap: 0 (the logits are bit-identical, before
+    # and after the products moved to float64)
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
 
