@@ -250,7 +250,39 @@
    finite losses and grad norms.  Then the SMOKE RecurrentGemma, xLSTM,
    LLaVA (vision embeddings) and Seamless (frames) each trained 5 steps
    on the card and on the CPU: losses within ``LM_SMOKE_LOSS_TOL``.
-21. Prints one JSON line of per-kernel results, then as the last line
+   Phases 19-20 train with each config's own ``remat`` ("block" for the
+   LMs: each unit recomputed in the backward pass) and then run
+   ``REMAT_COMPARE_STEPS`` steps without it: ms a step and peak GiB of
+   both, the first step's loss equal.
+21. tp: DeiT-Base at full width and depth (MXInt6 planes, MXInt8 acts,
+   batch 16) served over ``TP_RANKS`` ranks sharing the card
+   (``repro_torch.parallel.spawn``: gloo on cuda:0, the kernels built
+   first): the column strategy over ``make_tp_mesh(2)`` and the data axis
+   over ``make_serving_mesh(dp=2, tp=1)`` equal to the single-process
+   engine bit for bit; the row strategy within ``ROW_TOL`` of the
+   single process on its own planes (blocks clamped to the per-rank K)
+   with argmax equal, its gap to the default planes printed; each
+   forward's launches per rank, by the kernels' counters and by calls,
+   equal to ``vit_launches``, and its collectives printed; a stream of 7
+   requests of 1-8 images through ``ClassifyScheduler`` on the column
+   engine, every request classified and every step's launches per rank
+   equal to ``vit_launches``; ms a batch and peak GiB per rank beside the
+   card's name and power limit (two ranks share one card: no scaling
+   number).  Then ``POD_STEPS`` "off" steps of DeiT-Base, 16 images a
+   pod, over a ("pod",) mesh of 2 with ``grad_compression=True``: ms a
+   step, peak GiB per rank, the residuals nonzero after every step.  The
+   kernel phase holds ``mxint_matmul`` at the row strategy's shard
+   shapes: K 384 at block 192 and K 1536 at block 256 (DeiT-Base), K 96
+   at block 96 (DeiT-Tiny), 0 mismatches.
+22. Card against CPU, after every timed phase: the checks of phases 6,
+   9, 12 and 14-16 run here (``card_vs_cpu_phases``), those whose CPU
+   sides take longest first.  A pool of ``os.cpu_count()`` worker
+   processes, ``CPU_THREADS`` torch threads each (``CpuChecks``), starts
+   first; each card side runs in turn and its CPU side goes to the pool
+   at once, beside phase 21's (the row strategy at 2 layers bit for bit,
+   DeiT-Micro's pod steps within ``LM_SMOKE_LOSS_TOL``, on 2 gloo CPU
+   ranks); each check compares when every CPU side is back.
+23. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
 Details also go to ``build/chip_smoke.json``.
@@ -260,6 +292,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -319,7 +352,8 @@ FLASH_TOL = {(False, False): None, (False, True): None,
 # the decode kernel, the shapes at which a Llama-3-8B decode step and
 # score forward spend the matmul, LN and GELU kernels' time, and
 # mxint_matmul at the fused kernel's shapes
-TIMED_CASES = {"llama3_8b_decode_b4_W2048_served_mxint",
+TIMED_CASES = {"deit_base_b16_tp_row_attn_out", "deit_base_b16_tp_row_ffn_wo",
+               "llama3_8b_decode_b4_W2048_served_mxint",
                "llama3_8b_decode_attn_wo", "llama3_8b_decode_ffn_wo",
                "llama3_8b_score_ffn_wo", "llama3_8b_decode_k4096_n1024",
                "llama3_8b_decode_k4096_n14336", "llama3_8b_score_attn_wo",
@@ -514,8 +548,9 @@ TRAIN_LR = 1e-4
 # DeiT-Micro's gradients card against CPU, largest gap over each leaf's
 # scale: the float64 products round once on both devices; the float32
 # sums over the batch of the broadcast leaves' gradients run in another
-# order on each
-GRAD_CPU_TOL = 1e-5
+# order on each; measured on the H100: 2.34e-7 ("off"), 2.31e-7 ("fake")
+# and 6.7e-8 ("sim") (PERF.md)
+GRAD_CPU_TOL = 5e-7
 # the accuracy phase: benchmarks/common.py's recipe (BENCH_DEIT, _TASK:
 # DEIT_MICRO with 100 classes on a hard 100-class task; 700 steps at batch
 # 64, lr 1e-3, weight decay 0.01, "off"; eval_accuracy over 8 batches of
@@ -543,7 +578,14 @@ LM_TRAIN_STEPS = 4
 LM_TRAIN_BATCH = 2
 LM_TRAIN_SEQ = 512
 LM_SMOKE_STEPS = 5
-LM_SMOKE_LOSS_TOL = 1e-5
+# measured on the H100 1.52e-7 (xLSTM: two float32 ulps of its 6.25
+# loss; the others 7.6e-8), the same before and after AdamW's square
+# roots went through float64 (PERF.md): the first step's loss differs
+# already, so the gap is the forward's float32 sums (the unembedding's),
+# which run in another order on each device
+LM_SMOKE_LOSS_TOL = 2e-7
+# train_full's steps without the config's remat, beside its own steps
+REMAT_COMPARE_STEPS = 2
 # the VLM, LLaVA-NeXT-Mistral-7B at full width and depth: VLM_BATCH
 # requests of its 2880 vision positions and VLM_TEXT text tokens (3072 in
 # all: the query-chunked prefill takes multiples of 1024), VLM_NEW_TOKENS
@@ -615,6 +657,92 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# The CPU sides of the card-against-CPU checks (the LMs', LLaVA's,
+# Seamless's, the tp phase's) run after every timed phase, in a pool of
+# worker processes, one per core of the card's host, each on
+# ``CPU_THREADS`` torch threads: the plain versions' element-wise work
+# hardly speeds up past one thread, so the checks run side by side rather
+# than one after another.  Their card sides run in place; the inputs of
+# the CPU side (parameters in shared memory) wait until then.
+CPU_THREADS = 1
+
+
+def _cpu_worker_init():
+    import torch
+    torch.set_num_threads(CPU_THREADS)
+    warm_cpu(torch)
+
+
+def _share(obj):
+    """Move every CPU tensor in ``obj`` (dicts, lists, tuples and named
+    tuples of them) into shared memory, in place.  Done before a job
+    reaches the pool: the pool's feeder thread would otherwise move each
+    storage while this thread still reads the tensor (a card side copying
+    the same planes), which frees the memory under it."""
+    import torch
+    if isinstance(obj, torch.Tensor):
+        if obj.device.type == "cpu":
+            obj.share_memory_()
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _share(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _share(v)
+    return obj
+
+
+def _cpu_job(threads, fn, args):
+    import torch
+    torch.set_num_threads(threads)
+    try:
+        return fn(*args)
+    finally:
+        torch.set_num_threads(CPU_THREADS)
+
+
+class CpuChecks:
+    """The CPU sides of the checks, in a pool of worker processes.
+    ``start(workers)`` starts the pool; ``add(tag, fn, *args)`` moves the
+    job's tensors into shared memory (``_share``), submits the job at once
+    and returns its index, so the jobs run in the order they are added
+    (``card_vs_cpu_phases`` adds the longest first); ``run`` waits for
+    every result and closes the pool (``seconds``: from ``start`` to the
+    last result); ``result(i)`` reads one.  A job runs on ``CPU_THREADS``
+    threads, or on its ``CPU_JOB_THREADS``."""
+
+    def __init__(self):
+        self.futures, self.results = [], {}
+        self.pool, self.t0, self.seconds = None, None, None
+
+    def start(self, workers: int):
+        import concurrent.futures as cf
+        import torch.multiprocessing as mp
+        self.t0 = time.perf_counter()
+        self.pool = cf.ProcessPoolExecutor(
+            max_workers=workers, mp_context=mp.get_context("spawn"),
+            initializer=_cpu_worker_init)
+
+    def add(self, tag, fn, *args) -> int:
+        self.futures.append(self.pool.submit(
+            _cpu_job, CPU_JOB_THREADS.get(tag, CPU_THREADS), fn,
+            _share(args)))
+        return len(self.futures) - 1
+
+    def run(self) -> float:
+        for i, f in enumerate(self.futures):
+            self.results[i] = f.result()
+        self.pool.shutdown()
+        self.seconds = time.perf_counter() - self.t0
+        return self.seconds
+
+    def result(self, i):
+        return self.results[i]
+
+
+CPU_CHECKS = CpuChecks()
 
 
 # trace event categories of the device's own work: kernels, and for a
@@ -825,6 +953,31 @@ def kernel_cases(torch, np):
             a = a * 2.0 ** -120
         if label.startswith("extreme"):
             a, w = extreme_rows(M, K), extreme_planes(K, N)
+        wd = dequantize(w)
+        cases["mxint_matmul"].append((
+            label,
+            lambda a=a, w=w: mxint_matmul.mxint_matmul(
+                a, w.mantissa, w.exponent, w_block=w.block_size),
+            lambda a=a, w=w: mxint_matmul.matmul_blocks(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=16, act_mant_bits=8),
+            bound(M * K * 4 + w.mantissa.numel() + w.exponent.numel()
+                  + M * N * 4, int8_ops=2.0 * M * N * K,
+                  f32_ops=gemm_f32_ops(M, N, K)),
+            lambda a=a, wd=wd: torch.matmul(a, wd)))
+    # the row strategy's shards (the tp phase): each rank's K rows of the
+    # K-sharded planes, packed with the block clamped to the per-rank K
+    # (pack_params_mxint(tp_shards=2)): DeiT-Base's out-projection K 384
+    # at block 192 and FFN wo K 1536 at block 256, DeiT-Tiny's
+    # out-projection K 96 at block 96
+    for label, M, K, N, block in (
+            ("deit_base_b16_tp_row_attn_out", rows, 384, 768, 192),
+            ("deit_base_b16_tp_row_ffn_wo", rows, 1536, 768, 256),
+            ("deit_tiny_b16_tp_row_attn_out", rows, 96, 192, 96)):
+        a = x(M, K)
+        w = pack_weight(x(K, N, scale=K ** -0.5), dataclasses.replace(
+            MXINT6_WEIGHT, block_size=block))
+        assert w.block_size == block
         wd = dequantize(w)
         cases["mxint_matmul"].append((
             label,
@@ -1944,6 +2097,229 @@ def slice_phase(torch, np):
     return stats, launches
 
 
+# the "tp" phase: DeiT-Base at full width and depth (MXInt6 planes, MXInt8
+# acts, batch BATCH) served sharded over TP_RANKS ranks that share the one
+# card (gloo on cuda:0), against the single-process engine; TP_STREAM is
+# the scheduler's mixed stream (7 requests of 1-8 images); TP_TIMED
+# batches timed per engine; TP_CPU_LAYERS layers of the row strategy held
+# card against CPU; POD_STEPS "off" steps of DeiT-Base at POD_BATCH
+# images a pod over a ("pod",) mesh of TP_RANKS with grad_compression,
+# and DeiT-Micro's POD_MICRO_STEPS card against CPU
+TP_RANKS = 2
+TP_STREAM = (3, 5, 1, 8, 2, 7, 4)
+TP_TIMED = 5
+TP_CPU_LAYERS = 2
+POD_BATCH = 16
+POD_STEPS = 2
+POD_MICRO_BATCH = 8
+POD_MICRO_STEPS = 2
+
+
+def tp_tasks(cfg, params, imgs, cfg2, params2, micro, micro_params,
+             micro_batch, full: bool, pod=None):
+    """The rank-side tasks of the tp phase (``sharded_check.run_tasks``):
+    with ``full``, DeiT-Base column (with the stream), row and data-only
+    serving, timed, and the DeiT-Base pod steps (``pod`` = (config,
+    params, batch)); always the row strategy at ``TP_CPU_LAYERS`` layers
+    and DeiT-Micro's pod steps, the parts the CPU ranks repeat."""
+    tp = ((TP_RANKS,), ("model",), None)
+    dp = ((TP_RANKS, 1), ("data", "model"), None)
+    pods = ((TP_RANKS,), ("pod",), None)
+    common = dict(cfg=cfg, params=params, imgs=imgs, batch=BATCH)
+    tasks = []
+    if full:
+        tasks += [("serve", tp, dict(common, strategy="column",
+                                     stream=TP_STREAM, timed=TP_TIMED)),
+                  ("serve", tp, dict(common, strategy="row", timed=TP_TIMED)),
+                  ("serve", dp, dict(common, strategy="column",
+                                     timed=TP_TIMED)),
+                  ("pod_step", pods, dict(cfg=pod[0], params=pod[1],
+                                          batch=pod[2], steps=POD_STEPS,
+                                          lr=TRAIN_LR, keep_params=False))]
+    tasks += [("serve", tp, dict(cfg=cfg2, params=params2, imgs=imgs,
+                                 batch=BATCH, strategy="row")),
+              ("pod_step", pods, dict(cfg=micro, params=micro_params,
+                                      batch=micro_batch,
+                                      steps=POD_MICRO_STEPS, lr=TRAIN_LR))]
+    return tasks
+
+
+def tp_cpu_side(tasks):
+    """The tp phase's CPU side: the same tasks on ``TP_RANKS`` gloo CPU
+    ranks (one torch thread each)."""
+    from repro_torch.parallel.spawn import spawn
+    from repro_torch.serving import sharded_check as SC
+    t0 = time.perf_counter()
+    ranks = spawn(SC.run_tasks, TP_RANKS, (tasks,), device="cpu",
+                  threads=CPU_THREADS)
+    return ranks, time.perf_counter() - t0
+
+
+def tp_phase(torch, np, smi):
+    """Tensor- and data-parallel MXInt serving of DeiT-Base on
+    ``TP_RANKS`` ranks sharing the one card (``parallel.spawn``: gloo on
+    cuda:0, the kernels built here first), and the pod-axis compressed
+    gradient path.  Column sharding and the data axis (a ("data", "model")
+    mesh of (2, 1)) must equal the single-process engine bit for bit; the
+    row strategy is held to the single-process engine on its own planes
+    (``pack_params_mxint(tp_shards=2)``) within ``sharded_check.ROW_TOL``
+    of the scale with argmax equal, its gap to the default planes logged;
+    the scheduler's stream must classify every request, every step's
+    per-rank launches equal to ``vit_launches``, each forward's launches
+    and collectives likewise.
+    Timings: ms a batch on each rank beside the card's name and power
+    limit; two ranks share one card, so none of it is a scaling number.
+    The pod steps: ms and peak GiB per rank, the residuals nonzero after
+    every step.  The card-against-CPU part (the row strategy at
+    ``TP_CPU_LAYERS`` layers bit for bit, DeiT-Micro's pod steps within
+    ``LM_SMOKE_LOSS_TOL``) is queued on ``CPU_CHECKS``; returns (stats,
+    the function that compares, the column stream's launches on rank 0 as
+    its kernels' counters read them around each scheduler step)."""
+    from repro_torch.configs.deit import DEIT_BASE, DEIT_MICRO
+    from repro_torch.core.mx_types import QuantConfig
+    from repro_torch.models.launches import vit_launches
+    from repro_torch.models.vit import ViT
+    from repro_torch.parallel.spawn import spawn
+    from repro_torch.serving import sharded_check as SC
+    from repro_torch.serving.engine import pack_params_mxint
+
+    kernel = QuantConfig(mode="kernel", quantize_nonlinear=True)
+    cfg = dataclasses.replace(DEIT_BASE, quant=kernel)
+    cfg2 = dataclasses.replace(cfg, n_layers=TP_CPU_LAYERS)
+    params = ViT(cfg).init(SEED, device=DEVICE)
+    params2 = ViT(cfg2).init(SEED + 1, device=DEVICE)
+    imgs = SC.images(BATCH, cfg.image_size, SEED + 20)
+    want = SC.single_device_logits(cfg, params, imgs, BATCH, DEVICE)
+    want_row = SC.single_device_logits(
+        cfg, pack_params_mxint(params, cfg.quant.weight_fmt,
+                               tp_shards=TP_RANKS), imgs, BATCH, DEVICE)
+    from repro_torch.serving.engine import params_to
+    params, params2 = params_to(params, "cpu"), params_to(params2, "cpu")
+    torch.cuda.empty_cache()
+    off = dataclasses.replace(DEIT_BASE, quant=QuantConfig())
+    rng = np.random.default_rng(SEED + 21)
+    pod_batch = {"images": rng.normal(size=(
+        TP_RANKS * POD_BATCH, 224, 224, 3)).astype(np.float32),
+        "labels": rng.integers(0, off.n_classes, size=(
+            TP_RANKS * POD_BATCH,)).astype(np.int32)}
+    pod_params = ViT(off).init(SEED + 2, device="cpu")
+    micro = DEIT_MICRO
+    micro_params = ViT(micro).init(SEED + 3, device="cpu")
+    micro_batch = {"images": rng.normal(size=(
+        TP_RANKS * POD_MICRO_BATCH, 32, 32, 3)).astype(np.float32),
+        "labels": rng.integers(0, micro.n_classes, size=(
+            TP_RANKS * POD_MICRO_BATCH,)).astype(np.int32)}
+    small = (cfg2, params2, micro, micro_params, micro_batch)
+    t0 = time.perf_counter()
+    ranks = spawn(SC.run_tasks, TP_RANKS, (tp_tasks(
+        cfg, params, imgs, *small, full=True,
+        pod=(off, pod_params, pod_batch)),), device="cuda")
+    spawn_s = time.perf_counter() - t0
+    col, row, dp, pod, row2, micro_card = (
+        [r[i] for r in ranks] for i in range(6))
+    stats = {"card": smi, "ranks": TP_RANKS, "spawn_s": spawn_s,
+             "note": "two ranks share one card: no time here is a scaling "
+                     "number"}
+    stats["column"] = SC.compare(col[0]["logits"], want)
+    stats["data"] = SC.compare(dp[0]["logits"], want)
+    stats["row"] = SC.compare(row[0]["logits"], want_row)
+    stats["row_vs_default_planes"] = SC.compare(row[0]["logits"], want)
+    for name, rs in (("column", col), ("row", row), ("data", dp)):
+        stats[name].update(
+            ms_per_batch=[r["ms_per_batch"] for r in rs],
+            peak_gib=[r.get("peak_gib") for r in rs],
+            launches_per_forward=[r["launches_per_forward"] for r in rs],
+            collectives_per_forward=[r["collectives_per_forward"]
+                                     for r in rs])
+        parity = {k: stats[name][k] for k in ("bit_exact", "max_abs_diff",
+                                               "scale", "argmax_equal")}
+        log(f"[tp {name}] {smi}: ms a batch of {BATCH} per rank "
+            f"{stats[name]['ms_per_batch']}, peak GiB per rank "
+            f"{stats[name]['peak_gib']}, collectives a forward "
+            f"{stats[name]['collectives_per_forward'][0]}; against the "
+            f"single process: {json.dumps(parity)}")
+    log(f"[tp row] against the default planes: "
+        f"{json.dumps(stats['row_vs_default_planes'])}")
+    for name in ("column", "data"):
+        if not stats[name]["bit_exact"]:
+            raise AssertionError(f"tp {name}: the sharded logits differ "
+                                 f"from the single process's")
+    r = stats["row"]
+    if not r["argmax_equal"] or r["max_abs_diff"] > SC.ROW_TOL * r["scale"]:
+        raise AssertionError("tp row: beyond ROW_TOL of the single process "
+                             "on the same planes, or argmax")
+    for name, rs, dp_ in (("column", col, 1), ("row", row, 1),
+                          ("data", dp, TP_RANKS)):
+        tp_ = 1 if name == "data" else TP_RANKS
+        want_l = vit_launches(cfg, "column" if name == "data" else name, tp_)
+        for rk, res in enumerate(rs):
+            if res["launches_per_forward"] != want_l or \
+                    res["calls_per_forward"] != want_l:
+                raise AssertionError(
+                    f"tp {name} rank {rk}: launches a forward "
+                    f"{res['launches_per_forward']} != {want_l}")
+    stream = col[0]["stream"]
+    per_step = vit_launches(cfg)
+    stats["stream"] = {k: v for k, v in stream.items()
+                       if k not in ("calls_per_step", "launches_per_step")}
+    stats["stream"]["steps"] = len(stream["launches_per_step"])
+    log(f"[tp stream] {json.dumps(stats['stream'])}")
+    for rk, res in enumerate(col):
+        s = res["stream"]
+        if not s["all_classified"] or s["requests"] != len(TP_STREAM):
+            raise AssertionError(f"tp stream rank {rk}: not every request "
+                                 f"was classified")
+        if any(c != per_step for c in s["launches_per_step"]) or \
+                any(c != per_step for c in s["calls_per_step"]):
+            raise AssertionError(f"tp stream rank {rk}: a step's launches "
+                                 f"are not {per_step}")
+    stats["pod"] = {"config": "deit_base", "mode": "off",
+                    "batch_per_pod": POD_BATCH, "steps": POD_STEPS,
+                    "ranks": [{k: r.get(k) for k in ("metrics", "peak_gib",
+                                                     "err_nonzero", "pod")}
+                              for r in pod]}
+    log(f"[tp pod] {smi}: DeiT-Base off, {POD_BATCH} images a pod, "
+        f"grad_compression over ('pod',) of {TP_RANKS}: "
+        f"{json.dumps(stats['pod']['ranks'])}")
+    if not all(m["err_nonzero"] for r in pod for m in r["metrics"]):
+        raise AssertionError("tp pod: a pod's residuals are zero after a "
+                             "step")
+    if len({r["metrics"][-1]["loss"] for r in pod}) != 1:
+        raise AssertionError("tp pod: the pods' mean losses differ")
+    job = CPU_CHECKS.add("tp cpu", tp_cpu_side, tp_tasks(
+        cfg, params, imgs, *small, full=False))
+    # rank 0's launches in the stream, read from its kernels' counters
+    launches = {k: sum(c[k] for c in stream["launches_per_step"])
+                for k in per_step}
+
+    def finish():
+        cpu_ranks, cpu_s = CPU_CHECKS.result(job)
+        row_cpu = cpu_ranks[0][0]["logits"]
+        res = SC.compare(row2[0]["logits"], row_cpu)
+        res["differing_elements"] = int((row2[0]["logits"] != row_cpu).sum())
+        log(f"[tp cpu] row strategy, {TP_CPU_LAYERS} layers, card against "
+            f"{TP_RANKS} CPU ranks: {json.dumps(res)} (cpu {cpu_s!r} s)")
+        if not res["bit_exact"]:
+            raise AssertionError("tp cpu: the row strategy's logits differ "
+                                 "card against CPU")
+        card_l = [m["loss"] for m in micro_card[0]["metrics"]]
+        cpu_l = [m["loss"] for m in cpu_ranks[0][1]["metrics"]]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(card_l, cpu_l))
+        par = max(float(np.abs(a - b).max()) for a, b in zip(
+            micro_card[0]["params"], cpu_ranks[0][1]["params"]))
+        pod_res = {"loss_card": card_l, "loss_cpu": cpu_l,
+                   "max_loss_gap_rel": rel, "max_param_gap": par,
+                   "tolerance": LM_SMOKE_LOSS_TOL}
+        log(f"[tp cpu] DeiT-Micro pod steps card against CPU: "
+            f"{json.dumps(pod_res)}")
+        if rel > LM_SMOKE_LOSS_TOL:
+            raise AssertionError("tp cpu: the micro pod steps' losses differ "
+                                 "card against CPU beyond LM_SMOKE_LOSS_TOL")
+        return {"row": res, "pod_micro": pod_res, "cpu_s": cpu_s}
+
+    return stats, finish, launches
+
+
 def quant_config(mode, kw):
     """A ``QuantConfig``; kw's "overrides" names a glob whose layer groups
     run "sim"."""
@@ -2338,6 +2714,39 @@ LM_CPU_MODES = {"kernel": ("kernel", {"quantize_nonlinear": True}, True),
                 "packed": ("packed", {"quantize_nonlinear": True}, True)}
 
 
+def lm_side(dev, base, label, params, prompts, scores):
+    """One side of an LM card-against-CPU check in mode ``label`` (of
+    ``LM_CPU_MODES``) on ``dev``: 2 requests of ``prompts`` served (4 new
+    tokens each) and each of ``scores`` scored; returns (tokens by
+    request, logits, seconds, launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.scheduler import BatchScheduler, Request
+
+    mode, kw, _ = LM_CPU_MODES[label]
+    model = DecoderLM(dataclasses.replace(base, quant=quant_config(mode, kw)))
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = ServingEngine(model, params, ServeConfig(max_len=300, batch=2),
+                        device=dev)
+    sched = BatchScheduler(eng, batch_size=2)
+    for uid, pr in enumerate(prompts):
+        sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
+    tokens = {r.uid: r.generated for r in sched.run()}
+    logits = np.concatenate([
+        model.forward(eng.params, toks).float().cpu().numpy()[0]
+        for toks in scores])[None]
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return tokens, logits, time.perf_counter() - t0, read_counts()
+
+
+# jobs whose float64 expert products scale with threads take more of them
+CPU_JOB_THREADS = {"mixtral_8x7b cpu kernel": 4}
+
+
 def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
                  layers):
     """An LM architecture (``full``) at full width, ``layers`` repeats of
@@ -2345,13 +2754,11 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
     card against the CPU, serving 2 requests of ``prompt_lens`` tokens (4
     new tokens each) and scoring ``score_tokens`` tokens (a count, or a
     tuple of counts each scored), in each of ``modes`` (labels of
-    ``LM_CPU_MODES``)."""
-    from repro_torch.models.transformer import DecoderLM
-    from repro_torch.serving.engine import ServeConfig, ServingEngine
-    from repro_torch.serving.scheduler import BatchScheduler, Request
-
-    warm_cpu(torch)
+    ``LM_CPU_MODES``).  The card side runs here; the CPU side is queued on
+    ``CPU_CHECKS``.  Returns the function that compares the two once the
+    CPU sides have run."""
     base = dataclasses.replace(cut_depth(full, layers), dtype=torch.float32)
+    from repro_torch.models.transformer import DecoderLM
     floats, planes = cpu_check_params(torch, DecoderLM(base))
     rng = np.random.default_rng(SEED + 4)
     prompts = [rng.integers(0, base.vocab, size=n).astype(np.int32)
@@ -2360,44 +2767,36 @@ def lm_cpu_phase(torch, np, full, modes, prompt_lens, score_tokens, tag,
         score_tokens = (score_tokens,)
     scores = [rng.integers(0, base.vocab, size=(1, n)).astype(np.int32)
               for n in score_tokens]
-    results = {}
+    pending = {}
     for label in modes:
-        mode, kw, packed = LM_CPU_MODES[label]
-        model = DecoderLM(dataclasses.replace(base,
-                                              quant=quant_config(mode, kw)))
+        mode, _, packed = LM_CPU_MODES[label]
         params = planes if packed else floats
-        out, seconds = {}, {}
-        for dev in (DEVICE, "cpu"):
-            t0 = time.perf_counter()
-            reset_counts()
-            eng = ServingEngine(model, params, ServeConfig(max_len=300,
-                                                           batch=2),
-                                device=dev)
-            sched = BatchScheduler(eng, batch_size=2)
-            for uid, pr in enumerate(prompts):
-                sched.submit(Request(uid=uid, prompt=pr, max_new_tokens=4))
-            tokens = {r.uid: r.generated for r in sched.run()}
-            logits = np.concatenate([
-                model.forward(eng.params, toks).float().cpu().numpy()[0]
-                for toks in scores])[None]
-            if dev == DEVICE:
-                torch.cuda.synchronize()
-                launches = read_counts()
-            out[dev] = (tokens, logits)
-            seconds[dev] = time.perf_counter() - t0
-            del eng
-            log(f"[{tag} {label}] {dev}: served and scored in "
-                f"{seconds[dev]!r} s")
-        res = compare_card_cpu(f"{tag} {label}", out)
-        res.update(layers=base.n_layers, score_tokens=score_tokens,
-                   card_s=seconds[DEVICE], cpu_s=seconds["cpu"],
-                   card_launches=launches)
+        card = lm_side(DEVICE, base, label, params, prompts, scores)
+        log(f"[{tag} {label}] {DEVICE}: served and scored in {card[2]!r} s")
+        job = CPU_CHECKS.add(f"{tag} {label}", lm_side, "cpu", base, label,
+                             params, prompts, scores)
+        pending[label] = (card, job, mode)
+        launches = card[3]
         log(f"[{tag} {label}] card launches {launches}")
         if mode != "kernel" and any(launches.values()):
             raise AssertionError(f"{tag} {label}: launched kernels "
                                  f"{launches}")
-        results[label] = res
-    return results
+    del floats, planes
+
+    def finish():
+        results = {}
+        for label, (card, job, mode) in pending.items():
+            cpu = CPU_CHECKS.result(job)
+            log(f"[{tag} {label}] cpu: served and scored in {cpu[2]!r} s "
+                f"(one thread, beside the other checks)")
+            res = compare_card_cpu(f"{tag} {label}", {
+                DEVICE: card[:2], "cpu": cpu[:2]})
+            res.update(layers=base.n_layers, score_tokens=score_tokens,
+                       card_s=card[2], cpu_s=cpu[2], card_launches=card[3])
+            results[label] = res
+        return results
+
+    return finish
 
 
 def telemetry_step_us(iters: int = 2000) -> float:
@@ -2652,10 +3051,10 @@ def widened_serve_phase(torch, np):
 
 def moe_phases(torch, np, phase):
     """Each of ``MOE_LMS`` at full width and ``MOE_SERVE_LAYERS`` layers:
-    served (the LM serve phase's checks, launches pinned), one 1024-token
-    ``loss`` forward with the load-balancing loss, then held card against
-    CPU in kernel mode at ``MOE_CPU_LAYERS`` layers.  Every earlier model
-    is freed first."""
+    served (the LM serve phase's checks, launches pinned) and one
+    1024-token ``loss`` forward with the load-balancing loss (their card-
+    against-CPU checks: ``card_vs_cpu_phases``).  Every earlier model is
+    freed first."""
     import importlib
     torch.cuda.empty_cache()
     out = {}
@@ -2670,10 +3069,7 @@ def moe_phases(torch, np, phase):
                          engine, f"{name} score")
         del model, engine
         torch.cuda.empty_cache()
-        out[name] = {"serve": serve, "score": score, "card_vs_cpu": phase(
-            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
-            ("kernel",), NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE, f"{name} cpu",
-            MOE_CPU_LAYERS)}
+        out[name] = {"serve": serve, "score": score}
     return out
 
 
@@ -2711,9 +3107,9 @@ def prefill_split(torch, model, engine, tag):
 def recurrent_phases(torch, np, phase):
     """Each of ``REC_LMS`` at full width and depth: served (the LM serve
     phase's checks, every call's launches from ``lm_launches``), one
-    slot prefill split by kernel and scan, a 1024-token score (with an
-    attention layer, a ``REC_SOFTMAX_SCORE``-token one too), then one unit
-    held card against CPU in ``REC_CPU_MODES``.  Every earlier model is
+    slot prefill split by kernel and scan and a 1024-token score (with an
+    attention layer, a ``REC_SOFTMAX_SCORE``-token one too; their card-
+    against-CPU checks: ``card_vs_cpu_phases``).  Every earlier model is
     freed first."""
     import importlib
     torch.cuda.empty_cache()
@@ -2736,10 +3132,6 @@ def recurrent_phases(torch, np, phase):
                 REC_SOFTMAX_SCORE)
         del model, engine
         torch.cuda.empty_cache()
-        res["card_vs_cpu"] = phase(
-            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
-            REC_CPU_MODES, REC_CPU_PROMPTS, REC_CPU_SCORE[name],
-            f"{name} cpu", 1)
         out[name] = res
     return out
 
@@ -2957,52 +3349,69 @@ def compare_card_cpu(tag, out):
     return res
 
 
+def vlm_side(dev, cfg, planes, serve, score):
+    """One side of LLaVA's card-against-CPU check on ``dev``: ``serve``
+    through ``generate`` (4 new tokens) and ``score``'s forward; returns
+    (tokens, logits, seconds, launches)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = ServingEngine(model, planes, ServeConfig(max_len=1024, batch=2),
+                        device=dev)
+    toks = eng.generate(serve, max_new_tokens=4).tolist()
+    logits = model.forward(eng.params, score["tokens"],
+                           torch.as_tensor(score["vision_embeds"]))
+    logits = logits.float().cpu().numpy()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return toks, logits, time.perf_counter() - t0, read_counts()
+
+
 def vlm_cpu_phase(torch, np):
     """LLaVA at full width, 1 layer, float32, ``VLM_CPU_VISION`` vision
     positions, in kernel mode on MXInt8 planes, on the card and on the
     CPU: 2 requests of ``VLM_CPU_VISION`` + ``VLM_CPU_TEXT`` positions
     through ``generate`` (4 new tokens; the whole-row prefill), and a
     ``VLM_CPU_SCORE``-position forward with vision embeddings (past 512 x
-    512 scores: the flash kernel)."""
+    512 scores: the flash kernel).  The CPU side is queued on
+    ``CPU_CHECKS``; returns the function that compares."""
     from repro_torch.configs import llava_next_mistral_7b as llava
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-    warm_cpu(torch)
     cfg = dataclasses.replace(
         cut_depth(llava.FULL, 1), dtype=torch.float32,
         vision_tokens=VLM_CPU_VISION,
         quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
-    model = build_model(cfg)
-    _, planes = cpu_check_params(torch, model)
+    _, planes = cpu_check_params(torch, build_model(cfg))
     serve = vision_batch(np, 2, VLM_CPU_VISION, VLM_CPU_TEXT, cfg, SEED + 8)
     score = vision_batch(np, 1, VLM_CPU_VISION,
                          VLM_CPU_SCORE - VLM_CPU_VISION, cfg, SEED + 9)
-    out = {}
-    for dev in (DEVICE, "cpu"):
-        t0 = time.perf_counter()
-        reset_counts()
-        eng = ServingEngine(model, planes, ServeConfig(max_len=1024,
-                                                       batch=2), device=dev)
-        toks = eng.generate(serve, max_new_tokens=4).tolist()
-        logits = model.forward(eng.params, score["tokens"],
-                               torch.as_tensor(score["vision_embeds"]))
-        out[dev] = (toks, logits.float().cpu().numpy())
-        if dev == DEVICE:
-            torch.cuda.synchronize()
-            launches = read_counts()
-        log(f"[vlm cpu] {dev}: served and scored in "
-            f"{time.perf_counter() - t0!r} s")
-        del eng
-    res = compare_card_cpu("vlm cpu", out)
-    res.update(layers=1, vision_positions=VLM_CPU_VISION,
-               prompt_positions=VLM_CPU_VISION + VLM_CPU_TEXT,
-               score_positions=VLM_CPU_SCORE, card_launches=launches)
+    card = vlm_side(DEVICE, cfg, planes, serve, score)
+    log(f"[vlm cpu] {DEVICE}: served and scored in {card[2]!r} s")
+    launches = card[3]
     if not launches["flash_attention"]:
         raise AssertionError("vlm cpu: the score did not take the flash "
                              "kernel")
-    return res
+    job = CPU_CHECKS.add("vlm cpu", vlm_side, "cpu", cfg, planes, serve,
+                         score)
+
+    def finish():
+        cpu = CPU_CHECKS.result(job)
+        log(f"[vlm cpu] cpu: served and scored in {cpu[2]!r} s")
+        res = compare_card_cpu("vlm cpu", {DEVICE: card[:2],
+                                           "cpu": cpu[:2]})
+        res.update(layers=1, vision_positions=VLM_CPU_VISION,
+                   prompt_positions=VLM_CPU_VISION + VLM_CPU_TEXT,
+                   score_positions=VLM_CPU_SCORE, card_launches=launches,
+                   card_s=card[2], cpu_s=cpu[2])
+        return res
+
+    return finish
 
 
 def frames_batch(np, rows, frames, tokens, cfg, seed):
@@ -3133,52 +3542,71 @@ def encdec_phase(torch, np):
     return stats
 
 
+def encdec_side(dev, cfg, planes, batch):
+    """One side of Seamless's card-against-CPU check on ``dev``: ``batch``
+    through ``generate`` (4 new tokens) and a cache-less forward; returns
+    (tokens, logits, seconds, launches)."""
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    reset_counts()
+    eng = ServingEngine(model, planes, ServeConfig(max_len=64, batch=2),
+                        device=dev)
+    toks = eng.generate(batch, max_new_tokens=4).tolist()
+    logits = model.forward(eng.params, batch["frames"], batch["tokens"])
+    logits = logits.float().cpu().numpy()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return toks, logits, time.perf_counter() - t0, read_counts()
+
+
 def encdec_cpu_phase(torch, np):
     """SeamlessM4T-medium at full width, 1 + 1 layers, float32, kernel
     mode on MXInt8 planes, on the card and on the CPU, at each of
     ``ENCDEC_CPU_FRAMES`` frames (256: the whole-row encoder; 640: the
     flash kernel): 2 requests of ``ENCDEC_PROMPT`` tokens through
-    ``generate`` (4 new), and a cache-less forward's logits."""
+    ``generate`` (4 new), and a cache-less forward's logits.  The CPU
+    sides are queued on ``CPU_CHECKS``; returns the function that
+    compares."""
     from repro_torch.configs import seamless_m4t_medium as seamless
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.models import build_model
-    from repro_torch.serving.engine import ServeConfig, ServingEngine
 
-    warm_cpu(torch)
     cfg = dataclasses.replace(
         seamless.FULL, n_layers=1, n_encoder_layers=1, dtype=torch.float32,
         quant=QuantConfig(mode="kernel", quantize_nonlinear=True))
-    model = build_model(cfg)
-    _, planes = cpu_check_params(torch, model)
-    results = {}
+    _, planes = cpu_check_params(torch, build_model(cfg))
+    pending = {}
     for frames in ENCDEC_CPU_FRAMES:
         batch = frames_batch(np, 2, frames, ENCDEC_PROMPT, cfg, SEED + 11)
-        out = {}
-        for dev in (DEVICE, "cpu"):
-            t0 = time.perf_counter()
-            reset_counts()
-            eng = ServingEngine(model, planes, ServeConfig(max_len=64,
-                                                           batch=2),
-                                device=dev)
-            toks = eng.generate(batch, max_new_tokens=4).tolist()
-            logits = model.forward(eng.params, batch["frames"],
-                                   batch["tokens"])
-            out[dev] = (toks, logits.float().cpu().numpy())
-            if dev == DEVICE:
-                torch.cuda.synchronize()
-                launches = read_counts()
-            log(f"[encdec cpu {frames}] {dev}: served and scored in "
-                f"{time.perf_counter() - t0!r} s")
-            del eng
-        res = compare_card_cpu(f"encdec cpu {frames}", out)
+        card = encdec_side(DEVICE, cfg, planes, batch)
+        log(f"[encdec cpu {frames}] {DEVICE}: served and scored in "
+            f"{card[2]!r} s")
         encoder = "flash_attention" if frames * frames > 512 * 512 \
             else "mxint_softmax"
-        if not launches[encoder]:
+        if not card[3][encoder]:
             raise AssertionError(f"encdec cpu {frames}: the encoder did not "
                                  f"take {encoder}")
-        res.update(frames=frames, layers=[1, 1], card_launches=launches)
-        results[frames] = res
-    return results
+        pending[frames] = (card, CPU_CHECKS.add(
+            f"encdec cpu {frames}", encdec_side, "cpu", cfg, planes, batch))
+
+    def finish():
+        results = {}
+        for frames, (card, job) in pending.items():
+            cpu = CPU_CHECKS.result(job)
+            log(f"[encdec cpu {frames}] cpu: served and scored in "
+                f"{cpu[2]!r} s")
+            res = compare_card_cpu(f"encdec cpu {frames}", {
+                DEVICE: card[:2], "cpu": cpu[:2]})
+            res.update(frames=frames, layers=[1, 1], card_launches=card[3],
+                       card_s=card[2], cpu_s=cpu[2])
+            results[frames] = res
+        return results
+
+    return finish
 
 
 def warm_cpu(torch):
@@ -3701,13 +4129,10 @@ def accuracy_phase(torch, np):
             "phase_s": time.perf_counter() - t_phase}, kernel_launches
 
 
-def train_full(torch, np, tag, name, cfg, steps, batch, seq):
-    """``cfg`` (full width, float32) trained ``steps`` steps in "off" on
-    the card on ``SyntheticLMData`` batches of ``batch`` x ``seq`` tokens:
-    ms per step by CUDA events (the first warm), the sLSTM loops' forward
-    inside each step (events around every ``slstm_scan``: 0 without
-    sLSTM layers), the peak GiB allocated; raises unless every loss and
-    grad norm is finite."""
+def _train_run(torch, cfg, steps, batch, seq):
+    """``steps`` "off" steps of ``cfg`` on the card: (losses, grad norms,
+    ms per step, the sLSTM loops' forward ms per step, peak GiB,
+    parameters)."""
     from repro_torch.data.pipeline import SyntheticLMData
     from repro_torch.models import build_model
     from repro_torch.models import recurrent as R
@@ -3750,21 +4175,57 @@ def train_full(torch, np, tag, name, cfg, steps, batch, seq):
             loop_ms.append(sum(s.elapsed_time(e) for s, e in events))
     finally:
         R.slstm_scan = scan
-    res = {"layers": cfg.n_layers, "params": n_params, "batch": batch,
-           "seq_len": seq, "loss": losses, "grad_norm": norms,
-           "step_ms": ms, "step_ms_median": statistics.median(ms),
-           "slstm_loop_forward_ms": loop_ms,
-           "slstm_loop_forward_share": [a / b for a, b in zip(loop_ms, ms)],
-           "peak_gib": peak_gib(torch)}
-    log(f"[{tag}] {name} at full width, {cfg.n_layers} layers "
-        f"({n_params} parameters, float32), batch {batch} x {seq}: ms per "
-        f"step {ms} (the first warm), the sLSTM loops' forward {loop_ms} "
-        f"ms; peak {res['peak_gib']!r} GiB allocated; loss {losses}, grad "
-        f"norm {norms}")
-    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
-        raise AssertionError(f"{tag} {name}: non-finite loss or grad norm")
+    peak = peak_gib(torch)
     del state, step, model
     torch.cuda.empty_cache()
+    return losses, norms, ms, loop_ms, peak, n_params
+
+
+def train_full(torch, np, tag, name, cfg, steps, batch, seq):
+    """``cfg`` (full width, float32) trained ``steps`` steps in "off" on
+    the card on ``SyntheticLMData`` batches of ``batch`` x ``seq`` tokens,
+    with the config's own ``remat``: ms per step by CUDA events (the first
+    warm), the sLSTM loops' forward inside each step (events around every
+    ``slstm_scan``: 0 without sLSTM layers), the peak GiB allocated;
+    raises unless every loss and grad norm is finite.  With ``remat``
+    "block", ``REMAT_COMPARE_STEPS`` steps without it follow in the same
+    run, for what the recomputation costs and saves: the first step's
+    loss (a forward from the same parameters) must equal the first run's
+    bit for bit; whether the later ones do is logged (a repeated step
+    need not be bit-identical on the card: some float32 gradient sums
+    there use atomics)."""
+    losses, norms, ms, loop_ms, peak, n_params = _train_run(
+        torch, cfg, steps, batch, seq)
+    res = {"layers": cfg.n_layers, "params": n_params, "batch": batch,
+           "seq_len": seq, "remat": cfg.remat, "loss": losses,
+           "grad_norm": norms, "step_ms": ms,
+           "step_ms_median": statistics.median(ms),
+           "slstm_loop_forward_ms": loop_ms,
+           "slstm_loop_forward_share": [a / b for a, b in zip(loop_ms, ms)],
+           "peak_gib": peak}
+    log(f"[{tag}] {name} at full width, {cfg.n_layers} layers "
+        f"({n_params} parameters, float32), batch {batch} x {seq}, remat "
+        f"{cfg.remat!r}: ms per step {ms} (the first warm), the sLSTM "
+        f"loops' forward {loop_ms} ms; peak {peak!r} GiB allocated; loss "
+        f"{losses}, grad norm {norms}")
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(norms))):
+        raise AssertionError(f"{tag} {name}: non-finite loss or grad norm")
+    if cfg.remat != "none":
+        l2, n2, ms2, _, peak2, _ = _train_run(
+            torch, dataclasses.replace(cfg, remat="none"),
+            REMAT_COMPARE_STEPS, batch, seq)
+        same = (l2 == losses[:REMAT_COMPARE_STEPS]
+                and n2 == norms[:REMAT_COMPARE_STEPS])
+        res["no_remat"] = {"steps": REMAT_COMPARE_STEPS, "loss": l2,
+                           "grad_norm": n2, "step_ms": ms2,
+                           "peak_gib": peak2, "same_losses_and_norms": same}
+        log(f"[{tag}] {name} without remat, {REMAT_COMPARE_STEPS} steps: ms "
+            f"per step {ms2}, peak {peak2!r} GiB allocated (remat "
+            f"{cfg.remat!r}: {ms[:REMAT_COMPARE_STEPS]}, {peak!r} GiB); "
+            f"losses {l2}, grad norms {n2}: the same as with remat: {same}")
+        if l2[0] != losses[0]:
+            raise AssertionError(f"{tag} {name}: remat changed the first "
+                                 f"step's loss")
     return res
 
 
@@ -3844,6 +4305,56 @@ def check_full_depth_launches(name, stats):
     if got != FULL_DEPTH_LAUNCHES[name]:
         raise AssertionError(f"{name}: {got} launches a slot prefill and a "
                              f"decode step, not {FULL_DEPTH_LAUNCHES[name]}")
+
+
+def card_vs_cpu_phases(torch, np, phase, new_lms, moe_lms, rec_lms):
+    """Every LM, LLaVA and Seamless card-against-CPU check, after every
+    timed phase, in the pool that ``main`` started (``CPU_CHECKS``): each
+    card side runs and its CPU side goes to the pool at once, the checks
+    whose CPU sides take longest first, in the order of the calls here
+    (PERF.md §4 has each CPU side's seconds).  Returns the finishers of the
+    Llama, LLaVA and Seamless checks and sets ``card_vs_cpu`` in the
+    other models' results (finishers too)."""
+    import importlib
+    from repro_torch.configs import llama3_8b
+
+    def full(name):
+        return importlib.import_module(f"repro_torch.configs.{name}").FULL
+
+    for name in MOE_LMS[:1]:
+        moe_lms[name]["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full(name),
+            ("kernel",), NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE, f"{name} cpu",
+            MOE_CPU_LAYERS)
+    for name in NEW_LMS[:1]:
+        new_lms[name]["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full(name),
+            NEW_LM_CPU_MODES, NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE,
+            f"{name} cpu", NEW_LM_CPU_LAYERS)
+    rec_lms[REC_LMS[0]]["card_vs_cpu"] = phase(
+        f"{REC_LMS[0]} card vs cpu", lm_cpu_phase, torch, np,
+        full(REC_LMS[0]), REC_CPU_MODES, REC_CPU_PROMPTS,
+        REC_CPU_SCORE[REC_LMS[0]], f"{REC_LMS[0]} cpu", 1)
+    vlm = phase("llava card vs cpu", vlm_cpu_phase, torch, np)
+    lm = phase("lm card vs cpu", lm_cpu_phase, torch, np, llama3_8b.FULL,
+               tuple(LM_CPU_MODES), (100, 250), 640, "lm cpu", LM_CPU_LAYERS)
+    for name in REC_LMS[1:]:
+        rec_lms[name]["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full(name),
+            REC_CPU_MODES, REC_CPU_PROMPTS, REC_CPU_SCORE[name],
+            f"{name} cpu", 1)
+    for name in NEW_LMS[1:]:
+        new_lms[name]["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full(name),
+            NEW_LM_CPU_MODES, NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE,
+            f"{name} cpu", NEW_LM_CPU_LAYERS)
+    encdec = phase("seamless card vs cpu", encdec_cpu_phase, torch, np)
+    for name in MOE_LMS[1:]:
+        moe_lms[name]["card_vs_cpu"] = phase(
+            f"{name} card vs cpu", lm_cpu_phase, torch, np, full(name),
+            ("kernel",), NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE, f"{name} cpu",
+            MOE_CPU_LAYERS)
+    return lm, vlm, encdec
 
 
 def main(argv) -> int:
@@ -3927,9 +4438,6 @@ def main(argv) -> int:
                                         np, model, engine)
     del model, engine
     torch.cuda.empty_cache()
-    cpu_stats = phase("lm card vs cpu", lm_cpu_phase, torch, np,
-                      llama3_8b.FULL, tuple(LM_CPU_MODES), (100, 250), 640,
-                      "lm cpu", LM_CPU_LAYERS)
     backend_stats, mixed_launches = phase("backends", backends_phase, torch,
                                           np)
     probe_stats = phase("probes", probes_phase, smi)
@@ -3945,10 +4453,7 @@ def main(argv) -> int:
         check_full_depth_launches(name, serve)
         del model, engine
         torch.cuda.empty_cache()
-        new_lms[name] = {"serve": serve, "card_vs_cpu": phase(
-            f"{name} card vs cpu", lm_cpu_phase, torch, np, full,
-            NEW_LM_CPU_MODES, NEW_LM_CPU_PROMPTS, NEW_LM_CPU_SCORE,
-            f"{name} cpu", NEW_LM_CPU_LAYERS)}
+        new_lms[name] = {"serve": serve}
     moe_lms = moe_phases(torch, np, phase)
     ds_full = cut_depth(
         importlib.import_module("repro_torch.configs.deepseek_67b").FULL,
@@ -3961,13 +4466,29 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     rec_lms = recurrent_phases(torch, np, phase)
     vlm_stats = phase("llava", vlm_phase, torch, np)
-    vlm_cpu = phase("llava card vs cpu", vlm_cpu_phase, torch, np)
     encdec_stats = phase("seamless", encdec_phase, torch, np)
-    encdec_cpu = phase("seamless card vs cpu", encdec_cpu_phase, torch, np)
     train_stats = phase("train", train_phase, torch, np)
     acc_stats, acc_launches = phase("accuracy", accuracy_phase, torch, np)
     lm_train_stats = phase("lm train", lm_train_phase, torch, np)
     rec_train_stats = phase("rec train", rec_train_phase, torch, np)
+    # the pool of the CPU sides: its workers start with the first job, the
+    # tp phase's, which is added after that phase's timed parts
+    workers = os.cpu_count() or 1
+    log(f"[cpu checks] the pool: {workers} worker processes "
+        f"(os.cpu_count()), {CPU_THREADS} torch thread each")
+    CPU_CHECKS.start(workers)
+    tp_stats, tp_cpu, tp_launches = phase("tp", tp_phase, torch, np, smi)
+    # every timed phase is done: the card-against-CPU checks, their CPU
+    # sides side by side in the pool, and each check compares
+    cpu_stats, vlm_cpu, encdec_cpu = card_vs_cpu_phases(
+        torch, np, phase, new_lms, moe_lms, rec_lms)
+    phase("cpu checks", CPU_CHECKS.run)
+    log(f"[cpu checks] {len(CPU_CHECKS.futures)} CPU sides, "
+        f"{CPU_CHECKS.seconds!r} s from the pool's start")
+    cpu_stats, vlm_cpu, encdec_cpu = cpu_stats(), vlm_cpu(), encdec_cpu()
+    tp_stats["card_vs_cpu"] = tp_cpu()
+    for res in (*new_lms.values(), *moe_lms.values(), *rec_lms.values()):
+        res["card_vs_cpu"] = res["card_vs_cpu"]()
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
     paths = (("deit serve", launches, common + ("mxint_softmax",)),
@@ -4010,6 +4531,8 @@ def main(argv) -> int:
         # Seamless: no fused norm -> linear; the encoder's flash kernel at
         # 1024 frames, its whole-row softmax at 256, the cross-attention's
         # whole-row softmax and the decode kernel in every step
+        ("tp column stream, rank 0", tp_launches, common +
+         ("mxint_softmax",)),
         ("llava serve", vlm_stats["launches"],
          common + ("flash_attention_decode",)),
         ("llava score", vlm_stats["score"]["launches"],
@@ -4040,7 +4563,8 @@ def main(argv) -> int:
          "seamless_m4t_medium": {**encdec_stats, "card_vs_cpu": encdec_cpu},
          "train": train_stats,
          "accuracy": acc_stats, "lm_train": lm_train_stats,
-         "rec_train": rec_train_stats},
+         "rec_train": rec_train_stats, "tp": tp_stats,
+         "cpu_checks_s": CPU_CHECKS.seconds},
         indent=1))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -23,6 +23,7 @@ FULL = ModelConfig(
     rope_theta=10000.0,
     ffn_kind="swiglu",
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -39,3 +40,7 @@ SMOKE = ModelConfig(
     ffn_kind="swiglu",
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = False
+SKIP_REASON = ("pure full-attention decoder (95L): dense 512k KV at batch 1 "
+               "fails the sub-quadratic requirement (DESIGN.md §6)")

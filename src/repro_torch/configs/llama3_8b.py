@@ -20,6 +20,7 @@ FULL = ModelConfig(
     rope_theta=500000.0,
     ffn_kind="swiglu",
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -36,3 +37,8 @@ SMOKE = ModelConfig(
     ffn_kind="swiglu",
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = False
+SKIP_REASON = ("pure full-attention decoder: a dense 512k-KV cache per "
+               "layer at batch 1 is quadratic-cost prefill and out of the "
+               "sub-quadratic requirement (DESIGN.md §6)")

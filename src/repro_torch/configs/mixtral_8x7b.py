@@ -25,6 +25,7 @@ FULL = ModelConfig(
     ffn_kind="moe",
     moe=MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25),
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -42,3 +43,5 @@ SMOKE = ModelConfig(
     moe=MoEConfig(num_experts=4, top_k=2),
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = True   # SWA ring cache: O(window) per layer

@@ -25,6 +25,7 @@ FULL = ModelConfig(
     ffn_kind="swiglu",
     tie_embeddings=True,
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -41,3 +42,7 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = False
+SKIP_REASON = ("pure full-attention decoder: dense 512k KV at batch 1 "
+               "fails the sub-quadratic requirement (DESIGN.md §6)")

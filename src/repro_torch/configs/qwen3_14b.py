@@ -25,6 +25,7 @@ FULL = ModelConfig(
     rope_theta=1000000.0,
     ffn_kind="swiglu",
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -42,3 +43,7 @@ SMOKE = ModelConfig(
     ffn_kind="swiglu",
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = False
+SKIP_REASON = ("pure full-attention decoder: dense 512k KV at batch 1 "
+               "fails the sub-quadratic requirement (DESIGN.md §6)")

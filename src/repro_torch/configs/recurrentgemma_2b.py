@@ -29,6 +29,7 @@ FULL = ModelConfig(
     ffn_kind="geglu",
     tie_embeddings=True,
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -49,3 +50,5 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = True   # RG-LRU state + windowed local attention

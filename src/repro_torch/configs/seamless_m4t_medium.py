@@ -27,6 +27,7 @@ FULL = ModelConfig(
     unit=("attn",),
     ffn_kind="gelu",
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -45,3 +46,8 @@ SMOKE = ModelConfig(
     ffn_kind="gelu",
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = False
+SKIP_REASON = ("encoder-decoder with full attention: 512k cross+self dense "
+               "KV at batch 1 fails the sub-quadratic requirement "
+               "(DESIGN.md §6)")

@@ -25,6 +25,7 @@ FULL = ModelConfig(
     ffn_kind="none",
     tie_embeddings=True,
     dtype=torch.bfloat16,
+    remat="block",
 )
 
 SMOKE = ModelConfig(
@@ -42,3 +43,5 @@ SMOKE = ModelConfig(
     tie_embeddings=True,
     dtype=torch.float32,
 )
+
+LONG_500K_SUPPORTED = True   # O(1) recurrent state for both block kinds

@@ -32,6 +32,16 @@ class MXTensor(NamedTuple):
     scale_axis: the block axis, stored negative so that indexing a leading
       stacked-layers dim leaves it valid.
     mant_bits / block_size: static format fields (block may be clamped).
+    tp_axis: the mesh axis this rank's planes are a shard over, or None
+      (whole planes).  Set by ``repro_torch.parallel.sharding``; the
+      kernel-mode linear then runs on the local planes and adds the
+      collective of ``tp_mode`` over that axis's process group.
+    tp_mode: "gather" when the output (last) axis is sharded: each rank
+      contracts the whole K for its columns and the slices are gathered,
+      bit for bit the single-device result; "psum" when the contraction
+      axis is sharded: each rank sums its K rows and the partial products
+      are all-reduced, close to but not bit for bit the single-device
+      result (two sums added, not one).
     """
 
     mantissa: torch.Tensor
@@ -39,6 +49,8 @@ class MXTensor(NamedTuple):
     scale_axis: int
     mant_bits: int
     block_size: int
+    tp_axis: "str | None" = None
+    tp_mode: "str | None" = None
 
     def layer(self, i: int) -> "MXTensor":
         """Planes of entry ``i`` of a leading stacked dim (a view)."""

@@ -6,6 +6,13 @@ device-memory traffic is the quantized bytes); with ``quantize_nonlinear``
 the non-linear ops run the in-kernel MXInt datapaths, and LayerNorm fuses
 into the consuming linear through ``layernorm_linear``.  Serving only:
 nothing here carries a gradient.
+
+Planes marked by ``parallel.sharding.tp_shard_packed_params`` are this
+rank's shard: the linear runs on them and adds the collective of their
+``tp_mode`` over the ambient mesh's ``tp_axis`` group
+(``launch.mesh.mesh_context``).  A plane sharded along its contraction
+axis ('psum') is never fused with the norm, which needs the whole row:
+the norm runs first (``mxint_layernorm``), then ``mxint_matmul``.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from repro_torch.core import nonlinear as nl
 from repro_torch.core.quantize import MXTensor, pack_weight
 from repro_torch.datapath.base import Datapath
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import axis_group
 
 
 class HopperKernelDatapath(Datapath):
@@ -32,12 +40,22 @@ class HopperKernelDatapath(Datapath):
     def _bias(b):
         return None if b is None else b.value.to(torch.float32)
 
+    @staticmethod
+    def _tp(wv: MXTensor) -> dict:
+        """The collective arguments of a (possibly sharded) plane."""
+        if wv.tp_axis is None:
+            return {}
+        return dict(tp_group=axis_group(wv.tp_axis), tp_mode=wv.tp_mode)
+
     def linear(self, x, w, b=None, *, q):
-        wv = self._packed(w.value, q)
+        return self._linear_planes(x, self._packed(w.value, q), b, q)
+
+    def _linear_planes(self, x, wv: MXTensor, b, q):
         return ops.mxint_linear(x, wv.mantissa, wv.exponent, self._bias(b),
                                 w_block=wv.block_size,
                                 act_block=q.act_fmt.block_size,
-                                act_mant_bits=q.act_fmt.mant_bits)
+                                act_mant_bits=q.act_fmt.mant_bits,
+                                **self._tp(wv))
 
     # -- norms ---------------------------------------------------------------
     def rmsnorm(self, x, gamma, *, q, eps: float = 1e-6):
@@ -60,24 +78,31 @@ class HopperKernelDatapath(Datapath):
 
     # -- fused LN -> linear composite ----------------------------------------
     def fuses_norm_linear(self, q, x=None, w=None) -> bool:
-        """The fused kernel needs the MXInt LN datapath; it takes any
-        shape, so the config alone decides."""
-        return self.nl_on(q, "layernorm")
+        """The fused kernel needs the MXInt LN datapath and planes that
+        are not sharded along their contraction axis (the LN normalizes
+        the whole row); it takes any shape.  Callers hoist the norm when
+        this says False."""
+        if not self.nl_on(q, "layernorm"):
+            return False
+        return not (w is not None and isinstance(w.value, MXTensor)
+                    and w.value.tp_mode == "psum")
 
     def layernorm_linear(self, x, gamma, beta, w, b=None, *, q,
                          eps: float = 1e-6, rms_only: bool = False):
         """Fused norm + quantized matmul; bit-identical to the norm
-        followed by ``linear``."""
+        followed by ``linear``, which it runs instead for a float norm or
+        a 'psum'-sharded plane."""
         wv = self._packed(w.value, q)
-        if not self.nl_on(q, "layernorm"):
+        if not self.nl_on(q, "layernorm") or wv.tp_mode == "psum":
             h = (self.rmsnorm(x, gamma, q=q, eps=eps) if rms_only
                  else self.layernorm(x, gamma, beta, q=q, eps=eps))
-            return self.linear(h, w, b, q=q)
+            return self._linear_planes(h, wv, b, q)
         return ops.mxint_ln_linear_op(
             x, gamma.value, None if beta is None else beta.value,
             wv.mantissa, wv.exponent, self._bias(b), w_block=wv.block_size,
             act_block=q.act_fmt.block_size, mant_bits=q.act_fmt.mant_bits,
-            lut_bits=q.nonlinear.ln_lut_bits, rms_only=rms_only)
+            lut_bits=q.nonlinear.ln_lut_bits, rms_only=rms_only,
+            **self._tp(wv))
 
     # -- activations / softmax -----------------------------------------------
     def act(self, x, kind: str, *, q):

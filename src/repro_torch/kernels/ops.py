@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.mx_types import NEG_INF
 from repro_torch.core.quantize import _resolve_block
@@ -28,6 +29,7 @@ from repro_torch.kernels.mxint_layernorm import f32, mxint_layernorm
 from repro_torch.kernels.mxint_ln_matmul import mxint_ln_matmul
 from repro_torch.kernels.mxint_matmul import mxint_matmul
 from repro_torch.kernels.mxint_softmax import mxint_softmax
+from repro_torch.parallel import collectives
 
 # kernel name -> (its module, the module's launch counter)
 LAUNCH_COUNTERS = {"mxint_matmul": (_matmul, "launches"),
@@ -53,15 +55,40 @@ def _flatten_rows(x: torch.Tensor):
     return x.reshape(-1, x.shape[-1]).contiguous(), x.shape[:-1]
 
 
+def _tp_collective(y: torch.Tensor, tp_group, tp_mode) -> torch.Tensor:
+    """The collective of a sharded linear's output, before its bias."""
+    if tp_mode == "gather":
+        return collectives.all_gather_cat(y, tp_group, dim=1)
+    if tp_mode == "psum":
+        return collectives.all_reduce_sum(y, tp_group)
+    raise ValueError(f"unknown tp_mode {tp_mode!r}")
+
+
 def mxint_linear(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *, w_block: int,
-                 act_block: int = 16, act_mant_bits: int = 8) -> torch.Tensor:
-    """y = Q_act(x) @ W_mx (+ bias) for any leading dims of x (..., K)."""
+                 act_block: int = 16, act_mant_bits: int = 8,
+                 tp_group=None, tp_mode: Optional[str] = None) -> torch.Tensor:
+    """y = Q_act(x) @ W_mx (+ bias) for any leading dims of x (..., K).
+
+    tp_group / tp_mode: with a process group, the planes are this rank's
+    shard.  'gather': the planes are a slice of the N columns; the rank
+    contracts the whole K and the slices are gathered in rank order, so
+    the result is the single-device one bit for bit.  'psum': the planes
+    are a slice of the K rows; ``x`` comes whole, is cut to the rank's K
+    rows, and the partial products are summed over the group (two sums
+    added, not one: close to the single-device result, not equal).  The
+    bias is added after the collective, to the whole row."""
     x2, lead = _flatten_rows(x.to(torch.float32))
+    if tp_group is not None and tp_mode == "psum":
+        k_local = w_mant.shape[0]
+        r = dist.get_rank(tp_group)
+        x2 = x2[:, r * k_local:(r + 1) * k_local].contiguous()
     K = x2.shape[1]
     y = mxint_matmul(x2, w_mant, w_exp, w_block=w_block,
                      act_block=_resolve_block(K, act_block),
                      act_mant_bits=act_mant_bits)
+    if tp_group is not None:
+        y = _tp_collective(y, tp_group, tp_mode)
     if bias is not None:
         y = y + bias
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
@@ -87,17 +114,26 @@ def mxint_ln_linear_op(x: torch.Tensor, gamma: torch.Tensor,
                        w_exp: torch.Tensor,
                        bias: Optional[torch.Tensor] = None, *, w_block: int,
                        act_block: int = 16, mant_bits: int = 8,
-                       lut_bits: int = 5,
-                       rms_only: bool = False) -> torch.Tensor:
+                       lut_bits: int = 5, rms_only: bool = False,
+                       tp_group=None,
+                       tp_mode: Optional[str] = None) -> torch.Tensor:
     """Fused MXInt LayerNorm/RMSNorm -> linear (+ bias), any leading dims.
     Bit-identical to ``mxint_layernorm_op(quantize_out=True)`` followed by
-    ``mxint_linear``."""
+    ``mxint_linear``.  Sharded only by columns (``tp_mode='gather'``): the
+    LN needs the whole row, which a K-sharded plane never sees, so the
+    datapath runs those as the norm then ``mxint_linear``."""
+    if tp_mode not in (None, "gather") or \
+            (tp_group is not None and tp_mode is None):
+        raise ValueError(f"the fused norm -> linear shards only with "
+                         f"tp_mode='gather', got tp_mode={tp_mode!r}")
     x2, lead = _flatten_rows(x)
     K = x2.shape[1]
     y = mxint_ln_matmul(x2, gamma, beta, w_mant, w_exp, w_block=w_block,
                         act_block=_resolve_block(K, act_block),
                         mant_bits=mant_bits, lut_bits=lut_bits,
                         rms_only=rms_only)
+    if tp_group is not None:
+        y = _tp_collective(y, tp_group, tp_mode)
     if bias is not None:
         y = y + bias
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)

@@ -10,7 +10,10 @@ flash kernel past that; a decode step's is the decode kernel; a decoder
 prefill's self-attention is float and launches none.  The CPU tests and
 ``chip_smoke.py`` hold the launch counters to these counts.
 """
+import contextlib
 from typing import Dict
+
+import torch
 
 from repro_torch.kernels import ops
 
@@ -93,3 +96,71 @@ def encdec_launches(cfg, frames: int, tokens: int, decode: bool = False,
     elif score:
         c[_core(s, s)] += cfg.n_layers
     return c
+
+
+def _psum_plane(k: int, n: int, axes, fmt, tp: int) -> bool:
+    """Whether the row strategy over ``tp`` ranks shards a (k, n) plane
+    packed with ``fmt`` along its contraction axis (``_tp_decision`` on
+    the block the row packing gives it)."""
+    from repro_torch.core.quantize import MXTensor, _resolve_block
+    from repro_torch.parallel.sharding import _tp_decision
+    from repro_torch.serving.engine import _TP_LOGICAL
+    clamp = axes[0] in _TP_LOGICAL and k % tp == 0
+    block = _resolve_block(k, _resolve_block(k // tp, fmt.block_size)
+                           if clamp else fmt.block_size)
+    meta = MXTensor(torch.empty((k, n), device="meta"),
+                    torch.empty((k // block, n), device="meta"), -2,
+                    fmt.mant_bits, block)
+    d = _tp_decision(meta, tp, "row")
+    return d is not None and d[1] == "psum"
+
+
+def vit_launches(cfg, strategy: str = "column", tp: int = 1,
+                 weight_fmt=None) -> Dict[str, int]:
+    """One ``ViT`` forward on each rank of a ``tp``-way "model" axis (1:
+    a single device): the patch linear, per block the fused LN1 into q, k
+    and v, the softmax, the out-projection, the fused LN2 into ``wi``, the
+    GELU and ``wo``, then the final LN and the head, 3 + 8 L.  Column
+    sharding launches the same kernels on the output slices.  Under the
+    row strategy a fused plane that shards along its contraction axis
+    cannot take the fused kernel (the LN needs the whole row): its norm
+    runs first in ``mxint_layernorm`` and its linears in
+    ``mxint_matmul``."""
+    from repro_torch.core.mx_types import MXINT6_WEIGHT
+    fmt = weight_fmt or MXINT6_WEIGHT
+    L, d = cfg.n_layers, cfg.d_model
+    hoist_qkv = hoist_wi = False
+    if strategy == "row" and tp > 1:
+        hoist_qkv = _psum_plane(d, cfg.n_heads * cfg.hd, ("embed",), fmt, tp)
+        hoist_wi = _psum_plane(d, cfg.d_ff, ("embed",), fmt, tp)
+    c = dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+    c["mxint_matmul"] = 2 + L * (2 + 3 * hoist_qkv + hoist_wi)
+    c["mxint_ln_matmul"] = L * (3 * (not hoist_qkv) + (not hoist_wi))
+    c["mxint_layernorm"] = 1 + L * (hoist_qkv + hoist_wi)
+    c["mxint_softmax"] = L
+    c["mxint_gelu"] = L
+    return c
+
+
+@contextlib.contextmanager
+def count_calls():
+    """Count the calls of each kernel op of ``ops`` inside (a dict by
+    kernel name).  On the card each call is one launch; on the CPU, where
+    the plain versions launch nothing, this is how the path's structure
+    is read."""
+    calls = dict.fromkeys(ops.LAUNCH_COUNTERS, 0)
+    saved = {n: getattr(ops, n) for n in calls}
+
+    def counted(name, fn):
+        def wrapper(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapper
+
+    for n, fn in saved.items():
+        setattr(ops, n, counted(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ops, n, fn)

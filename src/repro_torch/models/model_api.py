@@ -40,6 +40,11 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def axes_tree(tree):
+    """A Param tree -> the same tree of its leaves' logical axes."""
+    return tree_map(lambda p: tuple(p.axes), tree)
+
+
 def tree_leaves(tree) -> list:
     """The leaves of a tree of dicts and lists, dict keys in sorted order
     (the reference's pytree order)."""
@@ -101,7 +106,12 @@ class ModelConfig:
     that a config reads field for field as the reference's; neither
     package's models read it.  vision_tokens / vision_dim: a VLM's
     prefix of ``vision_tokens`` positions fed by the projector from
-    ``vision_dim``-wide embeddings.
+    ``vision_dim``-wide embeddings.  remat: "none", "block" or "full";
+    "block" and "full" recompute each ViT block, and each unit of a
+    decoder's cache-less forward, in the backward pass
+    (``torch.utils.checkpoint``) instead of keeping their activations: a
+    tool for gradient memory only, the values are the same.
+    max_cache_len: the KV capacity the launch dry-run sizes caches with.
     """
 
     name: str = "model"
@@ -137,6 +147,8 @@ class ModelConfig:
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
     quant: QuantConfig = dataclasses.field(default_factory=QuantConfig)
+    remat: str = "none"
+    max_cache_len: int = 4096
 
     @property
     def hd(self) -> int:
@@ -167,7 +179,43 @@ class ModelConfig:
             raise ValueError("n_heads must be a multiple of n_kv_heads")
         if self.ffn_kind == "moe" and self.moe is None:
             raise ValueError("ffn_kind 'moe' needs a MoEConfig")
+        if self.remat not in REMAT:
+            raise ValueError(f"remat must be one of {REMAT}, got "
+                             f"{self.remat!r}")
         return self
+
+    @property
+    def checkpoints(self) -> bool:
+        """Whether the training forward recomputes its blocks or units
+        (``remat`` "block" or "full")."""
+        return self.remat in ("block", "full")
+
+
+REMAT = ("none", "block", "full")
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One of the input-shape cells: a sequence length, a global batch and
+    the kind of step ("train", "prefill" or "decode")."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+ALL_SHAPES = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    for s in ALL_SHAPES:
+        if s.name == name:
+            return s
+    raise KeyError(name)
 
 
 def dense_init(gen: torch.Generator, shape, axes, scale=None,

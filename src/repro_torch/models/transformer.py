@@ -43,6 +43,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.mx_types import MXFormat
 from repro_torch.core.quantize import pack_weight
@@ -178,35 +179,63 @@ class DecoderLM:
             return R.slstm_step(lp["mix"], h, cfg, quant, cache)
         return R.slstm_scan(lp["mix"], h, cfg, quant, cache)
 
+    def _layer(self, i, lp, x, *, positions, cache, cache_index, with_aux):
+        """Layer ``i``: (x after it, its MoE load-balancing loss or None)."""
+        cfg = self.cfg
+        quant = cfg.quant
+        kind = self.kinds[i]
+        o, state = self._mixer(
+            kind, lp, x, positions=positions,
+            cache=None if cache is None else cache["layers"][i],
+            cache_index=cache_index)
+        if state is not None and cache is not None:
+            cache["layers"][i] = state
+        x = x + o
+        if "ffn" not in lp:
+            return x, None
+        a = None
+        if cfg.ffn_kind == "moe":
+            h = L.rmsnorm(x, lp["ln2"], q=quant, eps=cfg.norm_eps)
+            f, a = M.moe_ffn(h, lp["ffn"], cfg, quant=quant,
+                             with_aux=with_aux)
+        else:
+            f = L.ffn(x, lp["ffn"], cfg.ffn_kind, quant,
+                      prenorm=("rms", lp["ln2"], None), eps=cfg.norm_eps)
+        return x + f, a if with_aux else None
+
     def _run_stack(self, params, x, *, positions, cache, cache_index,
                    with_aux=False):
         """Returns (x after the final norm, the cache, the layers' summed
         MoE load-balancing loss: a float32 scalar, 0 for a dense FFN, or
-        None unless ``with_aux``).  ``positions`` None is a decode step."""
+        None unless ``with_aux``).  ``positions`` None is a decode step.
+        With ``remat`` "block" or "full", a cache-less forward that records
+        gradients recomputes each unit in the backward pass (the reference
+        checkpoints its unit scan on the training path only)."""
         cfg = self.cfg
         quant = cfg.quant
         aux = (torch.zeros((), dtype=torch.float32, device=x.device)
                if with_aux else None)
-        for i, (kind, lp) in enumerate(zip(self.kinds, params["layers"])):
-            o, state = self._mixer(
-                kind, lp, x, positions=positions,
-                cache=None if cache is None else cache["layers"][i],
-                cache_index=cache_index)
-            if state is not None and cache is not None:
-                cache["layers"][i] = state
-            x = x + o
-            if "ffn" not in lp:
-                continue
-            if cfg.ffn_kind == "moe":
-                h = L.rmsnorm(x, lp["ln2"], q=quant, eps=cfg.norm_eps)
-                f, a = M.moe_ffn(h, lp["ffn"], cfg, quant=quant,
-                                 with_aux=with_aux)
-                if with_aux:
+        kw = dict(positions=positions, cache=cache, cache_index=cache_index,
+                  with_aux=with_aux)
+
+        def run(first, last, x, aux):
+            for i in range(first, last):
+                x, a = self._layer(i, params["layers"][i], x, **kw)
+                if a is not None:
                     aux = aux + a
+            return x, aux
+
+        width = len(cfg.unit)
+        n_unit_layers = width * cfg.resolved_n_units
+        remat = (cfg.checkpoints and cache is None
+                 and torch.is_grad_enabled())
+        for first in range(0, n_unit_layers, width):
+            if remat:
+                x, aux = checkpoint(run, first, first + width, x, aux,
+                                    use_reentrant=False)
             else:
-                f = L.ffn(x, lp["ffn"], cfg.ffn_kind, quant,
-                          prenorm=("rms", lp["ln2"], None), eps=cfg.norm_eps)
-            x = x + f
+                x, aux = run(first, first + width, x, aux)
+        x, aux = run(n_unit_layers, len(self.kinds), x, aux)
         x = L.rmsnorm(x, params["final_norm"], q=quant, eps=cfg.norm_eps)
         if cache is not None:
             cache["index"] = (cache_index + x.shape[1]).to(torch.int32)

@@ -17,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantize import MXTensor
 from repro_torch.models import attention as A
@@ -117,16 +118,23 @@ class ViT:
             x.shape[0], 1, x.shape[-1])
         x = torch.cat([cls, x], dim=1)
         x = x + params["pos_embed"].value.to(x.dtype)[None]
-        for i in range(cfg.n_layers):
+
+        def block(x, i):
             bp = layer_params(params["blocks"], i)
             o, _ = A.attention(bp["attn"], x, cfg, quant=quant,
                                causal=False, use_rope=False,
                                prenorm=("ln", bp["ln1_g"], bp["ln1_b"]),
                                scope=f"block/{i}/attn")
             x = x + o
-            x = x + L.ffn(x, bp["ffn"], "gelu", quant,
-                          prenorm=("ln", bp["ln2_g"], bp["ln2_b"]),
-                          eps=cfg.norm_eps, scope=f"block/{i}/ffn")
+            return x + L.ffn(x, bp["ffn"], "gelu", quant,
+                             prenorm=("ln", bp["ln2_g"], bp["ln2_b"]),
+                             eps=cfg.norm_eps, scope=f"block/{i}/ffn")
+
+        # remat "block"/"full": each block recomputed in the backward pass
+        remat = cfg.checkpoints and torch.is_grad_enabled()
+        for i in range(cfg.n_layers):
+            x = (checkpoint(block, x, i, use_reentrant=False) if remat
+                 else block(x, i))
         return L.layernorm(x, params["final_ln_g"], params["final_ln_b"],
                            q=quant, eps=cfg.norm_eps, scope="final_ln")
 

@@ -54,14 +54,22 @@ def adamw_init(params) -> AdamWState:
                       mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def _sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The float32 square root, correctly rounded on every device: taken
+    in float64 and rounded once (torch's CPU float32 ``sqrt`` is not
+    correctly rounded; the card's and XLA's are)."""
+    return torch.sqrt(x.double()).float()
+
+
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum over the leaves (in ``tree_leaves`` order) of each
-    leaf's float32 sum of squares."""
+    leaf's float32 sum of squares; the root is the correctly rounded
+    float32 one (``_sqrt``)."""
     total = None
     for leaf in tree_leaves(tree):
         s = torch.sum(torch.square(_value(leaf).to(torch.float32)))
         total = s if total is None else total + s
-    return torch.sqrt(total)
+    return _sqrt(total)
 
 
 def clip_by_global_norm(grads, max_norm: float):
@@ -103,7 +111,7 @@ def adamw_update(grads, state: AdamWState, params, lr: torch.Tensor,
         v_new = b2 * _value(v) + (1 - b2) * gf * gf
         mhat = m_new / c1
         vhat = v_new / c2
-        delta = mhat / (torch.sqrt(vhat) + cfg.eps)
+        delta = mhat / (_sqrt(vhat) + cfg.eps)
         pv = _value(p)
         pf = pv.to(torch.float32)
         pf = pf - lr * (delta + cfg.weight_decay * pf)

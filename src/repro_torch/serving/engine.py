@@ -6,10 +6,18 @@ with the reference's packing rules.  ``ServingEngine`` serves a decoder LM:
 prefill, slot prefill (one request into one row of a live cache, which
 the per-row ``cache['index']`` makes sound) and batched decode steps.
 ``ViTServingEngine`` serves a classifier in fixed-size batches.  Both run
-on one device, eagerly, so there is no compile cache to watch.  Both
-record the reference's ``serving/*`` telemetry; their spans are given the
-engine's device, so on the card they time the device's work (CUDA events,
-a sync at the span's end).
+eagerly, so there is no compile cache to watch.  Both record the
+reference's ``serving/*`` telemetry; their spans are given the engine's
+device, so on the card they time the device's work (CUDA events, a sync
+at the span's end).
+
+``ViTServingEngine`` also serves sharded, as the reference's does under
+``shard_map``: given a mesh with a "model" axis, each rank keeps its
+slice of the packed planes (mantissa and exponent planes cut alike) and
+every kernel-mode linear runs on its local planes and adds its
+collective; a "data" axis splits the batch rows over the ranks.  Column
+sharding and the data axis give the single-device logits bit for bit.
+The token engines run on one device, as in the reference.
 """
 from __future__ import annotations
 
@@ -21,8 +29,12 @@ import torch
 
 from repro_torch import telemetry as T
 from repro_torch.core.mx_types import MXINT6_WEIGHT, MXFormat
-from repro_torch.core.quantize import MXTensor, pack_weight
-from repro_torch.models.model_api import Param, tree_map
+from repro_torch.core.quantize import MXTensor, _resolve_block, pack_weight
+from repro_torch.launch.mesh import axis_size, mesh_context
+from repro_torch.models.model_api import Param, axes_tree, tree_map
+from repro_torch.parallel import collectives
+from repro_torch.parallel.sharding import (STRATEGIES, shard_packed_params,
+                                           tp_shard_packed_params)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,16 +48,24 @@ class ServeConfig:
       from softmax(logits / temperature) with the engine's seeded
       generator (a prompt's first token stays greedy, as in the
       reference).
+    tp_strategy: how ``ViTServingEngine`` splits the packed planes over a
+      mesh's "model" axis: "column" (output-axis slices, gathered; bit
+      for bit the single-device logits) or "row" (contraction-axis
+      slices, partial products summed; close, not bit for bit).
     """
     max_len: int = 4096
     batch: int = 8
     pack_weights: bool = False
     weight_fmt: MXFormat = None
     temperature: float = 0.0
+    tp_strategy: str = "column"
 
     def __post_init__(self):
         if self.pack_weights and self.weight_fmt is None:
             object.__setattr__(self, "weight_fmt", MXINT6_WEIGHT)
+        if self.tp_strategy not in STRATEGIES:
+            raise ValueError(f"tp_strategy must be one of {STRATEGIES}, "
+                             f"got {self.tp_strategy!r}")
 
 
 _PACK_MIN_SIZE = 1 << 14       # don't pack tiny tensors (norm scales, biases)
@@ -82,7 +102,28 @@ def should_pack(p: Param, stack: int = 1) -> bool:
     return shape[contraction_axis(p)] >= 16
 
 
-def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None):
+# logical axes that tensor parallelism shards: a contraction axis among
+# them is cut over the ranks by the row strategy
+_TP_LOGICAL = ("q_heads", "kv_heads", "heads", "mlp", "vocab", "expert",
+               "lru")
+
+
+def _leaf_fmt(p: Param, fmt: MXFormat, tp_shards: int) -> MXFormat:
+    """The format a leaf packs with: ``fmt``, its block clamped to the
+    per-rank contraction length when that axis is a tensor-parallel one
+    and ``tp_shards`` ranks split it, so that no block straddles two
+    ranks and the exponent plane splits as the mantissa plane does."""
+    axis = contraction_axis(p)
+    k_len = p.value.shape[axis]
+    if tp_shards > 1 and p.axes[axis] in _TP_LOGICAL and \
+            k_len % tp_shards == 0:
+        return dataclasses.replace(fmt, block_size=_resolve_block(
+            k_len // tp_shards, fmt.block_size))
+    return fmt
+
+
+def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None,
+                      tp_shards: int = 1):
     """Param tree -> Param tree with ``MXTensor`` values on large matmul
     weights, blocks along the contraction axis; everything else as is.
     The size rule counts a leaf of a list (a model's per-layer trees) as
@@ -91,7 +132,13 @@ def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None):
     ``key`` (the model's ``layer_stacks()``: for ``DecoderLM`` ``n_units``
     for a unit layer, 1 for a tail layer; for ``EncDecLM`` the encoder's
     and the decoder's depths), or the list's length for a list it does
-    not name."""
+    not name.
+
+    ``tp_shards``: the row strategy's rank count; a leaf whose
+    contraction axis is a tensor-parallel one (``_TP_LOGICAL``: the
+    attention out-projection, the FFN's down projection) gets its block
+    clamped to the per-rank contraction length.  The column strategy
+    packs with 1, the single-device planes byte for byte."""
     stacks_by_key = layer_stacks or {}
 
     def walk(tree, stack, key):
@@ -105,10 +152,18 @@ def pack_params_mxint(params, fmt: MXFormat, layer_stacks=None):
             return [walk(v, n, key) for v, n in zip(tree, stacks)]
         if not should_pack(tree, stack):
             return tree
-        return Param(pack_weight(tree.value.to(torch.float32), fmt,
+        return Param(pack_weight(tree.value.to(torch.float32),
+                                 _leaf_fmt(tree, fmt, tp_shards),
                                  axis=contraction_axis(tree)), tree.axes)
 
     return walk(params, 1, None)
+
+
+def packed_param_axes(params):
+    """The logical axes of a packed tree, leaf by leaf: a packed leaf's
+    exponent plane shards with its mantissa plane, so the leaf's axes
+    serve both."""
+    return axes_tree(params)
 
 
 def params_to(params, device):
@@ -252,30 +307,84 @@ class ServingEngine:
 
 
 class ViTServingEngine:
-    """Batched image classification for ViT/DeiT models on one device.
+    """Batched image classification for ViT/DeiT models.
 
     With ``pack_weights=True`` and a model config in kernel mode this is
     the paper's deployment: packed int8 planes in device memory and every
     linear and non-linear op in the MXInt kernels.  Every forward runs the
     fixed ``(serve_cfg.batch, H, W, 3)`` shape.
+
+    Sharded serving: ``mesh`` (a ``DeviceMesh``, this process one of its
+    ranks) with a "model" axis of size above 1 splits every packed plane
+    that ``tp_shard_packed_params`` marks under ``serve_cfg.tp_strategy``;
+    the rank keeps its slice, and the model's linears run on it with the
+    collective of the plane's ``tp_mode`` (column: bit for bit the
+    single-device logits; row: the planes packed with ``tp_shards``
+    ranks, close).  A "data" axis splits each batch's rows over its
+    ranks, and the logits are gathered: rows are independent everywhere
+    in the datapath, so that too is bit for bit.  A data-only mesh keeps
+    the planes whole.  Sharding needs ``pack_weights=True``, kernel mode
+    and ``batch % dp == 0``.  Every rank calls ``classify`` (or
+    ``logits_batch``) with the same images.
     """
 
     def __init__(self, model, params, serve_cfg: ServeConfig,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         self.model = model
         self.cfg = serve_cfg
         self.device = _device(device, "ViTServingEngine")
-        if serve_cfg.pack_weights:
+        self.mesh = mesh
+        self.tp = axis_size(mesh, "model")
+        self.dp = axis_size(mesh, "data")
+        if self.tp > 1 or self.dp > 1:
+            params = self._sharded_params(model, params, serve_cfg)
+        elif serve_cfg.pack_weights:
             params = pack_params_mxint(params, serve_cfg.weight_fmt)
         self.params = params_to(params, self.device)
+
+    def _sharded_params(self, model, params, serve_cfg):
+        """Pack, mark and keep this rank's slices of the planes."""
+        if not serve_cfg.pack_weights:
+            raise ValueError("sharded serving shards the packed planes; set "
+                             "ServeConfig(pack_weights=True)")
+        if serve_cfg.batch % self.dp:
+            raise ValueError(f"data sharding needs batch % dp == 0, got "
+                             f"batch={serve_cfg.batch} dp={self.dp}")
+        q = model.cfg.quant
+        if self.tp > 1 and {getattr(q, "mode")} | {
+                getattr(ov, "mode") for _, ov in getattr(q, "overrides")
+                if getattr(ov, "mode")} != {"kernel"}:
+            raise ValueError("tensor-parallel serving runs the kernel "
+                             "datapath: QuantConfig(mode='kernel')")
+        strategy = serve_cfg.tp_strategy
+        packed = pack_params_mxint(
+            params, serve_cfg.weight_fmt,
+            tp_shards=self.tp if strategy == "row" else 1)
+        if self.tp == 1:
+            return packed
+        marked, _ = tp_shard_packed_params(packed, self.tp, "model", strategy)
+        return shard_packed_params(marked, self.mesh)
 
     @torch.no_grad()
     def logits_batch(self, chunk) -> torch.Tensor:
         """One forward on a (cfg.batch, H, W, 3) numpy chunk; the single
-        funnel of ``classify`` and ``ClassifyScheduler``."""
-        x = torch.as_tensor(np.asarray(chunk, dtype=np.float32),
-                            device=self.device)
-        return self.model.logits(self.params, x)
+        funnel of ``classify`` and ``ClassifyScheduler``.  Over a "data"
+        axis this rank runs its ``batch / dp`` rows and the rows of every
+        data rank are gathered in order."""
+        chunk = np.asarray(chunk, dtype=np.float32)
+        if self.dp > 1:
+            rows = chunk.shape[0] // self.dp
+            r = self.mesh.get_local_rank("data")
+            chunk = chunk[r * rows:(r + 1) * rows]
+        x = torch.as_tensor(chunk, device=self.device)
+        if self.mesh is None:
+            return self.model.logits(self.params, x)
+        with mesh_context(self.mesh):
+            logits = self.model.logits(self.params, x)
+        if self.dp > 1:
+            logits = collectives.all_gather_cat(
+                logits, self.mesh.get_group("data"), dim=0)
+        return logits
 
     def classify(self, images):
         """(n, H, W, 3) images -> (labels (n,), logits (n, classes)).
@@ -296,3 +405,17 @@ class ViTServingEngine:
                 chunks.append(self.logits_batch(chunk)[:batch - pad])
             logits = torch.cat(chunks, dim=0)
             return logits.argmax(dim=-1), logits
+
+
+def make_engine(model, params, serve_cfg: ServeConfig, mesh=None,
+                device="cuda"):
+    """The engine of the model's family: ``ViTServingEngine`` for a ViT
+    (sharded over ``mesh`` when given), ``ServingEngine`` otherwise (one
+    device: a mesh raises)."""
+    if getattr(model.cfg, "family", None) == "vit":
+        return ViTServingEngine(model, params, serve_cfg, device=device,
+                                mesh=mesh)
+    if mesh is not None:
+        raise ValueError("the token engines run on one device; sharded "
+                         "serving is the ViT engine's")
+    return ServingEngine(model, params, serve_cfg, device=device)

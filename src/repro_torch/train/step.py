@@ -7,10 +7,15 @@ gradients by ``torch.autograd``, then ``adamw_update``.  Options:
   * microbatches=N   -- gradient accumulation over N equal slices of the
                         batch's leading axis, the losses and gradients
                         summed in float32 and scaled by 1/N;
-  * grad_compression -- MXInt-compressed pod-axis gradient reduction.  It
-                        needs a mesh with a "pod" axis, which waits for
-                        the tensor-parallel slice; without one it is off,
-                        as in the reference.
+  * grad_compression -- with a mesh that has a "pod" axis (this process
+                        one of its ranks), the MXInt-compressed pod-axis
+                        gradient reduction: each pod takes its slice of
+                        the batch, computes its gradients, adds its
+                        error-feedback residual, compresses, and the
+                        dequantized payloads are summed over the pods
+                        (``compressed_psum``) and divided by their
+                        number; the loss is the pods' mean.  Without
+                        such a mesh it is off, as in the reference.
 
 Gradients flow in the modes the reference trains in: "off" (float),
 "fake" (quantize-dequantize with straight-through gradients) and "sim"
@@ -25,9 +30,11 @@ from typing import Callable, Dict
 
 import torch
 
+from repro_torch.core import gradient_compression as gc
 from repro_torch.core.quantize import MXTensor
 from repro_torch.models.model_api import Param, tree_leaves, tree_unflatten
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.parallel import collectives
 from repro_torch.train.state import TrainState
 
 
@@ -104,21 +111,26 @@ def make_train_step(model, *, lr_fn: Callable, opt_cfg: AdamWConfig = None,
                     mesh=None) -> Callable:
     opt_cfg = opt_cfg or AdamWConfig()
     check_trainable(model)
-    if grad_compression and mesh is not None and _has_pod_axis(mesh):
-        raise NotImplementedError(
-            "compressed_psum over a 'pod' axis waits for the port's "
-            "tensor-parallel slice")
+    use_compression = (grad_compression and mesh is not None
+                       and _has_pod_axis(mesh))
 
     def loss_fn(params, batch):
         return model.loss(params, batch).to(torch.float32)
 
+    def compute_grads(params, batch):
+        if microbatches > 1:
+            return _microbatch_value_and_grad(loss_fn, params, batch,
+                                              microbatches)
+        return value_and_grad(loss_fn, params, batch)
+
     def train_step(state: TrainState, batch):
         check_trainable(model, state.params)
-        if microbatches > 1:
-            loss, grads = _microbatch_value_and_grad(
-                loss_fn, state.params, batch, microbatches)
+        if use_compression:
+            loss, grads, err_fb = _pod_compressed_grads(
+                compute_grads, state.params, batch, state.err_fb, mesh)
         else:
-            loss, grads = value_and_grad(loss_fn, state.params, batch)
+            loss, grads = compute_grads(state.params, batch)
+            err_fb = state.err_fb
         grads = tree_unflatten(state.params, [
             Param(g, p.axes) for g, p in zip(grads,
                                              tree_leaves(state.params))])
@@ -128,9 +140,38 @@ def make_train_step(model, *, lr_fn: Callable, opt_cfg: AdamWConfig = None,
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
                    "step": state.step}
         return TrainState(new_params, new_opt, state.step + 1,
-                          state.err_fb), metrics
+                          err_fb), metrics
 
     return train_step
+
+
+def _pod_compressed_grads(compute_grads, params, batch, err_fb, mesh):
+    """This pod's gradients of its slice of ``batch``, reduced over the
+    mesh's "pod" axis by ``compressed_psum`` and divided by the pod count;
+    the loss averaged over the pods.  ``err_fb`` holds a residual per pod
+    on a leading axis (``train_state_from_params(grad_compression=True,
+    n_pods=)``): this rank reads and writes its pod's row, as the
+    reference keeps row p on pod p's devices.  Returns (loss, gradients
+    in ``tree_leaves`` order, the new error state)."""
+    if err_fb is None:
+        raise ValueError("grad_compression over a 'pod' mesh needs the "
+                         "error state: make the train state with "
+                         "grad_compression=True and n_pods=")
+    names = tuple(mesh.mesh_dim_names)
+    n_pods = mesh.size(names.index("pod"))
+    pod = mesh.get_local_rank("pod")
+    group = mesh.get_group("pod")
+    loss, grads = compute_grads(params, _slice(batch, pod, n_pods))
+    errs = [e.value[pod] for e in tree_leaves(err_fb)]
+    red, new = gc.compressed_psum(grads, group, errs)
+    grads = [g / n_pods for g in red]
+    loss = collectives.all_reduce_sum(loss, group) / n_pods
+    rows = []
+    for e, r in zip(tree_leaves(err_fb), new):
+        v = e.value.clone()
+        v[pod] = r
+        rows.append(Param(v, e.axes))
+    return loss, grads, tree_unflatten(err_fb, rows)
 
 
 def make_eval_step(model) -> Callable:

@@ -335,9 +335,12 @@ def test_train_step_refuses_kernel_mode_and_packed_planes():
     with pytest.raises(ValueError, match="packed"):
         step(packed, b)
     assert not calls                             # raised before a forward
-    with pytest.raises(NotImplementedError, match="pod"):
-        make_train_step(pm, lr_fn=lambda s: LR, grad_compression=True,
-                        mesh=type("Mesh", (), {"axis_names": ("pod",)})())
+    # a pod mesh takes the compressed pod-axis reduction (run on gloo
+    # ranks in test_torch_tp.py); it needs the state's error feedback
+    pod = make_train_step(pm, lr_fn=lambda s: LR, grad_compression=True,
+                          mesh=type("Mesh", (), {"axis_names": ("pod",)})())
+    with pytest.raises(ValueError, match="error state"):
+        pod(st, b)
     # without a pod mesh compression is off, as in the reference
     make_train_step(pm, lr_fn=lambda s: LR, grad_compression=True)
 
