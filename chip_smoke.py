@@ -5,9 +5,23 @@
     python3 chip_smoke.py --kernels flash_attention_decode   # one kernel
     python3 chip_smoke.py --training          # the training phases only
 
-1. Prints the card's name and power limit, then builds the six CUDA
-   sources from ``src/repro_torch/kernels/csrc`` (seven kernels) and prints
-   the build time.
+1. Prints the card's name and power limit, then builds the seven CUDA
+   sources from ``src/repro_torch/kernels/csrc`` (seven kernels and the
+   launch fixture) and prints the build time.
+1b. Analysis phase (``analysis_phase``; ``--analysis`` runs it alone):
+   the card's launch limits (``cudaDeviceGetAttribute``) must equal the
+   constants of ``repro_torch.analysis.launch_contracts``; the launch
+   fixture, the port of the reference's no-op ``_capture_2d`` kernel:
+   its legal launch returns 0 and leaves a sentinel-filled output as its
+   plain version does, and a launch one past each limit (232,449 bytes
+   of shared memory, 1025 threads, grid y 65,536) is refused by the
+   runtime, each error printed; every record of the launch sweep held
+   to the C host code's own grid, threads and dynamic shared memory (each
+   C entry's dry run), to the static shared memory the card reports and
+   to the contracts at it, with each kernel function's registers and
+   occupancy printed; then the whole registry of static checks runs
+   with its trace targets on the card, whose launch counters must equal
+   the kernel calls.
 2. Kernel phase: each kernel at the shapes its path gives it (DeiT-Base
    batch 16, Llama-3-8B decode and 1024-token scoring) and at ragged
    shapes, against its plain PyTorch version on the same card inputs,
@@ -1802,6 +1816,175 @@ def kernel_phase(torch, np, only=None):
     return results
 
 
+FIXTURE_REPLACES = "src/repro/analysis/fixtures.py:43"
+FIXTURE_SOURCE = "src/repro_torch/kernels/csrc/launch_fixture.cu"
+FIXTURE_SENTINEL = 1234.5
+
+
+def analysis_phase(torch, np):
+    """The static checks on the card (``repro_torch.analysis``): the card's
+    launch limits equal the contracts' constants; the launch fixture (the
+    port of the reference's ``_capture_2d``): its legal launch taken and
+    its output untouched, as its plain version leaves it, and each illegal
+    one refused by the runtime; every record of the launch sweep against
+    the C host code's own grid, threads and dynamic shared memory (each C
+    entry's dry run) and the static shared memory the card reports, with
+    each kernel function's registers and occupancy; a dry run armed on
+    this thread leaving a launch from another thread alone; then the whole
+    registry with its trace targets on the card, whose launch counters
+    must equal the kernel calls (and whose real launch records must meet
+    the contracts and cover their outputs).  Returns the
+    launch fixture's ``kernels`` entry (its launches: the fixture launches
+    of this phase's main path) and the phase's record."""
+    import repro_torch.analysis as AN
+    from repro_torch.analysis import fixtures as FX
+    from repro_torch.analysis import launch_contracts as LC
+    from repro_torch.kernels import launch_fixture as LF
+    out = {}
+    attrs = LF.device_attrs()
+    log(f"[analysis] device attributes {json.dumps(attrs)}")
+    wrong = {k: (attrs[k], v) for k, v in LC.DEVICE_LIMITS.items()
+             if attrs[k] != v}
+    if wrong:
+        raise AssertionError(f"the card's launch limits differ from the "
+                             f"contracts' constants (card, constant): "
+                             f"{wrong}")
+    out["device_attrs"] = attrs
+    # row 8: the legal launch leaves its output as the plain version does
+    rec = LF.launch_config(FX.SHAPE, FX.BLOCK, threads=256, smem=64 * 1024)
+    got = torch.full(FX.SHAPE, FIXTURE_SENTINEL, device=DEVICE)
+    want = LF.noop_rows(got.clone())
+    rc = LF.launch_fixture(got, rec)
+    torch.cuda.synchronize()
+    mism = int((got != want).sum())
+    log(f"[analysis] launch_fixture legal launch grid {rec.grid[:2]} "
+        f"threads {rec.threads} smem {rec.smem_dynamic}: rc {rc}, "
+        f"{mism} elements changed")
+    if rc != (0, 0) or mism:
+        raise AssertionError(f"launch_fixture: legal launch rc {rc}, "
+                             f"{mism} elements changed")
+    refused = {}
+    for name, (shape, block, kw) in FX.REFUSED_ON_CARD.items():
+        try:
+            recs = LF._launch_2d(shape, block, device=DEVICE, **kw)
+        except RuntimeError as e:
+            refused[name] = str(e)
+            log(f"[analysis] {name}: refused by the runtime: {e}")
+            continue
+        raise AssertionError(f"{name}: the runtime took {recs}")
+    torch.cuda.synchronize()
+    out["refused"] = refused
+    # the C host code against the Python mirrors, record by record
+    funcs, mism = {}, []
+    cases = LC.sweep_cases()
+    for label, kernel, kw in cases:
+        r = LC.launch(kernel, kw, label)
+        c = LC.query_record(kernel, kw, r)
+        if (c["grid_x"], c["grid_y"], c["grid_z"]) != r.grid or \
+                c["threads"] != r.threads or \
+                c["smem_dynamic"] != r.smem_dynamic or \
+                c["smem_static"] != r.smem_static:
+            mism.append((label, kernel, c, r.grid, r.threads,
+                         r.smem_dynamic))
+        bad = LC.check_record(r, smem_static=c["smem_static"])
+        if bad:
+            mism.append((label, kernel, [str(v) for v in bad]))
+        f = funcs.setdefault(r.function, {
+            "kernel": kernel, "registers": c["registers"],
+            "smem_static": c["smem_static"], "python_static": r.smem_static,
+            "threads": r.threads, "smem_dynamic": r.smem_dynamic,
+            "ctas_per_sm": c["ctas_per_sm"], "assumed_per_sm": r.per_sm,
+            "records": 0})
+        f["records"] += 1
+    log(f"[analysis] mirrors: {len(cases)} sweep records, "
+        f"{len(cases) - len(mism)} equal to the C host code (grid, threads, "
+        f"dynamic shared memory) and to the card's static shared memory")
+    for fn, f in sorted(funcs.items()):
+        log(f"[analysis] occupancy {fn}: {f['registers']} registers a "
+            f"thread, static smem {f['smem_static']} (python "
+            f"{f['python_static']}), {f['threads']} threads, dynamic smem "
+            f"{f['smem_dynamic']}: {f['ctas_per_sm']} CTAs an SM (the "
+            f"geometry assumes {f['assumed_per_sm']})")
+    if mism:
+        raise AssertionError(f"launch records against the C host code: "
+                             f"{mism[:5]} ({len(mism)} in all)")
+    out["mirrors"] = len(cases)
+    out["functions"] = funcs
+    # a dry run armed on this thread leaves another thread's launch alone:
+    # the GELU kernel launched from a second thread meanwhile writes its
+    # output, bit for bit the plain version's
+    import threading
+
+    from repro_torch.kernels import mxint_gelu as MG
+    from repro_torch.kernels.mxint_layernorm import lut_tensor
+    xg = 2.0 * torch.randn(64, 768, generator=torch.Generator(
+        device=DEVICE).manual_seed(SEED), device=DEVICE)
+    table, domain = MG.gelu_table("gelu", 5, 3.0)
+    want_g = MG.gelu_rows(xg, lut_tensor(table, xg.device), act_block=16,
+                          mant_bits=8, domain=domain)
+    other = {}
+    with LF.armed("mxint_gelu") as armed:
+        th = threading.Thread(target=lambda: other.update(
+            y=MG.mxint_gelu(xg)))
+        th.start()
+        th.join()
+        untouched = list(armed) == [0] * 8
+    torch.cuda.synchronize()
+    same = "y" in other and torch.equal(other["y"], want_g)
+    log(f"[analysis] dry run armed on the main thread: a GELU launch from "
+        f"another thread equal to the plain version {same}, the armed "
+        f"query untouched {untouched}")
+    if not (same and untouched):
+        raise AssertionError("a dry run armed on one thread changed a "
+                             "launch from another")
+    # the main path: the fixture's legal launches and the registry on the
+    # card, from counts set to 0
+    from repro_torch.analysis import grid_coverage as GC
+    reset_counts()
+    t = time.perf_counter()
+    with LC.record_launches() as real:
+        for shape, block, kw in FIXTURE_LEGAL:
+            LF._launch_2d(shape, block, device=DEVICE, **kw)
+        # the documents beside the code are no part of the program, and a
+        # copy of the program need not carry them: their rule
+        # (docs-links) reads no device and is held by the CPU tests
+        found = AN.run_rules(ROOT, device="cuda", skip=CARD_SKIPS)
+        torch.cuda.synchronize()
+    launches = read_counts()
+    # the records of the real launches, at their operands' own alignment
+    found += LC.check_records(real) + GC.check_records(real)
+    errors = [str(v) for v in found if v.severity == AN.ERROR]
+    log(f"[analysis] registry on the card: {len(AN.rules())} rules, "
+        f"{len(errors)} errors, {time.perf_counter() - t!r} s; "
+        f"{len(real)} launch records of real launches checked; launches "
+        f"{json.dumps(launches)}")
+    if errors:
+        raise AssertionError(f"the static checks on the card: {errors}")
+    out["launches"] = launches
+    res = {"name": "launch_fixture", "route": "cuda",
+           "source": FIXTURE_SOURCE, "replaces": FIXTURE_REPLACES,
+           "max_abs_err": float((got - want).abs().max()),
+           "ms": time_ms(lambda: LF.launch_fixture(got, rec), iters=50),
+           "plain_ms": time_ms(lambda: LF.noop_rows(got), iters=50),
+           # it moves no byte and does no operation
+           "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
+           "device_ms": device_ms(lambda: LF.launch_fixture(got, rec))}
+    log(f"[analysis] launch_fixture one empty launch: ms {res['ms']!r} "
+        f"(CUDA events), device_ms {res['device_ms']!r}, plain_ms "
+        f"{res['plain_ms']!r}")
+    return res, out
+
+
+# the rules that the card run of the registry leaves to the CPU tests
+CARD_SKIPS = ("docs-links",)
+
+# the launch fixture's legal geometries, each at a limit, that the
+# analysis phase's path launches
+FIXTURE_LEGAL = (((64, 256), (16, 64), {}),
+                 ((64, 256), (16, 64), {"smem": 232448, "threads": 1024}),
+                 ((16, 65535), (16, 1), {}))
+
+
 def kernel_breakdown(torch, run, names):
     """ms of one ``run()`` spent in each kernel op, from CUDA events
     recorded around every call (the host work between the two events is
@@ -1877,6 +2060,8 @@ def check_launch_counters(tag, launches):
     kernels' own counts over the same run."""
     from repro_torch import telemetry as T
     counters = T.snapshot()["counters"]
+    from repro_torch.kernels import ops
+    launches = {n: launches[n] for n in ops.SERVED_KERNELS}
     got = {n: counters.get(f"kernel/launches/{n}") for n in launches}
     if got != launches:
         raise AssertionError(f"{tag}: telemetry counted launches {got}, the "
@@ -2032,7 +2217,8 @@ def slice_phase(torch, np):
     L = DEIT_BASE.n_layers
     per_forward = {"mxint_matmul": 2 * L + 2, "mxint_ln_matmul": 4 * L,
                    "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1,
-                   "flash_attention": 0, "flash_attention_decode": 0}
+                   "flash_attention": 0, "flash_attention_decode": 0,
+                   "launch_fixture": 0}
     assert sum(per_forward.values()) == 3 + 8 * L
 
     cfg = dataclasses.replace(
@@ -2365,7 +2551,8 @@ def backends_phase(torch, np):
     mixed_per_forward = {"mxint_matmul": L + 2, "mxint_ln_matmul": 3 * L,
                          "mxint_softmax": L, "mxint_gelu": 0,
                          "mxint_layernorm": 1, "flash_attention": 0,
-                         "flash_attention_decode": 0}
+                         "flash_attention_decode": 0,
+                         "launch_fixture": 0}
     assert sum(mixed_per_forward.values()) == 3 + 5 * L
     sizes, images, full = deit_requests(np)
     imgs4 = np.concatenate(images)[:4]
@@ -3013,7 +3200,8 @@ def widened_serve_phase(torch, np):
     L = DEIT_BASE.n_layers
     per_forward = {"mxint_matmul": 2 * L + 2, "mxint_ln_matmul": 4 * L,
                    "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1,
-                   "flash_attention": 0, "flash_attention_decode": 0}
+                   "flash_attention": 0, "flash_attention_decode": 0,
+                   "launch_fixture": 0}
     sizes, images, full = deit_requests(np)
     params = ViT(DEIT_BASE).init(SEED, device=DEVICE)
     out, launches = {}, {}
@@ -4363,6 +4551,9 @@ def main(argv) -> int:
     ap.add_argument("--kernels", nargs="+", metavar="NAME",
                     help="build, then run only the kernel phase of these "
                          "kernels (a quick check; prints no 'ok' line)")
+    ap.add_argument("--analysis", action="store_true",
+                    help="build, then run only the analysis phase (prints "
+                         "no 'ok' line)")
     ap.add_argument("--training", action="store_true",
                     help="build, then run only the training phases (17-20; "
                          "prints no 'ok' line)")
@@ -4394,6 +4585,17 @@ def main(argv) -> int:
     if args.kernels:
         kernels = kernel_phase(torch, np, only=set(args.kernels))
         log(json.dumps({"partial": sorted(kernels)}))
+        return 0
+    if args.analysis:
+        t = time.perf_counter()
+        fixture, analysis = analysis_phase(torch, np)
+        log(f"[time] analysis phase {time.perf_counter() - t!r} s")
+        out = ROOT / "build"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_analysis.json").write_text(json.dumps(
+            {"card": smi, "launch_fixture": fixture, "analysis": analysis},
+            indent=1, default=str))
+        log(json.dumps({"partial": ["analysis"]}))
         return 0
     if args.training:
         t = time.perf_counter()
@@ -4428,7 +4630,9 @@ def main(argv) -> int:
 
     import importlib
     from repro_torch.configs import llama3_8b
+    fixture, analysis = phase("analysis", analysis_phase, torch, np)
     kernels = phase("kernel", kernel_phase, torch, np)
+    kernels["launch_fixture"] = fixture
     stats, launches = phase("deit", slice_phase, torch, np)
     model, engine, lm_stats = phase(
         "lm serve", lm_serve_phase, torch, np, llama3_8b.FULL, LM_PROMPTS,
@@ -4491,7 +4695,10 @@ def main(argv) -> int:
         res["card_vs_cpu"] = res["card_vs_cpu"]()
     common = ("mxint_ln_matmul", "mxint_matmul", "mxint_gelu",
               "mxint_layernorm")
-    paths = (("deit serve", launches, common + ("mxint_softmax",)),
+    paths = (("analysis", analysis["launches"],
+              common + ("mxint_softmax", "flash_attention_decode",
+                        "launch_fixture")),
+             ("deit serve", launches, common + ("mxint_softmax",)),
              ("lm serve", lm_stats["launches"],
               common + ("flash_attention_decode",)),
              ("lm score", score_launches, common + ("flash_attention",)),
@@ -4550,7 +4757,7 @@ def main(argv) -> int:
         if idle:
             raise AssertionError(f"{path}: {idle} never launched")
     for name, res in kernels.items():
-        res["launches"] = sum(counts[name] for _, counts, _ in paths)
+        res["launches"] = sum(counts.get(name, 0) for _, counts, _ in paths)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -4564,8 +4771,8 @@ def main(argv) -> int:
          "train": train_stats,
          "accuracy": acc_stats, "lm_train": lm_train_stats,
          "rec_train": rec_train_stats, "tp": tp_stats,
-         "cpu_checks_s": CPU_CHECKS.seconds},
-        indent=1))
+         "analysis": analysis, "cpu_checks_s": CPU_CHECKS.seconds},
+        indent=1, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(json.dumps({"kernels": [{k: r[k] for k in keys}

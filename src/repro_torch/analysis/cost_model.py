@@ -44,6 +44,8 @@ int8 products and their shared memory, and the LN stage's geometry.
 """
 from __future__ import annotations
 
+import json
+from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.telemetry.export import (DEFAULT_PEAKS, F32_OPS_PER_S,
@@ -116,8 +118,10 @@ def matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
     """``mxint_matmul`` (or, ``fused_ln``, ``mxint_ln_matmul``): x (M, K),
     int8 planes (K, N) and (K / w_block, N), f32 out (M, N); the fused
     kernel also reads gamma (and beta) and runs the LN stage."""
-    from repro_torch.kernels.mxint_matmul import (gemm_geometry,
-                                                  gemm_smem_bytes)
+    from repro_torch.kernels.mxint_matmul import (act_variant,
+                                                  gemm_geometry,
+                                                  gemm_smem_bytes,
+                                                  gemm_static_smem)
     ops = [_operand("x", _dtype(x_bytes), M * K, x_bytes)]
     if fused_ln:
         ops.append(_operand("gamma", _dtype(param_bytes), K, param_bytes))
@@ -131,7 +135,8 @@ def matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
     g = gemm_geometry(M, N, K, H100_SMS, fused_ln=fused_ln,
                       act_block=act_block, wide=wide)
     smem = gemm_smem_bytes(g.bm, g.bn, g.bk, g.ns, K if fused_ln else g.kc,
-                           act_block, 2 if wide else 1)
+                           act_block, 2 if wide else 1) + gemm_static_smem(
+        fused_ln, act_variant(act_block, act_mant_bits))
     f32 = gemm_f32_ops(M, N, K, act_block)
     if fused_ln:
         f32 += ROW_OPS["mxint_layernorm"] * M * K
@@ -287,3 +292,130 @@ DEIT_BASE_LABELS = ("deit-base-patch", "deit-base-ln1-qkv",
                     "deit-base-softmax", "deit-base-attn-wo",
                     "deit-base-ln2-wi", "deit-base-gelu", "deit-base-ffn-wo",
                     "deit-base-final-ln", "deit-base-head")
+
+
+# ---------------------------------------------------------------------------
+# the cost-model rule: a committed baseline, and the launch records
+# ---------------------------------------------------------------------------
+# the committed bytes of every row, beside this module
+BASELINE = Path(__file__).resolve().parent / "cost_model_baseline.json"
+REGRESSION_THRESHOLD = 0.02     # the reference's 2%
+
+
+def baseline_payload() -> Dict[str, object]:
+    return {"version": 1, "threshold_pct": 100 * REGRESSION_THRESHOLD,
+            "rows": {r["label"]: {k: r[k] for k in
+                                  ("hbm_bytes", "flops", "smem_bytes")}
+                     for r in build_table()}}
+
+
+def write_baseline(path: Path = BASELINE) -> Path:
+    path.write_text(json.dumps(baseline_payload(), indent=1, sort_keys=True)
+                    + "\n")
+    return path
+
+
+def compare_to_baseline(rows: Sequence[dict], baseline: Dict[str, object],
+                        threshold: float = REGRESSION_THRESHOLD):
+    """Rows whose bytes grew past ``threshold`` of the baseline's fail;
+    those that shrank past it, and rows the baseline lacks, warn (refresh
+    the baseline to keep the gain)."""
+    from repro_torch.analysis.registry import WARN, Violation
+    out = []
+    current = {r["label"]: r for r in rows}
+    base_rows = baseline.get("rows", {})
+    for label, base in sorted(base_rows.items()):
+        cur = current.get(label)
+        if cur is None:
+            out.append(Violation("cost-model", label,
+                                 "baseline row has no current counterpart: "
+                                 "the table shrank"))
+            continue
+        b, c = int(base["hbm_bytes"]), int(cur["hbm_bytes"])
+        if c > b * (1 + threshold):
+            out.append(Violation(
+                "cost-model", label,
+                f"device-memory traffic regression: {c} bytes against the "
+                f"baseline's {b} (+{100.0 * (c - b) / b:.1f}% > "
+                f"{100 * threshold:.0f}%); fix it or refresh the baseline "
+                f"(python -m repro_torch.analysis --update-cost-baseline)"))
+        elif c < b * (1 - threshold):
+            out.append(Violation(
+                "cost-model", label,
+                f"device-memory traffic fell {100.0 * (b - c) / b:.1f}% "
+                f"({c} against {b}): refresh the baseline to keep the gain",
+                severity=WARN))
+    for label in sorted(set(current) - set(base_rows)):
+        out.append(Violation("cost-model", label,
+                             "row missing from the committed baseline",
+                             severity=WARN))
+    return out
+
+
+def row_launch(row: dict):
+    """The ``LaunchRecord`` of the launch a table row prices."""
+    from repro_torch.analysis.launch_contracts import launch
+    from repro_torch.core.quantize import _resolve_block
+    sh, k = row["shape"], row["kernel"]
+    if k in ("mxint_matmul", "mxint_ln_matmul"):
+        kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
+                  act_block=sh["act_block"])
+        if k == "mxint_matmul":
+            kw.update(K=sh["K"], act_mant_bits=sh["act_mant_bits"])
+        else:
+            kw.update(d=sh["K"], mant_bits=sh["act_mant_bits"], lut_bits=5)
+        return launch(k, kw, row["label"])
+    if k == "mxint_softmax":
+        return launch(k, dict(rows=sh["rows"], n=sh["n"],
+                              act_block=_resolve_block(sh["n"], 16), r_bits=2),
+                      row["label"])
+    if k == "mxint_gelu":
+        return launch(k, dict(rows=sh["rows"], d=sh["d"],
+                              act_block=_resolve_block(sh["d"], 16), lut_bits=5,
+                              domain=3.0, fn="gelu"), row["label"])
+    if k == "mxint_layernorm":
+        return launch(k, dict(rows=sh["rows"], d=sh["d"],
+                              act_block=sh["act_block"], lut_bits=5),
+                      row["label"])
+    import torch
+    dtype = torch.float32 if row["operands"][0]["dtype"] == "float32" \
+        else torch.bfloat16
+    return launch(k, dict(bh=sh["heads"], sq=sh["S"], sk=sh["S"], d=sh["d"],
+                          kv_groups=sh["heads"] // sh["kv_heads"],
+                          dtype=dtype), row["label"])
+
+
+def cross_check(rows: Sequence[dict]):
+    """Each row's ``smem_bytes`` against the shared memory (dynamic plus
+    static) of the launch record of the same label and shape."""
+    from repro_torch.analysis.registry import Violation
+    out = []
+    for row in rows:
+        rec = row_launch(row)
+        if row["smem_bytes"] != rec.smem:
+            out.append(Violation(
+                "cost-model", row["label"],
+                f"the table's shared memory {row['smem_bytes']} bytes != the "
+                f"launch record's {rec.smem_dynamic} + {rec.smem_static} "
+                f"({rec.function})"))
+    return out
+
+
+def _register():
+    from repro_torch.analysis.registry import Violation, register_rule
+
+    @register_rule(
+        "cost-model",
+        "the Hopper cost table's bytes against the committed baseline "
+        "(over 2% more fails) and its shared memory against the launch "
+        "records'")
+    def run(root: Path, device: str = "cuda"):
+        rows = build_table()
+        out = cross_check(rows)
+        if not BASELINE.exists():
+            return out + [Violation(
+                "cost-model", BASELINE.name, "the committed baseline is "
+                "missing: python -m repro_torch.analysis "
+                "--update-cost-baseline")]
+        return out + compare_to_baseline(rows, json.loads(
+            BASELINE.read_text()))

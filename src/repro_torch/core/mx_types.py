@@ -223,6 +223,15 @@ class QuantConfig:
     def enabled(self) -> bool:
         return getattr(self, "mode") != "off"
 
+    def modes(self) -> frozenset:
+        """Every execution mode this config resolves to in some layer
+        group: its own and each override's (an override without a mode
+        inherits this one).  The one answer to "which backends can run?"
+        that callers outside the seam may ask."""
+        own = getattr(self, "mode")
+        return frozenset({own} | {getattr(ov, "mode") or own
+                                  for _, ov in getattr(self, "overrides")})
+
     @property
     def has_overrides(self) -> bool:
         """True when per-layer-group patches are attached."""

@@ -26,7 +26,7 @@ from typing import Callable, Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 KERNELS = ("mxint_matmul", "mxint_ln_matmul", "mxint_softmax", "mxint_gelu",
-           "mxint_layernorm", "flash_attention")
+           "mxint_layernorm", "flash_attention", "launch_fixture")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-split-compile=0")

@@ -71,6 +71,7 @@
 #include <cuda_bf16.h>
 
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -1713,6 +1714,7 @@ int launch_mma(const MmaLaunch& l) {
   const size_t smem = wide ? wide_smem_bytes(l.p.d) : mma_smem_bytes(l.p.d);
   int rc = allow_smem(kern, smem);
   if (rc) return rc;
+  QUERY_OR_LAUNCH(kern, grid, dim3(kMmaThreads), smem);
   kern<<<grid, kMmaThreads, smem, l.st>>>(l.q, l.k, l.v, l.lut, l.out,
                                           l.groups, l.p);
   return (int)cudaGetLastError();
@@ -1745,6 +1747,7 @@ int launch_decode(DecodeLaunch l) {
   if (rc) return rc;
   const unsigned grid =
       (unsigned)l.n_problems * l.gr.row_blocks * l.gr.n_split;
+  QUERY_OR_LAUNCH(kern, dim3(grid), dim3(dec_threads(ROWS)), smem);
   kern<<<grid, dec_threads(ROWS), smem, l.st>>>(
       (const T*)l.q, (const T*)l.k, (const T*)l.v, l.valid, l.lut, (T*)l.out,
       l.gr, l.p);
@@ -1819,6 +1822,7 @@ extern "C" int flash_attention_launch(
       smem_floats(kFlashRows, wide ? kMaxD : kNarrowD) * sizeof(float);
   int rc = allow_smem(kern, smem);
   if (rc) return rc;
+  QUERY_OR_LAUNCH(kern, grid, dim3(kFlashThreads), smem);
   kern<<<grid, kFlashThreads, smem, st>>>((const float*)q, (const float*)k,
                                           (const float*)v, lut, (float*)out,
                                           groups, p);
@@ -1845,3 +1849,5 @@ extern "C" int flash_attention_decode_launch(
   return bf16 ? launch_decode_rows<__nv_bfloat16>(l, rows)
               : launch_decode_rows<float>(l, rows);
 }
+
+LAUNCH_QUERY_ENTRY(flash_attention)

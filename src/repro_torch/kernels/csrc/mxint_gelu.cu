@@ -16,6 +16,7 @@
 //  - gelu_scalar_kernel (any other block up to 128): one thread per act
 //    block, which reads it twice (its amax, then its elements).
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -109,10 +110,12 @@ extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
     if (block < 4 || (block & (block - 1)) != 0 || (uintptr_t)x % 16 ||
         (uintptr_t)y % 16)
       return (int)cudaErrorInvalidValue;
+    QUERY_OR_LAUNCH(gelu_vec4_kernel, dim3(grid), dim3(threads), 0);
     gelu_vec4_kernel<<<grid, threads, 0, s>>>(
         reinterpret_cast<const float4*>(x), lut, reinterpret_cast<float4*>(y),
         numel / 4, block / 4, mant_bits, a);
   } else if (vec == 1) {
+    QUERY_OR_LAUNCH(gelu_scalar_kernel, dim3(grid), dim3(threads), 0);
     gelu_scalar_kernel<<<grid, threads, 0, s>>>(x, lut, y, numel / block,
                                                 block, mant_bits, a);
   } else {
@@ -120,3 +123,5 @@ extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
   }
   return (int)cudaGetLastError();
 }
+
+LAUNCH_QUERY_ENTRY(mxint_gelu)

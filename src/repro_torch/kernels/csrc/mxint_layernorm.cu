@@ -15,6 +15,7 @@
 // scratch buffer instead, one row a CTA.  x is f32 or bf16 (T), gamma and
 // beta f32 or bf16 (a flag), beta may be null; y is f32.
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -97,6 +98,8 @@ static int launch(const void* x, const void* gamma, const void* beta,
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  QUERY_OR_LAUNCH(fn, dim3((rows + rows_per_cta - 1) / rows_per_cta),
+                  dim3(kLnThreads), smem);
   mxint_layernorm_kernel<T, P, GS>
       <<<(rows + rows_per_cta - 1) / rows_per_cta, kLnThreads, smem,
          stream>>>(static_cast<const T*>(x), gamma, beta, lut, y, scratch,
@@ -147,3 +150,5 @@ extern "C" int mxint_layernorm_launch(
   LN_LAUNCH(float, 0, false);
 #undef LN_LAUNCH
 }
+
+LAUNCH_QUERY_ENTRY(mxint_layernorm)

@@ -4,6 +4,7 @@
 // quantization) into shared memory while the first weight stages load,
 // then streams its column tiles against them through the GEMM core.
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -119,6 +120,7 @@ static int launch(const void* x, const void* gamma, const void* beta,
                   (void*)&ab, (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
                   (void*)&rms_only, (void*)&params_bf16, (void*)&g,
                   (void*)&vec, (void*)&vec_shift};
+  QUERY_OR_LAUNCH(fn, grid, dim3(gemm_threads(g.bm)), smem);
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(g.bm)), args, smem,
                          stream);
   if (err != cudaSuccess) return (int)err;
@@ -172,3 +174,5 @@ extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
 #undef LNMM_ROUTES
 #undef LNMM_LAUNCH
 }
+
+LAUNCH_QUERY_ENTRY(mxint_ln_matmul)

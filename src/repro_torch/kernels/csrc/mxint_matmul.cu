@@ -4,6 +4,7 @@
 // divide 16 or are multiples of 16 dividing w_block, act mantissas of
 // 2-16 bits (the GEMM core's V 0-2, mxint_common.cuh).
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -181,8 +182,11 @@ extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
                   (void*)&M, (void*)&K, (void*)&N, (void*)&w_block,
                   (void*)&mant_bits, (void*)&ab, (void*)&kc, (void*)&g,
                   (void*)&vec, (void*)&vec_shift};
+  QUERY_OR_LAUNCH(fn, grid, dim3(gemm_threads(bm)), smem);
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+LAUNCH_QUERY_ENTRY(mxint_matmul)

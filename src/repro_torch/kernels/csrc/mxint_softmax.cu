@@ -23,6 +23,7 @@
 // Both add each lane's elements in order (block by block, element by
 // element), then a butterfly over the 32 lanes: warp_row_sum's order.
 #include "mxint_common.cuh"
+#include "launch_query.cuh"
 
 using namespace mx;
 
@@ -384,7 +385,10 @@ extern "C" int mxint_softmax_launch(const float* x, const float* lut,
       k = nullptr;
     if (k == nullptr || per_lane < need) return (int)cudaErrorInvalidValue;
   }
+  QUERY_OR_LAUNCH(k, dim3(grid), dim3(kRowThreads), 0);
   k<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
       x, lut, y, rows, n, block, mant_bits, lut_n, log2e, quantize_out);
   return (int)cudaGetLastError();
 }
+
+LAUNCH_QUERY_ENTRY(mxint_softmax)

@@ -41,15 +41,19 @@ the wrapper raises.  ``launches`` counts ``flash_attention`` launches and
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core import luts
 from repro_torch.core.mx_types import NEG_INF
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (WARP, block_quantize_rows,
-                                                 f32, lut_tensor,
+from repro_torch.kernels.launch_record import LaunchRecord, emit, rects, spec
+from repro_torch.kernels.mxint_layernorm import (SMEM_LIMIT, WARP,
+                                                 block_quantize_rows,
+                                                 f32, lut_tensor, sm_count,
                                                  requantize_rows,
                                                  requantize_to_grid,
                                                  warp_row_sum)
@@ -411,13 +415,166 @@ def decode_geometry(b: int, hkv: int, g: int, d: int, elem_bytes: int,
     return rows, cols, -(-d // cols)
 
 
-def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
-                 r_bits, scale):
-    if x.dtype not in (torch.float32, torch.bfloat16):
+# ---------------------------------------------------------------------------
+# launch geometry: Python mirrors of the C host code's values
+# ---------------------------------------------------------------------------
+FLASH_ROWS, FLASH_THREADS = 32, 256   # the ordered kernel (kFlashRows, ...)
+MMA_THREADS = 256                    # both bf16 kernels: 8 warps
+SCORE_STRIDE = TILE_K + 4            # decode: floats between score rows
+_MAX_LUT = 256
+
+
+def smem_floats(rows: int, maxd: int) -> int:
+    """Shared memory of the ordered kernel in floats (``smem_floats`` in
+    ``csrc/flash_attention.cu``): q rows, a K or V tile, scores, acc, the
+    row state and the LUT."""
+    return (rows * maxd + TILE_K * (maxd + 1) + rows * TILE_K + rows * maxd
+            + 5 * rows + _MAX_LUT)
+
+
+def mma_smem_bytes(d: int) -> int:
+    """``mma_smem_bytes``: two K and two V tiles, the CTA's Q rows (bf16,
+    row stride d + 8) and the LUT."""
+    return 4 * TILE_K * (d + 8) * 2 + MMA_ROWS * (d + 8) * 2 + _MAX_LUT * 4
+
+
+def wide_smem_bytes(d: int) -> int:
+    """``wide_smem_bytes``: a K and a V tile, 64 Q rows, P as f32 rows of
+    136, the two warps' exchange and the LUT."""
+    groups = MMA_WIDE_ROWS // 16
+    return (2 * TILE_K * (d + 8) * 2 + MMA_WIDE_ROWS * (d + 8) * 2 +
+            4 * (MMA_WIDE_ROWS * (TILE_K + 8) + groups * 3 * 2 * 16 +
+                 _MAX_LUT))
+
+
+def dec_smem_bytes(rows: int, d: int, cols: int, kbuf: int,
+                   elem_bytes: int) -> int:
+    """``dec_smem_bytes<T>``: kbuf K tiles and two V column tiles (whole
+    16-byte chunks; the K row stride an odd number of them), q rows, three
+    score rows, the row state, the LUT and the last valid slot."""
+    vec = 16 // elem_bytes
+    ks = ((-(-d // vec)) | 1) * vec
+    vs = -(-cols // vec) * vec
+    return (TILE_K * (kbuf * ks + 2 * vs) * elem_bytes +
+            4 * (rows * (-(-d // 8) * 8 + 3 * SCORE_STRIDE + 6) + _MAX_LUT)
+            + 4)
+
+
+def _flash_fn(dtype, d, exp_mode, quantize_scores, act_block, mant_bits):
+    if dtype == torch.float32:
+        return f"flash_kernel<{MAX_HEAD_DIM if d > MMA_WIDE_D else MMA_WIDE_D}>"
+    name = "flash_mma_wide_kernel" if d > MMA_WIDE_D else "flash_mma_kernel"
+    q, mx = int(quantize_scores), int(exp_mode == "mxint")
+    block = act_block if quantize_scores else 1
+    split = int(not quantize_scores or mant_bits > 9)
+    return f"{name}<quant={q}, mxint={mx}, B={block}, split={split}>"
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(bh: int, sq: int, sk: int, d: int, *, kv_groups: int = 1,
+                  dtype=torch.bfloat16, exp_mode: str = "mxint",
+                  quantize_scores: bool = True, act_block: int = 16,
+                  mant_bits: int = 8, r_bits: int = 2,
+                  label: str = "") -> LaunchRecord:
+    """The launch ``flash_attention`` makes for q (bh, sq, d) over
+    (bh / kv_groups, sk, d) K/V: the ``kernel_route`` kernel, its grid of
+    (KV heads, position blocks) or (position blocks, heads) and its shared
+    memory.  Raises first where the wrapper's checks do."""
+    _check("flash_attention", exp_mode, quantize_scores, act_block, d)
+    _check_format(dtype, act_block, r_bits)
+    out = (bh * sq, d)
+    if kernel_route(dtype, d, kv_groups) == "mma":
+        rows = MMA_WIDE_ROWS if d > MMA_WIDE_D else MMA_ROWS
+        per = rows // kv_groups
+        grid = (bh // kv_groups, -(-sq // per), 1)
+        smem = wide_smem_bytes(d) if d > MMA_WIDE_D else mma_smem_bytes(d)
+        threads, vb = MMA_THREADS, 16
+
+        def tiles():
+            x = np.arange(grid[0], dtype=np.int64)[:, None, None]
+            y = np.arange(grid[1], dtype=np.int64)[None, :, None]
+            g = np.arange(kv_groups, dtype=np.int64)[None, None, :]
+            p0 = (grid[1] - 1 - y) * per           # longest first
+            h = x * kv_groups + g
+            return rects(h * sq + p0, h * sq + np.minimum(sq, p0 + per), 0,
+                         d)
+    else:
+        maxd = MAX_HEAD_DIM if d > MMA_WIDE_D else MMA_WIDE_D
+        grid = (-(-sq // FLASH_ROWS), bh, 1)
+        smem = smem_floats(FLASH_ROWS, maxd) * 4
+        threads, vb = FLASH_THREADS, 0
+
+        def tiles():
+            x = np.arange(grid[0], dtype=np.int64)[:, None]
+            y = np.arange(grid[1], dtype=np.int64)[None, :]
+            return rects(y * sq + x * FLASH_ROWS,
+                         y * sq + np.minimum(sq, (x + 1) * FLASH_ROWS), 0, d)
+    ops_ = tuple(spec(n, shape, dtype, vb) for n, shape in (
+        ("q", (bh, sq, d)), ("k", (bh // kv_groups, sk, d)),
+        ("v", (bh // kv_groups, sk, d)), ("out", (bh, sq, d))))
+    return LaunchRecord(
+        "flash_attention", _flash_fn(dtype, d, exp_mode, quantize_scores,
+                                     act_block, mant_bits),
+        grid, threads, smem, 0, ops_, out, tiles, 1, (), label)
+
+
+@functools.lru_cache(maxsize=None)
+def decode_launch_config(b: int, hkv: int, g: int, W: int, d: int, *,
+                         n_sm: int, dtype=torch.bfloat16,
+                         exp_mode: str = "mxint",
+                         quantize_scores: bool = True, act_block: int = 16,
+                         mant_bits: int = 8, r_bits: int = 2,
+                         smem_optin: int = SMEM_LIMIT,
+                         label: str = "") -> LaunchRecord:
+    """The launch ``flash_attention_decode`` makes for q (b, hkv, g, d)
+    over a (b, W, hkv, d) ring on a card of ``n_sm`` SMs: the
+    ``decode_geometry`` CTAs (problem, row block, column slice) and the
+    shared memory of ``launch_decode`` (two K buffers where they fit the
+    card's opt-in ``smem_optin``, else one).  Raises first where the
+    wrapper's checks do."""
+    _check("flash_attention_decode", exp_mode, quantize_scores, act_block, d)
+    _check_format(dtype, act_block, r_bits)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    rows, cols, n_split = decode_geometry(b, hkv, g, d, elem, n_sm)
+    row_blocks = -(-g // rows)
+    kbuf = 2 if dec_smem_bytes(rows, d, cols, 2, elem) <= smem_optin else 1
+    grid = (b * hkv * row_blocks * n_split, 1, 1)
+
+    def tiles():
+        blk = np.arange(grid[0], dtype=np.int64)
+        sl = blk % n_split
+        rb = (blk // n_split) % row_blocks
+        prob = blk // n_split // row_blocks
+        r0 = prob * g + rb * rows
+        return rects(r0, prob * g + np.minimum(g, rb * rows + rows),
+                     sl * cols, np.minimum(d, sl * cols + cols))
+    ops_ = (spec("q", (b, hkv, g, d), dtype), spec("k", (b, W, hkv, d), dtype),
+            spec("v", (b, W, hkv, d), dtype),
+            spec("valid", (b, W), torch.int32),
+            spec("out", (b, hkv, g, d), dtype))
+    T = "bf16" if dtype == torch.bfloat16 else "f32"
+    return LaunchRecord(
+        "flash_attention_decode", f"decode_kernel<{T}, ROWS={rows}>", grid,
+        2 * DECODE_THREADS + rows * WARP,
+        dec_smem_bytes(rows, d, cols, kbuf, elem), 0, ops_, (b * hkv * g, d),
+        tiles, 1, (rows, cols), label)
+
+
+def _check_format(dtype, act_block: int, r_bits: int):
+    """The flash kernels' operand and format checks (``_kernel_args``)."""
+    if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError("the flash kernels take float32 or bfloat16")
     if act_block > MAX_ACT_BLOCK or act_block & (act_block - 1):
         raise ValueError(f"the flash kernels take act blocks that are powers "
                          f"of two <= {MAX_ACT_BLOCK}")
+    if 2 ** r_bits > _MAX_LUT:
+        raise ValueError(f"the flash kernels take at most {_MAX_LUT} LUT "
+                         "entries")
+
+
+def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
+                 r_bits, scale):
+    _check_format(x.dtype, act_block, r_bits)
     lut = lut_tensor(luts.pow2_table(r_bits), x.device)
     return lut, [int(exp_mode == "mxint"), int(quantize_scores), act_block,
                  mant_bits, 2 ** r_bits, f32(scale), LOG2E,
@@ -462,10 +619,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k and v must share a dtype")
     out = torch.empty_like(q)
-    if kernel_route(q.dtype, d, kv_groups) == "mma" and any(
+    rec = launch_config(bh, sq, sk, d, kv_groups=kv_groups, dtype=q.dtype,
+                        exp_mode=exp_mode, quantize_scores=quantize_scores,
+                        act_block=act_block, mant_bits=mant_bits,
+                        r_bits=r_bits)
+    if rec.operands[0].vector_bytes and any(
             t.data_ptr() % 16 for t in (q, k, v, out)):
         raise ValueError("flash_attention: the bf16 kernel reads 16-byte "
                          "aligned rows")
+    emit(rec, q=q, k=k, v=v, out=out)
     fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 +
                       [ctypes.c_int] * 7 + _TAIL)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
@@ -507,8 +669,12 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_decode: q, k and v must share a "
                          "dtype")
     out = torch.empty_like(q)
-    n_sm = torch.cuda.get_device_properties(q.device).multi_processor_count
-    rows, cols, _ = decode_geometry(b, hkv, g, d, q.element_size(), n_sm)
+    rec = decode_launch_config(
+        b, hkv, g, W, d, n_sm=sm_count(q.device), dtype=q.dtype,
+        exp_mode=exp_mode, quantize_scores=quantize_scores,
+        act_block=act_block, mant_bits=mant_bits, r_bits=r_bits)
+    emit(rec, q=q, k=k, v=v, valid=valid, out=out)
+    rows, cols = rec.args
     fn = _build.entry("flash_attention_decode", [ctypes.c_void_p] * 6 +
                       [ctypes.c_int] * 7 + _TAIL, lib="flash_attention")
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),

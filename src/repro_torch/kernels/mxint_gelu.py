@@ -34,6 +34,8 @@ from repro_torch.core import luts
 from repro_torch.core.mx_types import NonlinearConfig
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_record import (LaunchRecord, emit, spec,
+                                               stride_tiles)
 from repro_torch.kernels.mxint_matmul import sm_count
 from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
                                                  block_quantize_rows, f32,
@@ -68,6 +70,34 @@ def gelu_geometry(numel: int, block: int, n_sm: int,
         threads //= 2
     grid = min(-(-items // threads), n_sm * (THREADS_PER_SM // threads))
     return GeluGeometry(vec, threads, max(grid, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(rows: int, d: int, *, act_block: int, lut_bits: int,
+                  domain: float, fn: str, n_sm: int, aligned: bool = True,
+                  label: str = "") -> LaunchRecord:
+    """The launch ``mxint_gelu`` makes for (rows, d) f32 elements on a card
+    of ``n_sm`` SMs (``aligned``: input and output start on 16 bytes): the
+    ``gelu_geometry`` route and its capped grid-stride grid.  Raises
+    ``ValueError`` first for a format outside the kernel's domain."""
+    act_block = resolve_act_block(d, act_block)
+    table, _ = gelu_table(fn, lut_bits, domain)
+    if act_block > MAX_BLOCK or len(table) > MAX_LUT:
+        raise ValueError("mxint_gelu kernel takes f32 rows, act_block "
+                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    numel = rows * d
+    geom = gelu_geometry(numel, act_block, n_sm, aligned)
+    width = 4 if geom.vec == 4 else act_block
+    vb = 16 if geom.vec == 4 else 0
+    ops_ = (spec("x", (rows, d), torch.float32, vb),
+            spec("out", (rows, d), torch.float32, vb))
+    return LaunchRecord(
+        "mxint_gelu",
+        "gelu_vec4_kernel" if geom.vec == 4 else "gelu_scalar_kernel",
+        (geom.grid, 1, 1), geom.threads, 0, SMEM_BYTES, ops_, (1, numel),
+        stride_tiles(numel // width, width, geom.threads, geom.grid),
+        max(1, THREADS_PER_SM // geom.threads),
+        (geom.vec, geom.threads, geom.grid), label)
 
 
 def gelu_table(fn: str, lut_bits: int, domain: float):
@@ -114,21 +144,23 @@ def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
         return gelu_rows(x, lut, act_block=act_block, mant_bits=mant_bits,
                          domain=eff_domain)
     global launches
-    if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
-            len(table) > MAX_LUT:
+    if x.dtype != torch.float32:
         raise ValueError("mxint_gelu kernel takes f32 rows, act_block "
                          f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
     _build.require_cuda("mxint_gelu", x, lut)
     out = torch.empty_like(x)
     n = len(table)
-    geom = gelu_geometry(x.numel(), act_block, sm_count(x.device), aligned=(
-        x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0))
+    rec = launch_config(rows, d, act_block=act_block, lut_bits=lut_bits,
+                        domain=domain, fn=fn, n_sm=sm_count(x.device),
+                        aligned=(x.data_ptr() % 16 == 0 and
+                                 out.data_ptr() % 16 == 0))
+    emit(rec, x=x, out=out)
     fn_ = _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
         ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
         ctypes.c_int] * 3 + [ctypes.c_void_p])
     rc = fn_(x.data_ptr(), lut.data_ptr(), out.data_ptr(), x.numel(),
              act_block, mant_bits, n, f32(eff_domain),
-             f32(n / (2.0 * eff_domain)), geom.vec, geom.threads, geom.grid,
+             f32(n / (2.0 * eff_domain)), *rec.args,
              _build.stream_ptr(x.device))
     _build.check(rc, "mxint_gelu")
     launches += 1

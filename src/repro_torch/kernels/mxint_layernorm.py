@@ -41,6 +41,8 @@ import torch
 from repro_torch.core import luts
 from repro_torch.core.quantize import _TINY, pow2i
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_record import (LaunchRecord, emit, row_tiles,
+                                               spec)
 
 WARP = 32
 SCALAR_MAX_BLOCK = 16   # largest act block a thread holds in registers
@@ -54,7 +56,12 @@ LN_THREADS = 256     # a CTA of the layernorm kernel
 LN_MAX_ROWS = 8      # rows a CTA normalizes at most
 LN_PIECE = 4         # elements of a vector-route piece (one 16/8-byte access)
 LN_VEC_BLOCKS = (4, 8, 16, 32, 64, 128, 256)   # act blocks of 1-64 pieces
-LN_STATIC_SMEM = 4 * MAX_LUT + 16 * LN_MAX_ROWS   # the LUT, the row scalars
+# the exchange slots of wide_group_max (csrc/mxint_common.cuh), static in
+# every kernel instance that may meet two warps of a group (the card's
+# cudaFuncGetAttributes, chip_smoke.py's analysis phase)
+GROUP_XCHG_SMEM = 4 * 16
+# the LUT, the row scalars and the exchange slots
+LN_STATIC_SMEM = 4 * MAX_LUT + 16 * LN_MAX_ROWS + GROUP_XCHG_SMEM
 
 launches = 0
 
@@ -151,6 +158,40 @@ def ln_geometry(rows: int, d: int, block: int, n_sm: int,
     if row_bytes > budget:
         return LnGeometry(vec, 1, rows, 0, ln_stage_words(d, block))
     return LnGeometry(vec, R, -(-rows // R), R * row_bytes, 0)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(rows: int, d: int, *, act_block: int, lut_bits: int,
+                  n_sm: int, x_dtype=torch.float32,
+                  params_dtype=torch.float32, aligned: bool = True,
+                  label: str = "") -> LaunchRecord:
+    """The launch ``mxint_layernorm`` makes for (rows, d) rows on a card of
+    ``n_sm`` SMs (``aligned``: rows, scales and output start on four
+    elements): the ``ln_geometry`` route, CTAs of LN_THREADS threads, the
+    dynamic shared memory of ``mxint_layernorm_launch``.  Raises
+    ``ValueError`` first for a format outside the kernel's domain."""
+    act_block = resolve_act_block(d, act_block)
+    if 2 ** lut_bits > MAX_LUT:
+        raise ValueError(f"mxint_layernorm kernel takes at most {MAX_LUT} "
+                         "LUT entries")
+    geom = ln_geometry(rows, d, act_block, n_sm, aligned)
+    check_ln_route(act_block, geom.vec)
+    xb = torch.tensor([], dtype=x_dtype).element_size()
+    pb = torch.tensor([], dtype=params_dtype).element_size()
+    v = geom.vec
+    T = "bf16" if x_dtype == torch.bfloat16 else "f32"
+    ops_ = (spec("x", (rows, d), x_dtype, v * xb),
+            spec("gamma", (d,), params_dtype, v * pb),
+            spec("beta", (d,), params_dtype, v * pb),
+            spec("out", (rows, d), torch.float32, 4 * v))
+    if geom.stage_words:
+        ops_ += (spec("scratch", (rows, geom.stage_words), torch.int32),)
+    return LaunchRecord(
+        "mxint_layernorm",
+        f"mxint_layernorm_kernel<{T}, P={v}, GS={int(bool(geom.stage_words))}>",
+        (geom.grid, 1, 1), LN_THREADS, geom.smem, LN_STATIC_SMEM, ops_,
+        (rows, d), row_tiles(rows, d, geom.rows_per_cta, geom.grid),
+        1, (geom.vec, geom.rows_per_cta), label)
 
 
 # ---------------------------------------------------------------------------
@@ -269,18 +310,19 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                               quantize_out=quantize_out)
     global launches
     x, gamma, beta = kernel_operands(x, gamma, beta)
-    if 2 ** lut_bits > MAX_LUT:
-        raise ValueError(f"mxint_layernorm kernel takes at most {MAX_LUT} "
-                         "LUT entries")
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_layernorm", x, gamma, lut,
                         *([] if beta is None else [beta]))
     out = torch.empty(rows, d, dtype=torch.float32, device=x.device)
-    geom = ln_geometry(rows, d, act_block, sm_count(x.device),
-                       aligned4(x, gamma, beta, out))
-    check_ln_route(act_block, geom.vec)
-    scratch = (torch.empty(rows * geom.stage_words, dtype=torch.int32,
-                           device=x.device) if geom.stage_words else None)
+    rec = launch_config(rows, d, act_block=act_block, lut_bits=lut_bits,
+                        n_sm=sm_count(x.device), x_dtype=x.dtype,
+                        params_dtype=gamma.dtype,
+                        aligned=aligned4(x, gamma, beta, out))
+    stage_words = rec.operands[-1].shape[1] \
+        if rec.operands[-1].name == "scratch" else 0
+    scratch = (torch.empty(rows * stage_words, dtype=torch.int32,
+                           device=x.device) if stage_words else None)
+    emit(rec, x=x, gamma=gamma, beta=beta, out=out, scratch=scratch)
     fn = _build.entry("mxint_layernorm", [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
         [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -290,7 +332,7 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
             rows, d, act_block, mant_bits, f32(1.0 / d), 2 ** lut_bits,
             f32(2 ** lut_bits / 1.5), int(rms_only), int(quantize_out),
             int(x.dtype == torch.bfloat16), int(gamma.dtype == torch.bfloat16),
-            geom.vec, geom.rows_per_cta, _build.stream_ptr(x.device))
+            *rec.args, _build.stream_ptr(x.device))
     _build.check(rc, "mxint_layernorm")
     launches += 1
     return out

@@ -34,6 +34,7 @@ output element and act block at the published f32 rate: like
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import Optional
 
@@ -41,13 +42,16 @@ import torch
 
 from repro_torch.core import luts
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_LN_BLOCK, MAX_LUT,
-                                                 aligned4, check_ln_route, f32,
+from repro_torch.kernels.launch_record import LaunchRecord, emit, spec
+from repro_torch.kernels.mxint_layernorm import (LN_PIECE, MAX_LN_BLOCK,
+                                                 MAX_LUT, aligned4,
+                                                 check_ln_route, f32,
                                                  kernel_operands, layernorm_rows,
                                                  ln_piece, lut_tensor)
 from repro_torch.kernels.mxint_matmul import (check_act_format, check_planes,
-                                              gemm_geometry, launch_args,
-                                              matmul_blocks, sm_count)
+                                              gemm_geometry, gemm_launch,
+                                              launch_args, matmul_blocks,
+                                              sm_count)
 
 launches = 0
 
@@ -64,6 +68,40 @@ def ln_matmul_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     y = y.to(x.dtype).to(torch.float32)            # the x.dtype round trip
     return matmul_blocks(y, w_mant, w_exp, w_block=w_block,
                          act_block=act_block, act_mant_bits=mant_bits)
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(M: int, N: int, d: int, *, w_block: int, act_block: int,
+                  mant_bits: int, lut_bits: int, n_sm: int,
+                  x_dtype=torch.float32, params_dtype=torch.float32,
+                  aligned: bool = True, label: str = "") -> LaunchRecord:
+    """The launch ``mxint_ln_matmul`` makes for x (M, d) and (d, N)
+    planes on a card of ``n_sm`` SMs: the LN stage's piece (``aligned``:
+    rows and scales start on four elements) and the GEMM core's tiles over
+    whole rows.  Raises ``ValueError`` first for a format outside the
+    kernel's domain, as the wrapper does."""
+    act_block = min(act_block, d)
+    check_act_format(mant_bits, act_block, w_block)
+    piece = ln_piece(act_block, aligned)
+    check_ln_route(act_block, piece, MAX_LN_BLOCK)
+    if 2 ** lut_bits > MAX_LUT or d % 16 or d % w_block:
+        raise ValueError("mxint_ln_matmul kernel takes int8 planes, rows of "
+                         f"a multiple of 16 and at most {MAX_LUT} LUT "
+                         "entries")
+    geom = gemm_geometry(M, N, d, n_sm, fused_ln=True, act_block=act_block,
+                         wide=mant_bits > 8)
+    xb = torch.tensor([], dtype=x_dtype).element_size()
+    pb = torch.tensor([], dtype=params_dtype).element_size()
+    vec = LN_PIECE if piece else 0
+    ops_ = (spec("x", (M, d), x_dtype, vec * xb),
+            spec("gamma", (d,), params_dtype, vec * pb),
+            spec("beta", (d,), params_dtype, vec * pb),
+            spec("w_mant", (d, N), torch.int8),
+            spec("w_exp", (d // w_block, N), torch.int8),
+            spec("out", (M, N), torch.float32, 16 if N % 4 == 0 else 0))
+    rec = gemm_launch("mxint_ln_matmul", geom, M, N, d, act_block,
+                      mant_bits, ops_, label, fused_ln=True)
+    return dataclasses.replace(rec, args=(piece,) + rec.args)
 
 
 @functools.lru_cache(maxsize=None)
@@ -101,28 +139,27 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     # the kernel reads f32 or bf16 rows and scales as they come (the
     # reference's kernel reads them as f32; bf16 to f32 is exact)
     x, gamma, beta = kernel_operands(x.contiguous(), gamma, beta)
-    check_act_format(mant_bits, act_block, w_block)
-    piece = ln_piece(act_block, aligned4(x, gamma, beta))
-    check_ln_route(act_block, piece, MAX_LN_BLOCK)
-    if 2 ** lut_bits > MAX_LUT or w_mant.dtype != torch.int8 or \
-            w_exp.dtype != torch.int8 or d % 16:
-        raise ValueError("mxint_ln_matmul kernel takes int8 planes, rows of "
-                         f"a multiple of 16 and at most {MAX_LUT} LUT "
-                         "entries")
+    if w_mant.dtype != torch.int8 or w_exp.dtype != torch.int8:
+        raise ValueError("mxint_ln_matmul kernel takes int8 planes")
+    N = w_mant.shape[1]
+    rec = launch_config(M, N, d, w_block=w_block, act_block=act_block,
+                        mant_bits=mant_bits, lut_bits=lut_bits,
+                        n_sm=sm_count(x.device), x_dtype=x.dtype,
+                        params_dtype=gamma.dtype,
+                        aligned=aligned4(x, gamma, beta))
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_ln_matmul", x, gamma, lut, w_mant, w_exp,
                         *([] if beta is None else [beta]))
-    N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    geom = gemm_geometry(M, N, d, sm_count(x.device), fused_ln=True,
-                         act_block=act_block, wide=mant_bits > 8)
+    emit(rec, x=x, gamma=gamma, beta=beta, w_mant=w_mant, w_exp=w_exp,
+         out=out)
     xp, wmp, wep, outp = launch_args(x, w_mant, w_exp, out)
     rc = ln_matmul_entry()(
         xp, gamma.data_ptr(), None if beta is None else beta.data_ptr(),
         lut.data_ptr(), wmp, wep, outp, M, d, N, w_block, mant_bits,
         act_block, f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
         int(rms_only), int(x.dtype == torch.bfloat16),
-        int(gamma.dtype == torch.bfloat16), piece, *geom.args(),
+        int(gamma.dtype == torch.bfloat16), *rec.args,
         _build.stream_ptr(x.device))
     _build.check(rc, "mxint_ln_matmul")
     launches += 1

@@ -56,12 +56,16 @@ import ctypes
 import dataclasses
 import functools
 
+import numpy as np
 import torch
 
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
+from repro_torch.kernels.launch_record import (LaunchRecord, emit, rects,
+                                               spec)
 from repro_torch.kernels.mxint_layernorm import (
-    MAX_LUT, SMEM_LIMIT, block_quantize_rows, lut_tensor, sm_count)
+    GROUP_XCHG_SMEM, MAX_LUT, SMEM_LIMIT, block_quantize_rows, lut_tensor,
+    sm_count)
 
 ACT_BLOCK = 16        # the mma depth; the act block of the default path
 MAX_ACT_BLOCK = 256   # |dot| <= 256 * 32767 * 127 < 2^31
@@ -163,7 +167,9 @@ class GemmGeometry:
     """Launch geometry of the GEMM core: a CTA owns rows
     [x * bm, (x + 1) * bm) and column tiles [y * n_per, (y + 1) * n_per)
     of bn columns each, for grid (x, y); it streams the weight planes in
-    stages of bk rows.  ``chunked``: K is walked in MAX_CHUNK chunks."""
+    stages of bk rows.  ``chunked``: K is walked in MAX_CHUNK chunks.
+    ``per_sm``: the CTAs an SM is assumed to hold at once (the waves of
+    the cost estimate; the launch contracts check that they fit)."""
     bm: int
     bn: int
     n_per: int
@@ -172,6 +178,7 @@ class GemmGeometry:
     chunked: bool
     grid: tuple
     kc: int = MAX_CHUNK     # K columns a CTA stages at once
+    per_sm: int = 1
 
     def args(self):
         return (self.bm, self.bn, self.n_per, self.bk, self.ns)
@@ -298,7 +305,84 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
     n_per = min(range(1, (MAX_ACC_TILES if chunked else tiles) + 1),
                 key=cost)
     return (GemmGeometry(bm, bn, n_per, bk, ns, chunked,
-                         (rows, -(-tiles // n_per)), kc), cost(n_per))
+                         (rows, -(-tiles // n_per)), kc, per_sm),
+            cost(n_per))
+
+
+def gemm_threads(bm: int) -> int:
+    """Threads of a GEMM CTA: 8 warps per 16 rows (``gemm_threads`` in
+    ``csrc/mxint_common.cuh``)."""
+    return -(-bm // 16) * 256
+
+
+def act_variant(act_block: int, act_mant_bits: int) -> int:
+    """The GEMM core's instance of an act format (``act_variant`` in
+    ``csrc/mxint_common.cuh``): 2 int16 act mantissas, 0 the default block
+    16, 1 any other block."""
+    return 2 if act_mant_bits > 8 else 0 if act_block == ACT_BLOCK else 1
+
+
+def gemm_launch(kernel: str, geom: GemmGeometry, M: int, N: int, K: int,
+                act_block: int, act_mant_bits: int, operands: tuple,
+                label: str = "", fused_ln: bool = False) -> LaunchRecord:
+    """The ``LaunchRecord`` of a GEMM-core launch at ``geom``: the kernel
+    instance and the dynamic shared memory as the C entries pick them
+    (``mxint_matmul_launch``, ``mxint_ln_matmul`` ``launch``)."""
+    V = act_variant(act_block, act_mant_bits)
+    kc = K
+    if geom.chunked:
+        kc = geom.kc
+        if V == 0 and geom.kc != MAX_CHUNK:   # V 0 takes the full chunk
+            V = 1
+    smem = gemm_smem_bytes(geom.bm, geom.bn, geom.bk, geom.ns, kc,
+                           act_block, 2 if V == 2 else 1)
+    fn = (f"{kernel}_kernel<V{V}>" if fused_ln else
+          f"{kernel}_kernel<chunked={int(geom.chunked)}, V{V}>")
+    bm, bn, n_per = geom.bm, geom.bn, geom.n_per
+    tiles = -(-N // bn)
+
+    def out_tiles():
+        x = np.arange(geom.grid[0], dtype=np.int64)[:, None, None]
+        t = (np.arange(geom.grid[1], dtype=np.int64)[None, :, None] * n_per
+             + np.arange(n_per, dtype=np.int64)[None, None, :])
+        t = np.where(t < tiles, t, tiles)           # past the last: empty
+        return rects(x * bm, np.minimum(M, (x + 1) * bm), t * bn,
+                     np.minimum(N, (t + 1) * bn))
+
+    args = geom.args() if fused_ln else geom.args() + (geom.kc,)
+    return LaunchRecord(kernel, fn, (geom.grid[0], geom.grid[1], 1),
+                        gemm_threads(bm), smem, gemm_static_smem(fused_ln, V),
+                        operands, (M, N), out_tiles, geom.per_sm, args,
+                        label)
+
+
+def gemm_static_smem(fused_ln: bool, variant: int) -> int:
+    """Static shared memory of a GEMM-core kernel instance: the fused
+    kernel's LN stage at act blocks other than 16 and at 9-16 bits holds
+    ``wide_group_max``'s exchange slots."""
+    return GROUP_XCHG_SMEM if fused_ln and variant else 0
+
+
+@functools.lru_cache(maxsize=None)
+def launch_config(M: int, N: int, K: int, *, w_block: int, act_block: int,
+                  act_mant_bits: int, n_sm: int, w_dtype=torch.int8,
+                  label: str = "") -> LaunchRecord:
+    """The launch ``mxint_matmul`` makes for f32 x (M, K) and (K, N)
+    planes on a card of ``n_sm`` SMs; raises ``ValueError`` first for a
+    format outside the kernel's domain, as the wrapper does."""
+    check_act_format(act_mant_bits, act_block, w_block)
+    if w_dtype != torch.int8 or K % ACT_BLOCK or K % w_block or \
+            K % act_block or w_block % act_block:
+        raise ValueError("mxint_matmul kernel takes f32 x, int8 planes and "
+                         f"K a multiple of {ACT_BLOCK}")
+    geom = gemm_geometry(M, N, K, n_sm, act_block=act_block,
+                         wide=act_mant_bits > 8)
+    ops_ = (spec("x", (M, K), torch.float32),
+            spec("w_mant", (K, N), torch.int8),
+            spec("w_exp", (K // w_block, N), torch.int8),
+            spec("out", (M, N), torch.float32, 16 if N % 4 == 0 else 0))
+    return gemm_launch("mxint_matmul", geom, M, N, K, act_block,
+                       act_mant_bits, ops_, label)
 
 
 def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
@@ -382,11 +466,12 @@ def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
     _build.require_cuda("mxint_matmul", x, w_mant, w_exp)
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
-    geom = gemm_geometry(M, N, K, sm_count(x.device), act_block=act_block,
-                         wide=act_mant_bits > 8)
+    rec = launch_config(M, N, K, w_block=w_block, act_block=act_block,
+                        act_mant_bits=act_mant_bits, n_sm=sm_count(x.device))
+    emit(rec, x=x, w_mant=w_mant, w_exp=w_exp, out=out)
     rc = matmul_entry()(*launch_args(x, w_mant, w_exp, out), M, K, N,
-                        w_block, act_mant_bits, act_block, *geom.args(),
-                        geom.kc, _build.stream_ptr(x.device))
+                        w_block, act_mant_bits, act_block, *rec.args,
+                        _build.stream_ptr(x.device))
     _build.check(rc, "mxint_matmul")
     launches += 1
     return out

@@ -44,7 +44,10 @@ import torch
 from repro_torch.core import luts
 from repro_torch.core.quantize import pow2i
 from repro_torch.kernels import _build
-from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT, WARP,
+from repro_torch.kernels.launch_record import (LaunchRecord, emit, row_tiles,
+                                               spec)
+from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
+                                                 SCALAR_MAX_BLOCK, WARP,
                                                  block_quantize_rows, f32,
                                                  lut_tensor, requantize_rows,
                                                  resolve_act_block,
@@ -90,6 +93,31 @@ def softmax_geometry(rows: int, n: int, block: int,
                            -(-rows // (ROW_THREADS // WARP)))
 
 
+@functools.lru_cache(maxsize=None)
+def launch_config(rows: int, n: int, *, act_block: int, r_bits: int,
+                  aligned: bool = True, label: str = "") -> LaunchRecord:
+    """The launch ``mxint_softmax`` makes for (rows, n) f32 rows
+    (``aligned``: input and output start on 16 bytes): the
+    ``softmax_geometry`` route, a warp a row.  Raises ``ValueError`` first
+    for a format outside the kernel's domain, as the wrapper does."""
+    act_block = resolve_act_block(n, act_block)
+    if act_block > MAX_BLOCK or 2 ** r_bits > MAX_LUT:
+        raise ValueError("mxint_softmax kernel takes f32 rows, act_block "
+                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    geom = softmax_geometry(rows, n, act_block, aligned)
+    fn = (f"softmax_regs_kernel<E={geom.per_lane}, V={geom.vec}>"
+          if geom.per_lane else
+          f"softmax_long_kernel<{int(act_block <= SCALAR_MAX_BLOCK)}>")
+    vb = 16 if geom.vec == 4 else 0
+    ops_ = (spec("x", (rows, n), torch.float32, vb),
+            spec("out", (rows, n), torch.float32, vb))
+    return LaunchRecord(
+        "mxint_softmax", fn, (geom.grid, 1, 1), ROW_THREADS, 0, SMEM_BYTES,
+        ops_, (rows, n),
+        row_tiles(rows, n, ROW_THREADS // WARP, geom.grid), 1,
+        (geom.per_lane, geom.vec, geom.grid), label)
+
+
 def exp2_datapath(z: torch.Tensor, table: torch.Tensor, r_bits: int):
     """2^z for z <= 0 as 2^max(n, -126) * LUT_pow2(r)."""
     n = torch.floor(z)
@@ -129,21 +157,22 @@ def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
         return softmax_rows(x, act_block=act_block, mant_bits=mant_bits,
                             r_bits=r_bits, quantize_out=quantize_out)
     global launches
-    if x.dtype != torch.float32 or act_block > MAX_BLOCK or \
-            2 ** r_bits > MAX_LUT:
+    if x.dtype != torch.float32:
         raise ValueError("mxint_softmax kernel takes f32 rows, act_block "
                          f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
     lut = lut_tensor(luts.pow2_table(r_bits), x.device)
     _build.require_cuda("mxint_softmax", x, lut)
     out = torch.empty_like(x)
-    geom = softmax_geometry(rows, n, act_block, aligned=(
-        x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0))
+    rec = launch_config(rows, n, act_block=act_block, r_bits=r_bits,
+                        aligned=(x.data_ptr() % 16 == 0 and
+                                 out.data_ptr() % 16 == 0))
+    emit(rec, x=x, out=out)
     fn = _build.entry("mxint_softmax", [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p])
     rc = fn(x.data_ptr(), lut.data_ptr(), out.data_ptr(), rows, n, act_block,
-            mant_bits, 2 ** r_bits, LOG2E, int(quantize_out), geom.per_lane,
-            geom.vec, geom.grid, _build.stream_ptr(x.device))
+            mant_bits, 2 ** r_bits, LOG2E, int(quantize_out), *rec.args,
+            _build.stream_ptr(x.device))
     _build.check(rc, "mxint_softmax")
     launches += 1
     return out

@@ -18,12 +18,14 @@ from repro_torch.core.mx_types import NEG_INF
 from repro_torch.core.quantize import _resolve_block
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import mxint_gelu as _gelu
+from repro_torch.kernels import launch_fixture as _fixture
 from repro_torch.kernels import mxint_layernorm as _layernorm
 from repro_torch.kernels import mxint_ln_matmul as _ln_matmul
 from repro_torch.kernels import mxint_matmul as _matmul
 from repro_torch.kernels import mxint_softmax as _softmax
 from repro_torch.kernels.flash_attention import (TILE_K, flash_attention,
                                                  flash_attention_decode)
+from repro_torch.kernels.launch_fixture import launch_fixture
 from repro_torch.kernels.mxint_gelu import mxint_gelu
 from repro_torch.kernels.mxint_layernorm import f32, mxint_layernorm
 from repro_torch.kernels.mxint_ln_matmul import mxint_ln_matmul
@@ -38,7 +40,10 @@ LAUNCH_COUNTERS = {"mxint_matmul": (_matmul, "launches"),
                    "mxint_gelu": (_gelu, "launches"),
                    "mxint_layernorm": (_layernorm, "launches"),
                    "flash_attention": (_flash, "launches"),
-                   "flash_attention_decode": (_flash, "decode_launches")}
+                   "flash_attention_decode": (_flash, "decode_launches"),
+                   "launch_fixture": (_fixture, "launches")}
+# the kernels a model runs (the launch fixture serves the static checks)
+SERVED_KERNELS = tuple(n for n in LAUNCH_COUNTERS if n != "launch_fixture")
 
 # the whole-row 'paper' attention holds the full score matrix; beyond this
 # many scores per (batch, head) the backend takes the blocked flash kernel

@@ -106,6 +106,8 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     """
     half = x.shape[-1] // 2
     log_theta = torch.log(torch.tensor(theta, dtype=torch.float32))
+    # rank-1 frequency ladder on concrete constants, not a datapath op:
+    # repro-lint: allow[models-float-nonlinear] positional constants
     freqs = torch.exp(-torch.arange(0, half, dtype=torch.float32) *
                       (log_theta / half)).to(x.device)
     ang = (positions[..., None].to(torch.float32) * freqs).double()

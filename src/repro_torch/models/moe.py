@@ -82,6 +82,7 @@ def aux_loss(logits: torch.Tensor, top1: torch.Tensor,
     outside the MXInt datapath) and each expert's share of first choices,
     in float64, rounded once to a float32 scalar."""
     E = cfg.moe.num_experts
+    # repro-lint: allow[models-float-nonlinear] float-by-design aux loss
     probs = torch.softmax(logits.double(), dim=-1)
     me = probs.mean(dim=0)
     ce = _counts(top1, E).double() / top1.numel()

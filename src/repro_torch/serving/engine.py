@@ -351,9 +351,7 @@ class ViTServingEngine:
             raise ValueError(f"data sharding needs batch % dp == 0, got "
                              f"batch={serve_cfg.batch} dp={self.dp}")
         q = model.cfg.quant
-        if self.tp > 1 and {getattr(q, "mode")} | {
-                getattr(ov, "mode") for _, ov in getattr(q, "overrides")
-                if getattr(ov, "mode")} != {"kernel"}:
+        if self.tp > 1 and q.modes() != {"kernel"}:
             raise ValueError("tensor-parallel serving runs the kernel "
                              "datapath: QuantConfig(mode='kernel')")
         strategy = serve_cfg.tp_strategy

@@ -45,9 +45,11 @@ def _count_launches():
     before = ops.launch_counts()
     yield
     total = 0
-    for name, n in ops.launch_counts().items():
-        T.counter(f"kernel/launches/{name}").inc(n - before[name])
-        total += n - before[name]
+    after = ops.launch_counts()
+    for name in ops.SERVED_KERNELS:
+        n = after[name] - before[name]
+        T.counter(f"kernel/launches/{name}").inc(n)
+        total += n
     T.histogram("scheduler/kernel_launches",
                 T.DEFAULT_SIZE_BUCKETS).record(total)
 

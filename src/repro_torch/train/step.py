@@ -38,17 +38,11 @@ from repro_torch.parallel import collectives
 from repro_torch.train.state import TrainState
 
 
-def _modes(q) -> set:
-    """Every execution mode a config can resolve to, overrides included."""
-    return {getattr(q, "mode")} | {getattr(ov, "mode") or getattr(q, "mode")
-                                   for _, ov in getattr(q, "overrides")}
-
-
 def check_trainable(model, params=None) -> None:
     """Raise ``ValueError`` unless ``model`` (and ``params``, when given)
     can carry gradients: no kernel mode in any layer group, no packed
     planes."""
-    if "kernel" in _modes(model.cfg.quant):
+    if "kernel" in model.cfg.quant.modes():
         raise ValueError("mode='kernel' is inference only: the Hopper "
                          "kernels carry no gradient; train in 'off', "
                          "'fake' or 'sim'")

@@ -5,7 +5,6 @@ reference runs with two scoped fixes for the installed jax (the
 ``TPUCompilerParams`` alias and an exact ``exp2`` on integer inputs), so
 its quantizer scales are the exact powers of two the port builds.
 """
-import ast
 import importlib
 from pathlib import Path
 
@@ -166,20 +165,17 @@ def test_quant_config_resolves_each_mode_to_the_reference_counterpart():
         QuantConfig(mode="bogus")
 
 
-def _imports(path: Path):
-    tree = ast.parse(path.read_text())
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for a in node.names:
-                yield a.name.split(".")[0]
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield (node.module or "").split(".")[0]
-
-
 def test_port_imports_neither_jax_nor_reference():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 20
-    bad = [(f.relative_to(ROOT).as_posix(), m) for f in files
-           for m in _imports(f) if m in ("jax", "jaxlib", "repro")]
-    assert not bad, bad
+    """The ``port-imports`` source rule over ``src/repro_torch/`` and
+    ``chip_smoke.py``."""
+    from repro_torch.analysis import source_rules
+    files = [f for f in source_rules.scanned_files(ROOT)
+             if f.name == "chip_smoke.py" or "repro_torch" in f.parts]
+    assert len(files) > 20 and ROOT / "chip_smoke.py" in files
+    bad = source_rules.check_tree(ROOT, only="port-imports")
+    assert not bad, [str(v) for v in bad]
+    # the rule takes no waiver, and none is written
+    assert "port-imports" in source_rules.UNWAIVABLE
+    waived = [f.name for f in files
+              if "allow[port-imports]" in f.read_text()]
+    assert not waived, waived
