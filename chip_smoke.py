@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --kernels flash_attention_decode   # one kernel
     python3 chip_smoke.py --training          # the training phases only
+    python3 chip_smoke.py --launch            # the launch and examples
 
 1. Prints the card's name and power limit, then builds the seven CUDA
    sources from ``src/repro_torch/kernels/csrc`` (seven kernels and the
@@ -296,6 +297,30 @@
    at once, beside phase 21's (the row strategy at 2 layers bit for bit,
    DeiT-Micro's pod steps within ``LM_SMOKE_LOSS_TOL``, on 2 gloo CPU
    ranks); each check compares when every CPU side is back.
+22b. Launch (``launch_phase``; ``--launch`` runs it and 22c alone):
+   the launch dry run (``repro_torch.launch.dryrun.run_cell``) of
+   Llama-3-8B at full width cut to ``LAUNCH_LAYERS`` layers on the
+   one-card mesh (1, 1), for an MXInt6-planes decode step at batch 4 over
+   a 2048-position cache and a bf16 train step at batch 2 x 256, held
+   against the same steps on the card: the predicted resident bytes equal
+   the bytes that placing the parameters, state, cache and inputs
+   requests (``requested_bytes``, within ``LAUNCH_ROUND`` bytes a
+   tensor; the allocator's blocks above the requests printed); the
+   predicted FLOPs equal
+   ``FlopCounterMode``'s on the card; the predicted transient peak within
+   ``LAUNCH_PEAK_TOL`` of ``max_memory_allocated`` above the arguments;
+   each step's ms (CUDA events) printed beside the roofline's three terms
+   and its share.  And ``python -m repro_torch.launch.dryrun --arch
+   llama3_8b --shape decode_32k --mesh single``, in a subprocess started
+   before the tp phase (it needs no card): both variants ``ok``.  The
+   phase runs while the pool of item 22 works.
+22c. Examples (``examples_phase``): the four drivers of
+   ``repro_torch.examples`` on the card at their smallest flags, side by
+   side in processes of their own, after phase 20 (before the pool of
+   item 22 starts): ``quickstart``; ``serve_deit_mxint``
+   with kernel == sim on every batch; ``serve_llm_mxint --kernel`` (its
+   tokens, and the decode and matmul kernels launched);
+   ``train_lm_fault_tolerant`` resumed equal to the straight run.
 23. Prints one JSON line of per-kernel results, then as the last line
    ``{"ok": true, "device": {...}}``.  Any failure exits non-zero without it.
 
@@ -1136,7 +1161,11 @@ def kernel_cases(torch, np):
                                               a.data_ptr() % 16 == 0)
         log(f"[kernel] mxint_softmax {label} route {geom}")
         lib = None
-        if label.startswith("seamless"):
+        if not cases["mxint_softmax"]:
+            # the DeiT scores: one PyTorch call computes the float softmax
+            def lib(a=a):
+                return torch.softmax(a, dim=-1)
+        elif label.startswith("seamless"):
             # beside it, SDPA of the whole attention whose scores these
             # rows are (bf16, head dim 64): what one PyTorch call takes
             # for the score product, a float softmax and P.V
@@ -1214,7 +1243,10 @@ def kernel_cases(torch, np):
                 mxint_gelu.gelu_rows(a, lut, act_block=blk, mant_bits=mb,
                                      domain=dom),
             bound(2 * R * d * 4, f32_ops=ROW_OPS["mxint_gelu"] * R * d),
-            None))
+            # the DeiT case: one PyTorch call computes the float GELU
+            None if cases["mxint_gelu"] else
+            (lambda a=a, fn=fn: (F.gelu(a) if fn == "gelu"
+                                 else F.silu(a)))))
     # the LM's final RMSNorm: bf16 rows and scale as the model hands them,
     # no beta (decode: 4 rows; a prefill's: 1024); LayerNorm at d 4096;
     # every route of ln_geometry: float4 / bf16 quads at act blocks 16, 8
@@ -1298,7 +1330,12 @@ def kernel_cases(torch, np):
             bound(a.numel() * a.element_size() + R * d * 4
                   + (1 if b is None else 2) * d * g.element_size(),
                   f32_ops=ROW_OPS["mxint_layernorm"] * R * d),
-            None))
+            # the DeiT case: one PyTorch call computes the float LayerNorm
+            # (RMSNorm where the case is RMS)
+            None if cases["mxint_layernorm"] else
+            (lambda a=a, g=g, b=b, rms=rms, d=d:
+                F.rms_norm(a, (d,), g) if rms else
+                F.layer_norm(a, (d,), g, b))))
     widened_cases(torch, cases, x, planes, rows)
     cases.update(flash_cases(torch, np, x))
     return cases
@@ -4485,6 +4522,244 @@ def lm_train_phase(torch, np):
     return out
 
 
+# The launch phase: the dry run's predictions (``repro_torch.launch``) for
+# Llama-3-8B at full width cut to ``LAUNCH_LAYERS`` layers, on the one-card
+# mesh (1, 1), where the even split is no assumption, held against the
+# same step on the card: resident bytes against what placing the
+# arguments requests (``requested_bytes``, within ``LAUNCH_ROUND`` bytes a
+# tensor; the allocator's blocks above the requests printed), the
+# FLOPs against ``FlopCounterMode`` on the card (the same aten ops:
+# equal), the live peak against ``max_memory_allocated`` above the
+# arguments within ``LAUNCH_PEAK_TOL`` of the measured peak.  Then the
+# CLI, in a subprocess, for one production cell.
+LAUNCH_LAYERS = 2
+LAUNCH_CELLS = (("decode", "mxint", 2048, 4), ("train", "bf16", 256, 2))
+LAUNCH_ROUND = 512
+# measured (chip runs 2 and 4): -4e-9 (decode) and +1.0e-7 (train) of the
+# peak
+LAUNCH_PEAK_TOL = 1e-3
+LAUNCH_CLI = ("--arch", "llama3_8b", "--shape", "decode_32k", "--mesh",
+              "single")
+LAUNCH_OUT = ROOT / "build" / "launch_smoke"
+
+
+# the processes the smoke starts beside its phases; any still running at
+# exit (a phase failed first) is stopped
+CHILDREN = []
+
+
+def _stop_children():
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def child(args):
+    """Start ``python -m args...`` from the checkout's root, its output
+    piped; the smoke stops it at exit if it still runs."""
+    p = subprocess.Popen(
+        [sys.executable, "-m", *args], cwd=str(ROOT), text=True,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    CHILDREN.append(p)
+    return p
+
+
+def start_launch_cli():
+    """Start the dry run's CLI on one production cell: it needs no card,
+    so it runs beside other phases.  Returns (the process, its start)."""
+    return child(["repro_torch.launch.dryrun", *LAUNCH_CLI, "--out",
+                  str(LAUNCH_OUT), "--tag", "smoke"]), time.perf_counter()
+
+
+def launch_phase(torch, np, smi, cli):
+    """The launch dry run held against one card, and the CLI's cell
+    (``start_launch_cli``) checked (module docstring, item 22b)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import llama3_8b
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.model_api import ShapeConfig
+    cfg = cut_depth(llama3_8b.FULL, LAUNCH_LAYERS)
+    mesh = {"data": 1, "model": 1}
+    out = {"card": smi, "layers": LAUNCH_LAYERS, "cells": {}}
+    for kind, variant, seq, batch in LAUNCH_CELLS:
+        tag = f"launch {kind} {variant}"
+        shape = ShapeConfig(f"{kind}_b{batch}_s{seq}", seq, batch, kind)
+        t = time.perf_counter()
+        rec, _ = D.run_cell(cfg, shape, mesh, variant=variant)
+        dry_s = time.perf_counter() - t
+        roof = rec["roofline"]
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        stats0 = torch.cuda.memory_stats()
+        cell = D.build_cell(cfg, shape, mesh, variant=variant,
+                            device=DEVICE, seed=SEED)
+        torch.cuda.synchronize()
+        stats1 = torch.cuda.memory_stats()
+        from torch.utils._pytree import tree_flatten
+        n_tensors = sum(isinstance(t, torch.Tensor)
+                        for t in tree_flatten(cell.args)[0])
+        key_a, key_r = "allocated_bytes.all.current", \
+            "requested_bytes.all.current"
+        allocated = stats1[key_a] - stats0[key_a]
+        requested = stats1[key_r] - stats0[key_r]
+        predicted = rec["resident_bytes"]["total"]
+        log(f"[{tag}] resident bytes predicted {predicted} (params "
+            f"{rec['resident_bytes']['params']}, state "
+            f"{rec['resident_bytes']['opt_state']}, cache "
+            f"{rec['resident_bytes']['cache']}, batch "
+            f"{rec['resident_bytes']['batch']}), placed: requested "
+            f"{requested}, allocated {allocated} over {n_tensors} tensors")
+        # the requests are the allocation's sizes: within LAUNCH_ROUND a
+        # tensor of the prediction (measured: equal).  The allocator's
+        # blocks round each to 512 bytes and keep a large block's tail of
+        # under 1 MiB unsplit (chip run 1: 1,319,904 bytes over 43
+        # tensors): printed, not held
+        if abs(requested - predicted) > LAUNCH_ROUND * n_tensors:
+            raise AssertionError(f"{tag}: placing the arguments requested "
+                                 f"{requested} bytes, predicted {predicted}")
+        log(f"[{tag}] requested - predicted {requested - predicted} bytes; "
+            f"the allocator's blocks {allocated - requested} bytes above "
+            f"the requests")
+
+        def step(cell=cell):
+            return cell.step(*cell.args)
+
+        del_out = step()                      # warm: workspaces, handles
+        del del_out
+        torch.cuda.synchronize()
+        with FlopCounterMode(display=False) as fc:
+            res = step()
+        del res
+        card_flops = fc.get_total_flops()
+        log(f"[{tag}] FLOPs predicted {rec['counts']['flops']} "
+            f"({rec['counts']['flops_by_dtype']}), on the card "
+            f"{card_flops}")
+        if card_flops != rec["counts"]["flops"]:
+            raise AssertionError(f"{tag}: {card_flops} FLOPs on the card, "
+                                 f"{rec['counts']['flops']} predicted")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        res = step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        del res
+        pred_peak = rec["memory"]["transient_bytes_ideal"]
+        gap = (pred_peak - peak) / peak
+        log(f"[{tag}] transient peak predicted {pred_peak!r} bytes, "
+            f"measured {peak} (max_memory_allocated above the arguments): "
+            f"{gap:+.2e} (limit {LAUNCH_PEAK_TOL:.0e})")
+        if abs(gap) > LAUNCH_PEAK_TOL:
+            raise AssertionError(f"{tag}: peak {pred_peak} predicted, {peak} "
+                                 f"measured")
+        ms = time_ms(step, iters=5, warmup=1)
+        bound_ms = max(roof["compute_s"], roof["memory_s"],
+                       roof["collective_s"]) * 1e3
+        log(f"[{tag}] measured {ms!r} ms a step; roofline compute "
+            f"{roof['compute_s'] * 1e3!r} ms (by dtype "
+            f"{roof['flops_by_dtype']}), memory {roof['memory_s'] * 1e3!r} "
+            f"ms, collective {roof['collective_s'] * 1e3!r} ms: "
+            f"{roof['bottleneck']} binds, {bound_ms / ms:.4f} of the "
+            f"measured time ({smi}); dry run {dry_s!r} s")
+        out["cells"][tag] = {
+            "resident_predicted": predicted, "requested": requested,
+            "allocated": allocated, "tensors": n_tensors,
+            "flops_predicted": rec["counts"]["flops"],
+            "flops_by_dtype": rec["counts"]["flops_by_dtype"],
+            "flops_card": card_flops, "peak_predicted": pred_peak,
+            "peak_measured": peak, "peak_gap": gap, "ms": ms,
+            "roofline": roof, "roofline_share": bound_ms / ms,
+            "dry_run_s": dry_s}
+        del cell, step
+        torch.cuda.empty_cache()
+    proc, t_cli = cli
+    stdout, stderr = proc.communicate(timeout=300)
+    cli_s = time.perf_counter() - t_cli
+    if proc.returncode:
+        raise AssertionError(f"launch cli: rc {proc.returncode}\n"
+                             f"{stdout[-2000:]}{stderr[-2000:]}")
+    summary = json.loads(stdout.strip().splitlines()[-1])
+    recs = [json.loads(f.read_text())
+            for f in LAUNCH_OUT.glob("*.smoke.json")
+            if not f.name.startswith("summary")]
+    log(f"[launch cli] {' '.join(LAUNCH_CLI)}: {summary}, {cli_s!r} s "
+        f"from its start")
+    for r in recs:
+        log(f"[launch cli] {r['arch']} {r['shape']} {r['mesh']} "
+            f"{r['variant']}: ok {r['ok']}, resident "
+            f"{r['resident_bytes']['total'] / 2 ** 30:.3f} GiB a device, "
+            f"transient (ideal) "
+            f"{r['memory']['transient_bytes_ideal'] / 2 ** 30:.3f} GiB, "
+            f"bottleneck {r['roofline']['bottleneck']}, {r['seconds']!r} s")
+    if not summary.get("ok") or len(recs) != 2 or \
+            not all(r["ok"] for r in recs):
+        raise AssertionError(f"launch cli: {stdout[-2000:]}")
+    out["cli"] = {"summary": summary, "seconds": cli_s,
+                  "records": [{k: r[k] for k in ("arch", "shape", "mesh",
+                                                 "variant", "ok", "seconds",
+                                                 "resident_bytes",
+                                                 "roofline")}
+                              for r in recs]}
+    return out
+
+
+# The examples phase: the four drivers of ``repro_torch.examples`` on the
+# card at their smallest flags, each in its own process, side by side;
+# each one's last line is its JSON report.
+EXAMPLES = (("quickstart",),
+            ("serve_deit_mxint", "--requests", "16", "--batch", "8",
+             "--train-steps", "20"),
+            ("serve_llm_mxint", "--requests", "2", "--new-tokens", "4",
+             "--kernel"),
+            ("train_lm_fault_tolerant", "--steps", "4", "--batch", "2",
+             "--seq", "16", "--dir", "build/examples/train_lm"))
+
+
+def start_examples():
+    """Start every driver; returns (the processes, the start time)."""
+    return [(ex[0], child([f"repro_torch.examples.{ex[0]}", *ex[1:]]))
+            for ex in EXAMPLES], time.perf_counter()
+
+
+def examples_phase(started):
+    """Wait for the drivers and check their reports (module docstring,
+    item 22c)."""
+    procs, t0 = started
+    out = {}
+    for name, p in procs:
+        stdout, stderr = p.communicate(timeout=300)
+        if p.returncode:
+            raise AssertionError(f"example {name}: rc {p.returncode}\n"
+                                 f"{stdout[-2000:]}{stderr[-2000:]}")
+        rep = json.loads(stdout.strip().splitlines()[-1])
+        out[name] = rep
+        log(f"[examples] {name}: {json.dumps(rep)[:600]}")
+    out["seconds"] = time.perf_counter() - t0
+    deit = out["serve_deit_mxint"]
+    if deit["kernel_equals_sim"] != deit["batches"] or not deit["batches"]:
+        raise AssertionError(f"serve_deit_mxint: kernel == sim on "
+                             f"{deit['kernel_equals_sim']} of "
+                             f"{deit['batches']} batches")
+    llm = out["serve_llm_mxint"]
+    if not (llm["kernel"] and llm["tokens"] == 8
+            and llm["launches"]["flash_attention_decode"] > 0
+            and llm["launches"]["mxint_matmul"] > 0):
+        raise AssertionError(f"serve_llm_mxint: {llm}")
+    if not out["train_lm_fault_tolerant"]["resumed_equals_straight"]:
+        raise AssertionError("train_lm_fault_tolerant: the resumed run "
+                             "differs from the straight one")
+    if not all(out[ex[0]]["ok"] for ex in EXAMPLES) or any(
+            not out[ex[0]]["device"].startswith("cuda") for ex in EXAMPLES):
+        raise AssertionError(f"examples: {out}")
+    log(f"[examples] all four drivers on the card in "
+        f"{out['seconds']!r} s; kernel == sim on {deit['kernel_equals_sim']}"
+        f"/{deit['batches']} DeiT batches")
+    return out
+
+
 def check_full_depth_launches(name, stats):
     """Raise unless a serve phase launched the counts of
     ``FULL_DEPTH_LAUNCHES`` a slot prefill and a decode step."""
@@ -4557,7 +4832,12 @@ def main(argv) -> int:
     ap.add_argument("--training", action="store_true",
                     help="build, then run only the training phases (17-20; "
                          "prints no 'ok' line)")
+    ap.add_argument("--launch", action="store_true",
+                    help="build, then run only the launch and examples "
+                         "phases (22b-22c; prints no 'ok' line)")
     args = ap.parse_args(argv)
+    import atexit
+    atexit.register(_stop_children)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4617,6 +4897,21 @@ def main(argv) -> int:
              "rec_train": rec}, indent=1))
         log(json.dumps({"partial": ["train", "accuracy", "lm train",
                                     "rec train"]}))
+        return 0
+
+    if args.launch:
+        t = time.perf_counter()
+        launch = launch_phase(torch, np, smi, start_launch_cli())
+        log(f"[time] launch phase {time.perf_counter() - t!r} s")
+        t = time.perf_counter()
+        examples = examples_phase(start_examples())
+        log(f"[time] examples phase {time.perf_counter() - t!r} s")
+        out = ROOT / "build"
+        out.mkdir(exist_ok=True)
+        (out / "chip_smoke_launch.json").write_text(json.dumps(
+            {"card": smi, "launch": launch, "examples": examples}, indent=1,
+            default=str))
+        log(json.dumps({"partial": ["launch", "examples"]}))
         return 0
 
     t_start = time.perf_counter()
@@ -4680,12 +4975,23 @@ def main(argv) -> int:
     workers = os.cpu_count() or 1
     log(f"[cpu checks] the pool: {workers} worker processes "
         f"(os.cpu_count()), {CPU_THREADS} torch thread each")
+    # the example drivers side by side, before the pool: beside it they
+    # took the cores its CPU sides need (chip run 5: the drivers 119 s,
+    # the pool 447 s)
+    examples_stats = phase("examples", examples_phase, start_examples())
     CPU_CHECKS.start(workers)
+    # the dry run's CLI needs no card and the pool is idle yet: it runs
+    # beside the tp phase
+    launch_cli = start_launch_cli()
     tp_stats, tp_cpu, tp_launches = phase("tp", tp_phase, torch, np, smi)
     # every timed phase is done: the card-against-CPU checks, their CPU
     # sides side by side in the pool, and each check compares
     cpu_stats, vlm_cpu, encdec_cpu = card_vs_cpu_phases(
         torch, np, phase, new_lms, moe_lms, rec_lms)
+    # the card is free while the pool works: the launch dry run against
+    # the card
+    torch.cuda.empty_cache()
+    launch_stats = phase("launch", launch_phase, torch, np, smi, launch_cli)
     phase("cpu checks", CPU_CHECKS.run)
     log(f"[cpu checks] {len(CPU_CHECKS.futures)} CPU sides, "
         f"{CPU_CHECKS.seconds!r} s from the pool's start")
@@ -4771,6 +5077,7 @@ def main(argv) -> int:
          "train": train_stats,
          "accuracy": acc_stats, "lm_train": lm_train_stats,
          "rec_train": rec_train_stats, "tp": tp_stats,
+         "launch": launch_stats, "examples": examples_stats,
          "analysis": analysis, "cpu_checks_s": CPU_CHECKS.seconds},
         indent=1, default=str))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",

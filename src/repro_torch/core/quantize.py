@@ -218,8 +218,17 @@ def requantize_to_max_exponent(t: MXTensor, axis: int = -1):
 def pack_weight(w: torch.Tensor, fmt: MXFormat, axis: int = 0) -> MXTensor:
     """Quantize a weight for packed serving storage; ``axis`` is the
     contraction dimension, so each output feature's blocks run along the
-    reduction, the layout the matmul kernels consume."""
-    return quantize(w, fmt, axis=axis)
+    reduction, the layout the matmul kernels consume.  A ``meta`` weight
+    (the launch dry run's) has no values: it gets the planes' shapes and
+    dtypes alone, as the reference's ``abstract=True`` packing does."""
+    if w.device.type != "meta":
+        return quantize(w, fmt, axis=axis)
+    axis = axis % w.ndim
+    block = _resolve_block(w.shape[axis], fmt.block_size)
+    e_shape = w.shape[:axis] + (w.shape[axis] // block,) + w.shape[axis + 1:]
+    return MXTensor(torch.empty(w.shape, dtype=fmt.mant_dtype, device="meta"),
+                    torch.empty(e_shape, dtype=torch.int8, device="meta"),
+                    axis - w.ndim, fmt.mant_bits, block)
 
 
 def packed_bytes(tree) -> int:

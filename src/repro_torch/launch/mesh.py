@@ -64,6 +64,38 @@ def make_serving_mesh(dp: int, tp: int,
                  f"make_serving_mesh(dp={dp}, tp={tp})")
 
 
+# the reference's meshes by name, (shape, axis names): the production
+# single pod of 16 x 16 places and two such pods, and the tiny ones of
+# the machinery tests
+MESHES = {
+    "single_16x16": ((16, 16), ("data", "model")),
+    "multi_2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+    "tiny_2x2": ((2, 2), ("data", "model")),
+    "tiny_2x2x2": ((2, 2, 2), ("pod", "data", "model")),
+}
+
+
+def mesh_shape(name: str) -> dict:
+    """A named mesh's axis names and sizes, in order, with no process
+    group: what the launch dry run lays tensors out over."""
+    shape, axes = MESHES[name]
+    return dict(zip(axes, shape))
+
+
+def production_mesh_shape(multi_pod: bool = False) -> dict:
+    return mesh_shape("multi_2x16x16" if multi_pod else "single_16x16")
+
+
+def make_production_mesh(multi_pod: bool = False,
+                         device_type: str = "cuda") -> DeviceMesh:
+    """The reference's production mesh: (16, 16) over ("data", "model"),
+    or with ``multi_pod`` (2, 16, 16) over ("pod", "data", "model"); needs
+    a process group of exactly 256 or 512 ranks."""
+    sizes = production_mesh_shape(multi_pod)
+    return _mesh(tuple(sizes.values()), tuple(sizes), device_type,
+                 f"make_production_mesh(multi_pod={multi_pod})")
+
+
 def make_test_mesh(shape=(2, 2), axes=("data", "model"),
                    device_type: str = "cuda") -> DeviceMesh:
     """A mesh of any small shape and axis names (the tests' and the

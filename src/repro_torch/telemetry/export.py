@@ -53,6 +53,11 @@ DEFAULT_PEAKS = RooflinePeaks()
 # outside the tensor cores
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+# NVIDIA H100 SXM data sheet: "FP64 Tensor Core 67 teraFLOPS" (the
+# float64 products run there), and "NVLink 900 GB/s", which counts both
+# directions: one way carries half of it
+F64_TENSOR_OPS_PER_S = 67e12
+NVLINK_BYTES_PER_S = 900e9 / 2
 
 
 def json_snapshot(snapshot: Optional[dict] = None,
