@@ -52,10 +52,16 @@
    16-bit act mantissas (at blocks 16 and 32), at DeiT-Base's FFN shapes
    (timed) and a Llama decode shape; softmax, GELU and LN at act blocks
    32, 64 and 128 at the DeiT shapes (timed).  ``mxint_matmul`` computes
-   at ``act_mant_bits=10`` and must raise before it launches at 17 bits
-   and at act block 12, and its C entry must refuse 17 bits (its act tile
-   holds int16 at most); a kernel-mode linear on 10-bit weights (int16
-   planes) must raise.
+   at ``act_mant_bits=10`` on its GEMM core and at 17 and 24 bits and act
+   block 12 on its generic route, and must raise before it launches at
+   25 bits; the core's C entry must refuse 17 bits (its act tile holds
+   int16 at most); a kernel-mode linear on 10-bit weights (int16 planes)
+   takes the generic route.  The generic routes (``GENERIC_LABELS``,
+   under ``<kernel>/generic``): every format only they take, at the
+   launch sweep's ``generic_cases`` shapes, and the served widened format
+   at DeiT-Base's shapes (W12 planes, act block 12, LN 13-bit, GELU
+   14-bit, softmax r 16), float activations at its FFN ``wo``, the flash
+   kernel at r 10, each timed.
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -144,9 +150,16 @@
    1e-6.  The probes phase (8) prints the four probe labels' measured
    time against the cost table's prediction (``predicted_vs_measured``).
 11. Widened serve: DeiT-Base served through ``ClassifyScheduler`` with the
-   FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``) and
-   with 12-bit acts everywhere, the DeiT phase's telemetry and launch
-   checks; ms per batch.
+   FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``),
+   with 12-bit acts everywhere, and at the widened format
+   (``wide_quant``: W12 planes, act block 12, Table VI's vanilla LUTs),
+   whose 99 launches a batch all take the generic routes, the DeiT
+   phase's telemetry and launch checks; ms per batch.  Then Llama-3-8B at
+   full width and one layer at score act block 64 (``widened_lm_phase``):
+   3 requests and a 1024-token score, every flash and decode launch on
+   the generic route.  After the timed phases, DeiT-Tiny (2 layers) at
+   the widened format on the card against the CPU, in the CPU pool: 0
+   differing logits (``widened_cpu_phase``).
 12. Mixture of experts: Mixtral-8x7B (d 4096, 32 heads over 8, 8
    experts top-2, d_ff 14336, vocab 32000, window 4096) and Granite-MoE-3B
    (d 1536, 24 heads over 8, 40 experts top-8, d_ff 512, tied vocab
@@ -161,7 +174,8 @@
    kernel and "experts" (the expert stacks' dequantize and einsums),
    beside the byte bounds of the planes read once and of the dequantize;
    one 1024-token ``loss`` forward with the load-balancing loss; then a
-   2-layer card-against-CPU check in kernel mode, phase 6's tolerance.
+   ``MOE_CPU_LAYERS``-layer (1) card-against-CPU check in kernel mode,
+   phase 6's tolerance.
    The kernel phase holds the MoE shapes: routers at N 8 and 40, the
    gates' softmax over rows of 2 and 8, the SiLU over (E x C, d_ff)
    capacity buffers, the RMSNorm before the FFN.
@@ -346,7 +360,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # kept pair) have bf16 operands, so their least time is at the bf16
 # tensor-core rate
 from repro_torch.analysis.cost_model import (ROW_OPS, bound,  # noqa: E402
-                                             gemm_f32_ops)
+                                             gemm_f32_ops, int8_splits)
 # every call's launches, by kernel, from the model's block kinds
 from repro_torch.models.launches import (encdec_launches,  # noqa: E402
                                          lm_launches)
@@ -503,8 +517,12 @@ DSE_CPU_LAYERS = 2
 DSE_CPU_IMAGES = 16
 # the mixture-of-experts decoders (config modules) at full width and
 # MOE_SERVE_LAYERS of their 32 layers, served as NEW_LMS are; their
-# card-against-CPU check in kernel mode at MOE_CPU_LAYERS layers (2: one
-# layer's expert outputs feed the next layer's router).  DeepSeek-67B at full width and DEEPSEEK_LAYERS of its
+# card-against-CPU check in kernel mode at MOE_CPU_LAYERS layers (1 since
+# the generic routes' cases joined the kernel phase: Mixtral's CPU side
+# at 2 layers held four of the pool's cores for 187 s; at 2 one layer's
+# expert outputs fed the next layer's router, and the float64 expert
+# products, rounded once, give both devices the same router inputs at
+# any depth).  DeepSeek-67B at full width and DEEPSEEK_LAYERS of its
 # 95 layers (all 95 would hold 62.8 GiB of planes, 3.0 GiB of ring at
 # batch 4 and about 11 GiB of float32 temporaries while the unembedding
 # is dequantized, too close to the card's 79.2 GiB).  The depths were cut
@@ -515,7 +533,7 @@ DSE_CPU_IMAGES = 16
 # only fewer times.
 MOE_LMS = ("mixtral_8x7b", "granite_moe_3b_a800m")
 MOE_SERVE_LAYERS = 8
-MOE_CPU_LAYERS = 2
+MOE_CPU_LAYERS = 1
 DEEPSEEK_LAYERS = 16
 # the recurrent families (config modules) at full width and depth: served
 # REC_PROMPTS (powers of two: no pad token enters a recurrent state),
@@ -839,8 +857,14 @@ def idle_share(busy_ms, wall_ms):
 
 def reset_counts():
     from repro_torch.kernels import ops
-    for m, attr in ops.LAUNCH_COUNTERS.values():
+    for m, attr in (*ops.LAUNCH_COUNTERS.values(),
+                    *ops.ROUTE_COUNTERS.values()):
         setattr(m, attr, 0)
+
+
+def read_routes():
+    from repro_torch.kernels import ops
+    return ops.route_counts()
 
 
 def read_counts():
@@ -996,7 +1020,8 @@ def kernel_cases(torch, np):
         cases["mxint_matmul"].append((
             label,
             lambda a=a, w=w: mxint_matmul.mxint_matmul(
-                a, w.mantissa, w.exponent, w_block=w.block_size),
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                quantize_act=True),
             lambda a=a, w=w: mxint_matmul.matmul_blocks(
                 a, w.mantissa, w.exponent, w_block=w.block_size,
                 act_block=16, act_mant_bits=8),
@@ -1021,7 +1046,8 @@ def kernel_cases(torch, np):
         cases["mxint_matmul"].append((
             label,
             lambda a=a, w=w: mxint_matmul.mxint_matmul(
-                a, w.mantissa, w.exponent, w_block=w.block_size),
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                quantize_act=True),
             lambda a=a, w=w: mxint_matmul.matmul_blocks(
                 a, w.mantissa, w.exponent, w_block=w.block_size,
                 act_block=16, act_mant_bits=8),
@@ -1338,7 +1364,240 @@ def kernel_cases(torch, np):
                 F.layer_norm(a, (d,), g, b))))
     widened_cases(torch, cases, x, planes, rows)
     cases.update(flash_cases(torch, np, x))
+    generic_route_cases(torch, cases, x, rows)
     return cases
+
+
+# the generic routes' cases: every format the fast routes do not take
+# (``launch_contracts.generic_cases``, the out-of-domain formats before
+# this slice) and the served widened format's shapes (W12 planes, act
+# block 12, Table VI's vanilla LUTs at DeiT-Base batch 16), float
+# activations at DeiT-Base's FFN wo and the flash kernels' r 10 LUT; all
+# timed, all held to 0 mismatches
+GENERIC_LABELS = (
+    "deit_base_b16_ffn_wo_w12_a12", "odd_act_block_12", "odd_act_block_24",
+    "act_block_512", "k_not_16", "act_mant_17", "int16_planes",
+    "w24_a24_int32", "deit_base_b16_ffn_wo_float_act",
+    "deit_base_b16_ln2_wi_w12_a12_lut13", "odd_act_block_48",
+    "lnmm_unaligned_block_32", "deit_base_b16_final_ln_a12_lut13",
+    "ln_block_24", "ln_block_256", "ln_unaligned_block_32",
+    "deit_base_b16_softmax_r16", "softmax_block_256",
+    "deit_base_b16_gelu_a12_lut14", "gelu_block_256", "flash_r10",
+    "flash_act_block_64", "flash_head_dim_272", "flash_bf16_head_dim_100",
+    "flash_groups_129", "decode_act_block_12", "decode_head_dim_272",
+    "llama3_8b_score_1024_act_block_64", "decode_act_block_64")
+TIMED_CASES |= set(GENERIC_LABELS)
+
+
+def offset_rows(torch, a):
+    """``a`` copied into a buffer one element past its start: rows that
+    start 4 (f32) bytes off a 16-byte boundary."""
+    buf = torch.empty(a.numel() + 1, dtype=a.dtype, device=a.device)
+    out = buf[1:].view(a.shape)
+    out.copy_(a)
+    return out
+
+
+def generic_route_cases(torch, cases, x, rows):
+    """The generic routes' cases (``GENERIC_LABELS``) under the kernels'
+    names with ``/generic``, and the one former out-of-domain decode
+    format the fast decode kernel now takes (act block 12 resolves to 8)
+    under ``flash_attention_decode``."""
+    import torch.nn.functional as F
+    from repro_torch.core.mx_types import MXFormat
+    from repro_torch.core.quantize import dequantize, pack_weight
+    from repro_torch.kernels import (flash_attention as fa, mxint_gelu,
+                                     mxint_layernorm, mxint_ln_matmul,
+                                     mxint_matmul, mxint_softmax)
+    from repro_torch.kernels.mxint_matmul import segments
+    out = {f"{n}/generic": [] for n in REPLACES}
+    M, d, ff = 64, 768, 3072
+
+    def planes(K, N, fmt):
+        return pack_weight(x(K, N, scale=K ** -0.5), fmt)
+
+    # mxint_matmul: (label, M, K, N, weight format, act block, bits,
+    # quantize_act)
+    for label, m, K, N, fmt, blk, bits, qa in (
+            ("deit_base_b16_ffn_wo_w12_a12", rows, ff, d, MXFormat(12, 256),
+             12, 8, True),
+            ("odd_act_block_12", M, ff, d, MXFormat(8, 256), 12, 8, True),
+            ("odd_act_block_24", M, ff, d, MXFormat(8, 96), 24, 8, True),
+            ("act_block_512", M, ff, d, MXFormat(8, 512), 512, 8, True),
+            ("k_not_16", M, 200, d, MXFormat(8, 8), 8, 8, True),
+            ("act_mant_17", M, ff, d, MXFormat(8, 256), 16, 17, True),
+            ("int16_planes", M, ff, d, MXFormat(12, 256), 16, 8, True),
+            ("w24_a24_int32", M, ff, d, MXFormat(24, 256), 256, 24, True),
+            ("deit_base_b16_ffn_wo_float_act", rows, ff, d,
+             MXFormat(6, 256), 16, 8, False)):
+        a, w = x(m, K), planes(K, N, fmt)
+        wd = dequantize(w)
+        nbytes = (a.numel() * 4 + w.mantissa.numel() *
+                  w.mantissa.element_size() + w.exponent.numel() + m * N * 4)
+        nseg = len(segments(K, w.block_size, blk)[0])
+        out["mxint_matmul/generic"].append((
+            label,
+            lambda a=a, w=w, blk=blk, bits=bits, qa=qa:
+                mxint_matmul.mxint_matmul(
+                    a, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, act_mant_bits=bits, quantize_act=qa),
+            (lambda a=a, w=w, blk=blk, bits=bits: mxint_matmul.matmul_blocks(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=blk, act_mant_bits=bits)) if qa else
+            (lambda a=a, w=w: mxint_matmul.matmul_float(
+                a, w.mantissa, w.exponent, w_block=w.block_size)),
+            bound(nbytes, int8_ops=int8_splits(
+                      bits, w.mantissa.element_size()) * 2.0 * m * N * K
+                  if qa else 0.0, f32_ops=2.0 * m * N * nseg if qa else 0.0,
+                  f64_ops=0.0 if qa else 2.0 * m * N * K),
+            (lambda a=a, wd=wd: torch.matmul(a, wd)) if m == rows else None))
+    # mxint_ln_matmul: (label, M, d, N, format, act block, LUT bits,
+    # unaligned rows)
+    for label, m, dd, N, fmt, blk, lb, off in (
+            ("deit_base_b16_ln2_wi_w12_a12_lut13", rows, d, ff,
+             MXFormat(12, 256), 12, 13, False),
+            ("odd_act_block_48", M, d, ff, MXFormat(8, 96), 48, 5, False),
+            ("lnmm_unaligned_block_32", M, d, ff, MXFormat(8, 256), 32, 5,
+             True)):
+        a, g, b = x(m, dd, scale=2.0), 1.0 + 0.1 * x(dd), 0.1 * x(dd)
+        if off:
+            a = offset_rows(torch, a)
+        w = planes(dd, N, fmt)
+        wd = dequantize(w)
+        nseg = len(segments(dd, w.block_size, blk)[0])
+        out["mxint_ln_matmul/generic"].append((
+            label,
+            lambda a=a, g=g, b=b, w=w, blk=blk, lb=lb:
+                mxint_ln_matmul.mxint_ln_matmul(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, lut_bits=lb),
+            lambda a=a, g=g, b=b, w=w, blk=blk, lb=lb:
+                mxint_ln_matmul.ln_matmul_rows(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, mant_bits=8, lut_bits=lb, rms_only=False),
+            bound(a.numel() * 4 + 2 * dd * 4 + 4 * 2 ** lb +
+                  w.mantissa.numel() * w.mantissa.element_size() +
+                  w.exponent.numel() + m * N * 4,
+                  int8_ops=int8_splits(8, w.mantissa.element_size())
+                  * 2.0 * m * N * dd,
+                  f32_ops=ROW_OPS["mxint_layernorm"] * m * dd
+                  + 2.0 * m * N * nseg),
+            (lambda a=a, wd=wd: torch.matmul(a, wd)) if m == rows else None))
+    for label, m, blk, lb, off in (
+            ("deit_base_b16_final_ln_a12_lut13", rows, 12, 13, False),
+            ("ln_block_24", M, 24, 5, False), ("ln_block_256", M, 256, 5,
+                                                False),
+            ("ln_unaligned_block_32", M, 32, 5, True)):
+        a, g, b = x(m, d, scale=2.0), 1.0 + 0.1 * x(d), 0.1 * x(d)
+        if off:
+            a = offset_rows(torch, a)
+        out["mxint_layernorm/generic"].append((
+            label,
+            lambda a=a, g=g, b=b, blk=blk, lb=lb:
+                mxint_layernorm.mxint_layernorm(
+                    a, g, b, act_block=blk, lut_bits=lb, quantize_out=True),
+            lambda a=a, g=g, b=b, blk=blk, lb=lb:
+                mxint_layernorm.layernorm_rows(
+                    a, g, b, act_block=blk, mant_bits=8, lut_bits=lb,
+                    rms_only=False, quantize_out=True),
+            bound(2 * a.numel() * 4 + 2 * d * 4 + 4 * 2 ** lb,
+                  f32_ops=ROW_OPS["mxint_layernorm"] * a.numel()),
+            (lambda a=a, g=g, b=b: F.layer_norm(a, (d,), g, b))
+            if m == rows else None))
+    for label, R, n, blk, rb in (
+            ("deit_base_b16_softmax_r16", BATCH * 12 * 197, 197, 1, 16),
+            ("softmax_block_256", M, 256, 256, 2)):
+        a = x(R, n, scale=4.0)
+        out["mxint_softmax/generic"].append((
+            label,
+            lambda a=a, blk=blk, rb=rb: mxint_softmax.mxint_softmax(
+                a, act_block=blk, r_bits=rb, quantize_out=True),
+            lambda a=a, blk=blk, rb=rb: mxint_softmax.softmax_rows(
+                a, act_block=blk, mant_bits=8, r_bits=rb, quantize_out=True),
+            bound(2 * a.numel() * 4 + 4 * 2 ** rb,
+                  f32_ops=ROW_OPS["mxint_softmax"] * a.numel()),
+            (lambda a=a: torch.softmax(a, dim=-1)) if R > M else None))
+    for label, m, blk, lb in (("deit_base_b16_gelu_a12_lut14", rows, 12, 14),
+                              ("gelu_block_256", M, 256, 5)):
+        a = x(m, ff, scale=2.0)
+        table, dom = mxint_gelu.gelu_table("gelu", lb, 3.0)
+        lut = mxint_layernorm.lut_tensor(table, a.device)
+        out["mxint_gelu/generic"].append((
+            label,
+            lambda a=a, blk=blk, lb=lb: mxint_gelu.mxint_gelu(
+                a, act_block=blk, lut_bits=lb),
+            lambda a=a, lut=lut, dom=dom, blk=blk: mxint_gelu.gelu_rows(
+                a, lut, act_block=blk, mant_bits=8, domain=dom),
+            bound(2 * a.numel() * 4 + 4 * len(table),
+                  f32_ops=ROW_OPS["mxint_gelu"] * a.numel()),
+            (lambda a=a: F.gelu(a)) if m == rows else None))
+    bf16 = torch.bfloat16
+    mx = dict(exp_mode="mxint", quantize_scores=True)
+    # flash_attention: (label, heads, S, keys, head dim, G, act block,
+    # r_bits); case 0 is the widened LM's 1024-token score
+    # (``widened_lm_phase``: 32 query heads over 8, act block 64)
+    for label, h, S, sk, dd, g, blk, rb in (
+            ("llama3_8b_score_1024_act_block_64", 32, LM_SCORE_TOKENS,
+             LM_SCORE_TOKENS, 128, 4, WIDE_LM_ACT[1], 2),
+            ("flash_r10", 8, 256, 256, 128, 1, 16, 10),
+            ("flash_act_block_64", 8, 256, 256, 128, 1, 64, 2),
+            ("flash_head_dim_272", 8, 256, 256, 272, 1, 16, 2),
+            ("flash_bf16_head_dim_100", 8, 256, 256, 100, 1, 16, 2),
+            ("flash_groups_129", 129, 16, 256, 128, 129, 16, 2)):
+        hkv = h // g
+        q = x(h, S, dd, scale=1.5).to(bf16)
+        k = x(hkv, sk, dd, scale=1.5).to(bf16)
+        v = x(hkv, sk, dd).to(bf16)
+        pairs = h * flash_pairs(S, sk, True, 0)
+        out["flash_attention/generic"].append((
+            label,
+            lambda q=q, k=k, v=v, g=g, blk=blk, rb=rb: fa.flash_attention(
+                q, k, v, causal=True, kv_groups=g, act_block=blk, r_bits=rb,
+                **mx),
+            lambda q=q, k=k, v=v, g=g, blk=blk, rb=rb: fa.flash_rows(
+                q, k, v, causal=True, window=0, kv_groups=g, r_bits=rb,
+                act_block=fa.resolve_act_block(blk), mant_bits=8,
+                scale=fa.f32(q.shape[-1] ** -0.5), **mx).to(q.dtype),
+            bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                  bf16_ops=4.0 * dd * pairs, f32_ops=ROW_OPS["flash"] * pairs),
+            lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True, enable_gqa=True)))
+    # flash_attention_decode: (label, ring, KV heads, G, head dim, act
+    # block); the valid slots of the 4 batch rows; case 0 of the generic
+    # route is the widened LM's decode step (``widened_lm_phase``)
+    for label, W, hkv, g, dd, blk in (
+            ("decode_act_block_64", LM_MAX_LEN, 8, 4, 128, WIDE_LM_ACT[1]),
+            ("decode_act_block_12", 2048, 8, 4, 128, 12),
+            ("decode_head_dim_272", 2048, 8, 4, 272, 16)):
+        q = x(4, hkv, g, dd, scale=1.5).to(bf16)
+        k = x(4, W, hkv, dd, scale=1.5).to(bf16)
+        v = x(4, W, hkv, dd).to(bf16)
+        valid = torch.zeros(4, W, dtype=torch.int32, device=DEVICE)
+        for i, n in enumerate((61, 300, 700, 1024)):
+            valid[i, :n] = 1
+        n_valid = int(valid.sum())
+        pairs = n_valid * hkv * g
+        mask = (valid != 0)[:, None, None, :]
+        key = "flash_attention_decode" + (
+            "" if label == "decode_act_block_12" else "/generic")
+        (cases if key in cases else out)[key].append((
+            label,
+            lambda q=q, k=k, v=v, valid=valid, blk=blk:
+                fa.flash_attention_decode(q, k, v, valid, act_block=blk,
+                                          **mx),
+            lambda q=q, k=k, v=v, valid=valid, blk=blk, dd=dd:
+                fa.decode_rows(q, k, v, valid, r_bits=2,
+                               act_block=fa.resolve_act_block(blk),
+                               mant_bits=8, scale=fa.f32(dd ** -0.5),
+                               **mx).to(q.dtype),
+            bound(n_valid * hkv * dd * 2 * 2 + 2 * q.numel() * 2
+                  + valid.numel() * 4,
+                  bf16_ops=4.0 * dd * pairs, f32_ops=ROW_OPS["flash"] * pairs),
+            lambda q=q, k=k, v=v, mask=mask, hkv=hkv, g=g, dd=dd:
+                F.scaled_dot_product_attention(
+                    q.reshape(4, hkv * g, 1, dd), k.transpose(1, 2),
+                    v.transpose(1, 2), attn_mask=mask, enable_gqa=True)))
+    cases.update(out)
 
 
 def widened_cases(torch, cases, x, planes, rows):
@@ -1365,7 +1624,7 @@ def widened_cases(torch, cases, x, planes, rows):
             f"{label}_a{blk}_m{mb}",
             lambda a=a, w=w, blk=blk, mb=mb: mxint_matmul.mxint_matmul(
                 a, w.mantissa, w.exponent, w_block=w.block_size,
-                act_block=blk, act_mant_bits=mb),
+                act_block=blk, act_mant_bits=mb, quantize_act=True),
             lambda a=a, w=w, blk=blk, mb=mb: mxint_matmul.matmul_blocks(
                 a, w.mantissa, w.exponent, w_block=w.block_size,
                 act_block=blk, act_mant_bits=mb),
@@ -1686,15 +1945,15 @@ def ln_linear_op_ops(torch, np):
 
 
 def matmul_width_check(torch):
-    """``mxint_matmul`` on the card at ``act_mant_bits`` 10 and 17: at 10
-    the wrapper computes (equal to the plain version); at 17 it raises
-    before it launches anything, and the C entry point, called directly,
-    returns cudaErrorInvalidValue at 17 bits (and launches at 10 and 8).
-    Its act tile holds int16 at most, so a wider mantissa would wrap.  Act
-    block 12 (neither a divisor of 16 nor a multiple) raises in the
-    wrapper.  Also records what a kernel-mode linear does with 10-bit
-    weights (``QuantConfig(mode="kernel", weight_fmt=MXFormat(10, 256))``:
-    int16 weight planes, which the wrappers refuse).  Raises otherwise."""
+    """``mxint_matmul`` on the card at ``act_mant_bits`` 10, 17 and 24 and
+    at act block 12 on planes of 48-blocks: each computes (10 bits on the
+    GEMM core, the others on the generic route) equal to its plain
+    version; 25 bits raise before anything launches (no route takes them,
+    nor does the reference's ``MXFormat``).  The GEMM core's C entry,
+    called directly, still returns cudaErrorInvalidValue at 17 bits (its
+    act tile holds int16 at most) and launches at 10 and 8.  A kernel-mode
+    linear on 10-bit weights (int16 planes) computes, on the generic
+    route.  Raises otherwise."""
     from repro_torch.core.mx_types import MXINT8_WEIGHT, MXFormat, QuantConfig
     from repro_torch.core.quantize import pack_weight
     from repro_torch.kernels import _build
@@ -1703,28 +1962,38 @@ def matmul_width_check(torch):
     M, K, N = 16, 256, 128
     a = torch.ones(M, K, device=DEVICE)
     w = pack_weight(torch.ones(K, N, device=DEVICE) / 16, MXINT8_WEIGHT)
-    got = mm.mxint_matmul(a, w.mantissa, w.exponent, w_block=w.block_size,
-                          act_mant_bits=10)
-    want = mm.matmul_blocks(a, w.mantissa, w.exponent, w_block=w.block_size,
-                            act_block=16, act_mant_bits=10)
-    if not bool((got == want).all()):
-        raise AssertionError("mxint_matmul at 10 bits differs from its plain "
-                             "version")
-    # act block 12 on planes of 48-blocks (12 divides them and K)
     a12 = torch.ones(M, 192, device=DEVICE)
     w12 = pack_weight(torch.ones(192, N, device=DEVICE) / 16, MXFormat(8, 48))
+    routes = {}
+    for key, (xa, wa, kw) in (
+            ("act_mant_bits=10", (a, w, {"act_mant_bits": 10})),
+            ("act_mant_bits=17", (a, w, {"act_mant_bits": 17})),
+            ("act_mant_bits=24", (a, w, {"act_mant_bits": 24})),
+            ("act_block=12", (a12, w12, {"act_block": 12}))):
+        before = mm.generic_launches
+        got = mm.mxint_matmul(xa, wa.mantissa, wa.exponent,
+                              w_block=wa.block_size, quantize_act=True, **kw)
+        want = mm.matmul_blocks(xa, wa.mantissa, wa.exponent,
+                                w_block=wa.block_size,
+                                **{"act_block": 16, "act_mant_bits": 8,
+                                   **kw})
+        if not bool((got == want).all()):
+            raise AssertionError(f"mxint_matmul at {key} differs from its "
+                                 f"plain version")
+        routes[key] = "generic" if mm.generic_launches > before else "core"
+    if routes != {"act_mant_bits=10": "core", "act_mant_bits=17": "generic",
+                  "act_mant_bits=24": "generic", "act_block=12": "generic"}:
+        raise AssertionError(f"mxint_matmul routes {routes}")
+    torch.cuda.synchronize()
     before = read_counts()
     msgs = {}
-    for key, (xa, wa, kw) in (
-            ("act_mant_bits=17", (a, w, {"act_mant_bits": 17})),
-            ("act_block=12", (a12, w12, {"act_block": 12}))):
-        try:
-            mm.mxint_matmul(xa, wa.mantissa, wa.exponent,
-                            w_block=wa.block_size, **kw)
-        except ValueError as e:
-            msgs[key] = str(e)
-        else:
-            raise AssertionError(f"mxint_matmul took {key} on the card")
+    try:
+        mm.mxint_matmul(a, w.mantissa, w.exponent, w_block=w.block_size,
+                        act_mant_bits=25, quantize_act=True)
+    except ValueError as e:
+        msgs["act_mant_bits=25"] = str(e)
+    else:
+        raise AssertionError("mxint_matmul took act_mant_bits=25")
     torch.cuda.synchronize()
     if read_counts() != before:
         raise AssertionError("mxint_matmul launched outside its domain")
@@ -1740,18 +2009,18 @@ def matmul_width_check(torch):
         torch.cuda.synchronize()
     q = QuantConfig(mode="kernel", weight_fmt=MXFormat(10, 256))
     wq = Param(torch.ones(K, N, device=DEVICE) / 16, ("embed", "mlp"))
-    try:
-        q.datapath.linear(a, wq, q=q)
-    except ValueError as e:
-        msgs["weight_fmt=MXFormat(10, 256)"] = str(e)
-    else:
-        raise AssertionError("a kernel-mode linear took 10-bit weights")
-    log(f"[kernel] mxint_matmul act widths: 10 bits computed, equal to the "
-        f"plain version; wrapper raised {msgs!r}; C entry returned "
-        f"{rcs[17]} at 17 bits, {rcs[10]} at 10, {rcs[8]} at 8")
+    before = mm.generic_launches
+    y = q.datapath.linear(a, wq, q=q)
+    if not bool(torch.isfinite(y).all()) or mm.generic_launches != before + 1:
+        raise AssertionError("a kernel-mode linear on 10-bit weights did not "
+                             "take the generic route")
+    log(f"[kernel] mxint_matmul act widths: routes {routes}, each equal to "
+        f"the plain version; wrapper raised {msgs!r}; core C entry returned "
+        f"{rcs[17]} at 17 bits, {rcs[10]} at 10, {rcs[8]} at 8; a "
+        f"kernel-mode linear on 10-bit weights took the generic route")
     if rcs[17] == 0 or rcs[10] != 0 or rcs[8] != 0:
         raise AssertionError(f"mxint_matmul_launch returned {rcs}")
-    return {"wrapper_errors": msgs, "c_entry_rc": rcs}
+    return {"routes": routes, "wrapper_errors": msgs, "c_entry_rc": rcs}
 
 
 def within_bf16_ulp(torch, got, want):
@@ -1776,17 +2045,30 @@ def within_bf16_ulp(torch, got, want):
 
 
 def kernel_phase(torch, np, only=None):
+    """Every kernel case (``kernel_cases``) held to its plain version and
+    timed; a name ``<kernel>/generic`` is that kernel's generic route.
+    ``only``: kernel names (a kernel's name selects its generic route
+    too)."""
     results = {}
     for name, cases in kernel_cases(torch, np).items():
-        if only and name not in only:
+        base = name.split("/")[0]
+        if only and name not in only and base not in only:
             continue
-        res = {"name": name, "route": "cuda", "source": SOURCES[name],
-               "replaces": REPLACES[name], "max_abs_err": 0.0, "cases": []}
+        res = {"name": name, "route": "cuda", "source": SOURCES[base],
+               "replaces": REPLACES[base], "max_abs_err": 0.0, "cases": []}
         for i, (label, kern, plain, (b_ms, b_by), lib, *tol) in \
                 enumerate(cases):
             tol = tol[0] if tol else None
+            # the case's route: a ``/generic`` case launches its kernel's
+            # generic route once, any other case never
+            route = f"{base}/generic"
+            before = read_routes().get(route, 0)
             got = kern()
             torch.cuda.synchronize()
+            took = read_routes().get(route, 0) - before
+            if took != (1 if name == route else 0):
+                raise AssertionError(f"{name} {label}: {took} launches of "
+                                     f"the generic route")
             want = plain()
             mism = int((got != want).sum())
             err = float((got.float() - want.float()).abs().max())
@@ -3224,12 +3506,41 @@ def dse_card_vs_cpu(torch, space, images):
     return rows
 
 
+# the served widened format (``widened_serve_phase``'s third label, its
+# DeiT-Tiny card-against-CPU check): W12 planes (int16), act block 12,
+# which does not nest in the 256-element weight blocks, and Table VI's
+# vanilla LUTs; every kernel of a DeiT forward takes its generic route
+WIDE_WEIGHT = (12, 256)
+WIDE_ACT_FMT = (8, 12)
+WIDE_NL = dict(ln_lut_bits=13, gelu_lut_bits=14, softmax_r_bits=16)
+WIDE_CPU_LAYERS = 2
+WIDE_CPU_IMAGES = 4
+# the widened LM path: Llama-3-8B at full width, one layer, score act
+# block 64 (past the fast flash kernels' 32): its decode steps and its
+# 1024-token score take the flash kernels' generic routes
+WIDE_LM_ACT = (8, 64)
+WIDE_LM_PROMPTS = (37, 300, 700)
+WIDE_LM_NEW_TOKENS = 4
+
+
+def wide_quant(mode="kernel"):
+    from repro_torch.core.mx_types import MXFormat, NonlinearConfig, QuantConfig
+    return QuantConfig(mode=mode, quantize_nonlinear=True,
+                       weight_fmt=MXFormat(*WIDE_WEIGHT),
+                       act_fmt=MXFormat(*WIDE_ACT_FMT),
+                       nonlinear=NonlinearConfig(**WIDE_NL))
+
+
 def widened_serve_phase(torch, np):
     """DeiT-Base at full width and depth served through
     ``ClassifyScheduler`` in kernel mode with act formats past block 16 and
     8 bits: ``QuantOverride(act_fmt=MXFormat(8, 32))`` on ``block/*/ffn``,
-    and ``act_fmt=MXFormat(12, 16)`` globally; 3 + 8 x 12 launches a
-    batch, kernel by kernel, ms per batch by CUDA events."""
+    ``act_fmt=MXFormat(12, 16)`` globally, and the widened format
+    (``wide_quant``: W12 planes, act block 12, LN 13-bit, GELU 14-bit and
+    softmax r 16 LUTs), which runs every launch on a generic route; 3 + 8
+    x 12 launches a batch, kernel by kernel (and route by route), ms per
+    batch by CUDA events.  Returns (results, launches, generic-route
+    launches)."""
     from repro_torch.configs.deit import DEIT_BASE
     from repro_torch.core.mx_types import MXFormat, QuantConfig, QuantOverride
     from repro_torch.models.vit import ViT
@@ -3241,37 +3552,188 @@ def widened_serve_phase(torch, np):
                    "launch_fixture": 0}
     sizes, images, full = deit_requests(np)
     params = ViT(DEIT_BASE).init(SEED, device=DEVICE)
-    out, launches = {}, {}
-    for label, q in (
+    out, launches, routes = {}, {}, {}
+    for label, q, wfmt in (
             ("ffn_act_block_32", QuantConfig(
                 mode="kernel", quantize_nonlinear=True,
                 overrides=(("block/*/ffn",
-                            QuantOverride(act_fmt=MXFormat(8, 32))),))),
+                            QuantOverride(act_fmt=MXFormat(8, 32))),)), None),
             ("act_12_bits", QuantConfig(mode="kernel",
                                         quantize_nonlinear=True,
-                                        act_fmt=MXFormat(12, 16)))):
+                                        act_fmt=MXFormat(12, 16)), None),
+            ("w12_a12_vanilla_luts", wide_quant(), MXFormat(*WIDE_WEIGHT))):
         tag = f"widened {label}"
         engine = ViTServingEngine(
             ViT(dataclasses.replace(DEIT_BASE, quant=q)), params,
-            ServeConfig(batch=BATCH, pack_weights=True), device=DEVICE)
+            ServeConfig(batch=BATCH, pack_weights=True, weight_fmt=wfmt),
+            device=DEVICE)
         n_batches, serve_s, got, telemetry = serve_deit(
             torch, np, engine, sizes, images, tag, per_forward)
         if got != {n: c * n_batches for n, c in per_forward.items()}:
             raise AssertionError(f"{tag}: launches {got}")
+        gen = read_routes()
+        want_gen = {f"{n}/generic": (c * n_batches if wfmt else 0)
+                    for n, c in per_forward.items()
+                    if f"{n}/generic" in gen}
+        if gen != want_gen:
+            raise AssertionError(f"{tag}: generic-route launches {gen}, "
+                                 f"expected {want_gen}")
         ms = time_ms(lambda: engine.logits_batch(full), iters=5)
         logits = engine.logits_batch(full)
         if not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"{tag}: non-finite logits")
         out[label] = {"config": q.describe(), "batches": n_batches,
                       "serve_s": serve_s, "launches": got,
-                      "ms_per_batch": ms,
+                      "generic_launches": gen, "ms_per_batch": ms,
                       "classify_step_span_ms":
                           telemetry["classify_step_span_ms"]}
-        log(f"[{tag}] ms_per_batch={ms!r} (batch {BATCH}) launches {got}")
+        log(f"[{tag}] ms_per_batch={ms!r} (batch {BATCH}) launches {got} "
+            f"generic routes {gen}")
         for n, c in got.items():
             launches[n] = launches.get(n, 0) + c
+        for n, c in gen.items():
+            routes[n] = routes.get(n, 0) + c
         del engine
-    return out, launches
+    return out, launches, routes
+
+
+def widened_lm_phase(torch, np):
+    """Llama-3-8B at full width and one layer, kernel mode at score act
+    block 64 (``WIDE_LM_ACT``): ``WIDE_LM_PROMPTS`` requests of
+    ``WIDE_LM_NEW_TOKENS`` tokens through ``BatchScheduler`` (every decode
+    step on the decode kernel's generic route), then a 1024-token score
+    (the flash kernel's generic route); every flash and decode launch must
+    take the generic route.  Returns (results, launches, generic-route
+    launches)."""
+    from repro_torch.configs import llama3_8b
+    from repro_torch.core.mx_types import MXINT8_WEIGHT, MXFormat, QuantConfig
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    from repro_torch.serving.scheduler import BatchScheduler, Request
+    cfg = dataclasses.replace(
+        cut_depth(llama3_8b.FULL, 1), quant=QuantConfig(
+            mode="kernel", quantize_nonlinear=True,
+            act_fmt=MXFormat(*WIDE_LM_ACT)))
+    model = DecoderLM(cfg)
+    params = model.init(SEED, device=DEVICE, pack_fmt=MXINT8_WEIGHT)
+    engine = ServingEngine(model, params, ServeConfig(
+        max_len=LM_MAX_LEN, batch=LM_BATCH, pack_weights=True,
+        weight_fmt=MXINT8_WEIGHT), device=DEVICE)
+    rng = np.random.default_rng(SEED + 5)
+    sched = BatchScheduler(engine, batch_size=LM_BATCH)
+    for uid, n in enumerate(WIDE_LM_PROMPTS):
+        sched.submit(Request(uid=uid, prompt=rng.integers(
+            0, cfg.vocab, size=n).astype(np.int32),
+            max_new_tokens=WIDE_LM_NEW_TOKENS))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = sched.run()
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    serve, serve_gen = read_counts(), read_routes()
+    toks = rng.integers(0, cfg.vocab, size=(1, LM_SCORE_TOKENS)).astype(
+        np.int32)
+    with torch.no_grad():
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = float(model.loss(engine.params, {"tokens": toks}))
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+    score, score_gen = read_counts(), read_routes()
+    for r in done:
+        if len(r.generated) != WIDE_LM_NEW_TOKENS or \
+                not all(0 <= t < cfg.vocab for t in r.generated):
+            raise AssertionError(f"widened lm: request {r.uid}: "
+                                 f"{r.generated}")
+    if len(done) != len(WIDE_LM_PROMPTS) or \
+            not (0.0 < loss < 2.0 * float(np.log(cfg.vocab))):
+        raise AssertionError(f"widened lm: {len(done)} requests, loss {loss}")
+    for tag, counts, gen in (("serve", serve, serve_gen),
+                             ("score", score, score_gen)):
+        for n in ("flash_attention", "flash_attention_decode"):
+            if gen[f"{n}/generic"] != counts[n]:
+                raise AssertionError(f"widened lm {tag}: {n} launched "
+                                     f"{counts[n]}, generic route "
+                                     f"{gen[f'{n}/generic']}")
+    if not serve["flash_attention_decode"] or not score["flash_attention"]:
+        raise AssertionError("widened lm: no decode step or score took the "
+                             "flash kernels")
+    res = {"model": cfg.name, "layers": 1, "act_fmt": list(WIDE_LM_ACT),
+           "prompts": list(WIDE_LM_PROMPTS), "serve_s": serve_s,
+           "score_tokens": LM_SCORE_TOKENS, "score_ms": score_s * 1e3,
+           "loss": loss, "serve_launches": serve,
+           "serve_generic_launches": serve_gen, "score_launches": score,
+           "score_generic_launches": score_gen}
+    log(f"[widened lm] {len(done)} requests x {WIDE_LM_NEW_TOKENS} tokens in "
+        f"{serve_s!r} s, launches {serve}, generic routes {serve_gen}; "
+        f"{LM_SCORE_TOKENS}-token score {score_s * 1e3!r} ms, loss {loss!r}, "
+        f"launches {score}, generic routes {score_gen}")
+    launches = {n: serve[n] + score[n] for n in serve}
+    routes = {n: serve_gen[n] + score_gen[n] for n in serve_gen}
+    del engine, model, params
+    torch.cuda.empty_cache()
+    return res, launches, routes
+
+
+def widened_side(dev, cfg, params, images):
+    """DeiT-Tiny at the widened format on ``dev``: (logits, generic-route
+    launches of the forward)."""
+    import torch
+    from repro_torch.core.mx_types import MXFormat
+    from repro_torch.models.vit import ViT
+    from repro_torch.serving.engine import (ServeConfig, ViTServingEngine,
+                                            params_to)
+    eng = ViTServingEngine(ViT(cfg), params_to(params, dev), ServeConfig(
+        batch=len(images), pack_weights=True,
+        weight_fmt=MXFormat(*WIDE_WEIGHT)), device=dev)
+    before = read_routes()
+    logits = eng.classify(images)[1].float().cpu().numpy()
+    if dev != "cpu":
+        torch.cuda.synchronize()
+    return logits, count_diff(read_routes(), before)
+
+
+def widened_cpu_phase(torch, np):
+    """DeiT-Tiny (``WIDE_CPU_LAYERS`` layers) at the widened format on the
+    card and on the CPU, the same weights (drawn on the card) and images:
+    logits bit for bit, every card launch on a generic route.  The CPU
+    side is queued on ``CPU_CHECKS``; returns the function that
+    compares."""
+    from repro_torch.configs.deit import DEIT_TINY
+    from repro_torch.models.vit import ViT
+    from repro_torch.serving.engine import params_to
+    cfg = dataclasses.replace(DEIT_TINY, n_layers=WIDE_CPU_LAYERS,
+                              quant=wide_quant())
+    params = params_to(ViT(cfg).init(SEED, device=DEVICE), "cpu")
+    images = np.random.default_rng(SEED + 6).normal(size=(
+        WIDE_CPU_IMAGES, 224, 224, 3)).astype(np.float32)
+    card, gen = widened_side(DEVICE, cfg, params, images)
+    L = WIDE_CPU_LAYERS
+    want = {"mxint_matmul/generic": 2 * L + 2,
+            "mxint_ln_matmul/generic": 4 * L, "mxint_softmax/generic": L,
+            "mxint_gelu/generic": L, "mxint_layernorm/generic": 1,
+            "flash_attention/generic": 0,
+            "flash_attention_decode/generic": 0}
+    if gen != want:
+        raise AssertionError(f"widened cpu: card generic launches {gen}")
+    job = CPU_CHECKS.add("widened cpu", widened_side, "cpu", cfg, params,
+                         images)
+
+    def finish():
+        cpu, _ = CPU_CHECKS.result(job)
+        differ = int((card != cpu).sum())
+        agree = bool((card.argmax(-1) == cpu.argmax(-1)).all())
+        log(f"[widened cpu] DeiT-Tiny {L} layers, {WIDE_CPU_IMAGES} images: "
+            f"{differ} differing logits of {card.size}, argmax agree "
+            f"{agree}")
+        if differ:
+            raise AssertionError("widened cpu: card and CPU logits differ")
+        return {"layers": L, "images": WIDE_CPU_IMAGES,
+                "differing_logits": differ, "argmax_agree": agree,
+                "card_generic_launches": gen}
+
+    return finish
 
 
 def moe_phases(torch, np, phase):
@@ -4941,8 +5403,10 @@ def main(argv) -> int:
                                           np)
     probe_stats = phase("probes", probes_phase, smi)
     dse_stats, dse_launches = phase("dse", dse_phase, torch, np)
-    widened_stats, widened_launches = phase("widened serve",
-                                            widened_serve_phase, torch, np)
+    widened_stats, widened_launches, widened_routes = phase(
+        "widened serve", widened_serve_phase, torch, np)
+    wide_lm_stats, wide_lm_launches, wide_lm_routes = phase(
+        "widened lm", widened_lm_phase, torch, np)
     new_lms = {}
     for name in NEW_LMS:
         full = importlib.import_module(f"repro_torch.configs.{name}").FULL
@@ -4988,6 +5452,7 @@ def main(argv) -> int:
     # sides side by side in the pool, and each check compares
     cpu_stats, vlm_cpu, encdec_cpu = card_vs_cpu_phases(
         torch, np, phase, new_lms, moe_lms, rec_lms)
+    widened_cpu = phase("widened card vs cpu", widened_cpu_phase, torch, np)
     # the card is free while the pool works: the launch dry run against
     # the card
     torch.cuda.empty_cache()
@@ -4996,6 +5461,7 @@ def main(argv) -> int:
     log(f"[cpu checks] {len(CPU_CHECKS.futures)} CPU sides, "
         f"{CPU_CHECKS.seconds!r} s from the pool's start")
     cpu_stats, vlm_cpu, encdec_cpu = cpu_stats(), vlm_cpu(), encdec_cpu()
+    widened_stats["card_vs_cpu"] = widened_cpu()
     tp_stats["card_vs_cpu"] = tp_cpu()
     for res in (*new_lms.values(), *moe_lms.values(), *rec_lms.values()):
         res["card_vs_cpu"] = res["card_vs_cpu"]()
@@ -5013,7 +5479,16 @@ def main(argv) -> int:
                                              "mxint_layernorm")),
              ("dse", dse_launches, common + ("mxint_softmax",)),
              ("deit widened acts", widened_launches,
-              common + ("mxint_softmax",))) + tuple(
+              common + ("mxint_softmax",)),
+             # the served widened format: every kernel on its generic
+             # route; the widened LM: the flash kernels' generic routes
+             ("deit widened generic routes", widened_routes,
+              tuple(f"{n}/generic" for n in common + ("mxint_softmax",))),
+             ("llama widened lm", wide_lm_launches,
+              common + ("flash_attention", "flash_attention_decode")),
+             ("llama widened lm generic routes", wide_lm_routes,
+              ("flash_attention/generic",
+               "flash_attention_decode/generic"))) + tuple(
         (f"{name} serve", res["serve"]["launches"],
          common + ("flash_attention_decode",))
         for name, res in new_lms.items()) + tuple(
@@ -5062,15 +5537,19 @@ def main(argv) -> int:
         idle = [n for n in names if not counts[n]]
         if idle:
             raise AssertionError(f"{path}: {idle} never launched")
+    # a kernel's ``launches`` count its fast route's, ``<kernel>/generic``
+    # its generic route's (the paths' generic-route counts)
     for name, res in kernels.items():
-        res["launches"] = sum(counts.get(name, 0) for _, counts, _ in paths)
+        res["launches"] = sum(counts.get(name, 0) - counts.get(
+            f"{name}/generic", 0) for _, counts, _ in paths)
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"card": smi, "kernels": kernels, "slice": stats, "lm_serve": lm_stats,
          "lm_score": score_stats, "lm_card_vs_cpu": cpu_stats,
          "backends": backend_stats, "probes": probe_stats, "dse": dse_stats,
-         "widened_serve": widened_stats, **new_lms, **moe_lms,
+         "widened_serve": widened_stats, "widened_lm": wide_lm_stats,
+         **new_lms, **moe_lms,
          "deepseek_67b": {"serve": ds_serve}, **rec_lms,
          "llava_next_mistral_7b": {**vlm_stats, "card_vs_cpu": vlm_cpu},
          "seamless_m4t_medium": {**encdec_stats, "card_vs_cpu": encdec_cpu},

@@ -8,7 +8,8 @@ captured or executed: each row is a closed form of its shape.
 
 * **Operations**, split by the unit that runs them: ``int8_ops`` (the
   matmul kernels' products on the int8 tensor cores, 2 M N K; twice that
-  for 9-16-bit act mantissas, a high and a low byte), ``bf16_ops`` (the
+  for 9-16-bit act mantissas, a high and a low byte; on the generic route
+  ``int8_splits`` x 2 M N K, a product per pair of bytes), ``bf16_ops`` (the
   bf16 flash kernel's q.k and P.V products) and ``f32_ops`` (the ordered
   f32 sum of the matmul kernels, a multiply and an add per output element
   and act block; the row datapaths' stages, ``ROW_OPS`` per element; the
@@ -49,7 +50,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.telemetry.export import (DEFAULT_PEAKS, F32_OPS_PER_S,
-                                          INT8_OPS_PER_S)
+                                          F64_OPS_PER_S, INT8_OPS_PER_S)
 
 H100_SMS = 132
 DEIT_BASE_LAYERS = 12
@@ -61,13 +62,13 @@ ROW_OPS = {"mxint_layernorm": 30, "mxint_softmax": 30, "mxint_gelu": 16,
 
 
 def bound(nbytes: float, int8_ops: float = 0.0, f32_ops: float = 0.0,
-          bf16_ops: float = 0.0) -> Tuple[float, str]:
+          bf16_ops: float = 0.0, f64_ops: float = 0.0) -> Tuple[float, str]:
     """(least time in ms, what bounds it: "bytes" or "operations") on the
     H100's published dense peaks: HBM, int8 and bf16 tensor cores, float32
-    outside them."""
+    and float64 outside them."""
     t_mem = nbytes / DEFAULT_PEAKS.hbm_bytes_per_s
     t_ops = (int8_ops / INT8_OPS_PER_S + bf16_ops / DEFAULT_PEAKS.flops_per_s
-             + f32_ops / F32_OPS_PER_S)
+             + f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S)
     return max(t_mem, t_ops) * 1e3, ("bytes" if t_mem >= t_ops
                                      else "operations")
 
@@ -85,17 +86,20 @@ def _operand(name: str, dtype: str, numel: int, elem_bytes: int) -> dict:
 
 def _row(label: str, kernel: str, shape: dict, operands: List[dict], *,
          int8_ops: float = 0.0, bf16_ops: float = 0.0, f32_ops: float = 0.0,
-         smem_bytes: int = 0, calls: Optional[int] = None,
-         scope: Optional[str] = None) -> dict:
+         f64_ops: float = 0.0, smem_bytes: int = 0,
+         calls: Optional[int] = None, scope: Optional[str] = None) -> dict:
     hbm = sum(o["bytes_traffic"] for o in operands)
-    flops = int8_ops + bf16_ops + f32_ops
-    ms, by = bound(hbm, int8_ops=int8_ops, f32_ops=f32_ops, bf16_ops=bf16_ops)
+    flops = int8_ops + bf16_ops + f32_ops + f64_ops
+    ms, by = bound(hbm, int8_ops=int8_ops, f32_ops=f32_ops, bf16_ops=bf16_ops,
+                   f64_ops=f64_ops)
     row = {"label": label, "kernel": kernel, "shape": shape,
            "flops": int(flops), "int8_ops": int(int8_ops),
            "bf16_ops": int(bf16_ops), "f32_ops": int(f32_ops),
            "hbm_bytes": int(hbm), "smem_bytes": int(smem_bytes),
            "intensity": round(flops / hbm, 3) if hbm else 0.0,
            "bound_ms": ms, "bound_by": by, "operands": operands}
+    if f64_ops:
+        row["f64_ops"] = int(f64_ops)
     if calls is not None:
         row["calls"] = calls
     if scope is not None:
@@ -217,6 +221,104 @@ def flash_row(label: str, heads: int, kv_heads: int, S: int, d: int, *,
                 smem_bytes=smem, calls=calls)
 
 
+# ---------------------------------------------------------------------------
+# the generic routes
+# ---------------------------------------------------------------------------
+def int8_splits(act_mant_bits: int, w_bytes: int) -> int:
+    """The int8 products one integer product splits into: a signed high
+    byte and unsigned lower bytes of each operand (acts of 9-16 bits two
+    bytes, as the core's V 2 splits them, 17-24 bits three; int16 planes
+    two bytes, int32 planes at most the 24 bits a mantissa takes, three)."""
+    return -(-act_mant_bits // 8) * min(w_bytes, 3)
+
+
+def generic_matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
+                       act_block: int, act_mant_bits: int, w_bytes: int,
+                       fused_ln: bool = False, quantize_act: bool = True,
+                       lut_bits: int = 5) -> dict:
+    """The generic route of ``mxint_matmul`` (or, ``fused_ln``,
+    ``mxint_ln_matmul``): x (M, K) f32, planes of ``w_bytes`` bytes an
+    element (int8, int16, int32) and int8 exponents, f32 out; the fused
+    kernel also reads gamma, beta and its rsqrt LUT.  The bound counts the
+    integer products as the core's wide rows do: split into int8 pieces
+    (``int8_splits``) on the int8 tensor cores, exact in any order, though
+    this route runs them on the CUDA cores; each output adds every
+    segment's dot in two rounded f32 steps.  Float activations take float64
+    products and sums in a fixed order, counted at the float64 rate."""
+    from repro_torch.kernels.mxint_matmul import (generic_rows,
+                                                  generic_smem_bytes,
+                                                  segments)
+    wd = {1: "int8", 2: "int16", 4: "int32"}[w_bytes]
+    ops = [_operand("x", "float32", M * K, 4)]
+    if fused_ln:
+        ops += [_operand("gamma", "float32", K, 4),
+                _operand("beta", "float32", K, 4),
+                _operand("lut", "float32", 2 ** lut_bits, 4)]
+    ops += [_operand("w_mant", wd, K * N, w_bytes),
+            _operand("w_exp", "int8", (K // w_block) * N, 1),
+            _operand("out", "float32", M * N, 4)]
+    ln_d = K if fused_ln else 0
+    bm = generic_rows(M, K, act_block, quantize_act, ln_d)
+    smem = generic_smem_bytes(bm, K, act_block, quantize_act, ln_d)
+    i8 = f32 = f64 = 0.0
+    if quantize_act:
+        i8 = int8_splits(act_mant_bits, w_bytes) * 2.0 * M * N * K
+        f32 = 2.0 * M * N * len(segments(K, w_block, act_block)[0])
+    else:
+        f64 = 2.0 * M * N * K
+    if fused_ln:
+        f32 += ROW_OPS["mxint_layernorm"] * M * K
+    return _row(label, "mxint_ln_matmul" if fused_ln else "mxint_matmul",
+                {"M": M, "K": K, "N": N, "w_block": w_block,
+                 "act_block": act_block, "act_mant_bits": act_mant_bits,
+                 "route": "generic", "w_bytes": w_bytes,
+                 "quantize_act": quantize_act, "lut_bits": lut_bits},
+                ops, int8_ops=i8, f32_ops=f32, f64_ops=f64, smem_bytes=smem)
+
+
+def generic_row_row(label: str, kernel: str, rows: int, d: int, *,
+                    act_block: int, lut_n: int, lut_bits: int) -> dict:
+    """The generic route of a row kernel: (rows, d) f32 read and written
+    once, its LUT read from device memory (counted once), the datapath's
+    ``ROW_OPS`` an element; no shared memory."""
+    ops = [_operand("x", "float32", rows * d, 4),
+           _operand("lut", "float32", lut_n, 4)]
+    if kernel == "mxint_layernorm":
+        ops += [_operand("gamma", "float32", d, 4),
+                _operand("beta", "float32", d, 4)]
+    ops.append(_operand("out", "float32", rows * d, 4))
+    return _row(label, kernel, {"rows": rows, "d": d, "act_block": act_block,
+                                "route": "generic", "lut_bits": lut_bits},
+                ops, f32_ops=ROW_OPS[kernel] * rows * d)
+
+
+def _generic_rows(batch: int = 16) -> List[dict]:
+    """DeiT-Base's kernels at batch 16 on the generic routes, at the
+    widened format its serve runs (W12 planes, act block 12, Table VI's
+    vanilla LUTs: LN 13 bits, GELU 14, softmax r 16), and the FFN ``wo``
+    with float activations."""
+    from repro_torch.kernels.mxint_gelu import gelu_table
+    M, d, ff = batch * 197, 768, 3072
+    w12 = dict(w_block=256, act_block=12, act_mant_bits=8, w_bytes=2)
+    return [
+        generic_matmul_row("deit-base-ffn-wo-w12-a12", M, ff, d, **w12),
+        generic_matmul_row("deit-base-ln2-wi-w12-a12", M, d, ff,
+                           fused_ln=True, lut_bits=13, **w12),
+        generic_matmul_row("deit-base-ffn-wo-float-act", M, ff, d,
+                           w_block=256, act_block=16, act_mant_bits=8,
+                           w_bytes=1, quantize_act=False),
+        generic_row_row("deit-base-softmax-r16", "mxint_softmax",
+                        batch * 12 * 197, 197, act_block=1, lut_n=2 ** 16,
+                        lut_bits=16),
+        generic_row_row("deit-base-gelu-lut14", "mxint_gelu", M, ff,
+                        act_block=12, lut_n=len(gelu_table("gelu", 14,
+                                                           3.0)[0]),
+                        lut_bits=14),
+        generic_row_row("deit-base-final-ln-lut13", "mxint_layernorm", M, d,
+                        act_block=12, lut_n=2 ** 13, lut_bits=13),
+    ]
+
+
 def _deit_base_rows(batch: int = 16, act_block: int = 16,
                     act_mant_bits: int = 8) -> List[dict]:
     """DeiT-Base's kernels in kernel mode at ``batch`` images (197 tokens,
@@ -257,7 +359,7 @@ def build_table(act_block: int = 16, act_mant_bits: int = 8) -> List[dict]:
         matmul_row("matmul-bench", 128, 1024, 512, w_block=256, **act),
         matmul_row("ln-matmul-bench", 256, 768, 768, w_block=32,
                    fused_ln=True, **act),
-    ] + _deit_base_rows(**act)
+    ] + _deit_base_rows(**act) + _generic_rows()
 
 
 _TABLE_MEMO: Dict[Tuple[int, int], List[dict]] = {}
@@ -288,6 +390,10 @@ def query(labels: Optional[Sequence[str]] = None, *, act_block: int = 16,
     return {label: rows[label] for label in labels}
 
 
+# the generic routes' rows (``_generic_rows``)
+GENERIC_LABELS = ("deit-base-ffn-wo-w12-a12", "deit-base-ln2-wi-w12-a12",
+                  "deit-base-ffn-wo-float-act", "deit-base-softmax-r16",
+                  "deit-base-gelu-lut14", "deit-base-final-ln-lut13")
 DEIT_BASE_LABELS = ("deit-base-patch", "deit-base-ln1-qkv",
                     "deit-base-softmax", "deit-base-attn-wo",
                     "deit-base-ln2-wi", "deit-base-gelu", "deit-base-ffn-wo",
@@ -357,6 +463,29 @@ def row_launch(row: dict):
     from repro_torch.analysis.launch_contracts import launch
     from repro_torch.core.quantize import _resolve_block
     sh, k = row["shape"], row["kernel"]
+    if sh.get("route") == "generic":
+        import torch
+        if k in ("mxint_matmul", "mxint_ln_matmul"):
+            kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
+                      act_block=sh["act_block"],
+                      w_dtype={1: torch.int8, 2: torch.int16,
+                               4: torch.int32}[sh["w_bytes"]])
+            if k == "mxint_matmul":
+                kw.update(K=sh["K"], act_mant_bits=sh["act_mant_bits"],
+                          quantize_act=sh["quantize_act"])
+            else:
+                kw.update(d=sh["K"], mant_bits=sh["act_mant_bits"],
+                          lut_bits=sh["lut_bits"])
+            return launch(k, kw, row["label"])
+        if k == "mxint_softmax":
+            kw = dict(n=sh["d"], r_bits=sh["lut_bits"])
+        elif k == "mxint_gelu":
+            kw = dict(d=sh["d"], lut_bits=sh["lut_bits"], domain=3.0,
+                      fn="gelu")
+        else:
+            kw = dict(d=sh["d"], lut_bits=sh["lut_bits"])
+        return launch(k, dict(kw, rows=sh["rows"],
+                              act_block=sh["act_block"]), row["label"])
     if k in ("mxint_matmul", "mxint_ln_matmul"):
         kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
                   act_block=sh["act_block"])

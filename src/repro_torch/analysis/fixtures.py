@@ -100,8 +100,9 @@ def overlapping_output_tile() -> List[Violation]:
 
 
 def out_of_domain_record() -> List[Violation]:
-    """A launch at act block 12 built from the GEMM geometry without the
-    wrapper's ``check_act_format``: it reaches a record."""
+    """A GEMM-core launch at act block 12 (which only the generic route
+    takes) built from the core's geometry without the wrapper's
+    ``matmul_route``: it reaches a record."""
     from repro_torch.kernels import mxint_matmul as mm
     from repro_torch.kernels.launch_record import emit
 

@@ -10,7 +10,9 @@ CTA writes as the kernel indexes it: rows by column tiles for the GEMM
 core (``n_per`` consecutive tiles a CTA), rows for the row kernels, a
 (problem, row block, column slice) for decode, (KV head, position block)
 for the bf16 flash kernels, and the passes of the grid-stride loop where
-``gelu_geometry`` caps the grid.  Every element must be covered exactly
+``gelu_geometry`` caps the grid; on the generic routes, rows by 128
+columns for the GEMMs, 8 rows for the row kernels, and a warp's query row
+for the flash kernels (positions of a head, or rows of (B, Hkv, G)).  Every element must be covered exactly
 once: K is never split, and one thread owns each output's whole ordered
 sum (``kernels/mxint_matmul.py``).
 

@@ -21,10 +21,10 @@ reads the card's attributes and fails unless they equal these):
 4. grid x at most 2^31 - 1, y and z at most 65,535;
 5. every operand a route reads or writes with 16- or 8-byte vector
    accesses starts on that many bytes;
-6. a format outside a kernel's domain raises in the wrapper's own check
-   (``check_act_format``, ``check_ln_route``, ``flash_attention._check``,
-   ``kernel_route``: ``ValueError``, or the flash checks'
-   ``NotImplementedError``) and produces no record.
+6. a format outside every route of a kernel raises in the wrapper's own
+   check (``matmul_route``, ``resolve_act_block``, ``flash_route``,
+   ``generic_warps``, ``flash_attention._check``: ``ValueError``) and
+   produces no record.
 
 The output coverage of each record is ``grid_coverage``'s rule, over the
 same sweep.  The sweep (``sweep_records``): every (kernel, logical shape)
@@ -429,9 +429,15 @@ def widened_cases() -> List[Case]:
     return out
 
 
-def domain_cases() -> List[Case]:
-    """The formats ROADMAP §3, item 1 lists as outside the kernels'
-    domain: each must raise in the wrapper's check."""
+def generic_cases() -> List[Case]:
+    """The formats that only the generic routes take (the out-of-domain
+    formats of ROADMAP §3, item 1, before the generic routes): act blocks
+    that do not nest in the weight block, K not a multiple of 16, 17-bit
+    act mantissas, int16 planes, LN blocks past the fast routes' or on
+    unaligned rows, whole-row softmax and GELU blocks, flash act blocks
+    past 32 (and 12, which resolves to 8 on the fast decode kernel), head
+    dims past 256, a bf16 head dim off the mma depth, G past the mma
+    kernel's rows."""
     M, d, ff = 64, 768, 3072
     return [
         ("odd-act-block-12", "mxint_matmul",
@@ -479,8 +485,77 @@ def domain_cases() -> List[Case]:
     ]
 
 
+def wide_format_cases() -> List[Case]:
+    """The formats of the reference's own sweeps past the fast routes: the
+    paper's W9-W14 and W16-W24 planes (int16, int32), 24-bit act
+    mantissas, Table VI's vanilla LUTs (LN 13 bits, GELU 14, softmax r
+    16) at DeiT-Base's shapes, ``quantize_act=False`` at its FFN ``wo``,
+    and the flash kernels' r 10 LUT."""
+    M, d, ff = DEIT_BATCH * 197, 768, 3072
+    return [
+        ("w12-a12-ffn-wo", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=256, act_block=12, act_mant_bits=8,
+              w_dtype=torch.int16)),
+        ("w12-a12-ln2-wi", "mxint_ln_matmul",
+         dict(M=M, N=ff, d=d, w_block=256, act_block=12, mant_bits=8,
+              lut_bits=13, w_dtype=torch.int16)),
+        ("w24-a24-int32", "mxint_matmul",
+         dict(M=64, N=d, K=ff, w_block=256, act_block=256,
+              act_mant_bits=24, w_dtype=torch.int32)),
+        ("float-act-ffn-wo", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=256, act_block=16, act_mant_bits=8,
+              quantize_act=False)),
+        ("ln-lut-13", "mxint_layernorm",
+         dict(rows=M, d=d, act_block=12, lut_bits=13)),
+        ("softmax-r-16", "mxint_softmax",
+         dict(rows=DEIT_BATCH * 12 * 197, n=197, act_block=1, r_bits=16)),
+        ("gelu-lut-14", "mxint_gelu",
+         dict(rows=M, d=ff, act_block=12, lut_bits=14, domain=3.0,
+              fn="gelu")),
+        ("flash-r-10", "flash_attention",
+         dict(bh=8, sq=256, sk=256, d=128, act_block=16, r_bits=10)),
+    ]
+
+
+def domain_cases() -> List[Case]:
+    """Formats outside every route, each refused by the reference's
+    kernels too: each must raise in the wrapper's check before a record
+    exists."""
+    M, d, ff = 64, 768, 3072
+    return [
+        ("act-mant-25", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=256, act_block=16, act_mant_bits=25)),
+        ("act-block-not-dividing-k", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=256, act_block=7, act_mant_bits=8)),
+        ("w-block-not-dividing-k", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=5, act_block=16, act_mant_bits=8)),
+        ("int64-planes", "mxint_matmul",
+         dict(M=M, N=d, K=ff, w_block=256, act_block=16, act_mant_bits=8,
+              w_dtype=torch.int64)),
+        ("lnmm-mant-25", "mxint_ln_matmul",
+         dict(M=M, N=ff, d=d, w_block=256, act_block=16, mant_bits=25,
+              lut_bits=5)),
+        ("ln-block-not-dividing-d", "mxint_layernorm",
+         dict(rows=M, d=d, act_block=7, lut_bits=5)),
+        ("softmax-block-not-dividing-n", "mxint_softmax",
+         dict(rows=M, n=256, act_block=7, r_bits=2)),
+        ("gelu-block-not-dividing-d", "mxint_gelu",
+         dict(rows=M, d=ff, act_block=7, lut_bits=5, domain=3.0, fn="gelu")),
+        ("flash-float16", "flash_attention",
+         dict(bh=8, sq=256, sk=256, d=128, dtype=torch.float16)),
+        ("flash-quantized-float-exp", "flash_attention",
+         dict(bh=8, sq=256, sk=256, d=128, exp_mode="float",
+              quantize_scores=True)),
+        ("flash-head-dim-past-smem", "flash_attention",
+         dict(bh=2, sq=16, sk=256, d=40000)),
+        ("decode-float16", "flash_attention_decode",
+         dict(b=4, hkv=8, g=4, W=2048, d=128, dtype=torch.float16)),
+    ]
+
+
 def sweep_cases() -> List[Case]:
-    return reference_cases() + serving_cases() + widened_cases()
+    return reference_cases() + serving_cases() + widened_cases() + \
+        generic_cases() + wide_format_cases()
 
 
 _SWEEP_MEMO: List[LaunchRecord] = []
@@ -527,6 +602,34 @@ def query_record(kernel: str, kw: dict, rec: LaunchRecord) -> dict:
     i, f = ctypes.c_int, ctypes.c_float
     bf16 = lambda name: int(kw.get(name, torch.float32)  # noqa: E731
                             == torch.bfloat16)
+    gen = "generic" in rec.function or "_float_" in rec.function
+    if kernel == "mxint_matmul" and gen:
+        return query("mxint_matmul", mxint_matmul.generic_entry(),
+                     *[None] * 4, kw["M"], kw["K"], kw["N"],
+                     *mxint_matmul.generic_args(
+                         kw["K"], kw["w_block"], kw["act_block"],
+                         kw["act_mant_bits"], kw.get("w_dtype", torch.int8),
+                         kw.get("quantize_act", True), rec.args[0]), None)
+    if kernel == "mxint_ln_matmul" and gen:
+        d = kw["d"]
+        n = 2 ** kw["lut_bits"]
+        return query("mxint_ln_matmul",
+                     mxint_ln_matmul.ln_matmul_generic_entry(), *[None] * 7,
+                     kw["M"], d, kw["N"], *mxint_matmul.generic_args(
+                         d, kw["w_block"], min(kw["act_block"], d),
+                         kw["mant_bits"], kw.get("w_dtype", torch.int8),
+                         True, rec.args[0]), f32(1.0 / d), n, f32(n / 1.5),
+                     0, bf16("x_dtype"), bf16("params_dtype"), None)
+    if kernel == "mxint_layernorm" and gen:
+        d, n = kw["d"], 2 ** kw["lut_bits"]
+        return query("mxint_layernorm", mxint_layernorm.generic_entry(),
+                     *[None] * 5, kw["rows"], d, kw["act_block"], 8,
+                     f32(1.0 / d), n, f32(n / 1.5), 0, 1, bf16("x_dtype"),
+                     bf16("params_dtype"), *rec.args, None)
+    if kernel == "mxint_softmax" and gen:
+        return query("mxint_softmax", mxint_softmax.generic_entry(),
+                     *[None] * 3, kw["rows"], kw["n"], kw["act_block"], 8,
+                     2 ** kw["r_bits"], LOG2E, 1, *rec.args, None)
     if kernel == "mxint_matmul":
         return query("mxint_matmul", mxint_matmul.matmul_entry(),
                      *[None] * 4, kw["M"], kw["K"], kw["N"], kw["w_block"],
@@ -557,14 +660,24 @@ def query_record(kernel: str, kw: dict, rec: LaunchRecord) -> dict:
     if kernel == "mxint_gelu":
         table, dom = mxint_gelu.gelu_table(kw["fn"], kw["lut_bits"],
                                            kw["domain"])
-        fn = _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong] + [i] * 3 + [f] * 2 + [i] * 3 +
-            [ctypes.c_void_p])
-        return query("mxint_gelu", fn, *[None] * 3, kw["rows"] * kw["d"],
-                     kw["act_block"], 8, len(table), f32(dom),
-                     f32(len(table) / (2.0 * dom)), *rec.args, None)
-    tail = [2 ** 2, f32(kw["d"] ** -0.5), LOG2E, bf16("dtype"), None]
-    fmt = [1, 1, kw.get("act_block", 16), 8]
+        return query("mxint_gelu", mxint_gelu.entry(), *[None] * 3,
+                     kw["rows"] * kw["d"], kw["act_block"], 8, len(table),
+                     f32(dom), f32(len(table) / (2.0 * dom)), *rec.args,
+                     None)
+    tail = [2 ** kw.get("r_bits", 2), f32(kw["d"] ** -0.5), LOG2E,
+            int(kw.get("dtype", torch.bfloat16) == torch.bfloat16), None]
+    fmt = [1, 1, flash_attention.resolve_act_block(kw.get("act_block", 16)),
+           8]
+    if gen and kernel == "flash_attention":
+        return query("flash_attention", flash_attention.generic_entry(),
+                     *[None] * 5, kw["bh"], kw["sq"], kw["sk"], kw["d"],
+                     kw.get("kv_groups", 1), 1, 0, *fmt, *tail[:-1],
+                     *rec.args, None)
+    if gen:
+        return query("flash_attention",
+                     flash_attention.generic_decode_entry(), *[None] * 6,
+                     kw["b"], kw["hkv"], kw["g"], kw["W"], kw["d"], *fmt,
+                     *tail[:-1], *rec.args, None)
     if kernel == "flash_attention":
         fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 + [i] * 7
                           + flash_attention._TAIL)

@@ -52,7 +52,7 @@ class HopperKernelDatapath(Datapath):
 
     def _linear_planes(self, x, wv: MXTensor, b, q):
         return ops.mxint_linear(x, wv.mantissa, wv.exponent, self._bias(b),
-                                w_block=wv.block_size,
+                                w_block=wv.block_size, quantize_act=True,
                                 act_block=q.act_fmt.block_size,
                                 act_mant_bits=q.act_fmt.mant_bits,
                                 **self._tp(wv))

@@ -181,9 +181,24 @@ __device__ __forceinline__ void lane_keep(int qpos, int k0, const Problem& p,
   }
 }
 
+// max over a score act block of up to the whole tile (the generic route):
+// up to 32 keys, aligned groups of lanes; 64, the lane's two key groups
+// c = 0, 1 (and 2, 3) over the warp; 128, all four
+__device__ __forceinline__ void tile_group_max(float (&a)[kPerLane],
+                                               int block) {
+  group_max_lanes(a, block < kWarp ? block : kWarp);
+  if (block >= 2 * kWarp) {
+    a[0] = a[1] = fmaxf(a[0], a[1]);
+    a[2] = a[3] = fmaxf(a[2], a[3]);
+  }
+  if (block >= 4 * kWarp) a[0] = a[1] = a[2] = a[3] = fmaxf(a[0], a[2]);
+}
+
 // One tile's row stages for row r (one warp): mask, Eq. 2-3 quantization,
 // exp datapath, rescale, row sum, and the P written back for the P.V
 // product.  Row state: m, l (running), alpha, and at the flush l_m, 2^-l_e.
+// WIDE: score act blocks past 32 keys (the generic route).
+template <bool WIDE = false>
 __device__ __forceinline__ void row_stages(float* srow,
                                            const bool (&keep)[kPerLane],
                                            int k0, bool last,
@@ -207,7 +222,10 @@ __device__ __forceinline__ void row_stages(float* srow,
       if (!real[c]) s[c] = pow2_sel(-100);              // the pad fill
       a[c] = fabsf(s[c]);
     }
-    group_max_lanes(a, p.block);
+    if constexpr (WIDE)
+      tile_group_max(a, p.block);
+    else
+      group_max_lanes(a, p.block);
     int e[kPerLane];
     int emax = -128;
 #pragma unroll
@@ -268,7 +286,10 @@ __device__ __forceinline__ void row_stages(float* srow,
       if (last) pr[c] = __fmul_rn(__fdiv_rn(pr[c], lm), inv);
       a[c] = fabsf(pr[c]);
     }
-    group_max_lanes(a, p.block);
+    if constexpr (WIDE)
+      tile_group_max(a, p.block);
+    else
+      group_max_lanes(a, p.block);
 #pragma unroll
     for (int c = 0; c < kPerLane; ++c) {
       const int e = block_exp(a[c], p.mant_bits);
@@ -1768,6 +1789,150 @@ int launch_decode_rows(const DecodeLaunch& l, int rows) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the generic route: every format of the reference
+// ---------------------------------------------------------------------------
+// Any head dim, any G, score act blocks up to 128 (the reference's
+// _resolve_block(128, block)), any LUT length, bf16 or f32 operands: what
+// neither kernel above takes.  A warp runs one query row through the
+// ordered kernel's steps in its order (attend_rows in
+// kernels/flash_attention.py): per tile, lane l's keys l + 32 c, each q.k
+// over d in order from device memory, then row_stages, then the P.V of
+// the lane's columns l, l + 32, ... over the tile's keys in order.  Its q
+// row, running acc, scores and row state sit in shared memory; K, V and
+// the LUT are read from device memory.  Every tile is walked (the tiles
+// the fast kernels skip leave the row state as it is, see attend_rows).
+// Decode: row R of (B, Hkv, G) reads the ring of batch row R / (Hkv G), KV
+// head R / G % Hkv, keys masked by valid.
+constexpr int kGenFlashWarps = 4;
+
+__host__ __device__ __forceinline__ int gen_row_floats(int d) {
+  return 2 * d + kTileK + 8;
+}
+
+struct GenFlash {
+  int rows;        // rows of the launch: bh * sq, or b * hkv * g
+  int groups;      // flash: query heads a KV head
+  int hkv, g;      // decode
+};
+
+template <typename T, bool DECODE>
+__global__ void __launch_bounds__(kGenFlashWarps * kWarp)
+flash_generic_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const int* __restrict__ valid,
+                     const float* __restrict__ lut, T* __restrict__ out,
+                     GenFlash gf, Problem p) {
+  extern __shared__ __align__(16) float gsm[];
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int nw = blockDim.x / kWarp, d = p.d;
+  float* sq_ = gsm + (size_t)warp * gen_row_floats(d);
+  float* sacc = sq_ + d;
+  float* ss = sacc + d;
+  float* st = ss + kTileK;           // m, l, alpha, l_m, 2^-l_e
+  size_t row;                        // the output row
+  const T* kb;                       // key 0 of this row's K (and V) head
+  const int* vrow = nullptr;
+  int qpos = 0;
+  if constexpr (DECODE) {
+    const int R = blockIdx.x * nw + warp;
+    if (R >= gf.rows) return;
+    const int bi = R / (gf.hkv * gf.g), hh = R / gf.g % gf.hkv;
+    row = R;
+    kb = k + ((size_t)bi * p.n_keys * gf.hkv + hh) * d;
+    vrow = valid + (size_t)bi * p.n_keys;
+  } else {
+    const int h = blockIdx.y;
+    qpos = blockIdx.x * nw + warp;
+    if (qpos >= p.n_rows) return;
+    row = (size_t)h * p.n_rows + qpos;
+    kb = k + (size_t)(h / gf.groups) * p.n_keys * d;
+  }
+  const T* vb = v + (kb - k);
+  for (int c = lane; c < d; c += kWarp) {
+    sq_[c] = to_f32(q[row * d + c]);
+    sacc[c] = 0.0f;
+  }
+  if (lane == 0) {
+    st[0] = kNegInf;
+    st[1] = 0.0f;
+  }
+  __syncwarp();
+  const int n_tiles = (p.n_keys + kTileK - 1) / kTileK;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTileK;
+    const int nk = min(kTileK, p.n_keys - k0);
+    const bool last = t == n_tiles - 1;
+    bool keep[kPerLane];
+#pragma unroll
+    for (int c = 0; c < kPerLane; ++c) {
+      const int j = lane + kWarp * c;
+      float s = 0.0f;
+      if (j < nk) {
+        const T* kr = kb + (size_t)(k0 + j) * p.key_stride;
+        for (int e = 0; e < d; ++e)
+          s = __fadd_rn(s, __fmul_rn(sq_[e], to_f32(kr[e])));
+      }
+      ss[j] = __fmul_rn(s, p.scale);
+    }
+    if constexpr (DECODE) {
+#pragma unroll
+      for (int c = 0; c < kPerLane; ++c) {
+        const int key = k0 + lane + kWarp * c;
+        keep[c] = key >= p.n_keys || vrow[key] != 0;
+      }
+    } else {
+      lane_keep(qpos, k0, p, lane, keep);
+    }
+    __syncwarp();
+    row_stages<true>(ss, keep, k0, last, p, lut, st, st + 1, st + 2, st + 3,
+                     st + 4, lane);
+    __syncwarp();
+    const float alpha = st[2], lm = st[3], inv = st[4];
+    for (int col = lane; col < d; col += kWarp) {
+      float dot = 0.0f;
+      for (int j = 0; j < nk; ++j)
+        dot = __fadd_rn(dot, __fmul_rn(ss[j], to_f32(
+                                                  vb[(size_t)(k0 + j) *
+                                                         p.key_stride +
+                                                     col])));
+      const float a = __fmul_rn(sacc[col], alpha);
+      if (last && p.quantize) {
+        store(out + row * d + col,
+              __fadd_rn(__fmul_rn(__fdiv_rn(a, lm), inv), dot));
+      } else {
+        const float acc = __fadd_rn(a, dot);
+        if (last)
+          store(out + row * d + col, __fmul_rn(__fdiv_rn(acc, lm), inv));
+        else
+          sacc[col] = acc;
+      }
+    }
+    __syncwarp();
+  }
+}
+
+bool bad_generic(const Problem& p, int warps) {
+  const int b = p.block;
+  return p.d < 1 || b < 1 || b > kTileK || (b & (b - 1)) != 0 ||
+         p.lut_n < 1 || p.n_keys < 1 || p.n_rows < 1 || warps < 1 ||
+         warps > kGenFlashWarps || (p.quantize && !p.mxint);
+}
+
+template <typename T, bool DECODE>
+int launch_generic(const void* q, const void* k, const void* v,
+                   const int* valid, const float* lut, void* out, dim3 grid,
+                   int warps, const GenFlash& gf, const Problem& p,
+                   cudaStream_t st) {
+  auto* kern = flash_generic_kernel<T, DECODE>;
+  const size_t smem = (size_t)warps * gen_row_floats(p.d) * sizeof(float);
+  int rc = allow_smem(kern, smem);
+  if (rc) return rc;
+  QUERY_OR_LAUNCH(kern, grid, dim3(warps * kWarp), smem);
+  kern<<<grid, warps * kWarp, smem, st>>>(
+      (const T*)q, (const T*)k, (const T*)v, valid, lut, (T*)out, gf, p);
+  return (int)cudaGetLastError();
+}
+
 bool bad_problem(const Problem& p) {
   const int b = p.block;
   return p.d < 1 || p.d > kMaxD || p.lut_n > kMaxLut || b < 1 || b > kWarp ||
@@ -1848,6 +2013,46 @@ extern "C" int flash_attention_decode_launch(
                        (cudaStream_t)stream};
   return bf16 ? launch_decode_rows<__nv_bfloat16>(l, rows)
               : launch_decode_rows<float>(l, rows);
+}
+
+// the generic route of flash_attention (flash_route in
+// kernels/flash_attention.py); warps: query rows a CTA (generic_warps)
+extern "C" int flash_generic_launch(
+    const void* q, const void* k, const void* v, const float* lut, void* out,
+    int bh, int sq, int sk, int d, int groups, int causal, int window,
+    int mxint, int quantize, int block, int mant_bits, int lut_n, float scale,
+    float log2e, int bf16, int warps, void* stream) {
+  const Problem p{sq, sk, d, d, causal, window, mxint, quantize, block,
+                  mant_bits, lut_n, scale, log2e};
+  if (bad_generic(p, warps) || groups < 1 || bh % groups != 0)
+    return (int)cudaErrorInvalidValue;
+  const GenFlash gf{bh * sq, groups, 0, 0};
+  const dim3 grid((sq + warps - 1) / warps, bh);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_generic<__nv_bfloat16, false>(q, k, v, nullptr, lut,
+                                                    out, grid, warps, gf, p,
+                                                    st)
+              : launch_generic<float, false>(q, k, v, nullptr, lut, out,
+                                             grid, warps, gf, p, st);
+}
+
+// the generic route of flash_attention_decode (decode_route)
+extern "C" int flash_generic_decode_launch(
+    const void* q, const void* k, const void* v, const int* valid,
+    const float* lut, void* out, int b, int hkv, int g, int w, int d,
+    int mxint, int quantize, int block, int mant_bits, int lut_n, float scale,
+    float log2e, int bf16, int warps, void* stream) {
+  const Problem p{g, w, d, hkv * d, 0, 0, mxint, quantize, block, mant_bits,
+                  lut_n, scale, log2e};
+  if (bad_generic(p, warps) || b < 1 || hkv < 1)
+    return (int)cudaErrorInvalidValue;
+  const GenFlash gf{b * hkv * g, 1, hkv, g};
+  const dim3 grid((gf.rows + warps - 1) / warps);
+  const cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_generic<__nv_bfloat16, true>(q, k, v, valid, lut, out,
+                                                   grid, warps, gf, p, st)
+              : launch_generic<float, true>(q, k, v, valid, lut, out, grid,
+                                            warps, gf, p, st);
 }
 
 LAUNCH_QUERY_ENTRY(flash_attention)

@@ -13,9 +13,13 @@
 //    contiguous bytes; an act block is block / 4 adjacent lanes (up to
 //    the warp), which take its amax by __shfl_xor_sync (max is exact in
 //    any order).
-//  - gelu_scalar_kernel (any other block up to 128): one thread per act
-//    block, which reads it twice (its amax, then its elements).
+//  - gelu_scalar_kernel<true> (any other block up to 128): one thread per
+//    act block, which reads it twice (its amax, then its elements).
+//  - gelu_scalar_kernel<false>, the generic route (longer blocks, LUTs
+//    past kMaxLut entries): the same walk at any block, the LUT read from
+//    device memory.
 #include "mxint_common.cuh"
+#include "mxint_generic.cuh"
 #include "launch_query.cuh"
 
 using namespace mx;
@@ -73,35 +77,47 @@ gelu_vec4_kernel(const float4* __restrict__ x, const float* __restrict__ lut_g,
   }
 }
 
+// kSharedLut: the LUT copied to shared memory (at most kMaxLut entries),
+// else read from device memory through the read-only path (any length:
+// the generic route)
+template <bool kSharedLut>
 __global__ void __launch_bounds__(kMaxEltThreads)
 gelu_scalar_kernel(const float* __restrict__ x,
                    const float* __restrict__ lut_g, float* __restrict__ y,
                    long long n_blocks, int block, int mant_bits, GeluArgs a) {
-  __shared__ float lut[kMaxLut];
-  load_lut(lut, lut_g, a.lut_n);
-  __syncthreads();
+  const float* lut = lut_g;
+  if constexpr (kSharedLut) {
+    __shared__ float lut_s[kMaxLut];
+    load_lut(lut_s, lut_g, a.lut_n);
+    __syncthreads();
+    lut = lut_s;
+  }
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        b < n_blocks; b += stride) {
     const float* xb = x + b * block;
     float* yb = y + b * block;
-    const int e = block_exp(block_amax(xb, block), mant_bits);
+    const int e = block_exp(block_amax_g(xb, block), mant_bits);
     const float inv = pow2i(-e), scale = pow2i(e);
     for (int i = 0; i < block; ++i)
-      yb[i] = gelu_elem(xb[i], inv, scale, a, lut);
+      yb[i] = gelu_elem(__ldg(xb + i), inv, scale, a, lut);
   }
 }
 
 // vec 4: the float4 route (power-of-two blocks 4-128, 16-byte aligned),
-// vec 1: the scalar route; threads and grid from gelu_geometry
+// vec 1: the scalar route (blocks up to 128, a LUT in shared memory),
+// vec 0: the generic route (the scalar route's walk at any block and
+// mantissa width up to 24 bits, the LUT in device memory); threads and
+// grid from gelu_geometry
 extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
                                  long long numel, int block, int mant_bits,
                                  int lut_n, float domain, float idx_scale,
                                  int vec, int threads, int grid,
                                  void* stream) {
-  if (block < 1 || block > kMaxRowBlock || numel % block != 0 ||
-      lut_n > kMaxLut || threads < kWarp || threads > kMaxEltThreads ||
-      threads % kWarp != 0 || grid < 1)
+  if (block < 1 || numel % block != 0 || lut_n < 1 ||
+      (vec != 0 && (block > kMaxRowBlock || lut_n > kMaxLut)) ||
+      mant_bits < 2 || mant_bits > kGenMaxMantBits || threads < kWarp ||
+      threads > kMaxEltThreads || threads % kWarp != 0 || grid < 1)
     return (int)cudaErrorInvalidValue;
   const GeluArgs a{(float)((1 << (mant_bits - 1)) - 1), domain, idx_scale,
                    lut_n};
@@ -115,9 +131,13 @@ extern "C" int mxint_gelu_launch(const float* x, const float* lut, float* y,
         reinterpret_cast<const float4*>(x), lut, reinterpret_cast<float4*>(y),
         numel / 4, block / 4, mant_bits, a);
   } else if (vec == 1) {
-    QUERY_OR_LAUNCH(gelu_scalar_kernel, dim3(grid), dim3(threads), 0);
-    gelu_scalar_kernel<<<grid, threads, 0, s>>>(x, lut, y, numel / block,
-                                                block, mant_bits, a);
+    QUERY_OR_LAUNCH(gelu_scalar_kernel<true>, dim3(grid), dim3(threads), 0);
+    gelu_scalar_kernel<true><<<grid, threads, 0, s>>>(
+        x, lut, y, numel / block, block, mant_bits, a);
+  } else if (vec == 0) {
+    QUERY_OR_LAUNCH(gelu_scalar_kernel<false>, dim3(grid), dim3(threads), 0);
+    gelu_scalar_kernel<false><<<grid, threads, 0, s>>>(
+        x, lut, y, numel / block, block, mant_bits, a);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -15,6 +15,7 @@
 // scratch buffer instead, one row a CTA.  x is f32 or bf16 (T), gamma and
 // beta f32 or bf16 (a flag), beta may be null; y is f32.
 #include "mxint_common.cuh"
+#include "mxint_generic.cuh"
 #include "launch_query.cuh"
 
 using namespace mx;
@@ -149,6 +150,44 @@ extern "C" int mxint_layernorm_launch(
   if (gs) LN_LAUNCH(float, 0, true);
   LN_LAUNCH(float, 0, false);
 #undef LN_LAUNCH
+}
+
+// The generic route (mxint_generic.cuh): a warp a row, any act block that
+// divides d, any alignment, any LUT length (read from device memory).
+template <typename T>
+__global__ void __launch_bounds__(kRowWarps * kWarp)
+layernorm_generic_kernel(const T* __restrict__ x, float* __restrict__ y,
+                         int rows, LnRowArgs a) {
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  ln_row_generic<T>(x + (size_t)row * a.d, y + (size_t)row * a.d, a,
+                    threadIdx.x % kWarp);
+}
+
+extern "C" int mxint_layernorm_generic_launch(
+    const void* x, const void* gamma, const void* beta, const float* lut,
+    float* y, int rows, int d, int block, int mant_bits, float inv_d,
+    int lut_n, float lut_scale, int rms_only, int quantize_out, int x_bf16,
+    int params_bf16, int grid, void* stream) {
+  if (rows < 1 || block < 1 || d % block != 0 || lut_n < 1 ||
+      mant_bits < 2 || mant_bits > kGenMaxMantBits ||
+      (long long)grid * kRowWarps < rows)
+    return (int)cudaErrorInvalidValue;
+  const LnRowArgs a{gamma, beta, lut, d, block, mant_bits, lut_n, rms_only,
+                    quantize_out, params_bf16, 0, inv_d, lut_scale};
+  auto cs = (cudaStream_t)stream;
+  if (x_bf16) {
+    QUERY_OR_LAUNCH(layernorm_generic_kernel<__nv_bfloat16>, dim3(grid),
+                    dim3(kRowWarps * kWarp), 0);
+    layernorm_generic_kernel<<<grid, kRowWarps * kWarp, 0, cs>>>(
+        static_cast<const __nv_bfloat16*>(x), y, rows, a);
+  } else {
+    QUERY_OR_LAUNCH(layernorm_generic_kernel<float>, dim3(grid),
+                    dim3(kRowWarps * kWarp), 0);
+    layernorm_generic_kernel<<<grid, kRowWarps * kWarp, 0, cs>>>(
+        static_cast<const float*>(x), y, rows, a);
+  }
+  return (int)cudaGetLastError();
 }
 
 LAUNCH_QUERY_ENTRY(mxint_layernorm)

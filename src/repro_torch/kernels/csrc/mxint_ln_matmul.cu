@@ -2,8 +2,11 @@
 // Counterpart of repro/kernels/mxint_ln_matmul.py:mxint_ln_matmul.
 // Each CTA normalizes its bm rows (Fig. 3 LN, grid requantization, act
 // quantization) into shared memory while the first weight stages load,
-// then streams its column tiles against them through the GEMM core.
+// then streams its column tiles against them through the GEMM core.  Every
+// other format of the reference takes the generic route
+// (mxint_ln_matmul_generic_launch below).
 #include "mxint_common.cuh"
+#include "mxint_generic.cuh"
 #include "launch_query.cuh"
 
 using namespace mx;
@@ -173,6 +176,84 @@ extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
   }
 #undef LNMM_ROUTES
 #undef LNMM_LAUNCH
+}
+
+// The generic route: warp w normalizes the CTA's rows w, w + 8, ... with
+// ln_row_generic into shared memory (f32, onto the act grid, through
+// x.dtype and back), then the CTA runs generic_gemm over them.
+template <typename T, typename W, typename ACC>
+__global__ void __launch_bounds__(kGenThreads)
+mxint_ln_matmul_generic_kernel(const T* __restrict__ x, LnRowArgs ln,
+                               const W* __restrict__ wm,
+                               const int8_t* __restrict__ we,
+                               float* __restrict__ out, int M, int N,
+                               int w_block, int bm) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = ln.d, ab = ln.block;
+  const int m0 = blockIdx.x * bm, rows = min(bm, M - m0);
+  float* sx = reinterpret_cast<float*>(smem + (size_t)kGenTK * (bm + kGenBN) *
+                                                  sizeof(int));
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int r = warp; r < bm; r += kGenThreads / kWarp) {
+    if (r < rows) {
+      ln_row_generic<T>(x + (size_t)(m0 + r) * d, sx + (size_t)r * d, ln,
+                        lane);
+    } else {
+      for (int j = lane; j < d; j += kWarp) sx[(size_t)r * d + j] = 0.0f;
+    }
+  }
+  __syncthreads();
+  generic_gemm<W, ACC, true>(sx, d, rows, wm, we, out, m0, d, N, w_block, ab,
+                             ln.mant_bits, bm, smem,
+                             reinterpret_cast<int8_t*>(sx + (size_t)bm * d));
+}
+
+template <typename T>
+struct LnMatmulGeneric {
+  template <typename W, typename ACC, bool Q>
+  struct Of {
+    static const void* fn() {
+      if constexpr (Q)
+        return (const void*)mxint_ln_matmul_generic_kernel<T, W, ACC>;
+      else
+        return nullptr;
+    }
+  };
+};
+
+// The generic route (every format of the reference the core route does
+// not take): any LN block and alignment, any LUT length, int8, int16 or
+// int32 planes (w_bytes), act mantissas of 2-24 bits; wide: int64 segment
+// dots; quant must be 1; bm: a CTA's rows (generic_rows on the host).
+extern "C" int mxint_ln_matmul_generic_launch(
+    const void* x, const void* gamma, const void* beta, const float* lut,
+    const void* wm, const int8_t* we, float* out, int M, int d, int N,
+    int w_block, int mant_bits, int ab, int w_bytes, int wide, int quant,
+    int bm, float inv_d, int lut_n, float lut_scale, int rms_only,
+    int x_bf16, int params_bf16, void* stream) {
+  if (M < 1 || N < 1 || quant != 1 || lut_n < 1 ||
+      !generic_format_ok(d, w_block, ab, mant_bits, 1, bm))
+    return (int)cudaErrorInvalidValue;
+  const void* fn =
+      x_bf16 ? generic_instance<LnMatmulGeneric<__nv_bfloat16>::Of>(
+                   w_bytes, wide, 1)
+             : generic_instance<LnMatmulGeneric<float>::Of>(w_bytes, wide, 1);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = generic_smem_bytes(bm, d, ab, 1, d);
+  const dim3 grid((M + bm - 1) / bm, (N + kGenBN - 1) / kGenBN);
+  QUERY_OR_LAUNCH(fn, grid, dim3(kGenThreads), smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const LnRowArgs ln{gamma, beta, lut, d, ab, mant_bits, lut_n, rms_only,
+                     1, params_bf16, x_bf16, inv_d, lut_scale};
+  void* args[] = {(void*)&x, (void*)&ln, (void*)&wm, (void*)&we,
+                  (void*)&out, (void*)&M, (void*)&N, (void*)&w_block,
+                  (void*)&bm};
+  err = cudaLaunchKernel(fn, grid, dim3(kGenThreads), args, smem,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 LAUNCH_QUERY_ENTRY(mxint_ln_matmul)

@@ -2,8 +2,11 @@
 // Counterpart of repro/kernels/mxint_matmul.py:mxint_matmul (quantize_act).
 // y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N]; act blocks that
 // divide 16 or are multiples of 16 dividing w_block, act mantissas of
-// 2-16 bits (the GEMM core's V 0-2, mxint_common.cuh).
+// 2-16 bits (the GEMM core's V 0-2, mxint_common.cuh).  Every other format
+// of the reference, and float activations (quantize_act=False), take the
+// generic route (mxint_generic.cuh, mxint_matmul_generic_launch below).
 #include "mxint_common.cuh"
+#include "mxint_generic.cuh"
 #include "launch_query.cuh"
 
 using namespace mx;
@@ -184,6 +187,42 @@ extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
                   (void*)&vec, (void*)&vec_shift};
   QUERY_OR_LAUNCH(fn, grid, dim3(gemm_threads(bm)), smem);
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <typename W, typename ACC, bool Q>
+struct MatmulGeneric {
+  static const void* fn() {
+    return (const void*)mxint_matmul_generic_kernel<W, ACC, Q>;
+  }
+};
+
+// The generic route: w_bytes 1, 2 or 4 (int8, int16 or int32 planes);
+// wide: int64 segment dots; quant 0: float activations; bm: a CTA's rows
+// (a power of two up to kGenMaxRows, from generic_rows on the host).
+extern "C" int mxint_matmul_generic_launch(const float* x, const void* wm,
+                                           const int8_t* we, float* out,
+                                           int M, int K, int N, int w_block,
+                                           int mant_bits, int ab, int w_bytes,
+                                           int wide, int quant, int bm,
+                                           void* stream) {
+  if (M < 1 || N < 1 ||
+      !generic_format_ok(K, w_block, ab, mant_bits, quant, bm))
+    return (int)cudaErrorInvalidValue;
+  const void* fn = generic_instance<MatmulGeneric>(w_bytes, wide, quant);
+  if (fn == nullptr) return (int)cudaErrorInvalidValue;
+  const size_t smem = generic_smem_bytes(bm, K, ab, quant, 0);
+  const dim3 grid((M + bm - 1) / bm, (N + kGenBN - 1) / kGenBN);
+  QUERY_OR_LAUNCH(fn, grid, dim3(kGenThreads), smem);
+  cudaError_t err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&x, (void*)&wm, (void*)&we, (void*)&out,
+                  (void*)&M, (void*)&K, (void*)&N, (void*)&w_block,
+                  (void*)&ab, (void*)&mant_bits, (void*)&bm};
+  err = cudaLaunchKernel(fn, grid, dim3(kGenThreads), args, smem,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

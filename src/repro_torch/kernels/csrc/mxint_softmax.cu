@@ -23,6 +23,7 @@
 // Both add each lane's elements in order (block by block, element by
 // element), then a butterfly over the 32 lanes: warp_row_sum's order.
 #include "mxint_common.cuh"
+#include "mxint_generic.cuh"
 #include "launch_query.cuh"
 
 using namespace mx;
@@ -387,6 +388,97 @@ extern "C" int mxint_softmax_launch(const float* x, const float* lut,
   }
   QUERY_OR_LAUNCH(k, dim3(grid), dim3(kRowThreads), 0);
   k<<<grid, kRowThreads, 0, (cudaStream_t)stream>>>(
+      x, lut, y, rows, n, block, mant_bits, lut_n, log2e, quantize_out);
+  return (int)cudaGetLastError();
+}
+
+// The generic route: a warp a row, lane l over the row's act blocks l,
+// l + 32, ... element by element (any block that divides the row), four
+// passes over the row (the row-max exponent, the largest aligned
+// mantissa, 2^z and its sum in warp_row_sum's order, the output); the
+// pow2 LUT read by index from device memory (r_bits up to 16: 256 KB).
+__global__ void __launch_bounds__(kRowWarps * kWarp)
+softmax_generic_kernel(const float* __restrict__ x,
+                       const float* __restrict__ lut, float* __restrict__ y,
+                       int rows, int n, int block, int mant_bits, int lut_n,
+                       float log2e, int quantize_out) {
+  const int row = blockIdx.x * kRowWarps + threadIdx.x / kWarp;
+  if (row >= rows) return;
+  const int lane = threadIdx.x % kWarp, nb = n / block;
+  const float* xr = x + (size_t)row * n;
+  float* yr = y + (size_t)row * n;
+  const float lim = (float)((1 << (mant_bits - 1)) - 1);
+  int emax = -128;
+  for (int b = lane; b < nb; b += kWarp)
+    emax = max(emax, block_exp(block_amax_g(xr + b * block, block),
+                               mant_bits));
+  emax = warp_max_i(emax);
+  auto aligned = [&](int b, int e, int i) {
+    const float q = quant_mant(__ldg(xr + b * block + i), pow2_e8(-e), lim);
+    return (int)q >> min(emax - e, 31);
+  };
+  auto bexp = [&](int b) {
+    return block_exp(block_amax_g(xr + b * block, block), mant_bits);
+  };
+  int mmax = INT_MIN;
+  for (int b = lane; b < nb; b += kWarp) {
+    const int e = bexp(b);
+    for (int i = 0; i < block; ++i) mmax = max(mmax, aligned(b, e, i));
+  }
+  mmax = warp_max_i(mmax);
+  const float fmax_ = (float)mmax, plam = pow2i(emax);
+  // 2^z of element i of block b (exponent e), z = (m - max) 2^lambda log2 e
+  auto p_of = [&](int b, int e, int i) {
+    const float t = __fsub_rn((float)aligned(b, e, i), fmax_);
+    const float z = __fmul_rn(__fmul_rn(t, plam), log2e);
+    const float f = floorf(z);
+    const float r = __fsub_rn(z, f);
+    const int idx =
+        lut_index(floorf(__fmul_rn(r, (float)lut_n)), lut_n);
+    return __fmul_rn(__ldg(lut + idx), pow2i((int)fmaxf(f, -126.0f)));
+  };
+  float acc = 0.0f;
+  for (int b = lane; b < nb; b += kWarp) {
+    const int e = bexp(b);
+    for (int i = 0; i < block; ++i) acc = __fadd_rn(acc, p_of(b, e, i));
+  }
+  int se;
+  const float sm = frexpf(warp_sum_tree(acc), &se);      // Eq. 20
+  const float sinv = pow2i(-se);
+  auto y_of = [&](int b, int e, int i) {
+    return __fmul_rn(__fdiv_rn(p_of(b, e, i), sm), sinv);
+  };
+  for (int b = lane; b < nb; b += kWarp) {
+    const int e = bexp(b);
+    int eo = 0;
+    if (quantize_out) {
+      float m = 0.0f;
+      for (int i = 0; i < block; ++i) m = fmaxf(m, fabsf(y_of(b, e, i)));
+      eo = block_exp(m, mant_bits);
+    }
+    for (int i = 0; i < block; ++i) {
+      float v = y_of(b, e, i);
+      if (quantize_out)
+        v = __fmul_rn(quant_mant(v, pow2_e8(-eo), lim), pow2_e8(eo));
+      yr[b * block + i] = v;
+    }
+  }
+}
+
+extern "C" int mxint_softmax_generic_launch(const float* x, const float* lut,
+                                            float* y, int rows, int n,
+                                            int block, int mant_bits,
+                                            int lut_n, float log2e,
+                                            int quantize_out, int grid,
+                                            void* stream) {
+  if (rows < 1 || block < 1 || n % block != 0 || lut_n < 1 ||
+      mant_bits < 2 || mant_bits > kGenMaxMantBits ||
+      (long long)grid * kRowWarps < rows)
+    return (int)cudaErrorInvalidValue;
+  QUERY_OR_LAUNCH(softmax_generic_kernel, dim3(grid),
+                  dim3(kRowWarps * kWarp), 0);
+  softmax_generic_kernel<<<grid, kRowWarps * kWarp, 0,
+                           (cudaStream_t)stream>>>(
       x, lut, y, rows, n, block, mant_bits, lut_n, log2e, quantize_out);
   return (int)cudaGetLastError();
 }

@@ -34,7 +34,16 @@ bit for bit.  The bf16 ``flash_attention`` runs its products on the tensor
 cores, whose f32 sums have no fixed order: the card holds it within a
 tolerance (``kernel_route``).
 
-A CPU tensor runs the plain version; a CUDA tensor launches the kernel, or
+Score act blocks are resolved against the 128-key tile first, as the
+reference resolves them (``resolve_act_block``: 12 becomes 8).  Formats
+the fast kernels do not take (head dims past 256, score act blocks 64
+and 128, LUTs past 256 entries, bf16 head dims off the mma depth, more
+query heads per KV head than an mma block holds) take the generic route
+(``flash_route``, ``decode_route``): ``flash_generic_kernel``, a warp a
+query row in ``attend_rows``' order, bit for bit with the plain
+versions in both dtypes.
+
+A CPU tensor runs the plain version; a CUDA tensor launches a kernel, or
 the wrapper raises.  ``launches`` counts ``flash_attention`` launches and
 ``decode_launches`` counts ``flash_attention_decode`` launches.
 """
@@ -48,7 +57,7 @@ import torch
 
 from repro_torch.core import luts
 from repro_torch.core.mx_types import NEG_INF
-from repro_torch.core.quantize import pow2i
+from repro_torch.core.quantize import _resolve_block, pow2i
 from repro_torch.kernels import _build
 from repro_torch.kernels.launch_record import LaunchRecord, emit, rects, spec
 from repro_torch.kernels.mxint_layernorm import (SMEM_LIMIT, WARP,
@@ -60,8 +69,8 @@ from repro_torch.kernels.mxint_layernorm import (SMEM_LIMIT, WARP,
 from repro_torch.kernels.mxint_softmax import LOG2E, exp2_datapath
 
 TILE_K = 128            # keys per tile, fixed by the numerics
-MAX_HEAD_DIM = 256      # head dims the kernels take
-MAX_ACT_BLOCK = 32      # a score act block is a group of lanes of one warp
+MAX_HEAD_DIM = 256      # head dims the fast kernels take
+MAX_ACT_BLOCK = 32      # fast kernels: an act block is lanes of one warp
 MMA_K = 16              # bf16 route: head dims are multiples of the mma depth
 MMA_ROWS = 128          # bf16 route: query rows (positions x heads) a block
 MMA_WIDE_D = 128        # bf16 route: past this head dim, two warps a row
@@ -75,6 +84,9 @@ _MIN_L = f32(1e-30)
 
 launches = 0
 decode_launches = 0
+# launches of the generic route (within launches and decode_launches)
+generic_launches = 0
+generic_decode_launches = 0
 
 
 # Cephes ``expf``: exp(x) = 2^n * P(r), n = floor(x log2 e + 1/2), r = x -
@@ -351,10 +363,13 @@ def _check(name, exp_mode, quantize_scores, act_block, d):
     if TILE_K % act_block:
         raise ValueError(f"{name}: act block {act_block} does not divide "
                          f"the {TILE_K}-key tile")
-    if d > MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"{name}: head dim {d} > {MAX_HEAD_DIM}, which the kernels do "
-            f"not take")
+
+
+def resolve_act_block(act_block: int) -> int:
+    """The score act block resolved against the 128-key tile, as the
+    reference resolves it (``_resolve_block(128, act_block)``: 12 becomes
+    8, 64 and 128 stay)."""
+    return _resolve_block(TILE_K, act_block)
 
 
 def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
@@ -377,18 +392,22 @@ def kernel_route(dtype: torch.dtype, d: int, kv_groups: int) -> str:
     """
     if dtype == torch.float32:
         return "ordered"
-    if dtype != torch.bfloat16:
-        raise ValueError("the flash kernels take float32 or bfloat16")
+    _check_dtype(dtype)
     if d % MMA_K:
         raise NotImplementedError(
             f"flash_attention: bf16 head dim {d} is not a multiple of "
             f"{MMA_K}, which the tensor-core kernel needs")
-    rows = MMA_WIDE_ROWS if d > MMA_WIDE_D else MMA_ROWS
+    rows = mma_rows(d)
     if kv_groups > rows:
         raise NotImplementedError(
             f"flash_attention: kv_groups {kv_groups} > {rows}, the rows "
             f"of one block of the tensor-core kernel at head dim {d}")
     return "mma"
+
+
+def mma_rows(d: int) -> int:
+    """Query rows a block of the tensor-core kernel holds at head dim d."""
+    return MMA_WIDE_ROWS if d > MMA_WIDE_D else MMA_ROWS
 
 
 def decode_geometry(b: int, hkv: int, g: int, d: int, elem_bytes: int,
@@ -413,6 +432,88 @@ def decode_geometry(b: int, hkv: int, g: int, d: int, elem_bytes: int,
     cols = min(-(-d // (n_split * vec)) * vec,
                DECODE_SLICE_BYTES // elem_bytes)
     return rows, cols, -(-d // cols)
+
+
+# ---------------------------------------------------------------------------
+# the generic route: every format of the reference
+# ---------------------------------------------------------------------------
+# ``flash_generic_kernel`` (csrc/flash_attention.cu) takes what neither
+# fast kernel does: any head dim, any number of query heads per KV head,
+# score act blocks up to the whole tile, any LUT, bf16 or f32 operands.
+# A warp runs one query row through attend_rows' order (a lane's keys l,
+# l + 32, l + 64, l + 96 of a tile; q.k over d in order from device
+# memory, P.V over the keys in order, a lane's columns l, l + 32, ...),
+# with its q row, its running acc and the tile's scores in shared memory
+# and the LUT read from device memory.  The decode form reads the ring in
+# its native layout and stops at each batch row's last valid tile.
+GEN_WARPS = 4           # query rows a CTA of the generic route
+
+
+def generic_warps(d: int) -> int:
+    """Rows (warps) a generic-route CTA holds: GEN_WARPS, fewer where
+    their q rows, acc rows and score rows do not fit shared memory."""
+    w = min(GEN_WARPS, SMEM_LIMIT // generic_row_bytes(d))
+    if w < 1:
+        raise ValueError(f"the flash kernels take head dims whose q and acc "
+                         f"rows fit shared memory, got {d}")
+    return w
+
+
+def generic_row_bytes(d: int) -> int:
+    """Shared memory of one row of the generic route (``gen_row_floats``
+    in ``csrc/flash_attention.cu``): q, acc, the tile's scores and the
+    row state, f32."""
+    return 4 * (2 * d + TILE_K + 8)
+
+
+def _check_dtype(dtype):
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError("the flash kernels take float32 or bfloat16")
+
+
+def flash_route(dtype, d: int, kv_groups: int, block: int,
+                r_bits: int) -> str:
+    """``kernel_route``'s kernel ('mma' or 'ordered') where it takes the
+    operands and the format (head dims up to MAX_HEAD_DIM, score act
+    blocks up to MAX_ACT_BLOCK, at most _MAX_LUT LUT entries), else
+    'generic'; ``block``: the score act block, 1 without quantized
+    scores.  Raises for operands of another dtype."""
+    _check_dtype(dtype)
+    fast = d <= MAX_HEAD_DIM and block <= MAX_ACT_BLOCK and \
+        2 ** r_bits <= _MAX_LUT
+    if dtype == torch.bfloat16:
+        fast = fast and d % MMA_K == 0 and kv_groups <= mma_rows(d)
+    return kernel_route(dtype, d, kv_groups) if fast else "generic"
+
+
+def decode_route(d: int, block: int, r_bits: int) -> str:
+    """'decode' (``decode_kernel``: head dims up to MAX_HEAD_DIM, score
+    act blocks up to MAX_ACT_BLOCK, at most _MAX_LUT LUT entries), else
+    'generic'."""
+    return ("decode" if d <= MAX_HEAD_DIM and block <= MAX_ACT_BLOCK
+            and 2 ** r_bits <= _MAX_LUT else "generic")
+
+
+def generic_record(kernel: str, T: str, decode: bool, grid_rows: int,
+                   n_cols: int, rows: int, d: int, operands: tuple,
+                   label: str, split: int = 1) -> LaunchRecord:
+    """The generic route's record: CTAs of ``generic_warps(d)`` rows, over
+    ``rows`` output rows of ``split`` problems of ``grid_rows`` rows each
+    (flash: grid (row blocks, heads); decode: one problem of every row)."""
+    w = generic_warps(d)
+    blocks = -(-grid_rows // w)
+    grid = (blocks, split, 1)
+
+    def tiles():
+        x = np.arange(blocks, dtype=np.int64)[:, None]
+        y = np.arange(split, dtype=np.int64)[None, :]
+        return rects(y * grid_rows + x * w,
+                     y * grid_rows + np.minimum(grid_rows, (x + 1) * w), 0,
+                     n_cols)
+    return LaunchRecord(kernel, f"flash_generic_kernel<{T}, decode="
+                        f"{int(decode)}>", grid, w * WARP,
+                        w * generic_row_bytes(d), 0, operands, (rows, n_cols),
+                        tiles, 1, (w,), label)
 
 
 # ---------------------------------------------------------------------------
@@ -480,10 +581,18 @@ def launch_config(bh: int, sq: int, sk: int, d: int, *, kv_groups: int = 1,
     (bh / kv_groups, sk, d) K/V: the ``kernel_route`` kernel, its grid of
     (KV heads, position blocks) or (position blocks, heads) and its shared
     memory.  Raises first where the wrapper's checks do."""
+    act_block = resolve_act_block(act_block)
     _check("flash_attention", exp_mode, quantize_scores, act_block, d)
-    _check_format(dtype, act_block, r_bits)
+    route = flash_route(dtype, d, kv_groups,
+                        act_block if quantize_scores else 1, r_bits)
     out = (bh * sq, d)
-    if kernel_route(dtype, d, kv_groups) == "mma":
+    if route == "generic":
+        ops_ = tuple(spec(n, shape, dtype) for n, shape in (
+            ("q", (bh, sq, d)), ("k", (bh // kv_groups, sk, d)),
+            ("v", (bh // kv_groups, sk, d)), ("out", (bh, sq, d))))
+        return generic_record("flash_attention", _T[dtype], False, sq, d,
+                              bh * sq, d, ops_, label, split=bh)
+    if route == "mma":
         rows = MMA_WIDE_ROWS if d > MMA_WIDE_D else MMA_ROWS
         per = rows // kv_groups
         grid = (bh // kv_groups, -(-sq // per), 1)
@@ -532,8 +641,18 @@ def decode_launch_config(b: int, hkv: int, g: int, W: int, d: int, *,
     shared memory of ``launch_decode`` (two K buffers where they fit the
     card's opt-in ``smem_optin``, else one).  Raises first where the
     wrapper's checks do."""
+    act_block = resolve_act_block(act_block)
     _check("flash_attention_decode", exp_mode, quantize_scores, act_block, d)
-    _check_format(dtype, act_block, r_bits)
+    _check_dtype(dtype)
+    if decode_route(d, act_block if quantize_scores else 1,
+                    r_bits) == "generic":
+        ops_ = (spec("q", (b, hkv, g, d), dtype),
+                spec("k", (b, W, hkv, d), dtype),
+                spec("v", (b, W, hkv, d), dtype),
+                spec("valid", (b, W), torch.int32),
+                spec("out", (b, hkv, g, d), dtype))
+        return generic_record("flash_attention_decode", _T[dtype], True,
+                              b * hkv * g, d, b * hkv * g, d, ops_, label)
     elem = torch.tensor([], dtype=dtype).element_size()
     rows, cols, n_split = decode_geometry(b, hkv, g, d, elem, n_sm)
     row_blocks = -(-g // rows)
@@ -552,29 +671,19 @@ def decode_launch_config(b: int, hkv: int, g: int, W: int, d: int, *,
             spec("v", (b, W, hkv, d), dtype),
             spec("valid", (b, W), torch.int32),
             spec("out", (b, hkv, g, d), dtype))
-    T = "bf16" if dtype == torch.bfloat16 else "f32"
     return LaunchRecord(
-        "flash_attention_decode", f"decode_kernel<{T}, ROWS={rows}>", grid,
+        "flash_attention_decode", f"decode_kernel<{_T[dtype]}, ROWS={rows}>",
+        grid,
         2 * DECODE_THREADS + rows * WARP,
         dec_smem_bytes(rows, d, cols, kbuf, elem), 0, ops_, (b * hkv * g, d),
         tiles, 1, (rows, cols), label)
 
 
-def _check_format(dtype, act_block: int, r_bits: int):
-    """The flash kernels' operand and format checks (``_kernel_args``)."""
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError("the flash kernels take float32 or bfloat16")
-    if act_block > MAX_ACT_BLOCK or act_block & (act_block - 1):
-        raise ValueError(f"the flash kernels take act blocks that are powers "
-                         f"of two <= {MAX_ACT_BLOCK}")
-    if 2 ** r_bits > _MAX_LUT:
-        raise ValueError(f"the flash kernels take at most {_MAX_LUT} LUT "
-                         "entries")
+_T = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
                  r_bits, scale):
-    _check_format(x.dtype, act_block, r_bits)
     lut = lut_tensor(luts.pow2_table(r_bits), x.device)
     return lut, [int(exp_mode == "mxint"), int(quantize_scores), act_block,
                  mant_bits, 2 ** r_bits, f32(scale), LOG2E,
@@ -583,6 +692,24 @@ def _kernel_args(x, exp_mode, quantize_scores, act_block, mant_bits,
 
 _TAIL = [ctypes.c_int] * 5 + [ctypes.c_float] * 2 + [ctypes.c_int,
                                                      ctypes.c_void_p]
+# the generic entries: the format, then the warps a CTA, then the stream
+_GEN_TAIL = _TAIL[:-1] + [ctypes.c_int, ctypes.c_void_p]
+
+
+@functools.lru_cache(maxsize=None)
+def generic_entry():
+    """The C entry point ``flash_generic_launch``."""
+    return _build.entry("flash_generic", [ctypes.c_void_p] * 5 +
+                        [ctypes.c_int] * 7 + _GEN_TAIL,
+                        lib="flash_attention")
+
+
+@functools.lru_cache(maxsize=None)
+def generic_decode_entry():
+    """The C entry point ``flash_generic_decode_launch``."""
+    return _build.entry("flash_generic_decode", [ctypes.c_void_p] * 6 +
+                        [ctypes.c_int] * 5 + _GEN_TAIL,
+                        lib="flash_attention")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -592,18 +719,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     mant_bits: int = 8, scale: float = None,
                     kv_groups: int = 1) -> torch.Tensor:
     """q: (BH, Sq, D); k, v: (BH // kv_groups, Sk, D), query head b reads KV
-    head b // kv_groups.  Any Sq, Sk; D <= 256.  Returns (BH, Sq, D) in
-    q's dtype.  ``act_block`` must already be resolved against the tile.
+    head b // kv_groups.  Any Sq, Sk, D.  Returns (BH, Sq, D) in q's
+    dtype.  ``act_block`` is resolved against the 128-key tile.
 
     A CPU tensor runs the plain version ``flash_rows``.  A CUDA tensor
-    launches the kernel that ``kernel_route`` picks by dtype: bfloat16 the
-    tensor-core kernel (D a multiple of 16, 16-byte aligned operands),
-    float32 the ordered CUDA-core kernel."""
+    launches the kernel that ``flash_route`` picks: in the fast kernels'
+    domain by dtype, bfloat16 the tensor-core kernel (D a multiple of 16,
+    16-byte aligned operands), float32 the ordered CUDA-core kernel;
+    outside it the generic route."""
     bh, sq, d = q.shape
     bhkv, sk, _ = k.shape
     if bh != bhkv * kv_groups:
         raise ValueError(f"{bh} query heads, {bhkv} KV heads, "
                          f"kv_groups {kv_groups}")
+    act_block = resolve_act_block(act_block)
     _check("flash_attention", exp_mode, quantize_scores, act_block, d)
     scale = f32(d ** -0.5 if scale is None else scale)
     kw = dict(exp_mode=exp_mode, r_bits=r_bits,
@@ -612,7 +741,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_rows(q, k, v, causal=causal, window=window,
                           kv_groups=kv_groups, **kw).to(q.dtype)
-    global launches
+    global launches, generic_launches
     lut, tail = _kernel_args(q, exp_mode, quantize_scores, act_block,
                              mant_bits, r_bits, scale)
     _build.require_cuda("flash_attention", q, k, v, lut)
@@ -628,12 +757,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: the bf16 kernel reads 16-byte "
                          "aligned rows")
     emit(rec, q=q, k=k, v=v, out=out)
-    fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 +
-                      [ctypes.c_int] * 7 + _TAIL)
-    rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), lut.data_ptr(),
             out.data_ptr(), bh, sq, sk, d, kv_groups, int(causal),
-            int(window), *tail, _build.stream_ptr(q.device))
-    _build.check(rc, "flash_attention")
+            int(window), *tail)
+    if rec.function.startswith("flash_generic"):
+        rc = generic_entry()(*args, *rec.args, _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention")
+        generic_launches += 1
+    else:
+        fn = _build.entry("flash_attention", [ctypes.c_void_p] * 5 +
+                          [ctypes.c_int] * 7 + _TAIL)
+        rc = fn(*args, _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention")
     launches += 1
     return out
 
@@ -646,13 +781,14 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Single-position decode over a KV cache ring.  q: (B, Hkv, G, D), the
     G query heads of a KV head as rows; k, v: (B, W, Hkv, D), the cache's
     native layout; valid: (B, W), nonzero where row b's slot holds a live
-    key.  Any G and W, D <= 256.  Returns (B, Hkv, G, D) in q's dtype.
+    key.  Any G, W and D.  Returns (B, Hkv, G, D) in q's dtype.
 
     A CPU tensor runs the plain version ``decode_rows``; a CUDA tensor
-    launches the decode kernel with the ``decode_geometry`` grid, or
-    raises."""
+    launches the decode kernel with the ``decode_geometry`` grid, or the
+    generic route outside its domain (``decode_route``), or raises."""
     b, hkv, g, d = q.shape
     W = k.shape[1]
+    act_block = resolve_act_block(act_block)
     _check("flash_attention_decode", exp_mode, quantize_scores, act_block, d)
     scale = f32(d ** -0.5 if scale is None else scale)
     kw = dict(exp_mode=exp_mode, r_bits=r_bits,
@@ -660,7 +796,7 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mant_bits=mant_bits, scale=scale)
     if q.device.type == "cpu":
         return decode_rows(q, k, v, valid, **kw).to(q.dtype)
-    global decode_launches
+    global decode_launches, generic_decode_launches
     lut, tail = _kernel_args(q, exp_mode, quantize_scores, act_block,
                              mant_bits, r_bits, scale)
     valid = valid.to(torch.int32)
@@ -674,6 +810,15 @@ def flash_attention_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         exp_mode=exp_mode, quantize_scores=quantize_scores,
         act_block=act_block, mant_bits=mant_bits, r_bits=r_bits)
     emit(rec, q=q, k=k, v=v, valid=valid, out=out)
+    if rec.function.startswith("flash_generic"):
+        rc = generic_decode_entry()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+            lut.data_ptr(), out.data_ptr(), b, hkv, g, W, d, *tail,
+            *rec.args, _build.stream_ptr(q.device))
+        _build.check(rc, "flash_attention_decode")
+        generic_decode_launches += 1
+        decode_launches += 1
+        return out
     rows, cols = rec.args
     fn = _build.entry("flash_attention_decode", [ctypes.c_void_p] * 6 +
                       [ctypes.c_int] * 7 + _TAIL, lib="flash_attention")

@@ -20,7 +20,10 @@ count: power-of-two act blocks of 4-128 on 16-byte aligned data give each
 lane one float4 (block / 4 adjacent lanes a block, up to the whole warp,
 the block amax by warp shuffles), so a warp instruction moves 512
 contiguous bytes; any other block up to 128 runs one thread per act
-block.  The LUT sits in shared memory.
+block.  The LUT sits in shared memory.  Longer act blocks and LUTs past
+``MAX_LUT`` entries (Table VI's vanilla 14 bits) take the generic route
+(``gelu_route``): the scalar route's kernel instanced with the LUT read
+from device memory, an act block a thread at any length.
 """
 from __future__ import annotations
 
@@ -47,7 +50,11 @@ THREADS_PER_SM = 2048      # resident threads of an SM: the grid's cap
 VEC_BLOCKS = (4, 8, 16, 32, 64, 128)   # act blocks of the float4 route
 SMEM_BYTES = 4 * MAX_LUT   # a CTA's shared memory: the LUT copy
 
+# the generic route's kernel: the scalar route's, its LUT in device memory
+GENERIC_KERNEL = "gelu_scalar_kernel<generic>"
+
 launches = 0
+generic_launches = 0    # launches of the generic route (within launches)
 
 
 class GeluGeometry(NamedTuple):
@@ -82,22 +89,33 @@ def launch_config(rows: int, d: int, *, act_block: int, lut_bits: int,
     ``ValueError`` first for a format outside the kernel's domain."""
     act_block = resolve_act_block(d, act_block)
     table, _ = gelu_table(fn, lut_bits, domain)
-    if act_block > MAX_BLOCK or len(table) > MAX_LUT:
-        raise ValueError("mxint_gelu kernel takes f32 rows, act_block "
-                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    generic = gelu_route(act_block, len(table)) == "generic"
     numel = rows * d
-    geom = gelu_geometry(numel, act_block, n_sm, aligned)
+    # the generic route walks the scalar route's items: an act block a
+    # thread
+    geom = gelu_geometry(numel, act_block, n_sm, aligned and not generic)
+    vec = 0 if generic else geom.vec      # the C entry's route code
     width = 4 if geom.vec == 4 else act_block
     vb = 16 if geom.vec == 4 else 0
     ops_ = (spec("x", (rows, d), torch.float32, vb),
             spec("out", (rows, d), torch.float32, vb))
     return LaunchRecord(
         "mxint_gelu",
+        GENERIC_KERNEL if generic else
         "gelu_vec4_kernel" if geom.vec == 4 else "gelu_scalar_kernel",
-        (geom.grid, 1, 1), geom.threads, 0, SMEM_BYTES, ops_, (1, numel),
+        (geom.grid, 1, 1), geom.threads, 0, 0 if generic else SMEM_BYTES,
+        ops_, (1, numel),
         stride_tiles(numel // width, width, geom.threads, geom.grid),
         max(1, THREADS_PER_SM // geom.threads),
-        (geom.vec, geom.threads, geom.grid), label)
+        (vec, geom.threads, geom.grid), label)
+
+
+def gelu_route(act_block: int, lut_n: int) -> str:
+    """'core' (act blocks up to MAX_BLOCK, a LUT of at most MAX_LUT
+    entries in shared memory), else 'generic' (any act block, a LUT of any
+    length read from device memory)."""
+    return "core" if act_block <= MAX_BLOCK and lut_n <= MAX_LUT \
+        else "generic"
 
 
 def gelu_table(fn: str, lut_bits: int, domain: float):
@@ -129,6 +147,14 @@ def gelu_rows(x: torch.Tensor, table: torch.Tensor, *, act_block: int,
     return (ym * scale).reshape(r, d)
 
 
+@functools.lru_cache(maxsize=None)
+def entry():
+    """The C entry point ``mxint_gelu_launch`` (every route)."""
+    return _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
+        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 +
+        [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
 def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
                lut_bits: int = 5, domain: float = 3.0,
                fn: str = "gelu") -> torch.Tensor:
@@ -143,10 +169,9 @@ def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
     if x.device.type == "cpu":
         return gelu_rows(x, lut, act_block=act_block, mant_bits=mant_bits,
                          domain=eff_domain)
-    global launches
+    global launches, generic_launches
     if x.dtype != torch.float32:
-        raise ValueError("mxint_gelu kernel takes f32 rows, act_block "
-                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+        raise ValueError("mxint_gelu kernel takes f32 rows")
     _build.require_cuda("mxint_gelu", x, lut)
     out = torch.empty_like(x)
     n = len(table)
@@ -155,13 +180,12 @@ def mxint_gelu(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
                         aligned=(x.data_ptr() % 16 == 0 and
                                  out.data_ptr() % 16 == 0))
     emit(rec, x=x, out=out)
-    fn_ = _build.entry("mxint_gelu", [ctypes.c_void_p] * 3 + [
-        ctypes.c_longlong] + [ctypes.c_int] * 3 + [ctypes.c_float] * 2 + [
-        ctypes.c_int] * 3 + [ctypes.c_void_p])
-    rc = fn_(x.data_ptr(), lut.data_ptr(), out.data_ptr(), x.numel(),
+    rc = entry()(x.data_ptr(), lut.data_ptr(), out.data_ptr(), x.numel(),
              act_block, mant_bits, n, f32(eff_domain),
              f32(n / (2.0 * eff_domain)), *rec.args,
              _build.stream_ptr(x.device))
     _build.check(rc, "mxint_gelu")
+    if rec.function == GENERIC_KERNEL:
+        generic_launches += 1
     launches += 1
     return out

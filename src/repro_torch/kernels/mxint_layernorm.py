@@ -28,6 +28,15 @@ the same exact entry).  Every step is exact in any order but the variance
 sum, which runs in a fixed order, each lane over its blocks in turn then a
 butterfly over the 32 lanes, and ``warp_row_sum`` below repeats that
 order, so kernel and plain version agree bit for bit.
+
+Act blocks the LN stage's routes do not take (past 16 off the vector
+route, past 128 or not a power of two on it) and LUTs past ``MAX_LUT``
+entries (Table VI's vanilla 13 bits) take the generic route
+(``ln_route``; ``ln_row_generic`` in ``csrc/mxint_generic.cuh``): a warp
+a row, the same stages and the same variance order, the LUT read from
+device memory.  The integer row sum is exact (int64 in the kernels; the
+plain version sums in float64 and rounds once, as the kernels convert
+their sum).
 """
 from __future__ import annotations
 
@@ -64,8 +73,9 @@ GROUP_XCHG_SMEM = 4 * 16
 LN_STATIC_SMEM = 4 * MAX_LUT + 16 * LN_MAX_ROWS + GROUP_XCHG_SMEM
 
 launches = 0
+generic_launches = 0    # launches of the generic route (within launches)
 
-_LUTS: Dict[Tuple, torch.Tensor] = {}
+_LUTS: Dict[Tuple, Tuple[tuple, torch.Tensor]] = {}
 
 
 def f32(v: float) -> float:
@@ -84,13 +94,16 @@ def resolve_act_block(d: int, act_block: int) -> int:
 
 
 def lut_tensor(table: tuple, device) -> torch.Tensor:
-    """A table as a float32 tensor on ``device``, cached."""
-    key = (table, str(device))
-    t = _LUTS.get(key)
-    if t is None:
-        t = _LUTS[key] = torch.tensor(table, dtype=torch.float32,
-                                      device=device)
-    return t
+    """A table as a float32 tensor on ``device``, cached by the table's
+    identity (the tables come from cached functions, and the cache holds
+    each table, so its id is never reused): hashing a 65,536-entry tuple
+    at every call took about a millisecond of host time."""
+    key = (id(table), str(device))
+    hit = _LUTS.get(key)
+    if hit is None or hit[0] is not table:
+        hit = _LUTS[key] = (table, torch.tensor(table, dtype=torch.float32,
+                                                device=device))
+    return hit[1]
 
 
 class LnGeometry(NamedTuple):
@@ -114,18 +127,31 @@ def ln_piece(block: int, aligned: bool) -> int:
     return LN_PIECE if block in LN_VEC_BLOCKS and aligned else 0
 
 
-def check_ln_route(block: int, piece: int, max_block: int = MAX_BLOCK):
-    """Raise unless the LN stage takes the act block on its route: up to
-    ``max_block`` on the four-element route, up to SCALAR_MAX_BLOCK a
-    thread (a longer block needs its rows and scales on four elements and
-    a power of two)."""
-    if block > max_block or (not piece and block > SCALAR_MAX_BLOCK):
-        raise ValueError(
-            f"the LN stage takes act blocks up to {SCALAR_MAX_BLOCK}, and "
-            f"powers of two up to {max_block} on rows and scales aligned to "
-            f"four elements; got {block}"
-            + ("" if piece or block > max_block else " (unaligned or not a "
-               "power of two)"))
+def ln_route_ok(block: int, piece: int, max_block: int = MAX_BLOCK) -> bool:
+    """The LN stage takes the act block on its route: up to ``max_block``
+    on the four-element route, up to SCALAR_MAX_BLOCK a thread (a longer
+    block needs its rows and scales on four elements and a power of
+    two)."""
+    return not (block > max_block or
+                (not piece and block > SCALAR_MAX_BLOCK))
+
+
+# the generic row route (``csrc/mxint_generic.cuh``): a warp a row, lane
+# l over the row's act blocks l, l + 32, ... element by element (any
+# block, any alignment), re-reading the row from L1/L2 in each pass, the
+# LUT read by index from device memory through the read-only path (a
+# softmax LUT of 2^16 entries is 256 KB, past a CTA's shared memory)
+ROW_WARPS = 8           # rows a CTA of the generic row kernels
+
+
+def ln_route(rows: int, d: int, block: int, lut_bits: int, n_sm: int,
+             aligned: bool = True) -> str:
+    """'core' where the LN stage takes the act block on its
+    ``ln_geometry`` route and the LUT fits shared memory, else 'generic'
+    (any act block that divides the row, any alignment, any LUT)."""
+    ok = 2 ** lut_bits <= MAX_LUT and ln_route_ok(
+        block, ln_geometry(rows, d, block, n_sm, aligned).vec)
+    return "core" if ok else "generic"
 
 
 def aligned4(*tensors) -> bool:
@@ -171,11 +197,18 @@ def launch_config(rows: int, d: int, *, act_block: int, lut_bits: int,
     dynamic shared memory of ``mxint_layernorm_launch``.  Raises
     ``ValueError`` first for a format outside the kernel's domain."""
     act_block = resolve_act_block(d, act_block)
-    if 2 ** lut_bits > MAX_LUT:
-        raise ValueError(f"mxint_layernorm kernel takes at most {MAX_LUT} "
-                         "LUT entries")
+    if ln_route(rows, d, act_block, lut_bits, n_sm, aligned) == "generic":
+        grid = -(-rows // ROW_WARPS)
+        ops_ = (spec("x", (rows, d), x_dtype),
+                spec("gamma", (d,), params_dtype),
+                spec("beta", (d,), params_dtype),
+                spec("out", (rows, d), torch.float32))
+        T = "bf16" if x_dtype == torch.bfloat16 else "f32"
+        return LaunchRecord(
+            "mxint_layernorm", f"layernorm_generic_kernel<{T}>", (grid, 1, 1),
+            ROW_WARPS * WARP, 0, 0, ops_, (rows, d),
+            row_tiles(rows, d, ROW_WARPS, grid), 1, (grid,), label)
     geom = ln_geometry(rows, d, act_block, n_sm, aligned)
-    check_ln_route(act_block, geom.vec)
     xb = torch.tensor([], dtype=x_dtype).element_size()
     pb = torch.tensor([], dtype=params_dtype).element_size()
     v = geom.vec
@@ -272,7 +305,10 @@ def layernorm_rows(x: torch.Tensor, gamma: torch.Tensor,
     if rms_only:
         centered = mf
     else:
-        centered = mf - (mf.sum(dim=(1, 2)) * inv_d)[:, None, None]
+        # the integer row sum, exact in float64 and rounded once (the
+        # kernels sum the integers and convert the sum)
+        isum = mf.to(torch.float64).sum(dim=(1, 2)).to(torch.float32)
+        centered = mf - (isum * inv_d)[:, None, None]
     var = warp_row_sum(centered * centered) * inv_d
     inv = rsqrt_lut_stage(var, table, lut_bits)[:, :, None]
     y = centered * inv
@@ -308,7 +344,7 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
                               act_block=act_block, mant_bits=mant_bits,
                               lut_bits=lut_bits, rms_only=rms_only,
                               quantize_out=quantize_out)
-    global launches
+    global launches, generic_launches
     x, gamma, beta = kernel_operands(x, gamma, beta)
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_layernorm", x, gamma, lut,
@@ -323,6 +359,18 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
     scratch = (torch.empty(rows * stage_words, dtype=torch.int32,
                            device=x.device) if stage_words else None)
     emit(rec, x=x, gamma=gamma, beta=beta, out=out, scratch=scratch)
+    if rec.function.startswith("layernorm_generic"):
+        rc = generic_entry()(x.data_ptr(), gamma.data_ptr(),
+                None if beta is None else beta.data_ptr(), lut.data_ptr(),
+                out.data_ptr(), rows, d, act_block, mant_bits, f32(1.0 / d),
+                2 ** lut_bits, f32(2 ** lut_bits / 1.5), int(rms_only),
+                int(quantize_out), int(x.dtype == torch.bfloat16),
+                int(gamma.dtype == torch.bfloat16), *rec.args,
+                _build.stream_ptr(x.device))
+        _build.check(rc, "mxint_layernorm")
+        generic_launches += 1
+        launches += 1
+        return out
     fn = _build.entry("mxint_layernorm", [ctypes.c_void_p] * 6 + [
         ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
         [ctypes.c_int] * 6 + [ctypes.c_void_p])
@@ -336,6 +384,14 @@ def mxint_layernorm(x: torch.Tensor, gamma: torch.Tensor,
     _build.check(rc, "mxint_layernorm")
     launches += 1
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def generic_entry():
+    """The C entry point ``mxint_layernorm_generic_launch``."""
+    return _build.entry("mxint_layernorm_generic", [ctypes.c_void_p] * 5 + [
+        ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
+        [ctypes.c_int] * 5 + [ctypes.c_void_p], lib="mxint_layernorm")
 
 
 def kernel_operands(x: torch.Tensor, gamma: torch.Tensor,

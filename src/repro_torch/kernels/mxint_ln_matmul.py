@@ -30,6 +30,13 @@ about 15 us at 3.35 TB/s, against 7.5 us for its 14.9 G int8 operations
 on the tensor cores and 14 us for the ordered f32 sum's two operations per
 output element and act block at the published f32 rate: like
 ``mxint_matmul`` it is bound by instruction issue in that epilogue.
+
+Formats the core route does not take (``ln_matmul_route``: any LN block
+and alignment, LUTs past 256 entries, int16 and int32 planes, act
+mantissas up to 24 bits, every act block of ``mxint_matmul``'s generic
+route) take the generic route: each warp normalizes its CTA's rows with
+the generic row stage into shared memory, then the generic GEMM runs over
+them (``csrc/mxint_generic.cuh``), the same stages in the same order.
 """
 from __future__ import annotations
 
@@ -45,12 +52,13 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.launch_record import LaunchRecord, emit, spec
 from repro_torch.kernels.mxint_layernorm import (LN_PIECE, MAX_LN_BLOCK,
                                                  MAX_LUT, aligned4,
-                                                 check_ln_route, f32,
+                                                 ln_route_ok, f32,
                                                  kernel_operands, layernorm_rows,
                                                  ln_piece, lut_tensor)
-from repro_torch.kernels.mxint_matmul import (check_act_format, check_planes,
-                                              gemm_geometry, gemm_launch,
-                                              launch_args, matmul_blocks,
+from repro_torch.kernels.mxint_matmul import (check_planes, gemm_geometry,
+                                              gemm_launch, generic_args,
+                                              generic_launch, launch_args,
+                                              matmul_blocks, matmul_route,
                                               sm_count)
 
 launches = 0
@@ -74,34 +82,51 @@ def ln_matmul_rows(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 def launch_config(M: int, N: int, d: int, *, w_block: int, act_block: int,
                   mant_bits: int, lut_bits: int, n_sm: int,
                   x_dtype=torch.float32, params_dtype=torch.float32,
-                  aligned: bool = True, label: str = "") -> LaunchRecord:
+                  aligned: bool = True, w_dtype=torch.int8,
+                  label: str = "") -> LaunchRecord:
     """The launch ``mxint_ln_matmul`` makes for x (M, d) and (d, N)
-    planes on a card of ``n_sm`` SMs: the LN stage's piece (``aligned``:
-    rows and scales start on four elements) and the GEMM core's tiles over
-    whole rows.  Raises ``ValueError`` first for a format outside the
-    kernel's domain, as the wrapper does."""
+    planes on a card of ``n_sm`` SMs: on the core route the LN stage's
+    piece (``aligned``: rows and scales start on four elements) and the
+    GEMM core's tiles over whole rows; else the generic route.  Raises
+    ``ValueError`` first for a format outside both, as the wrapper
+    does."""
     act_block = min(act_block, d)
-    check_act_format(mant_bits, act_block, w_block)
-    piece = ln_piece(act_block, aligned)
-    check_ln_route(act_block, piece, MAX_LN_BLOCK)
-    if 2 ** lut_bits > MAX_LUT or d % 16 or d % w_block:
-        raise ValueError("mxint_ln_matmul kernel takes int8 planes, rows of "
-                         f"a multiple of 16 and at most {MAX_LUT} LUT "
-                         "entries")
-    geom = gemm_geometry(M, N, d, n_sm, fused_ln=True, act_block=act_block,
-                         wide=mant_bits > 8)
+    route = ln_matmul_route(d, w_block, act_block, mant_bits, lut_bits,
+                            w_dtype, aligned)
     xb = torch.tensor([], dtype=x_dtype).element_size()
     pb = torch.tensor([], dtype=params_dtype).element_size()
+    piece = ln_piece(act_block, aligned) if route == "core" else 0
     vec = LN_PIECE if piece else 0
     ops_ = (spec("x", (M, d), x_dtype, vec * xb),
             spec("gamma", (d,), params_dtype, vec * pb),
             spec("beta", (d,), params_dtype, vec * pb),
-            spec("w_mant", (d, N), torch.int8),
+            spec("w_mant", (d, N), w_dtype),
             spec("w_exp", (d // w_block, N), torch.int8),
-            spec("out", (M, N), torch.float32, 16 if N % 4 == 0 else 0))
+            spec("out", (M, N), torch.float32,
+                 16 if N % 4 == 0 and route == "core" else 0))
+    if route == "generic":
+        return generic_launch("mxint_ln_matmul", M, N, d, w_block, act_block,
+                              mant_bits, w_dtype, True, ops_, label, ln_d=d,
+                              x_dtype=x_dtype)
+    geom = gemm_geometry(M, N, d, n_sm, fused_ln=True, act_block=act_block,
+                         wide=mant_bits > 8)
     rec = gemm_launch("mxint_ln_matmul", geom, M, N, d, act_block,
                       mant_bits, ops_, label, fused_ln=True)
     return dataclasses.replace(rec, args=(piece,) + rec.args)
+
+
+def ln_matmul_route(d: int, w_block: int, act_block: int, mant_bits: int,
+                    lut_bits: int, w_dtype=torch.int8,
+                    aligned: bool = True) -> str:
+    """'core' where ``mxint_matmul``'s GEMM core takes the format, the LN
+    stage takes the act block on its route (``ln_route_ok``), d is a
+    multiple of 16 and the LUT fits shared memory; else 'generic' (any LN
+    block and alignment, any LUT length, every format of the generic
+    GEMM).  Raises ``ValueError`` outside both."""
+    ok = matmul_route(d, w_block, act_block, mant_bits, w_dtype) == "core" \
+        and 2 ** lut_bits <= MAX_LUT and d % 16 == 0 and ln_route_ok(
+            act_block, ln_piece(act_block, aligned), MAX_LN_BLOCK)
+    return "core" if ok else "generic"
 
 
 @functools.lru_cache(maxsize=None)
@@ -112,6 +137,17 @@ def ln_matmul_entry():
         [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
+def ln_matmul_generic_entry():
+    """The C entry point ``mxint_ln_matmul_generic_launch``."""
+    return _build.entry("mxint_ln_matmul_generic", [ctypes.c_void_p] * 7 + [
+        ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
+        [ctypes.c_int] * 3 + [ctypes.c_void_p], lib="mxint_ln_matmul")
+
+
+generic_launches = 0        # launches of the generic route (within launches)
+
+
 def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     beta: Optional[torch.Tensor], w_mant: torch.Tensor,
                     w_exp: torch.Tensor, *, w_block: int, act_block: int = 16,
@@ -119,11 +155,11 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     rms_only: bool = False) -> torch.Tensor:
     """MXIntLN(x) @ (w_mant * 2^w_exp) for x (M, d); no bias.
 
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel,
-    which takes ``mxint_matmul``'s act formats (2-16 bits; act blocks that
-    divide 16, or multiples of 16 up to 256 dividing ``w_block``) where its
-    LN stage takes the block (``check_ln_route``: past 16 on rows and
-    scales aligned to four elements), and raises otherwise before it
+    A CPU tensor runs the plain version; a CUDA tensor launches the GEMM
+    core with its LN stage where ``ln_matmul_route`` picks it (int8
+    planes, 2-16 bits, act blocks of the core that the LN stage takes on
+    its route, at most MAX_LUT LUT entries), else the generic route (every
+    format of the reference), and raises for any other format before it
     touches the card.
     """
     M, d = x.shape
@@ -135,18 +171,19 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
         return ln_matmul_rows(x, gamma, beta, w_mant, w_exp, w_block=w_block,
                               act_block=act_block, mant_bits=mant_bits,
                               lut_bits=lut_bits, rms_only=rms_only)
-    global launches
+    global launches, generic_launches
     # the kernel reads f32 or bf16 rows and scales as they come (the
     # reference's kernel reads them as f32; bf16 to f32 is exact)
     x, gamma, beta = kernel_operands(x.contiguous(), gamma, beta)
-    if w_mant.dtype != torch.int8 or w_exp.dtype != torch.int8:
-        raise ValueError("mxint_ln_matmul kernel takes int8 planes")
+    if w_exp.dtype != torch.int8:
+        raise ValueError("mxint_ln_matmul kernel takes int8 exponents")
     N = w_mant.shape[1]
     rec = launch_config(M, N, d, w_block=w_block, act_block=act_block,
                         mant_bits=mant_bits, lut_bits=lut_bits,
                         n_sm=sm_count(x.device), x_dtype=x.dtype,
                         params_dtype=gamma.dtype,
-                        aligned=aligned4(x, gamma, beta))
+                        aligned=aligned4(x, gamma, beta),
+                        w_dtype=w_mant.dtype)
     lut = lut_tensor(luts.rsqrt_table(lut_bits), x.device)
     _build.require_cuda("mxint_ln_matmul", x, gamma, lut, w_mant, w_exp,
                         *([] if beta is None else [beta]))
@@ -154,13 +191,22 @@ def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
     emit(rec, x=x, gamma=gamma, beta=beta, w_mant=w_mant, w_exp=w_exp,
          out=out)
     xp, wmp, wep, outp = launch_args(x, w_mant, w_exp, out)
-    rc = ln_matmul_entry()(
-        xp, gamma.data_ptr(), None if beta is None else beta.data_ptr(),
-        lut.data_ptr(), wmp, wep, outp, M, d, N, w_block, mant_bits,
-        act_block, f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
-        int(rms_only), int(x.dtype == torch.bfloat16),
-        int(gamma.dtype == torch.bfloat16), *rec.args,
-        _build.stream_ptr(x.device))
+    ln = (f32(1.0 / d), 2 ** lut_bits, f32(2 ** lut_bits / 1.5),
+          int(rms_only), int(x.dtype == torch.bfloat16),
+          int(gamma.dtype == torch.bfloat16))
+    bp = None if beta is None else beta.data_ptr()
+    if len(rec.args) == 1:                        # the generic route
+        rc = ln_matmul_generic_entry()(
+            xp, gamma.data_ptr(), bp, lut.data_ptr(), wmp, wep, outp, M, d,
+            N, *generic_args(d, w_block, act_block, mant_bits, w_mant.dtype,
+                             True, rec.args[0]), *ln,
+            _build.stream_ptr(x.device))
+        generic_launches += 1
+    else:
+        rc = ln_matmul_entry()(
+            xp, gamma.data_ptr(), bp, lut.data_ptr(), wmp, wep, outp, M, d,
+            N, w_block, mant_bits, act_block, *ln, *rec.args,
+            _build.stream_ptr(x.device))
     _build.check(rc, "mxint_ln_matmul")
     launches += 1
     return out

@@ -1,8 +1,8 @@
 """MXInt matmul with in-kernel activation quantization (paper Fig. 2b).
 
 Replaces ``repro/kernels/mxint_matmul.py:mxint_matmul`` (its
-``pallas_call`` at line 164, on the ``quantize_act=True`` path the kernel
-datapath uses) with ``csrc/mxint_matmul.cu``:
+``pallas_call`` at line 164, on both its ``quantize_act`` paths) with
+``csrc/mxint_matmul.cu``:
 
     y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N]
 
@@ -15,13 +15,28 @@ divides ``w_block``), so one block pair shares one scale.  The dot is
 rounded once to f32 and the scaled block products are added into an f32
 accumulator in increasing K order.
 
-Act formats: blocks that divide 16 (1, 2, 4, 8) and multiples of 16 up to
-256 that divide ``w_block``; mantissas of 2-16 bits.  The default, block 16
-at 2-8 bits, runs one ``mma.sync`` a block; a longer block chains its
-k16 steps' mma sums, a shorter one masks the A fragments per block, and
-9-16 bits split each int16 mantissa into its signed high and unsigned low
-byte, one mma each (``csrc/mxint_common.cuh``, V 0-2).  Any other act
-block, and mantissas past 16 bits, raise before anything touches the
+Two routes, chosen by format before the launch (``matmul_route``):
+
+- the GEMM core (below) for int8 planes, K and ``w_block`` multiples of
+  16, act blocks that divide 16 (1, 2, 4, 8) or are multiples of 16 up to
+  256 dividing ``w_block``, and mantissas of 2-16 bits.  The default,
+  block 16 at 2-8 bits, runs one ``mma.sync`` a block; a longer block
+  chains its k16 steps' mma sums, a shorter one masks the A fragments per
+  block, and 9-16 bits split each int16 mantissa into its signed high and
+  unsigned low byte, one mma each (``csrc/mxint_common.cuh``, V 0-2);
+- the generic route (``csrc/mxint_generic.cuh``) for every other format
+  of the reference: any act block that divides K, nested in the weight
+  block or not (DeiT's FFN ``wo`` at act block 12 against 256-element
+  weight blocks), any K, int16 and int32 planes (the paper's W9-W24),
+  act mantissas up to 24 bits, and ``quantize_act=False``.  It sums by
+  segment, the intersection of an act block with a weight block, each
+  segment's exact integer dot (int64 where it may pass 2^31) rounded once
+  and added as the core adds a block; float activations take float64
+  products and sums in K order, rounded once.  Its products run on the
+  CUDA cores, so operations bound it.
+
+A format outside both (act mantissas past 24 bits, blocks that do not
+divide K, planes of another dtype) raises before anything touches the
 card.
 
 On the H100, at DeiT-Base batch 16 the FFN ``wo`` reads x (3152, 3072) f32
@@ -46,9 +61,11 @@ K 14336) does not fit shared memory whole: the same launch then walks K in
 the partial sums of the CTA's (at most 2) column tiles, which stay in
 registers, in the same K order.  One call is one launch.
 
-The plain version accumulates the same block products in the same order,
-so kernel and plain version agree bit for bit; against the reference's
-f32 dot they differ in the order of the f32 sums across blocks.
+The plain version (``matmul_blocks``, by segment; ``matmul_float``)
+accumulates the same products in the same order, so either route and the
+plain version agree bit for bit; against the reference's f32 dot they
+differ in the order of the f32 sums across blocks (and where the
+reference's f32 products of 24-bit and wider operands round).
 """
 from __future__ import annotations
 
@@ -100,58 +117,103 @@ def _pow2_table() -> tuple:
     return tuple(pow2i(torch.arange(-254, 255)).tolist())
 
 
-_PLAIN_CHUNK = 1 << 22      # scaled block products the plain version holds
+_PLAIN_CHUNK = 1 << 22      # scaled segment products the plain version holds
+
+# the largest |mantissa| a plane of each dtype holds: int32 planes carry
+# the reference's widest MXInt mantissa, 24 bits (``MXFormat``)
+PLANE_MAX = {torch.int8: 127, torch.int16: 2 ** 15 - 1,
+             torch.int32: 2 ** 23 - 1}
+MAX_GEN_MANT_BITS = 24      # act mantissas of the generic route
+
+
+def segments(K: int, w_block: int, act_block: int):
+    """(starts, lengths) of the segments of K: the intersections of an act
+    block with a weight block, in increasing K order.  Where one block
+    divides the other, the segments are the smaller blocks."""
+    cuts = np.union1d(np.arange(0, K, act_block), np.arange(0, K, w_block))
+    return cuts, np.diff(np.append(cuts, K))
+
+
+def _plane_max(w_mant: torch.Tensor) -> int:
+    return PLANE_MAX.get(w_mant.dtype, 2 ** 24)
 
 
 def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                   *, w_block: int, act_block: int,
                   act_mant_bits: int) -> torch.Tensor:
-    """Plain version: block products summed in increasing K order.  Each
-    block's dot is exact, then rounded once to f32 (float32 products where
-    every partial sum stays below 2^24, else float64) and scaled by 2^(e_x
-    + e_w).  The scaled products are taken for a run of blocks at once (at
-    most ``_PLAIN_CHUNK`` of them), then added to the f32 sum one block
-    after the other.  Where every scale 2^e_x, 2^e_w and 2^(e_x + e_w)
-    lies in the normal range, the scales go into the operands (power-of-two
-    factors, exact), so each dot comes out scaled, with no rounding but
-    the f64 dot's own to f32; otherwise each dot is multiplied by its scale
-    from a table of ``pow2i``, which handles the subnormal and overflowing
-    scales.  Both give the same bits where both apply."""
+    """Plain version: segment products summed in increasing K order.  A
+    segment is the intersection of an act block with a weight block (the
+    act block itself wherever it divides ``w_block``).  Each segment's dot
+    is exact, then rounded once to f32 (float32 products where every
+    partial sum stays below 2^24, float64 below 2^53, else the weight
+    mantissas split into a high and a low 12 bits whose two float64 dots
+    are exact and meet in int64) and scaled by 2^(e_x + e_w).  The scaled
+    products are taken for a run of segments at once (at most
+    ``_PLAIN_CHUNK`` of them), then added to the f32 sum one segment after
+    the other.  Where every scale 2^e_x, 2^e_w and 2^(e_x + e_w) lies in
+    the normal range and the dot is exact in float64, the scales go into
+    the operands (power-of-two factors, exact), so each dot comes out
+    scaled, with no rounding but the f64 dot's own to f32; otherwise each
+    dot is multiplied by its scale from a table of ``pow2i``, which
+    handles the subnormal and overflowing scales.  Both give the same bits
+    where both apply."""
     M, K = x.shape
     N = w_mant.shape[1]
-    nb = K // act_block
+    starts, lens = segments(K, w_block, act_block)
+    ns, L = len(starts), int(lens.max())
     xm, xe = block_quantize_rows(x, act_block, act_mant_bits)
-    w_max = (torch.iinfo(w_mant.dtype).max if not w_mant.is_floating_point()
-             else 2 ** 24)
+    xm = xm.reshape(M, K)
+    w_max = _plane_max(w_mant)
     x_max = 2 ** (act_mant_bits - 1) - 1
-    exact = torch.float32 if act_block * x_max * w_max < 2 ** 24 \
-        else torch.float64
-    xm = xm.to(exact).transpose(0, 1)                 # (nb, M, act_block)
-    wm = w_mant.to(exact).reshape(nb, act_block, N)
-    we = w_exp.to(torch.int32).repeat_interleave(w_block // act_block, dim=0)
-    xe = xe.transpose(0, 1)                           # (nb, M)
+    top = L * x_max * w_max
+    exact = torch.float32 if top < 2 ** 24 else torch.float64
+    split = top >= 2 ** 53
+    dev = x.device
+    if (lens == L).all():
+        xs = xm.to(exact).reshape(M, ns, L).transpose(0, 1)  # (ns, M, L)
+        wm = w_mant.to(exact).reshape(ns, L, N)
+    else:
+        # segments of several lengths: gathered and padded with zeros,
+        # which leave every dot as it is
+        idx = torch.from_numpy(starts[:, None] + np.arange(L)[None, :])
+        live = torch.from_numpy(np.arange(L)[None, :] < lens[:, None])
+        idx = torch.where(live, idx, 0).to(dev)
+        live = live.to(dev)
+        xs = torch.where(live, xm[:, idx], 0.0).to(exact).transpose(0, 1)
+        wm = torch.where(live[..., None], w_mant[idx].to(exact), 0.0)
+    seg = torch.from_numpy(starts).to(dev)
+    xe = xe[:, seg // act_block].transpose(0, 1)          # (ns, M)
+    we = w_exp.to(torch.int32)[seg // w_block]            # (ns, N)
     x_lo, x_hi = int(xe.min()), int(xe.max())
     w_lo, w_hi = int(we.min()), int(we.max())
-    folded = (min(x_lo, w_lo, x_lo + w_lo) >= -126 and
-              x_hi + w_hi + (act_block * x_max * w_max).bit_length() < 128
+    folded = (not split and min(x_lo, w_lo, x_lo + w_lo) >= -126 and
+              x_hi + w_hi + top.bit_length() < 128
               and x_hi + x_max.bit_length() < 128
               and w_hi + int(w_max).bit_length() < 128)
     # the weight scales go into the weight planes when they are the
-    # smaller of the two (more rows than an act block), else into the dots
-    fold_w = folded and M > act_block
-    table = lut_tensor(_pow2_table(), x.device)       # pow2i(n - 254)
+    # smaller of the two (more rows than a segment), else into the dots
+    fold_w = folded and M > L
+    table = lut_tensor(_pow2_table(), dev)                # pow2i(n - 254)
     if folded:
-        xm = xm * table[xe + 254].to(exact)[..., None]
-        w_scale = table[we + 254].to(exact)[:, None, :]   # (nb, 1, N)
+        xs = xs * table[xe + 254].to(exact)[..., None]
+        w_scale = table[we + 254].to(exact)[:, None, :]   # (ns, 1, N)
         if fold_w:
             wm = wm * w_scale
     else:
         xe = xe + 254
-    acc = torch.zeros(M, N, dtype=torch.float32, device=x.device)
+    if split:
+        w_hi_ = torch.floor(wm / 4096.0)
+        w_lo_ = wm - w_hi_ * 4096.0
+    acc = torch.zeros(M, N, dtype=torch.float32, device=dev)
     step = max(1, _PLAIN_CHUNK // max(1, M * N))
-    for k0 in range(0, nb, step):
-        k1 = min(nb, k0 + step)
-        prods = torch.matmul(xm[k0:k1], wm[k0:k1])
+    for k0 in range(0, ns, step):
+        k1 = min(ns, k0 + step)
+        if split:
+            prods = (torch.matmul(xs[k0:k1], w_hi_[k0:k1]).to(torch.int64)
+                     * 4096 + torch.matmul(xs[k0:k1], w_lo_[k0:k1]).to(
+                         torch.int64))
+        else:
+            prods = torch.matmul(xs[k0:k1], wm[k0:k1])
         if folded and not fold_w:
             prods = prods * w_scale[k0:k1]
         prods = prods.to(torch.float32)
@@ -160,6 +222,29 @@ def matmul_blocks(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
         for p in prods:
             acc = acc + p
     return acc
+
+
+@functools.lru_cache(maxsize=None)
+def _pow2_table64() -> tuple:
+    return tuple(float(2.0 ** n) for n in range(-127, 128))
+
+
+def matmul_float(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
+                 *, w_block: int) -> torch.Tensor:
+    """Plain version of ``quantize_act=False``: f32 x times the exact
+    weights m * 2^e, products and sums in float64 in increasing K order
+    (every product of a float32 and a mantissa of at most 24 bits is exact
+    in float64), rounded once to f32."""
+    M, K = x.shape
+    table = torch.tensor(_pow2_table64(), dtype=torch.float64,
+                         device=x.device)
+    w = w_mant.to(torch.float64) * table[
+        w_exp.to(torch.int64) + 127].repeat_interleave(w_block, dim=0)
+    xd = x.to(torch.float64)
+    acc = torch.zeros(M, w.shape[1], dtype=torch.float64, device=x.device)
+    for k in range(K):
+        acc = acc + xd[:, k:k + 1] * w[k]
+    return acc.to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -366,69 +451,160 @@ def gemm_static_smem(fused_ln: bool, variant: int) -> int:
 @functools.lru_cache(maxsize=None)
 def launch_config(M: int, N: int, K: int, *, w_block: int, act_block: int,
                   act_mant_bits: int, n_sm: int, w_dtype=torch.int8,
-                  label: str = "") -> LaunchRecord:
+                  quantize_act: bool = True, label: str = "") -> LaunchRecord:
     """The launch ``mxint_matmul`` makes for f32 x (M, K) and (K, N)
-    planes on a card of ``n_sm`` SMs; raises ``ValueError`` first for a
-    format outside the kernel's domain, as the wrapper does."""
-    check_act_format(act_mant_bits, act_block, w_block)
-    if w_dtype != torch.int8 or K % ACT_BLOCK or K % w_block or \
-            K % act_block or w_block % act_block:
-        raise ValueError("mxint_matmul kernel takes f32 x, int8 planes and "
-                         f"K a multiple of {ACT_BLOCK}")
+    planes on a card of ``n_sm`` SMs: the GEMM core where ``matmul_route``
+    picks it, else the generic route; raises ``ValueError`` first for a
+    format outside both, as the wrapper does."""
+    route = matmul_route(K, w_block, act_block, act_mant_bits, w_dtype,
+                         quantize_act)
+    ops_ = (spec("x", (M, K), torch.float32),
+            spec("w_mant", (K, N), w_dtype),
+            spec("w_exp", (K // w_block, N), torch.int8),
+            spec("out", (M, N), torch.float32,
+                 16 if N % 4 == 0 and route == "core" else 0))
+    if route != "core":
+        return generic_launch("mxint_matmul", M, N, K, w_block, act_block,
+                              act_mant_bits, w_dtype, quantize_act, ops_,
+                              label)
     geom = gemm_geometry(M, N, K, n_sm, act_block=act_block,
                          wide=act_mant_bits > 8)
-    ops_ = (spec("x", (M, K), torch.float32),
-            spec("w_mant", (K, N), torch.int8),
-            spec("w_exp", (K // w_block, N), torch.int8),
-            spec("out", (M, N), torch.float32, 16 if N % 4 == 0 else 0))
     return gemm_launch("mxint_matmul", geom, M, N, K, act_block,
                        act_mant_bits, ops_, label)
 
 
+# ---------------------------------------------------------------------------
+# the routes: the GEMM core, or the generic route beside it
+# ---------------------------------------------------------------------------
+# The generic route (``csrc/mxint_matmul.cu``, ``generic_gemm`` in
+# ``csrc/mxint_generic.cuh``) takes every format of the reference: any act
+# block that divides K, nested in the weight block or not, any K, int8,
+# int16 or int32 planes, act mantissas of 2-24 bits, and float activations
+# (``quantize_act=False``).  A CTA of GEN_THREADS threads owns up to 32
+# rows and GEN_BN columns (4 a thread, 32 apart); it stages GEN_TK K steps
+# of the act mantissas (int32, quantized from x with the block exponents
+# it found first) and of the weight mantissas in shared memory, adds the
+# integer products of a segment in int32 (int64 where a segment's dot may
+# pass 2^31) and at each segment's end adds (float)dot * 2^(e_a + e_w) in
+# the plain version's two rounded steps.  Float activations: float64
+# products and sums in K order, rounded once.
+GEN_THREADS = 256
+GEN_BN = 128
+GEN_TK = 32
+GEN_MAX_ROWS = 32
+
+
+def matmul_route(K: int, w_block: int, act_block: int, act_mant_bits: int,
+                 w_dtype=torch.int8, quantize_act: bool = True) -> str:
+    """'core' (the int8 tensor-core GEMM: int8 planes, K and w_block
+    multiples of 16, 2-16-bit act mantissas, the act blocks of
+    ``act_block_ok``), 'generic' (every other quantized format of the
+    reference) or 'float' (``quantize_act=False``, the generic route's
+    float64 products).  Raises ``ValueError`` for a format outside them:
+    planes of another dtype, blocks that do not divide K, act mantissas
+    outside 2-24 bits."""
+    if w_dtype not in PLANE_MAX:
+        raise ValueError(f"mxint_matmul takes int8, int16 or int32 planes, "
+                         f"got {w_dtype}")
+    if act_block < 1 or K % act_block or K % w_block:
+        raise ValueError(f"act block {act_block} and weight block {w_block} "
+                         f"must divide K={K}")
+    if not quantize_act:
+        return "float"
+    if not MIN_ACT_MANT_BITS <= act_mant_bits <= MAX_GEN_MANT_BITS:
+        raise ValueError(f"mxint_matmul takes {MIN_ACT_MANT_BITS} <= "
+                         f"act_mant_bits <= {MAX_GEN_MANT_BITS}, got "
+                         f"{act_mant_bits}")
+    core = w_dtype == torch.int8 and K % ACT_BLOCK == 0 and \
+        w_block % ACT_BLOCK == 0 and act_mant_bits <= MAX_ACT_MANT_BITS \
+        and act_block_ok(act_block, w_block)
+    return "core" if core else "generic"
+
+
+def wide_dot(act_block: int, w_block: int, act_mant_bits: int,
+             w_dtype) -> bool:
+    """A segment's dot may pass 2^31: the generic route sums it in int64."""
+    return (min(act_block, w_block) * (2 ** (act_mant_bits - 1) - 1)
+            * PLANE_MAX[w_dtype] >= 2 ** 31)
+
+
+def generic_smem_bytes(bm: int, K: int, act_block: int, quantize_act: bool,
+                       ln_d: int = 0) -> int:
+    """Dynamic shared memory of a generic-route CTA of bm rows
+    (``generic_smem_bytes`` in ``csrc/mxint_generic.cuh``): the staged
+    act and weight mantissas (int32, or float64 for float activations),
+    the fused kernel's normalized rows (f32), the act block exponents."""
+    eb = 4 if quantize_act else 8
+    exps = -(-bm * (K // act_block) // 16) * 16 if quantize_act else 0
+    return GEN_TK * (bm + GEN_BN) * eb + bm * ln_d * 4 + exps
+
+
+@functools.lru_cache(maxsize=None)
+def generic_rows(M: int, K: int, act_block: int, quantize_act: bool,
+                 ln_d: int = 0) -> int:
+    """Rows of a generic-route CTA: the least power of two that holds M,
+    at most GEN_MAX_ROWS, halved until the CTA fits shared memory."""
+    bm = min(GEN_MAX_ROWS, 1 << max(0, M - 1).bit_length())
+    while bm > 1 and generic_smem_bytes(bm, K, act_block, quantize_act,
+                                        ln_d) > SMEM_LIMIT:
+        bm //= 2
+    if generic_smem_bytes(bm, K, act_block, quantize_act, ln_d) > SMEM_LIMIT:
+        raise ValueError(f"a generic GEMM row of K={K} at act block "
+                         f"{act_block} does not fit shared memory")
+    return bm
+
+
+_DT = {torch.int8: "int8", torch.int16: "int16", torch.int32: "int32"}
+
+
+def generic_launch(kernel: str, M: int, N: int, K: int, w_block: int,
+                   act_block: int, act_mant_bits: int, w_dtype,
+                   quantize_act: bool, operands: tuple, label: str = "",
+                   ln_d: int = 0, x_dtype=torch.float32) -> LaunchRecord:
+    """The ``LaunchRecord`` of a generic-route launch (``mxint_matmul``, or
+    with ``ln_d`` the fused ``mxint_ln_matmul``): CTAs of bm rows by
+    GEN_BN columns."""
+    bm = generic_rows(M, K, act_block, quantize_act, ln_d)
+    grid = (-(-M // bm), -(-N // GEN_BN), 1)
+    w = _DT[w_dtype]
+    if not quantize_act:
+        fn = f"{kernel}_float_kernel<W={w}>"
+    else:
+        acc = "int64" if wide_dot(act_block, w_block, act_mant_bits,
+                                  w_dtype) else "int32"
+        T = ("bf16, " if x_dtype == torch.bfloat16 else "f32, ") \
+            if ln_d else ""
+        fn = f"{kernel}_generic_kernel<{T}W={w}, ACC={acc}>"
+
+    def tiles():
+        x = np.arange(grid[0], dtype=np.int64)[:, None]
+        y = np.arange(grid[1], dtype=np.int64)[None, :]
+        return rects(x * bm, np.minimum(M, (x + 1) * bm), y * GEN_BN,
+                     np.minimum(N, (y + 1) * GEN_BN))
+    smem = generic_smem_bytes(bm, K, act_block, quantize_act, ln_d)
+    return LaunchRecord(kernel, fn, grid, GEN_THREADS, smem, 0, operands,
+                        (M, N), tiles, 1, (bm,), label)
+
+
 def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
-    """Raise unless the planes fit x's K and the blocks nest."""
+    """Raise unless the planes fit x's K and both blocks divide K."""
     N = w_mant.shape[1] if w_mant.dim() == 2 else -1
     if tuple(w_mant.shape) != (K, N) or \
             tuple(w_exp.shape) != (K // w_block, N) or K % w_block or \
-            K % act_block or w_block % act_block:
+            act_block < 1 or K % act_block:
         raise ValueError(
             f"planes {tuple(w_mant.shape)} / {tuple(w_exp.shape)} do not fit "
             f"K={K}, w_block={w_block}, act_block={act_block}")
 
 
-def check_act_mant_bits(act_mant_bits: int):
-    """Raise unless the kernel's act tile (int8, or int16 above 8 bits)
-    holds mantissas of ``act_mant_bits`` bits (clipped to
-    +-(2^(b-1) - 1)); a wider mantissa would wrap in the cast to int16."""
-    if not MIN_ACT_MANT_BITS <= act_mant_bits <= MAX_ACT_MANT_BITS:
-        raise ValueError(
-            f"mxint_matmul kernel takes {MIN_ACT_MANT_BITS} <= act_mant_bits "
-            f"<= {MAX_ACT_MANT_BITS} (int16 act mantissas), got "
-            f"{act_mant_bits}")
-
-
-def check_act_block(act_block: int, w_block: int):
-    """Raise unless the GEMM core takes the act block: a divisor of 16, or
-    a multiple of 16 up to MAX_ACT_BLOCK that divides ``w_block``
-    (``act_block_ok`` in ``csrc/mxint_common.cuh``)."""
+def act_block_ok(act_block: int, w_block: int) -> bool:
+    """The GEMM core takes the act block: a divisor of 16, or a multiple of
+    16 up to MAX_ACT_BLOCK that divides ``w_block`` (``act_block_ok`` in
+    ``csrc/mxint_common.cuh``)."""
     if act_block >= ACT_BLOCK:
-        ok = act_block % ACT_BLOCK == 0 and act_block <= MAX_ACT_BLOCK \
+        return act_block % ACT_BLOCK == 0 and act_block <= MAX_ACT_BLOCK \
             and w_block % act_block == 0
-    else:
-        ok = act_block >= 1 and ACT_BLOCK % act_block == 0
-    if not ok:
-        raise ValueError(
-            f"the GEMM core takes act blocks that divide {ACT_BLOCK} or are "
-            f"multiples of {ACT_BLOCK} up to {MAX_ACT_BLOCK} dividing "
-            f"w_block={w_block}, got {act_block}")
-
-
-@functools.lru_cache(maxsize=None)
-def check_act_format(act_mant_bits: int, act_block: int, w_block: int):
-    """``check_act_mant_bits`` and ``check_act_block`` once per format: a
-    format that passes is cached, so the launch path pays one lookup."""
-    check_act_mant_bits(act_mant_bits)
-    check_act_block(act_block, w_block)
+    return act_block >= 1 and ACT_BLOCK % act_block == 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -438,40 +614,73 @@ def matmul_entry():
         ctypes.c_int] * 12 + [ctypes.c_void_p])
 
 
+@functools.lru_cache(maxsize=None)
+def generic_entry():
+    """The C entry point ``mxint_matmul_generic_launch``."""
+    return _build.entry("mxint_matmul_generic", [ctypes.c_void_p] * 4 + [
+        ctypes.c_int] * 10 + [ctypes.c_void_p], lib="mxint_matmul")
+
+
+def generic_args(K: int, w_block: int, act_block: int, act_mant_bits: int,
+                 w_dtype, quantize_act: bool, bm: int) -> tuple:
+    """The generic entries' format arguments: w_block, act_mant_bits,
+    act_block, plane bytes, int64 dots, quantize_act, bm."""
+    wide = quantize_act and wide_dot(act_block, w_block, act_mant_bits,
+                                     w_dtype)
+    return (w_block, act_mant_bits, act_block,
+            torch.tensor([], dtype=w_dtype).element_size(), int(wide),
+            int(quantize_act), bm)
+
+
 def launch_args(x, w_mant, w_exp, out):
     return (x.data_ptr(), w_mant.data_ptr(), w_exp.data_ptr(), out.data_ptr())
 
 
+generic_launches = 0        # launches of the generic route (within launches)
+
+
 def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                  *, w_block: int, act_block: int = 16,
-                 act_mant_bits: int = 8) -> torch.Tensor:
-    """y = Q_act(x) @ (w_mant * 2^w_exp) for x (M, K) f32.
+                 act_mant_bits: int = 8,
+                 quantize_act: bool = False) -> torch.Tensor:
+    """y = Q_act(x) @ (w_mant * 2^w_exp) for x (M, K) f32, or with
+    ``quantize_act=False`` (the reference's default) x @ (w_mant *
+    2^w_exp).
 
-    A CPU tensor runs the plain version, at any act format; a CUDA tensor
-    launches the kernel, which takes 2-16 bits and the act blocks of
-    ``check_act_block``, and raises for any other format before it touches
-    the card.
+    A CPU tensor runs the plain version (``matmul_blocks``, or
+    ``matmul_float``); a CUDA tensor launches the GEMM core or the generic
+    route (``matmul_route``), and raises for any format outside both
+    before it touches the card.
     """
     M, K = x.shape
     check_planes(K, w_mant, w_exp, w_block, act_block)
     if x.device.type == "cpu":
+        if not quantize_act:
+            return matmul_float(x, w_mant, w_exp, w_block=w_block)
         return matmul_blocks(x, w_mant, w_exp, w_block=w_block,
                              act_block=act_block, act_mant_bits=act_mant_bits)
-    check_act_format(act_mant_bits, act_block, w_block)
-    global launches
-    if x.dtype != torch.float32 or K % ACT_BLOCK or \
-            w_mant.dtype != torch.int8 or w_exp.dtype != torch.int8:
-        raise ValueError("mxint_matmul kernel takes f32 x, int8 planes and "
-                         f"K a multiple of {ACT_BLOCK}")
+    global launches, generic_launches
+    if x.dtype != torch.float32 or w_exp.dtype != torch.int8:
+        raise ValueError("mxint_matmul kernel takes f32 x and int8 exponents")
     _build.require_cuda("mxint_matmul", x, w_mant, w_exp)
     N = w_mant.shape[1]
     out = torch.empty(M, N, dtype=torch.float32, device=x.device)
     rec = launch_config(M, N, K, w_block=w_block, act_block=act_block,
-                        act_mant_bits=act_mant_bits, n_sm=sm_count(x.device))
+                        act_mant_bits=act_mant_bits, n_sm=sm_count(x.device),
+                        w_dtype=w_mant.dtype, quantize_act=quantize_act)
     emit(rec, x=x, w_mant=w_mant, w_exp=w_exp, out=out)
-    rc = matmul_entry()(*launch_args(x, w_mant, w_exp, out), M, K, N,
-                        w_block, act_mant_bits, act_block, *rec.args,
-                        _build.stream_ptr(x.device))
-    _build.check(rc, "mxint_matmul")
+    if len(rec.args) == 1:                        # the generic route
+        rc = generic_entry()(*launch_args(x, w_mant, w_exp, out), M, K, N,
+                             *generic_args(K, w_block, act_block,
+                                           act_mant_bits, w_mant.dtype,
+                                           quantize_act, rec.args[0]),
+                             _build.stream_ptr(x.device))
+        _build.check(rc, "mxint_matmul")
+        generic_launches += 1
+    else:
+        rc = matmul_entry()(*launch_args(x, w_mant, w_exp, out), M, K, N,
+                            w_block, act_mant_bits, act_block, *rec.args,
+                            _build.stream_ptr(x.device))
+        _build.check(rc, "mxint_matmul")
     launches += 1
     return out

@@ -25,7 +25,12 @@ alignment alone:
   and 128): four passes re-read the row from L1/L2, each walking a block
   element by element.
 
-Act blocks up to ``MAX_BLOCK`` (128) at any alignment.
+Act blocks up to ``MAX_BLOCK`` (128) at any alignment.  Longer blocks
+(up to the whole row) and LUTs past ``MAX_LUT`` entries (r_bits up to
+16, Table VI's vanilla width: a 65,536-entry table, 256 KB, past a CTA's
+shared memory) take the generic route (``softmax_route``): a warp a row,
+lane l over the row's blocks l, l + 32, ..., four passes over the row,
+the LUT read by index from device memory.
 
 197 is prime, so DeiT's act block resolves to 1 and every element carries
 its own exponent.  The pow2 LUT sits in shared memory.  Both routes sum in
@@ -47,7 +52,8 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.launch_record import (LaunchRecord, emit, row_tiles,
                                                spec)
 from repro_torch.kernels.mxint_layernorm import (MAX_BLOCK, MAX_LUT,
-                                                 SCALAR_MAX_BLOCK, WARP,
+                                                 ROW_WARPS, SCALAR_MAX_BLOCK,
+                                                 WARP,
                                                  block_quantize_rows, f32,
                                                  lut_tensor, requantize_rows,
                                                  resolve_act_block,
@@ -64,6 +70,7 @@ REG_MAX_PER_LANE = REG_PER_LANE[-1]
 SMEM_BYTES = 4 * MAX_LUT  # a CTA's shared memory: the LUT copy, either route
 
 launches = 0
+generic_launches = 0    # launches of the generic route (within launches)
 
 
 class SoftmaxGeometry(NamedTuple):
@@ -101,9 +108,14 @@ def launch_config(rows: int, n: int, *, act_block: int, r_bits: int,
     ``softmax_geometry`` route, a warp a row.  Raises ``ValueError`` first
     for a format outside the kernel's domain, as the wrapper does."""
     act_block = resolve_act_block(n, act_block)
-    if act_block > MAX_BLOCK or 2 ** r_bits > MAX_LUT:
-        raise ValueError("mxint_softmax kernel takes f32 rows, act_block "
-                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+    if softmax_route(act_block, r_bits) == "generic":
+        grid = -(-rows // ROW_WARPS)
+        return LaunchRecord(
+            "mxint_softmax", "softmax_generic_kernel", (grid, 1, 1),
+            ROW_WARPS * WARP, 0, 0, (spec("x", (rows, n), torch.float32),
+                                     spec("out", (rows, n), torch.float32)),
+            (rows, n), row_tiles(rows, n, ROW_WARPS, grid), 1, (grid,),
+            label)
     geom = softmax_geometry(rows, n, act_block, aligned)
     fn = (f"softmax_regs_kernel<E={geom.per_lane}, V={geom.vec}>"
           if geom.per_lane else
@@ -116,6 +128,15 @@ def launch_config(rows: int, n: int, *, act_block: int, r_bits: int,
         ops_, (rows, n),
         row_tiles(rows, n, ROW_THREADS // WARP, geom.grid), 1,
         (geom.per_lane, geom.vec, geom.grid), label)
+
+
+def softmax_route(act_block: int, r_bits: int) -> str:
+    """'core' (the register and long routes: act blocks up to MAX_BLOCK, a
+    LUT of at most MAX_LUT entries in shared memory), else 'generic' (any
+    act block that divides the row; r_bits up to 16, the LUT read from
+    device memory)."""
+    return "core" if act_block <= MAX_BLOCK and 2 ** r_bits <= MAX_LUT \
+        else "generic"
 
 
 def exp2_datapath(z: torch.Tensor, table: torch.Tensor, r_bits: int):
@@ -145,6 +166,14 @@ def softmax_rows(x: torch.Tensor, *, act_block: int, mant_bits: int,
     return y
 
 
+@functools.lru_cache(maxsize=None)
+def generic_entry():
+    """The C entry point ``mxint_softmax_generic_launch``."""
+    return _build.entry("mxint_softmax_generic", [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p], lib="mxint_softmax")
+
+
 def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
                   r_bits: int = 2, quantize_out: bool = False) -> torch.Tensor:
     """Row softmax over the last axis of a (rows, n) f32 tensor.
@@ -156,10 +185,9 @@ def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
     if x.device.type == "cpu":
         return softmax_rows(x, act_block=act_block, mant_bits=mant_bits,
                             r_bits=r_bits, quantize_out=quantize_out)
-    global launches
+    global launches, generic_launches
     if x.dtype != torch.float32:
-        raise ValueError("mxint_softmax kernel takes f32 rows, act_block "
-                         f"<= {MAX_BLOCK} and at most {MAX_LUT} LUT entries")
+        raise ValueError("mxint_softmax kernel takes f32 rows")
     lut = lut_tensor(luts.pow2_table(r_bits), x.device)
     _build.require_cuda("mxint_softmax", x, lut)
     out = torch.empty_like(x)
@@ -167,6 +195,14 @@ def mxint_softmax(x: torch.Tensor, *, act_block: int = 16, mant_bits: int = 8,
                         aligned=(x.data_ptr() % 16 == 0 and
                                  out.data_ptr() % 16 == 0))
     emit(rec, x=x, out=out)
+    if rec.function == "softmax_generic_kernel":
+        rc = generic_entry()(x.data_ptr(), lut.data_ptr(), out.data_ptr(), rows, n,
+                act_block, mant_bits, 2 ** r_bits, LOG2E, int(quantize_out),
+                *rec.args, _build.stream_ptr(x.device))
+        _build.check(rc, "mxint_softmax")
+        generic_launches += 1
+        launches += 1
+        return out
     fn = _build.entry("mxint_softmax", [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p])

@@ -23,7 +23,7 @@ from repro_torch.kernels import mxint_layernorm as _layernorm
 from repro_torch.kernels import mxint_ln_matmul as _ln_matmul
 from repro_torch.kernels import mxint_matmul as _matmul
 from repro_torch.kernels import mxint_softmax as _softmax
-from repro_torch.kernels.flash_attention import (TILE_K, flash_attention,
+from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_decode)
 from repro_torch.kernels.launch_fixture import launch_fixture
 from repro_torch.kernels.mxint_gelu import mxint_gelu
@@ -44,6 +44,16 @@ LAUNCH_COUNTERS = {"mxint_matmul": (_matmul, "launches"),
                    "launch_fixture": (_fixture, "launches")}
 # the kernels a model runs (the launch fixture serves the static checks)
 SERVED_KERNELS = tuple(n for n in LAUNCH_COUNTERS if n != "launch_fixture")
+# route name -> (its module, the route's own launch counter): the generic
+# routes' launches, each also counted in its kernel's LAUNCH_COUNTERS
+ROUTE_COUNTERS = {"mxint_matmul/generic": (_matmul, "generic_launches"),
+                  "mxint_ln_matmul/generic": (_ln_matmul, "generic_launches"),
+                  "mxint_softmax/generic": (_softmax, "generic_launches"),
+                  "mxint_gelu/generic": (_gelu, "generic_launches"),
+                  "mxint_layernorm/generic": (_layernorm, "generic_launches"),
+                  "flash_attention/generic": (_flash, "generic_launches"),
+                  "flash_attention_decode/generic": (
+                      _flash, "generic_decode_launches")}
 
 # the whole-row 'paper' attention holds the full score matrix; beyond this
 # many scores per (batch, head) the backend takes the blocked flash kernel
@@ -54,6 +64,11 @@ def launch_counts() -> Dict[str, int]:
     """Kernel name -> CUDA launches so far (the plain versions launch
     nothing)."""
     return {n: getattr(m, a) for n, (m, a) in LAUNCH_COUNTERS.items()}
+
+
+def route_counts() -> Dict[str, int]:
+    """Route name -> CUDA launches of the generic routes so far."""
+    return {n: getattr(m, a) for n, (m, a) in ROUTE_COUNTERS.items()}
 
 
 def _flatten_rows(x: torch.Tensor):
@@ -71,9 +86,12 @@ def _tp_collective(y: torch.Tensor, tp_group, tp_mode) -> torch.Tensor:
 
 def mxint_linear(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
                  bias: Optional[torch.Tensor] = None, *, w_block: int,
-                 act_block: int = 16, act_mant_bits: int = 8,
-                 tp_group=None, tp_mode: Optional[str] = None) -> torch.Tensor:
-    """y = Q_act(x) @ W_mx (+ bias) for any leading dims of x (..., K).
+                 quantize_act: bool = False, act_block: int = 16,
+                 act_mant_bits: int = 8, tp_group=None,
+                 tp_mode: Optional[str] = None) -> torch.Tensor:
+    """y = Q_act(x) @ W_mx (+ bias) for any leading dims of x (..., K);
+    with ``quantize_act=False`` (the reference's default; every port
+    caller passes it) x @ W_mx in float64 products, rounded once.
 
     tp_group / tp_mode: with a process group, the planes are this rank's
     shard.  'gather': the planes are a slice of the N columns; the rank
@@ -91,7 +109,7 @@ def mxint_linear(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
     K = x2.shape[1]
     y = mxint_matmul(x2, w_mant, w_exp, w_block=w_block,
                      act_block=_resolve_block(K, act_block),
-                     act_mant_bits=act_mant_bits)
+                     act_mant_bits=act_mant_bits, quantize_act=quantize_act)
     if tp_group is not None:
         y = _tp_collective(y, tp_group, tp_mode)
     if bias is not None:
@@ -218,8 +236,8 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     K and V may carry fewer heads than q (GQA, laid out KV-major: q head i
     reads KV head i // groups).  Neither path copies K/V per query head.
-    The flash kernels take head dims up to ``MAX_HEAD_DIM`` (256) and
-    raise beyond it.
+    The flash kernel takes any head dim and resolves the score act block
+    against its 128-key tile, as the reference does.
     """
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -232,8 +250,6 @@ def attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             window=window, act_block=act_block, mant_bits=mant_bits,
             r_bits=r_bits, groups=groups)
         return o.to(q.dtype).reshape(b, h, sq, d)
-    if quantize_scores:
-        act_block = _resolve_block(TILE_K, act_block)
     o = flash_attention(
         q.reshape(b * h, sq, d).contiguous(),
         k.reshape(b * hkv, sk, d).contiguous(),
@@ -262,8 +278,6 @@ def attention_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, W = q.shape[0], k.shape[1]
     if valid.ndim == 1:
         valid = valid[None, :].expand(b, W)
-    if quantize_scores:
-        act_block = _resolve_block(TILE_K, act_block)
     return flash_attention_decode(
         q.contiguous(), k.contiguous(), v.contiguous(),
         valid.to(torch.int32).contiguous(), exp_mode=exp_mode,

@@ -180,8 +180,9 @@ def row_linear_task(device, mesh, x, mant, exp, block: int,
         torch.as_tensor(mant[r * k:(r + 1) * k], device=device),
         torch.as_tensor(exp[r * k // block:(r + 1) * k // block],
                         device=device),
-        w_block=block, act_block=act_block, act_mant_bits=act_mant_bits,
-        tp_group=mesh.get_group("model"), tp_mode="psum")
+        w_block=block, quantize_act=True, act_block=act_block,
+        act_mant_bits=act_mant_bits, tp_group=mesh.get_group("model"),
+        tp_mode="psum")
     return y.cpu().numpy()
 
 

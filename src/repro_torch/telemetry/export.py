@@ -53,6 +53,9 @@ DEFAULT_PEAKS = RooflinePeaks()
 # outside the tensor cores
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+# float64 outside the tensor cores (the same data sheet): the generic
+# matmul route's float-activation products
+F64_OPS_PER_S = 34e12
 # NVIDIA H100 SXM data sheet: "FP64 Tensor Core 67 teraFLOPS" (the
 # float64 products run there), and "NVLink 900 GB/s", which counts both
 # directions: one way carries half of it
@@ -178,7 +181,8 @@ def predicted_vs_measured(snapshot: Optional[dict] = None,
         if "int8_ops" in row:
             compute_s = (row["int8_ops"] / INT8_OPS_PER_S
                          + row["bf16_ops"] / peaks.flops_per_s
-                         + row["f32_ops"] / F32_OPS_PER_S)
+                         + row["f32_ops"] / F32_OPS_PER_S
+                         + row.get("f64_ops", 0) / F64_OPS_PER_S)
         else:
             compute_s = flops / peaks.flops_per_s
         memory_s = hbm / peaks.hbm_bytes_per_s

@@ -49,7 +49,8 @@ def _probe_matmul_deit(device) -> Callable[[], object]:
     normal, ints = _data(0, device)
     x, mant, exp = normal(394, 192), ints(-127, 128, 192, 192), \
         ints(-8, 2, 6, 192)
-    return lambda: ops.mxint_linear(x, mant, exp, w_block=32, act_block=16,
+    return lambda: ops.mxint_linear(x, mant, exp, w_block=32,
+                                    quantize_act=True, act_block=16,
                                     act_mant_bits=8)
 
 
@@ -70,7 +71,8 @@ def _probe_matmul_bench(device) -> Callable[[], object]:
     normal, ints = _data(2, device)
     x, mant, exp = normal(128, 1024), ints(-127, 128, 1024, 512), \
         ints(-8, 2, 4, 512)
-    return lambda: ops.mxint_linear(x, mant, exp, w_block=256, act_block=16,
+    return lambda: ops.mxint_linear(x, mant, exp, w_block=256,
+                                    quantize_act=True, act_block=16,
                                     act_mant_bits=8)
 
 

@@ -500,6 +500,22 @@ def test_out_of_domain_format_raises_before_a_record(case):
     assert recs == []
 
 
+@pytest.mark.parametrize("case", LC.generic_cases(), ids=lambda c: c[0])
+def test_widened_format_meets_every_contract(case):
+    """The formats outside the fast routes before the generic routes (each
+    raised in its wrapper then): each now records a launch that fits the
+    H100 and covers its output once, and is in the sweep."""
+    label, kernel, kw = case
+    with record_launches() as recs:
+        rec = LC.record_launch(kernel, kw, label)
+    assert recs == [rec]
+    assert LC.check_record(rec) == [] and GC.check_coverage(rec) == []
+    assert (label, kernel) in {(r.label, r.kernel)
+                               for r in LC.sweep_records()}
+    route = "decode_kernel" if label == "decode-act-block-12" else "generic"
+    assert route in rec.function, rec.function
+
+
 def test_serving_sweep_covers_every_config():
     from repro_torch.configs import ARCH_IDS
     labels = {c[0].rsplit("-", 1)[0] for c in LC.serving_cases()}
@@ -608,6 +624,37 @@ def test_flash_tiles_cover_the_output_once(dtype, groups, d):
             p0 = (rec.grid[1] - 1 - y) * per
             for h in range(x * groups, (x + 1) * groups):
                 want[h * sq + p0:h * sq + min(sq, p0 + per)] += 1
+    np.testing.assert_array_equal(GC.dense_mask(rec), want)
+    assert (want == 1).all()
+
+
+@pytest.mark.parametrize("case", LC.generic_cases() + LC.wide_format_cases(),
+                         ids=lambda c: c[0])
+def test_generic_route_tiles_cover_the_output_once(case):
+    """The generic routes' loop orders, element by element: the GEMM's CTA
+    (x, y) writes rows [x bm, (x + 1) bm) by columns [128 y, 128 y + 128);
+    the row kernels' CTA c rows [8 c, 8 c + 8) (GELU: the scalar route's
+    grid-stride walk); the flash kernel's CTA (x, head y) positions
+    [w x, w x + w) of head y, the decode kernel's CTA x rows [w x, w x +
+    w) of (B, Hkv, G)."""
+    label, kernel, kw = case
+    rec = LC.launch(kernel, kw, label)
+    rows, cols = rec.out_shape
+    if kernel == "mxint_gelu":
+        want = _stride_mask(rows * cols, kw["act_block"], rec.threads,
+                            rec.grid[0])
+    else:
+        want = np.zeros((rows, cols), np.int64)
+        per = rec.args[0] if kernel.startswith(("mxint_matmul",
+                                                "mxint_ln", "flash")) else 8
+        span = rows // rec.grid[1] if kernel == "flash_attention" else rows
+        for x in range(rec.grid[0]):
+            for y in range(rec.grid[1]):
+                if kernel.startswith(("mxint_matmul", "mxint_ln_matmul")):
+                    want[x * per:(x + 1) * per, y * 128:(y + 1) * 128] += 1
+                else:
+                    r0 = y * span + x * per
+                    want[r0:min(y * span + span, r0 + per)] += 1
     np.testing.assert_array_equal(GC.dense_mask(rec), want)
     assert (want == 1).all()
 

@@ -215,15 +215,23 @@ def test_decode_plain_vs_pallas_head_dim_256(quantize):
 
 
 def test_head_dims_past_256_raise():
-    """272 is past the widest head dim the kernels take: both ops raise
-    with the stated message, on the CPU as on the card."""
-    q = torch.zeros(10, 8, 272)
-    with pytest.raises(NotImplementedError, match="head dim 272 > 256"):
-        fa.flash_attention(q, q[:1], q[:1], kv_groups=10)
-    with pytest.raises(NotImplementedError, match="head dim 272 > 256"):
-        fa.flash_attention_decode(q[None, :1, :2], q[None, :, :1],
+    """272 is past the widest head dim the fast kernels take: no op raises
+    any more.  Both ops compute on the CPU, and on the card both take the
+    generic route (``flash_route``, ``decode_route``), whose record fits
+    the card; a head dim whose rows do not fit shared memory still
+    raises."""
+    q = torch.from_numpy(_x((10, 8, 272), 7))
+    o = fa.flash_attention(q, q[:1], q[:1], kv_groups=10)
+    d = fa.flash_attention_decode(q[None, :1, :2], q[None, :, :1],
                                   q[None, :, :1],
                                   torch.ones(1, 10, dtype=torch.int32))
+    assert o.shape == q.shape and d.shape == (1, 1, 2, 272)
+    assert bool(torch.isfinite(o).all() and torch.isfinite(d).all())
+    assert fa.flash_route(torch.bfloat16, 272, 10, 16, 2) == "generic"
+    assert fa.decode_route(272, 16, 2) == "generic"
+    assert "generic" in fa.launch_config(10, 8, 8, 272, kv_groups=10).function
+    with pytest.raises(ValueError, match="head dims"):
+        fa.launch_config(2, 8, 8, 40000)
 
 
 # (causal, window, kv_groups, S): masked whole-row attention, S <= 512
@@ -450,8 +458,8 @@ def test_kernel_route_by_dtype():
 
 def test_flash_ops_check_their_arguments():
     q = torch.zeros(2, 8, 272)
-    with pytest.raises(NotImplementedError, match="head dim"):
-        fa.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="exp_mode"):
+        fa.flash_attention(q, q, q, exp_mode="exp")
     with pytest.raises(ValueError, match="mxint"):
         fa.flash_attention(q[..., :16], q[..., :16], q[..., :16],
                            quantize_scores=True)

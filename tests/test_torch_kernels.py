@@ -154,7 +154,8 @@ def test_layernorm_ops_take_bf16_rows():
                                    w_block=p.block_size, rms_only=True)
     assert fused.dtype == torch.bfloat16
     unfused = ops.mxint_linear(got.to(torch.bfloat16), p.mantissa,
-                               p.exponent, w_block=p.block_size)
+                               p.exponent, w_block=p.block_size,
+                               quantize_act=True)
     np.testing.assert_array_equal(fused.float().numpy(),
                                   unfused.float().numpy())
 
@@ -236,7 +237,7 @@ def test_matmul_plain_vs_pallas(M, K, N):
     x = _x((M, K), seed=M + K)
     p, jp = _planes(K, N, seed=N)
     got = mxint_matmul.mxint_matmul(_t(x), p.mantissa, p.exponent,
-                                    w_block=p.block_size)
+                                    w_block=p.block_size, quantize_act=True)
     want = j_mm(jnp.asarray(x), jp.mantissa, jp.exponent,
                 w_block=jp.block_size, quantize_act=True, bm=M, bn=N, bk=K,
                 interpret=True)
@@ -264,7 +265,7 @@ def test_ln_matmul_plain_vs_pallas_and_unfused():
     # fused == LN op then linear op, bit for bit
     h = ops.mxint_layernorm_op(_t(x), _t(g), _t(b), quantize_out=True)
     unfused = ops.mxint_linear(h, p.mantissa, p.exponent,
-                               w_block=p.block_size)
+                               w_block=p.block_size, quantize_act=True)
     np.testing.assert_array_equal(got.numpy(), unfused.numpy())
 
 
@@ -274,7 +275,7 @@ def test_linear_op_ragged_deit_head():
     p, jp = _planes(192, 1000, seed=9)
     bias = 0.01 * _x((1000,), seed=10)
     got = ops.mxint_linear(_t(x), p.mantissa, p.exponent, _t(bias),
-                           w_block=p.block_size)
+                           w_block=p.block_size, quantize_act=True)
     want = jops.mxint_linear(jnp.asarray(x), jp.mantissa, jp.exponent,
                              jnp.asarray(bias), w_block=jp.block_size,
                              quantize_act=True)
@@ -1010,34 +1011,41 @@ def test_core_epilogue_matches_plain_version(x_scale, w_scale, case):
 
 @pytest.mark.parametrize("bits", [1, 17, 24])
 def test_matmul_kernel_refuses_wide_act_mantissas(bits):
-    """The CUDA kernel's act tile holds int16 at most: a mantissa of more
-    than 16 bits would wrap in the cast, so the wrapper raises before it
-    touches the card (as ``mxint_ln_matmul`` does)."""
-    with pytest.raises(ValueError, match="act_mant_bits"):
-        mxint_matmul.check_act_mant_bits(bits)
+    """The GEMM core's act tile holds int16 at most: a mantissa of more
+    than 16 bits would wrap in the cast, so the wrapper sends it to the
+    generic route before it touches the card (as ``mxint_ln_matmul``
+    does); below 2 bits no route takes it, and the wrapper raises."""
+    if bits < 2:
+        with pytest.raises(ValueError, match="act_mant_bits"):
+            mxint_matmul.matmul_route(256, 256, 16, bits)
+    else:
+        assert mxint_matmul.matmul_route(256, 256, 16, bits) == "generic"
 
 
 @pytest.mark.parametrize("bits", range(2, 17))
 def test_matmul_kernel_takes_2_to_8_bit_act_mantissas(bits):
     """2-8 bits (an int8 act tile) and, since the act tile holds int16
-    above 8 bits, 9-16."""
-    mxint_matmul.check_act_mant_bits(bits)
+    above 8 bits, 9-16: the GEMM core."""
+    assert mxint_matmul.matmul_route(256, 256, 16, bits) == "core"
 
 
 def test_wide_act_format_raises_before_any_launch():
     """``QuantConfig(mode="kernel", act_fmt=MXFormat(20, 16))`` and an act
-    block of 12 reach ``mxint_matmul`` through every linear.  On a tensor
-    off the CPU (here a meta tensor, as a CUDA one would be) the checks
-    raise before the kernel is built or launched; on the CPU the plain
-    version computes any format, as the reference does."""
+    block of 12 reach ``mxint_matmul`` through every linear.  Both are now
+    in the domain: the generic route takes them (``matmul_route``), the
+    plain version computes them on the CPU, as the reference does, and a
+    tensor off the CPU (here a meta tensor) raises only at the device
+    check, before anything is built or launched.  A format outside every
+    route (act mantissas of 25 bits) raises in the route check."""
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.core.quantize import MXTensor
     from repro_torch.models.model_api import Param
     K, N = 96, 32
     before = ops.launch_counts()
-    for fmt, match in ((MXFormat(20, 16), "act_mant_bits"),
-                       (MXFormat(8, 12), "act blocks")):
+    for fmt in (MXFormat(20, 16), MXFormat(8, 12)):
         q = QuantConfig(mode="kernel", act_fmt=fmt)
+        assert mxint_matmul.matmul_route(K, 48, fmt.block_size,
+                                         fmt.mant_bits) == "generic"
 
         def linear(device):
             w = MXTensor(torch.zeros(K, N, dtype=torch.int8, device=device),
@@ -1046,9 +1054,11 @@ def test_wide_act_format_raises_before_any_launch():
             x = torch.ones(3, K, device=device)
             return q.datapath.linear(x, Param(w, ("embed", "mlp")), q=q)
 
-        with pytest.raises(ValueError, match=match):
+        with pytest.raises(ValueError, match="CUDA device"):
             linear("meta")
         assert linear("cpu").shape == (3, N)
+    with pytest.raises(ValueError, match="act_mant_bits"):
+        mxint_matmul.matmul_route(K, 48, 16, 25)
     assert ops.launch_counts() == before
 
 
@@ -1078,7 +1088,7 @@ def test_matmul_wide_act_formats_plain_vs_pallas(block, bits):
     p, jp = _planes(K, N, seed=N)
     got = mxint_matmul.mxint_matmul(_t(x), p.mantissa, p.exponent,
                                     w_block=p.block_size, act_block=block,
-                                    act_mant_bits=bits)
+                                    act_mant_bits=bits, quantize_act=True)
     want = np.asarray(j_mm(jnp.asarray(x), jp.mantissa, jp.exponent,
                            w_block=jp.block_size, act_block=block,
                            act_mant_bits=bits, quantize_act=True, bm=M, bn=N,
@@ -1115,7 +1125,7 @@ def test_ln_matmul_wide_act_formats_plain_vs_pallas(block, bits):
                                    mant_bits=bits, quantize_out=True)
         unfused = ops.mxint_linear(h.to(xt.dtype), p.mantissa, p.exponent,
                                    w_block=p.block_size, act_block=block,
-                                   act_mant_bits=bits)
+                                   act_mant_bits=bits, quantize_act=True)
         np.testing.assert_array_equal(fused.float().numpy(),
                                       unfused.float().numpy())
 
@@ -1257,11 +1267,11 @@ def test_gemm_geometry_act_formats(M, N, K, fused_ln, block, wide):
     (16, 16, True), (32, 256, True), (256, 256, True), (64, 32, False),
     (12, 48, False), (24, 48, False), (512, 512, False), (3, 48, False)])
 def test_act_block_domain(block, w_block, ok):
-    if ok:
-        mxint_matmul.check_act_block(block, w_block)
-    else:
-        with pytest.raises(ValueError, match="act blocks"):
-            mxint_matmul.check_act_block(block, w_block)
+    """The GEMM core's act blocks; the others take the generic route."""
+    assert mxint_matmul.act_block_ok(block, w_block) == ok
+    K = 2 * max(block, w_block) * 3
+    assert mxint_matmul.matmul_route(K, w_block, block, 8) == \
+        ("core" if ok else "generic")
 
 
 @pytest.mark.parametrize("block,aligned,ok", [
@@ -1272,10 +1282,7 @@ def test_ln_route_domain(block, aligned, ok):
     powers of two up to 128 on aligned rows; the fused kernel's LN stage
     up to 256."""
     piece = mxint_layernorm.ln_piece(block, aligned)
-    if ok:
-        mxint_layernorm.check_ln_route(block, piece)
-    else:
-        with pytest.raises(ValueError, match="LN stage"):
-            mxint_layernorm.check_ln_route(block, piece)
-    mxint_layernorm.check_ln_route(256, mxint_layernorm.ln_piece(256, True),
-                                   mxint_layernorm.MAX_LN_BLOCK)
+    assert mxint_layernorm.ln_route_ok(block, piece) == ok
+    assert mxint_layernorm.ln_route_ok(
+        256, mxint_layernorm.ln_piece(256, True),
+        mxint_layernorm.MAX_LN_BLOCK)
