@@ -52,16 +52,22 @@
    16-bit act mantissas (at blocks 16 and 32), at DeiT-Base's FFN shapes
    (timed) and a Llama decode shape; softmax, GELU and LN at act blocks
    32, 64 and 128 at the DeiT shapes (timed).  ``mxint_matmul`` computes
-   at ``act_mant_bits=10`` on its GEMM core and at 17 and 24 bits and act
-   block 12 on its generic route, and must raise before it launches at
+   at ``act_mant_bits=10`` and act block 12 on its GEMM core and at 17
+   and 24 bits on its generic route, and must raise before it launches at
    25 bits; the core's C entry must refuse 17 bits (its act tile holds
-   int16 at most); a kernel-mode linear on 10-bit weights (int16 planes)
-   takes the generic route.  The generic routes (``GENERIC_LABELS``,
-   under ``<kernel>/generic``): every format only they take, at the
-   launch sweep's ``generic_cases`` shapes, and the served widened format
-   at DeiT-Base's shapes (W12 planes, act block 12, LN 13-bit, GELU
-   14-bit, softmax r 16), float activations at its FFN ``wo``, the flash
-   kernel at r 10, each timed.
+   int16 at most) and int32 planes; a kernel-mode linear on 10-bit
+   weights (int16 planes) takes the GEMM core.  The GEMM core's segment
+   walk (``SEGMENT_MM``, ``SEGMENT_LNMM``, ``SEGMENT_FORMER``): W12 x A8
+   at act block 12 (not nested) and 16, W12 x A12 at block 16 (four mmas
+   a step), W8 at act block 24 on 96-blocks, LN2 -> ``wi`` with the 13-bit
+   LUT, at DeiT-Base's FFN shapes (timed) and at 4 rows, and the former
+   generic formats it now takes; each must launch the core.  The generic
+   routes (``GENERIC_LABELS``, under ``<kernel>/generic``): every format
+   only they take, at the launch sweep's ``generic_cases`` shapes, 17-bit
+   acts at DeiT-Base's FFN shapes, the served widened format's row
+   kernels (act block 12, LN 13-bit, GELU 14-bit, softmax r 16), float
+   activations at its FFN ``wo``, the flash kernel at r 10, int16 planes
+   off the core (weight block 8; W12 x A12 at act block 64), each timed.
    Tolerance: bit-identical (0 mismatched elements) for every kernel and
    case except bf16 ``flash_attention``, whose q.k and P.V sums run on
    the tensor cores in no fixed order (``FLASH_TOL``): float mode every
@@ -153,8 +159,11 @@
    FFNs at act block 32 (``QuantOverride(act_fmt=MXFormat(8, 32))``),
    with 12-bit acts everywhere, and at the widened format
    (``wide_quant``: W12 planes, act block 12, Table VI's vanilla LUTs),
-   whose 99 launches a batch all take the generic routes, the DeiT
-   phase's telemetry and launch checks; ms per batch.  Then Llama-3-8B at
+   whose 74 GEMM launches a batch run on the GEMM core and whose 25 row
+   kernel launches take their generic routes (one batch traced: busy ms,
+   idle share, device ms by kernel and route), and with 17-bit acts, whose
+   74 GEMM launches take the generic GEMM routes, the DeiT phase's
+   telemetry and launch checks; ms per batch.  Then Llama-3-8B at
    full width and one layer at score act block 64 (``widened_lm_phase``):
    3 requests and a 1024-token score, every flash and decode launch on
    the generic route.  After the timed phases, DeiT-Tiny (2 layers) at
@@ -1363,23 +1372,113 @@ def kernel_cases(torch, np):
                 F.rms_norm(a, (d,), g) if rms else
                 F.layer_norm(a, (d,), g, b))))
     widened_cases(torch, cases, x, planes, rows)
+    segment_cases(torch, cases, x, rows)
     cases.update(flash_cases(torch, np, x))
     generic_route_cases(torch, cases, x, rows)
     return cases
 
 
-# the generic routes' cases: every format the fast routes do not take
-# (``launch_contracts.generic_cases``, the out-of-domain formats before
-# this slice) and the served widened format's shapes (W12 planes, act
-# block 12, Table VI's vanilla LUTs at DeiT-Base batch 16), float
-# activations at DeiT-Base's FFN wo and the flash kernels' r 10 LUT; all
-# timed, all held to 0 mismatches
+# the formats the GEMM core takes by segment (V 3-4 of
+# csrc/mxint_common.cuh): int16 planes and act blocks that do not nest in
+# the weight block, as (tag, weight format, act format (bits, block)[, LN
+# LUT bits]); each at DeiT-Base batch 16's FFN shapes (timed) and at a
+# decode batch of 4 rows, and the former generic cases of these formats at
+# 64 rows (``launch_contracts.CORE_SEGMENT_LABELS``).  The served widened
+# format's two GEMMs keep the labels their generic cases had.
+SEGMENT_MM = (("w12_a12", (12, 256), (8, 12)),
+              ("w12_a8_b16", (12, 256), (8, 16)),
+              ("w12_a12b16", (12, 256), (12, 16)),
+              ("w8_a8_b24_w96", (8, 96), (8, 24)))
+SEGMENT_LNMM = (("w12_a12_lut13", (12, 256), (8, 12), 13),
+                ("w12_a12b16_lut13", (12, 256), (12, 16), 13))
+SEGMENT_FORMER = (("odd_act_block_12", (8, 256), (8, 12)),
+                  ("odd_act_block_24", (8, 96), (8, 24)),
+                  ("act_block_512", (8, 512), (8, 512)),
+                  ("int16_planes", (12, 256), (8, 16)))
+TIMED_CASES |= {f"deit_base_b16_ffn_wo_{t}" for t, *_ in SEGMENT_MM} | {
+    f"deit_base_b16_ln2_wi_{t}" for t, *_ in SEGMENT_LNMM}
+
+
+def segment_cases(torch, cases, x, rows):
+    """The GEMM core's segment cases (``SEGMENT_MM``, ``SEGMENT_LNMM``,
+    ``SEGMENT_FORMER``) under ``mxint_matmul`` and ``mxint_ln_matmul``:
+    each launches the core (``kernel_phase`` checks the route counts) and
+    matches its plain version with 0 mismatches.  The bound counts the
+    products split into int8 pieces (``int8_splits``) and a multiply and
+    an add per output element and segment."""
+    from repro_torch.core.mx_types import MXFormat
+    from repro_torch.core.quantize import dequantize, pack_weight
+    from repro_torch.kernels import mxint_ln_matmul, mxint_matmul
+    from repro_torch.kernels.mxint_matmul import segments
+    d, ff = 768, 3072
+    mm = [(f"deit_base_b16_ffn_wo_{t}", rows, w, a) for t, w, a in SEGMENT_MM]
+    mm += [(f"decode4_ffn_wo_{t}", LM_BATCH, w, a) for t, w, a in SEGMENT_MM]
+    mm += [(t, 64, w, a) for t, w, a in SEGMENT_FORMER]
+    for label, M, wf, (bits, blk) in mm:
+        a = x(M, ff)
+        w = pack_weight(x(ff, d, scale=ff ** -0.5), MXFormat(*wf))
+        wd = dequantize(w)
+        wb = w.mantissa.element_size()
+        nseg = len(segments(ff, w.block_size, blk)[0])
+        cases["mxint_matmul"].append((
+            label,
+            lambda a=a, w=w, blk=blk, bits=bits: mxint_matmul.mxint_matmul(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=blk, act_mant_bits=bits, quantize_act=True),
+            lambda a=a, w=w, blk=blk, bits=bits: mxint_matmul.matmul_blocks(
+                a, w.mantissa, w.exponent, w_block=w.block_size,
+                act_block=blk, act_mant_bits=bits),
+            bound(a.numel() * 4 + w.mantissa.numel() * wb
+                  + w.exponent.numel() + M * d * 4,
+                  int8_ops=int8_splits(bits, wb) * 2.0 * M * d * ff,
+                  f32_ops=2.0 * M * d * nseg),
+            lambda a=a, wd=wd: torch.matmul(a, wd)))
+    ln = [(f"deit_base_b16_ln2_wi_{t}", rows, w, a, lb)
+          for t, w, a, lb in SEGMENT_LNMM]
+    ln += [(f"decode4_ln2_wi_{t}", LM_BATCH, w, a, lb)
+           for t, w, a, lb in SEGMENT_LNMM]
+    for label, M, wf, (bits, blk), lb in ln:
+        a, g, b = x(M, d, scale=2.0), 1.0 + 0.1 * x(d), 0.1 * x(d)
+        w = pack_weight(x(d, ff, scale=d ** -0.5), MXFormat(*wf))
+        wd = dequantize(w)
+        wb = w.mantissa.element_size()
+        nseg = len(segments(d, w.block_size, blk)[0])
+        cases["mxint_ln_matmul"].append((
+            label,
+            lambda a=a, g=g, b=b, w=w, blk=blk, bits=bits, lb=lb:
+                mxint_ln_matmul.mxint_ln_matmul(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, mant_bits=bits, lut_bits=lb),
+            lambda a=a, g=g, b=b, w=w, blk=blk, bits=bits, lb=lb:
+                mxint_ln_matmul.ln_matmul_rows(
+                    a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
+                    act_block=blk, mant_bits=bits, lut_bits=lb,
+                    rms_only=False),
+            bound(a.numel() * 4 + 2 * d * 4 + 4 * 2 ** lb
+                  + w.mantissa.numel() * wb + w.exponent.numel()
+                  + M * ff * 4,
+                  int8_ops=int8_splits(bits, wb) * 2.0 * M * ff * d,
+                  f32_ops=ROW_OPS["mxint_layernorm"] * M * d
+                  + 2.0 * M * ff * nseg),
+            lambda a=a, wd=wd: torch.matmul(a, wd)))
+
+
+# the generic routes' cases: every format the fast routes and the GEMM
+# core do not take (``launch_contracts.generic_cases``, the out-of-domain
+# formats before the generic routes, less ``CORE_SEGMENT_LABELS``) and the
+# served widened formats' shapes (17-bit acts at DeiT-Base batch 16, the
+# generic GEMMs' served format; act block 12 and Table VI's vanilla LUTs
+# for the row kernels), float activations at DeiT-Base's FFN wo, the
+# flash kernels' r 10 LUT, and int16 planes the core refuses (a weight
+# block of 8: the generic GEMM's int32 dots; W12 x A12 at act block 64:
+# its int64 dots) for both GEMM kernels; all timed, all held to 0
+# mismatches
 GENERIC_LABELS = (
-    "deit_base_b16_ffn_wo_w12_a12", "odd_act_block_12", "odd_act_block_24",
-    "act_block_512", "k_not_16", "act_mant_17", "int16_planes",
-    "w24_a24_int32", "deit_base_b16_ffn_wo_float_act",
-    "deit_base_b16_ln2_wi_w12_a12_lut13", "odd_act_block_48",
-    "lnmm_unaligned_block_32", "deit_base_b16_final_ln_a12_lut13",
+    "deit_base_b16_ffn_wo_a17", "k_not_16", "act_mant_17",
+    "w24_a24_int32", "w12_a12_b64_int16_wide", "w12_w_block_8_int16",
+    "deit_base_b16_ffn_wo_float_act", "deit_base_b16_ln2_wi_a17",
+    "odd_act_block_48", "lnmm_unaligned_block_32",
+    "lnmm_w12_a12_b64_int16_wide", "lnmm_w12_w_block_8_int16", "deit_base_b16_final_ln_a12_lut13",
     "ln_block_24", "ln_block_256", "ln_unaligned_block_32",
     "deit_base_b16_softmax_r16", "softmax_block_256",
     "deit_base_b16_gelu_a12_lut14", "gelu_block_256", "flash_r10",
@@ -1404,7 +1503,7 @@ def generic_route_cases(torch, cases, x, rows):
     format the fast decode kernel now takes (act block 12 resolves to 8)
     under ``flash_attention_decode``."""
     import torch.nn.functional as F
-    from repro_torch.core.mx_types import MXFormat
+    from repro_torch.core.mx_types import MXINT6_WEIGHT, MXFormat
     from repro_torch.core.quantize import dequantize, pack_weight
     from repro_torch.kernels import (flash_attention as fa, mxint_gelu,
                                      mxint_layernorm, mxint_ln_matmul,
@@ -1417,17 +1516,16 @@ def generic_route_cases(torch, cases, x, rows):
         return pack_weight(x(K, N, scale=K ** -0.5), fmt)
 
     # mxint_matmul: (label, M, K, N, weight format, act block, bits,
-    # quantize_act)
+    # quantize_act); case 0 is the served 17-bit acts' FFN wo
     for label, m, K, N, fmt, blk, bits, qa in (
-            ("deit_base_b16_ffn_wo_w12_a12", rows, ff, d, MXFormat(12, 256),
-             12, 8, True),
-            ("odd_act_block_12", M, ff, d, MXFormat(8, 256), 12, 8, True),
-            ("odd_act_block_24", M, ff, d, MXFormat(8, 96), 24, 8, True),
-            ("act_block_512", M, ff, d, MXFormat(8, 512), 512, 8, True),
+            ("deit_base_b16_ffn_wo_a17", rows, ff, d, MXINT6_WEIGHT,
+             *WIDE_GEN_ACT[::-1], True),
             ("k_not_16", M, 200, d, MXFormat(8, 8), 8, 8, True),
             ("act_mant_17", M, ff, d, MXFormat(8, 256), 16, 17, True),
-            ("int16_planes", M, ff, d, MXFormat(12, 256), 16, 8, True),
             ("w24_a24_int32", M, ff, d, MXFormat(24, 256), 256, 24, True),
+            ("w12_a12_b64_int16_wide", M, ff, d, MXFormat(12, 256), 64, 12,
+             True),
+            ("w12_w_block_8_int16", M, ff, d, MXFormat(12, 8), 8, 8, True),
             ("deit_base_b16_ffn_wo_float_act", rows, ff, d,
              MXFormat(6, 256), 16, 8, False)):
         a, w = x(m, K), planes(K, N, fmt)
@@ -1451,14 +1549,18 @@ def generic_route_cases(torch, cases, x, rows):
                   if qa else 0.0, f32_ops=2.0 * m * N * nseg if qa else 0.0,
                   f64_ops=0.0 if qa else 2.0 * m * N * K),
             (lambda a=a, wd=wd: torch.matmul(a, wd)) if m == rows else None))
-    # mxint_ln_matmul: (label, M, d, N, format, act block, LUT bits,
-    # unaligned rows)
-    for label, m, dd, N, fmt, blk, lb, off in (
-            ("deit_base_b16_ln2_wi_w12_a12_lut13", rows, d, ff,
-             MXFormat(12, 256), 12, 13, False),
-            ("odd_act_block_48", M, d, ff, MXFormat(8, 96), 48, 5, False),
-            ("lnmm_unaligned_block_32", M, d, ff, MXFormat(8, 256), 32, 5,
-             True)):
+    # mxint_ln_matmul: (label, M, d, N, format, act block, bits, LUT bits,
+    # unaligned rows); case 0 is the served 17-bit acts' LN2 -> wi
+    for label, m, dd, N, fmt, blk, bits, lb, off in (
+            ("deit_base_b16_ln2_wi_a17", rows, d, ff, MXINT6_WEIGHT,
+             *WIDE_GEN_ACT[::-1], 5, False),
+            ("odd_act_block_48", M, d, ff, MXFormat(8, 96), 48, 8, 5, False),
+            ("lnmm_unaligned_block_32", M, d, ff, MXFormat(8, 256), 32, 8, 5,
+             True),
+            ("lnmm_w12_a12_b64_int16_wide", M, d, ff, MXFormat(12, 256), 64,
+             12, 5, False),
+            ("lnmm_w12_w_block_8_int16", M, d, ff, MXFormat(12, 8), 8, 8, 5,
+             False)):
         a, g, b = x(m, dd, scale=2.0), 1.0 + 0.1 * x(dd), 0.1 * x(dd)
         if off:
             a = offset_rows(torch, a)
@@ -1467,18 +1569,19 @@ def generic_route_cases(torch, cases, x, rows):
         nseg = len(segments(dd, w.block_size, blk)[0])
         out["mxint_ln_matmul/generic"].append((
             label,
-            lambda a=a, g=g, b=b, w=w, blk=blk, lb=lb:
+            lambda a=a, g=g, b=b, w=w, blk=blk, bits=bits, lb=lb:
                 mxint_ln_matmul.mxint_ln_matmul(
                     a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
-                    act_block=blk, lut_bits=lb),
-            lambda a=a, g=g, b=b, w=w, blk=blk, lb=lb:
+                    act_block=blk, mant_bits=bits, lut_bits=lb),
+            lambda a=a, g=g, b=b, w=w, blk=blk, bits=bits, lb=lb:
                 mxint_ln_matmul.ln_matmul_rows(
                     a, g, b, w.mantissa, w.exponent, w_block=w.block_size,
-                    act_block=blk, mant_bits=8, lut_bits=lb, rms_only=False),
+                    act_block=blk, mant_bits=bits, lut_bits=lb,
+                    rms_only=False),
             bound(a.numel() * 4 + 2 * dd * 4 + 4 * 2 ** lb +
                   w.mantissa.numel() * w.mantissa.element_size() +
                   w.exponent.numel() + m * N * 4,
-                  int8_ops=int8_splits(8, w.mantissa.element_size())
+                  int8_ops=int8_splits(bits, w.mantissa.element_size())
                   * 2.0 * m * N * dd,
                   f32_ops=ROW_OPS["mxint_layernorm"] * m * dd
                   + 2.0 * m * N * nseg),
@@ -1946,14 +2049,14 @@ def ln_linear_op_ops(torch, np):
 
 def matmul_width_check(torch):
     """``mxint_matmul`` on the card at ``act_mant_bits`` 10, 17 and 24 and
-    at act block 12 on planes of 48-blocks: each computes (10 bits on the
-    GEMM core, the others on the generic route) equal to its plain
-    version; 25 bits raise before anything launches (no route takes them,
-    nor does the reference's ``MXFormat``).  The GEMM core's C entry,
-    called directly, still returns cudaErrorInvalidValue at 17 bits (its
-    act tile holds int16 at most) and launches at 10 and 8.  A kernel-mode
-    linear on 10-bit weights (int16 planes) computes, on the generic
-    route.  Raises otherwise."""
+    at act block 12 on planes of 48-blocks: each computes (10 bits and act
+    block 12 on the GEMM core, the others on the generic route) equal to
+    its plain version; 25 bits raise before anything launches (no route
+    takes them, nor does the reference's ``MXFormat``).  The GEMM core's C
+    entry, called directly, still returns cudaErrorInvalidValue at 17 bits
+    (its act tile holds int16 at most) and on int32 planes, and launches
+    at 10 and 8.  A kernel-mode linear on 10-bit weights (int16 planes)
+    computes, on the GEMM core.  Raises otherwise."""
     from repro_torch.core.mx_types import MXINT8_WEIGHT, MXFormat, QuantConfig
     from repro_torch.core.quantize import pack_weight
     from repro_torch.kernels import _build
@@ -1982,7 +2085,7 @@ def matmul_width_check(torch):
                                  f"plain version")
         routes[key] = "generic" if mm.generic_launches > before else "core"
     if routes != {"act_mant_bits=10": "core", "act_mant_bits=17": "generic",
-                  "act_mant_bits=24": "generic", "act_block=12": "generic"}:
+                  "act_mant_bits=24": "generic", "act_block=12": "core"}:
         raise AssertionError(f"mxint_matmul routes {routes}")
     torch.cuda.synchronize()
     before = read_counts()
@@ -1999,26 +2102,29 @@ def matmul_width_check(torch):
         raise AssertionError("mxint_matmul launched outside its domain")
     out = torch.zeros(M, N, device=DEVICE)
     rcs = {}
-    for bits in (17, 10, 8):
+    for key, bits, w_bytes in (("17", 17, 1), ("int32", 8, 4), ("10", 10, 1),
+                               ("8", 8, 1)):
         geom = mm.gemm_geometry(M, N, K, mm.sm_count(a.device),
                                 wide=bits > 8)
-        rcs[bits] = mm.matmul_entry()(
+        rcs[key] = mm.matmul_entry()(
             *mm.launch_args(a, w.mantissa, w.exponent, out), M, K, N,
-            w.block_size, bits, 16, *geom.args(), geom.kc,
+            w.block_size, bits, 16, *geom.args(), geom.kc, w_bytes,
             _build.stream_ptr(a.device))
         torch.cuda.synchronize()
     q = QuantConfig(mode="kernel", weight_fmt=MXFormat(10, 256))
     wq = Param(torch.ones(K, N, device=DEVICE) / 16, ("embed", "mlp"))
-    before = mm.generic_launches
+    before, gen = mm.launches, mm.generic_launches
     y = q.datapath.linear(a, wq, q=q)
-    if not bool(torch.isfinite(y).all()) or mm.generic_launches != before + 1:
+    if not bool(torch.isfinite(y).all()) or mm.generic_launches != gen or \
+            mm.launches != before + 1:
         raise AssertionError("a kernel-mode linear on 10-bit weights did not "
-                             "take the generic route")
+                             "take the GEMM core")
     log(f"[kernel] mxint_matmul act widths: routes {routes}, each equal to "
         f"the plain version; wrapper raised {msgs!r}; core C entry returned "
-        f"{rcs[17]} at 17 bits, {rcs[10]} at 10, {rcs[8]} at 8; a "
-        f"kernel-mode linear on 10-bit weights took the generic route")
-    if rcs[17] == 0 or rcs[10] != 0 or rcs[8] != 0:
+        f"{rcs['17']} at 17 bits, {rcs['int32']} on int32 planes, "
+        f"{rcs['10']} at 10, {rcs['8']} at 8; a kernel-mode linear on "
+        f"10-bit weights took the GEMM core")
+    if rcs["17"] == 0 or rcs["int32"] == 0 or rcs["10"] != 0 or rcs["8"] != 0:
         raise AssertionError(f"mxint_matmul_launch returned {rcs}")
     return {"routes": routes, "wrapper_errors": msgs, "c_entry_rc": rcs}
 
@@ -2044,6 +2150,11 @@ def within_bf16_ulp(torch, got, want):
     return (float((~out).float().mean()), float(diff.max() / scale))
 
 
+# the kernels over the GEMM core (a case that is not ``/generic`` must
+# launch the core once)
+GEMM_KERNELS = ("mxint_matmul", "mxint_ln_matmul")
+
+
 def kernel_phase(torch, np, only=None):
     """Every kernel case (``kernel_cases``) held to its plain version and
     timed; a name ``<kernel>/generic`` is that kernel's generic route.
@@ -2060,24 +2171,33 @@ def kernel_phase(torch, np, only=None):
                 enumerate(cases):
             tol = tol[0] if tol else None
             # the case's route: a ``/generic`` case launches its kernel's
-            # generic route once, any other case never
+            # generic route once, any other case never; a GEMM kernel's
+            # other cases launch its GEMM core once
             route = f"{base}/generic"
             before = read_routes().get(route, 0)
+            before_all = read_counts()[base]
             got = kern()
             torch.cuda.synchronize()
             took = read_routes().get(route, 0) - before
             if took != (1 if name == route else 0):
                 raise AssertionError(f"{name} {label}: {took} launches of "
                                      f"the generic route")
+            core = read_counts()[base] - before_all - took
+            if base in GEMM_KERNELS and name == base and core != 1:
+                raise AssertionError(f"{name} {label}: {core} launches of "
+                                     f"the GEMM core")
             want = plain()
             mism = int((got != want).sum())
             err = float((got.float() - want.float()).abs().max())
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{name} {label}: non-finite output")
+            case = {"label": label, "mismatches": mism, "max_abs_err": err,
+                    "route": "generic" if took else
+                    "core" if base in GEMM_KERNELS else "fast"}
             log(f"[kernel] {name} {label} shape={tuple(got.shape)} "
-                f"dtype={got.dtype} mismatches={mism} max_abs_err={err!r}")
+                f"dtype={got.dtype} mismatches={mism} max_abs_err={err!r} "
+                f"route={case['route']}")
             res["max_abs_err"] = max(res["max_abs_err"], err)
-            case = {"label": label, "mismatches": mism, "max_abs_err": err}
             if tol is None:
                 if mism:
                     raise AssertionError(
@@ -3509,9 +3629,15 @@ def dse_card_vs_cpu(torch, space, images):
 # the served widened format (``widened_serve_phase``'s third label, its
 # DeiT-Tiny card-against-CPU check): W12 planes (int16), act block 12,
 # which does not nest in the 256-element weight blocks, and Table VI's
-# vanilla LUTs; every kernel of a DeiT forward takes its generic route
+# vanilla LUTs; the GEMMs run on the GEMM core by segment, the row kernels
+# on their generic routes
 WIDE_WEIGHT = (12, 256)
 WIDE_ACT_FMT = (8, 12)
+# the widened serve's fourth label: 17-bit acts (MXFormat(17, 16)), past
+# the core's int16 act tile, so every GEMM of a forward (2 L + 2 and 4 L)
+# takes the generic GEMM routes: the served format that keeps them on a
+# path
+WIDE_GEN_ACT = (17, 16)
 WIDE_NL = dict(ln_lut_bits=13, gelu_lut_bits=14, softmax_r_bits=16)
 WIDE_CPU_LAYERS = 2
 WIDE_CPU_IMAGES = 4
@@ -3531,16 +3657,48 @@ def wide_quant(mode="kernel"):
                        nonlinear=NonlinearConfig(**WIDE_NL))
 
 
+def widened_trace(torch, engine, images, ms, tag):
+    """One batch of a served widened format traced with ``torch.profiler``:
+    the device's busy ms (kernels, copies, fills) and idle share against
+    ``ms`` (CUDA events around a batch), and the device ms by kernel
+    function (our kernels by instance: the GEMM core's variant, or the
+    generic route)."""
+    events = trace_events(lambda: engine.logits_batch(images), iters=1)
+    busy = sum(e.get("dur", 0) for e in events) / 1e3
+    by = {}
+    for e in events:
+        name = e.get("name", "")
+        if e.get("cat") != "kernel":
+            key = "copies and fills"
+        elif "at::" in name:
+            key = short_kernel_name(name)
+        else:
+            key = name.replace("void ", "").split("(", 1)[0]
+        by[key] = by.get(key, 0.0) + e.get("dur", 0) / 1e3
+    by = dict(sorted(by.items(), key=lambda kv: -kv[1]))
+    out = {"ms_events": ms, "device_busy_ms": busy,
+           "device_idle_share": idle_share(busy, ms),
+           "kernels": sum(1 for e in events if e.get("cat") == "kernel"),
+           "device_ms_by_kernel": by}
+    log(f"[{tag}] a traced batch: device busy {busy!r} ms of {ms!r} ms, idle "
+        f"share {out['device_idle_share']!r}, {out['kernels']} kernels; "
+        f"device ms by kernel {by}")
+    return out
+
+
 def widened_serve_phase(torch, np):
     """DeiT-Base at full width and depth served through
     ``ClassifyScheduler`` in kernel mode with act formats past block 16 and
     8 bits: ``QuantOverride(act_fmt=MXFormat(8, 32))`` on ``block/*/ffn``,
-    ``act_fmt=MXFormat(12, 16)`` globally, and the widened format
+    ``act_fmt=MXFormat(12, 16)`` globally, the widened format
     (``wide_quant``: W12 planes, act block 12, LN 13-bit, GELU 14-bit and
-    softmax r 16 LUTs), which runs every launch on a generic route; 3 + 8
-    x 12 launches a batch, kernel by kernel (and route by route), ms per
-    batch by CUDA events.  Returns (results, launches, generic-route
-    launches)."""
+    softmax r 16 LUTs), whose GEMMs run on the GEMM core by segment and
+    whose row kernels (25 launches a forward) take their generic routes,
+    one batch of it traced (``widened_trace``), and 17-bit acts
+    (``WIDE_GEN_ACT``), whose GEMMs (74 a forward) take the generic GEMM
+    routes; 3 + 8 x 12 launches a batch, kernel by kernel (and route by
+    route), ms per batch by CUDA events.  Returns (results, launches,
+    generic-route launches)."""
     from repro_torch.configs.deit import DEIT_BASE
     from repro_torch.core.mx_types import MXFormat, QuantConfig, QuantOverride
     from repro_torch.models.vit import ViT
@@ -3550,18 +3708,28 @@ def widened_serve_phase(torch, np):
                    "mxint_softmax": L, "mxint_gelu": L, "mxint_layernorm": 1,
                    "flash_attention": 0, "flash_attention_decode": 0,
                    "launch_fixture": 0}
+    # the generic-route launches a forward of each label
+    row_gen = {"mxint_softmax/generic": L, "mxint_gelu/generic": L,
+               "mxint_layernorm/generic": 1}
+    gemm_gen = {"mxint_matmul/generic": 2 * L + 2,
+                "mxint_ln_matmul/generic": 4 * L}
     sizes, images, full = deit_requests(np)
     params = ViT(DEIT_BASE).init(SEED, device=DEVICE)
     out, launches, routes = {}, {}, {}
-    for label, q, wfmt in (
+    for label, q, wfmt, gen_fwd in (
             ("ffn_act_block_32", QuantConfig(
                 mode="kernel", quantize_nonlinear=True,
                 overrides=(("block/*/ffn",
-                            QuantOverride(act_fmt=MXFormat(8, 32))),)), None),
+                            QuantOverride(act_fmt=MXFormat(8, 32))),)), None,
+             {}),
             ("act_12_bits", QuantConfig(mode="kernel",
                                         quantize_nonlinear=True,
-                                        act_fmt=MXFormat(12, 16)), None),
-            ("w12_a12_vanilla_luts", wide_quant(), MXFormat(*WIDE_WEIGHT))):
+                                        act_fmt=MXFormat(12, 16)), None, {}),
+            ("w12_a12_vanilla_luts", wide_quant(), MXFormat(*WIDE_WEIGHT),
+             row_gen),
+            ("a17_bits", QuantConfig(mode="kernel", quantize_nonlinear=True,
+                                     act_fmt=MXFormat(*WIDE_GEN_ACT)), None,
+             gemm_gen)):
         tag = f"widened {label}"
         engine = ViTServingEngine(
             ViT(dataclasses.replace(DEIT_BASE, quant=q)), params,
@@ -3572,9 +3740,7 @@ def widened_serve_phase(torch, np):
         if got != {n: c * n_batches for n, c in per_forward.items()}:
             raise AssertionError(f"{tag}: launches {got}")
         gen = read_routes()
-        want_gen = {f"{n}/generic": (c * n_batches if wfmt else 0)
-                    for n, c in per_forward.items()
-                    if f"{n}/generic" in gen}
+        want_gen = {n: gen_fwd.get(n, 0) * n_batches for n in gen}
         if gen != want_gen:
             raise AssertionError(f"{tag}: generic-route launches {gen}, "
                                  f"expected {want_gen}")
@@ -3587,6 +3753,8 @@ def widened_serve_phase(torch, np):
                       "generic_launches": gen, "ms_per_batch": ms,
                       "classify_step_span_ms":
                           telemetry["classify_step_span_ms"]}
+        if wfmt is not None:
+            out[label]["trace"] = widened_trace(torch, engine, full, ms, tag)
         log(f"[{tag}] ms_per_batch={ms!r} (batch {BATCH}) launches {got} "
             f"generic routes {gen}")
         for n, c in got.items():
@@ -3678,7 +3846,7 @@ def widened_lm_phase(torch, np):
 
 def widened_side(dev, cfg, params, images):
     """DeiT-Tiny at the widened format on ``dev``: (logits, generic-route
-    launches of the forward)."""
+    launches of the forward, launches of the forward)."""
     import torch
     from repro_torch.core.mx_types import MXFormat
     from repro_torch.models.vit import ViT
@@ -3687,19 +3855,20 @@ def widened_side(dev, cfg, params, images):
     eng = ViTServingEngine(ViT(cfg), params_to(params, dev), ServeConfig(
         batch=len(images), pack_weights=True,
         weight_fmt=MXFormat(*WIDE_WEIGHT)), device=dev)
-    before = read_routes()
+    before, before_all = read_routes(), read_counts()
     logits = eng.classify(images)[1].float().cpu().numpy()
     if dev != "cpu":
         torch.cuda.synchronize()
-    return logits, count_diff(read_routes(), before)
+    return (logits, count_diff(read_routes(), before),
+            count_diff(read_counts(), before_all))
 
 
 def widened_cpu_phase(torch, np):
     """DeiT-Tiny (``WIDE_CPU_LAYERS`` layers) at the widened format on the
     card and on the CPU, the same weights (drawn on the card) and images:
-    logits bit for bit, every card launch on a generic route.  The CPU
-    side is queued on ``CPU_CHECKS``; returns the function that
-    compares."""
+    logits bit for bit, the card's GEMMs on the GEMM core and its row
+    kernels on their generic routes.  The CPU side is queued on
+    ``CPU_CHECKS``; returns the function that compares."""
     from repro_torch.configs.deit import DEIT_TINY
     from repro_torch.models.vit import ViT
     from repro_torch.serving.engine import params_to
@@ -3708,20 +3877,21 @@ def widened_cpu_phase(torch, np):
     params = params_to(ViT(cfg).init(SEED, device=DEVICE), "cpu")
     images = np.random.default_rng(SEED + 6).normal(size=(
         WIDE_CPU_IMAGES, 224, 224, 3)).astype(np.float32)
-    card, gen = widened_side(DEVICE, cfg, params, images)
+    card, gen, counts = widened_side(DEVICE, cfg, params, images)
     L = WIDE_CPU_LAYERS
-    want = {"mxint_matmul/generic": 2 * L + 2,
-            "mxint_ln_matmul/generic": 4 * L, "mxint_softmax/generic": L,
-            "mxint_gelu/generic": L, "mxint_layernorm/generic": 1,
-            "flash_attention/generic": 0,
+    want = {"mxint_matmul/generic": 0, "mxint_ln_matmul/generic": 0,
+            "mxint_softmax/generic": L, "mxint_gelu/generic": L,
+            "mxint_layernorm/generic": 1, "flash_attention/generic": 0,
             "flash_attention_decode/generic": 0}
-    if gen != want:
-        raise AssertionError(f"widened cpu: card generic launches {gen}")
+    if gen != want or counts["mxint_matmul"] != 2 * L + 2 or \
+            counts["mxint_ln_matmul"] != 4 * L:
+        raise AssertionError(f"widened cpu: card launches {counts}, generic "
+                             f"routes {gen}")
     job = CPU_CHECKS.add("widened cpu", widened_side, "cpu", cfg, params,
                          images)
 
     def finish():
-        cpu, _ = CPU_CHECKS.result(job)
+        cpu, *_ = CPU_CHECKS.result(job)
         differ = int((card != cpu).sum())
         agree = bool((card.argmax(-1) == cpu.argmax(-1)).all())
         log(f"[widened cpu] DeiT-Tiny {L} layers, {WIDE_CPU_IMAGES} images: "
@@ -3731,7 +3901,7 @@ def widened_cpu_phase(torch, np):
             raise AssertionError("widened cpu: card and CPU logits differ")
         return {"layers": L, "images": WIDE_CPU_IMAGES,
                 "differing_logits": differ, "argmax_agree": agree,
-                "card_generic_launches": gen}
+                "card_launches": counts, "card_generic_launches": gen}
 
     return finish
 
@@ -5480,8 +5650,10 @@ def main(argv) -> int:
              ("dse", dse_launches, common + ("mxint_softmax",)),
              ("deit widened acts", widened_launches,
               common + ("mxint_softmax",)),
-             # the served widened format: every kernel on its generic
-             # route; the widened LM: the flash kernels' generic routes
+             # the served widened formats: the row kernels' generic
+             # routes (W12, act block 12, the vanilla LUTs; its GEMMs on
+             # the core) and the GEMMs' (17-bit acts); the widened LM: the
+             # flash kernels' generic routes
              ("deit widened generic routes", widened_routes,
               tuple(f"{n}/generic" for n in common + ("mxint_softmax",))),
              ("llama widened lm", wide_lm_launches,

@@ -7,13 +7,15 @@ predicted-vs-measured join reads), with the H100's contents.  Nothing is
 captured or executed: each row is a closed form of its shape.
 
 * **Operations**, split by the unit that runs them: ``int8_ops`` (the
-  matmul kernels' products on the int8 tensor cores, 2 M N K; twice that
-  for 9-16-bit act mantissas, a high and a low byte; on the generic route
-  ``int8_splits`` x 2 M N K, a product per pair of bytes), ``bf16_ops`` (the
-  bf16 flash kernel's q.k and P.V products) and ``f32_ops`` (the ordered
-  f32 sum of the matmul kernels, a multiply and an add per output element
-  and act block; the row datapaths' stages, ``ROW_OPS`` per element; the
-  float32 flash kernel's products).  ``flops`` is their sum.
+  matmul kernels' products on the int8 tensor cores, ``int8_splits`` x 2
+  M N K: a product per pair of bytes, 2 M N K for 2-8-bit acts on int8
+  planes, twice that for 9-16-bit acts or int16 planes, four times for
+  both), ``bf16_ops`` (the bf16 flash kernel's q.k and P.V products) and
+  ``f32_ops`` (the ordered f32 sum of the matmul kernels, a multiply and
+  an add per output element and segment, the intersection of an act
+  block with a weight block; the row datapaths' stages, ``ROW_OPS`` per
+  element; the float32 flash kernel's products).  ``flops`` is their
+  sum.
 * **Bytes**: every operand read once and every output written once
   (``operands``, ``bytes_traffic`` each, ``hbm_bytes`` their sum), what the
   function must move whatever the kernel re-reads.  Weight planes are
@@ -113,42 +115,60 @@ def _dtype(nbytes: int) -> str:
     return {2: "bfloat16", 4: "float32"}[nbytes]
 
 
+_WD = {1: "int8", 2: "int16", 4: "int32"}
+
+
 def matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
                act_block: int = 16, act_mant_bits: int = 8,
                fused_ln: bool = False, x_bytes: int = 4,
-               param_bytes: int = 4, beta: bool = True,
+               param_bytes: int = 4, beta: bool = True, w_bytes: int = 1,
+               lut_bits: Optional[int] = None,
                calls: Optional[int] = None,
                scope: Optional[str] = None) -> dict:
-    """``mxint_matmul`` (or, ``fused_ln``, ``mxint_ln_matmul``): x (M, K),
-    int8 planes (K, N) and (K / w_block, N), f32 out (M, N); the fused
-    kernel also reads gamma (and beta) and runs the LN stage."""
+    """``mxint_matmul`` (or, ``fused_ln``, ``mxint_ln_matmul``) on the GEMM
+    core: x (M, K), int8 or (``w_bytes`` 2) int16 planes (K, N) and int8
+    exponents (K / w_block, N), f32 out (M, N); the fused kernel also
+    reads gamma (and beta; with ``lut_bits`` its rsqrt LUT, counted once)
+    and runs the LN stage.  The geometry is the core's for the format: by
+    segment (V 3-4) for int16 planes or an act block that does not nest."""
+    from repro_torch.kernels.mxint_layernorm import ln_piece
     from repro_torch.kernels.mxint_matmul import (act_variant,
                                                   gemm_geometry,
                                                   gemm_smem_bytes,
-                                                  gemm_static_smem)
+                                                  gemm_static_smem, segmented,
+                                                  segments)
     ops = [_operand("x", _dtype(x_bytes), M * K, x_bytes)]
     if fused_ln:
         ops.append(_operand("gamma", _dtype(param_bytes), K, param_bytes))
         if beta:
             ops.append(_operand("beta", _dtype(param_bytes), K, param_bytes))
-    ops += [_operand("w_mant", "int8", K * N, 1),
+        if lut_bits is not None:
+            ops.append(_operand("lut", "float32", 2 ** lut_bits, 4))
+    ops += [_operand("w_mant", _WD[w_bytes], K * N, w_bytes),
             _operand("w_exp", "int8", (K // w_block) * N, 1),
             _operand("out", "float32", M * N, 4)]
     act_block = min(act_block, K)
     wide = act_mant_bits > 8
+    seg = segmented(act_block, w_block, w_bytes)
     g = gemm_geometry(M, N, K, H100_SMS, fused_ln=fused_ln,
-                      act_block=act_block, wide=wide)
+                      act_block=act_block, wide=wide, w_bytes=w_bytes,
+                      seg=seg)
     smem = gemm_smem_bytes(g.bm, g.bn, g.bk, g.ns, K if fused_ln else g.kc,
-                           act_block, 2 if wide else 1) + gemm_static_smem(
-        fused_ln, act_variant(act_block, act_mant_bits))
-    f32 = gemm_f32_ops(M, N, K, act_block)
+                           act_block, 2 if wide else 1, w_bytes) + \
+        gemm_static_smem(fused_ln, act_variant(act_block, act_mant_bits, seg),
+                         ln_piece(act_block, True) if fused_ln else 0)
+    f32 = 2.0 * M * N * len(segments(K, w_block, act_block)[0])
     if fused_ln:
         f32 += ROW_OPS["mxint_layernorm"] * M * K
+    shape = {"M": M, "K": K, "N": N, "w_block": w_block,
+             "act_block": act_block, "act_mant_bits": act_mant_bits,
+             "w_bytes": w_bytes}
+    if lut_bits is not None:
+        shape["lut_bits"] = lut_bits
     return _row(label, "mxint_ln_matmul" if fused_ln else "mxint_matmul",
-                {"M": M, "K": K, "N": N, "w_block": w_block,
-                 "act_block": act_block, "act_mant_bits": act_mant_bits},
-                ops, int8_ops=(2.0 if wide else 1.0) * 2.0 * M * N * K,
-                f32_ops=f32, smem_bytes=smem, calls=calls, scope=scope)
+                shape, ops, int8_ops=int8_splits(act_mant_bits, w_bytes)
+                * 2.0 * M * N * K, f32_ops=f32, smem_bytes=smem, calls=calls,
+                scope=scope)
 
 
 def softmax_row(label: str, rows: int, n: int,
@@ -227,8 +247,9 @@ def flash_row(label: str, heads: int, kv_heads: int, S: int, d: int, *,
 def int8_splits(act_mant_bits: int, w_bytes: int) -> int:
     """The int8 products one integer product splits into: a signed high
     byte and unsigned lower bytes of each operand (acts of 9-16 bits two
-    bytes, as the core's V 2 splits them, 17-24 bits three; int16 planes
-    two bytes, int32 planes at most the 24 bits a mantissa takes, three)."""
+    bytes, as the core's V 2 and 4 split them, 17-24 bits three; int16
+    planes two bytes, as V 3 and 4 split them, int32 planes at most the 24
+    bits a mantissa takes, three)."""
     return -(-act_mant_bits // 8) * min(w_bytes, 3)
 
 
@@ -248,7 +269,7 @@ def generic_matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
     from repro_torch.kernels.mxint_matmul import (generic_rows,
                                                   generic_smem_bytes,
                                                   segments)
-    wd = {1: "int8", 2: "int16", 4: "int32"}[w_bytes]
+    wd = _WD[w_bytes]
     ops = [_operand("x", "float32", M * K, 4)]
     if fused_ln:
         ops += [_operand("gamma", "float32", K, 4),
@@ -271,8 +292,8 @@ def generic_matmul_row(label: str, M: int, K: int, N: int, *, w_block: int,
     return _row(label, "mxint_ln_matmul" if fused_ln else "mxint_matmul",
                 {"M": M, "K": K, "N": N, "w_block": w_block,
                  "act_block": act_block, "act_mant_bits": act_mant_bits,
-                 "route": "generic", "w_bytes": w_bytes,
-                 "quantize_act": quantize_act, "lut_bits": lut_bits},
+                 "w_bytes": w_bytes, "quantize_act": quantize_act,
+                 "lut_bits": lut_bits},
                 ops, int8_ops=i8, f32_ops=f32, f64_ops=f64, smem_bytes=smem)
 
 
@@ -292,18 +313,19 @@ def generic_row_row(label: str, kernel: str, rows: int, d: int, *,
                 ops, f32_ops=ROW_OPS[kernel] * rows * d)
 
 
-def _generic_rows(batch: int = 16) -> List[dict]:
-    """DeiT-Base's kernels at batch 16 on the generic routes, at the
-    widened format its serve runs (W12 planes, act block 12, Table VI's
-    vanilla LUTs: LN 13 bits, GELU 14, softmax r 16), and the FFN ``wo``
-    with float activations."""
+def _widened_rows(batch: int = 16) -> List[dict]:
+    """DeiT-Base's kernels at batch 16 at the widened format its serve
+    runs (W12 planes, act block 12, Table VI's vanilla LUTs: LN 13 bits,
+    GELU 14, softmax r 16): the two GEMMs on the GEMM core by segment, the
+    row kernels on their generic routes; and the FFN ``wo`` with float
+    activations, on the generic route."""
     from repro_torch.kernels.mxint_gelu import gelu_table
     M, d, ff = batch * 197, 768, 3072
     w12 = dict(w_block=256, act_block=12, act_mant_bits=8, w_bytes=2)
     return [
-        generic_matmul_row("deit-base-ffn-wo-w12-a12", M, ff, d, **w12),
-        generic_matmul_row("deit-base-ln2-wi-w12-a12", M, d, ff,
-                           fused_ln=True, lut_bits=13, **w12),
+        matmul_row("deit-base-ffn-wo-w12-a12", M, ff, d, **w12),
+        matmul_row("deit-base-ln2-wi-w12-a12", M, d, ff, fused_ln=True,
+                   lut_bits=13, **w12),
         generic_matmul_row("deit-base-ffn-wo-float-act", M, ff, d,
                            w_block=256, act_block=16, act_mant_bits=8,
                            w_bytes=1, quantize_act=False),
@@ -359,7 +381,7 @@ def build_table(act_block: int = 16, act_mant_bits: int = 8) -> List[dict]:
         matmul_row("matmul-bench", 128, 1024, 512, w_block=256, **act),
         matmul_row("ln-matmul-bench", 256, 768, 768, w_block=32,
                    fused_ln=True, **act),
-    ] + _deit_base_rows(**act) + _generic_rows()
+    ] + _deit_base_rows(**act) + _widened_rows()
 
 
 _TABLE_MEMO: Dict[Tuple[int, int], List[dict]] = {}
@@ -390,8 +412,8 @@ def query(labels: Optional[Sequence[str]] = None, *, act_block: int = 16,
     return {label: rows[label] for label in labels}
 
 
-# the generic routes' rows (``_generic_rows``)
-GENERIC_LABELS = ("deit-base-ffn-wo-w12-a12", "deit-base-ln2-wi-w12-a12",
+# the widened format's rows (``_widened_rows``)
+WIDENED_LABELS = ("deit-base-ffn-wo-w12-a12", "deit-base-ln2-wi-w12-a12",
                   "deit-base-ffn-wo-float-act", "deit-base-softmax-r16",
                   "deit-base-gelu-lut14", "deit-base-final-ln-lut13")
 DEIT_BASE_LABELS = ("deit-base-patch", "deit-base-ln1-qkv",
@@ -463,20 +485,21 @@ def row_launch(row: dict):
     from repro_torch.analysis.launch_contracts import launch
     from repro_torch.core.quantize import _resolve_block
     sh, k = row["shape"], row["kernel"]
-    if sh.get("route") == "generic":
+    if k in ("mxint_matmul", "mxint_ln_matmul"):
         import torch
-        if k in ("mxint_matmul", "mxint_ln_matmul"):
-            kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
-                      act_block=sh["act_block"],
-                      w_dtype={1: torch.int8, 2: torch.int16,
-                               4: torch.int32}[sh["w_bytes"]])
-            if k == "mxint_matmul":
-                kw.update(K=sh["K"], act_mant_bits=sh["act_mant_bits"],
-                          quantize_act=sh["quantize_act"])
-            else:
-                kw.update(d=sh["K"], mant_bits=sh["act_mant_bits"],
-                          lut_bits=sh["lut_bits"])
-            return launch(k, kw, row["label"])
+        from repro_torch.kernels.mxint_ln_matmul import LUT_BITS
+        kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
+                  act_block=sh["act_block"],
+                  w_dtype={1: torch.int8, 2: torch.int16,
+                           4: torch.int32}[sh["w_bytes"]])
+        if k == "mxint_matmul":
+            kw.update(K=sh["K"], act_mant_bits=sh["act_mant_bits"],
+                      quantize_act=sh.get("quantize_act", True))
+        else:
+            kw.update(d=sh["K"], mant_bits=sh["act_mant_bits"],
+                      lut_bits=sh.get("lut_bits", LUT_BITS))
+        return launch(k, kw, row["label"])
+    if sh.get("route") == "generic":  # a row kernel's generic route
         if k == "mxint_softmax":
             kw = dict(n=sh["d"], r_bits=sh["lut_bits"])
         elif k == "mxint_gelu":
@@ -486,14 +509,6 @@ def row_launch(row: dict):
             kw = dict(d=sh["d"], lut_bits=sh["lut_bits"])
         return launch(k, dict(kw, rows=sh["rows"],
                               act_block=sh["act_block"]), row["label"])
-    if k in ("mxint_matmul", "mxint_ln_matmul"):
-        kw = dict(M=sh["M"], N=sh["N"], w_block=sh["w_block"],
-                  act_block=sh["act_block"])
-        if k == "mxint_matmul":
-            kw.update(K=sh["K"], act_mant_bits=sh["act_mant_bits"])
-        else:
-            kw.update(d=sh["K"], mant_bits=sh["act_mant_bits"], lut_bits=5)
-        return launch(k, kw, row["label"])
     if k == "mxint_softmax":
         return launch(k, dict(rows=sh["rows"], n=sh["n"],
                               act_block=_resolve_block(sh["n"], 16), r_bits=2),

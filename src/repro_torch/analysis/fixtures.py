@@ -100,15 +100,16 @@ def overlapping_output_tile() -> List[Violation]:
 
 
 def out_of_domain_record() -> List[Violation]:
-    """A GEMM-core launch at act block 12 (which only the generic route
-    takes) built from the core's geometry without the wrapper's
-    ``matmul_route``: it reaches a record."""
+    """A GEMM-core launch at 17-bit act mantissas (which only the generic
+    route takes: the core's act tile holds int16) built from the core's
+    geometry without the wrapper's ``matmul_route``: it reaches a
+    record."""
     from repro_torch.kernels import mxint_matmul as mm
     from repro_torch.kernels.launch_record import emit
 
     def unchecked():
-        geom = mm.gemm_geometry(64, 768, 3072, LC.H100_SMS, act_block=12)
-        emit(mm.gemm_launch("mxint_matmul", geom, 64, 768, 3072, 12, 8, ()))
+        geom = mm.gemm_geometry(64, 768, 3072, LC.H100_SMS, wide=True)
+        emit(mm.gemm_launch("mxint_matmul", geom, 64, 768, 3072, 16, 17, ()))
     return LC.check_domain("fixture", "mxint_matmul", unchecked)
 
 

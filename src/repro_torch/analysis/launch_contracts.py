@@ -31,7 +31,9 @@ same sweep.  The sweep (``sweep_records``): every (kernel, logical shape)
 the reference's ``sweep_captures()`` captures, without the TPU's
 padding; every kernel shape of each full config's serving path at the
 smoke's batch and lengths, from the config's dims (``serving_cases``);
-the widened act formats; and the out-of-domain formats of
+the widened act formats; the formats outside the fast routes before the
+generic routes (``generic_cases``, ``wide_format_cases``); the GEMM core's
+segment walk (``segment_cases``); and the out-of-domain formats of
 ROADMAP §3, item 1 (``domain_cases``).
 """
 from __future__ import annotations
@@ -429,15 +431,24 @@ def widened_cases() -> List[Case]:
     return out
 
 
+# the labels of ``generic_cases`` and ``wide_format_cases`` whose formats
+# the GEMM core takes by segment (int16 planes, act blocks that do not nest
+# in the weight block); the others stay on the generic routes
+CORE_SEGMENT_LABELS = frozenset({
+    "odd-act-block-12", "odd-act-block-24", "act-block-512", "int16-planes",
+    "w12-a12-ffn-wo", "w12-a12-ln2-wi"})
+
+
 def generic_cases() -> List[Case]:
-    """The formats that only the generic routes take (the out-of-domain
-    formats of ROADMAP §3, item 1, before the generic routes): act blocks
-    that do not nest in the weight block, K not a multiple of 16, 17-bit
-    act mantissas, int16 planes, LN blocks past the fast routes' or on
+    """The formats outside the fast routes before the generic routes (the
+    out-of-domain formats of ROADMAP §3, item 1): act blocks that do not
+    nest in the weight block, K not a multiple of 16, 17-bit act
+    mantissas, int16 planes, LN blocks past the fast routes' or on
     unaligned rows, whole-row softmax and GELU blocks, flash act blocks
     past 32 (and 12, which resolves to 8 on the fast decode kernel), head
     dims past 256, a bf16 head dim off the mma depth, G past the mma
-    kernel's rows."""
+    kernel's rows.  The GEMM core takes those of ``CORE_SEGMENT_LABELS``
+    by segment; the generic routes the rest."""
     M, d, ff = 64, 768, 3072
     return [
         ("odd-act-block-12", "mxint_matmul",
@@ -486,11 +497,13 @@ def generic_cases() -> List[Case]:
 
 
 def wide_format_cases() -> List[Case]:
-    """The formats of the reference's own sweeps past the fast routes: the
-    paper's W9-W14 and W16-W24 planes (int16, int32), 24-bit act
-    mantissas, Table VI's vanilla LUTs (LN 13 bits, GELU 14, softmax r
-    16) at DeiT-Base's shapes, ``quantize_act=False`` at its FFN ``wo``,
-    and the flash kernels' r 10 LUT."""
+    """The formats of the reference's own sweeps past the fast routes
+    before the generic routes: the paper's W9-W14 and W16-W24 planes
+    (int16, int32), 24-bit act mantissas, Table VI's vanilla LUTs (LN 13
+    bits, GELU 14, softmax r 16) at DeiT-Base's shapes,
+    ``quantize_act=False`` at its FFN ``wo``, and the flash kernels' r 10
+    LUT.  The W12 GEMMs (``CORE_SEGMENT_LABELS``) now run on the GEMM
+    core."""
     M, d, ff = DEIT_BATCH * 197, 768, 3072
     return [
         ("w12-a12-ffn-wo", "mxint_matmul",
@@ -515,6 +528,32 @@ def wide_format_cases() -> List[Case]:
         ("flash-r-10", "flash_attention",
          dict(bh=8, sq=256, sk=256, d=128, act_block=16, r_bits=10)),
     ]
+
+
+def segment_cases() -> List[Case]:
+    """The GEMM core's segment walk (V 3-4) at the smoke's segment cases:
+    W12 planes (int16) at act blocks 12 and 16 with 8- and 12-bit acts and
+    W8 at act block 24 on 96-blocks through ``mxint_matmul``, the fused
+    LN2 -> ``wi`` at W12 with the 13-bit LUT, each at DeiT-Base batch 16
+    and at 4 rows."""
+    d, ff = 768, 3072
+    out: List[Case] = []
+    for M, tag in ((DEIT_BATCH * 197, "deit"), (4, "decode4")):
+        for label, (wbits, w_block), (bits, block) in (
+                ("w12-a8-b12", (12, 256), (8, 12)),
+                ("w12-a8-b16", (12, 256), (8, 16)),
+                ("w12-a12-b16", (12, 256), (12, 16)),
+                ("w8-a8-b24-w96", (8, 96), (8, 24))):
+            out.append((f"seg-{tag}-mm-{label}", "mxint_matmul", dict(
+                M=M, N=d, K=ff, w_block=w_block, act_block=block,
+                act_mant_bits=bits,
+                w_dtype=torch.int16 if wbits > 8 else torch.int8)))
+        for label, (bits, block) in (("w12-a8-b12-lut13", (8, 12)),
+                                     ("w12-a12-b16-lut13", (12, 16))):
+            out.append((f"seg-{tag}-lnmm-{label}", "mxint_ln_matmul", dict(
+                M=M, N=ff, d=d, w_block=256, act_block=block,
+                mant_bits=bits, lut_bits=13, w_dtype=torch.int16)))
+    return out
 
 
 def domain_cases() -> List[Case]:
@@ -555,7 +594,7 @@ def domain_cases() -> List[Case]:
 
 def sweep_cases() -> List[Case]:
     return reference_cases() + serving_cases() + widened_cases() + \
-        generic_cases() + wide_format_cases()
+        generic_cases() + wide_format_cases() + segment_cases()
 
 
 _SWEEP_MEMO: List[LaunchRecord] = []

@@ -176,7 +176,8 @@ struct LnArgs {
   const void* x;                  // the CTA's first row (f32 or bf16: T)
   const void* gamma;
   const void* beta;               // null: no beta (zero)
-  const float* lut;               // shared-memory rsqrt LUT
+  const float* lut;               // rsqrt LUT: shared memory, or device
+                                  // memory past kMaxLut entries
   int rows, d, block, mant_bits, lut_n, rms_only, params_bf16;
   float inv_d, lut_scale, lim;
 };
@@ -674,9 +675,26 @@ __device__ __forceinline__ void ln_rows(const LnArgs& a, const LnStage<M>& st,
 //       two bytes of the int16 in shared memory); one s8 x s8 and one
 //       u8 x s8 mma a step, combined as 256 dot_hi + dot_lo in int32
 //       (|dot| <= 256 * 32767 * 127 < 2^31).
-// V 1 and 2 convert the block's dot with __int2float_rn (round to nearest
-// even, as the plain version's float64 dot rounded to float32), then add
-// (float)dot * 2^(e_a + e_w) in the same two rounded steps.
+//  V 3  int8 or int16 planes (chosen at run time), 2-8-bit acts, any act
+//       block that divides K (one that does not nest in the weight block:
+//       DeiT's act block 12 against 256-element weight blocks).  The sum
+//       runs by segment, the intersection of an act block with a weight
+//       block (kernels/mxint_matmul.py:segments), walked k16 step by step:
+//       per step, one masked mma (block_mask) per segment that meets it,
+//       its int32 sum carried from step to step (and stage to stage) until
+//       the segment ends.  The cuts come from arithmetic: the next act
+//       boundary or the next weight boundary, whichever comes first (a
+//       weight boundary always falls on a step, w_block being a multiple
+//       of 16).  An int16 plane's B fragment splits in registers into its
+//       signed high byte and unsigned low byte: one s8 x s8 and one s8 x u8
+//       mma, 256 dot_hi + dot_lo.
+//  V 4  V 3 at 9-16-bit acts: the act tile's int16 split as in V 2, so
+//       four mmas a step at int16 planes, 65536 hh + 256 (hl + lh) + ll.
+//       The partial dots are combined in uint32 (the segment's dot is below
+//       2^31: wide_dot false, which the C entries check).
+// V 1-4 convert the block's (segment's) dot with __int2float_rn (round to
+// nearest even, as the plain version's float64 dot rounded to float32),
+// then add (float)dot * 2^(e_a + e_w) in the same two rounded steps.
 constexpr int kMaxThreads = 512;
 constexpr int kAB = 16;           // the mma depth: a k16 step of K
 constexpr int kMaxAB = 256;       // the largest act block (|dot| < 2^31)
@@ -718,30 +736,67 @@ __host__ __device__ __forceinline__ int e_stride(int nb) {
   return 4 * (w | 1);
 }
 
-// the kernel variant of an act format (see above)
-__host__ __forceinline__ int act_variant(int ab, int mant_bits) {
-  return mant_bits > 8 ? 2 : ab == kAB ? 0 : 1;
-}
-
-// an act block the core takes: a multiple of 16 up to kMaxAB dividing
-// w_block, or a divisor of 16
+// an act block V 0-2 take: a multiple of 16 up to kMaxAB dividing
+// w_block, or a divisor of 16 (the act block nests in the k16 steps and
+// the weight blocks)
 __host__ __forceinline__ bool act_block_ok(int ab, int w_block) {
   if (ab >= kAB)
     return ab % kAB == 0 && ab <= kMaxAB && w_block % ab == 0;
   return ab >= 1 && kAB % ab == 0;
 }
 
-// shared row stride of a staged weight tile: bn bytes (at least 16), plus
-// 16 where bn / 16 is a multiple of 4, so that the four rows a lane group
-// reads for one B fragment fall in four distinct bank quads
-__host__ __device__ __forceinline__ int w_stride(int bn) {
+// the kernel variant of a format (see above): w_bytes 1 or 2 (int8 or
+// int16 planes)
+__host__ __forceinline__ int act_variant(int ab, int mant_bits, int w_block,
+                                         int w_bytes) {
+  if (w_bytes != 1 || !act_block_ok(ab, w_block)) return mant_bits > 8 ? 4 : 3;
+  return mant_bits > 8 ? 2 : ab == kAB ? 0 : 1;
+}
+
+// act mantissas of variant V: int16 in V 2 and 4, else int8
+template <int V>
+using ActT = std::conditional_t<V == 2 || V == 4, int16_t, int8_t>;
+
+// the K granule of a chunk of V 3 and 4: whole act blocks and k16 steps,
+// lcm(ab, 16)
+__host__ __forceinline__ int seg_unit(int ab) {
+  int a = ab, b = kAB;
+  while (b) {
+    const int t = a % b;
+    a = b;
+    b = t;
+  }
+  return ab / a * kAB;
+}
+
+// a segment's dot may pass 2^31 (the generic route's int64 dots): the core
+// refuses the format
+__host__ __forceinline__ bool wide_dot(int ab, int w_block, int mant_bits,
+                                       int w_bytes) {
+  const long long w_max = w_bytes == 1 ? 127 : 32767;
+  return (long long)(ab < w_block ? ab : w_block) *
+             ((1ll << (mant_bits - 1)) - 1) * w_max >= (1ll << 31);
+}
+
+// shared row stride of a staged weight tile.  int8 (wb 1): bn bytes (at
+// least 16), plus 16 where bn / 16 is a multiple of 4, so that the four
+// rows a lane group reads for one B fragment fall in four distinct bank
+// quads.  int16 (wb 2): 2 bn bytes (at least 32), plus 32 where that is a
+// multiple of 64, so that the four rows' 32-byte pieces fill the 32 banks
+__host__ __device__ __forceinline__ int w_stride(int bn, int wb = 1) {
+  if (wb == 2) {
+    const int l = bn < 16 ? 32 : 2 * bn;
+    return (l / 32) % 2 == 0 ? l + 32 : l;
+  }
   const int l = bn < 16 ? 16 : bn;
   return (l / 16) % 4 == 0 ? l + 16 : l;
 }
 
-// one ring stage: bk mantissa rows, then bk / 16 exponent rows
-__host__ __device__ __forceinline__ int stage_bytes(const GemmGeom& g) {
-  return (g.bk + g.bk / kAB) * w_stride(g.bn);
+// one ring stage: bk mantissa rows, then bk / 16 exponent rows (one int8 a
+// column, at the mantissa rows' stride)
+__host__ __device__ __forceinline__ int stage_bytes(const GemmGeom& g,
+                                                   int wb = 1) {
+  return (g.bk + g.bk / kAB) * w_stride(g.bn, wb);
 }
 
 __host__ __forceinline__ bool geom_ok(const GemmGeom& g) {
@@ -752,12 +807,13 @@ __host__ __forceinline__ bool geom_ok(const GemmGeom& g) {
 }
 
 // kc: the K columns sA holds (K, or the chunk width); ab: the act block;
-// a_bytes: 1 or 2 (int8 or int16 act mantissas)
+// a_bytes: 1 or 2 (int8 or int16 act mantissas); wb: plane bytes
 __host__ __forceinline__ size_t gemm_smem_bytes(const GemmGeom& g, int kc,
-                                                int ab, int a_bytes) {
+                                                int ab, int a_bytes,
+                                                int wb = 1) {
   return (size_t)a_rows(g.bm) * a_stride(kc) * a_bytes +
          (((size_t)g.bm * e_stride(kc / ab) + 15) & ~(size_t)15) +
-         (size_t)g.ns * stage_bytes(g) + kMaxLut * sizeof(float);
+         (size_t)g.ns * stage_bytes(g, wb) + kMaxLut * sizeof(float);
 }
 
 // shared-memory carve-up: sA | sE | weight ring | lut (16-byte aligned)
@@ -770,7 +826,7 @@ struct GemmSmem {
 
 __device__ __forceinline__ GemmSmem carve(unsigned char* base,
                                           const GemmGeom& g, int kc, int ab,
-                                          int a_bytes) {
+                                          int a_bytes, int wb = 1) {
   GemmSmem s;
   size_t off = 0;
   s.a = (int8_t*)(base + off);
@@ -778,7 +834,7 @@ __device__ __forceinline__ GemmSmem carve(unsigned char* base,
   s.e = (int8_t*)(base + off);
   off += ((size_t)g.bm * e_stride(kc / ab) + 15) & ~(size_t)15;
   s.w = (int8_t*)(base + off);
-  off += (size_t)g.ns * stage_bytes(g);
+  off += (size_t)g.ns * stage_bytes(g, wb);
   s.lut = (float*)(base + off);
   return s;
 }
@@ -798,6 +854,23 @@ __host__ __forceinline__ int log2i(int v) {
   int s = 0;
   while ((1 << s) < v) ++s;
   return s;
+}
+
+// how a CTA's threads copy a stage: the exponent rows (and int8 mantissa
+// rows) in chunks of vec bytes, bn / vec threads a row; int16 mantissa rows
+// (2 bn bytes) in chunks of vm bytes, 2 bn / vm threads a row
+struct CopyPlan {
+  int vec, vec_shift, vm, vm_shift;
+};
+
+__host__ __forceinline__ CopyPlan copy_plan(int N, int bn, const void* wm,
+                                            const void* we, int wb) {
+  CopyPlan c;
+  c.vec = copy_width(N, bn, wb == 1 ? wm : we, we);
+  c.vec_shift = log2i(bn / c.vec);
+  c.vm = wb == 1 ? c.vec : copy_width(2 * N, 2 * bn, wm, wm);
+  c.vm_shift = wb == 1 ? c.vec_shift : log2i(2 * bn / c.vm);
+  return c;
 }
 
 // quantize one 16-block of values into int8 mantissas + exponent
@@ -869,10 +942,11 @@ __device__ __forceinline__ int w_row(int r) {
 // the weight tiles a CTA streams over one K range [kbase, kbase + kc):
 // n_tiles column tiles from column n0, each in nst stages of bk rows
 struct WStream {
-  const int8_t* wm;
+  const int8_t* wm;                     // the mantissa plane's bytes
   const int8_t* we;
   int N, w_block, kbase, kc, n0, n_tiles, nst, vec, vec_shift;
   int ab;                               // the act block
+  int wb, vm, vm_shift;                 // plane bytes; int16 row copies
 };
 
 template <int V>
@@ -904,8 +978,39 @@ __device__ __forceinline__ void issue_rows(const WStream& ws,
                               ws.N + col);
 }
 
+// int16 planes: the mantissa rows (2 bn bytes) in chunks of vm bytes from
+// byte column colb, then the exponent rows as issue_rows copies them
+template <int V>
+__device__ __forceinline__ void issue_mant16(const WStream& ws,
+                                             const GemmGeom& g, int8_t* dst,
+                                             int r0, int colb) {
+  const int ld = w_stride(g.bn, 2);
+  const size_t row = (size_t)ws.N * 2;
+  const int step = blockDim.x >> ws.vm_shift;
+  const int rows = min(g.bk, ws.kc - r0);
+  const int r1 = threadIdx.x >> ws.vm_shift;
+  const int8_t* src = ws.wm + (size_t)(ws.kbase + r0 + r1) * row + colb;
+  for (int r = r1; r < rows; r += step, src += step * row)
+    copy_chunk<V>(dst + w_row(r) * ld, src);
+}
+
+template <int V>
+__device__ __forceinline__ void issue_exp16(const WStream& ws,
+                                            const GemmGeom& g, int8_t* dst,
+                                            int r0, int col) {
+  const int ld = w_stride(g.bn, 2);
+  const int step = blockDim.x >> ws.vec_shift;
+  const int rows = min(g.bk, ws.kc - r0);
+  const int r1 = threadIdx.x >> ws.vec_shift;
+  for (int r = r1; r < rows / kAB; r += step)
+    copy_chunk<V>(dst + r * ld,
+                  ws.we + (size_t)((ws.kbase + r0 + r * kAB) / ws.w_block) *
+                              ws.N + col);
+}
+
 // issue the copies of stream stage j (tile j / nst) into its ring slot;
-// a stage past the end issues nothing
+// a stage past the end issues nothing.  W16: int16 planes
+template <bool W16>
 __device__ __forceinline__ void issue_stage(const WStream& ws,
                                             const GemmGeom& g, int8_t* ring,
                                             int j) {
@@ -914,8 +1019,30 @@ __device__ __forceinline__ void issue_stage(const WStream& ws,
   const int r0 = (j - t * ws.nst) * g.bk;        // first K row in the range
   const int c = (threadIdx.x & ((1 << ws.vec_shift) - 1)) * ws.vec;
   const int col = ws.n0 + t * g.bn + c;
+  int8_t* dst = ring + (j % g.ns) * stage_bytes(g, W16 ? 2 : 1);
+  if constexpr (W16) {
+    const int cb = (threadIdx.x & ((1 << ws.vm_shift) - 1)) * ws.vm;
+    const int colb = 2 * (ws.n0 + t * g.bn) + cb;
+    if (colb < 2 * ws.N) {              // 2 N % vm == 0: whole chunks
+      switch (ws.vm) {
+        case 16: issue_mant16<16>(ws, g, dst + cb, r0, colb); break;
+        case 8: issue_mant16<8>(ws, g, dst + cb, r0, colb); break;
+        case 4: issue_mant16<4>(ws, g, dst + cb, r0, colb); break;
+        default: issue_mant16<1>(ws, g, dst + cb, r0, colb);
+      }
+    }
+    if (col >= ws.N) return;
+    dst += g.bk * w_stride(g.bn, 2) + c;
+    switch (ws.vec) {
+      case 16: issue_exp16<16>(ws, g, dst, r0, col); break;
+      case 8: issue_exp16<8>(ws, g, dst, r0, col); break;
+      case 4: issue_exp16<4>(ws, g, dst, r0, col); break;
+      default: issue_exp16<1>(ws, g, dst, r0, col);
+    }
+    return;
+  }
   if (col >= ws.N) return;              // N % vec == 0: whole chunks
-  int8_t* dst = ring + (j % g.ns) * stage_bytes(g) + c;
+  dst += c;
   switch (ws.vec) {
     case 16: issue_rows<16>(ws, g, dst, r0, col); break;
     case 8: issue_rows<8>(ws, g, dst, r0, col); break;
@@ -927,7 +1054,10 @@ __device__ __forceinline__ void issue_stage(const WStream& ws,
 __device__ __forceinline__ void stream_begin(const WStream& ws,
                                              const GemmGeom& g, int8_t* ring) {
   for (int j = 0; j < g.ns - 1; ++j) {
-    issue_stage(ws, g, ring, j);
+    if (ws.wb == 2)
+      issue_stage<true>(ws, g, ring, j);
+    else
+      issue_stage<false>(ws, g, ring, j);
     cp_async_group();
   }
 }
@@ -1060,20 +1190,25 @@ __device__ __forceinline__ void mma_stage(const GemmSmem& s,
 }
 
 // ---- V 1 and 2: any act block, 2-16 bits --------------------------------
-// d += a * b on the int8 tensor cores: a s8 (hi) or u8 (lo) 16 x 16, b s8
-template <bool U>
+// d += a * b on the int8 tensor cores: a 16 x 16 and b 16 x 8, each s8 (a
+// high byte) or, AU / BU, u8 (a low byte)
+template <bool AU, bool BU>
 __device__ __forceinline__ void mma_acc(int (&d)[4], uint32_t a0, uint32_t a1,
                                         uint32_t b) {
-  if constexpr (U)
-    asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a0), "r"(a1), "r"(b));
+#define MX_MMA_ACC(TYPES)                                                   \
+  asm("mma.sync.aligned.m16n8k16.row.col.s32." TYPES ".s32 "                \
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"               \
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])                      \
+      : "r"(a0), "r"(a1), "r"(b))
+  if constexpr (AU && BU)
+    MX_MMA_ACC("u8.u8");
+  else if constexpr (AU)
+    MX_MMA_ACC("u8.s8");
+  else if constexpr (BU)
+    MX_MMA_ACC("s8.u8");
   else
-    asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
-        "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-        : "r"(a0), "r"(a1), "r"(b));
+    MX_MMA_ACC("s8.s8");
+#undef MX_MMA_ACC
 }
 
 // the B fragments of one k16 step (load_block's, two n8 tiles)
@@ -1126,8 +1261,9 @@ __device__ __forceinline__ void mma_frag(int (&dh)[2][4], int (&dl)[2][4],
                                          uint32_t m) {
 #pragma unroll
   for (int p = 0; p < 2; ++p) {
-    mma_acc<false>(dh[p], f.hi[0] & m, f.hi[1] & m, b[p]);
-    if constexpr (W) mma_acc<true>(dl[p], f.lo[0] & m, f.lo[1] & m, b[p]);
+    mma_acc<false, false>(dh[p], f.hi[0] & m, f.hi[1] & m, b[p]);
+    if constexpr (W)
+      mma_acc<true, false>(dl[p], f.lo[0] & m, f.lo[1] & m, b[p]);
   }
 }
 
@@ -1211,6 +1347,164 @@ __device__ __forceinline__ void mma_stage_any(const GemmSmem& s,
   }
 }
 
+// ---- V 3 and 4: segments, int8 or int16 planes --------------------------
+// The B fragments of one k16 step of an int16 tile: lane (g, t) reads the
+// 4-byte pieces (columns 2g, 2g + 1) of K rows 4t..4t+3 and splits each
+// int16 into its signed high byte (hi) and unsigned low byte (lo), in the
+// layout b_frags gives an int8 tile (tests/test_torch_kernels.py models
+// the selectors)
+__device__ __forceinline__ void load_b16(uint32_t (&hi)[2], uint32_t (&lo)[2],
+                                         const int8_t* wr, int ld) {
+  uint32_t x[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    x[i] = *reinterpret_cast<const uint32_t*>(wr + 4 * i * ld);
+  const uint32_t l01 = __byte_perm(x[0], x[1], 0x6240);
+  const uint32_t l23 = __byte_perm(x[2], x[3], 0x6240);
+  const uint32_t h01 = __byte_perm(x[0], x[1], 0x7351);
+  const uint32_t h23 = __byte_perm(x[2], x[3], 0x7351);
+  lo[0] = __byte_perm(l01, l23, 0x5410);
+  lo[1] = __byte_perm(l01, l23, 0x7632);
+  hi[0] = __byte_perm(h01, h23, 0x5410);
+  hi[1] = __byte_perm(h01, h23, 0x7632);
+}
+
+// the open segment's int32 partial dots, one per pair of bytes: act high
+// (h) or low (l) byte by plane high or low byte (lo bytes only for int16
+// acts, AW, and int16 planes)
+template <bool AW>
+struct SegDots {
+  int hh[2][4], hl[2][4], lh[2][4], ll[2][4];
+
+  __device__ __forceinline__ void zero(bool w16) {
+#pragma unroll
+    for (int p = 0; p < 2; ++p)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hh[p][i] = 0;
+        if (w16) hl[p][i] = 0;
+        if (AW) lh[p][i] = 0;
+        if (AW && w16) ll[p][i] = 0;
+      }
+  }
+};
+
+// a segment's piece of one k16 step: the A fragments with the columns
+// outside the piece zeroed (mask m) against the B fragments
+template <bool AW>
+__device__ __forceinline__ void seg_mma(SegDots<AW>& sd, const AFrag<AW>& f,
+                                        const uint32_t (&bh)[2],
+                                        const uint32_t (&bl)[2], uint32_t m,
+                                        bool w16) {
+  const uint32_t h0 = f.hi[0] & m, h1 = f.hi[1] & m;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    mma_acc<false, false>(sd.hh[p], h0, h1, bh[p]);
+    if (w16) mma_acc<false, true>(sd.hl[p], h0, h1, bl[p]);
+  }
+  if constexpr (AW) {
+    const uint32_t l0 = f.lo[0] & m, l1 = f.lo[1] & m;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      mma_acc<true, false>(sd.lh[p], l0, l1, bh[p]);
+      if (w16) mma_acc<true, true>(sd.ll[p], l0, l1, bl[p]);
+    }
+  }
+}
+
+// a segment's scaled adds: its exact dot from the partial dots (uint32
+// arithmetic; the dot itself is below 2^31), rounded once to float, then
+// the two rounded steps; the partial dots restart
+template <int NH, bool AW>
+__device__ __forceinline__ void seg_adds(float (&acc)[2][4], SegDots<AW>& sd,
+                                         bool w16, int ea0, int ea1,
+                                         const float (&pw)[2][2]) {
+  const float pa[2] = {pow2_e8(ea0), pow2_e8(ea1)};
+#pragma unroll
+  for (int p = 0; p < 2; ++p)
+#pragma unroll
+    for (int i = 0; i < 2 * NH; ++i) {
+      uint32_t d = (uint32_t)sd.hh[p][i];
+      if (w16) d = d * 256u + (uint32_t)sd.hl[p][i];
+      if constexpr (AW) {
+        uint32_t l = (uint32_t)sd.lh[p][i];
+        if (w16) l = l * 256u + (uint32_t)sd.ll[p][i];
+        d = d * 256u + l;
+      }
+      acc[p][i] = __fadd_rn(acc[p][i],
+                            __fmul_rn(__int2float_rn((int)d),
+                                      __fmul_rn(pa[i >> 1], pw[p][i & 1])));
+    }
+  sd.zero(w16);
+}
+
+// the column scales 2^e_w of a lane's four columns from a staged exponent
+// row
+__device__ __forceinline__ void load_pw(float (&pw)[2][2], const int8_t* ex) {
+  pw[0][0] = pow2_e8(ex[0]);
+  pw[1][0] = pow2_e8(ex[1]);
+  pw[0][1] = pow2_e8(ex[2]);
+  pw[1][1] = pow2_e8(ex[3]);
+}
+
+// mma_stage for V 3 and 4: the stage's k16 steps in order; in each, the
+// pieces of the segments that meet it, cut where the open segment ends
+// (the next act boundary na or weight boundary nw, chunk-relative).  The
+// open segment's partial dots sd carry over to the next step and stage.
+template <int NH, bool AW>
+__device__ __forceinline__ void mma_stage_seg(const GemmSmem& s,
+                                              const int8_t* stage,
+                                              const GemmGeom& g,
+                                              const WStream& ws,
+                                              const WarpTile& w, int ks0,
+                                              int a_ld, int e_ld,
+                                              float (&acc)[2][4],
+                                              SegDots<AW>& sd) {
+  const int lane = threadIdx.x % kWarp, gq = lane >> 2, tq = lane & 3;
+  const bool w16 = ws.wb == 2;
+  const int ld = w_stride(g.bn, ws.wb);
+  const int nks = min(g.bk / kAB, ws.kc / kAB - ks0);
+  const int8_t* ex = stage + g.bk * ld + w.wc + 4 * tq;
+  const int8_t* wr = stage + tq * ld + (w.wc + 2 * gq) * ws.wb;
+  const int r = w.r0 + gq;
+  const int ab = ws.ab;
+  int c = ks0 * kAB;                          // the step's first column
+  int ai = c / ab;                            // the open act block
+  int na = (ai + 1) * ab;
+  int nw = ((ws.kbase + c) / ws.w_block + 1) * ws.w_block - ws.kbase;
+  float pw[2][2];
+  load_pw(pw, ex);
+  for (int k = 0; k < nks; ++k, c += kAB) {
+    uint32_t bh[2], bl[2] = {0u, 0u};
+    const int8_t* wk = wr + k * kAB * ld;
+    if (w16)
+      load_b16(bh, bl, wk, ld);
+    else
+      load_b(bh, wk, ld);
+    AFrag<AW> f;
+    load_a<AW>(f, s.a, r, c + 4 * tq, a_ld);
+    const int c1 = c + kAB;
+    for (int p0 = c; p0 < c1;) {
+      const int end = min(na, nw);            // the open segment's end
+      const int p1 = min(end, c1);
+      seg_mma<AW>(sd, f, bh, bl, block_mask(p0 - c - 4 * tq, p1 - p0), w16);
+      if (p1 == end) {
+        seg_adds<NH, AW>(acc, sd, w16, s.e[r * e_ld + ai],
+                         NH == 2 ? s.e[(r + 8) * e_ld + ai] : 0, pw);
+        if (end == na) {
+          ++ai;
+          na += ab;
+        }
+      }
+      p0 = p1;
+    }
+    if (c1 == nw) {                           // the next weight block
+      nw += ws.w_block;
+      if (k + 1 < nks) load_pw(pw, ex + (k + 1) * ld);
+    }
+  }
+}
+
 __device__ __forceinline__ void zero_acc(float (&acc)[2][4]) {
 #pragma unroll
   for (int p = 0; p < 2; ++p)
@@ -1259,27 +1553,41 @@ __device__ __forceinline__ void stream_run(const GemmSmem& s,
                                            float* __restrict__ out) {
   const WarpTile w = warp_tile(g, m0, M);
   const int total = ws.n_tiles * ws.nst;
+  // V 3 and 4: the plane bytes at run time, and the open segment's sums
+  const bool w16 = V >= 3 && ws.wb == 2;
+  SegDots<V == 4> sd;
   for (int j = 0; j < total; ++j) {
     wait_ring(g.ns);
     __syncthreads();                    // stage j and the prologue are in
-    issue_stage(ws, g, s.w, j + g.ns - 1);      // into stage j - 1's slot
+    if (w16)                            // into stage j - 1's slot
+      issue_stage<true>(ws, g, s.w, j + g.ns - 1);
+    else
+      issue_stage<false>(ws, g, s.w, j + g.ns - 1);
     cp_async_group();
     const int t = j / ws.nst, st = j - t * ws.nst;
     const int col0 = ws.n0 + t * g.bn;
     if (w.rows > 0 && w.wc < g.bn && col0 + w.wc < ws.N) {
-      const int8_t* stage = s.w + (j % g.ns) * stage_bytes(g);
+      const int8_t* stage = s.w + (j % g.ns) * stage_bytes(g, w16 ? 2 : 1);
       const int kb0 = st * (g.bk / kAB);
+      if (V >= 3 && st == 0) sd.zero(w16);      // a tile's first segment
       auto run = [&](float (&a)[2][4]) {
         if constexpr (V == 0) {
           if (w.rows > 8)
             mma_stage<2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
           else
             mma_stage<1>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
-        } else {
+        } else if constexpr (V <= 2) {
           if (w.rows > 8)
             mma_stage_any<2, V == 2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
           else
             mma_stage_any<1, V == 2>(s, stage, g, ws, w, kb0, a_ld, e_ld, a);
+        } else {
+          if (w.rows > 8)
+            mma_stage_seg<2, V == 4>(s, stage, g, ws, w, kb0, a_ld, e_ld, a,
+                                     sd);
+          else
+            mma_stage_seg<1, V == 4>(s, stage, g, ws, w, kb0, a_ld, e_ld, a,
+                                     sd);
         }
       };
       if (NACC == 1 || t == 0)          // static indices: acc stays in

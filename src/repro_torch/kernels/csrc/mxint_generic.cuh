@@ -1,5 +1,11 @@
 // The generic routes of the MXInt kernels (sm_90a): every format the
-// reference's kernels take that the fast routes do not.
+// reference's kernels take that the fast routes do not.  Since the GEMM
+// core runs int16 planes and act blocks that do not nest by segment
+// (mxint_common.cuh, V 3-4), the generic GEMM keeps only int32 planes
+// (W17-W24), act mantissas of 17-24 bits, K or w_block off 16, segment
+// dots that may pass 2^31 (int64), float activations (quantize_act=False)
+// and, fused, the LN blocks the core's LN stage does not take on its
+// route (past 16 and not a power of two, or unaligned rows).
 //
 // A route, not a fallback: the wrappers pick it by format before the launch
 // (kernels/mxint_matmul.py:matmul_route, mxint_ln_matmul.ln_matmul_route,

@@ -2,9 +2,13 @@
 // Counterpart of repro/kernels/mxint_ln_matmul.py:mxint_ln_matmul.
 // Each CTA normalizes its bm rows (Fig. 3 LN, grid requantization, act
 // quantization) into shared memory while the first weight stages load,
-// then streams its column tiles against them through the GEMM core.  Every
-// other format of the reference takes the generic route
-// (mxint_ln_matmul_generic_launch below).
+// then streams its n_per column tiles against them through the GEMM core
+// (any of its variants: int8 or int16 planes, any act block the LN stage
+// takes, nested in the weight blocks or not): the LN runs once a row tile
+// and column group.  A rsqrt LUT of at most kMaxLut entries is copied to
+// shared memory, a longer one (the 13-bit vanilla LUT) read by index from
+// device memory, once a row.  Every other format of the reference takes
+// the generic route (mxint_ln_matmul_generic_launch below).
 #include "mxint_common.cuh"
 #include "mxint_generic.cuh"
 #include "launch_query.cuh"
@@ -17,7 +21,8 @@ using namespace mx;
 // exponents, and the row's padding past d its LnRowVars; phase 4
 // overwrites each piece with the LN output's act mantissas (the grid
 // requantization's, which act quantization keeps) and each block's
-// exponent.  Rows past M are zero.  V: the GEMM core's act variant.
+// exponent.  Rows past M are zero.  V: the GEMM core's variant; wb: plane
+// bytes.
 template <typename T, int P, int V>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 mxint_ln_matmul_kernel(const T* __restrict__ x, const void* gamma,
@@ -26,19 +31,20 @@ mxint_ln_matmul_kernel(const T* __restrict__ x, const void* gamma,
                        const int8_t* __restrict__ we, float* __restrict__ out,
                        int M, int d, int N, int w_block, int mant_bits,
                        int ab_arg, float inv_d, int lut_n, float lut_scale,
-                       int rms_only, int params_bf16, GemmGeom g, int vec,
-                       int vec_shift) {
-  using A = std::conditional_t<V == 2, int16_t, int8_t>;
+                       int rms_only, int params_bf16, GemmGeom g, CopyPlan cp,
+                       int wb) {
+  using A = ActT<V>;
   const int ab = V == 0 ? kAB : ab_arg;     // a compile-time 16 in V 0
   extern __shared__ __align__(16) unsigned char smem[];
-  const GemmSmem s = carve(smem, g, d, ab, sizeof(A));
+  const GemmSmem s = carve(smem, g, d, ab, sizeof(A), wb);
   const int tiles = (N + g.bn - 1) / g.bn;
   const int tile0 = blockIdx.y * g.n_per;
   const WStream ws{wm, we, N, w_block, 0, d, tile0 * g.bn,
-                   min(g.n_per, tiles - tile0), (d + g.bk - 1) / g.bk, vec,
-                   vec_shift, ab};
+                   min(g.n_per, tiles - tile0), (d + g.bk - 1) / g.bk, cp.vec,
+                   cp.vec_shift, ab, wb, cp.vm, cp.vm_shift};
   stream_begin(ws, g, s.w);
-  load_lut(s.lut, lut_g, lut_n);
+  const bool lut_smem = lut_n <= kMaxLut;
+  if (lut_smem) load_lut(s.lut, lut_g, lut_n);
   const int m0 = blockIdx.x * g.bm;
   const int rows = min(g.bm, M - m0);
   const int sa = a_stride(d), se = e_stride(d / ab);
@@ -57,7 +63,8 @@ mxint_ln_matmul_kernel(const T* __restrict__ x, const void* gamma,
   __syncthreads();
   const int ilim = (1 << (mant_bits - 1)) - 1;
   const float lim = (float)ilim;
-  const LnArgs a{x + (size_t)m0 * d, gamma, beta, s.lut, rows, d, ab,
+  const LnArgs a{x + (size_t)m0 * d, gamma, beta, lut_smem ? s.lut : lut_g,
+                 rows, d, ab,
                  mant_bits, lut_n, rms_only, params_bf16, inv_d, lut_scale,
                  lim};
   // the LN output onto the act grid (grid_requant): its mantissas are also
@@ -105,15 +112,14 @@ static int launch(const void* x, const void* gamma, const void* beta,
                   const float* lut, const int8_t* wm, const int8_t* we,
                   float* out, int M, int d, int N, int w_block, int mant_bits,
                   int ab, float inv_d, int lut_n, float lut_scale,
-                  int rms_only, int params_bf16, const GemmGeom& g,
+                  int rms_only, int params_bf16, const GemmGeom& g, int wb,
                   cudaStream_t stream) {
-  const size_t smem = gemm_smem_bytes(g, d, ab, V == 2 ? 2 : 1);
+  const size_t smem = gemm_smem_bytes(g, d, ab, sizeof(ActT<V>), wb);
   const void* fn = (const void*)mxint_ln_matmul_kernel<T, P, V>;
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int vec = copy_width(N, g.bn, wm, we);
-  const int vec_shift = log2i(g.bn / vec);
+  const CopyPlan cp = copy_plan(N, g.bn, wm, we, wb);
   const int tiles = (N + g.bn - 1) / g.bn;
   const dim3 grid((M + g.bm - 1) / g.bm, (tiles + g.n_per - 1) / g.n_per);
   const T* xt = static_cast<const T*>(x);
@@ -122,7 +128,7 @@ static int launch(const void* x, const void* gamma, const void* beta,
                   (void*)&d, (void*)&N, (void*)&w_block, (void*)&mant_bits,
                   (void*)&ab, (void*)&inv_d, (void*)&lut_n, (void*)&lut_scale,
                   (void*)&rms_only, (void*)&params_bf16, (void*)&g,
-                  (void*)&vec, (void*)&vec_shift};
+                  (void*)&cp, (void*)&wb};
   QUERY_OR_LAUNCH(fn, grid, dim3(gemm_threads(g.bm)), smem);
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(g.bm)), args, smem,
                          stream);
@@ -131,11 +137,12 @@ static int launch(const void* x, const void* gamma, const void* beta,
 }
 
 // x f32 or bf16 (x_bf16), gamma and beta f32 or bf16 (params_bf16), beta
-// may be null; ab: the act block; ln_vec: the LN stage's P = 4 route
-// (power-of-two act blocks 4-256; x, gamma and beta aligned to four of
-// their elements), else a block a thread (act blocks up to 16); act
-// mantissas of 2-16 bits (the LN stage and the act tile hold int16 at
-// most)
+// may be null; lut: the rsqrt LUT in device memory, any length; ab: the
+// act block; ln_vec: the LN stage's P = 4 route (power-of-two act blocks
+// 4-256; x, gamma and beta aligned to four of their elements), else a
+// block a thread (act blocks up to 16); act mantissas of 2-16 bits (the LN
+// stage and the act tile hold int16 at most); w_bytes: 1 or 2 (int8 or
+// int16 planes, wm their bytes)
 extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
                                       const void* beta, const float* lut,
                                       const int8_t* wm, const int8_t* we,
@@ -145,23 +152,27 @@ extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
                                       int rms_only, int x_bf16,
                                       int params_bf16, int ln_vec, int bm,
                                       int bn, int n_per, int bk, int ns,
-                                      void* stream) {
+                                      int w_bytes, void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
   const int xa = x_bf16 ? 8 : 16, pa = params_bf16 ? 8 : 16;
-  const int unit = ab > kAB ? ab : kAB;
-  if (d % kAB != 0 || w_block % kAB != 0 || lut_n > kMaxLut || !geom_ok(g) ||
-      !act_block_ok(ab, w_block) || d % ab != 0 || bk % unit != 0 ||
-      mant_bits < 2 || mant_bits > 16 ||
+  if (d % kAB != 0 || w_block < kAB || w_block % kAB != 0 ||
+      d % w_block != 0 || lut_n < 1 || !geom_ok(g) || ab < 1 ||
+      d % ab != 0 || mant_bits < 2 || mant_bits > 16 ||
+      (w_bytes != 1 && w_bytes != 2) ||
+      wide_dot(ab, w_block, mant_bits, w_bytes) ||
       (ln_vec ? (ab < 4 || ab > kMaxLnBlock || (ab & (ab - 1)) != 0 ||
                  (uintptr_t)x % xa != 0 || (uintptr_t)gamma % pa != 0 ||
                  (uintptr_t)beta % pa != 0)
               : ab > kMaxBlock))
     return (int)cudaErrorInvalidValue;
+  const int V = act_variant(ab, mant_bits, w_block, w_bytes);
+  if (bk % (V <= 2 && ab > kAB ? ab : kAB) != 0)
+    return (int)cudaErrorInvalidValue;
   auto cs = (cudaStream_t)stream;
 #define LNMM_LAUNCH(T, P, V)                                                \
   return launch<T, P, V>(x, gamma, beta, lut, wm, we, out, M, d, N,         \
                          w_block, mant_bits, ab, inv_d, lut_n, lut_scale,   \
-                         rms_only, params_bf16, g, cs)
+                         rms_only, params_bf16, g, w_bytes, cs)
 #define LNMM_ROUTES(V)                                                      \
   if (x_bf16) {                                                             \
     if (ln_vec) LNMM_LAUNCH(__nv_bfloat16, 4, V);                           \
@@ -169,10 +180,12 @@ extern "C" int mxint_ln_matmul_launch(const void* x, const void* gamma,
   }                                                                         \
   if (ln_vec) LNMM_LAUNCH(float, 4, V);                                     \
   LNMM_LAUNCH(float, 0, V)
-  switch (act_variant(ab, mant_bits)) {
+  switch (V) {
     case 0: LNMM_ROUTES(0);
     case 1: LNMM_ROUTES(1);
-    default: LNMM_ROUTES(2);
+    case 2: LNMM_ROUTES(2);
+    case 3: LNMM_ROUTES(3);
+    default: LNMM_ROUTES(4);
   }
 #undef LNMM_ROUTES
 #undef LNMM_LAUNCH

@@ -1,10 +1,13 @@
 // MXInt matmul with in-kernel activation quantization, sm_90a.
 // Counterpart of repro/kernels/mxint_matmul.py:mxint_matmul (quantize_act).
-// y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N]; act blocks that
-// divide 16 or are multiples of 16 dividing w_block, act mantissas of
-// 2-16 bits (the GEMM core's V 0-2, mxint_common.cuh).  Every other format
-// of the reference, and float activations (quantize_act=False), take the
-// generic route (mxint_generic.cuh, mxint_matmul_generic_launch below).
+// y[M, N] = Q_act(x)[M, K] @ (w_mant * 2^w_exp)[K, N] on the GEMM core
+// (mxint_common.cuh): int8 or int16 planes, act mantissas of 2-16 bits, K
+// and w_block multiples of 16, any act block that divides K (V 0-2 where
+// it nests in the k16 steps and the weight blocks, V 3-4 by segment),
+// segment dots below 2^31.  Every other format of the reference (int32
+// planes, 17-24-bit acts, K or w_block off 16, int64 dots) and float
+// activations (quantize_act=False) take the generic route
+// (mxint_generic.cuh, mxint_matmul_generic_launch below).
 #include "mxint_common.cuh"
 #include "mxint_generic.cuh"
 #include "launch_query.cuh"
@@ -20,14 +23,14 @@ using namespace mx;
 // in increasing K order, as for a short K and as in the plain version.
 constexpr int kMaxChunk = 4096;
 
-// V 1 and 2: one lane an act block of ab elements: its amax, then its
+// V 1-4: one lane an act block of ab elements: its amax, then its
 // mantissas (int8 or int16) and exponent
 template <int V>
 __device__ __forceinline__ void quantize_rows_any(
     const GemmSmem& s, const float* __restrict__ x, int M, int K, int m0,
     int k0, int kc, int a_ld, int e_ld, int mant_bits, float lim, int bm,
     int ab) {
-  using A = std::conditional_t<V == 2, int16_t, int8_t>;
+  using A = ActT<V>;
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
   const int nb = kc / ab;
   A* sa = reinterpret_cast<A*>(s.a);
@@ -94,8 +97,8 @@ mxint_matmul_kernel(const float* __restrict__ x,
                     const int8_t* __restrict__ wm,
                     const int8_t* __restrict__ we, float* __restrict__ out,
                     int M, int K, int N, int w_block, int mant_bits,
-                    int ab_arg, int kc_arg, GemmGeom g, int vec,
-                    int vec_shift) {
+                    int ab_arg, int kc_arg, GemmGeom g, CopyPlan cp,
+                    int wb) {
   extern __shared__ __align__(16) unsigned char smem[];
   // V 0: act block 16 and chunks of kMaxChunk, as compile-time constants
   // (the launcher sends V 0 nothing else), so the core's shared-memory
@@ -103,15 +106,15 @@ mxint_matmul_kernel(const float* __restrict__ x,
   const int ab = V == 0 ? kAB : ab_arg;
   const int kc = V == 0 ? kMaxChunk : kc_arg;
   const int kc_max = CHUNKED ? kc : K;
-  const GemmSmem s = carve(smem, g, kc_max, ab, V == 2 ? 2 : 1);
+  const GemmSmem s = carve(smem, g, kc_max, ab, sizeof(ActT<V>), wb);
   const int a_ld = a_stride(kc_max), e_ld = e_stride(kc_max / ab);
   const int m0 = blockIdx.x * g.bm;
   const int tiles = (N + g.bn - 1) / g.bn;
   const int tile0 = blockIdx.y * g.n_per;
   const float lim = (float)((1 << (mant_bits - 1)) - 1);
   WStream ws{wm, we, N, w_block, 0, K, tile0 * g.bn,
-             min(g.n_per, tiles - tile0), (K + g.bk - 1) / g.bk, vec,
-             vec_shift, ab};
+             min(g.n_per, tiles - tile0), (K + g.bk - 1) / g.bk, cp.vec,
+             cp.vec_shift, ab, wb, cp.vm, cp.vm_shift};
   if (!CHUNKED) {
     float acc[1][2][4];
     zero_acc(acc[0]);
@@ -142,49 +145,56 @@ mxint_matmul_kernel(const float* __restrict__ x,
 }
 
 // ab: the act block; kc: the K columns a CTA stages at once (K > kc walks
-// K in chunks), a multiple of ab and 16 up to kMaxChunk; bk a multiple of
-// ab.  The act tile holds int16 mantissas at most: a mantissa wider than
-// 16 bits would wrap.
+// K in chunks) up to kMaxChunk, whole act blocks and k16 steps; bk whole
+// act blocks (V 0-2) or k16 steps (V 3-4, whose segments run on across
+// stages); w_bytes: 1 or 2 (int8 or int16 planes, wm their bytes).  The
+// act tile holds int16 mantissas at most: a mantissa wider than 16 bits
+// would wrap.
 extern "C" int mxint_matmul_launch(const float* x, const int8_t* wm,
                                    const int8_t* we, float* out, int M, int K,
                                    int N, int w_block, int mant_bits, int ab,
                                    int bm, int bn, int n_per, int bk, int ns,
-                                   int kc, void* stream) {
+                                   int kc, int w_bytes, void* stream) {
   const GemmGeom g{bm, bn, n_per, bk, ns};
   const bool chunked = K > kc;
-  const int unit = ab > kAB ? ab : kAB;
-  if (K % kAB != 0 || w_block % kAB != 0 || !geom_ok(g) ||
-      !act_block_ok(ab, w_block) || K % ab != 0 || bk % unit != 0 ||
-      kc < unit || kc > kMaxChunk || kc % unit != 0 ||
-      (chunked && n_per > kMaxAccTiles) || mant_bits < 2 || mant_bits > 16)
+  if (K % kAB != 0 || w_block < kAB || w_block % kAB != 0 ||
+      K % w_block != 0 || ab < 1 || K % ab != 0 || !geom_ok(g) ||
+      mant_bits < 2 || mant_bits > 16 || (w_bytes != 1 && w_bytes != 2) ||
+      wide_dot(ab, w_block, mant_bits, w_bytes))
+    return (int)cudaErrorInvalidValue;
+  int V = act_variant(ab, mant_bits, w_block, w_bytes);
+  const int unit = V <= 2 && ab > kAB ? ab : kAB;
+  const int c_unit = V <= 2 ? unit : seg_unit(ab);
+  if (bk % unit != 0 || kc < c_unit || kc > kMaxChunk || kc % c_unit != 0 ||
+      (chunked && n_per > kMaxAccTiles))
     return (int)cudaErrorInvalidValue;
   // V 0 takes only the full chunk (a narrower one runs V 1, which also
   // takes act block 16)
-  const int V = act_variant(ab, mant_bits) == 0 && chunked &&
-                        kc != kMaxChunk
-                    ? 1
-                    : act_variant(ab, mant_bits);
+  if (V == 0 && chunked && kc != kMaxChunk) V = 1;
   const size_t smem = gemm_smem_bytes(g, chunked ? kc : K, ab,
-                                      V == 2 ? 2 : 1);
-  const void* kernels[2][3] = {
+                                      V == 2 || V == 4 ? 2 : 1, w_bytes);
+  const void* kernels[2][5] = {
       {(const void*)mxint_matmul_kernel<false, 0>,
        (const void*)mxint_matmul_kernel<false, 1>,
-       (const void*)mxint_matmul_kernel<false, 2>},
+       (const void*)mxint_matmul_kernel<false, 2>,
+       (const void*)mxint_matmul_kernel<false, 3>,
+       (const void*)mxint_matmul_kernel<false, 4>},
       {(const void*)mxint_matmul_kernel<true, 0>,
        (const void*)mxint_matmul_kernel<true, 1>,
-       (const void*)mxint_matmul_kernel<true, 2>}};
+       (const void*)mxint_matmul_kernel<true, 2>,
+       (const void*)mxint_matmul_kernel<true, 3>,
+       (const void*)mxint_matmul_kernel<true, 4>}};
   const void* fn = kernels[chunked][V];
   cudaError_t err = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int vec = copy_width(N, bn, wm, we);
-  const int vec_shift = log2i(bn / vec);
+  const CopyPlan cp = copy_plan(N, bn, wm, we, w_bytes);
   const int tiles = (N + bn - 1) / bn;
   const dim3 grid((M + bm - 1) / bm, (tiles + n_per - 1) / n_per);
   void* args[] = {(void*)&x, (void*)&wm, (void*)&we, (void*)&out,
                   (void*)&M, (void*)&K, (void*)&N, (void*)&w_block,
                   (void*)&mant_bits, (void*)&ab, (void*)&kc, (void*)&g,
-                  (void*)&vec, (void*)&vec_shift};
+                  (void*)&cp, (void*)&w_bytes};
   QUERY_OR_LAUNCH(fn, grid, dim3(gemm_threads(bm)), smem);
   err = cudaLaunchKernel(fn, grid, dim3(gemm_threads(bm)), args, smem,
                          (cudaStream_t)stream);

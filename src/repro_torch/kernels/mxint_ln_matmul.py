@@ -13,16 +13,20 @@ construction, since both run the same stages in the same order.
 
 The Pallas grid carries the normalized tile across an ordered N axis;
 CUDA blocks run in no order, so each CTA normalizes its own 16-32 rows
-into shared memory (as int8 act mantissas and exponents), while the first
-weight tiles load, and then streams its column tiles through the GEMM core
-of ``mxint_matmul`` (int8 tensor cores, ``csrc/mxint_common.cuh``).  The
-normalization is the row stage ``mxint_layernorm`` runs (``ln_rows``), on
-every thread of the CTA: x is read once, f32 or bf16 as it comes, and the
-aligned mantissas are staged in place in the rows' slots of the act tile,
-which the LN output's act mantissas then overwrite.  The
-tiles come from ``gemm_geometry`` (without K chunks: the CTA holds its
-whole normalized rows); where the column range is split over several
-CTAs, each repeats the LN of its rows.
+into shared memory (as int8 or int16 act mantissas and exponents), while
+the first weight tiles load, and then streams its ``n_per`` column tiles
+through the GEMM core of ``mxint_matmul`` (int8 tensor cores, any of its
+variants: int8 or int16 planes, act blocks nested in the weight blocks or
+not, ``csrc/mxint_common.cuh``).  The normalization is the row stage
+``mxint_layernorm`` runs (``ln_rows``), on every thread of the CTA: x is
+read once, f32 or bf16 as it comes, and the aligned mantissas are staged
+in place in the rows' slots of the act tile, which the LN output's act
+mantissas then overwrite.  Its rsqrt LUT is copied to shared memory up to
+MAX_LUT entries; a longer one (Table VI's 13-bit vanilla LUT) is read by
+index from device memory, once a row.  The tiles come from
+``gemm_geometry`` (without K chunks: the CTA holds its whole normalized
+rows); where the column range is split over several CTAs, each repeats
+the LN of its rows.
 
 On the H100, at DeiT-Base batch 16 the FFN ``wi`` reads x (3152, 768) f32
 (9.7 MB) and 2.4 MB of planes and writes (3152, 3072) f32 (38.7 MB):
@@ -31,17 +35,17 @@ on the tensor cores and 14 us for the ordered f32 sum's two operations per
 output element and act block at the published f32 rate: like
 ``mxint_matmul`` it is bound by instruction issue in that epilogue.
 
-Formats the core route does not take (``ln_matmul_route``: any LN block
-and alignment, LUTs past 256 entries, int16 and int32 planes, act
-mantissas up to 24 bits, every act block of ``mxint_matmul``'s generic
-route) take the generic route: each warp normalizes its CTA's rows with
-the generic row stage into shared memory, then the generic GEMM runs over
-them (``csrc/mxint_generic.cuh``), the same stages in the same order.
+Formats the core route does not take (``ln_matmul_route``: LN blocks
+the LN stage does not take on its route, as 24, 48 or an unaligned 32;
+int32 planes, act mantissas of 17-24 bits and the other formats of
+``mxint_matmul``'s generic route) take the generic route: each warp
+normalizes its CTA's rows with the generic row stage into shared memory,
+then the generic GEMM runs over them (``csrc/mxint_generic.cuh``), the
+same stages in the same order.
 """
 from __future__ import annotations
 
 import ctypes
-import dataclasses
 import functools
 from typing import Optional
 
@@ -51,14 +55,14 @@ from repro_torch.core import luts
 from repro_torch.kernels import _build
 from repro_torch.kernels.launch_record import LaunchRecord, emit, spec
 from repro_torch.kernels.mxint_layernorm import (LN_PIECE, MAX_LN_BLOCK,
-                                                 MAX_LUT, aligned4,
-                                                 ln_route_ok, f32,
+                                                 aligned4, ln_route_ok, f32,
                                                  kernel_operands, layernorm_rows,
                                                  ln_piece, lut_tensor)
-from repro_torch.kernels.mxint_matmul import (check_planes, gemm_geometry,
-                                              gemm_launch, generic_args,
-                                              generic_launch, launch_args,
-                                              matmul_blocks, matmul_route,
+from repro_torch.kernels.mxint_matmul import (PLANE_BYTES, check_planes,
+                                              gemm_geometry, gemm_launch,
+                                              generic_args, generic_launch,
+                                              launch_args, matmul_blocks,
+                                              matmul_route, segmented,
                                               sm_count)
 
 launches = 0
@@ -108,24 +112,24 @@ def launch_config(M: int, N: int, d: int, *, w_block: int, act_block: int,
         return generic_launch("mxint_ln_matmul", M, N, d, w_block, act_block,
                               mant_bits, w_dtype, True, ops_, label, ln_d=d,
                               x_dtype=x_dtype)
+    w_bytes = PLANE_BYTES[w_dtype]
     geom = gemm_geometry(M, N, d, n_sm, fused_ln=True, act_block=act_block,
-                         wide=mant_bits > 8)
-    rec = gemm_launch("mxint_ln_matmul", geom, M, N, d, act_block,
-                      mant_bits, ops_, label, fused_ln=True)
-    return dataclasses.replace(rec, args=(piece,) + rec.args)
+                         wide=mant_bits > 8, w_bytes=w_bytes,
+                         seg=segmented(act_block, w_block, w_bytes))
+    return gemm_launch("mxint_ln_matmul", geom, M, N, d, act_block,
+                       mant_bits, ops_, label, fused_ln=True, piece=piece)
 
 
 def ln_matmul_route(d: int, w_block: int, act_block: int, mant_bits: int,
                     lut_bits: int, w_dtype=torch.int8,
                     aligned: bool = True) -> str:
-    """'core' where ``mxint_matmul``'s GEMM core takes the format, the LN
-    stage takes the act block on its route (``ln_route_ok``), d is a
-    multiple of 16 and the LUT fits shared memory; else 'generic' (any LN
-    block and alignment, any LUT length, every format of the generic
-    GEMM).  Raises ``ValueError`` outside both."""
+    """'core' where ``mxint_matmul``'s GEMM core takes the format and the
+    LN stage takes the act block on its route (``ln_route_ok``), at any
+    LUT length; else 'generic' (any LN block and alignment, every format
+    of the generic GEMM).  Raises ``ValueError`` outside both."""
     ok = matmul_route(d, w_block, act_block, mant_bits, w_dtype) == "core" \
-        and 2 ** lut_bits <= MAX_LUT and d % 16 == 0 and ln_route_ok(
-            act_block, ln_piece(act_block, aligned), MAX_LN_BLOCK)
+        and ln_route_ok(act_block, ln_piece(act_block, aligned),
+                        MAX_LN_BLOCK)
     return "core" if ok else "generic"
 
 
@@ -134,7 +138,7 @@ def ln_matmul_entry():
     """The C entry point ``mxint_ln_matmul_launch``."""
     return _build.entry("mxint_ln_matmul", [ctypes.c_void_p] * 7 + [
         ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_float] +
-        [ctypes.c_int] * 9 + [ctypes.c_void_p])
+        [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,21 +150,22 @@ def ln_matmul_generic_entry():
 
 
 generic_launches = 0        # launches of the generic route (within launches)
+LUT_BITS = 5                # the rsqrt LUT's width unless a call names one
 
 
 def mxint_ln_matmul(x: torch.Tensor, gamma: torch.Tensor,
                     beta: Optional[torch.Tensor], w_mant: torch.Tensor,
                     w_exp: torch.Tensor, *, w_block: int, act_block: int = 16,
-                    mant_bits: int = 8, lut_bits: int = 5,
+                    mant_bits: int = 8, lut_bits: int = LUT_BITS,
                     rms_only: bool = False) -> torch.Tensor:
     """MXIntLN(x) @ (w_mant * 2^w_exp) for x (M, d); no bias.
 
     A CPU tensor runs the plain version; a CUDA tensor launches the GEMM
-    core with its LN stage where ``ln_matmul_route`` picks it (int8
-    planes, 2-16 bits, act blocks of the core that the LN stage takes on
-    its route, at most MAX_LUT LUT entries), else the generic route (every
-    format of the reference), and raises for any other format before it
-    touches the card.
+    core with its LN stage where ``ln_matmul_route`` picks it (int8 or
+    int16 planes, 2-16 bits, act blocks that the LN stage takes on its
+    route, any LUT length), else the generic route (every format of the
+    reference), and raises for any other format before it touches the
+    card (and where a core format's launch fails: no fallback).
     """
     M, d = x.shape
     act_block = min(act_block, d)

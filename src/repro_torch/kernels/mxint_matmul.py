@@ -17,23 +17,28 @@ accumulator in increasing K order.
 
 Two routes, chosen by format before the launch (``matmul_route``):
 
-- the GEMM core (below) for int8 planes, K and ``w_block`` multiples of
-  16, act blocks that divide 16 (1, 2, 4, 8) or are multiples of 16 up to
-  256 dividing ``w_block``, and mantissas of 2-16 bits.  The default,
-  block 16 at 2-8 bits, runs one ``mma.sync`` a block; a longer block
-  chains its k16 steps' mma sums, a shorter one masks the A fragments per
-  block, and 9-16 bits split each int16 mantissa into its signed high and
-  unsigned low byte, one mma each (``csrc/mxint_common.cuh``, V 0-2);
-- the generic route (``csrc/mxint_generic.cuh``) for every other format
-  of the reference: any act block that divides K, nested in the weight
-  block or not (DeiT's FFN ``wo`` at act block 12 against 256-element
-  weight blocks), any K, int16 and int32 planes (the paper's W9-W24),
-  act mantissas up to 24 bits, and ``quantize_act=False``.  It sums by
-  segment, the intersection of an act block with a weight block, each
-  segment's exact integer dot (int64 where it may pass 2^31) rounded once
-  and added as the core adds a block; float activations take float64
-  products and sums in K order, rounded once.  Its products run on the
-  CUDA cores, so operations bound it.
+- the GEMM core (below) for int8 and int16 planes (the paper's W2-W16),
+  K and ``w_block`` multiples of 16, any act block that divides K,
+  mantissas of 2-16 bits, and segment dots below 2^31 (``wide_dot``
+  false).  The default, block 16 at 2-8 bits on int8 planes, runs one
+  ``mma.sync`` a block; a longer block that nests in the weight block
+  chains its k16 steps' mma sums, a shorter one that divides 16 masks the
+  A fragments per block, and 9-16 bits split each int16 mantissa into
+  its signed high and unsigned low byte, one mma each
+  (``csrc/mxint_common.cuh``, V 0-2).  Every other format of the core
+  (int16 planes; act blocks that do not nest, as DeiT's FFN ``wo`` at act
+  block 12 against 256-element weight blocks) runs by segment, the
+  intersection of an act block with a weight block, k16 step by k16
+  step: a masked mma per segment piece, the segment's int32 sum carried
+  until it ends; an int16 plane's bytes split like the acts' (V 3-4);
+- the generic route (``csrc/mxint_generic.cuh``) for the formats the core
+  does not take: int32 planes (W17-W24), act mantissas of 17-24 bits, K
+  or ``w_block`` off 16, segment dots that may pass 2^31, and
+  ``quantize_act=False``.  It sums by the same segments, each segment's
+  exact integer dot (int64 where it may pass 2^31) rounded once and added
+  as the core adds it; float activations take float64 products and sums
+  in K order, rounded once.  Its products run on the CUDA cores, so
+  operations bound it.
 
 A format outside both (act mantissas past 24 bits, blocks that do not
 divide K, planes of another dtype) raises before anything touches the
@@ -72,6 +77,7 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -123,6 +129,8 @@ _PLAIN_CHUNK = 1 << 22      # scaled segment products the plain version holds
 # the reference's widest MXInt mantissa, 24 bits (``MXFormat``)
 PLANE_MAX = {torch.int8: 127, torch.int16: 2 ** 15 - 1,
              torch.int32: 2 ** 23 - 1}
+PLANE_BYTES = {torch.int8: 1, torch.int16: 2, torch.int32: 4}
+CORE_PLANES = (torch.int8, torch.int16)    # the GEMM core's plane dtypes
 MAX_GEN_MANT_BITS = 24      # act mantissas of the generic route
 
 
@@ -254,7 +262,8 @@ class GemmGeometry:
     of bn columns each, for grid (x, y); it streams the weight planes in
     stages of bk rows.  ``chunked``: K is walked in MAX_CHUNK chunks.
     ``per_sm``: the CTAs an SM is assumed to hold at once (the waves of
-    the cost estimate; the launch contracts check that they fit)."""
+    the cost estimate; the launch contracts check that they fit).
+    ``w_bytes``: plane bytes; ``seg``: the core's segment walk (V 3-4)."""
     bm: int
     bn: int
     n_per: int
@@ -264,14 +273,20 @@ class GemmGeometry:
     grid: tuple
     kc: int = MAX_CHUNK     # K columns a CTA stages at once
     per_sm: int = 1
+    w_bytes: int = 1
+    seg: bool = False
 
     def args(self):
         return (self.bm, self.bn, self.n_per, self.bk, self.ns)
 
 
-def w_stride(bn: int) -> int:
-    """Shared row stride of a staged weight tile (``w_stride`` in
+def w_stride(bn: int, w_bytes: int = 1) -> int:
+    """Shared row stride in bytes of a staged weight tile of int8 or
+    (``w_bytes`` 2) int16 planes (``w_stride`` in
     ``csrc/mxint_common.cuh``)."""
+    if w_bytes == 2:
+        width = max(2 * bn, 32)
+        return width + 32 if (width // 32) % 2 == 0 else width
     width = max(bn, 16)
     return width + 16 if (width // 16) % 4 == 0 else width
 
@@ -284,11 +299,12 @@ def w_row(r: int) -> int:
 
 
 def gemm_smem_bytes(bm: int, bn: int, bk: int, ns: int, kc: int,
-                    act_block: int = ACT_BLOCK, a_bytes: int = 1) -> int:
+                    act_block: int = ACT_BLOCK, a_bytes: int = 1,
+                    w_bytes: int = 1) -> int:
     """Dynamic shared memory of a CTA that holds kc columns of its rows,
-    act mantissas of ``a_bytes`` bytes (``gemm_smem_bytes`` in
-    ``csrc/mxint_common.cuh``)."""
-    stage = (bk + bk // ACT_BLOCK) * w_stride(bn)
+    act mantissas of ``a_bytes`` bytes, planes of ``w_bytes``
+    (``gemm_smem_bytes`` in ``csrc/mxint_common.cuh``)."""
+    stage = (bk + bk // ACT_BLOCK) * w_stride(bn, w_bytes)
     e_stride = 4 * ((kc // act_block + 3) // 4 | 1)
     a_rows = -(-bm // 16) * 16          # whole 16-row groups
     return (a_rows * (kc + 16) * a_bytes + (bm * e_stride + 15) // 16 * 16
@@ -296,15 +312,29 @@ def gemm_smem_bytes(bm: int, bn: int, bk: int, ns: int, kc: int,
 
 
 def act_unit(act_block: int) -> int:
-    """The K granule of an act format: bk and the chunk are multiples of
-    it (a whole block, and whole k16 steps)."""
+    """The K granule of a nested act format (V 0-2): bk and the chunk are
+    multiples of it (a whole block, and whole k16 steps)."""
     return max(act_block, ACT_BLOCK)
+
+
+def seg_unit(act_block: int) -> int:
+    """The K granule of a chunk of the segment walk (V 3-4): whole act
+    blocks and k16 steps, lcm(act_block, 16) (``seg_unit`` in
+    ``csrc/mxint_common.cuh``)."""
+    return act_block * ACT_BLOCK // math.gcd(act_block, ACT_BLOCK)
+
+
+def segmented(act_block: int, w_block: int, w_bytes: int = 1) -> bool:
+    """The core runs the format by segment (V 3-4): int16 planes, or an
+    act block that does not nest (``act_block_ok``)."""
+    return w_bytes != 1 or not act_block_ok(act_block, w_block)
 
 
 @functools.lru_cache(maxsize=None)
 def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
                   fused_ln: bool = False, act_block: int = ACT_BLOCK,
-                  wide: bool = False) -> GemmGeometry:
+                  wide: bool = False, w_bytes: int = 1,
+                  seg: bool = False) -> GemmGeometry:
     """Tiles of the GEMM core for y[M, N] = x[M, K] @ W[K, N] on a card of
     ``n_sm`` SMs.
 
@@ -323,15 +353,19 @@ def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
     not fit (short act blocks: an exponent an element; 9-16 bits: int16
     mantissas) stages narrower chunks, and with ``fused_ln`` fewer rows:
     16-row tiles where 24 or 32 do not fit.  ``wide``: act mantissas of
-    9-16 bits.  Raises where no geometry fits shared memory.
-    Cached: a decode step asks for the same few shapes every call."""
+    9-16 bits; ``w_bytes``: 2 for int16 planes (twice the stage bytes);
+    ``seg``: the segment walk (V 3-4), whose stages are whole k16 steps
+    and whose chunks whole act blocks (``seg_unit``).  Raises where no
+    geometry fits shared memory.  Cached: a decode step asks for the same
+    few shapes every call."""
     best = None
+    fmt = (fused_ln, act_block, wide, w_bytes, seg)
     for bm in (16,) if M <= 16 else (32, 24):
-        got = _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block, wide)
+        got = _tile_geometry(M, N, K, n_sm, bm, *fmt)
         if got is not None and (best is None or got[1] < best[1]):
             best = got
     if best is None and M > 16:
-        best = _tile_geometry(M, N, K, n_sm, 16, fused_ln, act_block, wide)
+        best = _tile_geometry(M, N, K, n_sm, 16, *fmt)
     if best is None:
         raise ValueError(f"no GEMM tile of {M}x{K}->{N} at act block "
                          f"{act_block}{' (int16)' if wide else ''} fits "
@@ -340,7 +374,7 @@ def gemm_geometry(M: int, N: int, K: int, n_sm: int, *,
 
 
 def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
-                   wide=False):
+                   wide=False, w_bytes=1, seg=False):
     """gemm_geometry at row tile bm: (geometry, estimated time in units of
     one 32 x 128 tile's work), or None where nothing fits shared memory."""
     rows = -(-M // bm)
@@ -348,16 +382,21 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
     while bn > (4 if bm == 16 else WARP_COLS) and \
             rows * -(-N // bn) < n_sm:
         bn //= 2
-    unit = act_unit(act_block)
+    # bk: whole act blocks (nested) or k16 steps (segments run on across
+    # stages); the chunk: whole act blocks and k16 steps
+    unit = ACT_BLOCK if seg else act_unit(act_block)
+    c_unit = seg_unit(act_block) if seg else unit
     a_bytes = 2 if wide else 1
 
     def smem(b, ns, kc):
-        return gemm_smem_bytes(bm, bn, b, ns, kc, act_block, a_bytes)
+        return gemm_smem_bytes(bm, bn, b, ns, kc, act_block, a_bytes,
+                               w_bytes)
 
     if bm == 16:
-        # a decode batch streams the planes: a deep ring of small stages,
-        # two 256-thread CTAs to an SM
-        bk0 = -(-min(512, max(128, 8192 // bn)) // unit) * unit
+        # a decode batch streams the planes: a deep ring of small stages
+        # (of the same bytes at either plane width), two 256-thread CTAs to
+        # an SM
+        bk0 = -(-min(512, max(128, 8192 // (bn * w_bytes))) // unit) * unit
         ns, bks = DECODE_STAGES, (bk0,) + tuple(
             b for b in (256, 128, 64) if b < bk0 and b % unit == 0)
     else:
@@ -368,8 +407,8 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
     # the K columns staged at once: all of them (fused LN), else chunks of
     # at most MAX_CHUNK, narrower where the tile would not fit
     kcs = (K,) if fused_ln else tuple(
-        c for c in range(min(K, MAX_CHUNK) // unit * unit, 0, -unit)
-        if c == K or c % 256 == 0 or c == unit)
+        c for c in range(min(K, MAX_CHUNK) // c_unit * c_unit, 0, -c_unit)
+        if c == K or c % 256 == 0 or c == c_unit)
     kc, bk = next(((c, b) for c in kcs for b in bks
                    if smem(b, ns, c) <= SMEM_LIMIT), (None, None))
     if kc is None:
@@ -390,8 +429,47 @@ def _tile_geometry(M, N, K, n_sm, bm, fused_ln, act_block=ACT_BLOCK,
     n_per = min(range(1, (MAX_ACC_TILES if chunked else tiles) + 1),
                 key=cost)
     return (GemmGeometry(bm, bn, n_per, bk, ns, chunked,
-                         (rows, -(-tiles // n_per)), kc, per_sm),
+                         (rows, -(-tiles // n_per)), kc, per_sm, w_bytes,
+                         seg),
             cost(n_per))
+
+
+def block_mask(rel: int, n: int) -> int:
+    """The bytes of a lane's A word (four columns from c) inside the piece
+    [c + rel, c + rel + n) (``block_mask`` in ``csrc/mxint_common.cuh``)."""
+    lo, hi = min(max(rel, 0), 4), min(max(rel + n, 0), 4)
+    return (1 << (8 * hi)) - (1 << (8 * lo))
+
+
+def segment_walk(K: int, w_block: int, act_block: int, bk: int, kc: int):
+    """The pieces the core's segment walk runs (V 3-4, ``mma_stage_seg``
+    in ``csrc/mxint_common.cuh``), in order: (k16 step, first column,
+    end column, whether the segment ends there) over chunks of ``kc``
+    columns and ring stages of ``bk`` rows.  Each stage starts from its
+    first column as the kernel does (the open act block and the next act
+    and weight boundaries by division, chunk-relative); within it, the
+    cuts are the next act boundary ``na`` or weight boundary ``nw``,
+    whichever comes first, and the step's end."""
+    out = []
+    for k0 in range(0, K, kc):
+        kcc = min(kc, K - k0)
+        for c in range(0, kcc, bk):
+            na = (c // act_block + 1) * act_block
+            nw = ((k0 + c) // w_block + 1) * w_block - k0
+            for _ in range(min(bk, kcc - c) // ACT_BLOCK):
+                c1, p0 = c + ACT_BLOCK, c
+                while p0 < c1:
+                    end = min(na, nw)
+                    p1 = min(end, c1)
+                    out.append(((k0 + c) // ACT_BLOCK, k0 + p0, k0 + p1,
+                                p1 == end))
+                    if p1 == end and end == na:
+                        na += act_block
+                    p0 = p1
+                if c1 == nw:
+                    nw += w_block
+                c = c1
+    return out
 
 
 def gemm_threads(bm: int) -> int:
@@ -400,27 +478,33 @@ def gemm_threads(bm: int) -> int:
     return -(-bm // 16) * 256
 
 
-def act_variant(act_block: int, act_mant_bits: int) -> int:
-    """The GEMM core's instance of an act format (``act_variant`` in
-    ``csrc/mxint_common.cuh``): 2 int16 act mantissas, 0 the default block
-    16, 1 any other block."""
+def act_variant(act_block: int, act_mant_bits: int,
+                seg: bool = False) -> int:
+    """The GEMM core's instance of a format (``act_variant`` in
+    ``csrc/mxint_common.cuh``): by segment (``seg``) 3, or 4 at int16 act
+    mantissas; else 2 int16 act mantissas, 0 the default block 16, 1 any
+    other nested block."""
+    if seg:
+        return 4 if act_mant_bits > 8 else 3
     return 2 if act_mant_bits > 8 else 0 if act_block == ACT_BLOCK else 1
 
 
 def gemm_launch(kernel: str, geom: GemmGeometry, M: int, N: int, K: int,
                 act_block: int, act_mant_bits: int, operands: tuple,
-                label: str = "", fused_ln: bool = False) -> LaunchRecord:
+                label: str = "", fused_ln: bool = False,
+                piece: int = 0) -> LaunchRecord:
     """The ``LaunchRecord`` of a GEMM-core launch at ``geom``: the kernel
     instance and the dynamic shared memory as the C entries pick them
-    (``mxint_matmul_launch``, ``mxint_ln_matmul`` ``launch``)."""
-    V = act_variant(act_block, act_mant_bits)
+    (``mxint_matmul_launch``, ``mxint_ln_matmul`` ``launch``); ``piece``:
+    the fused kernel's LN piece (its args lead with it)."""
+    V = act_variant(act_block, act_mant_bits, geom.seg)
     kc = K
     if geom.chunked:
         kc = geom.kc
         if V == 0 and geom.kc != MAX_CHUNK:   # V 0 takes the full chunk
             V = 1
     smem = gemm_smem_bytes(geom.bm, geom.bn, geom.bk, geom.ns, kc,
-                           act_block, 2 if V == 2 else 1)
+                           act_block, 2 if V in (2, 4) else 1, geom.w_bytes)
     fn = (f"{kernel}_kernel<V{V}>" if fused_ln else
           f"{kernel}_kernel<chunked={int(geom.chunked)}, V{V}>")
     bm, bn, n_per = geom.bm, geom.bn, geom.n_per
@@ -434,18 +518,21 @@ def gemm_launch(kernel: str, geom: GemmGeometry, M: int, N: int, K: int,
         return rects(x * bm, np.minimum(M, (x + 1) * bm), t * bn,
                      np.minimum(N, (t + 1) * bn))
 
-    args = geom.args() if fused_ln else geom.args() + (geom.kc,)
+    # the C entries' geometry arguments, the plane bytes last
+    args = ((piece,) + geom.args() if fused_ln else
+            geom.args() + (geom.kc,)) + (geom.w_bytes,)
     return LaunchRecord(kernel, fn, (geom.grid[0], geom.grid[1], 1),
-                        gemm_threads(bm), smem, gemm_static_smem(fused_ln, V),
-                        operands, (M, N), out_tiles, geom.per_sm, args,
-                        label)
+                        gemm_threads(bm), smem,
+                        gemm_static_smem(fused_ln, V, piece), operands,
+                        (M, N), out_tiles, geom.per_sm, args, label)
 
 
-def gemm_static_smem(fused_ln: bool, variant: int) -> int:
+def gemm_static_smem(fused_ln: bool, variant: int, piece: int) -> int:
     """Static shared memory of a GEMM-core kernel instance: the fused
-    kernel's LN stage at act blocks other than 16 and at 9-16 bits holds
-    ``wide_group_max``'s exchange slots."""
-    return GROUP_XCHG_SMEM if fused_ln and variant else 0
+    kernel's LN stage on its four-element route (``piece``) at a run-time
+    act block (every variant but 0) holds ``wide_group_max``'s exchange
+    slots."""
+    return GROUP_XCHG_SMEM if fused_ln and variant and piece else 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -458,6 +545,7 @@ def launch_config(M: int, N: int, K: int, *, w_block: int, act_block: int,
     format outside both, as the wrapper does."""
     route = matmul_route(K, w_block, act_block, act_mant_bits, w_dtype,
                          quantize_act)
+    w_bytes = PLANE_BYTES[w_dtype]
     ops_ = (spec("x", (M, K), torch.float32),
             spec("w_mant", (K, N), w_dtype),
             spec("w_exp", (K // w_block, N), torch.int8),
@@ -468,7 +556,8 @@ def launch_config(M: int, N: int, K: int, *, w_block: int, act_block: int,
                               act_mant_bits, w_dtype, quantize_act, ops_,
                               label)
     geom = gemm_geometry(M, N, K, n_sm, act_block=act_block,
-                         wide=act_mant_bits > 8)
+                         wide=act_mant_bits > 8, w_bytes=w_bytes,
+                         seg=segmented(act_block, w_block, w_bytes))
     return gemm_launch("mxint_matmul", geom, M, N, K, act_block,
                        act_mant_bits, ops_, label)
 
@@ -496,9 +585,10 @@ GEN_MAX_ROWS = 32
 
 def matmul_route(K: int, w_block: int, act_block: int, act_mant_bits: int,
                  w_dtype=torch.int8, quantize_act: bool = True) -> str:
-    """'core' (the int8 tensor-core GEMM: int8 planes, K and w_block
-    multiples of 16, 2-16-bit act mantissas, the act blocks of
-    ``act_block_ok``), 'generic' (every other quantized format of the
+    """'core' (the int8 tensor-core GEMM: int8 or int16 planes, K and
+    w_block multiples of 16, 2-16-bit act mantissas, any act block that
+    divides K whose chunk granule ``seg_unit`` fits MAX_CHUNK, segment
+    dots below 2^31), 'generic' (every other quantized format of the
     reference) or 'float' (``quantize_act=False``, the generic route's
     float64 products).  Raises ``ValueError`` for a format outside them:
     planes of another dtype, blocks that do not divide K, act mantissas
@@ -515,9 +605,10 @@ def matmul_route(K: int, w_block: int, act_block: int, act_mant_bits: int,
         raise ValueError(f"mxint_matmul takes {MIN_ACT_MANT_BITS} <= "
                          f"act_mant_bits <= {MAX_GEN_MANT_BITS}, got "
                          f"{act_mant_bits}")
-    core = w_dtype == torch.int8 and K % ACT_BLOCK == 0 and \
+    core = w_dtype in CORE_PLANES and K % ACT_BLOCK == 0 and \
         w_block % ACT_BLOCK == 0 and act_mant_bits <= MAX_ACT_MANT_BITS \
-        and act_block_ok(act_block, w_block)
+        and seg_unit(act_block) <= MAX_CHUNK and not wide_dot(
+            act_block, w_block, act_mant_bits, w_dtype)
     return "core" if core else "generic"
 
 
@@ -598,9 +689,10 @@ def check_planes(K: int, w_mant, w_exp, w_block: int, act_block: int):
 
 
 def act_block_ok(act_block: int, w_block: int) -> bool:
-    """The GEMM core takes the act block: a divisor of 16, or a multiple of
-    16 up to MAX_ACT_BLOCK that divides ``w_block`` (``act_block_ok`` in
-    ``csrc/mxint_common.cuh``)."""
+    """The act block nests (the GEMM core's V 0-2): a divisor of 16, or a
+    multiple of 16 up to MAX_ACT_BLOCK that divides ``w_block``
+    (``act_block_ok`` in ``csrc/mxint_common.cuh``); the core runs any
+    other act block by segment."""
     if act_block >= ACT_BLOCK:
         return act_block % ACT_BLOCK == 0 and act_block <= MAX_ACT_BLOCK \
             and w_block % act_block == 0
@@ -611,7 +703,7 @@ def act_block_ok(act_block: int, w_block: int) -> bool:
 def matmul_entry():
     """The C entry point ``mxint_matmul_launch``."""
     return _build.entry("mxint_matmul", [ctypes.c_void_p] * 4 + [
-        ctypes.c_int] * 12 + [ctypes.c_void_p])
+        ctypes.c_int] * 13 + [ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
@@ -650,7 +742,8 @@ def mxint_matmul(x: torch.Tensor, w_mant: torch.Tensor, w_exp: torch.Tensor,
     A CPU tensor runs the plain version (``matmul_blocks``, or
     ``matmul_float``); a CUDA tensor launches the GEMM core or the generic
     route (``matmul_route``), and raises for any format outside both
-    before it touches the card.
+    before it touches the card (and where a core format's launch fails:
+    no fallback).
     """
     M, K = x.shape
     check_planes(K, w_mant, w_exp, w_block, act_block)

@@ -504,7 +504,9 @@ def test_out_of_domain_format_raises_before_a_record(case):
 def test_widened_format_meets_every_contract(case):
     """The formats outside the fast routes before the generic routes (each
     raised in its wrapper then): each now records a launch that fits the
-    H100 and covers its output once, and is in the sweep."""
+    H100 and covers its output once, and is in the sweep; those of
+    ``CORE_SEGMENT_LABELS`` on the GEMM core's segment walk (V 3-4), the
+    others on the generic routes."""
     label, kernel, kw = case
     with record_launches() as recs:
         rec = LC.record_launch(kernel, kw, label)
@@ -512,8 +514,29 @@ def test_widened_format_meets_every_contract(case):
     assert LC.check_record(rec) == [] and GC.check_coverage(rec) == []
     assert (label, kernel) in {(r.label, r.kernel)
                                for r in LC.sweep_records()}
+    if label in LC.CORE_SEGMENT_LABELS:
+        assert "generic" not in rec.function and (
+            "V3" in rec.function or "V4" in rec.function), rec.function
+        return
     route = "decode_kernel" if label == "decode-act-block-12" else "generic"
     assert route in rec.function, rec.function
+
+
+@pytest.mark.parametrize("case", LC.segment_cases(), ids=lambda c: c[0])
+def test_segment_walk_meets_every_contract(case):
+    """The GEMM core's segment walk (int16 planes, act blocks that do not
+    nest): each format records a core launch (V 3, or V 4 past 8 bits)
+    that fits the H100, covers its output once by the core's tiles, and is
+    in the sweep."""
+    label, kernel, kw = case
+    rec = LC.launch(kernel, kw, label)
+    bits = kw.get("act_mant_bits", kw.get("mant_bits"))
+    assert rec.function.endswith(f"V{4 if bits > 8 else 3}>"), rec.function
+    assert LC.check_record(rec) == [] and GC.check_coverage(rec) == []
+    np.testing.assert_array_equal(GC.dense_mask(rec),
+                                  _gemm_mask(*rec.out_shape, rec))
+    assert (label, kernel) in {(r.label, r.kernel)
+                               for r in LC.sweep_records()}
 
 
 def test_serving_sweep_covers_every_config():
@@ -636,11 +659,14 @@ def test_generic_route_tiles_cover_the_output_once(case):
     the row kernels' CTA c rows [8 c, 8 c + 8) (GELU: the scalar route's
     grid-stride walk); the flash kernel's CTA (x, head y) positions
     [w x, w x + w) of head y, the decode kernel's CTA x rows [w x, w x +
-    w) of (B, Hkv, G)."""
+    w) of (B, Hkv, G).  The formats the GEMM core now takes by segment
+    (``CORE_SEGMENT_LABELS``) are held to the core's tiles."""
     label, kernel, kw = case
     rec = LC.launch(kernel, kw, label)
     rows, cols = rec.out_shape
-    if kernel == "mxint_gelu":
+    if label in LC.CORE_SEGMENT_LABELS:
+        want = _gemm_mask(rows, cols, rec)
+    elif kernel == "mxint_gelu":
         want = _stride_mask(rows * cols, kw["act_block"], rec.threads,
                             rec.grid[0])
     else:

@@ -1,10 +1,11 @@
 """The kernels' whole domain: every format the reference's kernels take.
 
-Each case here is a format that the fast CUDA routes do not take and the
-generic routes do (``matmul_route``, ``ln_matmul_route``, ``ln_route``,
+Each case here is a format that the fast CUDA routes did not take before
+the generic routes (``matmul_route``, ``ln_matmul_route``, ``ln_route``,
 ``softmax_route``, ``gelu_route``, ``flash_route``, ``decode_route``):
-act blocks that do not nest in the weight block (12 or 512 against 256),
-int16 and int32 planes, 17-24-bit act mantissas, K not a multiple of 16,
+act blocks that do not nest in the weight block (12 or 512 against 256)
+and int16 planes, which the GEMM core now takes by segment; int32 planes,
+17-24-bit act mantissas, K not a multiple of 16,
 LUTs past 256 entries, flash head dims past 256 and score act blocks 12
 (resolved to 8), 64 and 128, and ``quantize_act=False``.  On the CPU each
 port plain version is held to the reference's function (its Pallas
@@ -202,18 +203,22 @@ def test_segments_cut_k_at_both_blocks():
 # the matmul kernels at the widened formats, against the reference
 # ---------------------------------------------------------------------------
 # (label, M, K, N, weight format, act block, act mantissa bits, tolerance
-# over the output scale).  The reference's f32 dot rounds products past 24
-# bits (W16 x A16, W20, W24) and sums in another order; the port's segment
-# dots are exact.
+# over the output scale, route).  The reference's f32 dot rounds products
+# past 24 bits (W16 x A16, W20, W24) and sums in another order; the port's
+# segment dots are exact.  The GEMM core takes int16 planes and act blocks
+# that do not nest, by segment; the generic route K off 16, int32 planes,
+# 17-24-bit acts and segment dots that may pass 2^31 (W16 x A16).
 MATMUL_CASES = [
-    ("act-block-12", 8, 3072, 40, MXFormat(8, 256), 12, 8, 1e-6),
-    ("act-block-512", 8, 3072, 40, MXFormat(8, 256), 512, 8, 1e-6),
-    ("act-block-24-w96", 6, 768, 32, MXFormat(8, 96), 24, 8, 1e-6),
-    ("k-200", 5, 200, 24, MXFormat(8, 8), 8, 8, 1e-6),
-    ("w12-int16-a12", 7, 768, 48, MXFormat(12, 256), 12, 8, 1e-6),
-    ("w16-a16", 4, 512, 32, MXFormat(16, 256), 16, 16, 2e-6),
-    ("w20-int32-a17", 4, 512, 32, MXFormat(20, 256), 16, 17, 2e-6),
-    ("w24-a24-b256", 3, 512, 16, MXFormat(24, 256), 256, 24, 2e-6),
+    ("act-block-12", 8, 3072, 40, MXFormat(8, 256), 12, 8, 1e-6, "core"),
+    ("act-block-512", 8, 3072, 40, MXFormat(8, 256), 512, 8, 1e-6, "core"),
+    ("act-block-24-w96", 6, 768, 32, MXFormat(8, 96), 24, 8, 1e-6, "core"),
+    ("k-200", 5, 200, 24, MXFormat(8, 8), 8, 8, 1e-6, "generic"),
+    ("w12-int16-a12", 7, 768, 48, MXFormat(12, 256), 12, 8, 1e-6, "core"),
+    ("w16-a16", 4, 512, 32, MXFormat(16, 256), 16, 16, 2e-6, "generic"),
+    ("w20-int32-a17", 4, 512, 32, MXFormat(20, 256), 16, 17, 2e-6,
+     "generic"),
+    ("w24-a24-b256", 3, 512, 16, MXFormat(24, 256), 256, 24, 2e-6,
+     "generic"),
 ]
 
 
@@ -222,11 +227,11 @@ def test_matmul_widened_formats_vs_pallas(case):
     """Measured gaps over the output scale at these seeds: 0 at 8-bit acts
     (every product and partial sum exact in the reference's f32 too),
     3.1e-7 to 4.6e-7 past 16 bits (W16 x A16 the largest)."""
-    label, M, K, N, fmt, block, bits, tol = case
+    label, M, K, N, fmt, block, bits, tol, route = case
     p, jp = _planes(K, N, fmt, seed=K + N)
     x = _x((M, K), seed=M, scale=2.0)
     assert mxint_matmul.matmul_route(K, fmt.block_size, block, bits,
-                                     p.mantissa.dtype) == "generic"
+                                     p.mantissa.dtype) == route
     got = mxint_matmul.mxint_matmul(_t(x), p.mantissa, p.exponent,
                                     w_block=p.block_size, act_block=block,
                                     act_mant_bits=bits, quantize_act=True)
@@ -266,27 +271,34 @@ def test_matmul_float_activations_vs_pallas():
     assert torch.equal(got, acc.float())
 
 
+# (label, M, d, N, weight format, act block, act bits, LUT bits, RMS,
+# route): the core where the GEMM core takes the format and the LN stage
+# the act block on its route (48 and 24 it does not: a block a thread
+# takes 16 at most, the four-element route powers of two)
 LNMM_CASES = [
-    ("w12-a12-lut13", 6, 768, 40, MXFormat(12, 256), 12, 8, 13, False),
-    ("a48-w96", 5, 768, 24, MXFormat(8, 96), 48, 8, 5, False),
-    ("rms-a24-bits20", 4, 384, 24, MXFormat(8, 384), 24, 20, 5, True),
+    ("w12-a12-lut13", 6, 768, 40, MXFormat(12, 256), 12, 8, 13, False,
+     "core"),
+    ("a48-w96", 5, 768, 24, MXFormat(8, 96), 48, 8, 5, False, "generic"),
+    ("rms-a24-bits20", 4, 384, 24, MXFormat(8, 384), 24, 20, 5, True,
+     "generic"),
 ]
 
 
 @pytest.mark.parametrize("case", LNMM_CASES, ids=lambda c: c[0])
 def test_ln_matmul_widened_formats_vs_pallas(case):
-    """The fused kernel's generic route.  Measured gaps: 0 at 8 bits,
-    5.7e-7 of the output scale at 20 bits (held to 1e-6: the LN variance,
-    the row sum and the matmul sums run in other orders than the
+    """The fused kernel at the widened formats (W12 planes and the 13-bit
+    LUT on the core; the rest on its generic route).  Measured gaps: 0 at
+    8 bits, 5.7e-7 of the output scale at 20 bits (held to 1e-6: the LN
+    variance, the row sum and the matmul sums run in other orders than the
     reference's, and its f32 products of 20-bit mantissas round)."""
-    label, M, d, N, fmt, block, bits, lut_bits, rms = case
+    label, M, d, N, fmt, block, bits, lut_bits, rms, route = case
     p, jp = _planes(d, N, fmt, seed=d + N)
     x = _x((M, d), seed=M + d, scale=2.0)
     g = 1.0 + 0.1 * _x((d,), seed=1)
     b = 0.1 * _x((d,), seed=2)
     assert mxint_ln_matmul.ln_matmul_route(
         d, fmt.block_size, block, bits, lut_bits,
-        p.mantissa.dtype) == "generic"
+        p.mantissa.dtype) == route
     got = mxint_ln_matmul.mxint_ln_matmul(
         _t(x), _t(g), _t(b), p.mantissa, p.exponent, w_block=p.block_size,
         act_block=block, mant_bits=bits, lut_bits=lut_bits, rms_only=rms)
@@ -478,7 +490,8 @@ def test_decode_widened_formats_vs_pallas(d, block, g):
 # ---------------------------------------------------------------------------
 def test_deit_tiny_widened_kernel_mode_vs_reference_sim():
     """Two DeiT-Tiny layers in kernel mode at W12 planes (int16), act
-    block 12 and the vanilla LUTs, through every generic route, against
+    block 12 and the vanilla LUTs (the GEMMs on the core's segment walk,
+    the row kernels on their generic routes), against
     the reference's bit-accurate ``mode='sim'`` at the same format: argmax
     equal, logits within 1e-3 of their scale (one moved act-grid step
     moves a logit about 1%, see test_torch_vit.py).  Measured gap at this

@@ -409,7 +409,7 @@ def test_cost_rows_reproduce_the_kernel_table_bounds(label, bound_ms, by):
 def test_cost_table_labels_and_forward():
     rows = cost_model.query()
     assert set(probes.PROBES) | set(cost_model.DEIT_BASE_LABELS) | \
-        set(cost_model.GENERIC_LABELS) == set(rows)
+        set(cost_model.WIDENED_LABELS) == set(rows)
     # DeiT-Base's 3 + 8 x 12 launches a forward
     assert sum(rows[k]["calls"] for k in cost_model.DEIT_BASE_LABELS) == 99
     with pytest.raises(KeyError, match="unknown cost-model labels"):

@@ -1032,11 +1032,12 @@ def test_matmul_kernel_takes_2_to_8_bit_act_mantissas(bits):
 def test_wide_act_format_raises_before_any_launch():
     """``QuantConfig(mode="kernel", act_fmt=MXFormat(20, 16))`` and an act
     block of 12 reach ``mxint_matmul`` through every linear.  Both are now
-    in the domain: the generic route takes them (``matmul_route``), the
-    plain version computes them on the CPU, as the reference does, and a
-    tensor off the CPU (here a meta tensor) raises only at the device
-    check, before anything is built or launched.  A format outside every
-    route (act mantissas of 25 bits) raises in the route check."""
+    in the domain: the generic route takes 20-bit acts and the GEMM core,
+    by segment, act block 12 (``matmul_route``), the plain version
+    computes them on the CPU, as the reference does, and a tensor off the
+    CPU (here a meta tensor) raises only at the device check, before
+    anything is built or launched.  A format outside every route (act
+    mantissas of 25 bits) raises in the route check."""
     from repro_torch.core.mx_types import QuantConfig
     from repro_torch.core.quantize import MXTensor
     from repro_torch.models.model_api import Param
@@ -1045,7 +1046,8 @@ def test_wide_act_format_raises_before_any_launch():
     for fmt in (MXFormat(20, 16), MXFormat(8, 12)):
         q = QuantConfig(mode="kernel", act_fmt=fmt)
         assert mxint_matmul.matmul_route(K, 48, fmt.block_size,
-                                         fmt.mant_bits) == "generic"
+                                         fmt.mant_bits) == (
+            "generic" if fmt.mant_bits > 16 else "core")
 
         def linear(device):
             w = MXTensor(torch.zeros(K, N, dtype=torch.int8, device=device),
@@ -1267,11 +1269,137 @@ def test_gemm_geometry_act_formats(M, N, K, fused_ln, block, wide):
     (16, 16, True), (32, 256, True), (256, 256, True), (64, 32, False),
     (12, 48, False), (24, 48, False), (512, 512, False), (3, 48, False)])
 def test_act_block_domain(block, w_block, ok):
-    """The GEMM core's act blocks; the others take the generic route."""
+    """The act blocks that nest (the GEMM core's V 0-2); the core runs the
+    others by segment (V 3), so every one takes the core."""
     assert mxint_matmul.act_block_ok(block, w_block) == ok
+    assert mxint_matmul.segmented(block, w_block) == (not ok)
     K = 2 * max(block, w_block) * 3
-    assert mxint_matmul.matmul_route(K, w_block, block, 8) == \
-        ("core" if ok else "generic")
+    assert mxint_matmul.matmul_route(K, w_block, block, 8) == "core"
+
+
+# (K, w_block, act block, plane dtype, act bits, fused LN) the GEMM core
+# takes by segment: act blocks that do not nest (DeiT's 12 against 256;
+# 24 on 96-blocks, 48 on 128-blocks; 512 across 256-blocks; 3, 40, 100), int16
+# planes at nested and other blocks, 9-16-bit acts (four mmas a step)
+SEGMENT_FORMATS = [
+    (48, 16, 12, torch.int8, 8, False), (3072, 256, 12, torch.int16, 8, False),
+    (768, 256, 12, torch.int16, 8, True), (3072, 256, 12, torch.int8, 8, False),
+    (768, 96, 24, torch.int8, 8, False), (768, 128, 48, torch.int8, 8, False),
+    (3072, 256, 512, torch.int8, 8, False), (288, 48, 3, torch.int16, 8, True),
+    (640, 64, 40, torch.int8, 8, False), (3200, 128, 100, torch.int8, 6, False),
+    (3072, 256, 16, torch.int16, 8, False), (768, 256, 16, torch.int16, 12, True),
+    (3072, 256, 16, torch.int16, 12, False), (768, 256, 12, torch.int16, 12, True),
+    (12288, 256, 12, torch.int16, 8, False), (4096, 4096, 32, torch.int16, 8, True),
+]
+
+
+@pytest.mark.parametrize("M", [3152, 4])
+@pytest.mark.parametrize("K,w_block,block,w_dtype,bits,fused", SEGMENT_FORMATS)
+def test_segment_walk_geometry_and_byte_split(K, w_block, block, w_dtype,
+                                              bits, fused, M):
+    """The GEMM core's segment walk (V 3-4), modelled on the CPU: over the
+    stages and chunks of the format's own geometry, its pieces (step,
+    columns, segment end) join into exactly ``segments()``, each piece
+    inside one k16 step, and each lane's ``block_mask`` keeps exactly the
+    piece's columns of its A word; the act block a piece reads is the one
+    of its columns.  ``launch_config`` of the format returns the core's
+    segment instance within the H100's shared memory at 132 SMs.  And the
+    int16 plane split: 256 hi + lo restores every int16, and the
+    ``load_b16`` selectors give each lane the PTX B layout of both bytes
+    from the staged tile, free of bank conflicts."""
+    N = 768
+    assert mxint_matmul.matmul_route(K, w_block, block, bits,
+                                     w_dtype) == "core"
+    w_bytes = mxint_matmul.PLANE_BYTES[w_dtype]
+    assert mxint_matmul.segmented(block, w_block, w_bytes)
+    if fused:
+        rec = mxint_ln_matmul.launch_config(
+            M, N, K, w_block=w_block, act_block=block, mant_bits=bits,
+            lut_bits=13, n_sm=132, w_dtype=w_dtype)
+    else:
+        rec = mxint_matmul.launch_config(
+            M, N, K, w_block=w_block, act_block=block, act_mant_bits=bits,
+            n_sm=132, w_dtype=w_dtype)
+    V = 4 if bits > 8 else 3
+    assert rec.function.endswith(f"V{V}>") and rec.args[-1] == w_bytes
+    assert rec.smem <= mxint_matmul.SMEM_LIMIT
+    g = mxint_matmul.gemm_geometry(M, N, K, 132, fused_ln=fused,
+                                   act_block=block, wide=bits > 8,
+                                   w_bytes=w_bytes, seg=True)
+    kc = K if fused else g.kc
+    assert g.bk % 16 == 0 and kc % mxint_matmul.seg_unit(block) == 0
+    assert (g.bm, g.bn, g.n_per, g.bk, g.ns) == rec.args[1 if fused else 0:][:5]
+    pieces = mxint_matmul.segment_walk(K, w_block, block, g.bk, kc)
+    starts, lens = mxint_matmul.segments(K, w_block, block)
+    got, s0 = [], 0
+    for step, p0, p1, ends in pieces:
+        assert 16 * step <= p0 < p1 <= 16 * step + 16
+        assert p0 == (got[-1][1] if got and not got[-1][2] else s0)
+        if not got or got[-1][2]:
+            got.append([p0, p1, ends])
+        else:
+            got[-1][1:] = [p1, ends]
+        s0 = p1
+        for t in range(4):                  # lane group t: columns 4t..
+            m = mxint_matmul.block_mask(p0 - 16 * step - 4 * t, p1 - p0)
+            cols = {16 * step + 4 * t + i for i in range(4)
+                    if (m >> (8 * i)) & 0xFF}
+            assert cols == set(range(max(p0, 16 * step + 4 * t),
+                                     min(p1, 16 * step + 4 * t + 4)))
+    assert s0 == K and all(e for *_, e in got)
+    assert [a for a, _, _ in got] == starts.tolist()
+    assert [b - a for a, b, _ in got] == lens.tolist()
+    # the int16 split, for every value: a signed high and unsigned low byte
+    v = np.arange(-2 ** 15, 2 ** 15, dtype=np.int64)
+    hi, lo = v >> 8, v & 0xFF
+    assert (hi >= -128).all() and (hi <= 127).all() and (lo >= 0).all() \
+        and (lo <= 255).all()
+    np.testing.assert_array_equal(256 * hi + lo, v)
+    if w_bytes == 2:
+        _check_int16_fragments(g.bn)
+
+
+def _check_int16_fragments(bn):
+    """``load_b16``: lane (g, t) reads the 4-byte pieces of staged rows
+    4 i + t (K rows 4 t + i) at columns 2 g, 2 g + 1 and splits them with
+    its ``__byte_perm`` selectors into the high (s8) and low (u8) bytes of
+    each column's K rows 4 t..4 t + 3, free of bank conflicts."""
+    rng = np.random.default_rng(bn)
+    W = rng.integers(-2 ** 15, 2 ** 15, size=(16, bn)).astype(np.int16)
+    ld = mxint_matmul.w_stride(bn, 2)
+    stage = np.zeros(16 * ld + 64, np.uint8)
+    for r in range(16):
+        s0 = mxint_matmul.w_row(r) * ld
+        stage[s0:s0 + 2 * bn] = W[r].view(np.uint8)
+    for wc in range(0, max(bn, 16), 16):
+        words = {}
+        for i in range(4):
+            banks = {}
+            for lane in range(32):
+                g, t = lane >> 2, lane & 3
+                off = (t + 4 * i) * ld + 2 * (wc + 2 * g)
+                banks.setdefault((off // 4) % 32, set()).add(off // 4)
+                words.setdefault(lane, []).append(
+                    int(stage[off:off + 4].view(np.uint32)[0]))
+            assert all(len(w) == 1 for w in banks.values()), "bank conflict"
+        for lane, x in words.items():
+            g, t = lane >> 2, lane & 3
+            l01, l23 = (_byte_perm(x[0], x[1], 0x6240),
+                        _byte_perm(x[2], x[3], 0x6240))
+            h01, h23 = (_byte_perm(x[0], x[1], 0x7351),
+                        _byte_perm(x[2], x[3], 0x7351))
+            lo = [_bytes(_byte_perm(l01, l23, 0x5410)).view(np.uint8),
+                  _bytes(_byte_perm(l01, l23, 0x7632)).view(np.uint8)]
+            hi = [_bytes(_byte_perm(h01, h23, 0x5410)),
+                  _bytes(_byte_perm(h01, h23, 0x7632))]
+            for p in range(2):
+                col = wc + 2 * g + p
+                if col < bn:
+                    w = W[4 * t:4 * t + 4, col].astype(np.int64)
+                    np.testing.assert_array_equal(hi[p], w >> 8)
+                    np.testing.assert_array_equal(lo[p], w & 0xFF)
+                    np.testing.assert_array_equal(
+                        256 * hi[p].astype(np.int64) + lo[p], w)
 
 
 @pytest.mark.parametrize("block,aligned,ok", [
